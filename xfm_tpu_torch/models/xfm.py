@@ -1,0 +1,230 @@
+"""XFMBase: the vision / text / fusion composite (`xfm_tpu/models/xfm.py`),
+BEiT backbone only. Parameter names are the reference torch names."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from ..core.precision import dense, layer_norm
+from ..data.device_aug import maybe_normalize
+from ..ops.activations import gelu
+from . import losses
+from .beit2 import BeitVisionTransformer, VisionConfig
+from .text_encoder import TextConfig, TextTransformer, cross_entropy
+
+
+class MLPHead(nn.Sequential):
+    """Linear(d→2d) → LayerNorm → GELU(erf) → Linear(2d→out); indices 0, 1,
+    3 are the reference's `itm_head.{0,1,3}`."""
+
+    def __init__(self, in_dim: int, output_dim: int, dtype: torch.dtype):
+        super().__init__(nn.Linear(in_dim, 2 * in_dim),
+                         nn.LayerNorm(2 * in_dim, eps=1e-6), nn.GELU(),
+                         nn.Linear(2 * in_dim, output_dim))
+        self.dtype = dtype
+
+    def forward(self, x):
+        x = dense(x, self[0], self.dtype)
+        x = gelu(layer_norm(x, self[1], self.dtype))
+        return dense(x, self[3], self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class XFMConfig:
+    vision: VisionConfig = VisionConfig()
+    text: TextConfig = TextConfig.roberta_base()
+    fusion: TextConfig = TextConfig.roberta_base(fusion_layer=0)
+    embed_dim: int = 256
+    temp: float = 0.07
+    learnable_temp: bool = True
+    max_temp: float = 0.5
+    min_temp: float = 0.001
+    detach_text_forMLM: bool = True
+    mim_cls_only: bool = False
+    use_contrastive_loss: bool = False
+    use_matching_loss: bool = False
+    use_mlm_loss: bool = False
+    use_bbox_loss: bool = False
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def vision_width(self) -> int:
+        return self.vision.embed_dim
+
+    @property
+    def text_width(self) -> int:
+        return self.text.hidden_size
+
+
+class XFMBase(nn.Module):
+    def __init__(self, c: XFMConfig):
+        super().__init__()
+        self.config = c
+        self.vision_encoder = BeitVisionTransformer(c.vision)
+        self.text_encoder = TextTransformer(c.text, with_mlm=c.use_mlm_loss)
+        self.fusion_encoder = TextTransformer(c.fusion, with_mlm=True)
+        if c.use_contrastive_loss:
+            self.vision_proj = nn.Linear(c.vision_width, c.embed_dim)
+            self.text_proj = nn.Linear(c.text_width, c.embed_dim)
+            if c.learnable_temp:
+                self.temp = nn.Parameter(torch.tensor(c.temp))
+        if c.use_matching_loss:
+            self.itm_head = MLPHead(c.text_width, 2, c.dtype)
+        if c.use_bbox_loss:
+            self.bbox_head = MLPHead(c.text_width, 4, c.dtype)
+        if c.vision_width != c.text_width:
+            # kept for checkpoint round trips; no forward uses it (as in the
+            # reference and the JAX package)
+            self.fusion_proj = nn.Linear(c.text_width, c.vision_width)
+
+    # --- encoders ---------------------------------------------------------
+
+    def get_vision_embeds(self, images, mask=None, deterministic=True):
+        """NHWC images → [B, 1+num_patches, C] ([avgpool ‖ patches])."""
+        return self.vision_encoder(maybe_normalize(images), mask=mask,
+                                   deterministic=deterministic)
+
+    def get_vision_embeds_pair(self, images, mask, deterministic=True):
+        """(full, MIM-masked) vision embeds in one 2B-row pass."""
+        return self.vision_encoder.pair(maybe_normalize(images), mask,
+                                        deterministic=deterministic)
+
+    def get_text_embeds(self, text_ids, text_atts, deterministic=True):
+        return self.text_encoder(text_ids, attention_mask=text_atts,
+                                 mode="multi_modal",
+                                 deterministic=deterministic)
+
+    def get_cross_embeds(self, image_embeds, image_atts, text_embeds,
+                         text_atts, deterministic=True):
+        """Fusion encoder over (detached) text embeds with cross-attention to
+        the image embeds."""
+        return self.fusion_encoder(
+            inputs_embeds=text_embeds.detach(), attention_mask=text_atts,
+            encoder_hidden_states=image_embeds,
+            encoder_attention_mask=image_atts, deterministic=deterministic)
+
+    def get_features(self, image_embeds, text_embeds):
+        """l2-normalized cls projections → (image_feat, text_feat)."""
+        dt = self.config.dtype
+
+        def norm(x):
+            return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+        return (norm(dense(image_embeds[:, 0, :], self.vision_proj, dt)),
+                norm(dense(text_embeds[:, 0, :], self.text_proj, dt)))
+
+    def clamped_temp(self):
+        c = self.config
+        if not c.learnable_temp:
+            return torch.tensor(c.temp)
+        return torch.clamp(self.temp, c.min_temp, c.max_temp)
+
+    # --- losses -----------------------------------------------------------
+
+    def get_contrastive_loss(self, image_feat, text_feat, idx=None):
+        return losses.contrastive_loss(image_feat, text_feat,
+                                       self.clamped_temp(), idx=idx)
+
+    def _negatives(self, generator, image_feat, text_feat, fixed_negatives):
+        if fixed_negatives is not None:
+            return fixed_negatives
+        if generator is None:
+            raise ValueError("hard negatives need a torch.Generator or "
+                             "fixed_negatives")
+        return losses.hard_negative_indices(generator, image_feat, text_feat,
+                                            self.clamped_temp())
+
+    def _itm_loss(self, cls_rows):
+        B = cls_rows.shape[0] // 3
+        logits = self.itm_head(cls_rows)
+        labels = torch.cat([torch.ones(B, dtype=torch.int64),
+                            torch.zeros(2 * B, dtype=torch.int64)])
+        return cross_entropy(logits, labels.to(logits.device))
+
+    def get_matching_loss(self, generator, image_embeds, image_atts,
+                          image_feat, text_atts, text_feat, text_embeds,
+                          deterministic=True, fixed_negatives=None):
+        """ITM with in-batch hard negatives: one positive pass and one pass
+        over [text_pos × image_neg ‖ text_neg × image_pos].
+        `fixed_negatives=(image_neg, text_neg)` replaces the draw."""
+        image_neg, text_neg = self._negatives(generator, image_feat,
+                                              text_feat, fixed_negatives)
+        text_embeds_all = torch.cat([text_embeds, text_embeds[text_neg]])
+        text_atts_all = torch.cat([text_atts, text_atts[text_neg]])
+        image_embeds_all = torch.cat([image_embeds[image_neg], image_embeds])
+        image_atts_all = torch.cat([image_atts[image_neg], image_atts])
+        cross_pos = self.get_cross_embeds(image_embeds, image_atts,
+                                          text_embeds, text_atts,
+                                          deterministic)[:, 0, :]
+        cross_neg = self.get_cross_embeds(image_embeds_all, image_atts_all,
+                                          text_embeds_all, text_atts_all,
+                                          deterministic)[:, 0, :]
+        return self._itm_loss(torch.cat([cross_pos, cross_neg]))
+
+    def get_matching_and_fuse_mlm_loss(self, generator, image_embeds,
+                                       image_atts, image_feat, text_atts,
+                                       text_feat, text_embeds,
+                                       text_ids_masked, masked_pos,
+                                       masked_ids, deterministic=True,
+                                       fixed_negatives=None):
+        """ITM (1 positive + 2 hard-negative rows) and fusion-MLM in one
+        4B-row fusion pass; image k/v are projected once per unique image."""
+        B = text_atts.shape[0]
+        image_neg, text_neg = self._negatives(generator, image_feat,
+                                              text_feat, fixed_negatives)
+        enc_masked = self.get_text_embeds(text_ids_masked, text_atts,
+                                          deterministic)
+        if self.config.detach_text_forMLM:
+            enc_masked = enc_masked.detach()
+        text_embeds = text_embeds.detach()
+        # rows: [pos ‖ text_pos×image_neg ‖ text_neg×image_pos ‖ mlm]
+        emb_all = torch.cat([text_embeds, text_embeds, text_embeds[text_neg],
+                             enc_masked])
+        atts_all = torch.cat([text_atts, text_atts, text_atts[text_neg],
+                              text_atts])
+        ar = torch.arange(B, device=image_neg.device, dtype=image_neg.dtype)
+        row_idx = torch.cat([ar, image_neg, ar, ar])
+        hidden = self.fusion_encoder(
+            inputs_embeds=emb_all, attention_mask=atts_all,
+            encoder_hidden_states=image_embeds,
+            encoder_attention_mask=image_atts[row_idx],
+            deterministic=deterministic, encoder_row_idx=row_idx)
+        loss_itm = self._itm_loss(hidden[: 3 * B, 0, :])
+        mlm_logits = self.fusion_encoder.mlm_logits(hidden[3 * B:],
+                                                    masked_pos)
+        return loss_itm, cross_entropy(mlm_logits, masked_ids)
+
+    def get_fuse_mlm_loss(self, text_ids_masked, text_atts, image_embeds,
+                          image_atts, masked_pos, masked_ids,
+                          deterministic=True):
+        """Fusion-MLM: masked text through the text encoder (detached), the
+        fusion encoder, and the MLM head at the masked positions."""
+        enc = self.get_text_embeds(text_ids_masked, text_atts, deterministic)
+        if self.config.detach_text_forMLM:
+            enc = enc.detach()
+        hidden = self.fusion_encoder(
+            inputs_embeds=enc, attention_mask=text_atts,
+            encoder_hidden_states=image_embeds,
+            encoder_attention_mask=image_atts, deterministic=deterministic)
+        logits = self.fusion_encoder.mlm_logits(hidden, masked_pos)
+        return cross_entropy(logits, masked_ids)
+
+    def get_mim_loss(self, image_embeds_masked, targets, mask):
+        """MIM feature regression (the MSE branch)."""
+        return losses.mim_mse_loss(image_embeds_masked, targets, mask,
+                                   cls_too=not self.config.mim_cls_only)
+
+    def forward(self, images, text_ids, text_atts,
+                deterministic: bool = True):
+        """Vision + text + one fusion pass."""
+        image_embeds = self.get_vision_embeds(images,
+                                              deterministic=deterministic)
+        text_embeds = self.get_text_embeds(text_ids, text_atts,
+                                           deterministic)
+        image_atts = torch.ones(image_embeds.shape[:2], dtype=torch.int64,
+                                device=image_embeds.device)
+        cross = self.get_cross_embeds(image_embeds, image_atts, text_embeds,
+                                      text_atts, deterministic)
+        return image_embeds, text_embeds, cross
