@@ -1,8 +1,10 @@
-"""Models of the pretrain slice: BEiT-2, the text/fusion encoder, XFMBase."""
+"""Models of the port: BEiT-2, the text/fusion encoder, XFMBase and the
+pretrain and retrieval heads."""
 from .beit2 import BeitVisionTransformer, VisionConfig
-from .task_models import XFMForPretrain
+from .task_models import XFMForPretrain, XFMForRetrieval
 from .text_encoder import TextConfig, TextTransformer
 from .xfm import XFMBase, XFMConfig
 
 __all__ = ["BeitVisionTransformer", "VisionConfig", "TextConfig",
-           "TextTransformer", "XFMBase", "XFMConfig", "XFMForPretrain"]
+           "TextTransformer", "XFMBase", "XFMConfig", "XFMForPretrain",
+           "XFMForRetrieval"]

@@ -14,7 +14,8 @@ from torch import nn
 
 from ..core.precision import add_layer_norm, dense, layer_norm
 from ..ops.activations import ACT
-from ..ops.flash_attention import flash_attention_packed
+from ..ops.flash_attention import (beit_attention_relpos,
+                                   flash_attention_packed, relpos_inkernel_ok)
 from ..ops.patch_embed import extract_patches
 from ..ops.relpos import (beit_rel_pos_bias, num_relative_distance,
                           relative_position_index)
@@ -80,10 +81,18 @@ class BeitAttention(nn.Module):
         if c.qkv_bias:
             qkv = qkv + torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                                    self.v_bias]).to(qkv.dtype)
-        # the rel-pos bias stays f32 below N = 512, as in the JAX package
-        bias = beit_rel_pos_bias(self.relative_position_bias_table,
-                                 self.relative_position_index)
-        out = flash_attention_packed(qkv, bias, D ** -0.5, H)
+        table = self.relative_position_bias_table
+        window = (c.grid_size, c.grid_size)
+        if relpos_inkernel_ok(x.shape[1], window):
+            # N >= 512: K2 expands the compact table in the kernel; the
+            # table is rounded to the compute dtype (the JAX package rounds
+            # it to bf16 on its accelerator)
+            out = beit_attention_relpos(qkv, table, window, D ** -0.5, H,
+                                        c.dtype)
+        else:
+            # the materialized bias stays f32, as in the JAX package
+            bias = beit_rel_pos_bias(table, self.relative_position_index)
+            out = flash_attention_packed(qkv, bias, D ** -0.5, H)
         return dense(out, self.proj, c.dtype)
 
 

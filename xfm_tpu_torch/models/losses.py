@@ -1,4 +1,4 @@
-"""Pretraining losses (`xfm_tpu/models/losses.py`)."""
+"""Pretraining and fine-tune losses (`xfm_tpu/models/losses.py`)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -33,15 +33,21 @@ def contrastive_loss(image_feat: torch.Tensor, text_feat: torch.Tensor,
 
 def hard_negative_indices(generator: torch.Generator,
                           image_feat: torch.Tensor, text_feat: torch.Tensor,
-                          temp: torch.Tensor):
+                          temp: torch.Tensor,
+                          idx: Optional[torch.Tensor] = None):
     """In-batch hard negatives: each row draws one negative with weights
-    softmax(sim) + 1e-5, positives (the diagonal) zeroed, from `generator`
-    (on the features' device). → (image_neg, text_neg), each [B] int64."""
+    softmax(sim) + 1e-5, positives zeroed (the diagonal, or with `idx` every
+    pair of rows with the same image id), from `generator` (on the
+    features' device). → (image_neg, text_neg), each [B] int64."""
     with torch.no_grad():
         sim_i2t = (image_feat @ text_feat.T).float() / temp
         sim_t2i = sim_i2t.T
-        mask = torch.eye(sim_i2t.shape[0], dtype=torch.bool,
-                         device=sim_i2t.device)
+        if idx is None:
+            mask = torch.eye(sim_i2t.shape[0], dtype=torch.bool,
+                             device=sim_i2t.device)
+        else:
+            idx = idx.reshape(-1, 1)
+            mask = idx == idx.T
         zero = torch.zeros((), device=sim_i2t.device)
         wi2t = torch.where(mask, zero, torch.softmax(sim_i2t, -1) + 1e-5)
         wt2i = torch.where(mask, zero, torch.softmax(sim_t2i, -1) + 1e-5)

@@ -97,23 +97,36 @@ class XFMBase(nn.Module):
                                  deterministic=deterministic)
 
     def get_cross_embeds(self, image_embeds, image_atts, text_embeds,
-                         text_atts, deterministic=True):
-        """Fusion encoder over (detached) text embeds with cross-attention to
-        the image embeds."""
+                         text_atts, deterministic=True, is_pretrain=True,
+                         image_row_idx=None):
+        """Fusion encoder over the text embeds with cross-attention to the
+        image embeds. In pretraining the text embeds are detached; a
+        fine-tune trains the text encoder through it. With `image_row_idx`
+        image_embeds holds the unique images and each row takes its own by
+        index (cross k/v projected once per unique image)."""
         return self.fusion_encoder(
-            inputs_embeds=text_embeds.detach(), attention_mask=text_atts,
-            encoder_hidden_states=image_embeds,
-            encoder_attention_mask=image_atts, deterministic=deterministic)
+            inputs_embeds=text_embeds.detach() if is_pretrain else text_embeds,
+            attention_mask=text_atts, encoder_hidden_states=image_embeds,
+            encoder_attention_mask=image_atts, deterministic=deterministic,
+            encoder_row_idx=image_row_idx)
 
-    def get_features(self, image_embeds, text_embeds):
-        """l2-normalized cls projections → (image_feat, text_feat)."""
+    def get_features(self, image_embeds=None, text_embeds=None):
+        """l2-normalized cls projections → (image_feat, text_feat), or the
+        one of them whose embeds are given."""
         dt = self.config.dtype
 
         def norm(x):
             return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
-        return (norm(dense(image_embeds[:, 0, :], self.vision_proj, dt)),
-                norm(dense(text_embeds[:, 0, :], self.text_proj, dt)))
+        if image_embeds is not None:
+            image_feat = norm(dense(image_embeds[:, 0, :], self.vision_proj,
+                                    dt))
+            if text_embeds is None:
+                return image_feat
+        text_feat = norm(dense(text_embeds[:, 0, :], self.text_proj, dt))
+        if image_embeds is None:
+            return text_feat
+        return image_feat, text_feat
 
     def clamped_temp(self):
         c = self.config
@@ -127,14 +140,15 @@ class XFMBase(nn.Module):
         return losses.contrastive_loss(image_feat, text_feat,
                                        self.clamped_temp(), idx=idx)
 
-    def _negatives(self, generator, image_feat, text_feat, fixed_negatives):
+    def _negatives(self, generator, image_feat, text_feat, fixed_negatives,
+                   idx=None):
         if fixed_negatives is not None:
             return fixed_negatives
         if generator is None:
             raise ValueError("hard negatives need a torch.Generator or "
                              "fixed_negatives")
         return losses.hard_negative_indices(generator, image_feat, text_feat,
-                                            self.clamped_temp())
+                                            self.clamped_temp(), idx=idx)
 
     def _itm_loss(self, cls_rows):
         B = cls_rows.shape[0] // 3
@@ -145,22 +159,35 @@ class XFMBase(nn.Module):
 
     def get_matching_loss(self, generator, image_embeds, image_atts,
                           image_feat, text_atts, text_feat, text_embeds,
-                          deterministic=True, fixed_negatives=None):
+                          idx=None, is_pretrain=True, deterministic=True,
+                          fixed_negatives=None):
         """ITM with in-batch hard negatives: one positive pass and one pass
-        over [text_pos × image_neg ‖ text_neg × image_pos].
-        `fixed_negatives=(image_neg, text_neg)` replaces the draw."""
+        over [text_pos × image_neg ‖ text_neg × image_pos]. From 577 image
+        tokens (384 px) the second pass projects cross k/v once per unique
+        image and gathers them per row, as the JAX package does by default.
+        `fixed_negatives=(image_neg, text_neg)` replaces the draw; `idx`
+        (image ids) keeps rows of the same image from being drawn."""
         image_neg, text_neg = self._negatives(generator, image_feat,
-                                              text_feat, fixed_negatives)
+                                              text_feat, fixed_negatives, idx)
         text_embeds_all = torch.cat([text_embeds, text_embeds[text_neg]])
         text_atts_all = torch.cat([text_atts, text_atts[text_neg]])
-        image_embeds_all = torch.cat([image_embeds[image_neg], image_embeds])
-        image_atts_all = torch.cat([image_atts[image_neg], image_atts])
-        cross_pos = self.get_cross_embeds(image_embeds, image_atts,
-                                          text_embeds, text_atts,
-                                          deterministic)[:, 0, :]
-        cross_neg = self.get_cross_embeds(image_embeds_all, image_atts_all,
-                                          text_embeds_all, text_atts_all,
-                                          deterministic)[:, 0, :]
+        if image_embeds.shape[1] >= 577:
+            row_idx = torch.cat([image_neg, torch.arange(
+                image_neg.shape[0], device=image_neg.device,
+                dtype=image_neg.dtype)])
+            image_embeds_all = image_embeds
+            image_atts_all = image_atts[row_idx]
+        else:
+            row_idx = None
+            image_embeds_all = torch.cat([image_embeds[image_neg],
+                                          image_embeds])
+            image_atts_all = torch.cat([image_atts[image_neg], image_atts])
+        cross_pos = self.get_cross_embeds(
+            image_embeds, image_atts, text_embeds, text_atts, deterministic,
+            is_pretrain)[:, 0, :]
+        cross_neg = self.get_cross_embeds(
+            image_embeds_all, image_atts_all, text_embeds_all, text_atts_all,
+            deterministic, is_pretrain, image_row_idx=row_idx)[:, 0, :]
         return self._itm_loss(torch.cat([cross_pos, cross_neg]))
 
     def get_matching_and_fuse_mlm_loss(self, generator, image_embeds,

@@ -1,16 +1,17 @@
-"""Where the time of one XFM-base pretrain step goes on the card.
+"""Where the time of one XFM-base train step goes on the card.
 
-    python3 -m xfm_tpu_torch.profile_step [--trace PATH]
+    python3 -m xfm_tpu_torch.profile_step [pretrain|retrieval] [--trace PATH]
 
-Runs the full-width pretrain step (B = 48, random weights, bf16 compute) as
-`chip_smoke.py` does, then profiles STEPS steps with torch.profiler. From that
-one profiled window it prints the device's span per step (first kernel start
-to last kernel end, on the trace's clock), its busy time per step (sum of
-kernel times), the idle share of the span, the host-clock time per step of
-the same window (profiler overhead included), kernel time by group (K1,
-matmuls, the rest) and the TOP kernels by name. The chrome trace goes to
-`--trace` (build/xfm_tpu_torch/profile_step.json by default). Needs a CUDA
-card.
+Runs the full-width step of the chosen path as `chip_smoke.py` does
+(pretrain: B = 48 at 224 px, the default; retrieval: the 384 px fine-tune,
+B = 32, T = 40; random weights, bf16 compute), then profiles STEPS steps
+with torch.profiler. From that one profiled window it prints the device's
+span per step (first kernel start to last kernel end, on the trace's clock),
+its busy time per step (sum of kernel times), the idle share of the span,
+the host-clock time per step of the same window (profiler overhead
+included), kernel time by group (K1, K2, matmuls, the rest) and the TOP
+kernels by name. The chrome trace goes to `--trace`
+(build/xfm_tpu_torch/profile_<path>.json by default). Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -22,7 +23,6 @@ import time
 
 import torch
 
-BATCH = 48
 STEPS = 3
 TOP = 25
 
@@ -31,6 +31,8 @@ def _group(name: str) -> str:
     n = name.lower()
     if "packed_" in n:
         return "k1_packed_attention"
+    if "relpos_" in n:
+        return "k2_relpos_attention"
     if any(k in n for k in ("gemm", "cutlass", "xmma", "nvjet", "sm90_")):
         return "matmul"
     if "foreach" in n or "multi_tensor" in n:
@@ -44,16 +46,21 @@ def _group(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--trace", default="build/xfm_tpu_torch/profile_step.json")
+    ap.add_argument("path", nargs="?", default="pretrain",
+                    choices=("pretrain", "retrieval"))
+    ap.add_argument("--trace")
     args = ap.parse_args(argv)
+    trace = args.trace or f"build/xfm_tpu_torch/profile_{args.path}.json"
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
     from torch.profiler import ProfilerActivity, profile
 
-    from .configs import make_pretrain_run
+    from .configs import make_pretrain_run, make_retrieval_run
 
-    state, batch, step = make_pretrain_run(BATCH)
+    make_run = (make_pretrain_run if args.path == "pretrain"
+                else make_retrieval_run)
+    state, batch, step = make_run()
     gen = torch.Generator(device="cuda").manual_seed(0)
     for _ in range(2):
         state, loss = step(state, batch, gen)
@@ -89,8 +96,8 @@ def main(argv=None) -> int:
     for name, (ms, n) in top:
         print(f"  {ms:9.3f} ms/step {n // STEPS:6d} calls/step  "
               f"{name[:110]}")
-    os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
-    prof.export_chrome_trace(args.trace)
+    os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+    prof.export_chrome_trace(trace)
     print(torch.cuda.get_device_name(0))
     return 0
 

@@ -50,3 +50,11 @@ def pretrain_loss_fn(model, batch, generator=None):
     total = (out["loss_itc"] + out["loss_itm"] + out["loss_mlm"]
              + out["loss_mim"])
     return total, out
+
+
+def retrieval_loss_fn(model, batch, generator=None):
+    """ITC + ITM of `XFMForRetrieval.loss` (the JAX package's
+    `scripts/bench_finetune.py` retrieval loss), deterministic."""
+    loss_itc, loss_itm = model.loss(**batch, generator=generator,
+                                    deterministic=True)
+    return loss_itc + loss_itm, {"loss_itc": loss_itc, "loss_itm": loss_itm}
