@@ -28,8 +28,25 @@ Phases, each of which must pass or the script exits non-zero:
      width, depth 2, 384 px, B = 4, f32, on the CPU and on the card;
   7. full-width retrieval: the XFM-base retrieval fine-tune step at 384 px,
      B = 32, T = 40, bf16: 2 warm-up and 5 timed steps, finite losses, K2
-     launched 12 times forward and 12 backward per step, K1 never;
-  8. a JSON line of the kernels, then the device line and the result line.
+     launched 12 times forward and 12 backward per step, K1 and K3 never;
+  8. K3 parity: forward and backward (out, dq, dk, dv, and db where a bias
+     needs it) against the plain version at the CLIP-ViT-B/16 shape
+     (q/k/v [32, 577, 12, 64], no bias) in bf16 and f32, with a
+     [1, 12, 577, 577] bias (f32, and bf16), a [32, 1, 1, 577] padding mask
+     with masked tails, at 480 px (B = 4, N = 901) and at Nq != Nk
+     (520 x 700), with the times at the main shape, the bound and
+     F.scaled_dot_product_attention with no mask as a yardstick;
+  9. CLIP retrieval slice parity: the retrieval losses and gradients with the
+     CLIP-ViT tower at full width, depth 2, 384 px, B = 4, f32, on the CPU
+     and on the card;
+ 10. full-width CLIP retrieval: the retrieval step with the CLIP-ViT-B/16
+     tower, B = 32, T = 40, bf16: 2 warm-up and 5 timed steps, finite
+     losses, K3 launched 12 times forward and 12 backward per step, K1 and
+     K2 never;
+then a JSON line of the kernels, the device line and the result line.
+Phases 4 and 7 also check that K3 is never launched there. All three
+libraries build together in phase 1; the whole run takes about two
+minutes on an H100.
 Needs one CUDA card; imports nothing of JAX or of the xfm_tpu package.
 """
 from __future__ import annotations
@@ -308,6 +325,132 @@ def k2_times(B, window, H, dtype) -> dict:
     return t
 
 
+def k3_work(B: int, Nq: int, Nk: int, H: int, D: int, dtype: torch.dtype,
+            bias=None) -> dict:
+    """As `k1_work`, for K3: q, k, v (and the bias) in, out; backward: q,
+    k, v, the bias and dout in, dq, dk, dv and db out (db only with a bias,
+    in its dtype)."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    q = B * Nq * H * D * isz
+    kv = 2 * B * Nk * H * D * isz
+    nb = bias.numel() * bias.element_size() if bias is not None else 0
+    fwd_bytes = q + kv + nb + q
+    bwd_bytes = q + kv + nb + q + q + kv + nb
+    out = {}
+    for d, nbytes, ops in (("fwd", fwd_bytes, 4 * B * H * Nq * Nk * D),
+                           ("bwd", bwd_bytes, 10 * B * H * Nq * Nk * D)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+        out[d] = dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                      bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def make_k3_inputs(B, Nq, Nk, H, dtype, bias_kind, seed, device="cuda"):
+    """q, k, v, dout [B, N, H, 64] and a bias: None; "relpos" (f32, or
+    "relpos_bf16") [1, H, Nq, Nk]; "mask" f32 [B, 1, 1, Nk] where row b
+    masks its last 7·b keys."""
+    from xfm_tpu_torch.ops.attention import mask_to_bias
+
+    g = np.random.RandomState(seed)
+    q = torch.from_numpy(g.randn(B, Nq, H, 64).astype(np.float32))
+    k, v = (torch.from_numpy(g.randn(B, Nk, H, 64).astype(np.float32))
+            for _ in range(2))
+    dout = torch.from_numpy(g.randn(B, Nq, H, 64).astype(np.float32))
+    bias = None
+    if bias_kind in ("relpos", "relpos_bf16"):
+        bias = torch.from_numpy(0.5 * g.randn(1, H, Nq, Nk).astype(
+            np.float32)).to(device)
+        if bias_kind == "relpos_bf16":
+            bias = bias.to(torch.bfloat16)
+    elif bias_kind == "mask":
+        atts = np.ones((B, Nk), np.int64)
+        for b in range(B):
+            atts[b, Nk - 7 * b:] = 0
+        bias = mask_to_bias(torch.from_numpy(atts)).to(device)
+    return (*(x.to(device, dtype) for x in (q, k, v, dout)), bias)
+
+
+def k3_parity(B, Nq, Nk, H, dtype, bias_kind=None, seed=0) -> dict:
+    """Kernel vs plain version on the same inputs → max abs errors. A
+    relpos bias gets its gradient (the db kernel); a mask does not."""
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout, bias = make_k3_inputs(B, Nq, Nk, H, dtype, bias_kind,
+                                         seed)
+    scale = 64 ** -0.5
+    bias_grad = bias_kind in ("relpos", "relpos_bf16")
+    out, stats = fa.flash_attention_fwd(q, k, v, bias, scale)
+    dq, dk, dv, db = fa.flash_attention_bwd(q, k, v, bias, stats, dout,
+                                            scale, bias_grad)
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    rb = bias.clone().requires_grad_(bias_grad) if bias is not None else None
+    ref = fa.flash_attention_reference(*refs, rb, scale)
+    ref.backward(dout)
+    torch.cuda.synchronize()
+    pairs = [("out", out, ref), ("dq", dq, refs[0].grad),
+             ("dk", dk, refs[1].grad), ("dv", dv, refs[2].grad)]
+    if bias_grad:
+        pairs.append(("db", db.to(bias.dtype), rb.grad))
+    elif db is not None:
+        raise AssertionError("K3 computed a db nobody asked for")
+    res = {}
+    for name, got, want in pairs:
+        got, want = got.float(), want.float()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"K3 {name} wrong shape or not finite at "
+                                 f"B={B} Nq={Nq} Nk={Nk}")
+        err = (got - want).abs().max().item()
+        tol = TOL[dtype] * want.abs().max().item()
+        res[name] = (err, tol)
+        ok = err <= tol
+        print(f"  K3 parity B={B} Nq={Nq} Nk={Nk} H={H} {str(dtype)[6:]} "
+              f"bias={bias_kind}: {name} max_abs_err={err:.3e} "
+              f"tol={tol:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K3 {name} disagrees with the plain version")
+    return res
+
+
+def k3_times(B, N, H, dtype) -> dict:
+    """Kernel, plain and library times (ms) at one shape, no bias."""
+    import torch.nn.functional as F
+
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout, _ = make_k3_inputs(B, N, N, H, dtype, None, 1)
+    scale = 64 ** -0.5
+    out, stats = fa.flash_attention_fwd(q, k, v, None, scale)
+    t = {}
+    t["fwd_ms"] = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, None,
+                                                         scale))
+    t["bwd_ms"] = cuda_ms(lambda: fa.flash_attention_bwd(
+        q, k, v, None, stats, dout, scale))
+    with torch.no_grad():
+        t["plain_fwd_ms"] = cuda_ms(lambda: fa.flash_attention_reference(
+            q, k, v, None, scale), 5)
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+
+    def plain_fwd_bwd():
+        fa.flash_attention_reference(*refs, None, scale).backward(dout)
+
+    t["plain_fwd_bwd_ms"] = cuda_ms(plain_fwd_bwd, 5)
+    t["plain_bwd_ms"] = t["plain_fwd_bwd_ms"] - t["plain_fwd_ms"]
+    ql, kl, vl = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    with torch.no_grad():
+        t["library_fwd_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, scale=scale))
+    ql, kl, vl = (x.requires_grad_(True) for x in (ql, kl, vl))
+    g = dout.transpose(1, 2).contiguous()
+
+    def lib_fwd_bwd():
+        F.scaled_dot_product_attention(ql, kl, vl, scale=scale).backward(g)
+
+    t["library_fwd_bwd_ms"] = cuda_ms(lib_fwd_bwd)
+    t["library_bwd_ms"] = t["library_fwd_bwd_ms"] - t["library_fwd_ms"]
+    return t
+
+
 def build_model(cls, cfg, device, seed=0):
     from xfm_tpu_torch.train.checkpoint import init_weights
 
@@ -319,11 +462,15 @@ def build_model(cls, cfg, device, seed=0):
 def slice_parity(path: str) -> None:
     """f32, full width, depth 2: the same weights and batch on the CPU and
     on the card → losses and sampled gradients agree. `path`: "pretrain"
-    (224 px) or "retrieval" (384 px, so K2 on the card)."""
+    (224 px), "retrieval" (384 px, so K2 on the card) or "clip_retrieval"
+    (384 px with the CLIP-ViT tower, so K3 on the card)."""
     from xfm_tpu_torch import configs
     from xfm_tpu_torch.models import XFMForPretrain, XFMForRetrieval
     from xfm_tpu_torch.train import train_state
 
+    vision_sample = ["vision_encoder.blocks.0.attn.qkv.weight",
+                   "vision_encoder.blocks.1.attn.relative_position_bias_table",
+                   "vision_encoder.patch_embed.proj.weight"]
     if path == "pretrain":
         cfg = configs.xfm_base_pretrain_config(layers=2, dtype=torch.float32)
         nb = configs.make_batch(4, 30, 15, 224, cfg.vision.num_patches,
@@ -333,8 +480,17 @@ def slice_parity(path: str) -> None:
         text_weight = "text_encoder.roberta.encoder.layer.0.attention.self." \
                       "query.weight"
     else:
-        cfg = configs.xfm_base_retrieval_config(layers=2,
-                                                dtype=torch.float32)
+        if path == "retrieval":
+            cfg = configs.xfm_base_retrieval_config(layers=2,
+                                                    dtype=torch.float32)
+        else:
+            cfg = configs.xfm_clip_retrieval_config(layers=2,
+                                                    dtype=torch.float32)
+            vision_sample = [
+                "vision_encoder.encoder.layers.0.self_attn.q_proj.weight",
+                "vision_encoder.encoder.layers.1.self_attn.k_proj.weight",
+                "vision_encoder.pos_embed.weight",
+                "vision_encoder.patch_embed.weight"]
         nb = configs.make_retrieval_batch(4, 40, 384, cfg.text.vocab_size,
                                           seed=1)
         cls, loss_fn = XFMForRetrieval, train_state.retrieval_loss_fn
@@ -360,12 +516,11 @@ def slice_parity(path: str) -> None:
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{path} slice parity: {k}")
-    sample = ["vision_encoder.blocks.0.attn.qkv.weight",
-              "vision_encoder.blocks.1.attn.relative_position_bias_table",
-              "vision_encoder.patch_embed.proj.weight", text_weight,
-              "fusion_encoder.roberta.encoder.layer.1.crossattention.self."
-              "key.weight",
-              "itm_head.0.weight", "temp"]
+    sample = vision_sample + [
+        text_weight,
+        "fusion_encoder.roberta.encoder.layer.1.crossattention.self."
+        "key.weight",
+        "itm_head.0.weight", "temp"]
     for n in sample:
         a = pc[n].grad.float()
         b = pg[n].grad.float().cpu()
@@ -378,8 +533,9 @@ def slice_parity(path: str) -> None:
 
 def full_width(path: str, steps: int = 5, warmup: int = 2) -> dict:
     """The full-width step of `path` ("pretrain": B = 48 at 224 px, K1;
-    "retrieval": B = 32 at 384 px, K2): launch counts set to 0 just before
-    the steps and read just after."""
+    "retrieval": B = 32 at 384 px, K2; "clip_retrieval": the same with the
+    CLIP-ViT-B/16 tower, K3): launch counts set to 0 just before the steps
+    and read just after; every other kernel must stay at 0."""
     from xfm_tpu_torch import configs
     from xfm_tpu_torch.ops import flash_attention as fa
 
@@ -388,13 +544,17 @@ def full_width(path: str, steps: int = 5, warmup: int = 2) -> dict:
         state, batch, step = configs.make_pretrain_run(B, T, M)
         cfg = state.model.config
         flops = configs.pretrain_step_flops(B, T, M, cfg.vision.num_patches)
-        kernel, other = "packed_attention", "relpos_attention"
+        kernel = "packed_attention"
     else:
         B, T = 32, 40
-        state, batch, step = configs.make_retrieval_run(B, T)
+        if path == "retrieval":
+            state, batch, step = configs.make_retrieval_run(B, T)
+            kernel = "relpos_attention"
+        else:
+            state, batch, step = configs.make_clip_retrieval_run(B, T)
+            kernel = "flash_attention"
         cfg = state.model.config
         flops = configs.retrieval_step_flops(B, T, cfg.vision.num_patches)
-        kernel, other = "relpos_attention", "packed_attention"
     n_params = sum(p.numel() for p in state.model.parameters())
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.synchronize()
@@ -416,9 +576,10 @@ def full_width(path: str, steps: int = 5, warmup: int = 2) -> dict:
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss in the full-width {path} run")
     n = steps + warmup
-    depth = cfg.vision.depth
-    want = {f"{kernel}_fwd": depth * n, f"{kernel}_bwd": depth * n,
-            f"{other}_fwd": 0, f"{other}_bwd": 0}
+    depth = (cfg.vision.num_hidden_layers
+             if cfg.vision_backbone == "clip_vit" else cfg.vision.depth)
+    want = {name: 0 for name in fa.LAUNCHES}
+    want.update({f"{kernel}_fwd": depth * n, f"{kernel}_bwd": depth * n})
     if launches != want:
         raise AssertionError(f"{path} launches {launches}, expected {want}: "
                              f"{depth} fwd and {depth} bwd of {kernel} per "
@@ -433,18 +594,23 @@ def full_width(path: str, steps: int = 5, warmup: int = 2) -> dict:
 
 
 def kernel_entries(prefix, line_fwd, line_bwd, src, err, bwd_errs, times,
-                   work, launches) -> list:
-    """The two `kernels` entries (fwd, bwd) of one kernel."""
+                   work, launches, also_bwd=None) -> list:
+    """The two `kernels` entries (fwd, bwd) of one kernel; `also_bwd` names
+    a second TPU body that the same CUDA backward replaces."""
     out = []
     for d, line, e in (("fwd", line_fwd, err["out"][0]),
                        ("bwd", line_bwd, max(err[k][0] for k in bwd_errs))):
-        out.append(dict(
+        entry = dict(
             name=f"{prefix}_{d}", route="cuda", source=src,
             replaces=f"xfm_tpu/ops/flash_attention.py:{line}",
             launches=launches[f"{prefix}_{d}"], max_abs_err=e,
             ms=times[f"{d}_ms"], plain_ms=times[f"plain_{d}_ms"],
             bound_ms=work[d]["bound_ms"], bound_by=work[d]["bound_by"],
-            library_ms=times[f"library_{d}_ms"]))
+            library_ms=times[f"library_{d}_ms"])
+        if d == "bwd" and also_bwd:
+            entry["also_replaces"] = \
+                f"xfm_tpu/ops/flash_attention.py:{also_bwd}"
+        out.append(entry)
     return out
 
 
@@ -465,8 +631,9 @@ def main() -> int:
     from xfm_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
-    fa.build_libraries("packed_attention", "relpos_attention")
-    print(f"  K1 and K2 build {time.perf_counter() - t0:.1f} s")
+    fa.build_libraries("packed_attention", "relpos_attention",
+                       "flash_attention")
+    print(f"  K1, K2 and K3 build {time.perf_counter() - t0:.1f} s")
     for name, info in fa.build_info.items():
         print(f"  {name}: {info.get('library')}")
         for line in info.get("ptxas", "").splitlines():
@@ -505,6 +672,26 @@ def main() -> int:
     print("phase 7: full-width XFM-base retrieval step, 384 px")
     retrieval = full_width("retrieval")
 
+    k3_shape = dict(B=32, N=577, H=12)
+    k3w = k3_work(B=32, Nq=577, Nk=577, H=12, D=64, dtype=torch.bfloat16)
+    print("phase 8: K3 parity and times")
+    k3_err = k3_parity(32, 577, 577, 12, torch.bfloat16)
+    k3_parity(32, 577, 577, 12, torch.float32, seed=1)
+    k3_parity(32, 577, 577, 12, torch.bfloat16, "relpos", seed=2)
+    k3_parity(4, 577, 577, 12, torch.bfloat16, "relpos_bf16", seed=3)
+    k3_parity(32, 577, 577, 12, torch.bfloat16, "mask", seed=4)
+    k3_parity(4, 901, 901, 12, torch.bfloat16, None, seed=5)
+    k3_parity(4, 901, 901, 12, torch.float32, "relpos", seed=6)
+    for dtype in (torch.bfloat16, torch.float32):
+        k3_parity(2, 520, 700, 12, dtype, "relpos", seed=7)
+    k3_t = k3_times(**k3_shape, dtype=torch.bfloat16)
+    print("  K3 times (ms): " + json.dumps(k3_t))
+    print("  K3 bound (k3_work): " + json.dumps(k3w))
+    print("phase 9: CLIP retrieval slice parity, CPU vs card")
+    slice_parity("clip_retrieval")
+    print("phase 10: full-width CLIP-ViT-B/16 retrieval step, 384 px")
+    clip = full_width("clip_retrieval")
+
     kernels = (kernel_entries("packed_attention", 983, 1007,
                               "xfm_tpu_torch/csrc/packed_attention.cu",
                               k1_err, ("dqkv", "db"), k1_t, k1w,
@@ -512,7 +699,11 @@ def main() -> int:
                + kernel_entries("relpos_attention", 689, 717,
                                 "xfm_tpu_torch/csrc/relpos_attention.cu",
                                 k2_err, ("dqkv", "dcr", "dcls"), k2_t, k2w,
-                                retrieval["launches"]))
+                                retrieval["launches"])
+               + kernel_entries("flash_attention", 71, 334,
+                                "xfm_tpu_torch/csrc/flash_attention.cu",
+                                k3_err, ("dq", "dk", "dv"), k3_t, k3w,
+                                clip["launches"], also_bwd=227))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

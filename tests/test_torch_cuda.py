@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (K1, K2) against their plain versions, on a card.
+"""The port's CUDA kernels (K1, K2, K3) against their plain versions, on a
+card.
 
 Run on a machine with an H100 (JAX is not needed):
     python -m pytest tests/test_torch_cuda.py -q
@@ -99,3 +100,144 @@ def test_relpos_backward_is_deterministic():
     again = fa.relpos_attention_bwd(qkv, cr, cls3, stats, g, (24, 24), 0.125,
                                     12)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _flash_inputs(B, Nq, Nk, H, dtype, bias_kind, seed):
+    """q, k, v, dout [B, N, H, 64] and a bias: None, "relpos" f32
+    [1, H, Nq, Nk], "row" f32 [B, H, 1, Nk] or "mask" f32 [B, 1, 1, Nk]
+    with masked tail keys."""
+    r = np.random.RandomState(seed)
+    q = torch.from_numpy(r.randn(B, Nq, H, 64).astype(np.float32))
+    k, v = (torch.from_numpy(r.randn(B, Nk, H, 64).astype(np.float32))
+            for _ in range(2))
+    g = torch.from_numpy(r.randn(B, Nq, H, 64).astype(np.float32))
+    bias = None
+    if bias_kind in ("relpos", "row"):
+        shape = (1, H, Nq, Nk) if bias_kind == "relpos" else (B, H, 1, Nk)
+        bias = torch.from_numpy((0.5 * r.randn(*shape)).astype(
+            np.float32)).cuda()
+    elif bias_kind == "mask":
+        from xfm_tpu_torch.ops.attention import mask_to_bias
+
+        atts = np.ones((B, Nk), np.int64)
+        for b in range(B):
+            atts[b, Nk - 1 - 7 * b:] = 0
+        bias = mask_to_bias(torch.from_numpy(atts)).cuda()
+    return (*(x.cuda().to(dtype) for x in (q, k, v, g)), bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Nq,Nk,H,bias_kind", [
+    (32, 577, 577, 12, None),        # the CLIP-ViT-B/16 shape at 384 px
+    (2, 520, 700, 4, "relpos"),      # Nq != Nk, odd tails, a bias with rows
+    (3, 577, 577, 2, "mask"),        # a padding mask, masked tails
+    (2, 600, 600, 3, "row"),         # a per-(b, h) bias row
+    (1, 37, 45, 2, "relpos"),        # shorter than one tile
+])
+def test_flash_attention_kernel_matches_plain(dtype, B, Nq, Nk, H,
+                                              bias_kind):
+    """K3 forward and backward (out, dq, dk, dv, db) against the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g, bias = _flash_inputs(B, Nq, Nk, H, dtype, bias_kind, seed=5)
+    out, stats = fa.flash_attention_fwd(q, k, v, bias, 0.125)
+    dq, dk, dv, db = fa.flash_attention_bwd(q, k, v, bias, stats, g, 0.125)
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    rb = bias.clone().requires_grad_(True) if bias is not None else None
+    ref = fa.flash_attention_reference(*refs, rb, 0.125)
+    ref.backward(g)
+    pairs = [(out, ref), (dq, refs[0].grad), (dk, refs[1].grad),
+             (dv, refs[2].grad)]
+    if bias is not None:
+        pairs.append((db, rb.grad))
+    # as for K1: 4 bf16 ulps at the largest value, or the order of f32 sums
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    for got, want in pairs:
+        want = want.float()
+        assert got.shape == want.shape
+        assert (got.float() - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_is_deterministic():
+    """dq, dk, dv and the bias gradient summed over the batch are written
+    once each, without atomics: two runs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g, bias = _flash_inputs(4, 577, 577, 12, torch.bfloat16,
+                                     "relpos", seed=6)
+    _, stats = fa.flash_attention_fwd(q, k, v, bias, 0.125)
+    first = fa.flash_attention_bwd(q, k, v, bias, stats, g, 0.125)
+    again = fa.flash_attention_bwd(q, k, v, bias, stats, g, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_strided_views_in_place():
+    """q, k, v as the [B, N, H, D] slices of one [B, N, 3, H, D] projection
+    (row stride 3·H·D): the kernel reads them through their strides and
+    gives what it gives on contiguous copies, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    r = np.random.RandomState(7)
+    qkv = torch.from_numpy(r.randn(2, 577, 3, 4, 64).astype(np.float32)).cuda()
+    qkv = qkv.to(torch.bfloat16)
+    g = torch.from_numpy(r.randn(2, 577, 4, 64).astype(np.float32)).cuda()
+    g = g.to(torch.bfloat16)
+    views = [qkv[:, :, i] for i in range(3)]
+    assert not views[0].is_contiguous()
+    copies = [x.contiguous() for x in views]
+    got, stats = fa.flash_attention_fwd(*views, None, 0.125)
+    want, _ = fa.flash_attention_fwd(*copies, None, 0.125)
+    assert torch.equal(got, want)
+    for a, b in zip(fa.flash_attention_bwd(*views, None, stats, g, 0.125),
+                    fa.flash_attention_bwd(*copies, None, stats, g, 0.125)):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_kind,bias_dtype", [
+    ("mask", torch.float32), ("relpos", torch.bfloat16)])
+def test_flash_attention_autograd_matches_plain(bias_kind, bias_dtype,
+                                                monkeypatch):
+    """Through `flash_attention` and autograd: a mask that needs no gradient
+    launches no db kernel (db stays None); a bf16 bias that does gets its
+    gradient in bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g, bias = _flash_inputs(2, 577, 577, 4, torch.bfloat16,
+                                     bias_kind, seed=8)
+    bias = bias.to(bias_dtype)
+    wants_db = bias_kind == "relpos"
+    seen = []
+    real_bwd = fa.flash_attention_bwd
+
+    def spy(*args):
+        out = real_bwd(*args)
+        seen.append(out[3] is not None)
+        return out
+
+    monkeypatch.setattr(fa, "flash_attention_bwd", spy)
+    runs = []
+    for fn in (fa.flash_attention, fa.flash_attention_reference):
+        ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        b = bias.clone().requires_grad_(wants_db)
+        out = fn(*ts, b, 0.125)
+        out.backward(g)
+        runs.append([out] + [t.grad for t in ts]
+                    + ([b.grad] if wants_db else []))
+    assert seen == [wants_db]
+    for got, want in zip(*runs):
+        assert got.dtype == want.dtype
+        want = want.float()
+        assert (got.float() - want).abs().max() <= 2.0 ** -6 * want.abs().max()

@@ -1,7 +1,8 @@
-"""The XFM-base pretrain and retrieval fine-tune configurations, their
-synthetic batches and their FLOP counts: copies of
-`__graft_entry__._xfm_config` / `_batch`, `bench.pretrain_step_flops` and
-`scripts/bench_finetune.py`'s retrieval step (those modules import JAX)."""
+"""The XFM-base pretrain and retrieval fine-tune configurations (BEiT-2 or
+CLIP-ViT-B/16 vision tower), their synthetic batches and their FLOP counts:
+copies of `__graft_entry__._xfm_config` / `_batch`,
+`bench.pretrain_step_flops`, `scripts/bench_finetune.py`'s retrieval step
+and `config_from_yaml`'s CLIP branch (those modules import JAX)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -10,6 +11,7 @@ import numpy as np
 import torch
 
 from .models.beit2 import VisionConfig
+from .models.clip_vit import ClipVisionConfig
 from .models.task_models import XFMForPretrain, XFMForRetrieval
 from .models.text_encoder import TextConfig
 from .models.xfm import XFMConfig
@@ -49,6 +51,49 @@ def xfm_base_retrieval_config(image_res=384, act="gelu",
     384 px (N = 577), erf-GELU (the released weights' activation), bf16
     compute, drop-path off; the heads of the pretrain config."""
     return xfm_base_pretrain_config(image_res=image_res, act=act, **kw)
+
+
+# configs/model/config_clipvitB.json (clip-vit-base-patch16), copied: the
+# port reads no file of the JAX package
+CLIP_VIT_B16 = dict(vision_width=768, patch_size=16, hidden_act="quick_gelu",
+                    num_attention_heads=12, attention_dropout=0.0,
+                    intermediate_size=3072, num_hidden_layers=12,
+                    local_attn_depth=4)
+
+
+def xfm_clip_retrieval_config(image_res=384, hidden=None, layers=None,
+                              heads=None, inter=None, vocab=50265,
+                              dtype=torch.bfloat16) -> XFMConfig:
+    """XFM with the CLIP-ViT-B/16 tower as `xfm_tpu/models/xfm.py`
+    `config_from_yaml` builds it for `configs/xfm-ft/Retrieval_coco.yaml`
+    with `use_clip_vit: true` and `config_clipvitB.json`, and as
+    `tasks/retrieval.py` asks (ITC + ITM heads): 384 px (N = 577), the
+    json's tower (quick-GELU, LN eps 1e-5), RoBERTa-base text and fusion
+    (erf-GELU, 12 + 12 layers, text_fusion_start_at 12). `hidden`, `layers`,
+    `heads` and `inter` cut every encoder alike for tests and slices."""
+    v = CLIP_VIT_B16
+    hidden = hidden or v["vision_width"]
+    layers = layers or v["num_hidden_layers"]
+    heads = heads or v["num_attention_heads"]
+    inter = inter or v["intermediate_size"]
+    vis = ClipVisionConfig(
+        image_res=image_res, patch_size=v["patch_size"], hidden_size=hidden,
+        num_hidden_layers=layers, num_attention_heads=heads,
+        intermediate_size=inter, hidden_act=v["hidden_act"],
+        attention_dropout=v["attention_dropout"],
+        local_attn_depth=v["local_attn_depth"], dtype=dtype)
+    txt = TextConfig.roberta_base(
+        vocab_size=vocab, hidden_size=hidden, num_hidden_layers=layers,
+        num_attention_heads=heads, intermediate_size=inter,
+        fusion_layer=layers, encoder_width=hidden, dtype=dtype)
+    fus = TextConfig.roberta_base(
+        vocab_size=vocab, hidden_size=hidden, num_hidden_layers=layers,
+        num_attention_heads=heads, intermediate_size=inter, fusion_layer=0,
+        encoder_width=hidden, dtype=dtype)
+    return XFMConfig(vision=vis, text=txt, fusion=fus,
+                     vision_backbone="clip_vit", embed_dim=256,
+                     use_contrastive_loss=True, use_matching_loss=True,
+                     dtype=dtype)
 
 
 def make_batch(B: int, T: int, M: int, image_res: int, num_patches: int,
@@ -110,7 +155,20 @@ def make_retrieval_run(B: int = 32, T: int = 40, device="cuda",
     seeded batch, HF-AdamW on linear_warmup_decay(1e-4, 1000, 100) with no
     gradient clip. → (state, batch, step) with step(state, batch,
     generator) -> (state, loss)."""
-    cfg = xfm_base_retrieval_config()
+    return _retrieval_run(xfm_base_retrieval_config(), B, T, device, seed)
+
+
+def make_clip_retrieval_run(B: int = 32, T: int = 40, device="cuda",
+                            seed: int = 0, **config_kw):
+    """The retrieval fine-tune step of `make_retrieval_run` with the
+    CLIP-ViT-B/16 vision tower at 384 px (`xfm_clip_retrieval_config`, whose
+    arguments `config_kw` passes on): its 12 vision self-attentions go
+    through K3. → (state, batch, step)."""
+    return _retrieval_run(xfm_clip_retrieval_config(**config_kw), B, T,
+                          device, seed)
+
+
+def _retrieval_run(cfg: XFMConfig, B: int, T: int, device, seed: int):
     model = XFMForRetrieval(cfg).to(device)
     init_weights(model, seed)
     state = TrainState.create(model, create_optimizer(

@@ -1,8 +1,10 @@
 """XFMBase: the vision / text / fusion composite (`xfm_tpu/models/xfm.py`),
-BEiT backbone only. Parameter names are the reference torch names."""
+with the BEiT-2 or the CLIP-ViT vision tower (`XFMConfig.vision_backbone`).
+Parameter names are the reference torch names."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 import torch
 from torch import nn
@@ -12,6 +14,7 @@ from ..data.device_aug import maybe_normalize
 from ..ops.activations import gelu
 from . import losses
 from .beit2 import BeitVisionTransformer, VisionConfig
+from .clip_vit import ClipVisionConfig, ClipVisionTransformer
 from .text_encoder import TextConfig, TextTransformer, cross_entropy
 
 
@@ -33,9 +36,10 @@ class MLPHead(nn.Sequential):
 
 @dataclasses.dataclass(frozen=True)
 class XFMConfig:
-    vision: VisionConfig = VisionConfig()
+    vision: Union[VisionConfig, ClipVisionConfig] = VisionConfig()
     text: TextConfig = TextConfig.roberta_base()
     fusion: TextConfig = TextConfig.roberta_base(fusion_layer=0)
+    vision_backbone: str = "beit2"   # beit2 | clip_vit
     embed_dim: int = 256
     temp: float = 0.07
     learnable_temp: bool = True
@@ -51,6 +55,8 @@ class XFMConfig:
 
     @property
     def vision_width(self) -> int:
+        if self.vision_backbone == "clip_vit":
+            return self.vision.hidden_size
         return self.vision.embed_dim
 
     @property
@@ -62,7 +68,13 @@ class XFMBase(nn.Module):
     def __init__(self, c: XFMConfig):
         super().__init__()
         self.config = c
-        self.vision_encoder = BeitVisionTransformer(c.vision)
+        if c.vision_backbone == "clip_vit":
+            self.vision_encoder = ClipVisionTransformer(c.vision)
+        elif c.vision_backbone == "beit2":
+            self.vision_encoder = BeitVisionTransformer(c.vision)
+        else:
+            raise NotImplementedError(f"vision backbone "
+                                      f"{c.vision_backbone!r} is not ported")
         self.text_encoder = TextTransformer(c.text, with_mlm=c.use_mlm_loss)
         self.fusion_encoder = TextTransformer(c.fusion, with_mlm=True)
         if c.use_contrastive_loss:
@@ -82,12 +94,17 @@ class XFMBase(nn.Module):
     # --- encoders ---------------------------------------------------------
 
     def get_vision_embeds(self, images, mask=None, deterministic=True):
-        """NHWC images → [B, 1+num_patches, C] ([avgpool ‖ patches])."""
+        """NHWC images → [B, 1+num_patches, C]: BEiT [avgpool ‖ patches],
+        CLIP the post-LN [cls ‖ patches]."""
         return self.vision_encoder(maybe_normalize(images), mask=mask,
                                    deterministic=deterministic)
 
     def get_vision_embeds_pair(self, images, mask, deterministic=True):
-        """(full, MIM-masked) vision embeds in one 2B-row pass."""
+        """(full, MIM-masked) vision embeds in one 2B-row pass (BEiT-2; the
+        CLIP tower has no mask path and raises)."""
+        if self.config.vision_backbone != "beit2":
+            raise NotImplementedError("CLIP-ViT has no MIM mask path: use "
+                                      "the BEiT-2 backbone for MIM")
         return self.vision_encoder.pair(maybe_normalize(images), mask,
                                         deterministic=deterministic)
 

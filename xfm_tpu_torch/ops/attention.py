@@ -1,11 +1,15 @@
-"""Plain attention, as `xfm_tpu/ops/attention.py` `_xla_attention`.
+"""Attention entry and its plain version (`xfm_tpu/ops/attention.py`).
 
-Text and fusion attention (T≈30) stay plain PyTorch on the port's path, as
-the JAX package leaves them to XLA. Rounding points: q is scaled in f32 and
-rounded to the input dtype before QKᵀ; products accumulate in f32; softmax
-in f32; probabilities are rounded to the input dtype before PV; the output
-is in the input dtype. Matmuls run on f32 copies of the (already rounded)
-operands, which is exact for bf16 inputs and matches f32 accumulation.
+`dot_product_attention` routes as the JAX entry does: Nq and Nk ≥ 512 with
+no live dropout (`flash_ok`) go to the long-sequence kernel K3
+(`ops/flash_attention.py` `flash_attention`); the rest, text, fusion and
+cross-attention (Nq = T ≈ 30-40), stay plain PyTorch, as the JAX package
+leaves them to XLA. Rounding points of the plain version: q is scaled in
+f32 and rounded to the input dtype before QKᵀ; products accumulate in f32;
+softmax in f32; probabilities are rounded to the input dtype before PV; the
+output is in the input dtype. Matmuls run on f32 copies of the (already
+rounded) operands, which is exact for bf16 inputs and matches f32
+accumulation.
 """
 from __future__ import annotations
 
@@ -41,7 +45,29 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(dt)
 
 
-def dot_product_attention(q, k, v, bias=None) -> torch.Tensor:
-    """Entry the text/fusion encoders call ([B, N, H, D] layout, scale
-    D^-1/2)."""
-    return attention_reference(q, k, v, bias, q.shape[-1] ** -0.5)
+def flash_ok(q: torch.Tensor, k: torch.Tensor, deterministic: bool = True,
+             dropout_rate: float = 0.0) -> bool:
+    """Dispatch predicate for K3 (`xfm_tpu/ops/attention.py` `_flash_ok`
+    without its TPU and environment switches): Nq ≥ 512 and Nk ≥ 512 and no
+    live dropout."""
+    if dropout_rate > 0.0 and not deterministic:
+        return False
+    return q.shape[1] >= 512 and k.shape[1] >= 512
+
+
+def dot_product_attention(q, k, v, bias=None, mask=None, scale=None,
+                          deterministic: bool = True) -> torch.Tensor:
+    """Scaled dot-product attention over [B, N, H, D] tensors (scale D^-1/2
+    by default); `mask` ([B, Nk] or [B, Nq, Nk] of {0, 1}) is folded into
+    `bias` as `mask_to_bias` makes it."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if mask is not None:
+        mbias = mask_to_bias(mask)
+        bias = mbias if bias is None else bias + mbias
+    if flash_ok(q, k, deterministic):
+        # imported here: flash_attention imports this module's plain version
+        from .flash_attention import flash_attention
+
+        return flash_attention(q, k, v, bias, scale)
+    return attention_reference(q, k, v, bias, scale)

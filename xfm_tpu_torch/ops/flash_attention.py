@@ -1,4 +1,5 @@
-"""BEiT self-attention over the packed qkv projection: two kernels.
+"""The attention kernels: BEiT self-attention over the packed qkv projection
+(K1, K2) and the generic long-sequence attention (K3).
 
 - K1, `flash_attention_packed`: port of `xfm_tpu/ops/flash_attention.py`
   `flash_attention_packed` (`_packed_fwd_kernel` + `_packed_bwd_kernel`),
@@ -7,11 +8,17 @@
   (`_relpos_fwd_kernel` + `_relpos_bwd_kernel`), N = wh·ww + 1 ≥ 512, the
   rel-pos bias expanded inside the kernel from the compact table;
   `csrc/relpos_attention.cu`.
+- K3, `flash_attention`: port of `flash_attention` (`_attn_fwd_kernel`,
+  `_attn_bwd_loopq_kernel` and `_attn_bwd_kernel`), q/k/v [B, N, H, D] with
+  an additive bias of any broadcast shape [1|B, 1|H, 1|Nq, Nk];
+  `csrc/flash_attention.cu`. Reached through `ops/attention.py`
+  `dot_product_attention` when Nq, Nk ≥ 512 (`flash_ok`).
 
 On a CUDA tensor each runs its hand-written Hopper kernel; on a CPU tensor
 its plain PyTorch version (`packed_attention_reference`,
-`relpos_attention_reference`) with the same rounding points. There is no
-fallback: a CUDA tensor a kernel does not take raises.
+`relpos_attention_reference`, `flash_attention_reference`) with the same
+rounding points. There is no fallback: a CUDA tensor a kernel does not take
+raises.
 
 The source note of each kernel (what it replaces, what bounds it on the card
 and how its batch sum is made without atomics) heads its .cu file. The
@@ -42,9 +49,12 @@ MAX_N = 512  # N >= 512 is the long-sequence kernel K2's range
 # (a backward call launches its kernels as one). Reset by callers that count
 # the launches of one run.
 LAUNCHES = {"packed_attention_fwd": 0, "packed_attention_bwd": 0,
-            "relpos_attention_fwd": 0, "relpos_attention_bwd": 0}
+            "relpos_attention_fwd": 0, "relpos_attention_bwd": 0,
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
 
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_DIMS = ctypes.c_longlong * 18  # K3's sizes and strides (csrc `Dims`)
+_DP = ctypes.POINTER(ctypes.c_longlong)
 # library name -> its C functions' argument types (source csrc/<name>.cu)
 _LIBRARIES = {
     "packed_attention": {
@@ -54,6 +64,10 @@ _LIBRARIES = {
     "relpos_attention": {
         "xfm_relpos_attention_fwd": [_VP] * 5 + [_CI] * 5 + [_CF, _CI, _VP],
         "xfm_relpos_attention_bwd": [_VP] * 9 + [_CI] * 5 + [_CF, _CI, _VP],
+    },
+    "flash_attention": {
+        "xfm_flash_attention_fwd": [_VP] * 6 + [_DP, _CI, _CF, _CI, _VP],
+        "xfm_flash_attention_bwd": [_VP] * 11 + [_DP, _CI, _CF, _CI, _VP],
     },
 }
 _libs: dict = {}
@@ -427,3 +441,179 @@ def beit_attention_relpos(qkv: torch.Tensor, table: torch.Tensor, window,
         raise NotImplementedError(f"no rel-pos attention for {qkv.device}")
     return _RelposAttention.apply(qkv, cr, cls3, tuple(window), scale,
                                   num_heads)
+
+
+# ---------------------------------------------------------------------------
+# K3: the generic long-sequence attention, any broadcast bias
+
+
+flash_attention_reference = attention_reference
+
+
+def _check_flash_inputs(q, k, v, bias):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be [B, N, H, D], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Nq, H, D = q.shape
+    Nk = k.shape[1]
+    if k.shape != (B, Nk, H, D) or v.shape != k.shape:
+        raise ValueError(f"k and v must be [B, Nk, H, D] beside q "
+                         f"{tuple(q.shape)}, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    if D != HEAD_DIM:
+        raise NotImplementedError(f"flash attention kernel takes D=64, got "
+                                  f"D={D}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"flash attention kernel takes bf16 or f32, "
+                                  f"got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise NotImplementedError(f"flash attention kernel takes q, k, v in "
+                                  f"one dtype, got {q.dtype}, {k.dtype} and "
+                                  f"{v.dtype}")
+    tensors = [q, k, v]
+    if bias is not None:
+        if (bias.dim() != 4 or bias.shape[0] not in (1, B)
+                or bias.shape[1] not in (1, H)
+                or bias.shape[2] not in (1, Nq) or bias.shape[3] != Nk):
+            raise ValueError(f"bias must broadcast as [1|B, 1|H, 1|Nq, Nk] = "
+                             f"[1|{B}, 1|{H}, 1|{Nq}, {Nk}], got "
+                             f"{tuple(bias.shape)}")
+        if bias.dtype not in (torch.float32, torch.bfloat16):
+            raise NotImplementedError(f"flash attention kernel takes an f32 "
+                                      f"or bf16 bias, got {bias.dtype}")
+        tensors.append(bias)
+    if q.device.type != "cuda" or {t.device for t in tensors} != {q.device}:
+        raise ValueError(f"flash attention kernel takes q, k, v and the bias "
+                         f"on one CUDA device, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    return B, Nq, Nk, H
+
+
+def _rows_layout(x: torch.Tensor) -> torch.Tensor:
+    """x [B, N, H, D] as the kernels read it in place: each row's [H, D]
+    block dense, rows and batches at strides (and a start) that keep 16-byte
+    vectors aligned. The projections' reshaped outputs are such views; other
+    layouts (an expanded gradient) are copied once."""
+    vec = 16 // x.element_size()
+    if (x.stride(3) != 1 or x.stride(2) != x.shape[3] or x.stride(1) % vec
+            or x.stride(0) % vec or x.data_ptr() % 16):
+        x = x.contiguous()
+        if x.data_ptr() % 16:
+            raise ValueError("the attention kernels need 16-byte aligned "
+                             "tensors")
+    return x
+
+
+def _bias_layout(bias):
+    """The bias with unit stride along Nk, and its strides along b, h, q (0
+    where it broadcasts) and its sizes there."""
+    if bias is None:
+        return None, [0] * 6
+    if bias.stride(3) != 1 and bias.shape[3] > 1:
+        bias = bias.contiguous()
+    sizes = list(bias.shape[:3])
+    strides = [bias.stride(i) if sizes[i] > 1 else 0 for i in range(3)]
+    return bias, strides + sizes
+
+
+def _flash_dims(q, k, v, dout, bias_fields) -> ctypes.Array:
+    B, Nq, H, _ = q.shape
+    g = (dout.stride(0), dout.stride(1)) if dout is not None else (0, 0)
+    return _DIMS(B, Nq, k.shape[1], H, q.stride(0), q.stride(1), k.stride(0),
+                 k.stride(1), v.stride(0), v.stride(1), *g, *bias_fields)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias, scale: float):
+    """Kernel forward: q [B, Nq, H, 64], k/v [B, Nk, H, 64] (cuda, bf16 or
+    f32), bias None or f32/bf16 [1|B, 1|H, 1|Nq, Nk] → (out [B, Nq, H, 64]
+    in q's dtype, row statistics [2, B·H·Nq] f32 for the backward)."""
+    B, Nq, Nk, H = _check_flash_inputs(q, k, v, bias)
+    lib = build_library("flash_attention")
+    q, k, v = (_rows_layout(t) for t in (q, k, v))
+    bias, bias_fields = _bias_layout(bias)
+    out = torch.empty(B, Nq, H, HEAD_DIM, device=q.device, dtype=q.dtype)
+    stats = torch.empty(2, B * H * Nq, device=q.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.xfm_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias.data_ptr() if bias is not None else None, out.data_ptr(),
+        stats.data_ptr(), _flash_dims(q, k, v, None, bias_fields),
+        int(bias is not None and bias.dtype == torch.bfloat16), float(scale),
+        int(q.dtype == torch.bfloat16), stream)
+    _check(rc, "flash attention forward launch")
+    LAUNCHES["flash_attention_fwd"] += 1
+    return out, stats
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias, stats: torch.Tensor, dout: torch.Tensor,
+                        scale: float, bias_grad: bool = True):
+    """Kernel backward → (dq like q, dk like k, dv like v, db f32 of the
+    bias's own shape, or None without a bias or with `bias_grad` False:
+    then the db kernel is not launched and nothing is allocated for it)."""
+    B, Nq, Nk, H = _check_flash_inputs(q, k, v, bias)
+    if dout.shape != q.shape or dout.device != q.device:
+        raise ValueError(f"dout must be [B, Nq, H, D] beside q, got "
+                         f"{tuple(dout.shape)} on {dout.device}")
+    if stats.shape != (2, B * H * Nq):
+        raise ValueError(f"stats must be [2, B*H*Nq], got "
+                         f"{tuple(stats.shape)}")
+    lib = build_library("flash_attention")
+    q, k, v, dout = (_rows_layout(t) for t in (q, k, v, dout.to(q.dtype)))
+    bias, bias_fields = _bias_layout(bias)
+    dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+    dk = torch.empty(k.shape, device=q.device, dtype=q.dtype)
+    dv = torch.empty(k.shape, device=q.device, dtype=q.dtype)
+    db = (torch.empty(bias.shape, device=q.device, dtype=torch.float32)
+          if bias is not None and bias_grad else None)
+    delta = torch.empty(B * H * Nq, device=q.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.xfm_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias.data_ptr() if bias is not None else None, dout.data_ptr(),
+        stats.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), db.data_ptr() if db is not None else None,
+        _flash_dims(q, k, v, dout, bias_fields),
+        int(bias is not None and bias.dtype == torch.bfloat16), float(scale),
+        int(q.dtype == torch.bfloat16), stream)
+    _check(rc, "flash attention backward launch")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv, db
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        out, stats = flash_attention_fwd(q, k, v, bias, scale)
+        ctx.save_for_backward(q, k, v, bias, stats)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, stats = ctx.saved_tensors
+        # a bias that needs no gradient (a padding mask) costs no db kernel
+        dq, dk, dv, db = flash_attention_bwd(q, k, v, bias, stats, dout,
+                                             ctx.scale,
+                                             ctx.needs_input_grad[3])
+        # db leaves in the bias's dtype, as the JAX package's `_bwd` casts it
+        return dq, dk, dv, (db.to(bias.dtype) if db is not None
+                            else None), None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias=None, scale=None) -> torch.Tensor:
+    """softmax((q·scale)kᵀ + bias)·v over q [B, Nq, H, D], k/v
+    [B, Nk, H, D], bias None or broadcastable as [1|B, 1|H, 1|Nq, Nk]
+    (scale D^-1/2 by default) → [B, Nq, H, D] in q's dtype; the bias
+    gradient is reduced to the bias's shape. CPU tensor: the plain version.
+    CUDA tensor: the kernel, or an error for what it does not take."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, bias, scale)
+    if q.device.type != "cuda":
+        raise NotImplementedError(f"no flash attention for {q.device}")
+    return _FlashAttention.apply(q, k, v, bias, scale)

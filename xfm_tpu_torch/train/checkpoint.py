@@ -5,7 +5,8 @@
   It is the port's own copy of `xfm_tpu/train/checkpoint.py`
   `export_xfm_checkpoint`: Dense kernels transposed, the decoder tied to the
   word embeddings; the patch kernel stays in the port's matmul layout
-  [P·P·3, C] (the export writes the reference's Conv2d layout).
+  [P·P·3, C] (the export writes the reference's Conv2d layout). The CLIP-ViT
+  tower (`clip_vit_from_jax`) is the inverse of `import_clip_vit`.
 - `load_reference_state_dict`: a reference-named torch state dict (e.g. a
   released checkpoint or a golden fixture) into a port module.
 - `init_weights`: random weights that follow the JAX package's initializers.
@@ -107,6 +108,39 @@ def beit2_from_jax(p: Dict[str, Any], depth: int,
     return sd
 
 
+def clip_vit_from_jax(p: Dict[str, Any], num_layers: int,
+                      prefix: str = "") -> Dict[str, np.ndarray]:
+    """JAX ClipVisionTransformer params → reference names under `prefix`
+    (the inverse of `xfm_tpu/train/checkpoint.py` `import_clip_vit`; patch
+    kernel kept in matmul layout)."""
+    sd: Dict[str, np.ndarray] = {}
+    v = _pre(prefix)
+
+    def dense(dst, sub):
+        sd[f"{dst}.weight"] = _t(sub["kernel"]).T
+        sd[f"{dst}.bias"] = _t(sub["bias"])
+
+    def ln(dst, sub):
+        sd[f"{dst}.weight"] = _t(sub["scale"])
+        sd[f"{dst}.bias"] = _t(sub["bias"])
+
+    sd[f"{v}class_embedding"] = _t(p["class_embedding"])
+    sd[f"{v}patch_embed.weight"] = _t(p["patch_embed_kernel"])
+    sd[f"{v}pos_embed.weight"] = _t(p["position_embedding"])
+    ln(f"{v}pre_layrnorm", p["pre_layrnorm"])
+    for i in range(num_layers):
+        lp = p[f"layer_{i}"]
+        b = f"{v}encoder.layers.{i}"
+        ln(f"{b}.layer_norm1", lp["layer_norm1"])
+        ln(f"{b}.layer_norm2", lp["layer_norm2"])
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            dense(f"{b}.self_attn.{proj}", lp[proj])
+        dense(f"{b}.mlp.fc1", lp["fc1"])
+        dense(f"{b}.mlp.fc2", lp["fc2"])
+    ln(f"{v}post_layernorm", p["post_layernorm"])
+    return sd
+
+
 def _mlp_head(p: Dict[str, Any], prefix: str,
               sd: Dict[str, np.ndarray]) -> None:
     sd[f"{prefix}.0.weight"] = _t(p["fc1"]["kernel"]).T
@@ -120,10 +154,15 @@ def _mlp_head(p: Dict[str, Any], prefix: str,
 def state_dict_from_jax(params: Dict[str, Any],
                         config) -> Dict[str, torch.Tensor]:
     """JAX XFM param tree (with or without the `backbone` level) → port
-    state_dict for `XFMBase` / `XFMForPretrain`."""
+    state_dict for `XFMBase` and its heads, either vision tower."""
     bb = params["backbone"] if "backbone" in params else params
-    sd = beit2_from_jax(bb["vision_encoder"], config.vision.depth,
-                        "vision_encoder")
+    if config.vision_backbone == "clip_vit":
+        sd = clip_vit_from_jax(bb["vision_encoder"],
+                               config.vision.num_hidden_layers,
+                               "vision_encoder")
+    else:
+        sd = beit2_from_jax(bb["vision_encoder"], config.vision.depth,
+                            "vision_encoder")
     sd.update(text_encoder_from_jax(bb["text_encoder"],
                                     config.text.num_hidden_layers,
                                     "text_encoder"))
@@ -154,13 +193,16 @@ _REFERENCE_BUFFERS = ("relative_position_index", "position_ids")
 def load_reference_state_dict(model: torch.nn.Module, sd, strict=True):
     """Load a reference-named state dict (numpy or torch values): the
     reference's buffers are dropped and its Conv2d patch weight
-    [C, 3, P, P] becomes the matmul kernel. → load_state_dict's result."""
+    [C, 3, P, P] (BEiT's `patch_embed.proj.weight`, CLIP's
+    `patch_embed.weight`) becomes the matmul kernel. → load_state_dict's
+    result."""
     out = {}
     for k, v in sd.items():
         if k.rsplit(".", 1)[-1] in _REFERENCE_BUFFERS:
             continue
         v = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
-        if k.endswith("patch_embed.proj.weight") and v.dim() == 4:
+        if k.endswith(("patch_embed.proj.weight", "patch_embed.weight")) \
+                and v.dim() == 4:
             v = patch_kernel_from_conv(v)
         out[k] = v.float() if v.is_floating_point() else v
     return model.load_state_dict(out, strict=strict)
@@ -178,9 +220,11 @@ def _trunc_normal_(t: torch.Tensor, std: float, g: torch.Generator):
 def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
     """Random weights following the JAX package's initializers: Dense
     lecun-normal (truncated), zero biases, LayerNorm ones, embeddings
-    normal(1/√width), patch kernel and cls/mask tokens trunc-normal 0.02,
-    BEiT proj/fc2 trunc-normal 0.02/√(2·layer) (`fix_init`), LayerScale at
-    its init value, zero rel-pos tables, temp at its init value."""
+    normal(1/√width), BEiT's patch kernel and cls/mask tokens trunc-normal
+    0.02, BEiT proj/fc2 trunc-normal 0.02/√(2·layer) (`fix_init`),
+    LayerScale at its init value, zero rel-pos tables, CLIP's class
+    embedding, patch kernel and position embedding normal(0.02), temp at its
+    init value."""
     dev = next(model.parameters()).device
     g = torch.Generator(device=dev).manual_seed(seed)
     for m in model.modules():
@@ -201,6 +245,9 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
         if last in ("cls_token", "mask_token") or name.endswith(
                 "patch_embed.proj.weight"):
             _trunc_normal_(p, 0.02, g)
+        elif last == "class_embedding" or name.endswith(
+                ("patch_embed.weight", "pos_embed.weight")):
+            p.normal_(0.0, 0.02, generator=g)
         elif last in ("q_bias", "v_bias", "relative_position_bias_table") \
                 or name.endswith("patch_embed.proj.bias") \
                 or name.endswith("lm_head.bias"):
