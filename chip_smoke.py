@@ -5,8 +5,10 @@
 
 Phases, each of which must pass or the script exits non-zero:
   1. device and build: prints the card's name and power limit, builds the
-     packed-qkv attention kernel (K1) and the rel-pos attention kernel (K2)
-     from xfm_tpu_torch/csrc/, one nvcc each, started together;
+     five kernel libraries (K1 packed-qkv attention, K2 rel-pos attention,
+     K3 long-sequence attention, K4 fused residual + LayerNorm, K5 fused
+     activation-prologue MLP matmul) from xfm_tpu_torch/csrc/, one nvcc
+     each, started together;
   2. K1 parity: forward and backward against the plain PyTorch version at
      the pretrain shape (qkv [96, 197, 2304] bf16, bias [1, 12, 197, 197]
      f32), an odd shape and an f32 case, with their times, the bound and
@@ -43,10 +45,27 @@ Phases, each of which must pass or the script exits non-zero:
      tower, B = 32, T = 40, bf16: 2 warm-up and 5 timed steps, finite
      losses, K3 launched 12 times forward and 12 backward per step, K1 and
      K2 never;
+ 11. K4 parity: the three variants (plain LN, post-LN, add + LN) forward
+     (h, xn) and backward (dx, dγ, dβ) against the plain version at the
+     BEiT rows (R = 18,912, C = 768), the fusion rows (R = 5,760) and a
+     ragged R = 1,100, in bf16 and f32, with the times of the add variant
+     at the main shape, the bound and the default route's
+     F.layer_norm(x + y) as a yardstick;
+ 12. K5 parity: forward (y) and backward (dh, dW, db) against the plain
+     version for tanh-GELU, the Φ̂ GELU and ReLU at M = 18,912, 5,760 and
+     100 rows (K = 3,072, N = 768), in bf16 and f32, with the times of
+     tanh-GELU at the main shape, the bound and F.linear(act(h)) as a
+     yardstick;
+ 13. fused pretrain slice parity: the pretrain slice of phase 3 with both
+     fused routes on (XFM_FUSED_LN=1 XFM_MLP_FUSED=1), CPU vs card, K4 and
+     K5 launched as the depth-2 step asks;
+ 14. full-width fused pretrain: phase 4's step with both fused routes on,
+     K1 12 + 12, K4 96 + 72 and K5 48 + 36 launches per step, K2 and K3
+     never;
 then a JSON line of the kernels, the device line and the result line.
-Phases 4 and 7 also check that K3 is never launched there. All three
-libraries build together in phase 1; the whole run takes about two
-minutes on an H100.
+Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
+included) is launched there. All five libraries build together in
+phase 1.
 Needs one CUDA card; imports nothing of JAX or of the xfm_tpu package.
 """
 from __future__ import annotations
@@ -102,6 +121,38 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _compare(tag: str, pairs, dtype) -> dict:
+    """max |kernel - plain| of each (name, kernel, plain) against TOL[dtype]
+    · max |plain| → {name: (err, tol)}; raises on a miss."""
+    res = {}
+    for name, got, want in pairs:
+        got, want = got.float(), want.float()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{tag}: {name} wrong shape or not finite")
+        err = (got - want).abs().max().item()
+        tol = TOL[dtype] * want.abs().max().item()
+        res[name] = (err, tol)
+        ok = err <= tol
+        print(f"  {tag}: {name} max_abs_err={err:.3e} tol={tol:.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: {name} disagrees with the plain "
+                                 f"version")
+    return res
+
+
+def _bounds(directions, peak: float) -> dict:
+    """{direction: (bytes, ops)} → the bytes, the operations and the bound
+    they give at the card's memory rate and the `peak` rate."""
+    out = {}
+    for d, (nbytes, ops) in directions.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / peak * 1e3
+        out[d] = dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                      bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
 def k1_work(B: int, N: int, H: int, D: int, dtype: torch.dtype) -> dict:
     """Bytes each direction must move (each input read once, each output
     written once) and the operations it must do, and the bound they give."""
@@ -113,14 +164,8 @@ def k1_work(B: int, N: int, H: int, D: int, dtype: torch.dtype) -> dict:
     bwd_bytes = qkv + bias + o + qkv + bias  # qkv, bias, dout; dqkv, db
     fwd_ops = 4 * B * H * N * N * D                  # QK^T, PV
     bwd_ops = 10 * B * H * N * N * D                 # S, dP, dV, dQ, dK
-    out = {}
-    for d, nbytes, ops in (("fwd", fwd_bytes, fwd_ops),
-                           ("bwd", bwd_bytes, bwd_ops)):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_FLOPS[dtype] * 1e3
-        out[d] = dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
-                      bound_by="bytes" if t_bytes >= t_ops else "operations")
-    return out
+    return _bounds({"fwd": (fwd_bytes, fwd_ops), "bwd": (bwd_bytes, bwd_ops)},
+                   PEAK_FLOPS[dtype])
 
 
 def make_k1_inputs(B, N, H, dtype, seed, device="cuda"):
@@ -145,21 +190,9 @@ def k1_parity(B, N, H, dtype, seed=0) -> dict:
     ref = fa.packed_attention_reference(qr, br, scale, H)
     ref.backward(dout)
     torch.cuda.synchronize()
-    res = {}
-    for name, got, want in (("out", out, ref), ("dqkv", dqkv, qr.grad),
-                            ("db", db, br.grad)):
-        got, want = got.float(), want.float()
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"K1 {name} not finite at B={B} N={N}")
-        err = (got - want).abs().max().item()
-        tol = TOL[dtype] * want.abs().max().item()
-        res[name] = (err, tol)
-        ok = err <= tol
-        print(f"  K1 parity B={B} N={N} H={H} {str(dtype)[6:]}: {name} "
-              f"max_abs_err={err:.3e} tol={tol:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"K1 {name} disagrees with the plain version")
-    return res
+    return _compare(f"K1 parity B={B} N={N} H={H} {str(dtype)[6:]}",
+                    [("out", out, ref), ("dqkv", dqkv, qr.grad),
+                     ("db", db, br.grad)], dtype)
 
 
 def k1_times(B, N, H, dtype) -> dict:
@@ -218,14 +251,9 @@ def k2_work(B: int, N: int, H: int, D: int, window, dtype: torch.dtype
     cls = H * 3 * 4
     fwd_bytes = qkv + table * isz + cls + o
     bwd_bytes = qkv + table * isz + cls + o + qkv + table * 4 + cls
-    out = {}
-    for d, nbytes, ops in (("fwd", fwd_bytes, 4 * B * H * N * N * D),
-                           ("bwd", bwd_bytes, 10 * B * H * N * N * D)):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_FLOPS[dtype] * 1e3
-        out[d] = dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
-                      bound_by="bytes" if t_bytes >= t_ops else "operations")
-    return out
+    return _bounds({"fwd": (fwd_bytes, 4 * B * H * N * N * D),
+                    "bwd": (bwd_bytes, 10 * B * H * N * N * D)},
+                   PEAK_FLOPS[dtype])
 
 
 def make_k2_inputs(B, window, H, dtype, seed, device="cuda"):
@@ -259,23 +287,10 @@ def k2_parity(B, window, H, dtype, seed=0) -> dict:
     ref = fa.relpos_attention_reference(qr, crr, clr, window, scale, H)
     ref.backward(dout)
     torch.cuda.synchronize()
-    res = {}
-    N = qkv.shape[1]
-    for name, got, want in (("out", out, ref), ("dqkv", dqkv, qr.grad),
-                            ("dcr", dcr, crr.grad), ("dcls", dcls, clr.grad)):
-        got, want = got.float(), want.float()
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"K2 {name} not finite at B={B} N={N}")
-        err = (got - want).abs().max().item()
-        tol = TOL[dtype] * want.abs().max().item()
-        res[name] = (err, tol)
-        ok = err <= tol
-        print(f"  K2 parity B={B} N={N} window={window} H={H} "
-              f"{str(dtype)[6:]}: {name} max_abs_err={err:.3e} tol={tol:.3e} "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"K2 {name} disagrees with the plain version")
-    return res
+    return _compare(f"K2 parity B={B} N={qkv.shape[1]} window={window} H={H} "
+                    f"{str(dtype)[6:]}",
+                    [("out", out, ref), ("dqkv", dqkv, qr.grad),
+                     ("dcr", dcr, crr.grad), ("dcls", dcls, clr.grad)], dtype)
 
 
 def k2_times(B, window, H, dtype) -> dict:
@@ -336,14 +351,9 @@ def k3_work(B: int, Nq: int, Nk: int, H: int, D: int, dtype: torch.dtype,
     nb = bias.numel() * bias.element_size() if bias is not None else 0
     fwd_bytes = q + kv + nb + q
     bwd_bytes = q + kv + nb + q + q + kv + nb
-    out = {}
-    for d, nbytes, ops in (("fwd", fwd_bytes, 4 * B * H * Nq * Nk * D),
-                           ("bwd", bwd_bytes, 10 * B * H * Nq * Nk * D)):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_FLOPS[dtype] * 1e3
-        out[d] = dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
-                      bound_by="bytes" if t_bytes >= t_ops else "operations")
-    return out
+    return _bounds({"fwd": (fwd_bytes, 4 * B * H * Nq * Nk * D),
+                    "bwd": (bwd_bytes, 10 * B * H * Nq * Nk * D)},
+                   PEAK_FLOPS[dtype])
 
 
 def make_k3_inputs(B, Nq, Nk, H, dtype, bias_kind, seed, device="cuda"):
@@ -394,22 +404,8 @@ def k3_parity(B, Nq, Nk, H, dtype, bias_kind=None, seed=0) -> dict:
         pairs.append(("db", db.to(bias.dtype), rb.grad))
     elif db is not None:
         raise AssertionError("K3 computed a db nobody asked for")
-    res = {}
-    for name, got, want in pairs:
-        got, want = got.float(), want.float()
-        if got.shape != want.shape or not torch.isfinite(got).all():
-            raise AssertionError(f"K3 {name} wrong shape or not finite at "
-                                 f"B={B} Nq={Nq} Nk={Nk}")
-        err = (got - want).abs().max().item()
-        tol = TOL[dtype] * want.abs().max().item()
-        res[name] = (err, tol)
-        ok = err <= tol
-        print(f"  K3 parity B={B} Nq={Nq} Nk={Nk} H={H} {str(dtype)[6:]} "
-              f"bias={bias_kind}: {name} max_abs_err={err:.3e} "
-              f"tol={tol:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"K3 {name} disagrees with the plain version")
-    return res
+    return _compare(f"K3 parity B={B} Nq={Nq} Nk={Nk} H={H} "
+                    f"{str(dtype)[6:]} bias={bias_kind}", pairs, dtype)
 
 
 def k3_times(B, N, H, dtype) -> dict:
@@ -451,6 +447,163 @@ def k3_times(B, N, H, dtype) -> dict:
     return t
 
 
+LN_EPS = 1e-6
+
+
+def _randn(gen, *shape, scale=1.0, shift=0.0):
+    return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+
+
+def k4_work(R: int, C: int, dtype: torch.dtype) -> dict:
+    """As `k1_work`, for K4's add + LN variant: x, y, γ, β in, xn and h out;
+    backward xn, dh, dxn and γ in, dx, dγ, dβ out. Its arithmetic is f32 on
+    the CUDA cores (about 8 operations an element forward, 17 backward)."""
+    t = R * C * torch.tensor([], dtype=dtype).element_size()
+    return _bounds({"fwd": (4 * t + 2 * C * 4, 8 * R * C),
+                    "bwd": (4 * t + 3 * C * 4, 17 * R * C)},
+                   PEAK_FLOPS[torch.float32])
+
+
+def make_k4_inputs(R, C, dtype, seed):
+    """x, y, dh, dxn [R, C] in `dtype`; γ, β f32 [C]."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = _randn(gen, R, C, scale=2.0, shift=1.0).to(dtype)
+    y, dh, dxn = (_randn(gen, R, C).to(dtype) for _ in range(3))
+    gamma = _randn(gen, C, scale=0.3, shift=1.0)
+    beta = _randn(gen, C, scale=0.1)
+    return x, y, gamma, beta, dh, dxn
+
+
+def k4_parity(variant: str, R: int, C: int, dtype, seed=0) -> dict:
+    """Kernel vs plain version of one variant ("plain", "post", "add") on
+    the same inputs; both backwards from the plain forward's sum."""
+    from xfm_tpu_torch.ops import fused_ln as fl
+
+    x, y, gamma, beta, dh, dxn = make_k4_inputs(R, C, dtype, seed)
+    y = None if variant == "plain" else y
+    dxn = dxn if variant == "add" else None
+    xn, h = fl.fused_ln_fwd(x, y, gamma, beta, LN_EPS)
+    rxn, rh = fl.fused_ln_reference(x, y, gamma, beta, LN_EPS)
+    dx, dg, db = fl.fused_ln_bwd(rxn, dh, dxn, gamma, LN_EPS)
+    rdx, rdg, rdb = fl.fused_ln_bwd_reference(rxn, dh, dxn, gamma, LN_EPS)
+    torch.cuda.synchronize()
+    pairs = [("out", h, rh)] + ([("xn", xn, rxn)] if y is not None else [])
+    pairs += [("dx", dx, rdx), ("dgamma", dg, rdg), ("dbeta", db, rdb)]
+    return _compare(f"K4 {variant} R={R} C={C} {str(dtype)[6:]}", pairs,
+                    dtype)
+
+
+def k4_times(R: int, C: int, dtype) -> dict:
+    """Kernel, plain and library times (ms) of the add variant. The library
+    yardstick is the default route: F.layer_norm of the f32 sum, cast."""
+    import torch.nn.functional as F
+
+    from xfm_tpu_torch.ops import fused_ln as fl
+
+    x, y, gamma, beta, dh, dxn = make_k4_inputs(R, C, dtype, 1)
+    xn, _ = fl.fused_ln_fwd(x, y, gamma, beta, LN_EPS)
+    t = {}
+    t["fwd_ms"] = cuda_ms(lambda: fl.fused_ln_fwd(x, y, gamma, beta, LN_EPS))
+    t["bwd_ms"] = cuda_ms(lambda: fl.fused_ln_bwd(xn, dh, dxn, gamma,
+                                                  LN_EPS))
+    t["plain_fwd_ms"] = cuda_ms(lambda: fl.fused_ln_reference(
+        x, y, gamma, beta, LN_EPS), 5)
+    t["plain_bwd_ms"] = cuda_ms(lambda: fl.fused_ln_bwd_reference(
+        xn, dh, dxn, gamma, LN_EPS), 5)
+
+    def library(x, y, gamma, beta):
+        s = x.float() + y.float()
+        h = F.layer_norm(s, (C,), gamma, beta, LN_EPS)
+        return s.to(dtype), h.to(dtype)
+
+    with torch.no_grad():
+        t["library_fwd_ms"] = cuda_ms(lambda: library(x, y, gamma, beta))
+    leaves = [v.clone().requires_grad_(True) for v in (x, y, gamma, beta)]
+
+    def lib_fwd_bwd():
+        torch.autograd.backward(library(*leaves), [dxn, dh])
+
+    t["library_fwd_bwd_ms"] = cuda_ms(lib_fwd_bwd)
+    t["library_bwd_ms"] = t["library_fwd_bwd_ms"] - t["library_fwd_ms"]
+    return t
+
+
+def k5_work(M: int, K: int, N: int, dtype: torch.dtype) -> dict:
+    """As `k1_work`, for K5: h, W, b in, y out; backward h, W, g in, dh,
+    dW, db out; 2·M·K·N operations a product, one forward, two backward."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    fwd_bytes = (M * K + N * K + N + M * N) * isz
+    bwd_bytes = (M * K + N * K + M * N + M * K + N * K + N) * isz
+    return _bounds({"fwd": (fwd_bytes, 2 * M * K * N),
+                    "bwd": (bwd_bytes, 4 * M * K * N)}, PEAK_FLOPS[dtype])
+
+
+def make_k5_inputs(M, K, N, dtype, seed):
+    """h [M, K] (2·randn, so the activations' tails are reached), the
+    Linear weight W [N, K], b [N], g [M, N], all in `dtype`."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = _randn(gen, M, K, scale=2.0)
+    w = _randn(gen, N, K, scale=0.02)
+    b = _randn(gen, N, scale=0.1)
+    g = _randn(gen, M, N)
+    return tuple(v.to(dtype) for v in (h, w, b, g))
+
+
+def k5_parity(act: str, M: int, dtype, K=3072, N=768, seed=0) -> dict:
+    """Kernel vs plain version on the same inputs → max abs errors."""
+    from xfm_tpu_torch.ops import fused_mlp as fm
+
+    h, w, b, g = make_k5_inputs(M, K, N, dtype, seed)
+    y = fm.act_matmul_fwd(h, w, b, act)
+    dh, dw, db = fm.act_matmul_bwd(h, w, g, act)
+    ry = fm.act_matmul_reference(h, w, b, act)
+    rdh, rdw, rdb = fm.act_matmul_bwd_reference(h, w, g, act)
+    torch.cuda.synchronize()
+    return _compare(f"K5 {act} M={M} K={K} N={N} {str(dtype)[6:]}",
+                    [("out", y, ry), ("dh", dh, rdh), ("dW", dw, rdw),
+                     ("db", db, rdb)], dtype)
+
+
+def k5_times(M: int, dtype, act="gelu_tanh", K=3072, N=768) -> dict:
+    """Kernel, plain and library times (ms) at one shape. The library
+    yardstick is the default route's two calls, F.linear(act(h), W, b)."""
+    import torch.nn.functional as F
+
+    from xfm_tpu_torch.ops import fused_mlp as fm
+    from xfm_tpu_torch.ops.activations import ACT
+
+    h, w, b, g = make_k5_inputs(M, K, N, dtype, 1)
+    t = {}
+    t["fwd_ms"] = cuda_ms(lambda: fm.act_matmul_fwd(h, w, b, act))
+    t["bwd_ms"] = cuda_ms(lambda: fm.act_matmul_bwd(h, w, g, act))
+    t["plain_fwd_ms"] = cuda_ms(lambda: fm.act_matmul_reference(
+        h, w, b, act), 5)
+    t["plain_bwd_ms"] = cuda_ms(lambda: fm.act_matmul_bwd_reference(
+        h, w, g, act), 5)
+    with torch.no_grad():
+        t["library_fwd_ms"] = cuda_ms(lambda: F.linear(ACT[act](h), w, b))
+    hl, wl, bl = (v.clone().requires_grad_(True) for v in (h, w, b))
+
+    def lib_fwd_bwd():
+        F.linear(ACT[act](hl), wl, bl).backward(g)
+
+    t["library_fwd_bwd_ms"] = cuda_ms(lib_fwd_bwd)
+    t["library_bwd_ms"] = t["library_fwd_bwd_ms"] - t["library_fwd_ms"]
+    return t
+
+
+def fused_launches_per_step(cfg) -> dict:
+    """K4 and K5 launches (forward, backward) of one pretrain step with the
+    fused routes: the vision pair pass runs its blocks once (norm2, fc2);
+    the text encoder runs twice, clean and masked (two post-LNs and one
+    output.dense a layer), the masked pass detached, so without a backward;
+    the 4B-row fusion pass once (three post-LNs, one output.dense)."""
+    v, t, f = (cfg.vision.depth, cfg.text.num_hidden_layers,
+               cfg.fusion.num_hidden_layers)
+    return {"fused_ln": (v + 2 * 2 * t + 3 * f, v + 2 * t + 3 * f),
+            "fused_mlp": (v + 2 * t + f, v + t + f)}
+
+
 def build_model(cls, cfg, device, seed=0):
     from xfm_tpu_torch.train.checkpoint import init_weights
 
@@ -462,17 +615,30 @@ def build_model(cls, cfg, device, seed=0):
 def slice_parity(path: str) -> None:
     """f32, full width, depth 2: the same weights and batch on the CPU and
     on the card → losses and sampled gradients agree. `path`: "pretrain"
-    (224 px), "retrieval" (384 px, so K2 on the card) or "clip_retrieval"
-    (384 px with the CLIP-ViT tower, so K3 on the card)."""
+    (224 px), "pretrain_fused" (the same with K4 and K5, whose launches on
+    the card are checked), "retrieval" (384 px, so K2 on the card) or
+    "clip_retrieval" (384 px with the CLIP-ViT tower, so K3 on the
+    card)."""
     from xfm_tpu_torch import configs
     from xfm_tpu_torch.models import XFMForPretrain, XFMForRetrieval
+    from xfm_tpu_torch.ops import kernels
     from xfm_tpu_torch.train import train_state
 
     vision_sample = ["vision_encoder.blocks.0.attn.qkv.weight",
                    "vision_encoder.blocks.1.attn.relative_position_bias_table",
                    "vision_encoder.patch_embed.proj.weight"]
-    if path == "pretrain":
-        cfg = configs.xfm_base_pretrain_config(layers=2, dtype=torch.float32)
+    if path in ("pretrain", "pretrain_fused"):
+        fused = path == "pretrain_fused"
+        cfg = configs.xfm_base_pretrain_config(layers=2, dtype=torch.float32,
+                                               fused_ln=fused,
+                                               fused_mlp=fused)
+        if fused:  # K4's and K5's own parameters
+            vision_sample += ["vision_encoder.blocks.0.norm2.weight",
+                              "vision_encoder.blocks.1.mlp.fc2.weight",
+                              "fusion_encoder.roberta.encoder.layer.1."
+                              "crossattention.output.LayerNorm.bias",
+                              "text_encoder.roberta.encoder.layer.0.output."
+                              "dense.weight"]
         nb = configs.make_batch(4, 30, 15, 224, cfg.vision.num_patches,
                                 cfg.text.vocab_size, seed=1)
         cls, loss_fn = XFMForPretrain, train_state.pretrain_loss_fn
@@ -505,10 +671,17 @@ def slice_parity(path: str) -> None:
     for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
         batch = configs.batch_to_torch(nb, dev)
         batch["hard_negatives"] = tuple(n.to(dev) for n in neg)
+        kernels.reset_launch_counts()
         total, out = loss_fn(model, batch)
         total.backward()
         results[name] = ({k: v.item() for k, v in out.items()},
                          dict(model.named_parameters()))
+    if path == "pretrain_fused":
+        for k, (f, b) in fused_launches_per_step(cfg).items():
+            got = (kernels.LAUNCHES[f"{k}_fwd"], kernels.LAUNCHES[f"{k}_bwd"])
+            print(f"  {path} slice {k} launches {got}, expected {(f, b)}")
+            if got != (f, b):
+                raise AssertionError(f"{path} slice: {k} launched {got}")
     (lc, pc), (lg, pg) = results["cpu"], results["cuda"]
     for k in names:
         ok = math.isclose(lc[k], lg[k], rel_tol=SLICE_LOSS_RTOL)
@@ -533,18 +706,24 @@ def slice_parity(path: str) -> None:
 
 def full_width(path: str, steps: int = 5, warmup: int = 2) -> dict:
     """The full-width step of `path` ("pretrain": B = 48 at 224 px, K1;
+    "pretrain_fused": the same with both fused routes, K1, K4 and K5;
     "retrieval": B = 32 at 384 px, K2; "clip_retrieval": the same with the
     CLIP-ViT-B/16 tower, K3): launch counts set to 0 just before the steps
     and read just after; every other kernel must stay at 0."""
     from xfm_tpu_torch import configs
-    from xfm_tpu_torch.ops import flash_attention as fa
+    from xfm_tpu_torch.ops import kernels
 
-    if path == "pretrain":
+    per_step = {}  # kernel -> its (forward, backward) launches a step
+    if path in ("pretrain", "pretrain_fused"):
         B, T, M = 48, 30, 15
-        state, batch, step = configs.make_pretrain_run(B, T, M)
+        fused = path == "pretrain_fused"
+        state, batch, step = configs.make_pretrain_run(
+            B, T, M, fused_ln=fused, fused_mlp=fused)
         cfg = state.model.config
         flops = configs.pretrain_step_flops(B, T, M, cfg.vision.num_patches)
         kernel = "packed_attention"
+        if fused:
+            per_step = fused_launches_per_step(cfg)
     else:
         B, T = 32, 40
         if path == "retrieval":
@@ -559,7 +738,7 @@ def full_width(path: str, steps: int = 5, warmup: int = 2) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    kernels.reset_launch_counts()
     losses, times = [], []
     for _ in range(warmup + steps):
         t0 = time.perf_counter()
@@ -567,7 +746,7 @@ def full_width(path: str, steps: int = 5, warmup: int = 2) -> dict:
         # a trainer reads each step's loss; the read waits for the step
         losses.append(loss.item())
         times.append(time.perf_counter() - t0)
-    launches = dict(fa.LAUNCHES)
+    launches = dict(kernels.LAUNCHES)
     dt = float(np.median(times[warmup:]))
     print(f"  {path} params={n_params} losses="
           f"{['%.4f' % v for v in losses]}")
@@ -578,12 +757,14 @@ def full_width(path: str, steps: int = 5, warmup: int = 2) -> dict:
     n = steps + warmup
     depth = (cfg.vision.num_hidden_layers
              if cfg.vision_backbone == "clip_vit" else cfg.vision.depth)
-    want = {name: 0 for name in fa.LAUNCHES}
-    want.update({f"{kernel}_fwd": depth * n, f"{kernel}_bwd": depth * n})
+    per_step[kernel] = (depth, depth)
+    want = {name: 0 for name in kernels.LAUNCHES}
+    for k, (f, b) in per_step.items():
+        want.update({f"{k}_fwd": f * n, f"{k}_bwd": b * n})
     if launches != want:
         raise AssertionError(f"{path} launches {launches}, expected {want}: "
-                             f"{depth} fwd and {depth} bwd of {kernel} per "
-                             f"step over {n} steps")
+                             f"{per_step} (fwd, bwd) per step over {n} "
+                             f"steps")
     # step_ms: the median of the timed steps
     res = dict(step_ms=dt * 1e3, samples_per_s=B / dt,
                mfu=flops / dt / PEAK_FLOPS[torch.bfloat16],
@@ -593,23 +774,25 @@ def full_width(path: str, steps: int = 5, warmup: int = 2) -> dict:
     return res
 
 
-def kernel_entries(prefix, line_fwd, line_bwd, src, err, bwd_errs, times,
-                   work, launches, also_bwd=None) -> list:
-    """The two `kernels` entries (fwd, bwd) of one kernel; `also_bwd` names
-    a second TPU body that the same CUDA backward replaces."""
+def kernel_entries(prefix, tpu_file, line_fwd, line_bwd, src, err, bwd_errs,
+                   times, work, launches, also_bwd=None) -> list:
+    """The two `kernels` entries (fwd, bwd) of one kernel, whose TPU bodies
+    are at `tpu_file`:line_fwd and :line_bwd; `also_bwd` names a second TPU
+    body that the same CUDA backward replaces. The forward's error is the
+    largest of its outputs' (every key of `err` not in `bwd_errs`)."""
     out = []
-    for d, line, e in (("fwd", line_fwd, err["out"][0]),
+    fwd_err = max(v[0] for k, v in err.items() if k not in bwd_errs)
+    for d, line, e in (("fwd", line_fwd, fwd_err),
                        ("bwd", line_bwd, max(err[k][0] for k in bwd_errs))):
         entry = dict(
             name=f"{prefix}_{d}", route="cuda", source=src,
-            replaces=f"xfm_tpu/ops/flash_attention.py:{line}",
+            replaces=f"{tpu_file}:{line}",
             launches=launches[f"{prefix}_{d}"], max_abs_err=e,
             ms=times[f"{d}_ms"], plain_ms=times[f"plain_{d}_ms"],
             bound_ms=work[d]["bound_ms"], bound_by=work[d]["bound_by"],
             library_ms=times[f"library_{d}_ms"])
         if d == "bwd" and also_bwd:
-            entry["also_replaces"] = \
-                f"xfm_tpu/ops/flash_attention.py:{also_bwd}"
+            entry["also_replaces"] = f"{tpu_file}:{also_bwd}"
         out.append(entry)
     return out
 
@@ -628,13 +811,12 @@ def main() -> int:
     smi = nvidia_smi_line()
     print(f"phase 1: device {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
-    from xfm_tpu_torch.ops import flash_attention as fa
+    from xfm_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
-    fa.build_libraries("packed_attention", "relpos_attention",
-                       "flash_attention")
-    print(f"  K1, K2 and K3 build {time.perf_counter() - t0:.1f} s")
-    for name, info in fa.build_info.items():
+    kernels.build_libraries(*kernels.KERNEL_LIBRARIES)
+    print(f"  K1-K5 build {time.perf_counter() - t0:.1f} s")
+    for name, info in kernels.build_info.items():
         print(f"  {name}: {info.get('library')}")
         for line in info.get("ptxas", "").splitlines():
             if "registers" in line or "spill" in line:
@@ -692,19 +874,63 @@ def main() -> int:
     print("phase 10: full-width CLIP-ViT-B/16 retrieval step, 384 px")
     clip = full_width("clip_retrieval")
 
-    kernels = (kernel_entries("packed_attention", 983, 1007,
+    print("phase 11: K4 parity and times")
+    for i, (R, dtype) in enumerate((
+            (18912, torch.bfloat16), (18912, torch.float32),
+            (5760, torch.bfloat16), (5760, torch.float32),
+            (1100, torch.bfloat16), (1100, torch.float32))):
+        for variant in ("plain", "post", "add"):
+            err = k4_parity(variant, R, 768, dtype, seed=10 + i)
+            if (variant, R, dtype) == ("add", 18912, torch.bfloat16):
+                k4_err = err
+    k4w = k4_work(18912, 768, torch.bfloat16)
+    k4_t = k4_times(18912, 768, torch.bfloat16)
+    print("  K4 times (ms): " + json.dumps(k4_t))
+    print("  K4 bound (k4_work): " + json.dumps(k4w))
+    print("phase 12: K5 parity and times")
+    for i, (M, dtype) in enumerate((
+            (18912, torch.bfloat16), (18912, torch.float32),
+            (5760, torch.bfloat16), (5760, torch.float32),
+            (100, torch.bfloat16), (100, torch.float32))):
+        for act in ("gelu_tanh", "gelu", "relu"):
+            err = k5_parity(act, M, dtype, seed=20 + i)
+            if (act, M, dtype) == ("gelu_tanh", 18912, torch.bfloat16):
+                k5_err = err
+    k5w = k5_work(18912, 3072, 768, torch.bfloat16)
+    k5_t = k5_times(18912, torch.bfloat16)
+    print("  K5 times (ms): " + json.dumps(k5_t))
+    print("  K5 bound (k5_work): " + json.dumps(k5w))
+    print("phase 13: fused pretrain slice parity, CPU vs card")
+    slice_parity("pretrain_fused")
+    print("phase 14: full-width XFM-base pretrain step, fused LN and MLP")
+    fused = full_width("pretrain_fused")
+    print(f"  peak memory: fused {fused['max_memory_allocated']} B, "
+          f"default {pretrain['max_memory_allocated']} B (phase 4)")
+
+    entries = (kernel_entries("packed_attention",
+                              "xfm_tpu/ops/flash_attention.py", 983, 1007,
                               "xfm_tpu_torch/csrc/packed_attention.cu",
                               k1_err, ("dqkv", "db"), k1_t, k1w,
                               pretrain["launches"])
-               + kernel_entries("relpos_attention", 689, 717,
+               + kernel_entries("relpos_attention",
+                                "xfm_tpu/ops/flash_attention.py", 689, 717,
                                 "xfm_tpu_torch/csrc/relpos_attention.cu",
                                 k2_err, ("dqkv", "dcr", "dcls"), k2_t, k2w,
                                 retrieval["launches"])
-               + kernel_entries("flash_attention", 71, 334,
+               + kernel_entries("flash_attention",
+                                "xfm_tpu/ops/flash_attention.py", 71, 334,
                                 "xfm_tpu_torch/csrc/flash_attention.cu",
                                 k3_err, ("dq", "dk", "dv"), k3_t, k3w,
-                                clip["launches"], also_bwd=227))
-    print(json.dumps({"kernels": kernels}))
+                                clip["launches"], also_bwd=227)
+               + kernel_entries("fused_ln", "xfm_tpu/ops/fused_ln.py", 91,
+                                108, "xfm_tpu_torch/csrc/fused_ln.cu",
+                                k4_err, ("dx", "dgamma", "dbeta"), k4_t, k4w,
+                                fused["launches"])
+               + kernel_entries("fused_mlp", "xfm_tpu/ops/fused_mlp.py", 75,
+                                84, "xfm_tpu_torch/csrc/fused_mlp.cu",
+                                k5_err, ("dh", "dW", "db"), k5_t, k5w,
+                                fused["launches"], also_bwd=99))
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K2, K3) against their plain versions, on a
+"""The port's CUDA kernels (K1–K5) against their plain versions, on a
 card.
 
 Run on a machine with an H100 (JAX is not needed):
@@ -241,3 +241,130 @@ def test_flash_attention_autograd_matches_plain(bias_kind, bias_dtype,
         assert got.dtype == want.dtype
         want = want.float()
         assert (got.float() - want).abs().max() <= 2.0 ** -6 * want.abs().max()
+
+
+def _ln_inputs(R, C, dtype, seed):
+    r = np.random.RandomState(seed)
+    x, y, dh, dxn = (torch.from_numpy(r.randn(R, C).astype(np.float32))
+                     .cuda().to(dtype) for _ in range(4))
+    gamma = torch.from_numpy((0.3 * r.randn(C) + 1).astype(np.float32)).cuda()
+    beta = torch.from_numpy((0.1 * r.randn(C)).astype(np.float32)).cuda()
+    return x, y, gamma, beta, dh, dxn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["plain", "post", "add"])
+@pytest.mark.parametrize("R,C", [(1100, 768),   # ragged last block
+                                 (300, 128),    # one vector a lane
+                                 (77, 2048),    # two warps a row
+                                 (40, 8192)])   # eight warps a row
+def test_fused_ln_kernel_matches_plain(dtype, variant, R, C):
+    """K4 forward (h, xn) and backward (dx, dγ, dβ) against the plain
+    version, both backwards from the plain forward's sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import fused_ln as fl
+
+    x, y, gamma, beta, dh, dxn = _ln_inputs(R, C, dtype, seed=11)
+    y = None if variant == "plain" else y
+    dxn = dxn if variant == "add" else None
+    xn, h = fl.fused_ln_fwd(x, y, gamma, beta, 1e-6)
+    rxn, rh = fl.fused_ln_reference(x, y, gamma, beta, 1e-6)
+    pairs = [(h, rh), (xn, rxn)]
+    pairs += list(zip(fl.fused_ln_bwd(rxn, dh, dxn, gamma, 1e-6),
+                      fl.fused_ln_bwd_reference(rxn, dh, dxn, gamma, 1e-6)))
+    # bf16: 4 ulps at the largest value (the same rounding points, sums in
+    # other orders); f32: the order of sums
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    for got, want in pairs:
+        want = want.float()
+        assert got.shape == want.shape
+        assert (got.float() - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_fused_ln_backward_is_deterministic():
+    """dγ and dβ are summed over the rows without atomics (per-block
+    partials, then a pass in block order): two runs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import fused_ln as fl
+
+    x, y, gamma, beta, dh, dxn = _ln_inputs(18912, 768, torch.bfloat16, 12)
+    first = fl.fused_ln_bwd(x, dh, dxn, gamma, 1e-6)
+    again = fl.fused_ln_bwd(x, dh, dxn, gamma, 1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_fused_add_ln_autograd_matches_plain():
+    """Through `fused_add_ln` and autograd on the card: the same values and
+    gradients as the plain version's explicit backward on the CPU's path,
+    and the residual's gradient equal to dx."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import fused_ln as fl
+
+    x, y, gamma, beta, dh, dxn = _ln_inputs(500, 768, torch.bfloat16, 13)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).clone().requires_grad_(True)
+                  for t in (x, y, gamma, beta)]
+        outs = fl.fused_add_ln(*leaves, 1e-6)
+        torch.autograd.backward(outs, [dxn.to(dev), dh.to(dev)])
+        runs.append([o.detach().cpu() for o in outs]
+                    + [t.grad.cpu() for t in leaves])
+    for got, want in zip(*runs):
+        want = want.float()
+        assert (got.float() - want).abs().max() <= 2.0 ** -6 * want.abs().max()
+    assert torch.equal(runs[0][2], runs[0][3])
+
+
+def _mlp_inputs(M, K, N, dtype, seed):
+    r = np.random.RandomState(seed)
+    h = torch.from_numpy((2 * r.randn(M, K)).astype(np.float32))
+    w = torch.from_numpy((0.02 * r.randn(N, K)).astype(np.float32))
+    b = torch.from_numpy((0.1 * r.randn(N)).astype(np.float32))
+    g = torch.from_numpy(r.randn(M, N).astype(np.float32))
+    return tuple(t.cuda().to(dtype) for t in (h, w, b, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu_tanh", "gelu", "relu"])
+@pytest.mark.parametrize("M,K,N", [(300, 3072, 768),   # the model's widths
+                                   (48, 128, 64),      # one tile, narrow
+                                   (130, 136, 72)])    # tails everywhere
+def test_fused_mlp_kernel_matches_plain(dtype, act, M, K, N):
+    """K5 forward (y) and backward (dh, dW, db) against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import fused_mlp as fm
+
+    h, w, b, g = _mlp_inputs(M, K, N, dtype, seed=14)
+    pairs = [(fm.act_matmul_fwd(h, w, b, act),
+              fm.act_matmul_reference(h, w, b, act))]
+    pairs += list(zip(fm.act_matmul_bwd(h, w, g, act),
+                      fm.act_matmul_bwd_reference(h, w, g, act)))
+    # bf16: 4 ulps at the largest value (the same rounding points, sums in
+    # other orders); f32: the order of sums (FMA on both sides, no TF32)
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    for got, want in pairs:
+        assert got.shape == want.shape and got.dtype == want.dtype
+        want = want.float()
+        assert (got.float() - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_fused_mlp_backward_is_deterministic():
+    """dW sums over all M rows in one block per tile, in order, without
+    atomics: two runs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import fused_mlp as fm
+
+    h, w, _, g = _mlp_inputs(5760, 3072, 768, torch.bfloat16, 15)
+    first = fm.act_matmul_bwd(h, w, g, "gelu_tanh")
+    again = fm.act_matmul_bwd(h, w, g, "gelu_tanh")
+    assert all(torch.equal(a, b) for a, b in zip(first, again))

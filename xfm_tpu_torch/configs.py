@@ -5,7 +5,8 @@ copies of `__graft_entry__._xfm_config` / `_batch`,
 and `config_from_yaml`'s CLIP branch (those modules import JAX)."""
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -22,24 +23,35 @@ from .train.train_state import (TrainState, make_train_step,
                                 pretrain_loss_fn, retrieval_loss_fn)
 
 
+def _env_flag(value: Optional[bool], name: str) -> bool:
+    """An explicit flag, or the JAX package's environment switch `name`."""
+    return os.environ.get(name, "0") == "1" if value is None else bool(value)
+
+
 def xfm_base_pretrain_config(hidden=768, layers=12, heads=12, inter=3072,
                              image_res=224, vocab=50265,
-                             dtype=torch.bfloat16,
-                             act="gelu_tanh") -> XFMConfig:
+                             dtype=torch.bfloat16, act="gelu_tanh",
+                             fused_ln: Optional[bool] = None,
+                             fused_mlp: Optional[bool] = None) -> XFMConfig:
     """XFM-base (327M) as the JAX package benchmarks it: 224 px, patch 16,
-    tanh-GELU, bf16 compute, drop-path off; smaller widths for tests."""
+    tanh-GELU, bf16 compute, drop-path off; smaller widths for tests.
+    `fused_ln` / `fused_mlp` take the residual LayerNorms through K4 and the
+    MLPs' second projections through K5; None reads `XFM_FUSED_LN` /
+    `XFM_MLP_FUSED` == "1", as the JAX package does."""
+    fused = dict(fused_ln=_env_flag(fused_ln, "XFM_FUSED_LN"),
+                 fused_mlp=_env_flag(fused_mlp, "XFM_MLP_FUSED"))
     vis = VisionConfig(image_res=image_res, patch_size=16, embed_dim=hidden,
                        depth=layers, num_heads=heads, drop_path_rate=0.0,
-                       hidden_act=act, dtype=dtype)
+                       hidden_act=act, dtype=dtype, **fused)
     txt = TextConfig.roberta_base(
         vocab_size=vocab, hidden_size=hidden, num_hidden_layers=layers,
         num_attention_heads=heads, intermediate_size=inter,
         fusion_layer=layers, encoder_width=hidden, hidden_act=act,
-        dtype=dtype)
+        dtype=dtype, **fused)
     fus = TextConfig.roberta_base(
         vocab_size=vocab, hidden_size=hidden, num_hidden_layers=layers,
         num_attention_heads=heads, intermediate_size=inter, fusion_layer=0,
-        encoder_width=hidden, hidden_act=act, dtype=dtype)
+        encoder_width=hidden, hidden_act=act, dtype=dtype, **fused)
     return XFMConfig(vision=vis, text=txt, fusion=fus, embed_dim=256,
                      use_contrastive_loss=True, use_matching_loss=True,
                      use_mlm_loss=True, use_bbox_loss=True, dtype=dtype)
@@ -132,12 +144,15 @@ def batch_to_torch(batch: Dict[str, np.ndarray],
 
 
 def make_pretrain_run(B: int = 48, T: int = 30, M: int = 15,
-                      device="cuda", seed: int = 0):
+                      device="cuda", seed: int = 0,
+                      fused_ln: Optional[bool] = None,
+                      fused_mlp: Optional[bool] = None):
     """The XFM-base pretrain step as `bench.py` drives it: random weights
     from `seed`, the seeded batch, HF-AdamW on
-    linear_warmup_decay(1e-4, 1000, 100). → (state, batch, step) with
+    linear_warmup_decay(1e-4, 1000, 100); the fused routes as
+    `xfm_base_pretrain_config` takes them. → (state, batch, step) with
     step(state, batch, generator) -> (state, loss)."""
-    cfg = xfm_base_pretrain_config()
+    cfg = xfm_base_pretrain_config(fused_ln=fused_ln, fused_mlp=fused_mlp)
     model = XFMForPretrain(cfg).to(device)
     init_weights(model, seed)
     state = TrainState.create(model, create_optimizer(

@@ -10,6 +10,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops.activations import ACT
+from ..ops.fused_ln import fused_add_ln, fused_ln_ok, fused_ln_post
+from ..ops.fused_mlp import act_dense as fused_act_dense
+from ..ops.fused_mlp import fused_mlp_ok
+
 
 def dense(x: torch.Tensor, layer: torch.nn.Linear,
           dtype: torch.dtype) -> torch.Tensor:
@@ -27,11 +32,39 @@ def layer_norm(x: torch.Tensor, layer: torch.nn.LayerNorm,
 
 
 def add_layer_norm(x: torch.Tensor, residual: torch.Tensor,
-                   layer: torch.nn.LayerNorm, dtype: torch.dtype):
-    """`xfm_tpu/ops/fused_ln.py` `fused_add_ln` (its plain path): the sum is
-    taken in f32, normalized unrounded, and returned rounded to `dtype`.
-    → (x + residual, LN(x + residual))."""
+                   layer: torch.nn.LayerNorm, dtype: torch.dtype,
+                   fused: bool = False):
+    """`xfm_tpu/ops/fused_ln.py` `fused_add_ln`: the sum is taken in f32,
+    normalized unrounded, and returned rounded to `dtype`.
+    → (x + residual, LN(x + residual)). `fused` (the config's `fused_ln`)
+    takes K4 where it takes the rows; otherwise the plain composition, whose
+    backward is autograd's."""
+    if fused and fused_ln_ok(x.shape, dtype):
+        return fused_add_ln(x.to(dtype), residual.to(dtype), layer.weight,
+                            layer.bias, layer.eps)
     s = x.to(dtype).float() + residual.to(dtype).float()
     h = F.layer_norm(s, layer.normalized_shape, layer.weight, layer.bias,
                      layer.eps)
     return s.to(dtype), h.to(dtype)
+
+
+def post_layer_norm(x: torch.Tensor, residual: torch.Tensor,
+                    layer: torch.nn.LayerNorm, dtype: torch.dtype,
+                    fused: bool = False) -> torch.Tensor:
+    """LN(x + residual) for the post-LN BERT sites (`fused_ln_post` with
+    `fused`, else `add_layer_norm`'s)."""
+    if fused and fused_ln_ok(x.shape, dtype):
+        return fused_ln_post(x.to(dtype), residual.to(dtype), layer.weight,
+                             layer.bias, layer.eps)
+    return add_layer_norm(x, residual, layer, dtype)[1]
+
+
+def act_dense(x: torch.Tensor, layer: torch.nn.Linear, act: str,
+              dtype: torch.dtype, fused: bool = False) -> torch.Tensor:
+    """The JAX `ActDense`: `dense(ACT[act](x))`, or with `fused` (the
+    config's `fused_mlp`) and an activation K5 computes, K5 on x, the
+    kernel and the bias in `dtype`."""
+    if fused and fused_mlp_ok(act):
+        return fused_act_dense(x.to(dtype), layer.weight.to(dtype),
+                               layer.bias.to(dtype), act)
+    return dense(ACT[act](x), layer, dtype)

@@ -12,8 +12,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from ..core.precision import add_layer_norm, dense, layer_norm
-from ..ops.activations import ACT
+from ..core.precision import act_dense, add_layer_norm, dense, layer_norm
 from ..ops.flash_attention import (beit_attention_relpos,
                                    flash_attention_packed, relpos_inkernel_ok)
 from ..ops.patch_embed import extract_patches
@@ -37,6 +36,8 @@ class VisionConfig:
     drop_path_rate: float = 0.1
     layer_norm_eps: float = 1e-6
     dtype: torch.dtype = torch.float32
+    fused_ln: bool = False     # norm2 through K4 (XFM_FUSED_LN=1)
+    fused_mlp: bool = False    # fc2 through K5 (XFM_MLP_FUSED=1)
 
     @property
     def grid_size(self) -> int:
@@ -125,9 +126,9 @@ class BeitBlock(nn.Module):
         h = self.attn(h, deterministic)
         if self.use_ls:
             h = self.gamma_1.to(h.dtype) * h
-        x, h = add_layer_norm(h, x, self.norm2, c.dtype)
+        x, h = add_layer_norm(h, x, self.norm2, c.dtype, c.fused_ln)
         h = dense(h, self.mlp.fc1, c.dtype)
-        h = dense(ACT[c.hidden_act](h), self.mlp.fc2, c.dtype)
+        h = act_dense(h, self.mlp.fc2, c.hidden_act, c.dtype, c.fused_mlp)
         if self.use_ls:
             h = self.gamma_2.to(h.dtype) * h
         return x + h

@@ -13,8 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.precision import add_layer_norm, dense, layer_norm
-from ..ops.activations import ACT, gelu
+from ..core.precision import act_dense, dense, layer_norm, post_layer_norm
+from ..ops.activations import gelu
 from ..ops.attention import dot_product_attention, mask_to_bias
 
 
@@ -35,6 +35,8 @@ class TextConfig:
     fusion_layer: int = 12          # first layer with cross-attention
     encoder_width: int = 768        # width of the cross-attended states
     dtype: torch.dtype = torch.float32
+    fused_ln: bool = False          # the post-LN sites through K4
+    fused_mlp: bool = False         # output.dense through K5
 
     @classmethod
     def roberta_base(cls, **kw):
@@ -123,7 +125,8 @@ class SelfAttention(nn.Module):
         ctx = dot_product_attention(q, k, v, bias=attention_bias)
         out = dense(ctx.reshape(B, Nq, c.hidden_size), self.output.dense,
                     c.dtype)
-        return add_layer_norm(out, hidden, self.output.LayerNorm, c.dtype)[1]
+        return post_layer_norm(out, hidden, self.output.LayerNorm, c.dtype,
+                               c.fused_ln)
 
 
 class _Intermediate(nn.Module):
@@ -158,8 +161,10 @@ class TransformerLayer(nn.Module):
             x = self.crossattention(x, encoder_hidden_states,
                                     encoder_attention_bias, encoder_row_idx)
         h = dense(x, self.intermediate.dense, c.dtype)
-        h = dense(ACT[c.hidden_act](h), self.output.dense, c.dtype)
-        return add_layer_norm(h, x, self.output.LayerNorm, c.dtype)[1]
+        h = act_dense(h, self.output.dense, c.hidden_act, c.dtype,
+                      c.fused_mlp)
+        return post_layer_norm(h, x, self.output.LayerNorm, c.dtype,
+                               c.fused_ln)
 
 
 class _Encoder(nn.Module):

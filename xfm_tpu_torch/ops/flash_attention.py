@@ -21,141 +21,23 @@ rounding points. There is no fallback: a CUDA tensor a kernel does not take
 raises.
 
 The source note of each kernel (what it replaces, what bounds it on the card
-and how its batch sum is made without atomics) heads its .cu file. The
-libraries build on first use with `nvcc` from the checkout's sources into
-`build/xfm_tpu_torch/`, keyed by the sources' hash, and load with ctypes.
+and how its batch sum is made without atomics) heads its .cu file. Building,
+loading and launch counting are `ops/kernels.py`'s, shared with K4 and K5.
 """
 from __future__ import annotations
-
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
 from .attention import attention_reference
+from .kernels import DIMS as _DIMS
+from .kernels import LAUNCHES, build_library, stream_of
+from .kernels import aligned as _aligned
+from .kernels import build_libraries  # noqa: F401  (the tests patch it here)
+from .kernels import check as _check
 from .relpos import compact_rel_pos, expand_compact_rel_pos
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "xfm_tpu_torch"
 HEAD_DIM = 64
 MAX_N = 512  # N >= 512 is the long-sequence kernel K2's range
-
-# Launches of the kernels on the card, one per wrapper call that launched
-# (a backward call launches its kernels as one). Reset by callers that count
-# the launches of one run.
-LAUNCHES = {"packed_attention_fwd": 0, "packed_attention_bwd": 0,
-            "relpos_attention_fwd": 0, "relpos_attention_bwd": 0,
-            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
-
-_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_DIMS = ctypes.c_longlong * 18  # K3's sizes and strides (csrc `Dims`)
-_DP = ctypes.POINTER(ctypes.c_longlong)
-# library name -> its C functions' argument types (source csrc/<name>.cu)
-_LIBRARIES = {
-    "packed_attention": {
-        "xfm_packed_attention_fwd": [_VP] * 3 + [_CI] * 3 + [_CF, _CI, _VP],
-        "xfm_packed_attention_bwd": [_VP] * 7 + [_CI] * 3 + [_CF, _CI, _VP],
-    },
-    "relpos_attention": {
-        "xfm_relpos_attention_fwd": [_VP] * 5 + [_CI] * 5 + [_CF, _CI, _VP],
-        "xfm_relpos_attention_bwd": [_VP] * 9 + [_CI] * 5 + [_CF, _CI, _VP],
-    },
-    "flash_attention": {
-        "xfm_flash_attention_fwd": [_VP] * 6 + [_DP, _CI, _CF, _CI, _VP],
-        "xfm_flash_attention_bwd": [_VP] * 11 + [_DP, _CI, _CF, _CI, _VP],
-    },
-}
-_libs: dict = {}
-# library name -> {"library": path of the .so, "ptxas": nvcc's -Xptxas -v
-# report when this process built it}
-build_info: dict = {}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the attention kernels are built "
-                           "from source on a machine with the CUDA toolkit")
-    return path
-
-
-def _so_path(name: str) -> Path:
-    """Library path keyed by the hash of its source and the shared
-    headers."""
-    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(_CSRC.glob("*.cuh")):
-        h.update(header.read_bytes())
-    return _BUILD_DIR / f"libxfm_{name}_{h.hexdigest()[:12]}.so"
-
-
-def build_libraries(*names: str) -> dict:
-    """Compile the named kernel libraries that are not built yet, one nvcc
-    process each, all started together, and load them. → {name: CDLL}.
-    A library loaded once is returned without touching a file: the
-    wrappers call this before every launch."""
-    missing = {n: _so_path(n) for n in names if n not in _libs}
-    if missing:
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, so in missing.items():
-        if so.exists():
-            continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        log = tempfile.TemporaryFile(mode="w+")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp, str(_CSRC / f"{name}.cu")]
-        jobs[name] = (subprocess.Popen(cmd, stdout=log, stderr=log, text=True),
-                      tmp, so, log)
-    failed = []
-    for name, (proc, tmp, so, log) in jobs.items():
-        rc = proc.wait()
-        log.seek(0)
-        report = log.read()
-        log.close()
-        if rc != 0:
-            os.unlink(tmp)
-            failed.append(f"nvcc failed for {name} ({rc}):\n{report}")
-            continue
-        os.replace(tmp, so)
-        build_info.setdefault(name, {})["ptxas"] = report
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    for name, so in missing.items():
-        lib = ctypes.CDLL(str(so))
-        for fn, argtypes in _LIBRARIES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _CI
-        build_info.setdefault(name, {})["library"] = str(so)
-        _libs[name] = lib
-    return {name: _libs[name] for name in names}
-
-
-def build_library(name: str = "packed_attention") -> ctypes.CDLL:
-    """Compile (once per source content) and load one kernel library."""
-    lib = _libs.get(name)
-    return lib if lib is not None else build_libraries(name)[name]
-
-
-def _check(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {rc} "
-                           f"({torch.cuda.get_device_name()})")
 
 
 def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int):
@@ -186,29 +68,16 @@ def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int):
     return B, N, D
 
 
-def _aligned(*tensors: torch.Tensor):
-    """Contiguous tensors whose data starts on a 16-byte boundary (the
-    kernels move 16-byte vectors)."""
-    out = []
-    for t in tensors:
-        t = t.contiguous()
-        if t.data_ptr() % 16:
-            raise ValueError("the attention kernels need 16-byte aligned "
-                             "tensors")
-        out.append(t)
-    return out
-
-
 def packed_attention_fwd(qkv: torch.Tensor, bias: torch.Tensor, scale: float,
                          num_heads: int) -> torch.Tensor:
     """Kernel forward: qkv [B, N, 3HD] (cuda), bias [1, H, N, N] f32 →
     out [B, N, HD] in qkv's dtype."""
     B, N, _ = _check_inputs(qkv, bias, num_heads)
-    lib = build_library()
+    lib = build_library("packed_attention")
     qkv, bias = _aligned(qkv, bias)
     out = torch.empty(B, N, qkv.shape[-1] // 3, device=qkv.device,
                       dtype=qkv.dtype)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    stream = stream_of(qkv)
     rc = lib.xfm_packed_attention_fwd(
         qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, N, num_heads,
         float(scale), int(qkv.dtype == torch.bfloat16), stream)
@@ -225,7 +94,7 @@ def packed_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     if dout.shape != (B, N, qkv.shape[-1] // 3) or dout.device != qkv.device:
         raise ValueError(f"dout must be [B, N, H*D] beside qkv, got "
                          f"{tuple(dout.shape)} on {dout.device}")
-    lib = build_library()
+    lib = build_library("packed_attention")
     qkv, bias, dout = _aligned(qkv, bias, dout.to(qkv.dtype))
     dqkv = torch.empty_like(qkv)
     db = torch.empty(1, num_heads, N, N, device=qkv.device,
@@ -234,7 +103,7 @@ def packed_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
                         dtype=torch.float32)
     ds_rows = torch.empty(B, num_heads, N, N, device=qkv.device,
                           dtype=torch.float32)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    stream = stream_of(qkv)
     rc = lib.xfm_packed_attention_bwd(
         qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
         db.data_ptr(), stats.data_ptr(), ds_rows.data_ptr(), B, N, num_heads,
@@ -340,7 +209,7 @@ def relpos_attention_fwd(qkv: torch.Tensor, cr: torch.Tensor,
                       dtype=qkv.dtype)
     stats = torch.empty(2, B * num_heads * N, device=qkv.device,
                         dtype=torch.float32)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    stream = stream_of(qkv)
     rc = lib.xfm_relpos_attention_fwd(
         qkv.data_ptr(), cr.data_ptr(), cls3.data_ptr(), out.data_ptr(),
         stats.data_ptr(), B, N, num_heads, window[0], window[1],
@@ -371,7 +240,7 @@ def relpos_attention_bwd(qkv: torch.Tensor, cr: torch.Tensor,
     npad = -(-N // 64) * 64
     ds_rows = torch.empty(B, num_heads, N, npad, device=qkv.device,
                           dtype=torch.float32)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    stream = stream_of(qkv)
     rc = lib.xfm_relpos_attention_bwd(
         qkv.data_ptr(), cr.data_ptr(), cls3.data_ptr(), stats.data_ptr(),
         dout.data_ptr(), dqkv.data_ptr(), dcr.data_ptr(), dcls.data_ptr(),
@@ -517,7 +386,7 @@ def _bias_layout(bias):
     return bias, strides + sizes
 
 
-def _flash_dims(q, k, v, dout, bias_fields) -> ctypes.Array:
+def _flash_dims(q, k, v, dout, bias_fields):
     B, Nq, H, _ = q.shape
     g = (dout.stride(0), dout.stride(1)) if dout is not None else (0, 0)
     return _DIMS(B, Nq, k.shape[1], H, q.stride(0), q.stride(1), k.stride(0),
@@ -535,7 +404,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias, bias_fields = _bias_layout(bias)
     out = torch.empty(B, Nq, H, HEAD_DIM, device=q.device, dtype=q.dtype)
     stats = torch.empty(2, B * H * Nq, device=q.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = stream_of(q)
     rc = lib.xfm_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
@@ -569,7 +438,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     db = (torch.empty(bias.shape, device=q.device, dtype=torch.float32)
           if bias is not None and bias_grad else None)
     delta = torch.empty(B * H * Nq, device=q.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = stream_of(q)
     rc = lib.xfm_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr() if bias is not None else None, dout.data_ptr(),

@@ -1,23 +1,26 @@
 """Where the time of one XFM-base train step goes on the card.
 
-    python3 -m xfm_tpu_torch.profile_step [pretrain|retrieval|clip_retrieval]
-                                          [--trace PATH]
+    python3 -m xfm_tpu_torch.profile_step
+        [pretrain|pretrain_fused|retrieval|clip_retrieval] [--trace PATH]
 
 Runs the full-width step of the chosen path as `chip_smoke.py` does
-(pretrain: B = 48 at 224 px, the default; retrieval: the 384 px fine-tune,
-B = 32, T = 40; clip_retrieval: the same step with the CLIP-ViT-B/16 tower;
-random weights, bf16 compute), then profiles STEPS steps
+(pretrain: B = 48 at 224 px, the default; pretrain_fused: the same with the
+fused LayerNorm K4 and the fused MLP matmul K5; retrieval: the 384 px
+fine-tune, B = 32, T = 40; clip_retrieval: the same step with the
+CLIP-ViT-B/16 tower; random weights, bf16 compute), then profiles STEPS
+steps
 with torch.profiler. From that one profiled window it prints the device's
 span per step (first kernel start to last kernel end, on the trace's clock),
 its busy time per step (sum of kernel times), the idle share of the span,
 the host-clock time per step of the same window (profiler overhead
-included), kernel time by group (K1, K2, K3, matmuls, the rest) and the TOP
+included), kernel time by group (K1–K5, matmuls, the rest) and the TOP
 kernels by name. The chrome trace goes to `--trace`
 (build/xfm_tpu_torch/profile_<path>.json by default). Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -37,6 +40,10 @@ def _group(name: str) -> str:
         return "k2_relpos_attention"
     if "xfm_attn_" in n:
         return "k3_flash_attention"
+    if "xfm_ln_" in n:
+        return "k4_fused_ln"
+    if "xfm_act_matmul" in n:
+        return "k5_fused_mlp"
     if any(k in n for k in ("gemm", "cutlass", "xmma", "nvjet", "sm90_")):
         return "matmul"
     if "foreach" in n or "multi_tensor" in n:
@@ -51,7 +58,8 @@ def _group(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path", nargs="?", default="pretrain",
-                    choices=("pretrain", "retrieval", "clip_retrieval"))
+                    choices=("pretrain", "pretrain_fused", "retrieval",
+                             "clip_retrieval"))
     ap.add_argument("--trace")
     args = ap.parse_args(argv)
     trace = args.trace or f"build/xfm_tpu_torch/profile_{args.path}.json"
@@ -62,7 +70,11 @@ def main(argv=None) -> int:
 
     from . import configs
 
-    make_run = {"pretrain": configs.make_pretrain_run,
+    make_run = {"pretrain": functools.partial(configs.make_pretrain_run,
+                                              fused_ln=False,
+                                              fused_mlp=False),
+                "pretrain_fused": functools.partial(
+                    configs.make_pretrain_run, fused_ln=True, fused_mlp=True),
                 "retrieval": configs.make_retrieval_run,
                 "clip_retrieval": configs.make_clip_retrieval_run}[args.path]
     state, batch, step = make_run()
