@@ -210,3 +210,87 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(kw, err, match):
 
     with pytest.raises(err, match=match):
         fa._check_flash_inputs(*_kernel_args(**kw))
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernels' rounding points, emulated on the CPU
+
+
+def _emulate_bf16_kernels(q, k, v, bias, g, scale=D ** -0.5, tile=64):
+    """What the card's bf16 kernels compute, in torch on the CPU:
+    forward, one pass over 64-key tiles with an online softmax whose
+    unnormalised exp(S − m) is rounded to bf16 per tile for PV (the O sums
+    rescaled as the row max grows, divided by the row sum at the end);
+    backward with delta = rowsum(dO ⊙ O) from the rounded output O, P
+    recomputed from the saved (m, l), dS = P ⊙ (dP − delta) rounded to
+    bf16 for dq and dk, P rounded for dv, dbias the f32 dS summed to the
+    bias's shape. q, k, v, g bf16 [B, N, H, D]; bias f32 or None. → out,
+    dq, dk, dv (, dbias)."""
+    f = torch.float32
+    bf = torch.bfloat16
+    Nk = k.shape[1]
+    qs = (q.float() * scale).to(bf).float()
+    kf, vf, gf = k.float(), v.float(), g.float()
+    bias_f = None if bias is None else bias.float()
+    s_all = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
+    if bias_f is not None:
+        s_all = s_all + bias_f
+    B, H, Nq = s_all.shape[:3]
+    m = torch.full((B, H, Nq, 1), -float("inf"), dtype=f)
+    l = torch.zeros(B, H, Nq, 1, dtype=f)
+    o = torch.zeros(B, H, Nq, D, dtype=f)
+    for k0 in range(0, Nk, tile):
+        s = s_all[..., k0:k0 + tile]
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - mn)
+        e = torch.exp(s - mn)
+        l = l * alpha + e.sum(-1, keepdim=True)
+        o = o * alpha + torch.einsum("bhqk,bkhd->bhqd", e.to(bf).float(),
+                                     vf[:, k0:k0 + tile])
+        m = mn
+    out = (o / l).to(bf)                                    # [B, H, Nq, D]
+    delta = (out.float() * gf.transpose(1, 2)).sum(-1, keepdim=True)
+    p = torch.exp(s_all - m) / l
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - delta)
+    dsb = ds.to(bf).float()
+    dq = (torch.einsum("bhqk,bkhd->bqhd", dsb, kf) * scale).to(bf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsb, qs).to(bf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(bf).float(), gf).to(bf)
+    res = [out.transpose(1, 2), dq, dk, dv]
+    if bias is not None:
+        dims = [i for i in range(3) if bias.shape[i] == 1]
+        res.append(ds.sum(dims, keepdim=True) if dims else ds)
+    return res
+
+
+@pytest.mark.parametrize("B,Nq,Nk,H,bias", [
+    (2, 577, 577, 2, None),                            # the CLIP length
+    (2, 577, 577, 2, (1, 2, 577, 577)),                # rel-pos shaped
+    (2, 520, 700, 2, None),                            # Nq != Nk, ragged
+    (2, 520, 700, 2, (1, 2, 520, 700)),
+    (2, 577, 640, 2, "dead_row"),                      # a fully masked row
+])
+def test_bf16_kernel_rounding_holds_the_card_gate(B, Nq, Nk, H, bias):
+    """The bf16 kernels round the unnormalised exp(S − m) per key tile where
+    the TPU kernel rounds the normalised P, and take delta = rowsum(dO ⊙ O)
+    where it sums P ⊙ dP: their emulation stays within the card's bf16
+    gate, 2⁻⁶·max|ref| (`chip_smoke.py` phase 8), of the JAX package's
+    Pallas kernel (interpret mode) in bf16, values and gradients. The fully
+    masked row sits at Nk = 640, a multiple of the Pallas kernel's 128-key
+    padding, which would otherwise share its mass."""
+    if bias == "dead_row":
+        bias = _mask_bias(B, Nk, [5, Nk])
+    q, k, v, bias, g = _inputs(B, Nq, Nk, H, bias, seed=Nq + Nk + 11)
+    bf = torch.bfloat16
+    q, k, v, g = (torch.from_numpy(x).to(bf) for x in (q, k, v, g))
+    got = _emulate_bf16_kernels(
+        q, k, v, None if bias is None else torch.from_numpy(bias), g)
+    want = _jax(*(jnp.asarray(x.float().numpy(), jnp.bfloat16)
+                  for x in (q, k, v)), bias, g.float().numpy())
+    assert len(got) == len(want) == (4 if bias is None else 5)
+    for name, a, b in zip(NAMES, got, want):
+        a, b = a.float().numpy(), np.asarray(b, np.float32)
+        assert a.shape == b.shape, name
+        err = np.abs(a - b).max()
+        assert err <= 2.0 ** -6 * np.abs(b).max(), (name, err)

@@ -75,15 +75,23 @@ CLIP_VIT_B16 = dict(vision_width=768, patch_size=16, hidden_act="quick_gelu",
 
 def xfm_clip_retrieval_config(image_res=384, hidden=None, layers=None,
                               heads=None, inter=None, vocab=50265,
-                              dtype=torch.bfloat16) -> XFMConfig:
+                              dtype=torch.bfloat16,
+                              fused_ln: Optional[bool] = None,
+                              fused_mlp: Optional[bool] = None) -> XFMConfig:
     """XFM with the CLIP-ViT-B/16 tower as `xfm_tpu/models/xfm.py`
     `config_from_yaml` builds it for `configs/xfm-ft/Retrieval_coco.yaml`
     with `use_clip_vit: true` and `config_clipvitB.json`, and as
     `tasks/retrieval.py` asks (ITC + ITM heads): 384 px (N = 577), the
     json's tower (quick-GELU, LN eps 1e-5), RoBERTa-base text and fusion
     (erf-GELU, 12 + 12 layers, text_fusion_start_at 12). `hidden`, `layers`,
-    `heads` and `inter` cut every encoder alike for tests and slices."""
+    `heads` and `inter` cut every encoder alike for tests and slices.
+    `fused_ln` / `fused_mlp` (None reads `XFM_FUSED_LN` / `XFM_MLP_FUSED`
+    == "1") take the text and fusion encoders' post-LNs through K4 and
+    their MLPs' second projections through K5; the CLIP tower's LNs and
+    quick-GELU MLPs stay plain, as in the JAX package."""
     v = CLIP_VIT_B16
+    fused = dict(fused_ln=_env_flag(fused_ln, "XFM_FUSED_LN"),
+                 fused_mlp=_env_flag(fused_mlp, "XFM_MLP_FUSED"))
     hidden = hidden or v["vision_width"]
     layers = layers or v["num_hidden_layers"]
     heads = heads or v["num_attention_heads"]
@@ -97,11 +105,11 @@ def xfm_clip_retrieval_config(image_res=384, hidden=None, layers=None,
     txt = TextConfig.roberta_base(
         vocab_size=vocab, hidden_size=hidden, num_hidden_layers=layers,
         num_attention_heads=heads, intermediate_size=inter,
-        fusion_layer=layers, encoder_width=hidden, dtype=dtype)
+        fusion_layer=layers, encoder_width=hidden, dtype=dtype, **fused)
     fus = TextConfig.roberta_base(
         vocab_size=vocab, hidden_size=hidden, num_hidden_layers=layers,
         num_attention_heads=heads, intermediate_size=inter, fusion_layer=0,
-        encoder_width=hidden, dtype=dtype)
+        encoder_width=hidden, dtype=dtype, **fused)
     return XFMConfig(vision=vis, text=txt, fusion=fus,
                      vision_backbone="clip_vit", embed_dim=256,
                      use_contrastive_loss=True, use_matching_loss=True,
@@ -177,8 +185,9 @@ def make_clip_retrieval_run(B: int = 32, T: int = 40, device="cuda",
                             seed: int = 0, **config_kw):
     """The retrieval fine-tune step of `make_retrieval_run` with the
     CLIP-ViT-B/16 vision tower at 384 px (`xfm_clip_retrieval_config`, whose
-    arguments `config_kw` passes on): its 12 vision self-attentions go
-    through K3. → (state, batch, step)."""
+    arguments `config_kw` passes on, `fused_ln` and `fused_mlp` among
+    them): its 12 vision self-attentions go through K3. → (state, batch,
+    step)."""
     return _retrieval_run(xfm_clip_retrieval_config(**config_kw), B, T,
                           device, seed)
 

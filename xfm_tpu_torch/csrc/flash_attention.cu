@@ -27,15 +27,27 @@
 // ds, unrounded, summed to the bias's own shape. A row whose keys are all
 // masked (bias -1e9) gets the uniform softmax over its Nk keys, as the plain
 // version does: the row max starts at -inf and every key < Nk is finite.
+// One exception, the bf16 forward: it rounds the unnormalized exp(S - m) of
+// each key tile to bf16 for PV and divides the f32 sums by the row sum at
+// the end, where the TPU kernel rounds the normalized P (:83-86).
+// tests/test_torch_long_attention.py emulates this rounding and holds it to
+// the card's bf16 gate (2^-6 max|ref|) against the Pallas kernel.
 //
 // Design. The TPU kernels keep the whole [Nk, D] K/V and an [Nq, Nk] f32
 // score block of one (b, h) in VMEM and carry db across a sequential grid. A
 // Hopper block has 227 KB of shared memory (one [64, 901] f32 score block is
 // 231 KB) and blocks run in parallel in no order:
-//   fwd   one block per (q tile of 64, h, b), two passes over 64-key tiles:
-//         the first finds each row's max and sum (online), the second forms
-//         the normalized P, rounds it and accumulates PV; the row max and
-//         sum are saved [2, B*H*Nq] for the backward.
+//   fwd   bf16: one block of 4 warps per (q tile of 64, h, b), each warp 16
+//         q rows held as mma.sync A fragments (q * scale rounded once); one
+//         pass over 64-key tiles, K and V double-buffered by cp.async, S =
+//         QK^T in f32 registers, an online softmax (row max and sum over the
+//         lane quad that shares a row), exp(S - m) rounded to bf16 in the
+//         accumulator layout and reused as the A operand of PV with V
+//         through ldmatrix.trans; S, P and O never reach shared memory.
+//         f32: two passes over 64-key tiles through WMMA-shaped shared
+//         tiles on the CUDA cores, the first for each row's max and sum, the
+//         second for the normalized P and PV. Both save the row max and sum
+//         [2, B*H*Nq] for the backward.
 //   bwd   three kernels on the current stream, the third only when the bias
 //         needs its gradient:
 //         dq    one block per (q tile of 64, h, b): a pass over the key
@@ -56,16 +68,17 @@
 //               in every run. Without a bias, or with one that needs no
 //               gradient (a padding mask), it is not launched.
 // S is recomputed from the same tiles with the same per-element sum order in
-// every kernel, so all of them see bit-identical probabilities.
+// every backward kernel, so all of them see bit-identical probabilities.
 //
 // What bounds it. At the CLIP-ViT-B/16 shape (B = 32, N = 577, H = 12,
 // bf16, no bias) the forward must move 113.4 MB (q, k, v in; out) and do
 // 32.7 GFLOP: 0.034 ms by bytes at 3.35 TB/s; the backward 198.5 MB (q, k, v,
 // dout in; dq, dk, dv out) and 81.8 GFLOP: 0.083 ms by operations at
-// 989 TFLOP/s. This first version is bounded by its own design: QK^T is done
-// twice in the forward and S three times and dP twice in the backward (9
-// tile products where 5 would do), through WMMA tiles staged in shared
-// memory with no TMA or wgmma, at one or two blocks per SM.
+// 989 TFLOP/s. The bf16 forward does one QK^T and one PV per tile at the
+// mma.sync rate, which reaches about a quarter of wgmma's, with 3,840 blocks
+// of 4 warps at the main shape; the backward does S three times and dP twice
+// (9 tile products where 5 would do) through WMMA tiles staged in shared
+// memory, at one or two blocks per SM.
 #include "attention_tiles.cuh"
 
 #include <cstring>
@@ -218,6 +231,265 @@ xfm_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
   store_rows<T, QT>(O, out + (size_t)b * Nq * C + h * D, C, q0, Nq, 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores' warp-level path: mma.sync.m16n8k16 products whose
+// operands come from shared memory through ldmatrix and whose accumulators
+// (S, P, O) stay in registers; tiles reach shared memory through cp.async,
+// the next one while this one computes.
+
+constexpr int MMA_THREADS = 128;  // 4 warps, 16 rows of the block's 64 each
+constexpr int MT = 64;            // rows of a block's tile (q rows or keys)
+static_assert(MT == QT && MT == KT, "the mma kernels tile q and keys by 64");
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? 16 : 0;  // 0: nothing read, 16 zero bytes written
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + 64) of one head's [N, D] slice (`base` at row 0 of this
+// head, rows `stride` elements apart) into a [64 x LDT] tile, 16 bytes a
+// cp.async, 4 of them a thread; rows past N are zero-filled. The row stride
+// of LDT = 72 elements (144 bytes) puts the 8 rows of every ldmatrix phase
+// on distinct banks.
+__device__ __forceinline__ void tile_async(bf16* tile, const bf16* __restrict__ base,
+                                           long long stride, int r0, int N) {
+#pragma unroll
+  for (int j = 0; j < MT * D / 8 / MMA_THREADS; ++j) {
+    const int i = threadIdx.x + j * MMA_THREADS;
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8, n = r0 + r;
+    cp_async16(tile + r * LDT + c, base + (size_t)(n < N ? n : 0) * stride + c, n < N);
+  }
+}
+
+// Four 8x8 b16 matrices of the 16x16 block at (r0, c0) of a [* x LDT] tile:
+// m0 = rows 0-7 / cols 0-7, m1 = rows 8-15 / cols 0-7, m2 = rows 0-7 /
+// cols 8-15, m3 = rows 8-15 / cols 8-15. Read as an A operand (rows = M, cols
+// = K) that is the m16n8k16 A fragment {m0, m1, m2, m3}; as a B operand
+// stored [n][k] (rows = N) the fragments of n-tiles 0-7 and 8-15 are
+// {m0, m2} and {m1, m3}; with .trans, as a B operand stored [k][n] (rows =
+// K), they are {m0, m1} and {m2, m3}.
+__device__ __forceinline__ void ldsm(unsigned (&r)[4], const bf16* tile, int r0, int c0) {
+  const int l = threadIdx.x & 31;
+  const bf16* p = tile + (r0 + (l & 7) + ((l >> 3) & 1) * 8) * LDT + c0 + (l >> 4) * 8;
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_t(unsigned (&r)[4], const bf16* tile, int r0, int c0) {
+  const int l = threadIdx.x & 31;
+  const bf16* p = tile + (r0 + (l & 7) + ((l >> 3) & 1) * 8) * LDT + c0 + (l >> 4) * 8;
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, f32 accumulators. Lane
+// (g = lane / 4, t = lane % 4) holds c[g][2t, 2t+1] in c[0], c[1] and
+// c[g+8][2t, 2t+1] in c[2], c[3].
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to a bf16 pair, `lo` in the low half (the lower column)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+// a bf16 pair times `scale` in f32, rounded back
+__device__ __forceinline__ unsigned scale_bf16x2(unsigned x, float scale) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+  return pack_bf16(f.x * scale, f.y * scale);
+}
+
+// An accumulator tile of 16 rows x 64 columns (8 n-tiles) of f32, rounded to
+// bf16 as the A operand of a product over its 64 columns: k-step kk takes
+// n-tiles 2kk (its cols 0-7) and 2kk + 1 (cols 8-15), in the accumulator's
+// own layout (no shuffle, no shared memory).
+__device__ __forceinline__ void acc_to_a(unsigned (&a)[4][4], const float (&c)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// c[16 x 64] = a[16 x 64] op(B)[64 x 64] over one tile: `a` the warp's A
+// fragments (4 k-steps), B a [64 x LDT] tile read as [n][k] (QK^T-like,
+// `trans` false) or as [k][n] (PV-like, `trans` true). Each element sums its
+// 4 k-steps in order, so two calls on the same tiles agree bit for bit.
+template <bool TRANS>
+__device__ __forceinline__ void warp_tile_mma(float (&c)[8][4], const unsigned (&a)[4][4],
+                                              const bf16* tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      unsigned r[4];
+      if (TRANS) {
+        ldsm_t(r, tile, kk * 16, np * 16);
+        mma_bf16(c[2 * np], a[kk], r[0], r[1]);
+        mma_bf16(c[2 * np + 1], a[kk], r[2], r[3]);
+      } else {
+        ldsm(r, tile, np * 16, kk * 16);
+        mma_bf16(c[2 * np], a[kk], r[0], r[2]);
+        mma_bf16(c[2 * np + 1], a[kk], r[1], r[3]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&c)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// forward, bf16: grid (ceil(Nq/64), H, B), 128 threads. One pass over the key
+// tiles with an online softmax; warp w owns q rows 16w .. 16w + 15.
+
+__global__ void __launch_bounds__(MMA_THREADS)
+xfm_attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, Bias bias, bf16* __restrict__ out,
+                        float* __restrict__ stats, Dims d, float scale) {
+  const int q0 = blockIdx.x * MT, h = blockIdx.y, b = blockIdx.z;
+  const int Nq = (int)d.Nq, Nk = (int)d.Nk, H = (int)d.H, C = H * D;
+  const int nkt = (Nk + KT - 1) / KT;
+  const size_t BHN = (size_t)d.B * H * Nq;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + MT * LDT;      // two K tiles
+  bf16* Vs = Ks + 2 * KT * LDT;  // two V tiles
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane / 4, t = lane % 4;
+  const bf16* kb = k + (size_t)b * d.k_sb + h * D;
+  const bf16* vb = v + (size_t)b * d.v_sb + h * D;
+
+  tile_async(Qs, q + (size_t)b * d.q_sb + h * D, d.q_sn, q0, Nq);
+  tile_async(Ks, kb, d.k_sn, 0, Nk);
+  tile_async(Vs, vb, d.v_sn, 0, Nk);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // the warp's q rows as A fragments, q * scale in f32 rounded to bf16
+  unsigned qf[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    ldsm(qf[kk], Qs, warp * 16, kk * 16);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qf[kk][i] = scale_bf16x2(qf[kk][i], scale);
+  }
+  // this lane's two rows: g and g + 8 of the warp's 16
+  int row[2];
+  const void* brow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = q0 + warp * 16 + g + 8 * i;
+    brow[i] = row[i] < Nq ? bias.row(d, b, h, row[i]) : nullptr;
+  }
+
+  float o[8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  zero(o);
+  for (int j = 0; j < nkt; ++j) {
+    const int k0 = j * KT;
+    const bf16* Kt = Ks + (j & 1) * KT * LDT;
+    const bf16* Vt = Vs + (j & 1) * KT * LDT;
+    if (j + 1 < nkt) {  // the next tiles land while this one computes
+      tile_async(Ks + ((j + 1) & 1) * KT * LDT, kb, d.k_sn, k0 + KT, Nk);
+      tile_async(Vs + ((j + 1) & 1) * KT * LDT, vb, d.v_sn, k0 + KT, Nk);
+      cp_async_commit();
+    }
+    float s[8][4];
+    zero(s);
+    warp_tile_mma<false>(s, qf, Kt);
+    if (bias.base || k0 + KT > Nk) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int key = k0 + nt * 8 + 2 * t + (c & 1);
+          s[nt][c] = key < Nk ? s[nt][c] + bias.at(brow[c / 2], key) : -INFINITY;
+        }
+    }
+    // online softmax: the new row max over the quad that shares the row,
+    // the old sums and outputs rescaled (every tile holds a key < Nk, so
+    // the max is finite and exp(-inf - max) = 0 starts the sums)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float alpha = expf(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= alpha;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        o[nt][2 * i] *= alpha;
+        o[nt][2 * i + 1] *= alpha;
+      }
+    }
+    // p = exp(s - m) in f32 for the sums, rounded to bf16 for PV
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[nt][c] = expf(s[nt][c] - m[c / 2]);
+        l[c / 2] += s[nt][c];
+      }
+    unsigned pf[4][4];
+    acc_to_a(pf, s);
+    warp_tile_mma<true>(o, pf, Vt);
+    if (j + 1 < nkt) cp_async_wait_all();
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  bf16* ob = out + (size_t)b * Nq * C + h * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= Nq) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<unsigned*>(ob + (size_t)row[i] * C + nt * 8 + 2 * t) =
+          pack_bf16(o[nt][2 * i] / l[i], o[nt][2 * i + 1] / l[i]);
+    if (t == 0) {
+      const size_t idx = ((size_t)b * H + h) * Nq + row[i];
+      stats[idx] = m[i];
+      stats[BHN + idx] = l[i];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -522,13 +794,23 @@ Dims read_dims(const long long* v) {
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, Bias bias, void* out,
                void* stats, const Dims& d, float scale, cudaStream_t st) {
-  const size_t smem = fwd_smem<T>();
-  cudaError_t e = allow_smem(xfm_attn_fwd_kernel<T>, smem);
-  if (e != cudaSuccess) return (int)e;
   dim3 grid((unsigned)((d.Nq + QT - 1) / QT), (unsigned)d.H, (unsigned)d.B);
-  xfm_attn_fwd_kernel<T><<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<T*>(out), static_cast<float*>(stats), d, scale);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = (size_t)(MT + 4 * KT) * LDT * sizeof(bf16);
+    cudaError_t e = allow_smem(xfm_attn_fwd_mma_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    xfm_attn_fwd_mma_kernel<<<grid, MMA_THREADS, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), bias, static_cast<bf16*>(out),
+        static_cast<float*>(stats), d, scale);
+  } else {
+    const size_t smem = fwd_smem<T>();
+    cudaError_t e = allow_smem(xfm_attn_fwd_kernel<T>, smem);
+    if (e != cudaSuccess) return (int)e;
+    xfm_attn_fwd_kernel<T><<<grid, THREADS, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
+        static_cast<T*>(out), static_cast<float*>(stats), d, scale);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -4,6 +4,7 @@ Parameter names are the reference torch names."""
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Union
 
 import torch
@@ -16,6 +17,16 @@ from . import losses
 from .beit2 import BeitVisionTransformer, VisionConfig
 from .clip_vit import ClipVisionConfig, ClipVisionTransformer
 from .text_encoder import TextConfig, TextTransformer, cross_entropy
+
+
+def shared_cross_kv(n_image_tokens: int) -> bool:
+    """Whether the ITM negative pass projects cross k/v once per unique
+    image (`xfm_tpu/models/xfm.py`'s switch): `XFM_SHARED_CROSS_KV` = "1"
+    or "0" forces it either way; unset, from 577 image tokens (384 px)."""
+    env = os.environ.get("XFM_SHARED_CROSS_KV")
+    if env is not None:
+        return env == "1"
+    return n_image_tokens >= 577
 
 
 class MLPHead(nn.Sequential):
@@ -181,14 +192,16 @@ class XFMBase(nn.Module):
         """ITM with in-batch hard negatives: one positive pass and one pass
         over [text_pos × image_neg ‖ text_neg × image_pos]. From 577 image
         tokens (384 px) the second pass projects cross k/v once per unique
-        image and gathers them per row, as the JAX package does by default.
-        `fixed_negatives=(image_neg, text_neg)` replaces the draw; `idx`
-        (image ids) keeps rows of the same image from being drawn."""
+        image and gathers them per row, as the JAX package does by default;
+        `XFM_SHARED_CROSS_KV` = "1" / "0" forces the shared / gathered form
+        at any length, as there. `fixed_negatives=(image_neg, text_neg)`
+        replaces the draw; `idx` (image ids) keeps rows of the same image
+        from being drawn."""
         image_neg, text_neg = self._negatives(generator, image_feat,
                                               text_feat, fixed_negatives, idx)
         text_embeds_all = torch.cat([text_embeds, text_embeds[text_neg]])
         text_atts_all = torch.cat([text_atts, text_atts[text_neg]])
-        if image_embeds.shape[1] >= 577:
+        if shared_cross_kv(image_embeds.shape[1]):
             row_idx = torch.cat([image_neg, torch.arange(
                 image_neg.shape[0], device=image_neg.device,
                 dtype=image_neg.dtype)])

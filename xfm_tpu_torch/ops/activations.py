@@ -2,11 +2,16 @@
 (act, act') that the fused MLP kernel K5 computes (`xfm_tpu/ops/
 fused_mlp.py` `_act_fns`).
 
-`ACT["gelu"]` is the exact erf form; the JAX package's default fast erf
-approximation (`ops/activations.py` `gelu_erf_fast`) is a TPU VPU trick and
-is matched by `XFM_EXACT_ERF=1` on the JAX side. K5's `gelu` is that
-approximation, x·Φ̂(clip(x, −6, 6)), whatever the flag: the fused route
-takes it from `FUSED_ACT`, never from `ACT`.
+`ACT["gelu"]` is the exact erf form, the torch reference's. Here the port
+departs from the JAX package on purpose: that package's default is the fast
+approximation x·Φ̂(clip(x, −6, 6)) (`ops/activations.py` `gelu_erf_fast`, a
+TPU VPU trick), and it gives exact erf only under `XFM_EXACT_ERF=1`. Φ̂ is
+within 1 bf16 ulp of erf for every finite bf16 input
+(`tests/test_torch_gelu_default.py` pins the port's `gelu` against the JAX
+default at that bound), and in eager PyTorch it would cost some ten
+elementwise launches at every GELU site. The port's parity tests set
+`XFM_EXACT_ERF=1` on the JAX side. K5's `gelu` is Φ̂ whatever the flag: the
+fused route takes it from `FUSED_ACT`, never from `ACT`.
 """
 from __future__ import annotations
 
