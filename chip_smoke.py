@@ -40,7 +40,9 @@ Phases, each of which must pass or the script exits non-zero:
      F.scaled_dot_product_attention with no mask as a yardstick;
   9. CLIP retrieval slice parity: the retrieval losses and gradients with the
      CLIP-ViT tower at full width, depth 2, 384 px, B = 4, f32, on the CPU
-     and on the card;
+     and on the card, on the default route and again with both fused routes
+     (K4 and K5 in the text and fusion encoders, launched as the depth-2
+     step asks; the tower stays plain);
  10. full-width CLIP retrieval: the retrieval step with the CLIP-ViT-B/16
      tower, B = 32, T = 40, bf16: 2 warm-up and 5 timed steps, finite
      losses, K3 launched 12 times forward and 12 backward per step, K1 and
@@ -391,8 +393,8 @@ def k3_parity(B, Nq, Nk, H, dtype, bias_kind=None, seed=0) -> dict:
     scale = 64 ** -0.5
     bias_grad = bias_kind in ("relpos", "relpos_bf16")
     out, stats = fa.flash_attention_fwd(q, k, v, bias, scale)
-    dq, dk, dv, db = fa.flash_attention_bwd(q, k, v, bias, stats, dout,
-                                            scale, bias_grad)
+    dq, dk, dv, db = fa.flash_attention_bwd(q, k, v, bias, out, stats,
+                                            dout, scale, bias_grad)
     refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
     rb = bias.clone().requires_grad_(bias_grad) if bias is not None else None
     ref = fa.flash_attention_reference(*refs, rb, scale)
@@ -421,7 +423,7 @@ def k3_times(B, N, H, dtype) -> dict:
     t["fwd_ms"] = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, None,
                                                          scale))
     t["bwd_ms"] = cuda_ms(lambda: fa.flash_attention_bwd(
-        q, k, v, None, stats, dout, scale))
+        q, k, v, None, out, stats, dout, scale))
     with torch.no_grad():
         t["plain_fwd_ms"] = cuda_ms(lambda: fa.flash_attention_reference(
             q, k, v, None, scale), 5)
@@ -604,6 +606,17 @@ def fused_launches_per_step(cfg) -> dict:
             "fused_mlp": (v + 2 * t + f, v + t + f)}
 
 
+def clip_fused_launches_per_step(cfg) -> dict:
+    """K4 and K5 launches (forward, backward) of one CLIP retrieval step
+    with the fused routes: the text pass (two post-LNs and one output.dense
+    a layer) and the ITM positive and negative fusion passes (three post-LNs
+    and one output.dense a layer each), all trained; the tower takes
+    neither."""
+    t, f = cfg.text.num_hidden_layers, cfg.fusion.num_hidden_layers
+    return {"fused_ln": (2 * t + 2 * 3 * f,) * 2,
+            "fused_mlp": (t + 2 * f,) * 2}
+
+
 def build_model(cls, cfg, device, seed=0):
     from xfm_tpu_torch.train.checkpoint import init_weights
 
@@ -617,8 +630,9 @@ def slice_parity(path: str) -> None:
     on the card → losses and sampled gradients agree. `path`: "pretrain"
     (224 px), "pretrain_fused" (the same with K4 and K5, whose launches on
     the card are checked), "retrieval" (384 px, so K2 on the card) or
-    "clip_retrieval" (384 px with the CLIP-ViT tower, so K3 on the
-    card)."""
+    "clip_retrieval" (384 px with the CLIP-ViT tower, so K3 on the card)
+    or "clip_retrieval_fused" (the same with K4 and K5 in the text and
+    fusion encoders, their launches checked)."""
     from xfm_tpu_torch import configs
     from xfm_tpu_torch.models import XFMForPretrain, XFMForRetrieval
     from xfm_tpu_torch.ops import kernels
@@ -650,13 +664,22 @@ def slice_parity(path: str) -> None:
             cfg = configs.xfm_base_retrieval_config(layers=2,
                                                     dtype=torch.float32)
         else:
+            fused = path == "clip_retrieval_fused"
             cfg = configs.xfm_clip_retrieval_config(layers=2,
-                                                    dtype=torch.float32)
+                                                    dtype=torch.float32,
+                                                    fused_ln=fused,
+                                                    fused_mlp=fused)
             vision_sample = [
                 "vision_encoder.encoder.layers.0.self_attn.q_proj.weight",
                 "vision_encoder.encoder.layers.1.self_attn.k_proj.weight",
                 "vision_encoder.pos_embed.weight",
                 "vision_encoder.patch_embed.weight"]
+            if fused:  # K4's parameters (K5's: the text output.dense)
+                vision_sample += [
+                    "fusion_encoder.roberta.encoder.layer.1.crossattention."
+                    "output.LayerNorm.bias",
+                    "text_encoder.roberta.encoder.layer.0.attention.output."
+                    "LayerNorm.weight"]
         nb = configs.make_retrieval_batch(4, 40, 384, cfg.text.vocab_size,
                                           seed=1)
         cls, loss_fn = XFMForRetrieval, train_state.retrieval_loss_fn
@@ -676,8 +699,10 @@ def slice_parity(path: str) -> None:
         total.backward()
         results[name] = ({k: v.item() for k, v in out.items()},
                          dict(model.named_parameters()))
-    if path == "pretrain_fused":
-        for k, (f, b) in fused_launches_per_step(cfg).items():
+    fused_counts = {"pretrain_fused": fused_launches_per_step,
+                    "clip_retrieval_fused": clip_fused_launches_per_step}
+    if path in fused_counts:
+        for k, (f, b) in fused_counts[path](cfg).items():
             got = (kernels.LAUNCHES[f"{k}_fwd"], kernels.LAUNCHES[f"{k}_bwd"])
             print(f"  {path} slice {k} launches {got}, expected {(f, b)}")
             if got != (f, b):
@@ -869,8 +894,10 @@ def main() -> int:
     k3_t = k3_times(**k3_shape, dtype=torch.bfloat16)
     print("  K3 times (ms): " + json.dumps(k3_t))
     print("  K3 bound (k3_work): " + json.dumps(k3w))
-    print("phase 9: CLIP retrieval slice parity, CPU vs card")
+    print("phase 9: CLIP retrieval slice parity, CPU vs card, default and "
+          "fused routes")
     slice_parity("clip_retrieval")
+    slice_parity("clip_retrieval_fused")
     print("phase 10: full-width CLIP-ViT-B/16 retrieval step, 384 px")
     clip = full_width("clip_retrieval")
 

@@ -145,7 +145,8 @@ def test_flash_attention_kernel_matches_plain(dtype, B, Nq, Nk, H,
 
     q, k, v, g, bias = _flash_inputs(B, Nq, Nk, H, dtype, bias_kind, seed=5)
     out, stats = fa.flash_attention_fwd(q, k, v, bias, 0.125)
-    dq, dk, dv, db = fa.flash_attention_bwd(q, k, v, bias, stats, g, 0.125)
+    dq, dk, dv, db = fa.flash_attention_bwd(q, k, v, bias, out, stats, g,
+                                            0.125)
     refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
     rb = bias.clone().requires_grad_(True) if bias is not None else None
     ref = fa.flash_attention_reference(*refs, rb, 0.125)
@@ -162,6 +163,106 @@ def test_flash_attention_kernel_matches_plain(dtype, B, Nq, Nk, H,
         assert (got.float() - want).abs().max() <= tol * want.abs().max()
 
 
+def _k3_case(B, Nq, Nk, H, bias_shape, bias_dtype, seed):
+    """q, k, v, dout [B, N, H, 64] bf16 and a bias: None; a broadcast shape
+    (entries 1, or "B", "H", "Nq" for the full size) of random values; or
+    "dead_row", a [B, 1, 1, Nk] mask whose batch row 1 masks every key."""
+    r = np.random.RandomState(seed)
+    q, k, v, g = (torch.from_numpy(r.randn(B, n, H, 64).astype(np.float32))
+                  .cuda().to(torch.bfloat16) for n in (Nq, Nk, Nk, Nq))
+    bias = None
+    if bias_shape == "dead_row":
+        from xfm_tpu_torch.ops.attention import mask_to_bias
+
+        atts = np.ones((B, Nk), np.int64)
+        atts[1] = 0
+        atts[0, -5:] = 0
+        bias = mask_to_bias(torch.from_numpy(atts)).cuda()
+    elif bias_shape is not None:
+        full = {"B": B, "H": H, "Nq": Nq}
+        shape = [full.get(x, x) for x in bias_shape] + [Nk]
+        bias = torch.from_numpy((0.5 * r.randn(*shape)).astype(np.float32))
+        bias = bias.cuda().to(bias_dtype)
+    return q, k, v, g, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Nq,Nk,bias_shape,bias_dtype", [
+    (512, 512, None, None), (577, 577, None, None), (640, 640, None, None),
+    (901, 901, None, None), (520, 700, None, None),
+    (512, 512, (1, "H", "Nq"), torch.float32),
+    (577, 577, (1, "H", "Nq"), torch.float32),
+    (640, 640, (1, "H", "Nq"), torch.float32),
+    (901, 901, (1, "H", "Nq"), torch.float32),
+    (520, 700, (1, 1, 1), torch.float32),
+    (520, 700, (1, 1, "Nq"), torch.float32),
+    (520, 700, (1, "H", 1), torch.float32),
+    (520, 700, (1, "H", "Nq"), torch.float32),
+    (520, 700, ("B", 1, 1), torch.float32),
+    (520, 700, ("B", 1, "Nq"), torch.float32),
+    (520, 700, ("B", "H", 1), torch.float32),
+    (520, 700, ("B", "H", "Nq"), torch.float32),
+    (520, 700, (1, "H", "Nq"), torch.bfloat16),
+    (577, 577, "dead_row", None),
+    (700, 520, "dead_row", None),
+])
+def test_flash_attention_bf16_mma_kernels_match_plain(Nq, Nk, bias_shape,
+                                                      bias_dtype):
+    """The bf16 forward, dq and dk/dv kernels (mma.sync, cp.async) against
+    the plain version: tiles ragged on the q side, the key side or both;
+    every broadcast shape of the bias (its gradient from the db kernel),
+    f32 and bf16; a padding mask with a fully masked row (averaged over
+    exactly its Nk keys), which needs no gradient. 4 bf16 ulps at the
+    largest value, as phase 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g, bias = _k3_case(2, Nq, Nk, 2, bias_shape, bias_dtype,
+                                seed=Nq + Nk)
+    bias_grad = bias is not None and bias_shape != "dead_row"
+    out, stats = fa.flash_attention_fwd(q, k, v, bias, 0.125)
+    dq, dk, dv, db = fa.flash_attention_bwd(q, k, v, bias, out, stats, g,
+                                            0.125, bias_grad)
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    rb = bias.clone().requires_grad_(bias_grad) if bias is not None else None
+    ref = fa.flash_attention_reference(*refs, rb, 0.125)
+    ref.backward(g)
+    pairs = [(out, ref), (dq, refs[0].grad), (dk, refs[1].grad),
+             (dv, refs[2].grad)]
+    if bias_grad:
+        pairs.append((db.to(bias.dtype), rb.grad))
+    else:
+        assert db is None
+    for got, want in pairs:
+        want = want.float()
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        assert (got.float() - want).abs().max() <= 2.0 ** -6 * want.abs().max()
+    if bias_shape == "dead_row":  # uniform over exactly its Nk keys
+        mean = v[1].float().mean(0)
+        tol = 2.0 ** -6 * ref.float().abs().max()
+        assert (out[1].float() - mean).abs().max() <= tol
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_backward_is_deterministic_at_the_main_shape():
+    """The CLIP shape with no bias, as the retrieval step runs it: dq, dk
+    and dv are written once each, without atomics, in the same bits every
+    run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g, _ = _k3_case(32, 577, 577, 12, None, None, seed=9)
+    out, stats = fa.flash_attention_fwd(q, k, v, None, 0.125)
+    again, _ = fa.flash_attention_fwd(q, k, v, None, 0.125)
+    assert torch.equal(out, again)
+    first = fa.flash_attention_bwd(q, k, v, None, out, stats, g, 0.125)
+    second = fa.flash_attention_bwd(q, k, v, None, out, stats, g, 0.125)
+    assert first[3] is None and second[3] is None
+    assert all(torch.equal(a, b) for a, b in zip(first[:3], second[:3]))
+
+
 @pytest.mark.cuda
 def test_flash_attention_backward_is_deterministic():
     """dq, dk, dv and the bias gradient summed over the batch are written
@@ -172,9 +273,9 @@ def test_flash_attention_backward_is_deterministic():
 
     q, k, v, g, bias = _flash_inputs(4, 577, 577, 12, torch.bfloat16,
                                      "relpos", seed=6)
-    _, stats = fa.flash_attention_fwd(q, k, v, bias, 0.125)
-    first = fa.flash_attention_bwd(q, k, v, bias, stats, g, 0.125)
-    again = fa.flash_attention_bwd(q, k, v, bias, stats, g, 0.125)
+    out, stats = fa.flash_attention_fwd(q, k, v, bias, 0.125)
+    first = fa.flash_attention_bwd(q, k, v, bias, out, stats, g, 0.125)
+    again = fa.flash_attention_bwd(q, k, v, bias, out, stats, g, 0.125)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
@@ -198,8 +299,9 @@ def test_flash_attention_reads_strided_views_in_place():
     got, stats = fa.flash_attention_fwd(*views, None, 0.125)
     want, _ = fa.flash_attention_fwd(*copies, None, 0.125)
     assert torch.equal(got, want)
-    for a, b in zip(fa.flash_attention_bwd(*views, None, stats, g, 0.125),
-                    fa.flash_attention_bwd(*copies, None, stats, g, 0.125)):
+    for a, b in zip(fa.flash_attention_bwd(*views, None, got, stats, g, 0.125),
+                    fa.flash_attention_bwd(*copies, None, want, stats, g,
+                                           0.125)):
         assert (a is None and b is None) or torch.equal(a, b)
 
 

@@ -493,6 +493,261 @@ xfm_attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// backward, bf16, 1/2: delta and dq. grid (ceil(Nq/64), H, B), 128 threads;
+// warp w owns q rows 16w .. 16w + 15 and makes one pass over the key tiles.
+
+__global__ void __launch_bounds__(MMA_THREADS)
+xfm_attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, Bias bias,
+                           const bf16* __restrict__ out, const bf16* __restrict__ dout,
+                           const float* __restrict__ stats, float* __restrict__ delta_out,
+                           bf16* __restrict__ dq, Dims d, float scale) {
+  const int q0 = blockIdx.x * MT, h = blockIdx.y, b = blockIdx.z;
+  const int Nq = (int)d.Nq, Nk = (int)d.Nk, H = (int)d.H, C = H * D;
+  const int nkt = (Nk + KT - 1) / KT;
+  const size_t BHN = (size_t)d.B * H * Nq;
+  const size_t row0 = ((size_t)b * H + h) * Nq;  // (b, h, q = 0)
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Gs = Qs + MT * LDT;      // dO
+  bf16* Ks = Gs + MT * LDT;      // two K tiles
+  bf16* Vs = Ks + 2 * KT * LDT;  // two V tiles
+  __shared__ float row_delta[MT];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane / 4, t = lane % 4;
+  const bf16* kb = k + (size_t)b * d.k_sb + h * D;
+  const bf16* vb = v + (size_t)b * d.v_sb + h * D;
+  const bf16* gb = dout + (size_t)b * d.g_sb + h * D;
+
+  tile_async(Qs, q + (size_t)b * d.q_sb + h * D, d.q_sn, q0, Nq);
+  tile_async(Gs, gb, d.g_sn, q0, Nq);
+  tile_async(Ks, kb, d.k_sn, 0, Nk);
+  tile_async(Vs, vb, d.v_sn, 0, Nk);
+  cp_async_commit();
+  {  // delta = rowsum(dO (.) O) in f32 while the tiles land: two threads a
+     // row, 32 products each in order, then their sum
+    const int r = threadIdx.x / 2, half = threadIdx.x % 2, qq = q0 + r;
+    float acc = 0.f;
+    if (qq < Nq) {
+      const bf16* op = out + ((size_t)b * Nq + qq) * C + h * D + half * 32;
+      const bf16* gp = gb + (size_t)qq * d.g_sn + half * 32;
+#pragma unroll
+      for (int c = 0; c < 32; c += 8) {
+        uint4 ov = *reinterpret_cast<const uint4*>(op + c);
+        uint4 gv = *reinterpret_cast<const uint4*>(gp + c);
+        const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+        const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc += to_f(oe[e]) * to_f(ge[e]);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      row_delta[r] = acc;
+      if (qq < Nq) delta_out[row0 + qq] = acc;
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  unsigned qf[4][4], gf[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    ldsm(qf[kk], Qs, warp * 16, kk * 16);
+    ldsm(gf[kk], Gs, warp * 16, kk * 16);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qf[kk][i] = scale_bf16x2(qf[kk][i], scale);
+  }
+  int row[2];
+  const void* brow[2];
+  float m[2], l[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + g + 8 * i;
+    row[i] = q0 + r;
+    const bool in = row[i] < Nq;
+    brow[i] = in ? bias.row(d, b, h, row[i]) : nullptr;
+    m[i] = in ? stats[row0 + row[i]] : 0.f;  // rows past Nq: dO = 0, so ds = 0
+    l[i] = in ? stats[BHN + row0 + row[i]] : 1.f;
+    dl[i] = row_delta[r];
+  }
+
+  float dqa[8][4];
+  zero(dqa);
+  for (int j = 0; j < nkt; ++j) {
+    const int k0 = j * KT;
+    const bf16* Kt = Ks + (j & 1) * KT * LDT;
+    const bf16* Vt = Vs + (j & 1) * KT * LDT;
+    if (j + 1 < nkt) {
+      tile_async(Ks + ((j + 1) & 1) * KT * LDT, kb, d.k_sn, k0 + KT, Nk);
+      tile_async(Vs + ((j + 1) & 1) * KT * LDT, vb, d.v_sn, k0 + KT, Nk);
+      cp_async_commit();
+    }
+    float s[8][4], dp[8][4];
+    zero(s);
+    zero(dp);
+    warp_tile_mma<false>(s, qf, Kt);   // S = (q*scale) K^T
+    warp_tile_mma<false>(dp, gf, Vt);  // dP = dO V^T
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = k0 + nt * 8 + 2 * t + (c & 1), i = c / 2;
+        const float p =
+            key < Nk ? prob(s[nt][c], bias.at(brow[i], key), m[i], l[i]) : 0.f;
+        s[nt][c] = p * (dp[nt][c] - dl[i]);  // ds
+      }
+    unsigned dsf[4][4];
+    acc_to_a(dsf, s);
+    warp_tile_mma<true>(dqa, dsf, Kt);  // dQ += dS K
+    if (j + 1 < nkt) cp_async_wait_all();
+    __syncthreads();
+  }
+  bf16* qb = dq + (size_t)b * Nq * C + h * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= Nq) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<unsigned*>(qb + (size_t)row[i] * C + nt * 8 + 2 * t) =
+          pack_bf16(dqa[nt][2 * i] * scale, dqa[nt][2 * i + 1] * scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, bf16, 2/2: dk and dv. grid (ceil(Nk/64), H, B), 128 threads;
+// warp w owns keys 16w .. 16w + 15 (K and V as A fragments in registers) and
+// the block loops over the q tiles in order, Q, dO and their rows' (m, l,
+// delta) double-buffered; S^T, P^T, dP^T and dS^T never leave registers.
+
+// the [64 x LDT] q tile's chunks that this thread copied, times `scale` in
+// f32 and rounded to bf16 (after its own cp.async have landed)
+__device__ __forceinline__ void scale_own_chunks(bf16* tile, float scale) {
+#pragma unroll
+  for (int j = 0; j < MT * D / 8 / MMA_THREADS; ++j) {
+    const int i = threadIdx.x + j * MMA_THREADS;
+    uint4* p = reinterpret_cast<uint4*>(tile + (i / (D / 8)) * LDT + (i % (D / 8)) * 8);
+    uint4 x = *p;
+    x.x = scale_bf16x2(x.x, scale);
+    x.y = scale_bf16x2(x.y, scale);
+    x.z = scale_bf16x2(x.z, scale);
+    x.w = scale_bf16x2(x.w, scale);
+    *p = x;
+  }
+}
+
+__global__ void __launch_bounds__(MMA_THREADS)
+xfm_attn_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, Bias bias,
+                             const bf16* __restrict__ dout, const float* __restrict__ stats,
+                             const float* __restrict__ delta, bf16* __restrict__ dk,
+                             bf16* __restrict__ dv, Dims d, float scale) {
+  const int k0 = blockIdx.x * KT, h = blockIdx.y, b = blockIdx.z;
+  const int Nq = (int)d.Nq, Nk = (int)d.Nk, H = (int)d.H, C = H * D;
+  const int nqt = (Nq + MT - 1) / MT;
+  const size_t BHN = (size_t)d.B * H * Nq;
+  const size_t row0 = ((size_t)b * H + h) * Nq;  // (b, h, q = 0)
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + KT * LDT;
+  bf16* Qs = Vs + KT * LDT;      // two q tiles (scaled)
+  bf16* Gs = Qs + 2 * MT * LDT;  // two dO tiles
+  __shared__ float sm[2][MT], sl[2][MT], sd[2][MT];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane / 4, t = lane % 4;
+  const bf16* qb = q + (size_t)b * d.q_sb + h * D;
+  const bf16* gb = dout + (size_t)b * d.g_sb + h * D;
+  // the row statistics of q tile `jt` into buffer `buf`; rows past Nq get
+  // m = +inf, so their p = exp(s - inf) = 0
+  auto stats_into = [&](int buf, int jt) {
+    if (threadIdx.x < MT) {
+      const int qq = jt * MT + threadIdx.x;
+      const bool in = qq < Nq;
+      sm[buf][threadIdx.x] = in ? stats[row0 + qq] : INFINITY;
+      sl[buf][threadIdx.x] = in ? stats[BHN + row0 + qq] : 1.f;
+      sd[buf][threadIdx.x] = in ? delta[row0 + qq] : 0.f;
+    }
+  };
+
+  tile_async(Ks, k + (size_t)b * d.k_sb + h * D, d.k_sn, k0, Nk);
+  tile_async(Vs, v + (size_t)b * d.v_sb + h * D, d.v_sn, k0, Nk);
+  tile_async(Qs, qb, d.q_sn, 0, Nq);
+  tile_async(Gs, gb, d.g_sn, 0, Nq);
+  cp_async_commit();
+  stats_into(0, 0);
+  cp_async_wait_all();
+  scale_own_chunks(Qs, scale);
+  __syncthreads();
+
+  unsigned kf[4][4], vf[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    ldsm(kf[kk], Ks, warp * 16, kk * 16);
+    ldsm(vf[kk], Vs, warp * 16, kk * 16);
+  }
+  int key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) key[i] = k0 + warp * 16 + g + 8 * i;
+
+  float dka[8][4], dva[8][4];
+  zero(dka);
+  zero(dva);
+  for (int j = 0; j < nqt; ++j) {
+    const int q0 = j * MT, cur = j & 1;
+    const bf16* Qt = Qs + cur * MT * LDT;
+    const bf16* Gt = Gs + cur * MT * LDT;
+    if (j + 1 < nqt) {
+      tile_async(Qs + (cur ^ 1) * MT * LDT, qb, d.q_sn, q0 + MT, Nq);
+      tile_async(Gs + (cur ^ 1) * MT * LDT, gb, d.g_sn, q0 + MT, Nq);
+      cp_async_commit();
+      stats_into(cur ^ 1, j + 1);
+    }
+    float st[8][4];  // S^T: this warp's 16 keys x the tile's 64 q
+    zero(st);
+    warp_tile_mma<false>(st, kf, Qt);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = nt * 8 + 2 * t + (c & 1), qq = q0 + col, i = c / 2;
+        float bv = 0.f;
+        if (bias.base && qq < Nq && key[i] < Nk) bv = bias.at(bias.row(d, b, h, qq), key[i]);
+        st[nt][c] = prob(st[nt][c], bv, sm[cur][col], sl[cur][col]);  // P^T
+      }
+    unsigned af[4][4];
+    acc_to_a(af, st);
+    warp_tile_mma<true>(dva, af, Gt);  // dV += P^T dO
+    float dpt[8][4];                   // dP^T = V dO^T
+    zero(dpt);
+    warp_tile_mma<false>(dpt, vf, Gt);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        st[nt][c] *= dpt[nt][c] - sd[cur][nt * 8 + 2 * t + (c & 1)];  // dS^T
+    acc_to_a(af, st);
+    warp_tile_mma<true>(dka, af, Qt);  // dK += dS^T (q*scale)
+    if (j + 1 < nqt) {
+      cp_async_wait_all();
+      scale_own_chunks(Qs + (cur ^ 1) * MT * LDT, scale);
+    }
+    __syncthreads();
+  }
+  bf16* kout = dk + (size_t)b * Nk * C + h * D;
+  bf16* vout = dv + (size_t)b * Nk * C + h * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= Nk) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const size_t off = (size_t)key[i] * C + nt * 8 + 2 * t;
+      *reinterpret_cast<unsigned*>(kout + off) = pack_bf16(dka[nt][2 * i], dka[nt][2 * i + 1]);
+      *reinterpret_cast<unsigned*>(vout + off) = pack_bf16(dva[nt][2 * i], dva[nt][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // backward 1/3: delta and dq. grid (ceil(Nq/64), H, B).
 
 template <typename T>
@@ -815,9 +1070,9 @@ int launch_fwd(const void* q, const void* k, const void* v, Bias bias, void* out
 }
 
 template <typename T>
-int launch_bwd(const void* q, const void* k, const void* v, Bias bias, const void* dout,
-               const void* stats, void* delta, void* dq, void* dk, void* dv, void* db,
-               const Dims& d, float scale, cudaStream_t st) {
+int launch_bwd(const void* q, const void* k, const void* v, Bias bias, const void* out,
+               const void* dout, const void* stats, void* delta, void* dq, void* dk,
+               void* dv, void* db, const Dims& d, float scale, cudaStream_t st) {
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
@@ -825,23 +1080,35 @@ int launch_bwd(const void* q, const void* k, const void* v, Bias bias, const voi
   const float* sts = static_cast<const float*>(stats);
   float* dl = static_cast<float*>(delta);
   cudaError_t e;
-
-  size_t smem = dq_smem<T>();
-  if ((e = allow_smem(xfm_attn_bwd_dq_kernel<T>, smem)) != cudaSuccess) return (int)e;
   dim3 g1((unsigned)((d.Nq + QT - 1) / QT), (unsigned)d.H, (unsigned)d.B);
-  xfm_attn_bwd_dq_kernel<T><<<g1, THREADS, smem, st>>>(tq, tk, tv, bias, g, sts, dl,
-                                                       static_cast<T*>(dq), d, scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  smem = dkdv_smem<T>();
-  if ((e = allow_smem(xfm_attn_bwd_dkdv_kernel<T>, smem)) != cudaSuccess) return (int)e;
   dim3 g2((unsigned)((d.Nk + KT - 1) / KT), (unsigned)d.H, (unsigned)d.B);
-  xfm_attn_bwd_dkdv_kernel<T><<<g2, THREADS, smem, st>>>(
-      tq, tk, tv, bias, g, sts, dl, static_cast<T*>(dk), static_cast<T*>(dv), d, scale);
+
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = (size_t)6 * MT * LDT * sizeof(bf16);
+    if ((e = allow_smem(xfm_attn_bwd_dq_mma_kernel, smem)) != cudaSuccess) return (int)e;
+    xfm_attn_bwd_dq_mma_kernel<<<g1, MMA_THREADS, smem, st>>>(
+        tq, tk, tv, bias, static_cast<const bf16*>(out), g, sts, dl, static_cast<bf16*>(dq), d,
+        scale);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    if ((e = allow_smem(xfm_attn_bwd_dkdv_mma_kernel, smem)) != cudaSuccess) return (int)e;
+    xfm_attn_bwd_dkdv_mma_kernel<<<g2, MMA_THREADS, smem, st>>>(
+        tq, tk, tv, bias, g, sts, dl, static_cast<bf16*>(dk), static_cast<bf16*>(dv), d,
+        scale);
+  } else {
+    size_t smem = dq_smem<T>();
+    if ((e = allow_smem(xfm_attn_bwd_dq_kernel<T>, smem)) != cudaSuccess) return (int)e;
+    xfm_attn_bwd_dq_kernel<T><<<g1, THREADS, smem, st>>>(tq, tk, tv, bias, g, sts, dl,
+                                                         static_cast<T*>(dq), d, scale);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    smem = dkdv_smem<T>();
+    if ((e = allow_smem(xfm_attn_bwd_dkdv_kernel<T>, smem)) != cudaSuccess) return (int)e;
+    xfm_attn_bwd_dkdv_kernel<T><<<g2, THREADS, smem, st>>>(
+        tq, tk, tv, bias, g, sts, dl, static_cast<T*>(dk), static_cast<T*>(dv), d, scale);
+  }
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if (!db) return 0;
 
-  smem = db_smem<T>();
+  const size_t smem = db_smem<T>();
   if ((e = allow_smem(xfm_attn_bwd_db_kernel<T>, smem)) != cudaSuccess) return (int)e;
   dim3 g3((unsigned)((d.Nk + KT - 1) / KT),
           (unsigned)(d.bias_q > 1 ? (d.Nq + QT - 1) / QT : 1),
@@ -868,11 +1135,13 @@ extern "C" int xfm_flash_attention_fwd(const void* q, const void* k, const void*
                  : launch_fwd<float>(q, k, v, bb, out, stats, d, scale, st);
 }
 
-// dq like q, dk and dv like k, contiguous; delta f32 [B*H*Nq] (scratch);
-// db f32 [bias_b, bias_h, bias_q, Nk] contiguous, or null for no bias
-// gradient.
+// out: the forward's output [B, Nq, H, 64] contiguous (the bf16 kernels take
+// delta = rowsum(dout (.) out) from it; the f32 ones sum p * dp and do not
+// read it). dq like q, dk and dv like k, contiguous; delta f32 [B*H*Nq]
+// (scratch); db f32 [bias_b, bias_h, bias_q, Nk] contiguous, or null for no
+// bias gradient.
 extern "C" int xfm_flash_attention_bwd(const void* q, const void* k, const void* v,
-                                       const void* bias, const void* dout,
+                                       const void* bias, const void* out, const void* dout,
                                        const void* stats, void* delta, void* dq, void* dk,
                                        void* dv, void* db, const long long* dims,
                                        int bias_bf16, float scale, int is_bf16,
@@ -880,8 +1149,8 @@ extern "C" int xfm_flash_attention_bwd(const void* q, const void* k, const void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims d = read_dims(dims);
   const Bias bb{bias, bias_bf16};
-  return is_bf16 ? launch_bwd<bf16>(q, k, v, bb, dout, stats, delta, dq, dk, dv, db, d,
+  return is_bf16 ? launch_bwd<bf16>(q, k, v, bb, out, dout, stats, delta, dq, dk, dv, db, d,
                                     scale, st)
-                 : launch_bwd<float>(q, k, v, bb, dout, stats, delta, dq, dk, dv, db, d,
+                 : launch_bwd<float>(q, k, v, bb, out, dout, stats, delta, dq, dk, dv, db, d,
                                      scale, st);
 }

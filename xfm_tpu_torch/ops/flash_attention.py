@@ -417,15 +417,22 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        bias, stats: torch.Tensor, dout: torch.Tensor,
-                        scale: float, bias_grad: bool = True):
-    """Kernel backward → (dq like q, dk like k, dv like v, db f32 of the
-    bias's own shape, or None without a bias or with `bias_grad` False:
-    then the db kernel is not launched and nothing is allocated for it)."""
+                        bias, out: torch.Tensor, stats: torch.Tensor,
+                        dout: torch.Tensor, scale: float,
+                        bias_grad: bool = True):
+    """Kernel backward from the forward's output `out` and row statistics
+    (the bf16 kernels take delta = rowsum(dout ⊙ out) from `out`) →
+    (dq like q, dk like k, dv like v, db f32 of the bias's own shape, or
+    None without a bias or with `bias_grad` False: then the db kernel is not
+    launched and nothing is allocated for it)."""
     B, Nq, Nk, H = _check_flash_inputs(q, k, v, bias)
-    if dout.shape != q.shape or dout.device != q.device:
-        raise ValueError(f"dout must be [B, Nq, H, D] beside q, got "
-                         f"{tuple(dout.shape)} on {dout.device}")
+    for name, t in (("dout", dout), ("out", out)):
+        if t.shape != q.shape or t.device != q.device:
+            raise ValueError(f"{name} must be [B, Nq, H, D] beside q, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    if out.dtype != q.dtype or not out.is_contiguous():
+        raise ValueError("out must be the forward's output: contiguous, in "
+                         "q's dtype")
     if stats.shape != (2, B * H * Nq):
         raise ValueError(f"stats must be [2, B*H*Nq], got "
                          f"{tuple(stats.shape)}")
@@ -441,9 +448,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = stream_of(q)
     rc = lib.xfm_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        bias.data_ptr() if bias is not None else None, dout.data_ptr(),
-        stats.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), db.data_ptr() if db is not None else None,
+        bias.data_ptr() if bias is not None else None, out.data_ptr(),
+        dout.data_ptr(), stats.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        db.data_ptr() if db is not None else None,
         _flash_dims(q, k, v, dout, bias_fields),
         int(bias is not None and bias.dtype == torch.bfloat16), float(scale),
         int(q.dtype == torch.bfloat16), stream)
@@ -456,15 +464,17 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
         out, stats = flash_attention_fwd(q, k, v, bias, scale)
-        ctx.save_for_backward(q, k, v, bias, stats)
+        # the output is saved, not recomputed: the caller's out-projection
+        # keeps the same storage alive
+        ctx.save_for_backward(q, k, v, bias, out, stats)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, bias, stats = ctx.saved_tensors
+        q, k, v, bias, out, stats = ctx.saved_tensors
         # a bias that needs no gradient (a padding mask) costs no db kernel
-        dq, dk, dv, db = flash_attention_bwd(q, k, v, bias, stats, dout,
+        dq, dk, dv, db = flash_attention_bwd(q, k, v, bias, out, stats, dout,
                                              ctx.scale,
                                              ctx.needs_input_grad[3])
         # db leaves in the bias's dtype, as the JAX package's `_bwd` casts it

@@ -44,7 +44,7 @@ _LIBRARIES = {
     },
     "flash_attention": {
         "xfm_flash_attention_fwd": [_VP] * 6 + [_DP, _CI, _CF, _CI, _VP],
-        "xfm_flash_attention_bwd": [_VP] * 11 + [_DP, _CI, _CF, _CI, _VP],
+        "xfm_flash_attention_bwd": [_VP] * 12 + [_DP, _CI, _CF, _CI, _VP],
     },
     "fused_ln": {
         "xfm_fused_ln_fwd": [_VP] * 6 + [_CI] * 2 + [_CF, _CI, _VP],
