@@ -309,6 +309,21 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The mma kernels' exponentials: p = 2^((v - m) log2(e) - log2(l)) =
+// exp(v - m) / l as one FADD, one FFMA and one ex2.approx (within 2 ulp of
+// f32; -inf gives 0), where the plain version and the f32 kernels take expf
+// and an IEEE division. v - m is formed first, so a fully masked row (v and
+// m both about -1e9) loses nothing to the size of m.
+constexpr float LOG2E = 1.4426950408889634f;
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float prob2(float v, float m, float neg_log2_l) {
+  return exp2_approx(fmaf(v - m, LOG2E, neg_log2_l));
+}
+
 // two f32 rounded to a bf16 pair, `lo` in the low half (the lower column)
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -364,6 +379,27 @@ __device__ __forceinline__ void zero(float (&c)[8][4]) {
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+}
+
+// A warp's S tile (its 16 q rows x keys k0 .. k0 + 63) plus the bias rows
+// `brow` of the lane's two rows (null: none), keys at or past Nk set to
+// -inf; the bias is read only where it exists, the mask only on the last
+// tile.
+__device__ __forceinline__ void add_bias_and_mask(float (&s)[8][4], const Bias& bias,
+                                                  const void* const (&brow)[2], int k0,
+                                                  int Nk, int t) {
+  const bool tail = k0 + KT > Nk;
+  if (!bias.base && !tail) return;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int key = k0 + nt * 8 + 2 * t + (c & 1);
+      if (key >= Nk)
+        s[nt][c] = -INFINITY;
+      else if (bias.base)
+        s[nt][c] += bias.at(brow[c / 2], key);
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -425,15 +461,7 @@ xfm_attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[8][4];
     zero(s);
     warp_tile_mma<false>(s, qf, Kt);
-    if (bias.base || k0 + KT > Nk) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int key = k0 + nt * 8 + 2 * t + (c & 1);
-          s[nt][c] = key < Nk ? s[nt][c] + bias.at(brow[c / 2], key) : -INFINITY;
-        }
-    }
+    add_bias_and_mask(s, bias, brow, k0, Nk, t);
     // online softmax: the new row max over the quad that shares the row,
     // the old sums and outputs rescaled (every tile holds a key < Nk, so
     // the max is finite and exp(-inf - max) = 0 starts the sums)
@@ -447,7 +475,7 @@ xfm_attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float alpha = expf(m[i] - mx[i]);
+      const float alpha = prob2(m[i], mx[i], 0.f);
       m[i] = mx[i];
       l[i] *= alpha;
 #pragma unroll
@@ -461,7 +489,7 @@ xfm_attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        s[nt][c] = expf(s[nt][c] - m[c / 2]);
+        s[nt][c] = prob2(s[nt][c], m[c / 2], 0.f);
         l[c / 2] += s[nt][c];
       }
     unsigned pf[4][4];
@@ -560,7 +588,7 @@ xfm_attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   }
   int row[2];
   const void* brow[2];
-  float m[2], l[2], dl[2];
+  float m[2], nl[2], dl[2];  // row max, -log2(row sum), delta
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = warp * 16 + g + 8 * i;
@@ -568,7 +596,7 @@ xfm_attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     const bool in = row[i] < Nq;
     brow[i] = in ? bias.row(d, b, h, row[i]) : nullptr;
     m[i] = in ? stats[row0 + row[i]] : 0.f;  // rows past Nq: dO = 0, so ds = 0
-    l[i] = in ? stats[BHN + row0 + row[i]] : 1.f;
+    nl[i] = in ? -log2f(stats[BHN + row0 + row[i]]) : 0.f;
     dl[i] = row_delta[r];
   }
 
@@ -588,14 +616,13 @@ xfm_attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     zero(dp);
     warp_tile_mma<false>(s, qf, Kt);   // S = (q*scale) K^T
     warp_tile_mma<false>(dp, gf, Vt);  // dP = dO V^T
+    add_bias_and_mask(s, bias, brow, k0, Nk, t);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int key = k0 + nt * 8 + 2 * t + (c & 1), i = c / 2;
-        const float p =
-            key < Nk ? prob(s[nt][c], bias.at(brow[i], key), m[i], l[i]) : 0.f;
-        s[nt][c] = p * (dp[nt][c] - dl[i]);  // ds
+        const int i = c / 2;
+        s[nt][c] = prob2(s[nt][c], m[i], nl[i]) * (dp[nt][c] - dl[i]);  // ds
       }
     unsigned dsf[4][4];
     acc_to_a(dsf, s);
@@ -652,19 +679,19 @@ xfm_attn_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   bf16* Vs = Ks + KT * LDT;
   bf16* Qs = Vs + KT * LDT;      // two q tiles (scaled)
   bf16* Gs = Qs + 2 * MT * LDT;  // two dO tiles
-  __shared__ float sm[2][MT], sl[2][MT], sd[2][MT];
+  __shared__ __align__(16) float sm[2][MT], snl[2][MT], sd[2][MT];
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int g = lane / 4, t = lane % 4;
   const bf16* qb = q + (size_t)b * d.q_sb + h * D;
   const bf16* gb = dout + (size_t)b * d.g_sb + h * D;
-  // the row statistics of q tile `jt` into buffer `buf`; rows past Nq get
-  // m = +inf, so their p = exp(s - inf) = 0
+  // the row statistics of q tile `jt` into buffer `buf`: max, -log2(sum),
+  // delta; rows past Nq get m = +inf, so their p = 2^-inf = 0
   auto stats_into = [&](int buf, int jt) {
     if (threadIdx.x < MT) {
       const int qq = jt * MT + threadIdx.x;
       const bool in = qq < Nq;
       sm[buf][threadIdx.x] = in ? stats[row0 + qq] : INFINITY;
-      sl[buf][threadIdx.x] = in ? stats[BHN + row0 + qq] : 1.f;
+      snl[buf][threadIdx.x] = in ? -log2f(stats[BHN + row0 + qq]) : 0.f;
       sd[buf][threadIdx.x] = in ? delta[row0 + qq] : 0.f;
     }
   };
@@ -706,14 +733,18 @@ xfm_attn_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     zero(st);
     warp_tile_mma<false>(st, kf, Qt);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = nt * 8 + 2 * t;  // and col + 1
+      const float2 cm = *reinterpret_cast<const float2*>(&sm[cur][col]);
+      const float2 cl = *reinterpret_cast<const float2*>(&snl[cur][col]);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int col = nt * 8 + 2 * t + (c & 1), qq = q0 + col, i = c / 2;
-        float bv = 0.f;
-        if (bias.base && qq < Nq && key[i] < Nk) bv = bias.at(bias.row(d, b, h, qq), key[i]);
-        st[nt][c] = prob(st[nt][c], bv, sm[cur][col], sl[cur][col]);  // P^T
+        const int qq = q0 + col + (c & 1), i = c / 2;
+        float v = st[nt][c];
+        if (bias.base && qq < Nq && key[i] < Nk) v += bias.at(bias.row(d, b, h, qq), key[i]);
+        st[nt][c] = prob2(v, c & 1 ? cm.y : cm.x, c & 1 ? cl.y : cl.x);  // P^T
       }
+    }
     unsigned af[4][4];
     acc_to_a(af, st);
     warp_tile_mma<true>(dva, af, Gt);  // dV += P^T dO
@@ -721,10 +752,11 @@ xfm_attn_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     zero(dpt);
     warp_tile_mma<false>(dpt, vf, Gt);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 cd = *reinterpret_cast<const float2*>(&sd[cur][nt * 8 + 2 * t]);
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        st[nt][c] *= dpt[nt][c] - sd[cur][nt * 8 + 2 * t + (c & 1)];  // dS^T
+      for (int c = 0; c < 4; ++c) st[nt][c] *= dpt[nt][c] - (c & 1 ? cd.y : cd.x);  // dS^T
+    }
     acc_to_a(af, st);
     warp_tile_mma<true>(dka, af, Qt);  // dK += dS^T (q*scale)
     if (j + 1 < nqt) {
