@@ -19,66 +19,74 @@
 //
 // Rounding points are the TPU kernels': q is scaled in f32 and rounded to
 // the input dtype before QK^T; scores, the bias (upcast exactly) and the
-// softmax in f32; keys past Nk are excluded exactly (p = 0); the normalized P
-// is rounded to the input dtype before PV and dV; dp = dO V^T;
-// ds = p * (dp - sum(p * dp)) in f32 -- the row sum of P (.) dP, not FA-2's
-// rowsum(dO (.) O), so no rounding of O enters it -- rounded to the input
-// dtype for dq = ds k * scale and dk = ds^T (q*scale, rounded); db is the f32
-// ds, unrounded, summed to the bias's own shape. A row whose keys are all
-// masked (bias -1e9) gets the uniform softmax over its Nk keys, as the plain
-// version does: the row max starts at -inf and every key < Nk is finite.
-// One exception, the bf16 forward: it rounds the unnormalized exp(S - m) of
-// each key tile to bf16 for PV and divides the f32 sums by the row sum at
-// the end, where the TPU kernel rounds the normalized P (:83-86).
-// tests/test_torch_long_attention.py emulates this rounding and holds it to
-// the card's bf16 gate (2^-6 max|ref|) against the Pallas kernel.
+// softmax in f32; keys past Nk are excluded exactly (p = 0); P is rounded to
+// the input dtype before PV and dV; dp = dO V^T; ds = p * (dp - delta) in
+// f32, rounded to the input dtype for dq = ds k * scale and dk = ds^T
+// (q*scale, rounded); db is the f32 ds, unrounded, summed to the bias's own
+// shape. A row whose keys are all masked (bias -1e9) gets the uniform softmax
+// over its Nk keys, as the plain version does: the row max starts at -inf and
+// every key < Nk is finite. Two points move in the bf16 kernels, and
+// tests/test_torch_long_attention.py emulates both and holds them to the
+// card's bf16 gate (2^-6 max|ref|) against the Pallas kernel:
+//   - the forward rounds the unnormalized exp(S - m) of each key tile to
+//     bf16 for PV and divides the f32 sums by the row sum at the end, where
+//     the TPU kernel rounds the normalized P (:83-86);
+//   - delta = rowsum(dO (.) O), FA-2's, from the rounded output the forward
+//     saved, where the TPU kernel and the f32 kernels here sum P (.) dP; it
+//     takes one row pass over [Nq, D] instead of a pass over the keys.
 //
 // Design. The TPU kernels keep the whole [Nk, D] K/V and an [Nq, Nk] f32
 // score block of one (b, h) in VMEM and carry db across a sequential grid. A
 // Hopper block has 227 KB of shared memory (one [64, 901] f32 score block is
-// 231 KB) and blocks run in parallel in no order:
-//   fwd   bf16: one block of 4 warps per (q tile of 64, h, b), each warp 16
-//         q rows held as mma.sync A fragments (q * scale rounded once); one
-//         pass over 64-key tiles, K and V double-buffered by cp.async, S =
-//         QK^T in f32 registers, an online softmax (row max and sum over the
-//         lane quad that shares a row), exp(S - m) rounded to bf16 in the
-//         accumulator layout and reused as the A operand of PV with V
-//         through ldmatrix.trans; S, P and O never reach shared memory.
-//         f32: two passes over 64-key tiles through WMMA-shaped shared
-//         tiles on the CUDA cores, the first for each row's max and sum, the
-//         second for the normalized P and PV. Both save the row max and sum
-//         [2, B*H*Nq] for the backward.
-//   bwd   three kernels on the current stream, the third only when the bias
-//         needs its gradient:
-//         dq    one block per (q tile of 64, h, b): a pass over the key
-//               tiles for delta = sum(p * dp), which it saves [B*H*Nq], and
-//               a second pass for ds and dq = ds k;
-//         dkdv  one block per (k tile of 64, h, b), looping over q tiles of
-//               32 as `_attn_bwd_loopq_kernel` loops its q blocks, so dk and
-//               dv are written once: recomputes P from S and the saved row
-//               statistics, dP = dO V^T, ds from the saved delta,
-//               dv += P^T dO, dk += ds^T q;
-//         db    one block per (k tile, q tile or all of q, cell of the
-//               bias): loops over the (b, h) that share this bias cell,
-//               b = 0, 1, ... outermost, then h, then the q tiles in order,
-//               recomputes S, P, dP and ds and sums ds in registers; a bias
-//               with one q row sums its columns over the block's rows in a
-//               fixed order. Each db element is written once by one block:
-//               no atomics and no [B, H, Nq, Nk] scratch, so db is the same
-//               in every run. Without a bias, or with one that needs no
-//               gradient (a padding mask), it is not launched.
-// S is recomputed from the same tiles with the same per-element sum order in
-// every backward kernel, so all of them see bit-identical probabilities.
+// 231 KB) and blocks run in parallel in no order. bf16 runs on the tensor
+// cores' warp-level path: blocks of 4 warps, each warp owning 16 rows (q
+// rows, or keys in dk/dv) whose fixed operand it holds as mma.sync A
+// fragments; the streamed tiles double-buffered in shared memory by
+// cp.async (rows padded to 144 bytes, so ldmatrix is free of bank
+// conflicts); every product mma.sync.m16n8k16 with f32 accumulators fed by
+// ldmatrix (.trans where the tile is the [k][n] operand); each score tile
+// (S, P, dP, dS) stays in registers and is rounded to bf16 in the
+// accumulator layout to become the A operand of the next product. f32 runs
+// the older kernels on the CUDA cores through shared tiles shaped for WMMA.
+//   fwd   one block per (q tile of 64, h, b). bf16: one pass over 64-key
+//         tiles, S = QK^T, an online softmax (row max and sum over the lane
+//         quad that shares a row, the O sums rescaled), O += round(exp(S -
+//         m)) V. f32: a pass for each row's max and sum, a second for the
+//         normalized P and PV. Both save (m, l) [2, B*H*Nq].
+//   bwd   bf16, two kernels on the current stream, each output written
+//         once (no atomics: the backward gives the same bits every run):
+//         dq    one block per (q tile, h, b): delta for its rows from
+//               (dO, O) while its first tiles land, saved [B*H*Nq]; then one
+//               pass over the key tiles: S, dP = dO V^T, P from (m, l),
+//               dS = P (dP - delta), dQ += dS K;
+//         dkdv  one block per (k tile, h, b), K and V in registers, looping
+//               over the q tiles in order (as `_attn_bwd_loopq_kernel` loops
+//               its q blocks) with Q, dO and their rows' (m, l, delta)
+//               double-buffered: S^T = K Q^T, P^T, dV += P^T dO,
+//               dP^T = V dO^T, dS^T, dK += dS^T (q*scale).
+//         That is seven tile products where five would do (S and dP are
+//         formed in both kernels): the price of no atomics on dq.
+//         f32: the same two kernels' older form (dq makes a first pass for
+//         delta = sum(p * dp)).
+//         db    (both dtypes) one block per (k tile, q tile or all of q,
+//               cell of the bias): loops over the (b, h) that share this
+//               bias cell, b = 0, 1, ... outermost, then h, then the q tiles
+//               in order, recomputes S, P, dP and ds and sums ds in
+//               registers; a bias with one q row sums its columns over the
+//               block's rows in a fixed order. Each db element is written
+//               once by one block: no atomics and no [B, H, Nq, Nk] scratch.
+//               Without a bias, or with one that needs no gradient (a
+//               padding mask), it is not launched.
 //
 // What bounds it. At the CLIP-ViT-B/16 shape (B = 32, N = 577, H = 12,
 // bf16, no bias) the forward must move 113.4 MB (q, k, v in; out) and do
 // 32.7 GFLOP: 0.034 ms by bytes at 3.35 TB/s; the backward 198.5 MB (q, k, v,
 // dout in; dq, dk, dv out) and 81.8 GFLOP: 0.083 ms by operations at
-// 989 TFLOP/s. The bf16 forward does one QK^T and one PV per tile at the
-// mma.sync rate, which reaches about a quarter of wgmma's, with 3,840 blocks
-// of 4 warps at the main shape; the backward does S three times and dP twice
-// (9 tile products where 5 would do) through WMMA tiles staged in shared
-// memory, at one or two blocks per SM.
+// 989 TFLOP/s. The tile products are bounded by the mma.sync rate, below
+// wgmma's, at 2 or 3 blocks of 4 warps an SM (163 to 228 registers a
+// thread) over 3,840 blocks; the 64-row tiles pad 577 to 640 (23 % more
+// products), and the backward's seven products where five would do cost
+// 40 % more. wgmma fed by TMA, with a producer warp, is the next step.
 #include "attention_tiles.cuh"
 
 #include <cstring>
