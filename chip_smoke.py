@@ -22,10 +22,13 @@ Phases, each of which must pass or the script exits non-zero:
      12 backward per step, K2 never;
   5. K2 parity: forward and backward (out, dqkv, dcr, dcls) against the
      plain version at the retrieval shape (qkv [32, 577, 2304], window
-     24 x 24), at 480 px (B = 4, N = 901) and at a non-square window, each
-     in bf16 and f32, with the times at the retrieval shape, the bound and
-     SDPA with the bias materialized as a [1, H, N, N] mask as a yardstick
-     (the mask's construction is not timed);
+     24 x 24), at 480 px (B = 4, N = 901), at a non-square window and at
+     a window shorter than one tile (3 x 5, N = 16), each in bf16 and f32;
+     the bf16 forward and backward bit-equal over two runs at the main
+     shape; ptxas's registers and spills of each K2 kernel; the times at
+     the retrieval shape, the bound and SDPA with the bias materialized as
+     a [1, H, N, N] mask as a yardstick (the mask's construction is not
+     timed);
   6. retrieval slice parity: the retrieval losses and gradients at full
      width, depth 2, 384 px, B = 4, f32, on the CPU and on the card;
   7. full-width retrieval: the XFM-base retrieval fine-tune step at 384 px,
@@ -283,8 +286,8 @@ def k2_parity(B, window, H, dtype, seed=0) -> dict:
     qkv, cr, cls3, dout = make_k2_inputs(B, window, H, dtype, seed)
     scale = 64 ** -0.5
     out, stats = fa.relpos_attention_fwd(qkv, cr, cls3, window, scale, H)
-    dqkv, dcr, dcls = fa.relpos_attention_bwd(qkv, cr, cls3, stats, dout,
-                                              window, scale, H)
+    dqkv, dcr, dcls = fa.relpos_attention_bwd(qkv, cr, cls3, out, stats,
+                                              dout, window, scale, H)
     qr, crr, clr = (x.clone().requires_grad_(True) for x in (qkv, cr, cls3))
     ref = fa.relpos_attention_reference(qr, crr, clr, window, scale, H)
     ref.backward(dout)
@@ -293,6 +296,52 @@ def k2_parity(B, window, H, dtype, seed=0) -> dict:
                     f"{str(dtype)[6:]}",
                     [("out", out, ref), ("dqkv", dqkv, qr.grad),
                      ("dcr", dcr, crr.grad), ("dcls", dcls, clr.grad)], dtype)
+
+
+def k2_deterministic(B, window, H, dtype, seed=4) -> None:
+    """K2's forward and backward (dqkv, dcr, dcls) twice on the same inputs
+    → the same bits, or raise."""
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    qkv, cr, cls3, dout = make_k2_inputs(B, window, H, dtype, seed)
+    scale = 64 ** -0.5
+    runs = []
+    for _ in range(2):
+        out, stats = fa.relpos_attention_fwd(qkv, cr, cls3, window, scale, H)
+        runs.append((out,) + fa.relpos_attention_bwd(
+            qkv, cr, cls3, out, stats, dout, window, scale, H))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"  K2 B={B} window={window} {str(dtype)[6:]}: out, dqkv, dcr, dcls "
+          f"bit-equal over two runs: {same}")
+    if not same:
+        raise AssertionError("K2's backward is not deterministic")
+
+
+def ptxas_kernels(report: str) -> list:
+    """nvcc's -Xptxas -v report → [(kernel, registers, spill line)], one
+    entry a compiled kernel, its name demangled where c++filt is on PATH."""
+    import re
+    import shutil
+
+    out, name, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    if out and shutil.which("c++filt"):
+        res = subprocess.run(["c++filt"], input="\n".join(n for n, _, _ in out),
+                             capture_output=True, text=True, timeout=60)
+        names = res.stdout.splitlines()
+        if len(names) == len(out):
+            out = [(n, r, s) for n, (_, r, s) in zip(names, out)]
+    return out
 
 
 def k2_times(B, window, H, dtype) -> dict:
@@ -310,7 +359,7 @@ def k2_times(B, window, H, dtype) -> dict:
     t["fwd_ms"] = cuda_ms(
         lambda: fa.relpos_attention_fwd(qkv, cr, cls3, window, scale, H))
     t["bwd_ms"] = cuda_ms(lambda: fa.relpos_attention_bwd(
-        qkv, cr, cls3, stats, dout, window, scale, H))
+        qkv, cr, cls3, out, stats, dout, window, scale, H))
     with torch.no_grad():
         t["plain_fwd_ms"] = cuda_ms(lambda: fa.relpos_attention_reference(
             qkv, cr, cls3, window, scale, H), 5)
@@ -866,11 +915,19 @@ def main() -> int:
     k2w = k2_work(B=32, N=577, H=12, D=64, window=(24, 24),
                   dtype=torch.bfloat16)
     print("phase 5: K2 parity and times")
+    k2_ptxas = ptxas_kernels(kernels.build_info["relpos_attention"].get(
+        "ptxas", ""))
+    if not k2_ptxas:
+        print("  K2 ptxas: none (the library was built before this run)")
+    for kname, regs, spill in k2_ptxas:
+        print(f"  K2 ptxas: {regs} registers, {spill}: {kname[:150]}")
     k2_err = k2_parity(**k2_shape, dtype=torch.bfloat16)
     k2_parity(**k2_shape, dtype=torch.float32, seed=1)
     for dtype in (torch.bfloat16, torch.float32):
         k2_parity(B=4, window=(30, 30), H=12, dtype=dtype, seed=2)
         k2_parity(B=3, window=(7, 11), H=4, dtype=dtype, seed=3)
+        k2_parity(B=4, window=(3, 5), H=12, dtype=dtype, seed=5)
+    k2_deterministic(**k2_shape, dtype=torch.bfloat16)
     k2_t = k2_times(**k2_shape, dtype=torch.bfloat16)
     print("  K2 times (ms): " + json.dumps(k2_t))
     print("  K2 bound (k2_work): " + json.dumps(k2w))

@@ -61,27 +61,36 @@ def _relpos_inputs(B, window, H, dtype, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,window,H", [(3, (3, 5), 4), (2, (7, 11), 2),
-                                        (2, (24, 24), 12), (1, (30, 30), 4)])
+@pytest.mark.parametrize("B,window,H", [
+    (3, (3, 5), 4), (2, (7, 11), 2), (2, (24, 24), 12), (1, (30, 30), 4),
+    (2, (30, 30), 12),   # 480 px: N = 901, the model's heads
+    (4, (3, 5), 12),     # N = 16, shorter than one tile
+    (2, (20, 30), 2),    # N = 601: ww > wh, tails on both sides
+])
 def test_relpos_attention_kernel_matches_plain(dtype, B, window, H):
-    """K2 forward and backward (out, dqkv, dcr, dcls) against the plain
-    version, on windows square and not, at 384 and 480 px among them."""
+    """K2 forward and backward against the plain version, on windows square
+    and not, at 384 and 480 px among them: out, dq, dk and dv (read out of
+    dqkv, where the bf16 kernels write them in place) and the table
+    gradients dcr and dcls."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from xfm_tpu_torch.ops import flash_attention as fa
 
     qkv, cr, cls3, g = _relpos_inputs(B, window, H, dtype, seed=7)
     out, stats = fa.relpos_attention_fwd(qkv, cr, cls3, window, 0.125, H)
-    dqkv, dcr, dcls = fa.relpos_attention_bwd(qkv, cr, cls3, stats, g,
+    dqkv, dcr, dcls = fa.relpos_attention_bwd(qkv, cr, cls3, out, stats, g,
                                               window, 0.125, H)
     rq, rc, rl = (x.clone().requires_grad_(True) for x in (qkv, cr, cls3))
     ref = fa.relpos_attention_reference(rq, rc, rl, window, 0.125, H)
     ref.backward(g)
     # as for K1: 4 bf16 ulps at the largest value, or the order of f32 sums
     tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
-    for got, want in ((out, ref), (dqkv, rq.grad), (dcr, rc.grad),
-                      (dcls, rl.grad)):
+    pairs = [(out, ref), (dqkv, rq.grad)]
+    pairs += list(zip(dqkv.split(H * 64, dim=-1), rq.grad.split(H * 64,
+                                                                dim=-1)))
+    for got, want in pairs + [(dcr, rc.grad), (dcls, rl.grad)]:
         want = want.float()
+        assert got.shape == want.shape and torch.isfinite(got).all()
         assert (got.float() - want).abs().max() <= tol * want.abs().max()
 
 
@@ -94,12 +103,109 @@ def test_relpos_backward_is_deterministic():
     from xfm_tpu_torch.ops import flash_attention as fa
 
     qkv, cr, cls3, g = _relpos_inputs(4, (24, 24), 12, torch.bfloat16, 8)
-    _, stats = fa.relpos_attention_fwd(qkv, cr, cls3, (24, 24), 0.125, 12)
-    first = fa.relpos_attention_bwd(qkv, cr, cls3, stats, g, (24, 24), 0.125,
-                                    12)
-    again = fa.relpos_attention_bwd(qkv, cr, cls3, stats, g, (24, 24), 0.125,
-                                    12)
+    out, stats = fa.relpos_attention_fwd(qkv, cr, cls3, (24, 24), 0.125, 12)
+    first = fa.relpos_attention_bwd(qkv, cr, cls3, out, stats, g, (24, 24),
+                                    0.125, 12)
+    again = fa.relpos_attention_bwd(qkv, cr, cls3, out, stats, g, (24, 24),
+                                    0.125, 12)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_relpos_bf16_backward_is_deterministic_at_the_main_shape():
+    """The retrieval step's shape (B = 32, N = 577, H = 12): dqkv, dcr and
+    dcls are written once each, without atomics, in the same bits every
+    run; so is the forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    qkv, cr, cls3, g = _relpos_inputs(32, (24, 24), 12, torch.bfloat16, 10)
+    out, stats = fa.relpos_attention_fwd(qkv, cr, cls3, (24, 24), 0.125, 12)
+    again, _ = fa.relpos_attention_fwd(qkv, cr, cls3, (24, 24), 0.125, 12)
+    assert torch.equal(out, again)
+    first = fa.relpos_attention_bwd(qkv, cr, cls3, out, stats, g, (24, 24),
+                                    0.125, 12)
+    second = fa.relpos_attention_bwd(qkv, cr, cls3, out, stats, g, (24, 24),
+                                     0.125, 12)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_beit_attention_relpos_autograd_matches_plain(monkeypatch):
+    """Through `beit_attention_relpos` and autograd, as the retrieval step
+    calls it (bf16 qkv, the table f32 and its compact form rounded to
+    bf16): out, dqkv and the table gradient, carried back through
+    `compact_rel_pos`, against the plain version; one kernel backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import flash_attention as fa
+    from xfm_tpu_torch.ops.relpos import compact_rel_pos
+
+    wh, ww, H, B = 24, 24, 4, 2
+    r = np.random.RandomState(12)
+    qkv = torch.from_numpy(r.randn(B, wh * ww + 1, 3 * H * 64).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    table = torch.from_numpy((0.5 * r.randn(
+        (2 * wh - 1) * (2 * ww - 1) + 3, H)).astype(np.float32)).cuda()
+    g = torch.from_numpy(r.randn(B, wh * ww + 1, H * 64).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    calls = []
+    real_bwd = fa.relpos_attention_bwd
+
+    def spy(*args):
+        calls.append(args[0].shape)
+        return real_bwd(*args)
+
+    monkeypatch.setattr(fa, "relpos_attention_bwd", spy)
+
+    def plain(x, t):
+        cr, cls3 = compact_rel_pos(t, wh, ww)
+        cr = cr.to(torch.bfloat16).reshape(H, ww, (2 * wh - 1) * ww)
+        cls3 = cls3.to(torch.bfloat16).float()
+        return fa.relpos_attention_reference(x, cr, cls3, (wh, ww), 0.125, H)
+
+    runs = []
+    for fn in (lambda x, t: fa.beit_attention_relpos(
+            x, t, (wh, ww), 0.125, H, torch.bfloat16), plain):
+        x, t = qkv.clone().requires_grad_(True), table.clone().requires_grad_(
+            True)
+        out = fn(x, t)
+        out.backward(g)
+        runs.append((out, x.grad, t.grad))
+    assert calls == [qkv.shape]
+    for got, want in zip(*runs):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        want = want.float()
+        assert (got.float() - want).abs().max() <= 2.0 ** -6 * want.abs().max()
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void (anonymous namespace)::xfm_attn_fwd_mma_kernel<(anonymous "
+     "namespace)::RelposBias<__nv_bfloat16> >(__nv_bfloat16 const*, ...)",
+     "k2_relpos_attention"),
+    ("void (anonymous namespace)::xfm_attn_bwd_dkdv_mma_kernel<(anonymous "
+     "namespace)::RelposBias<__nv_bfloat16> >(...)", "k2_relpos_attention"),
+    ("(anonymous namespace)::relpos_bwd_db_mma_kernel(...)",
+     "k2_relpos_attention"),
+    ("(anonymous namespace)::relpos_fold_dcr_kernel(float const*, ...)",
+     "k2_relpos_attention"),
+    ("void (anonymous namespace)::xfm_attn_fwd_mma_kernel<(anonymous "
+     "namespace)::DenseBias>(__nv_bfloat16 const*, ...)",
+     "k3_flash_attention"),
+    ("void (anonymous namespace)::xfm_attn_bwd_dq_mma_kernel<(anonymous "
+     "namespace)::DenseBias>(...)", "k3_flash_attention"),
+    ("void (anonymous namespace)::xfm_attn_bwd_db_kernel<float>(...)",
+     "k3_flash_attention"),
+    ("void (anonymous namespace)::packed_bwd_dkdv_kernel<__nv_bfloat16>()",
+     "k1_packed_attention"),
+])
+def test_profile_groups_file_k2_and_k3_kernels_apart(name, group):
+    """`profile_step` files K2's instantiations of the shared attention
+    kernels under K2, not under K3's `xfm_attn_` (runs on the CPU)."""
+    from xfm_tpu_torch.profile_step import _group
+
+    assert _group(name) == group
 
 
 def _flash_inputs(B, Nq, Nk, H, dtype, bias_kind, seed):

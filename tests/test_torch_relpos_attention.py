@@ -1,7 +1,8 @@
 """K2 port: the plain PyTorch version of the in-kernel rel-pos BEiT attention
 against the JAX package's Pallas kernel (`beit_attention_relpos`,
-interpret mode) on the CPU, its compact table, the dispatch and the
-wrapper's refusals (the CUDA kernel's own test is tests/test_torch_cuda.py).
+interpret mode) on the CPU, its compact table, the dispatch, the wrapper's
+refusals and the card's bf16 rounding points, emulated (the CUDA kernel's
+own test is tests/test_torch_cuda.py).
 
 Tolerances: with an f32 table both sides compute in f32 with f32
 accumulation (JAX at matmul precision 'highest', set in conftest), so they
@@ -193,3 +194,82 @@ def test_beit_attention_dispatch_at_384px(dtype, monkeypatch):
         assert attn(x).shape == x.shape
     assert calls == [("K2", 577, (24, 24), dtype),
                      ("K1", 197, None, torch.float32)]
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernels' rounding points, emulated on the CPU
+
+
+def _jax_bf16(q, k, v, table, g, window):
+    """The JAX package's bf16 path: q, k, v and dout bf16, the compact table
+    rounded to bf16 → out, dq, dk, dv, dtable as f32 numpy."""
+    from xfm_tpu.ops.flash_attention import beit_attention_relpos
+
+    def loss(q, k, v, t):
+        o = beit_attention_relpos(q, k, v, t, window, D ** -0.5,
+                                  bias_dtype=jnp.bfloat16, interpret=True)
+        return jnp.sum(o.astype(jnp.float32) * g), o
+
+    args = [jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)]
+    (_, out), grads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3),
+                                         has_aux=True)(*args,
+                                                       jnp.asarray(table))
+    return [np.asarray(x, np.float32) for x in (out,) + grads]
+
+
+@pytest.mark.parametrize("window", [(24, 24), (30, 30), (7, 11), (3, 5)])
+def test_shifted_table_room_holds_the_staged_tiles(window):
+    """The bf16 kernels stage 64-key slices of the table from eight shifted
+    copies [H, 8, P] (csrc `RelposBias`): P is a multiple of 8 (16-byte
+    copies) and reaches element ww·L + 70 of a copy, the farthest the last
+    row's last key tile reads (`build_shifted` refuses less); f32 takes
+    none."""
+    from xfm_tpu_torch.ops.flash_attention import _shifted_table
+
+    wh, ww = window
+    n = ww * (2 * wh - 1) * ww
+    cr = torch.zeros(H, ww, (2 * wh - 1) * ww, dtype=torch.bfloat16)
+    crs, P = _shifted_table(cr, window)
+    assert crs.shape == (H, 8, P) and crs.dtype == torch.bfloat16
+    assert P % 8 == 0 and n + 71 <= P < n + 79
+    # the farthest element read: row code (ww−1)·L + (wh−1)·ww, the last key
+    # tile's k0 ≤ N − 1, then +7 of the copy's offset and +63 of the tile
+    last = (ww - 1) * (2 * wh - 1) * ww + (wh - 1) * ww + wh * ww + 70
+    assert last == n + 70 < P
+    assert _shifted_table(cr.float(), window) == (None, 0)
+
+
+@pytest.mark.parametrize("window,B", [((24, 24), 2), ((3, 5), 2)])
+def test_bf16_kernel_rounding_holds_the_card_gate(window, B):
+    """K2's bf16 kernels are K3's (tests/test_torch_long_attention.py
+    `_emulate_bf16_kernels`: exp(S − m) rounded per key tile for PV, delta
+    = rowsum(dO ⊙ O)) with the bias expanded from the compact table; the
+    table gradient is the f32 dS summed over the batch, carried back through
+    `expand_compact_rel_pos` and `compact_rel_pos` (the compact form in
+    bf16, as the card rounds dcr) by autograd. Out, dq, dk, dv and dtable
+    stay within the card's bf16 gate, 2⁻⁶·max|ref| (`chip_smoke.py` phase
+    5), of the JAX package's Pallas kernel in bf16 (interpret mode), at the
+    retrieval window (N = 577) and at one shorter than a tile (N = 16)."""
+    from test_torch_long_attention import _emulate_bf16_kernels
+    from xfm_tpu_torch.ops.relpos import (compact_rel_pos,
+                                          expand_compact_rel_pos)
+
+    wh, ww = window
+    N = wh * ww + 1
+    q, k, v, table, g = _inputs(window, B, seed=wh * 10 + ww + 5)
+    bf = torch.bfloat16
+    q, k, v = (torch.from_numpy(x).to(bf) for x in (q, k, v))
+    g = torch.from_numpy(g.reshape(B, N, H, D)).to(bf)
+    t = torch.from_numpy(table).requires_grad_(True)
+    cr, cls3 = compact_rel_pos(t, wh, ww)
+    cr = cr.to(bf).reshape(H, ww, (2 * wh - 1) * ww)
+    bias = expand_compact_rel_pos(cr.float(), cls3.to(bf).float(), window)
+    out, dq, dk, dv, dbias = _emulate_bf16_kernels(q, k, v, bias.detach(), g)
+    dtable, = torch.autograd.grad(bias, t, dbias)
+    want = _jax_bf16(q, k, v, table, g.float().numpy(), window)
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dtable"),
+                          (out, dq, dk, dv, dtable), want):
+        a = a.float().numpy()
+        assert a.shape == b.shape, name
+        err = np.abs(a - b).max()
+        assert err <= 2.0 ** -6 * np.abs(b).max(), (name, err)

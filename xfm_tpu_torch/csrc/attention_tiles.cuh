@@ -1,7 +1,9 @@
-// Tile helpers shared by the port's attention kernels (packed_attention.cu,
-// relpos_attention.cu): head dim 64, blocks of 256 threads, tiles staged
+// Tile helpers of the port's first attention kernels (packed_attention.cu;
+// the f32 kernels of relpos_attention.cu and flash_attention.cu, and the
+// latter's db kernel): head dim 64, blocks of 256 threads, tiles staged
 // through shared memory, products through WMMA (mma.sync) for bf16 and
-// CUDA-core FMA for f32.
+// CUDA-core FMA for f32. attention_mma.cuh takes D, LDT and the conversions
+// from here.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -8,10 +8,10 @@
 // `_relpos_scr_build` (:656), called at :838, and `_relpos_bwd_kernel`
 // (:717), called at :880. Computes, per (row b, head h),
 //     out = softmax((q*scale) k^T + bias_h) v
-// with q, k, v read straight out of qkv [B, N, 3*H*D] (layout [q | k | v],
+// with q, k, v read in place out of qkv [B, N, 3*H*D] (layout [q | k | v],
 // heads contiguous inside each section), N = wh*ww + 1 for any window
-// (wh, ww), D = 64, bf16 (tensor cores through WMMA, i.e. mma.sync) or f32
-// (CUDA-core FMA). The table has the dtype of qkv.
+// (wh, ww), D = 64, bf16 or f32; dq, dk and dv written in place into dqkv
+// [B, N, 3*H*D]. The table has the dtype of qkv.
 //
 // The compact bias (xfm_tpu/ops/relpos.py `compact_rel_pos`): cr [H, ww, L],
 // L = (2wh-1)*ww, with the row-delta axis reversed, and cls3 [H, 3] f32 =
@@ -19,102 +19,201 @@
 //     bias[0, 0] = cc, bias[0, 1:] = c2a, bias[1:, 0] = a2c,
 //     bias[1 + a*ww + ci, 1 + j] = cr[h, ci, (wh-1-a)*ww + j],  j < wh*ww,
 // so the bias row of query 1 + a*ww + ci is one contiguous slice of the
-// table: the kernels compute its offset once per row and read the bias
-// element beside each score, coalesced, from the table (54 KB per head in
-// bf16 at 384 px; it stays in L1/L2). The [H, N, N] bias never exists.
+// table, at an offset of either parity. The f32 kernels read the bias element
+// beside each score; the bf16 kernels stage each 64 x 64 bias tile in shared
+// memory by cp.async, like K and V, from eight copies of the table shifted
+// by 0 .. 7 elements (5.2 MB at 384 px, built by the call), so that every
+// 16-byte chunk of a row's slice is aligned in one of them, and read it by
+// ldmatrix straight into the score tile's layout. The [H, N, N] bias never
+// exists.
 //
 // Rounding points are the TPU kernel's: q is scaled in f32 and rounded to the
 // input dtype before QK^T; scores plus bias and the softmax in f32; keys past
-// N are masked out; the normalized P is rounded to the input dtype before PV
-// and dV; ds = p * (dp - sum(p * dp)) in f32, rounded to the input dtype for
-// dq and dk; dq is multiplied by the scale after its product; dk uses the
-// rounded, scaled q; dk and dv accumulate in f32 and are rounded once.
+// N are masked out; P is rounded to the input dtype before dV; ds = p * (dp -
+// delta) in f32, rounded to the input dtype for dq and dk; dq is multiplied
+// by the scale after its product; dk uses the rounded, scaled q; dk and dv
+// accumulate in f32 and are rounded once; the table gradient sums the
+// unrounded f32 ds. Two points move in the bf16 kernels, as they did in K3's
+// (tests/test_torch_relpos_attention.py emulates both and holds them to the
+// card's bf16 gate, 2^-6 max|ref|, against the Pallas kernel):
+//   - the forward rounds the unnormalized exp(S - m) of each key tile to
+//     bf16 for PV and divides the f32 sums by the row sum at the end, where
+//     the TPU kernel rounds the normalized P;
+//   - delta = rowsum(dO (.) O) from the rounded output the forward saved,
+//     where the TPU kernel sums P (.) dP.
 //
 // Design. The TPU kernel holds a whole [Nq, Nk] score block and the expanded
 // bias in VMEM and carries the ds batch sum in scratch across a sequential
 // grid. A Hopper block has 227 KB of shared memory (a [64, 960] f32 score
-// block at 480 px alone is 246 KB) and blocks run in parallel in no order:
-//   fwd   one block per (q tile of 64, h, b), two passes over 64-key tiles:
-//         the first finds the row max and sum (online), the second forms the
-//         normalized P, rounds it and accumulates PV; the row max and sum are
-//         saved [2, B*H*N] for the backward.
-//   bwd   four kernels on the current stream:
-//         dq    one block per (q tile of 64, h, b): a pass over key tiles for
-//               delta = sum(p * dp), a second pass for ds, which it writes as
-//               f32 rows to a scratch [B, H, N, Npad], and dq = ds k;
-//         dkdv  one block per (k tile of 64, h, b), looping over q tiles of
-//               32: recomputes P from S and the saved row statistics, reads
-//               ds back, dv += P^T dO, dk += ds^T q;
-//         fold  one thread per dcr element sums the scratch over b (b = 0, 1,
-//               ...) and then over the stripes a (a = 0, 1, ...), the TPU
-//               kernel's order; one block per dcls entry sums its row or
-//               column of the scratch in a fixed tree. No atomics, so dcr and
-//               dcls are the same from run to run.
-// S is recomputed from the same tiles in the same order in every kernel, so
-// all of them see bit-identical probabilities.
+// block at 480 px alone is 246 KB) and blocks run in parallel in no order.
+// bf16 runs the kernels of attention_mma.cuh, shared with K3 and
+// instantiated here with `RelposBias` (mma.sync tiles held in registers, fed
+// by cp.async; that header's note has the tile design):
+//   fwd   the shifted copies (`relpos_shift_kernel`), then one block per
+//         (q tile of 64, h, b): one pass over 64-key tiles with an online
+//         softmax, each key tile's bias tile landing with its K and V; the
+//         row max and sum saved [2, B*H*N].
+//   bwd   six kernels on the current stream, no atomics and no
+//         [B, H, N, Npad] tensor, so the same bits every run:
+//         shift the table's eight shifted copies;
+//         dq    one block per (q tile, h, b): delta from (dO, O), saved
+//               [B*H*N]; S, dP, dS, dq += dS K over the key tiles;
+//         dkdv  one block per (k tile, h, b) over the q tiles in order, each
+//               q tile's bias tile staged [q][key] and read transposed, its
+//               rows' (m, l, delta) prefetched into registers: dv += P^T dO,
+//               dk += dS^T (q*scale);
+//         db    one block per (k tile, q tile, h) loops over b = 0, 1, ...
+//               in order, the next b's Q, dO, K, V tiles (cp.async) and row
+//               statistics (registers) landing while this one computes; the
+//               block's bias tile, the same for every b, stays in registers;
+//               it recomputes S, P (the dq kernel's expression on the same
+//               tiles, bit for bit) and dP, forms ds = P (dP - delta) in f32
+//               and sums it in registers; db [H, N, N] f32 is written once;
+//         fold  dcr[h, ci, e] sums db over the stripes a = 0, 1, ... (the
+//               TPU kernel's order: over b first, then over a); one block
+//               per dcls entry sums its row or column of db in a fixed tree.
+//         f32 runs the first design's kernels on the CUDA cores through
+//         shared tiles shaped for WMMA: two passes in the forward; dq with a
+//         pass for delta = sum(p * dp) and one writing ds to an f32 scratch
+//         [B, H, N, Npad] that dkdv reads back and the fold sums over b and
+//         then over the stripes.
 //
 // What bounds it. At the main shape (B = 32, N = 577, H = 12, bf16) the
 // forward must move 114.1 MB and do 32.7 GFLOP: 0.034 ms by bytes at
 // 3.35 TB/s; the backward 200.5 MB and 81.8 GFLOP: 0.083 ms by operations at
-// 989 TFLOP/s. This first version is bounded by its own design, in order:
-// the ds scratch, B*H*N*Npad*4 = 567 MB written once (dq) and read twice
-// (dkdv, fold), 1.70 GB, holds the backward at 0.51 ms or more, 6x its
-// bound; the forward computes QK^T twice and the backward S three times
-// and dP twice (8 tile products where 5 would do); tiles are staged through
-// shared memory with no TMA or wgmma. A scratch-free backward (ds summed
-// over b inside a per-(h, q tile, k tile) block from the saved statistics)
-// is the next step.
-#include "attention_tiles.cuh"
+// 989 TFLOP/s. On an H100 (700 W) this design takes 0.25 / 1.19 ms, 7x / 14x
+// those bounds (the first design: 1.54 / 4.14). Its products run at the
+// mma.sync rate, below wgmma's, at 2 or 3 blocks of 4 warps an SM (166 to
+// 255 registers a thread); the 64-row tiles pad 577 to 640 (23 % more
+// products); the backward forms S and dP three times and dS^T once more:
+// nine tile products where five would do, the price of owning every output
+// without atomics (db alone is 0.36 ms); each score's bias costs a convert,
+// a select and an add. Read beside each score through L1 instead, as an
+// unaligned bf16 scalar (8 cache lines a warp instruction), the bias held
+// the same kernels at 0.54 / 2.22 ms.
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int KT = 64;          // key tile
-constexpr int QT = 64;          // q tile of the forward and the dq kernel
-constexpr int QT_DKV = 32;      // q tile of the dk/dv kernel
+constexpr int QT = 64;          // q tile of the f32 forward and dq kernel
+constexpr int QT_DKV = 32;      // q tile of the f32 dk/dv kernel
 constexpr int ROWS_PER_WARP = QT / WARPS;
 
-// Row code of a query row: its offset into the flattened table [H, ww, L]
-// (the element of key column 1), or one of these.
+// Row code of a query row: its offset into its head's table [ww, L] (the
+// element of key column 1), or one of these.
 constexpr int CLS_ROW = -1;     // row 0: the cls token's bias row
 constexpr int PAD_ROW = -2;     // past N: never stored
 
-struct ClsBias {
-  float c2a, a2c, cc;
+// The compact table of every head, as a bias source of attention_mma.cuh:
+// cr [H, ww, L] in T, cls3 [H, 3] f32. The f32 kernels read it beside each
+// score (`at`); the bf16 kernels stage each 64 x 64 bias tile in shared
+// memory by cp.async (`tile_async`) from `crs`, eight copies of each head's
+// table shifted by 0 .. 7 elements ([H, 8, P] bf16, `relpos_shift_kernel`):
+// a row's slice starts at any element, and in one of the copies it starts
+// on a 16-byte boundary.
+template <typename T>
+struct RelposBias {
+  const T* cr;
+  const float* cls3;
+  const bf16* crs;  // bf16 only
+  int N, wh, ww, P;
+
+  struct Head {
+    const T* cr;      // this head's [ww, L]
+    const bf16* crs;  // its eight shifted copies [8, P]
+    float c2a, a2c, cc;
+    int N, wh, ww, P;
+    using Row = int;
+    static constexpr bool TILE = true;  // the bf16 kernels stage it
+
+    __device__ constexpr bool present() const { return true; }
+    __device__ Row row(int q) const {
+      if (q >= N) return PAD_ROW;
+      if (q == 0) return CLS_ROW;
+      const int i = q - 1, a = i / ww, ci = i - a * ww;
+      return ci * (2 * wh - 1) * ww + (wh - 1 - a) * ww;
+    }
+    // bias(row, key) for a key < N; a row past N reads the cls row's
+    // values (finite; such rows are never stored)
+    __device__ float at(Row rc, int k) const {
+      if (rc < 0) return k == 0 ? cc : c2a;
+      return k == 0 ? a2c : to_f(cr[rc + k - 1]);
+    }
+    // The table under q rows q0 .. q0 + 63 and keys k0 .. k0 + 63 into a
+    // [64 x LDT] tile: column c of row rc is element rc + k0 + c - 1 of the
+    // head's table, i.e. element x = rc + k0 + c + 7 - s of copy s =
+    // (rc + k0 + 7) % 8 (copy s holds element p of the table at p + 8 - s).
+    // Cls and padded rows are zero-filled; `patch` gives their bias.
+    // `stage(q0)` keeps rc + 7 of the 4 rows this thread copies (-1 for
+    // none), one division each, for every key tile of those rows.
+    struct Stage {
+      int x[MT * KT / 8 / MMA_THREADS];
+    };
+    __device__ Stage stage(int q0) const {
+      Stage st;
+#pragma unroll
+      for (int j = 0; j < MT * KT / 8 / MMA_THREADS; ++j) {
+        const int rc = row(q0 + (threadIdx.x + j * MMA_THREADS) / (KT / 8));
+        st.x[j] = rc >= 0 ? rc + 7 : -1;
+      }
+      return st;
+    }
+    __device__ void tile_async(bf16* tile, const Stage& st, int k0) const {
+#pragma unroll
+      for (int j = 0; j < MT * KT / 8 / MMA_THREADS; ++j) {
+        const int i = threadIdx.x + j * MMA_THREADS;
+        const int r = i / (KT / 8), c = (i % (KT / 8)) * 8;
+        const int x = st.x[j] + k0, s = x & 7;
+        cp_async16(tile + r * LDT + c, st.x[j] >= 0 ? crs + (size_t)s * P + (x - s) + c : crs,
+                   st.x[j] >= 0);
+      }
+    }
+    // the bias at a staged value: the cls row (row0) holds c2a, key 0 a2c,
+    // their crossing cc
+    __device__ float patch(float staged, bool row0, bool key0) const {
+      if (key0) return row0 ? cc : a2c;
+      return row0 ? c2a : staged;
+    }
+  };
+
+  __device__ Head head(int h) const {
+    const int L = (2 * wh - 1) * ww;
+    return Head{cr + (size_t)h * ww * L, crs + (size_t)h * 8 * P, cls3[h * 3],
+                cls3[h * 3 + 1], cls3[h * 3 + 2], N, wh, ww, P};
+  }
+  __device__ Head head(const Dims&, int, int h) const { return head(h); }
 };
 
-__device__ __forceinline__ int row_code(int q, int N, int h, int wh, int ww, int L) {
-  if (q >= N) return PAD_ROW;
-  if (q == 0) return CLS_ROW;
-  const int i = q - 1, a = i / ww, ci = i - a * ww;
-  return (h * ww + ci) * L + (wh - 1 - a) * ww;
-}
-
-// bias(q, k) of a row with code `rc` != PAD_ROW, for a key k < N
-template <typename T>
-__device__ __forceinline__ float bias_at(const T* __restrict__ cr, const ClsBias& cls,
-                                         int rc, int k) {
-  if (rc == CLS_ROW) return k == 0 ? cls.cc : cls.c2a;
-  return k == 0 ? cls.a2c : to_f(cr[rc + k - 1]);
+// crs [H, 8, P]: copy s of head h holds element p - 8 + s of its table
+// [ww * L] at p, 0 where that is outside the table.
+__global__ void __launch_bounds__(THREADS)
+relpos_shift_kernel(const bf16* __restrict__ cr, bf16* __restrict__ crs, int H, int n, int P) {
+  const size_t total = (size_t)H * 8 * P;
+  for (size_t idx = (size_t)blockIdx.x * THREADS + threadIdx.x; idx < total;
+       idx += (size_t)gridDim.x * THREADS) {
+    const int hs = (int)(idx / P), p = (int)(idx - (size_t)hs * P);
+    const int h = hs / 8, e = p - 8 + hs % 8;
+    crs[idx] = e >= 0 && e < n ? cr[(size_t)h * n + e] : __float2bfloat16(0.f);
+  }
 }
 
 // softmax probability from the score, its bias and the row's max and sum;
-// the same expression in every kernel
+// the same expression in every f32 kernel
 __device__ __forceinline__ float prob(float s, float bias, float m, float l) {
   const float v = s + bias;
   return expf(v - m) / l;
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (ceil(N/64), H, B). stats: [2][B*H*N] = row max, row sum.
+// forward, f32: grid (ceil(N/64), H, B). stats: [2][B*H*N] = row max, row sum.
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-relpos_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ cr,
-                  const float* __restrict__ cls3, T* __restrict__ out,
-                  float* __restrict__ stats, int B, int N, int H, int wh, int ww,
-                  int Npad, float scale) {
+relpos_fwd_kernel(const T* __restrict__ qkv, RelposBias<T> bias,
+                  T* __restrict__ out, float* __restrict__ stats, int B, int N,
+                  int H, int Npad, float scale) {
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const int C = H * D, C3 = 3 * C, L = (2 * wh - 1) * ww;
+  const int C = H * D, C3 = 3 * C;
   const size_t BHN = (size_t)B * H * N;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
@@ -125,8 +224,8 @@ relpos_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ cr,
   __shared__ float row_m[QT], row_l[QT];
   __shared__ int rcode[QT];
 
-  const ClsBias cls{cls3[h * 3], cls3[h * 3 + 1], cls3[h * 3 + 2]};
-  if (threadIdx.x < QT) rcode[threadIdx.x] = row_code(q0 + threadIdx.x, N, h, wh, ww, L);
+  const auto hb = bias.head(h);
+  if (threadIdx.x < QT) rcode[threadIdx.x] = hb.row(q0 + threadIdx.x);
   const T* base = qkv + (size_t)b * N * C3 + h * D;
   RowFetch<T, KT> kv;
   kv.fetch(base + C, C3, 0, N);
@@ -156,7 +255,7 @@ relpos_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ cr,
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
         const int c = lane + 32 * t, k = k0 + c;
-        v[t] = k < N ? S[r * LDF + c] + bias_at(cr, cls, rc, k) : -INFINITY;
+        v[t] = k < N ? S[r * LDF + c] + hb.at(rc, k) : -INFINITY;
         tmax = fmaxf(tmax, v[t]);
       }
       const float mn = fmaxf(m[i], warp_max(tmax));
@@ -193,7 +292,7 @@ relpos_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ cr,
       const int r = i / KT, c = i % KT, k = k0 + c, rc = rcode[r];
       float p = 0.f;
       if (rc != PAD_ROW && k < N)
-        p = prob(S[r * LDF + c], bias_at(cr, cls, rc, k), row_m[r], row_l[r]);
+        p = prob(S[r * LDF + c], hb.at(rc, k), row_m[r], row_l[r]);
       Ps[r * LDT + c] = from_f<T>(p);
     }
     kv.put(KV, false, 1.f);  // V tile k0
@@ -206,17 +305,16 @@ relpos_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ cr,
 }
 
 // ---------------------------------------------------------------------------
-// backward 1/3: dq and the ds scratch. grid (ceil(N/64), H, B).
+// backward, f32, 1/2: dq and the ds scratch. grid (ceil(N/64), H, B).
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-relpos_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ cr,
-                     const float* __restrict__ cls3, const float* __restrict__ stats,
-                     const T* __restrict__ dout, T* __restrict__ dqkv,
-                     float* __restrict__ ds_rows, int B, int N, int H, int wh,
-                     int ww, int Npad, float scale) {
+relpos_bwd_dq_kernel(const T* __restrict__ qkv, RelposBias<T> bias,
+                     const float* __restrict__ stats, const T* __restrict__ dout,
+                     T* __restrict__ dqkv, float* __restrict__ ds_rows, int B, int N,
+                     int H, int Npad, float scale) {
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const int C = H * D, C3 = 3 * C, L = (2 * wh - 1) * ww;
+  const int C = H * D, C3 = 3 * C;
   const size_t BHN = (size_t)B * H * N;
   const size_t row0 = ((size_t)b * H + h) * N;  // (b, h, q = 0)
   extern __shared__ __align__(128) unsigned char smem[];
@@ -231,10 +329,10 @@ relpos_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ cr,
   __shared__ float row_m[QT], row_l[QT];
   __shared__ int rcode[QT];
 
-  const ClsBias cls{cls3[h * 3], cls3[h * 3 + 1], cls3[h * 3 + 2]};
+  const auto hb = bias.head(h);
   if (threadIdx.x < QT) {
     const int q = q0 + threadIdx.x;
-    rcode[threadIdx.x] = row_code(q, N, h, wh, ww, L);
+    rcode[threadIdx.x] = hb.row(q);
     if (q < N) {
       row_m[threadIdx.x] = stats[row0 + q];
       row_l[threadIdx.x] = stats[BHN + row0 + q];
@@ -264,7 +362,7 @@ relpos_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ cr,
       for (int t = 0; t < 2; ++t) {
         const int c = lane + 32 * t, k = k0 + c;
         if (k < N)
-          delta[i] += prob(S[r * LDF + c], bias_at(cr, cls, rc, k), row_m[r], row_l[r]) *
+          delta[i] += prob(S[r * LDF + c], hb.at(rc, k), row_m[r], row_l[r]) *
                       dP[r * LDF + c];
       }
     }
@@ -290,7 +388,7 @@ relpos_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ cr,
         const int c = lane + 32 * t, k = k0 + c;
         float ds = 0.f;
         if (rc != PAD_ROW && k < N) {
-          const float p = prob(S[r * LDF + c], bias_at(cr, cls, rc, k), row_m[r], row_l[r]);
+          const float p = prob(S[r * LDF + c], hb.at(rc, k), row_m[r], row_l[r]);
           ds = p * (dP[r * LDF + c] - delta[i]);
           ds_row[k] = ds;
         }
@@ -305,19 +403,18 @@ relpos_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ cr,
 }
 
 // ---------------------------------------------------------------------------
-// backward 2/3: dk and dv. grid (Npad/64, H, B). P is recomputed from S and
+// backward, f32, 2/2: dk and dv. grid (Npad/64, H, B). P is recomputed from S and
 // the forward's row max and sum; ds is read back from the scratch.
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-relpos_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ cr,
-                       const float* __restrict__ cls3, const float* __restrict__ stats,
-                       const T* __restrict__ dout, T* __restrict__ dqkv,
-                       const float* __restrict__ ds_rows, int B, int N, int H,
-                       int wh, int ww, int Npad, float scale) {
+relpos_bwd_dkdv_kernel(const T* __restrict__ qkv, RelposBias<T> bias,
+                       const float* __restrict__ stats, const T* __restrict__ dout,
+                       T* __restrict__ dqkv, const float* __restrict__ ds_rows, int B,
+                       int N, int H, int Npad, float scale) {
   constexpr int M = QT_DKV;
   const int k0 = blockIdx.x * KT, h = blockIdx.y, b = blockIdx.z;
-  const int C = H * D, C3 = 3 * C, L = (2 * wh - 1) * ww;
+  const int C = H * D, C3 = 3 * C;
   const size_t BHN = (size_t)B * H * N;
   const size_t row0 = ((size_t)b * H + h) * N;  // (b, h, q = 0)
   extern __shared__ __align__(128) unsigned char smem[];
@@ -332,7 +429,7 @@ relpos_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ cr,
   __shared__ float row_m[M], row_l[M];
   __shared__ int rcode[M];
 
-  const ClsBias cls{cls3[h * 3], cls3[h * 3 + 1], cls3[h * 3 + 2]};
+  const auto hb = bias.head(h);
   const T* base = qkv + (size_t)b * N * C3 + h * D;
   const T* dbase = dout + (size_t)b * N * C + h * D;
   RowFetch<T, M> qf, gf;
@@ -344,7 +441,7 @@ relpos_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ cr,
     gf.put(dOs, false, 1.f);
     if (threadIdx.x < M) {
       const int q = q0 + threadIdx.x;
-      rcode[threadIdx.x] = row_code(q, N, h, wh, ww, L);
+      rcode[threadIdx.x] = hb.row(q);
       if (q < N) {
         row_m[threadIdx.x] = stats[row0 + q];
         row_l[threadIdx.x] = stats[BHN + row0 + q];
@@ -361,7 +458,7 @@ relpos_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ cr,
       const int r = i / KT, c = i % KT, k = k0 + c, rc = rcode[r];
       float p = 0.f, ds = 0.f;
       if (rc != PAD_ROW && k < N) {
-        p = prob(St[r * LDF + c], bias_at(cr, cls, rc, k), row_m[r], row_l[r]);
+        p = prob(St[r * LDF + c], hb.at(rc, k), row_m[r], row_l[r]);
         ds = ds_rows[(row0 + q0 + r) * Npad + k];
       }
       Ps[r * LDT + c] = from_f<T>(p);
@@ -378,7 +475,132 @@ relpos_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ cr,
 }
 
 // ---------------------------------------------------------------------------
-// backward 3/3: the scratch folded into the compact gradients.
+// backward, bf16, after dq and dk/dv: db [H, N, N] f32, ds summed over
+// b = 0, 1, ... in order. grid (ceil(N/64) key tiles, ceil(N/64) q tiles, H), 128 threads;
+// warp w owns q rows 16w .. 16w + 15 of the tile (the dq kernel's layout, so
+// S, dP and P are that kernel's bits).
+
+__global__ void __launch_bounds__(MMA_THREADS)
+relpos_bwd_db_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, RelposBias<bf16> bias,
+                         const bf16* __restrict__ dout, const float* __restrict__ stats,
+                         const float* __restrict__ delta, float* __restrict__ db, Dims d,
+                         float scale) {
+  const int k0 = blockIdx.x * KT, q0 = blockIdx.y * MT, h = blockIdx.z;
+  const int B = (int)d.B, N = (int)d.Nq, H = (int)d.H;
+  const size_t BHN = (size_t)B * H * N;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // two q tiles
+  bf16* Gs = Qs + 2 * MT * LDT;              // two dO tiles
+  bf16* Ks = Gs + 2 * MT * LDT;              // two K tiles
+  bf16* Vs = Ks + 2 * KT * LDT;              // two V tiles
+  bf16* Bs = Vs + 2 * KT * LDT;              // the staged bias tile
+  __shared__ float sm[2][MT], snl[2][MT], sd[2][MT];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane / 4, t = lane % 4;
+  const auto hb = bias.head(h);
+  // row b's tiles into buffer `buf`, and its rows' statistics (m, l,
+  // delta) into registers; `put` stores them into the buffer, l as
+  // -log2(l) and (0, 0, 0) past N as the dq kernel takes them, after the
+  // current b's compute, by when they have landed
+  const int sq = q0 + threadIdx.x;  // the q row whose statistics this thread keeps
+  float pm = 0.f, pl = 0.f, pd = 0.f;
+  auto fetch = [&](int buf, int b) {
+    const size_t hd = (size_t)h * D;
+    tile_async(Qs + buf * MT * LDT, q + b * d.q_sb + hd, d.q_sn, q0, N);
+    tile_async(Gs + buf * MT * LDT, dout + b * d.g_sb + hd, d.g_sn, q0, N);
+    tile_async(Ks + buf * KT * LDT, k + b * d.k_sb + hd, d.k_sn, k0, N);
+    tile_async(Vs + buf * KT * LDT, v + b * d.v_sb + hd, d.v_sn, k0, N);
+    cp_async_commit();
+    if (threadIdx.x < MT && sq < N) {
+      const size_t row0 = ((size_t)b * H + h) * N;
+      pm = stats[row0 + sq];
+      pl = stats[BHN + row0 + sq];
+      pd = delta[row0 + sq];
+    }
+  };
+  auto put = [&](int buf) {
+    if (threadIdx.x < MT) {
+      sm[buf][threadIdx.x] = pm;
+      snl[buf][threadIdx.x] = sq < N ? -log2f(pl) : 0.f;
+      sd[buf][threadIdx.x] = pd;
+    }
+  };
+
+  hb.tile_async(Bs, hb.stage(q0), k0);
+  fetch(0, 0);
+  put(0);
+  cp_async_wait_all();
+  __syncthreads();
+  // the block's bias tile, the same for every b: the lane's two rows at its
+  // 16 keys, -inf past N (0 + bias is the bias, so s + bt is the dq
+  // kernel's s + bias)
+  float bt[8][4];
+  zero(bt);
+  {
+    const RelposBias<bf16>::Head::Row brow[2] = {hb.row(q0 + warp * 16 + g),
+                                                 hb.row(q0 + warp * 16 + g + 8)};
+    const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+    add_bias_and_mask(bt, hb, brow, row, k0, N, t, Bs + warp * 16 * LDT);
+  }
+  float acc[8][4];
+  zero(acc);
+  for (int b = 0; b < B; ++b) {
+    const int cur = b & 1;
+    if (b + 1 < B) fetch(cur ^ 1, b + 1);  // lands while this b computes
+    unsigned qf[4][4], gf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      ldsm(qf[kk], Qs + cur * MT * LDT, warp * 16, kk * 16);
+      ldsm(gf[kk], Gs + cur * MT * LDT, warp * 16, kk * 16);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qf[kk][i] = scale_bf16x2(qf[kk][i], scale);
+    }
+    float s[8][4], dp[8][4];
+    zero(s);
+    zero(dp);
+    warp_tile_mma<false>(s, qf, Ks + cur * KT * LDT);  // S = (q*scale) K^T
+    warp_tile_mma<false>(dp, gf, Vs + cur * KT * LDT);  // dP = dO V^T
+    float m[2], nl[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = warp * 16 + g + 8 * i;
+      m[i] = sm[cur][r];
+      nl[i] = snl[cur][r];
+      dl[i] = sd[cur][r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c / 2;
+        // ds in f32, rounded before the sum (no fused multiply-add)
+        acc[nt][c] += __fmul_rn(prob2(s[nt][c] + bt[nt][c], m[i], nl[i]), dp[nt][c] - dl[i]);
+      }
+    if (b + 1 < B) {
+      put(cur ^ 1);
+      cp_async_wait_all();
+    }
+    __syncthreads();
+  }
+  float* out = db + (size_t)h * N * N;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qq = q0 + warp * 16 + g + 8 * i;
+    if (qq >= N) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + nt * 8 + 2 * t + c;
+        if (key < N) out[(size_t)qq * N + key] = acc[nt][2 * i + c];
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, last: ds folded into the compact gradients, from the f32 path's
+// scratch [B, H, N, Npad] or from bf16's db [H, N, N] (B = 1, Npad = N).
 // dcr[h, ci, e] = sum over stripes a = 0, 1, ... of (sum over b = 0, 1, ...
 // of ds[b, h, 1 + a*ww + ci, 1 + j]), j = e - (wh-1-a)*ww in [0, wh*ww).
 
@@ -450,87 +672,161 @@ size_t dkdv_smem() {
   return (size_t)(KT + 4 * QT_DKV) * LDT * sizeof(T) +
          (size_t)(QT_DKV + 2 * KT) * LDF * sizeof(float);
 }
+// the db kernel: two stages of Q, dO, K and V tiles, and its bias tile
+constexpr size_t DB_SMEM = 9 * TILE_BYTES;
 
-template <typename T>
-int launch_fwd(const void* qkv, const void* cr, const void* cls3, void* out,
-               void* stats, int B, int N, int H, int wh, int ww, float scale,
-               cudaStream_t st) {
-  const int Npad = round_up(N, KT);
-  const size_t smem = fwd_smem<T>();
-  cudaError_t e = allow_smem(relpos_fwd_kernel<T>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + QT - 1) / QT, H, B);
-  relpos_fwd_kernel<T><<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(cr),
-      static_cast<const float*>(cls3), static_cast<T*>(out),
-      static_cast<float*>(stats), B, N, H, wh, ww, Npad, scale);
+// q, k and v in place in qkv [B, N, 3C], dq, dk and dv in place in dqkv,
+// out and dout [B, N, C] contiguous
+Dims relpos_dims(int B, int N, int H) {
+  const long long C = (long long)H * D, C3 = 3 * C;
+  Dims d{};
+  d.B = B;
+  d.Nq = d.Nk = N;
+  d.H = H;
+  d.q_sb = d.k_sb = d.v_sb = d.dq_sb = d.dkv_sb = N * C3;
+  d.q_sn = d.k_sn = d.v_sn = d.dq_sn = d.dkv_sn = C3;
+  d.g_sb = d.o_sb = N * C;
+  d.g_sn = d.o_sn = C;
+  return d;
+}
+
+// The eight shifted copies of the bf16 table that the kernels stage from,
+// crs [H, 8, P] (RelposBias); P must be a multiple of 8 and hold a tile's
+// reach past the table's end: the last row's last key tile reads up to
+// element rc + k0 + 70 <= ww*L + 70 of its copy.
+int build_shifted(const bf16* cr, bf16* crs, int H, int wh, int ww, int P, cudaStream_t st) {
+  const int n = ww * (2 * wh - 1) * ww;
+  if (P % 8 || P < n + 71) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)H * 8 * P;
+  const int g = (int)((total + THREADS - 1) / THREADS < 132 * 8 ? (total + THREADS - 1) / THREADS
+                                                                : 132 * 8);
+  relpos_shift_kernel<<<g, THREADS, 0, st>>>(cr, crs, H, n, P);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(const void* qkv, const void* cr, const void* cls3, const void* stats,
-               const void* dout, void* dqkv, void* dcr, void* dcls, void* ds_rows,
-               int B, int N, int H, int wh, int ww, float scale, cudaStream_t st) {
-  const int Npad = round_up(N, KT);
-  const T* q = static_cast<const T*>(qkv);
-  const T* tab = static_cast<const T*>(cr);
-  const float* cls = static_cast<const float*>(cls3);
-  const float* sts = static_cast<const float*>(stats);
-  const T* g = static_cast<const T*>(dout);
-  T* dq = static_cast<T*>(dqkv);
-  float* dsr = static_cast<float*>(ds_rows);
-  cudaError_t e;
+int launch_fwd_bf16(const bf16* qkv, const bf16* cr, const float* cls3, bf16* crs, bf16* out,
+                    float* stats, int B, int N, int H, int wh, int ww, int P, float scale,
+                    cudaStream_t st) {
+  const int rc = build_shifted(cr, crs, H, wh, ww, P, st);
+  if (rc != 0) return rc;
+  const int C = H * D;
+  const RelposBias<bf16> bias{cr, cls3, crs, N, wh, ww, P};
+  return launch_fwd_mma(qkv, qkv + C, qkv + 2 * C, bias, out, stats, relpos_dims(B, N, H),
+                        scale, st);
+}
 
-  size_t smem = dq_smem<T>();
-  if ((e = allow_smem(relpos_bwd_dq_kernel<T>, smem)) != cudaSuccess) return (int)e;
-  dim3 g1((N + QT - 1) / QT, H, B);
-  relpos_bwd_dq_kernel<T><<<g1, THREADS, smem, st>>>(q, tab, cls, sts, g, dq, dsr, B, N,
-                                                     H, wh, ww, Npad, scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  smem = dkdv_smem<T>();
-  if ((e = allow_smem(relpos_bwd_dkdv_kernel<T>, smem)) != cudaSuccess) return (int)e;
-  dim3 g2(Npad / KT, H, B);
-  relpos_bwd_dkdv_kernel<T><<<g2, THREADS, smem, st>>>(q, tab, cls, sts, g, dq, dsr, B,
-                                                       N, H, wh, ww, Npad, scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  const int total = H * ww * (2 * wh - 1) * ww;
-  const int g3 = (total + THREADS - 1) / THREADS < 132 * 8
-                     ? (total + THREADS - 1) / THREADS : 132 * 8;
-  relpos_fold_dcr_kernel<<<g3, THREADS, 0, st>>>(dsr, static_cast<float*>(dcr), B, N,
-                                                 H, wh, ww, Npad);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  relpos_fold_dcls_kernel<<<3 * H, THREADS, 0, st>>>(dsr, static_cast<float*>(dcls),
-                                                     B, N, H, Npad);
+int launch_fwd_f32(const float* qkv, const float* cr, const float* cls3, float* out,
+                   float* stats, int B, int N, int H, int wh, int ww, float scale,
+                   cudaStream_t st) {
+  const size_t smem = fwd_smem<float>();
+  cudaError_t e = allow_smem(relpos_fwd_kernel<float>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((N + QT - 1) / QT, H, B);
+  const RelposBias<float> bias{cr, cls3, nullptr, N, wh, ww, 0};
+  relpos_fwd_kernel<float><<<grid, THREADS, smem, st>>>(qkv, bias, out, stats, B, N, H,
+                                                        round_up(N, KT), scale);
   return (int)cudaGetLastError();
+}
+
+// the fold of `ds` ([B, H, N, Npad] f32) into dcr and dcls
+int launch_fold(const float* ds, float* dcr, float* dcls, int B, int N, int H, int wh, int ww,
+                int Npad, cudaStream_t st) {
+  const int total = H * ww * (2 * wh - 1) * ww;
+  const int g = (total + THREADS - 1) / THREADS < 132 * 8 ? (total + THREADS - 1) / THREADS
+                                                          : 132 * 8;
+  relpos_fold_dcr_kernel<<<g, THREADS, 0, st>>>(ds, dcr, B, N, H, wh, ww, Npad);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  relpos_fold_dcls_kernel<<<3 * H, THREADS, 0, st>>>(ds, dcls, B, N, H, Npad);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_bf16(const bf16* qkv, const bf16* cr, const float* cls3, bf16* crs,
+                    const bf16* out, const float* stats, const bf16* dout, bf16* dqkv,
+                    float* dcr, float* dcls, float* delta, float* db, int B, int N, int H,
+                    int wh, int ww, int P, float scale, cudaStream_t st) {
+  int rc = build_shifted(cr, crs, H, wh, ww, P, st);
+  if (rc != 0) return rc;
+  const int C = H * D;
+  const Dims d = relpos_dims(B, N, H);
+  const RelposBias<bf16> bias{cr, cls3, crs, N, wh, ww, P};
+  rc = launch_bwd_mma(qkv, qkv + C, qkv + 2 * C, bias, out, dout, stats, delta, dqkv,
+                      dqkv + C, dqkv + 2 * C, d, scale, st);
+  if (rc != 0) return rc;
+  cudaError_t e = allow_smem(relpos_bwd_db_mma_kernel, DB_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((N + KT - 1) / KT, (N + MT - 1) / MT, H);
+  relpos_bwd_db_mma_kernel<<<grid, MMA_THREADS, DB_SMEM, st>>>(
+      qkv, qkv + C, qkv + 2 * C, bias, dout, stats, delta, db, d, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  return launch_fold(db, dcr, dcls, 1, N, H, wh, ww, N, st);
+}
+
+int launch_bwd_f32(const float* qkv, const float* cr, const float* cls3, const float* stats,
+                   const float* dout, float* dqkv, float* dcr, float* dcls, float* ds_rows,
+                   int B, int N, int H, int wh, int ww, float scale, cudaStream_t st) {
+  const int Npad = round_up(N, KT);
+  const RelposBias<float> bias{cr, cls3, nullptr, N, wh, ww, 0};
+  cudaError_t e;
+  size_t smem = dq_smem<float>();
+  if ((e = allow_smem(relpos_bwd_dq_kernel<float>, smem)) != cudaSuccess) return (int)e;
+  dim3 g1((N + QT - 1) / QT, H, B);
+  relpos_bwd_dq_kernel<float><<<g1, THREADS, smem, st>>>(qkv, bias, stats, dout, dqkv, ds_rows,
+                                                         B, N, H, Npad, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  smem = dkdv_smem<float>();
+  if ((e = allow_smem(relpos_bwd_dkdv_kernel<float>, smem)) != cudaSuccess) return (int)e;
+  dim3 g2(Npad / KT, H, B);
+  relpos_bwd_dkdv_kernel<float><<<g2, THREADS, smem, st>>>(qkv, bias, stats, dout, dqkv,
+                                                           ds_rows, B, N, H, Npad, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  return launch_fold(ds_rows, dcr, dcls, B, N, H, wh, ww, Npad, st);
 }
 
 }  // namespace
 
 // is_bf16: 1 for bf16 qkv/cr/out, 0 for f32. cr [H, ww, (2wh-1)*ww] in the
 // dtype of qkv, cls3 f32 [H, 3], out [B, N, H*64], stats f32 [2, B*H*N].
+// bf16: crs bf16 [H, 8, P], the table's shifted copies (written here; P a
+// multiple of 8, at least ww*(2wh-1)*ww + 71); f32: crs null, P unused.
 // Returns a cudaError_t (0 on success).
-extern "C" int xfm_relpos_attention_fwd(const void* qkv, const void* cr,
-                                        const void* cls3, void* out, void* stats,
-                                        int B, int N, int H, int wh, int ww,
-                                        float scale, int is_bf16, void* stream) {
+extern "C" int xfm_relpos_attention_fwd(const void* qkv, const void* cr, const void* cls3,
+                                        void* crs, void* out, void* stats, int B, int N, int H,
+                                        int wh, int ww, int P, float scale, int is_bf16,
+                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_fwd<bf16>(qkv, cr, cls3, out, stats, B, N, H, wh, ww, scale, st)
-                 : launch_fwd<float>(qkv, cr, cls3, out, stats, B, N, H, wh, ww, scale, st);
+  const float* cls = static_cast<const float*>(cls3);
+  if (is_bf16)
+    return launch_fwd_bf16(static_cast<const bf16*>(qkv), static_cast<const bf16*>(cr), cls,
+                           static_cast<bf16*>(crs), static_cast<bf16*>(out),
+                           static_cast<float*>(stats), B, N, H, wh, ww, P, scale, st);
+  return launch_fwd_f32(static_cast<const float*>(qkv), static_cast<const float*>(cr), cls,
+                        static_cast<float*>(out), static_cast<float*>(stats), B, N, H, wh, ww,
+                        scale, st);
 }
 
-// dqkv like qkv; dcr f32 [H, ww, (2wh-1)*ww]; dcls f32 [H, 3]; scratch
-// ds_rows f32 [B, H, N, round_up(N, 64)].
-extern "C" int xfm_relpos_attention_bwd(const void* qkv, const void* cr,
-                                        const void* cls3, const void* stats,
-                                        const void* dout, void* dqkv, void* dcr,
-                                        void* dcls, void* ds_rows, int B, int N,
-                                        int H, int wh, int ww, float scale,
-                                        int is_bf16, void* stream) {
+// out: the forward's output (the bf16 kernels take delta = rowsum(dout (.)
+// out) from it; f32 does not read it); dout [B, N, H*64]; dqkv like qkv;
+// dcr f32 [H, ww, (2wh-1)*ww]; dcls f32 [H, 3]. bf16: crs and P as for the
+// forward, delta f32 [B*H*N] and scratch = db f32 [H, N, N]; f32: crs and
+// delta null, scratch = ds f32 [B, H, N, round_up(N, 64)].
+extern "C" int xfm_relpos_attention_bwd(const void* qkv, const void* cr, const void* cls3,
+                                        void* crs, const void* out, const void* stats,
+                                        const void* dout, void* dqkv, void* dcr, void* dcls,
+                                        void* delta, void* scratch, int B, int N, int H, int wh,
+                                        int ww, int P, float scale, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bwd<bf16>(qkv, cr, cls3, stats, dout, dqkv, dcr, dcls, ds_rows,
-                                    B, N, H, wh, ww, scale, st)
-                 : launch_bwd<float>(qkv, cr, cls3, stats, dout, dqkv, dcr, dcls,
-                                     ds_rows, B, N, H, wh, ww, scale, st);
+  const float* cls = static_cast<const float*>(cls3);
+  const float* sts = static_cast<const float*>(stats);
+  if (is_bf16)
+    return launch_bwd_bf16(static_cast<const bf16*>(qkv), static_cast<const bf16*>(cr), cls,
+                           static_cast<bf16*>(crs), static_cast<const bf16*>(out), sts,
+                           static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv),
+                           static_cast<float*>(dcr), static_cast<float*>(dcls),
+                           static_cast<float*>(delta), static_cast<float*>(scratch), B, N, H,
+                           wh, ww, P, scale, st);
+  return launch_bwd_f32(static_cast<const float*>(qkv), static_cast<const float*>(cr), cls, sts,
+                        static_cast<const float*>(dout), static_cast<float*>(dqkv),
+                        static_cast<float*>(dcr), static_cast<float*>(dcls),
+                        static_cast<float*>(scratch), B, N, H, wh, ww, scale, st);
 }

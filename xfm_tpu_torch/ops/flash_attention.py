@@ -20,8 +20,10 @@ its plain PyTorch version (`packed_attention_reference`,
 rounding points. There is no fallback: a CUDA tensor a kernel does not take
 raises.
 
-The source note of each kernel (what it replaces, what bounds it on the card
-and how its batch sum is made without atomics) heads its .cu file. Building,
+K2's and K3's bf16 paths are one templated set of kernels,
+`csrc/attention_mma.cuh`, instantiated with each one's bias source. The
+source note of each kernel (what it replaces, what bounds it on the card and
+how its batch sum is made without atomics) heads its .cu file. Building,
 loading and launch counting are `ops/kernels.py`'s, shared with K4 and K5.
 """
 from __future__ import annotations
@@ -196,6 +198,17 @@ def _check_relpos_inputs(qkv, cr, cls3, window, num_heads: int):
     return B, N
 
 
+def _shifted_table(cr: torch.Tensor, window):
+    """Room for the bf16 kernels' eight shifted copies of the table
+    (csrc `RelposBias`, written by the kernel call) → (crs [H, 8, P], P),
+    or (None, 0) for f32."""
+    if cr.dtype != torch.bfloat16:
+        return None, 0
+    wh, ww = window
+    P = -(-(ww * (2 * wh - 1) * ww + 71) // 8) * 8
+    return torch.empty(cr.shape[0], 8, P, device=cr.device, dtype=cr.dtype), P
+
+
 def relpos_attention_fwd(qkv: torch.Tensor, cr: torch.Tensor,
                          cls3: torch.Tensor, window, scale: float,
                          num_heads: int):
@@ -209,10 +222,12 @@ def relpos_attention_fwd(qkv: torch.Tensor, cr: torch.Tensor,
                       dtype=qkv.dtype)
     stats = torch.empty(2, B * num_heads * N, device=qkv.device,
                         dtype=torch.float32)
+    crs, P = _shifted_table(cr, window)
     stream = stream_of(qkv)
     rc = lib.xfm_relpos_attention_fwd(
-        qkv.data_ptr(), cr.data_ptr(), cls3.data_ptr(), out.data_ptr(),
-        stats.data_ptr(), B, N, num_heads, window[0], window[1],
+        qkv.data_ptr(), cr.data_ptr(), cls3.data_ptr(),
+        crs.data_ptr() if crs is not None else None, out.data_ptr(),
+        stats.data_ptr(), B, N, num_heads, window[0], window[1], P,
         float(scale), int(qkv.dtype == torch.bfloat16), stream)
     _check(rc, "rel-pos attention forward launch")
     LAUNCHES["relpos_attention_fwd"] += 1
@@ -220,32 +235,50 @@ def relpos_attention_fwd(qkv: torch.Tensor, cr: torch.Tensor,
 
 
 def relpos_attention_bwd(qkv: torch.Tensor, cr: torch.Tensor,
-                         cls3: torch.Tensor, stats: torch.Tensor,
-                         dout: torch.Tensor, window, scale: float,
-                         num_heads: int):
-    """Kernel backward → (dqkv like qkv, dcr f32 like cr, dcls f32 [H, 3]),
-    the table gradients summed over the batch."""
+                         cls3: torch.Tensor, out: torch.Tensor,
+                         stats: torch.Tensor, dout: torch.Tensor, window,
+                         scale: float, num_heads: int):
+    """Kernel backward from the forward's output `out` and row statistics
+    (the bf16 kernels take delta = rowsum(dout ⊙ out) from `out`) → (dqkv
+    like qkv, dcr f32 like cr, dcls f32 [H, 3]), the table gradients summed
+    over the batch. bf16 sums ds over the batch into db [H, N, N] f32; f32
+    writes it to a scratch [B, H, N, ⌈N/64⌉·64] f32 first. bf16 also
+    takes room for its shifted copies of the table, as the forward."""
     B, N = _check_relpos_inputs(qkv, cr, cls3, window, num_heads)
-    if dout.shape != (B, N, qkv.shape[-1] // 3) or dout.device != qkv.device:
-        raise ValueError(f"dout must be [B, N, H*D] beside qkv, got "
-                         f"{tuple(dout.shape)} on {dout.device}")
+    C = qkv.shape[-1] // 3
+    for name, t in (("dout", dout), ("out", out)):
+        if t.shape != (B, N, C) or t.device != qkv.device:
+            raise ValueError(f"{name} must be [B, N, H*D] beside qkv, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    if out.dtype != qkv.dtype or not out.is_contiguous():
+        raise ValueError("out must be the forward's output: contiguous, in "
+                         "qkv's dtype")
     if stats.shape != (2, B * num_heads * N):
         raise ValueError(f"stats must be [2, B*H*N], got {tuple(stats.shape)}")
     lib = build_library("relpos_attention")
-    qkv, cr, cls3, stats, dout = _aligned(qkv, cr, cls3, stats,
-                                          dout.to(qkv.dtype))
+    qkv, cr, cls3, out, stats, dout = _aligned(qkv, cr, cls3, out, stats,
+                                               dout.to(qkv.dtype))
     dqkv = torch.empty_like(qkv)
     dcr = torch.empty(cr.shape, device=qkv.device, dtype=torch.float32)
     dcls = torch.empty(num_heads, 3, device=qkv.device, dtype=torch.float32)
-    npad = -(-N // 64) * 64
-    ds_rows = torch.empty(B, num_heads, N, npad, device=qkv.device,
-                          dtype=torch.float32)
+    bf16 = qkv.dtype == torch.bfloat16
+    crs, P = _shifted_table(cr, window)
+    if bf16:
+        delta = torch.empty(B * num_heads * N, device=qkv.device,
+                            dtype=torch.float32)
+        scratch = torch.empty(num_heads, N, N, device=qkv.device,
+                              dtype=torch.float32)
+    else:
+        delta = None
+        scratch = torch.empty(B, num_heads, N, -(-N // 64) * 64,
+                              device=qkv.device, dtype=torch.float32)
     stream = stream_of(qkv)
     rc = lib.xfm_relpos_attention_bwd(
-        qkv.data_ptr(), cr.data_ptr(), cls3.data_ptr(), stats.data_ptr(),
+        qkv.data_ptr(), cr.data_ptr(), cls3.data_ptr(),
+        crs.data_ptr() if bf16 else None, out.data_ptr(), stats.data_ptr(),
         dout.data_ptr(), dqkv.data_ptr(), dcr.data_ptr(), dcls.data_ptr(),
-        ds_rows.data_ptr(), B, N, num_heads, window[0], window[1],
-        float(scale), int(qkv.dtype == torch.bfloat16), stream)
+        delta.data_ptr() if bf16 else None, scratch.data_ptr(), B, N,
+        num_heads, window[0], window[1], P, float(scale), int(bf16), stream)
     _check(rc, "rel-pos attention backward launch")
     LAUNCHES["relpos_attention_bwd"] += 1
     return dqkv, dcr, dcls
@@ -256,15 +289,17 @@ class _RelposAttention(torch.autograd.Function):
     def forward(ctx, qkv, cr, cls3, window, scale, num_heads):
         out, stats = relpos_attention_fwd(qkv, cr, cls3, window, scale,
                                           num_heads)
-        ctx.save_for_backward(qkv, cr, cls3, stats)
+        # the output is saved, not recomputed: the caller's out-projection
+        # keeps the same storage alive
+        ctx.save_for_backward(qkv, cr, cls3, out, stats)
         ctx.window, ctx.scale, ctx.num_heads = window, scale, num_heads
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, cr, cls3, stats = ctx.saved_tensors
-        dqkv, dcr, dcls = relpos_attention_bwd(qkv, cr, cls3, stats, dout,
-                                               ctx.window, ctx.scale,
+        qkv, cr, cls3, out, stats = ctx.saved_tensors
+        dqkv, dcr, dcls = relpos_attention_bwd(qkv, cr, cls3, out, stats,
+                                               dout, ctx.window, ctx.scale,
                                                ctx.num_heads)
         # the table gradient leaves in the table's dtype, as the JAX
         # package's `_relpos_core_bwd` casts it
@@ -387,10 +422,14 @@ def _bias_layout(bias):
 
 
 def _flash_dims(q, k, v, dout, bias_fields):
+    """csrc `Dims`: sizes, the in-place strides of q, k, v and dout, the
+    bias's, then those of out, dq and dk/dv ([B, N, H, 64] contiguous)."""
     B, Nq, H, _ = q.shape
+    Nk, C = k.shape[1], H * HEAD_DIM
     g = (dout.stride(0), dout.stride(1)) if dout is not None else (0, 0)
-    return _DIMS(B, Nq, k.shape[1], H, q.stride(0), q.stride(1), k.stride(0),
-                 k.stride(1), v.stride(0), v.stride(1), *g, *bias_fields)
+    return _DIMS(B, Nq, Nk, H, q.stride(0), q.stride(1), k.stride(0),
+                 k.stride(1), v.stride(0), v.stride(1), *g, *bias_fields,
+                 Nq * C, C, Nq * C, C, Nk * C, C)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

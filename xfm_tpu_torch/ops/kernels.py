@@ -30,7 +30,7 @@ LAUNCHES = {"packed_attention_fwd": 0, "packed_attention_bwd": 0,
             "fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
 
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-DIMS = ctypes.c_longlong * 18  # K3's sizes and strides (csrc `Dims`)
+DIMS = ctypes.c_longlong * 24  # K3's sizes and strides (csrc `Dims`)
 _DP = ctypes.POINTER(ctypes.c_longlong)
 # library name -> its C functions' argument types (source csrc/<name>.cu)
 _LIBRARIES = {
@@ -39,8 +39,8 @@ _LIBRARIES = {
         "xfm_packed_attention_bwd": [_VP] * 7 + [_CI] * 3 + [_CF, _CI, _VP],
     },
     "relpos_attention": {
-        "xfm_relpos_attention_fwd": [_VP] * 5 + [_CI] * 5 + [_CF, _CI, _VP],
-        "xfm_relpos_attention_bwd": [_VP] * 9 + [_CI] * 5 + [_CF, _CI, _VP],
+        "xfm_relpos_attention_fwd": [_VP] * 6 + [_CI] * 6 + [_CF, _CI, _VP],
+        "xfm_relpos_attention_bwd": [_VP] * 12 + [_CI] * 6 + [_CF, _CI, _VP],
     },
     "flash_attention": {
         "xfm_flash_attention_fwd": [_VP] * 6 + [_DP, _CI, _CF, _CI, _VP],

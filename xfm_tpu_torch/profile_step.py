@@ -36,7 +36,9 @@ def _group(name: str) -> str:
     n = name.lower()
     if "packed_" in n:
         return "k1_packed_attention"
-    if "relpos_" in n:
+    # K2's kernels, its instantiations of the shared attention kernels
+    # (`xfm_attn_*<RelposBias<...>>`) among them, before K3's `xfm_attn_`
+    if "relpos" in n:
         return "k2_relpos_attention"
     if "xfm_attn_" in n:
         return "k3_flash_attention"
