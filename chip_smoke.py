@@ -11,8 +11,10 @@ Phases, each of which must pass or the script exits non-zero:
      each, started together;
   2. K1 parity: forward and backward against the plain PyTorch version at
      the pretrain shape (qkv [96, 197, 2304] bf16, bias [1, 12, 197, 197]
-     f32), an odd shape and an f32 case, with their times, the bound and
-     the time of F.scaled_dot_product_attention as a yardstick;
+     f32), an odd shape and an f32 case; the bf16 forward and backward
+     bit-equal over two runs at the main shape; ptxas's registers and
+     spills of each K1 kernel; the times, the bound and the time of
+     F.scaled_dot_product_attention as a yardstick;
   3. pretrain slice parity: the XFM pretrain loss and gradients at full
      width and depth 2 in f32, on the CPU (plain versions) and on the card
      (kernels);
@@ -57,8 +59,13 @@ Phases, each of which must pass or the script exits non-zero:
      at the main shape, the bound and the default route's
      F.layer_norm(x + y) as a yardstick;
  12. K5 parity: forward (y) and backward (dh, dW, db) against the plain
-     version for tanh-GELU, the Φ̂ GELU and ReLU at M = 18,912, 5,760 and
-     100 rows (K = 3,072, N = 768), in bf16 and f32, with the times of
+     version for tanh-GELU, the Φ̂ GELU and ReLU at M = 18,912, 5,760,
+     1,440 and 100 rows (K = 3,072, N = 768) in bf16 and f32, at M = 130
+     in bf16, and at M = 130, K = 200, N = 72 in both; the bf16 backward
+     bit-equal over two runs at M = 18,912 (its dW split over M); ptxas's
+     registers and spills of each K5 kernel (none may spill in the wgmma
+     and dW-sum kernels) and the count of HGMMA (wgmma) instructions in
+     the library where cuobjdump is at hand (it must be > 0); the times of
      tanh-GELU at the main shape, the bound and F.linear(act(h)) as a
      yardstick;
  13. fused pretrain slice parity: the pretrain slice of phase 3 with both
@@ -188,8 +195,8 @@ def k1_parity(B, N, H, dtype, seed=0) -> dict:
 
     qkv, bias, dout = make_k1_inputs(B, N, H, dtype, seed)
     scale = 64 ** -0.5
-    out = fa.packed_attention_fwd(qkv, bias, scale, H)
-    dqkv, db = fa.packed_attention_bwd(qkv, bias, dout, scale, H)
+    out, stats = fa.packed_attention_fwd(qkv, bias, scale, H)
+    dqkv, db = fa.packed_attention_bwd(qkv, bias, out, stats, dout, scale, H)
     qr = qkv.clone().requires_grad_(True)
     br = bias.clone().requires_grad_(True)
     ref = fa.packed_attention_reference(qr, br, scale, H)
@@ -198,6 +205,26 @@ def k1_parity(B, N, H, dtype, seed=0) -> dict:
     return _compare(f"K1 parity B={B} N={N} H={H} {str(dtype)[6:]}",
                     [("out", out, ref), ("dqkv", dqkv, qr.grad),
                      ("db", db, br.grad)], dtype)
+
+
+def k1_deterministic(B, N, H, dtype, seed=4) -> None:
+    """K1's forward and backward (out, dqkv, db) twice on the same inputs
+    → the same bits, or raise."""
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    qkv, bias, dout = make_k1_inputs(B, N, H, dtype, seed)
+    scale = 64 ** -0.5
+    runs = []
+    for _ in range(2):
+        out, stats = fa.packed_attention_fwd(qkv, bias, scale, H)
+        runs.append((out,) + fa.packed_attention_bwd(qkv, bias, out, stats,
+                                                     dout, scale, H))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"  K1 B={B} N={N} H={H} {str(dtype)[6:]}: out, dqkv, db bit-equal "
+          f"over two runs: {same}")
+    if not same:
+        raise AssertionError("K1's backward is not deterministic")
 
 
 def k1_times(B, N, H, dtype) -> dict:
@@ -209,9 +236,10 @@ def k1_times(B, N, H, dtype) -> dict:
     qkv, bias, dout = make_k1_inputs(B, N, H, dtype, 1)
     scale = 64 ** -0.5
     t = {}
+    out, stats = fa.packed_attention_fwd(qkv, bias, scale, H)
     t["fwd_ms"] = cuda_ms(lambda: fa.packed_attention_fwd(qkv, bias, scale, H))
-    t["bwd_ms"] = cuda_ms(
-        lambda: fa.packed_attention_bwd(qkv, bias, dout, scale, H))
+    t["bwd_ms"] = cuda_ms(lambda: fa.packed_attention_bwd(
+        qkv, bias, out, stats, dout, scale, H))
     with torch.no_grad():
         t["plain_fwd_ms"] = cuda_ms(
             lambda: fa.packed_attention_reference(qkv, bias, scale, H), 5)
@@ -342,6 +370,49 @@ def ptxas_kernels(report: str) -> list:
         if len(names) == len(out):
             out = [(n, r, s) for n, (_, r, s) in zip(names, out)]
     return out
+
+
+def print_ptxas(tag: str, library: str, no_spills_in=()) -> list:
+    """Print ptxas's registers and spills of each kernel of `library` (when
+    this run built it); raise if a kernel whose name holds one of
+    `no_spills_in` spills."""
+    from xfm_tpu_torch.ops import kernels
+
+    found = ptxas_kernels(kernels.build_info[library].get("ptxas", ""))
+    if not found:
+        print(f"  {tag} ptxas: none (the library was built before this run)")
+    for kname, regs, spill in found:
+        print(f"  {tag} ptxas: {regs} registers, {spill}: {kname[:150]}")
+        if any(k in kname for k in no_spills_in) and \
+                "0 bytes spill stores, 0 bytes spill loads" not in spill:
+            raise AssertionError(f"{tag}: {kname} spills ({spill})")
+    return found
+
+
+def sass_count(library: str, opcode: str):
+    """How many `opcode` instructions the built library holds, from
+    cuobjdump (the toolkit's, or the one Triton's package carries), or None
+    where there is no cuobjdump."""
+    import shutil
+
+    from xfm_tpu_torch.ops import kernels
+
+    tools = [shutil.which("cuobjdump"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "cuobjdump")]
+    try:
+        import triton
+        tools.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((t for t in tools if t and os.path.exists(t)), None)
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", kernels.build_info[library]["library"]],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return sum(opcode in line for line in sass.splitlines())
 
 
 def k2_times(B, window, H, dtype) -> dict:
@@ -613,6 +684,22 @@ def k5_parity(act: str, M: int, dtype, K=3072, N=768, seed=0) -> dict:
     return _compare(f"K5 {act} M={M} K={K} N={N} {str(dtype)[6:]}",
                     [("out", y, ry), ("dh", dh, rdh), ("dW", dw, rdw),
                      ("db", db, rdb)], dtype)
+
+
+def k5_deterministic(M: int, dtype, act="gelu_tanh", K=3072, N=768,
+                     seed=5) -> None:
+    """K5's backward (dh, dW, db) twice on the same inputs → the same bits,
+    or raise: the split dW adds its partials in a fixed order."""
+    from xfm_tpu_torch.ops import fused_mlp as fm
+
+    h, w, _, g = make_k5_inputs(M, K, N, dtype, seed)
+    runs = [fm.act_matmul_bwd(h, w, g, act) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"  K5 M={M} {str(dtype)[6:]} ({fm.dw_splits(M, K, N)} dW splits): "
+          f"dh, dW, db bit-equal over two runs: {same}")
+    if not same:
+        raise AssertionError("K5's backward is not deterministic")
 
 
 def k5_times(M: int, dtype, act="gelu_tanh", K=3072, N=768) -> dict:
@@ -899,10 +986,12 @@ def main() -> int:
     k1_shape = dict(B=96, N=197, H=12)
     k1w = k1_work(**k1_shape, D=64, dtype=torch.bfloat16)
     print("phase 2: K1 parity and times")
+    print_ptxas("K1", "packed_attention")
     k1_err = k1_parity(**k1_shape, dtype=torch.bfloat16)
     k1_parity(B=3, N=50, H=4, dtype=torch.bfloat16, seed=1)
     k1_parity(B=3, N=50, H=4, dtype=torch.float32, seed=2)
     k1_parity(B=4, N=197, H=12, dtype=torch.float32, seed=3)
+    k1_deterministic(**k1_shape, dtype=torch.bfloat16)
     k1_t = k1_times(**k1_shape, dtype=torch.bfloat16)
     print("  K1 times (ms): " + json.dumps(k1_t))
     print("  K1 bound: " + json.dumps(k1w))
@@ -915,12 +1004,7 @@ def main() -> int:
     k2w = k2_work(B=32, N=577, H=12, D=64, window=(24, 24),
                   dtype=torch.bfloat16)
     print("phase 5: K2 parity and times")
-    k2_ptxas = ptxas_kernels(kernels.build_info["relpos_attention"].get(
-        "ptxas", ""))
-    if not k2_ptxas:
-        print("  K2 ptxas: none (the library was built before this run)")
-    for kname, regs, spill in k2_ptxas:
-        print(f"  K2 ptxas: {regs} registers, {spill}: {kname[:150]}")
+    print_ptxas("K2", "relpos_attention")
     k2_err = k2_parity(**k2_shape, dtype=torch.bfloat16)
     k2_parity(**k2_shape, dtype=torch.float32, seed=1)
     for dtype in (torch.bfloat16, torch.float32):
@@ -972,14 +1056,31 @@ def main() -> int:
     print("  K4 times (ms): " + json.dumps(k4_t))
     print("  K4 bound (k4_work): " + json.dumps(k4w))
     print("phase 12: K5 parity and times")
-    for i, (M, dtype) in enumerate((
-            (18912, torch.bfloat16), (18912, torch.float32),
-            (5760, torch.bfloat16), (5760, torch.float32),
-            (100, torch.bfloat16), (100, torch.float32))):
+    print_ptxas("K5", "fused_mlp", no_spills_in=("wgmma", "dw_sum"))
+    hgmma = sass_count("fused_mlp", "HGMMA")
+    print(f"  K5 HGMMA instructions in the fused_mlp library: "
+          f"{'no cuobjdump here' if hgmma is None else hgmma}")
+    if hgmma is not None and hgmma <= 0:
+        raise AssertionError("K5's library holds no wgmma (HGMMA)")
+    # the main path's rows (BEiT 18,912, fusion 5,760, text 1,440) and the
+    # edges: one partial tile of M (100, 130), K and N not multiples of 64
+    for i, (M, K, N, dtype) in enumerate((
+            (18912, 3072, 768, torch.bfloat16),
+            (18912, 3072, 768, torch.float32),
+            (5760, 3072, 768, torch.bfloat16),
+            (5760, 3072, 768, torch.float32),
+            (1440, 3072, 768, torch.bfloat16),
+            (1440, 3072, 768, torch.float32),
+            (100, 3072, 768, torch.bfloat16),
+            (100, 3072, 768, torch.float32),
+            (130, 3072, 768, torch.bfloat16),
+            (130, 200, 72, torch.bfloat16),
+            (130, 200, 72, torch.float32))):
         for act in ("gelu_tanh", "gelu", "relu"):
-            err = k5_parity(act, M, dtype, seed=20 + i)
+            err = k5_parity(act, M, dtype, K=K, N=N, seed=20 + i)
             if (act, M, dtype) == ("gelu_tanh", 18912, torch.bfloat16):
                 k5_err = err
+    k5_deterministic(18912, torch.bfloat16)
     k5w = k5_work(18912, 3072, 768, torch.bfloat16)
     k5_t = k5_times(18912, torch.bfloat16)
     print("  K5 times (ms): " + json.dumps(k5_t))

@@ -20,7 +20,8 @@ def _inputs(B, N, H, D, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,N,H", [(3, 50, 4), (2, 197, 12)])
+@pytest.mark.parametrize("B,N,H", [(3, 50, 4), (2, 197, 12), (4, 197, 12),
+                                   (96, 197, 12)])   # the pretrain pair pass
 def test_packed_attention_kernel_matches_plain(dtype, B, N, H):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -30,8 +31,8 @@ def test_packed_attention_kernel_matches_plain(dtype, B, N, H):
     tq = torch.from_numpy(qkv).cuda().to(dtype)
     tb = torch.from_numpy(bias).cuda()
     tg = torch.from_numpy(g).cuda().to(dtype)
-    out = fa.packed_attention_fwd(tq, tb, 0.125, H)
-    dqkv, db = fa.packed_attention_bwd(tq, tb, tg, 0.125, H)
+    out, stats = fa.packed_attention_fwd(tq, tb, 0.125, H)
+    dqkv, db = fa.packed_attention_bwd(tq, tb, out, stats, tg, 0.125, H)
     rq, rb = tq.clone().requires_grad_(True), tb.clone().requires_grad_(True)
     ref = fa.packed_attention_reference(rq, rb, 0.125, H)
     ref.backward(tg)
@@ -39,6 +40,52 @@ def test_packed_attention_kernel_matches_plain(dtype, B, N, H):
     # both sides, sums run in other orders); f32: the order of sums
     tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
     for got, want in ((out, ref), (dqkv, rq.grad), (db, rb.grad)):
+        want = want.float()
+        assert (got.float() - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_packed_attention_bf16_backward_is_deterministic():
+    """K1's bf16 backward owns every output (db summed over b in order in
+    one block per tile): two runs at the pretrain shape give the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    qkv, bias, g = _inputs(96, 197, 12, 64, seed=10)
+    tq = torch.from_numpy(qkv).cuda().to(torch.bfloat16)
+    tb = torch.from_numpy(bias).cuda()
+    tg = torch.from_numpy(g).cuda().to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        out, stats = fa.packed_attention_fwd(tq, tb, 0.125, 12)
+        runs.append((out,) + fa.packed_attention_bwd(tq, tb, out, stats, tg,
+                                                     0.125, 12))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_packed_autograd_matches_plain(dtype):
+    """Through `flash_attention_packed` and autograd (the forward's output
+    and statistics saved for the backward), against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    qkv, bias, g = _inputs(4, 197, 12, 64, seed=11)
+    tg = torch.from_numpy(g).cuda().to(dtype)
+    runs = []
+    for fn in (fa.flash_attention_packed, fa.packed_attention_reference):
+        x = torch.from_numpy(qkv).cuda().to(dtype).requires_grad_(True)
+        t = torch.from_numpy(bias).cuda().requires_grad_(True)
+        out = fn(x, t, 0.125, 12)
+        out.backward(tg)
+        runs.append((out.detach(), x.grad, t.grad))
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    for got, want in zip(*runs):
+        assert got.dtype == want.dtype and got.shape == want.shape
         want = want.float()
         assert (got.float() - want).abs().max() <= tol * want.abs().max()
 
@@ -199,10 +246,28 @@ def test_beit_attention_relpos_autograd_matches_plain(monkeypatch):
      "k3_flash_attention"),
     ("void (anonymous namespace)::packed_bwd_dkdv_kernel<__nv_bfloat16>()",
      "k1_packed_attention"),
+    ("void (anonymous namespace)::xfm_attn_fwd_mma_kernel<(anonymous "
+     "namespace)::PackedBias>(__nv_bfloat16 const*, ...)",
+     "k1_packed_attention"),
+    ("void (anonymous namespace)::xfm_attn_bwd_dkdv_mma_kernel<(anonymous "
+     "namespace)::PackedBias>(...)", "k1_packed_attention"),
+    ("void (anonymous namespace)::xfm_attn_bwd_db_mma_kernel<(anonymous "
+     "namespace)::PackedBias>(...)", "k1_packed_attention"),
+    ("void (anonymous namespace)::xfm_attn_bwd_db_mma_kernel<(anonymous "
+     "namespace)::RelposBias<__nv_bfloat16> >(...)", "k2_relpos_attention"),
+    ("void (anonymous namespace)::xfm_act_matmul_wgmma<0>(CUtensorMap, "
+     "CUtensorMap, (anonymous namespace)::WArgs)", "k5_fused_mlp"),
+    ("void (anonymous namespace)::xfm_act_matmul_wgmma<2>(...)",
+     "k5_fused_mlp"),
+    ("(anonymous namespace)::xfm_act_matmul_dw_sum(float const*, "
+     "__nv_bfloat16*, int, int, int)", "k5_fused_mlp"),
+    ("void (anonymous namespace)::xfm_act_matmul<float, 1>(...)",
+     "k5_fused_mlp"),
 ])
 def test_profile_groups_file_k2_and_k3_kernels_apart(name, group):
-    """`profile_step` files K2's instantiations of the shared attention
-    kernels under K2, not under K3's `xfm_attn_` (runs on the CPU)."""
+    """`profile_step` files K1's and K2's instantiations of the shared
+    attention kernels under K1 and K2, not under K3's `xfm_attn_`, and every
+    K5 kernel under K5 (runs on the CPU)."""
     from xfm_tpu_torch.profile_step import _group
 
     assert _group(name) == group
@@ -542,8 +607,11 @@ def _mlp_inputs(M, K, N, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["gelu_tanh", "gelu", "relu"])
 @pytest.mark.parametrize("M,K,N", [(300, 3072, 768),   # the model's widths
+                                   (1440, 3072, 768),  # the text rows
+                                   (130, 3072, 768),   # a ragged row tile
                                    (48, 128, 64),      # one tile, narrow
-                                   (130, 136, 72)])    # tails everywhere
+                                   (130, 136, 72),     # tails everywhere
+                                   (130, 200, 72)])
 def test_fused_mlp_kernel_matches_plain(dtype, act, M, K, N):
     """K5 forward (y) and backward (dh, dW, db) against the plain version."""
     if not torch.cuda.is_available():
@@ -576,3 +644,22 @@ def test_fused_mlp_backward_is_deterministic():
     first = fm.act_matmul_bwd(h, w, g, "gelu_tanh")
     again = fm.act_matmul_bwd(h, w, g, "gelu_tanh")
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [18912, 1440])
+def test_fused_mlp_bf16_split_dw_is_deterministic(M):
+    """The bf16 dW cuts its sum over M into `dw_splits` chunks (8 at the
+    BEiT rows, 2 at the text rows) and adds the partials in order: two runs
+    give the same bits, and dW agrees with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import fused_mlp as fm
+
+    h, w, _, g = _mlp_inputs(M, 3072, 768, torch.bfloat16, 16)
+    assert fm.dw_splits(M, 3072, 768) > 1
+    first = fm.act_matmul_bwd(h, w, g, "gelu_tanh")
+    again = fm.act_matmul_bwd(h, w, g, "gelu_tanh")
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    want = fm.act_matmul_bwd_reference(h, w, g, "gelu_tanh")[1].float()
+    assert (first[1].float() - want).abs().max() <= 2.0 ** -6 * want.abs().max()

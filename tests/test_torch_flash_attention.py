@@ -4,7 +4,10 @@ reference, on the CPU (the CUDA kernel's own test is tests/test_torch_cuda.py).
 
 Tolerances: both sides compute in f32 with f32 accumulation (JAX at
 matmul precision 'highest', set in conftest), so they differ only in the
-order of sums: atol 1e-5 / rtol 1e-4 for values and gradients.
+order of sums: atol 1e-5 / rtol 1e-4 for values and gradients. The card's
+bf16 kernels, whose rounding points move at two places, are emulated here
+and held to the card's bf16 gate, 2⁻⁶·max|ref|, against the Pallas kernel
+in bf16.
 """
 import numpy as np
 import pytest
@@ -97,3 +100,37 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(shape, err):
     N = shape[1]
     with pytest.raises(err):
         _check_inputs(torch.zeros(shape), torch.zeros(1, 2, N, N), 2)
+
+
+@pytest.mark.parametrize("B,N,H", [(2, 197, 2), (3, 50, 2)])
+def test_bf16_kernel_rounding_holds_the_card_gate(B, N, H):
+    """K1's bf16 path runs the shared kernels of K2 and K3
+    (tests/test_torch_long_attention.py `_emulate_bf16_kernels`: exp(S − m)
+    rounded per key tile for PV, delta = rowsum(dO ⊙ O) from the rounded
+    output) with the f32 bias read beside each score, and db the f32 dS
+    summed over the batch. Out, dqkv and db stay within the card's bf16
+    gate, 2⁻⁶·max|ref| (`chip_smoke.py` phase 2), of the JAX package's
+    Pallas kernel in bf16 (interpret mode), at the pretrain length (4 key
+    tiles, the last holding 5 keys) and at one shorter than a tile."""
+    from test_torch_long_attention import _emulate_bf16_kernels
+    from xfm_tpu.ops.flash_attention import _packed_bwd_impl, _packed_fwd_impl
+
+    D, scale, bf = 64, 0.125, torch.bfloat16
+    qkv, bias, g = _inputs(B, N, H, D, seed=N + 7)
+    tq = torch.from_numpy(qkv).to(bf)
+    tg = torch.from_numpy(g).to(bf)
+    q, k, v = (t.reshape(B, N, H, D) for t in tq.split(H * D, dim=-1))
+    out, dq, dk, dv, db = _emulate_bf16_kernels(
+        q, k, v, torch.from_numpy(bias), tg.reshape(B, N, H, D), scale)
+    dqkv = torch.cat([t.reshape(B, N, H * D) for t in (dq, dk, dv)], -1)
+    jq = jnp.asarray(tq.float().numpy(), jnp.bfloat16)
+    jg = jnp.asarray(tg.float().numpy(), jnp.bfloat16)
+    jout = _packed_fwd_impl(jq, jnp.asarray(bias), scale, H, interpret=True)
+    jdqkv, jdb = _packed_bwd_impl(jq, jnp.asarray(bias), scale, H, jg,
+                                  interpret=True)
+    for name, a, b in (("out", out.reshape(B, N, H * D), jout),
+                       ("dqkv", dqkv, jdqkv), ("db", db, jdb)):
+        a, b = a.float().numpy(), np.asarray(b, np.float32)
+        assert a.shape == b.shape, name
+        err = np.abs(a - b).max()
+        assert err <= 2.0 ** -6 * np.abs(b).max(), (name, err)

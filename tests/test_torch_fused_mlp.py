@@ -151,3 +151,23 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(kw, err, match):
         fm._check_mm(h, w, b, (w.shape[0],), "b")
     with pytest.raises(NotImplementedError, match="act="):
         fm.act_matmul_reference(h, w, b, "quick_gelu")
+
+
+@pytest.mark.parametrize("M,K,N,splits", [
+    (18912, 3072, 768, 8),   # the BEiT site: 72 dW tiles, about four waves
+    (5760, 3072, 768, 8),    # the fusion rows
+    (1440, 3072, 768, 2),    # the text rows: each chunk at least 8 steps
+    (130, 3072, 768, 1),     # too few rows to split
+    (130, 200, 72, 1),
+    (4096, 8192, 8192, 1),   # 2,048 tiles already fill the card
+])
+def test_dw_splits_fill_the_card_in_whole_steps(M, K, N, splits):
+    """The bf16 dW's split count over M (runs on the CPU): 1 where its
+    [K x N] tiles already fill a wave of 132 blocks, else enough blocks for
+    about four waves, never a chunk under 8 reduction steps of 64 rows;
+    its workspace is [S, K, N] f32."""
+    assert fm.dw_splits(M, K, N) == splits
+    assert fm.dw_workspace_shape(M, K, N) == (splits, K, N)
+    chunk = -(-(-(-M // fm.DW_STEP)) // splits) * fm.DW_STEP
+    assert splits == 1 or chunk >= 8 * fm.DW_STEP
+    assert (splits - 1) * chunk < M  # every split but none past the last sums rows

@@ -1,7 +1,9 @@
-// The bf16 attention kernels shared by K2 (relpos_attention.cu, the BEiT
-// rel-pos bias from its compact table) and K3 (flash_attention.cu, a dense
-// bias of any broadcast shape): forward, dq and dk/dv, templated on the bias
-// source. Head dim 64, blocks of 4 warps, each warp owning 16 rows (q rows,
+// The bf16 attention kernels shared by K1 (packed_attention.cu, a shared f32
+// bias [1, H, N, N]), K2 (relpos_attention.cu, the BEiT rel-pos bias from
+// its compact table) and K3 (flash_attention.cu, a dense bias of any
+// broadcast shape): forward, dq and dk/dv, and for a bias shared by the
+// batch (K1, K2) the db kernel that sums its gradient over b, templated on
+// the bias source. Head dim 64, blocks of 4 warps, each warp owning 16 rows (q rows,
 // or keys in dk/dv) whose fixed operand it holds as mma.sync A fragments;
 // the streamed tiles double-buffered in shared memory by cp.async (rows
 // padded to 144 bytes, so ldmatrix is free of bank conflicts); every product
@@ -15,7 +17,8 @@
 //   hb.present()     false where no bias is added (then no row is read);
 //   hb.row(q)        what the kernels keep of q row q (any q; rows past Nq
 //                    give a row whose values are finite and never stored);
-// and, as `Head::TILE` says, one of two ways to the values:
+// and, as `Head::TILE` and `Head::TILE_F32` say, one of three ways to the
+// values:
 //   TILE false       hb.at(row, key), the bias of that row at a key < Nk in
 //                    f32, read beside each score;
 //   TILE true        hb.tile_async(tile, hb.stage(q0), k0) stages the bf16
@@ -27,7 +30,13 @@
 //                    tile's layout (.trans in dk/dv, where S^T is the tile);
 //                    hb.patch(v, row0, key0) turns a staged value v into
 //                    the bias, where row0 / key0 say that its q row / key is
-//                    0 (the entries the staged source does not hold).
+//                    0 (the entries the staged source does not hold);
+//   TILE_F32 true    hb.tile_f32_async(tile, q0, k0) stages the f32 bias of
+//                    q rows q0 .. q0 + 63 at keys k0 .. k0 + 63 into a
+//                    [64 x LDB32] f32 tile by cp.async, in the caller's
+//                    commit group (K1's dense bias, from a copy whose rows
+//                    are padded to 16 bytes); the kernels read it as f32
+//                    pairs beside each score pair.
 // The [Nq, Nk] bias itself is never built.
 //
 // Rounding points (the TPU kernels' except two, which the source notes of
@@ -46,6 +55,8 @@ namespace {
 constexpr int KT = 64;            // key tile
 constexpr int MT = 64;            // rows of a block's tile (q rows or keys)
 constexpr int MMA_THREADS = 128;  // 4 warps, 16 rows of the block's 64 each
+constexpr int LDB32 = KT + 4;     // row of a staged f32 bias tile: 272 bytes
+constexpr int F32_TILE_BYTES = MT * LDB32 * 4;
 
 // Sizes and element strides, in the order of K3's wrapper's int64 array.
 struct Dims {
@@ -57,6 +68,21 @@ struct Dims {
                                                         // read of it), dq, dk/dv
 };
 static_assert(sizeof(Dims) == 24 * sizeof(long long), "Dims is the wrapper's int64[24]");
+
+// K1's and K2's Dims: q, k and v read in place from qkv [B, N, 3C], dq, dk
+// and dv written in place into dqkv, out and dout [B, N, C] contiguous
+inline Dims qkv_dims(int B, int N, int H) {
+  const long long C = (long long)H * 64, C3 = 3 * C;
+  Dims d{};
+  d.B = B;
+  d.Nq = d.Nk = N;
+  d.H = H;
+  d.q_sb = d.k_sb = d.v_sb = d.dq_sb = d.dkv_sb = N * C3;
+  d.q_sn = d.k_sn = d.v_sn = d.dq_sn = d.dkv_sn = C3;
+  d.g_sb = d.o_sb = N * C;
+  d.g_sn = d.o_sn = C;
+  return d;
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -207,6 +233,11 @@ __device__ __forceinline__ auto stage_rows(const Head& hb, int q0) {
     return 0;
 }
 
+// staged f32 bias tile `buf` of a kernel's bias room `Bs`
+__device__ __forceinline__ float* f32_tile(bf16* Bs, int buf) {
+  return reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(Bs) + buf * F32_TILE_BYTES);
+}
+
 // bf16 pair -> f32 pair, the lower column in .x
 __device__ __forceinline__ float2 unpack_bf16(unsigned x) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
@@ -215,20 +246,21 @@ __device__ __forceinline__ float2 unpack_bf16(unsigned x) {
 // A warp's S tile (its 16 q rows `row` x keys k0 .. k0 + 63) plus the bias
 // rows `brow` of the lane's two rows, keys at or past Nk set to -inf; the
 // bias is read only where it exists, the mask only on the last tile. A
-// staged bias is read from `btile`, the staged tile at the warp's first row,
-// by ldmatrix: r[2 * half + i] holds n-tile 2np + half of the lane's row i.
+// staged bias is read from `btile`, the staged tile at the warp's first row:
+// bf16 by ldmatrix, r[2 * half + i] holding n-tile 2np + half of the lane's
+// row i; f32 as the pair of the lane's two columns.
 template <class Head>
 __device__ __forceinline__ void add_bias_and_mask(float (&s)[8][4], const Head& hb,
                                                   const typename Head::Row (&brow)[2],
                                                   const int (&row)[2], int k0, int Nk, int t,
-                                                  const bf16* btile) {
+                                                  const void* btile) {
   const bool tail = k0 + KT > Nk;
   if constexpr (Head::TILE) {
     const bool key0 = k0 == 0 && t == 0;  // the lane holds key 0 (n-tile 0, c 0)
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       unsigned r[4];
-      ldsm(r, btile, 0, np * 16);
+      ldsm(r, static_cast<const bf16*>(btile), 0, np * 16);
 #pragma unroll
       for (int half = 0; half < 2; ++half)
 #pragma unroll
@@ -239,6 +271,16 @@ __device__ __forceinline__ void add_bias_and_mask(float (&s)[8][4], const Head& 
           s[nt][2 * i + 1] += hb.patch(f.y, row[i] == 0, false);
         }
     }
+  } else if constexpr (Head::TILE_F32) {
+    const float* bt = static_cast<const float*>(btile) + (threadIdx.x % 32 / 4) * LDB32 + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 f = *reinterpret_cast<const float2*>(bt + 8 * i * LDB32 + nt * 8);
+        s[nt][2 * i] += f.x;
+        s[nt][2 * i + 1] += f.y;
+      }
   } else if (hb.present()) {
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
@@ -274,19 +316,20 @@ xfm_attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + MT * LDT;      // two K tiles
   bf16* Vs = Ks + 2 * KT * LDT;  // two V tiles
-  bf16* Bs = Vs + 2 * KT * LDT;  // two staged bias tiles (Head::TILE)
+  bf16* Bs = Vs + 2 * KT * LDT;  // two staged bias tiles (Head::TILE, TILE_F32)
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int g = lane / 4, t = lane % 4;
   const bf16* kb = k + (size_t)b * d.k_sb + h * D;
   const bf16* vb = v + (size_t)b * d.v_sb + h * D;
   const auto hb = bias.head(d, b, h);
-  constexpr bool TILE = Bias::Head::TILE;
+  constexpr bool TILE = Bias::Head::TILE, TILE_F32 = Bias::Head::TILE_F32;
   const auto bst = stage_rows(hb, q0);
 
   tile_async(Qs, q + (size_t)b * d.q_sb + h * D, d.q_sn, q0, Nq);
   tile_async(Ks, kb, d.k_sn, 0, Nk);
   tile_async(Vs, vb, d.v_sn, 0, Nk);
   if constexpr (TILE) hb.tile_async(Bs, bst, 0);
+  if constexpr (TILE_F32) hb.tile_f32_async(f32_tile(Bs, 0), q0, 0);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
@@ -318,12 +361,15 @@ xfm_attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       tile_async(Ks + ((j + 1) & 1) * KT * LDT, kb, d.k_sn, k0 + KT, Nk);
       tile_async(Vs + ((j + 1) & 1) * KT * LDT, vb, d.v_sn, k0 + KT, Nk);
       if constexpr (TILE) hb.tile_async(Bs + ((j + 1) & 1) * MT * LDT, bst, k0 + KT);
+      if constexpr (TILE_F32) hb.tile_f32_async(f32_tile(Bs, (j + 1) & 1), q0, k0 + KT);
       cp_async_commit();
     }
     float s[8][4];
     zero(s);
     warp_tile_mma<false>(s, qf, Kt);
-    add_bias_and_mask(s, hb, brow, row, k0, Nk, t, Bs + ((j & 1) * MT + warp * 16) * LDT);
+    add_bias_and_mask(s, hb, brow, row, k0, Nk, t,
+                      TILE_F32 ? static_cast<const void*>(f32_tile(Bs, j & 1) + warp * 16 * LDB32)
+                               : Bs + ((j & 1) * MT + warp * 16) * LDT);
     // online softmax: the new row max over the quad that shares the row,
     // the old sums and outputs rescaled (every tile holds a key < Nk, so
     // the max is finite and exp(-inf - max) = 0 starts the sums)
@@ -403,7 +449,7 @@ xfm_attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   bf16* Gs = Qs + MT * LDT;      // dO
   bf16* Ks = Gs + MT * LDT;      // two K tiles
   bf16* Vs = Ks + 2 * KT * LDT;  // two V tiles
-  bf16* Bs = Vs + 2 * KT * LDT;  // two staged bias tiles (Head::TILE)
+  bf16* Bs = Vs + 2 * KT * LDT;  // two staged bias tiles (Head::TILE, TILE_F32)
   __shared__ float row_delta[MT];
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int g = lane / 4, t = lane % 4;
@@ -411,7 +457,7 @@ xfm_attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const bf16* vb = v + (size_t)b * d.v_sb + h * D;
   const bf16* gb = dout + (size_t)b * d.g_sb + h * D;
   const auto hb = bias.head(d, b, h);
-  constexpr bool TILE = Bias::Head::TILE;
+  constexpr bool TILE = Bias::Head::TILE, TILE_F32 = Bias::Head::TILE_F32;
   const auto bst = stage_rows(hb, q0);
 
   tile_async(Qs, q + (size_t)b * d.q_sb + h * D, d.q_sn, q0, Nq);
@@ -419,6 +465,7 @@ xfm_attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   tile_async(Ks, kb, d.k_sn, 0, Nk);
   tile_async(Vs, vb, d.v_sn, 0, Nk);
   if constexpr (TILE) hb.tile_async(Bs, bst, 0);
+  if constexpr (TILE_F32) hb.tile_f32_async(f32_tile(Bs, 0), q0, 0);
   cp_async_commit();
   {  // delta = rowsum(dO (.) O) in f32 while the tiles land: two threads a
      // row, 32 products each in order, then their sum
@@ -478,6 +525,7 @@ xfm_attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       tile_async(Ks + ((j + 1) & 1) * KT * LDT, kb, d.k_sn, k0 + KT, Nk);
       tile_async(Vs + ((j + 1) & 1) * KT * LDT, vb, d.v_sn, k0 + KT, Nk);
       if constexpr (TILE) hb.tile_async(Bs + ((j + 1) & 1) * MT * LDT, bst, k0 + KT);
+      if constexpr (TILE_F32) hb.tile_f32_async(f32_tile(Bs, (j + 1) & 1), q0, k0 + KT);
       cp_async_commit();
     }
     float s[8][4], dp[8][4];
@@ -485,7 +533,9 @@ xfm_attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     zero(dp);
     warp_tile_mma<false>(s, qf, Kt);   // S = (q*scale) K^T
     warp_tile_mma<false>(dp, gf, Vt);  // dP = dO V^T
-    add_bias_and_mask(s, hb, brow, row, k0, Nk, t, Bs + ((j & 1) * MT + warp * 16) * LDT);
+    add_bias_and_mask(s, hb, brow, row, k0, Nk, t,
+                      TILE_F32 ? static_cast<const void*>(f32_tile(Bs, j & 1) + warp * 16 * LDB32)
+                               : Bs + ((j & 1) * MT + warp * 16) * LDT);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -550,7 +600,7 @@ xfm_attn_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   bf16* Vs = Ks + KT * LDT;
   bf16* Qs = Vs + KT * LDT;      // two q tiles (scaled)
   bf16* Gs = Qs + 2 * MT * LDT;  // two dO tiles
-  bf16* Bs = Gs + 2 * MT * LDT;  // two staged bias tiles [q][key] (Head::TILE)
+  bf16* Bs = Gs + 2 * MT * LDT;  // two staged bias tiles [q][key] (TILE, TILE_F32)
   __shared__ __align__(16) float sm[2][MT], snl[2][MT], sd[2][MT];
   __shared__ Row srow[2][MT];  // the q rows' bias rows (read beside each score)
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -558,7 +608,7 @@ xfm_attn_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   const bf16* qb = q + (size_t)b * d.q_sb + h * D;
   const bf16* gb = dout + (size_t)b * d.g_sb + h * D;
   const auto hb = bias.head(d, b, h);
-  constexpr bool TILE = Bias::Head::TILE;
+  constexpr bool TILE = Bias::Head::TILE, TILE_F32 = Bias::Head::TILE_F32;
   // q tile `jt`: its bias tile into buffer `buf` (in the open commit
   // group) and its rows' statistics into registers: max, sum, delta, bias
   // row; rows past Nq get m = +inf, so their p = 2^-inf = 0. `put` stores
@@ -569,6 +619,7 @@ xfm_attn_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   Row prow{};
   auto fetch_stats = [&](int buf, int jt) {
     if constexpr (TILE) hb.tile_async(Bs + buf * MT * LDT, hb.stage(jt * MT), k0);
+    if constexpr (TILE_F32) hb.tile_f32_async(f32_tile(Bs, buf), jt * MT, k0);
     if (threadIdx.x < MT) {
       const int qq = jt * MT + threadIdx.x;
       pin = qq < Nq;
@@ -580,7 +631,7 @@ xfm_attn_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
         pm = INFINITY;
         pd = 0.f;
       }
-      if constexpr (!TILE) prow = hb.row(qq);
+      if constexpr (!TILE && !TILE_F32) prow = hb.row(qq);
     }
   };
   auto put = [&](int buf) {
@@ -648,6 +699,16 @@ xfm_attn_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
             }
           }
       }
+    } else if constexpr (TILE_F32) {  // the staged [q][key] tile read down its columns
+      const float* bt = f32_tile(Bs, cur) + 2 * t * LDB32 + warp * 16 + g;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (key[i] < Nk) {
+            st[nt][2 * i] += bt[nt * 8 * LDB32 + 8 * i];
+            st[nt][2 * i + 1] += bt[(nt * 8 + 1) * LDB32 + 8 * i];
+          }
     }
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -658,7 +719,7 @@ xfm_attn_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
       for (int c = 0; c < 4; ++c) {
         const int i = c / 2;
         float v = st[nt][c];
-        if constexpr (!TILE)
+        if constexpr (!TILE && !TILE_F32)
           if (hb.present() && key[i] < Nk) v += hb.at(srow[cur][col + (c & 1)], key[i]);
         st[nt][c] = prob2(v, c & 1 ? cm.y : cm.x, c & 1 ? cl.y : cl.x);  // P^T
       }
@@ -699,11 +760,15 @@ xfm_attn_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 }
 
 // shared memory of the three kernels: fwd Q + two K + two V tiles; dq and
-// dk/dv six tiles each; two more for a staged bias
+// dk/dv six tiles each; room for two more of a staged bias
 constexpr size_t TILE_BYTES = (size_t)MT * LDT * sizeof(bf16);
+template <class Head>
+constexpr size_t bias_tile_bytes() {
+  return Head::TILE ? TILE_BYTES : Head::TILE_F32 ? F32_TILE_BYTES : 0;
+}
 template <class Bias>
 constexpr size_t mma_smem(int tiles) {
-  return (tiles + (Bias::Head::TILE ? 2 : 0)) * TILE_BYTES;
+  return tiles * TILE_BYTES + 2 * bias_tile_bytes<typename Bias::Head>();
 }
 
 // The forward and the dq, dk/dv pair on the current stream, each checked
@@ -735,6 +800,150 @@ int launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v, const Bias& bias
   dim3 g2((unsigned)((d.Nk + KT - 1) / KT), (unsigned)d.H, (unsigned)d.B);
   xfm_attn_bwd_dkdv_mma_kernel<Bias><<<g2, MMA_THREADS, smem, st>>>(
       q, k, v, bias, dout, stats, delta, dk, dv, d, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// backward, after dq and dk/dv, for a bias shared by the batch (K1's dense
+// [1, H, Nq, Nk], K2's table): db [H, Nq, Nk] f32, ds summed over b = 0, 1,
+// ... in order. grid (ceil(Nk/64) key tiles, ceil(Nq/64) q tiles, H), 128
+// threads; warp w owns q rows 16w .. 16w + 15 of the tile (the dq kernel's
+// layout, so S, dP and P are that kernel's bits).
+
+template <class Bias>
+__global__ void __launch_bounds__(MMA_THREADS)
+xfm_attn_bwd_db_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, Bias bias,
+                           const bf16* __restrict__ dout, const float* __restrict__ stats,
+                           const float* __restrict__ delta, float* __restrict__ db, Dims d,
+                           float scale) {
+  const int k0 = blockIdx.x * KT, q0 = blockIdx.y * MT, h = blockIdx.z;
+  const int B = (int)d.B, Nq = (int)d.Nq, Nk = (int)d.Nk, H = (int)d.H;
+  const size_t BHN = (size_t)B * H * Nq;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // two q tiles
+  bf16* Gs = Qs + 2 * MT * LDT;              // two dO tiles
+  bf16* Ks = Gs + 2 * MT * LDT;              // two K tiles
+  bf16* Vs = Ks + 2 * KT * LDT;              // two V tiles
+  bf16* Bs = Vs + 2 * KT * LDT;              // the staged bias tile (TILE, TILE_F32)
+  __shared__ float sm[2][MT], snl[2][MT], sd[2][MT];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane / 4, t = lane % 4;
+  const auto hb = bias.head(d, 0, h);  // the same for every b
+  // row b's tiles into buffer `buf`, and its rows' statistics (m, l,
+  // delta) into registers; `put` stores them into the buffer, l as
+  // -log2(l) and (0, 0, 0) past Nq as the dq kernel takes them, after the
+  // current b's compute, by when they have landed
+  const int sq = q0 + threadIdx.x;  // the q row whose statistics this thread keeps
+  float pm = 0.f, pl = 0.f, pd = 0.f;
+  auto fetch = [&](int buf, int b) {
+    const size_t hd = (size_t)h * D;
+    tile_async(Qs + buf * MT * LDT, q + b * d.q_sb + hd, d.q_sn, q0, Nq);
+    tile_async(Gs + buf * MT * LDT, dout + b * d.g_sb + hd, d.g_sn, q0, Nq);
+    tile_async(Ks + buf * KT * LDT, k + b * d.k_sb + hd, d.k_sn, k0, Nk);
+    tile_async(Vs + buf * KT * LDT, v + b * d.v_sb + hd, d.v_sn, k0, Nk);
+    cp_async_commit();
+    if (threadIdx.x < MT && sq < Nq) {
+      const size_t row0 = ((size_t)b * H + h) * Nq;
+      pm = stats[row0 + sq];
+      pl = stats[BHN + row0 + sq];
+      pd = delta[row0 + sq];
+    }
+  };
+  auto put = [&](int buf) {
+    if (threadIdx.x < MT) {
+      sm[buf][threadIdx.x] = pm;
+      snl[buf][threadIdx.x] = sq < Nq ? -log2f(pl) : 0.f;
+      sd[buf][threadIdx.x] = pd;
+    }
+  };
+
+  if constexpr (Bias::Head::TILE) hb.tile_async(Bs, hb.stage(q0), k0);
+  if constexpr (Bias::Head::TILE_F32) hb.tile_f32_async(f32_tile(Bs, 0), q0, k0);
+  fetch(0, 0);
+  put(0);
+  cp_async_wait_all();
+  __syncthreads();
+  // the block's bias tile, the same for every b: the lane's two rows at its
+  // 16 keys, -inf past Nk (0 + bias is the bias, so s + bt is the dq
+  // kernel's s + bias)
+  float bt[8][4];
+  zero(bt);
+  {
+    const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+    const typename Bias::Head::Row brow[2] = {hb.row(row[0]), hb.row(row[1])};
+    add_bias_and_mask(bt, hb, brow, row, k0, Nk, t,
+                      Bias::Head::TILE_F32
+                          ? static_cast<const void*>(f32_tile(Bs, 0) + warp * 16 * LDB32)
+                          : Bs + warp * 16 * LDT);
+  }
+  float acc[8][4];
+  zero(acc);
+  for (int b = 0; b < B; ++b) {
+    const int cur = b & 1;
+    if (b + 1 < B) fetch(cur ^ 1, b + 1);  // lands while this b computes
+    unsigned qf[4][4], gf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      ldsm(qf[kk], Qs + cur * MT * LDT, warp * 16, kk * 16);
+      ldsm(gf[kk], Gs + cur * MT * LDT, warp * 16, kk * 16);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qf[kk][i] = scale_bf16x2(qf[kk][i], scale);
+    }
+    float s[8][4], dp[8][4];
+    zero(s);
+    zero(dp);
+    warp_tile_mma<false>(s, qf, Ks + cur * KT * LDT);  // S = (q*scale) K^T
+    warp_tile_mma<false>(dp, gf, Vs + cur * KT * LDT);  // dP = dO V^T
+    float m[2], nl[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = warp * 16 + g + 8 * i;
+      m[i] = sm[cur][r];
+      nl[i] = snl[cur][r];
+      dl[i] = sd[cur][r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c / 2;
+        // ds in f32, rounded before the sum (no fused multiply-add)
+        acc[nt][c] += __fmul_rn(prob2(s[nt][c] + bt[nt][c], m[i], nl[i]), dp[nt][c] - dl[i]);
+      }
+    if (b + 1 < B) {
+      put(cur ^ 1);
+      cp_async_wait_all();
+    }
+    __syncthreads();
+  }
+  float* out = db + (size_t)h * Nq * Nk;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qq = q0 + warp * 16 + g + 8 * i;
+    if (qq >= Nq) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + nt * 8 + 2 * t + c;
+        if (key < Nk) out[(size_t)qq * Nk + key] = acc[nt][2 * i + c];
+      }
+  }
+}
+
+// The db kernel on the current stream: two stages of Q, dO, K and V tiles,
+// and a staged bias tile where the source stages one.
+template <class Bias>
+int launch_db_mma(const bf16* q, const bf16* k, const bf16* v, const Bias& bias,
+                  const bf16* dout, const float* stats, const float* delta, float* db,
+                  const Dims& d, float scale, cudaStream_t st) {
+  const size_t smem = 8 * TILE_BYTES + bias_tile_bytes<typename Bias::Head>();
+  cudaError_t e = allow_smem(xfm_attn_bwd_db_mma_kernel<Bias>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)((d.Nk + KT - 1) / KT), (unsigned)((d.Nq + MT - 1) / MT), (unsigned)d.H);
+  xfm_attn_bwd_db_mma_kernel<Bias><<<grid, MMA_THREADS, smem, st>>>(q, k, v, bias, dout, stats,
+                                                                    delta, db, d, scale);
   return (int)cudaGetLastError();
 }
 

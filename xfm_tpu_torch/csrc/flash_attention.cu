@@ -106,6 +106,7 @@ struct DenseBias {
     int Nq, is_bf16;
     using Row = const void*;
     static constexpr bool TILE = false;  // read beside each score
+    static constexpr bool TILE_F32 = false;
 
     __device__ bool present() const { return base != nullptr; }
     __device__ Row row(int q) const {

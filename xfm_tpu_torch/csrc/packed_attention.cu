@@ -3,55 +3,64 @@
 // xfm_tpu_torch/ops/flash_attention.py.
 //
 // Replaces the TPU kernels xfm_tpu/ops/flash_attention.py
-// `_packed_fwd_kernel` / `_packed_bwd_kernel` (public entry
-// `flash_attention_packed`). Computes, per (row b, head h),
+// `_packed_fwd_kernel` (:983, called at :1160) / `_packed_bwd_kernel` (:1007,
+// called at :1210) (public entry `flash_attention_packed` :1226). Computes,
+// per (row b, head h),
 //     out = softmax((q*scale) k^T + bias) v
-// with q, k, v read straight out of qkv [B, N, 3*H*D] (layout [q | k | v],
-// heads contiguous inside each section) and bias [1, H, N, N] f32 shared by
-// the batch. D = 64. Input dtype bf16 (tensor cores through WMMA, i.e.
-// mma.sync) or f32 (CUDA-core FMA, full f32 products).
+// with q, k, v read in place out of qkv [B, N, 3*H*D] (layout [q | k | v],
+// heads contiguous inside each section), dq, dk, dv written in place into
+// dqkv, and bias [1, H, N, N] f32 shared by the batch, N < 512, D = 64; db
+// [1, H, N, N] f32 is ds summed over the batch.
 //
-// Rounding points are the TPU kernel's: q is scaled in f32 and rounded to the
-// input dtype before QK^T; softmax in f32; P is rounded to the input dtype
-// before PV and dV; ds = p * (dp - sum(p * dp)) in f32, rounded to the input
-// dtype for dq/dk; dq is multiplied by the scale after the product; dk uses
-// the rounded, scaled q; db is accumulated in f32.
+// bf16 runs the kernels of attention_mma.cuh, shared with K2 and K3 (that
+// header's note has the tile design: mma.sync tiles held in registers, fed
+// by cp.async), instantiated with `PackedBias` (`Head::TILE_F32`): each call
+// first copies the bias to [H, N, Npad] f32 with rows padded to 16 bytes
+// (Npad = 200 at N = 197, 1.9 MB), and every kernel stages each 64 x 64 f32
+// bias tile by cp.async beside its K/V or Q/dO tiles and reads it as f32
+// pairs (read beside each score through L1 instead, the kernels took 0.28 /
+// 1.18 ms at the pair pass):
+//   fwd   one block per (q tile of 64, h, b): one pass over 64-key tiles with
+//         an online softmax; the row max and sum saved [2, B*H*N].
+//   bwd   four kernels on the current stream, each output written once: no
+//         atomics and no [B, H, N, N] scratch, so the same bits every run:
+//         dq    one block per (q tile, h, b): delta = rowsum(dO (.) O) from
+//               the forward's output, saved [B*H*N]; S, dP, dS, dq += dS K;
+//         dkdv  one block per (k tile, h, b) over the q tiles in order:
+//               dv += P^T dO, dk += dS^T (q*scale);
+//         db    one block per (k tile, q tile, h) loops over b = 0, 1, ...
+//               in order (`xfm_attn_bwd_db_mma_kernel`, shared with K2),
+//               recomputes S, P (the dq kernel's bits) and dP and sums
+//               ds = P (dP - delta) in registers; db is written once.
+// Rounding points are the TPU kernel's except two, which K2's and K3's
+// bf16 kernels share (tests/test_torch_flash_attention.py emulates both and
+// holds them to the card's bf16 gate, 2^-6 max|ref|, against the Pallas
+// kernel): the forward rounds the unnormalized exp(S - m) of each key tile
+// to bf16 for PV and divides the f32 sums by the row sum at the end, where
+// the TPU kernel rounds the normalized P; delta = rowsum(dO (.) O) from the
+// rounded output, where the TPU kernel sums P (.) dP. The rest: q scaled in
+// f32 and rounded before QK^T; scores, bias and softmax in f32; ds rounded
+// for dq and dk, P for dv; db sums the f32 ds.
 //
-// What bounds it: at the XFM-base pair pass (2B = 96 rows, N = 197, H = 12)
-// both directions do ~10-30 GFLOP against ~120-240 MB of traffic, so a good
-// kernel sits near the memory bound; this first version is bounded by its
-// own simple tiling (tiles staged through shared memory, no TMA or wgmma,
-// K/V re-read from L2 by every q tile) and its times are in PERF.md.
+// f32 runs the first design's kernels below (CUDA-core FMA, full f32
+// products, the TPU kernel's rounding points): the forward keeps a [64,
+// Npad] score block in shared memory; the backward's dq kernel writes the
+// row statistics and every f32 ds row to a scratch [B, H, N, N] that the
+// dk/dv kernel reads back and a db kernel sums over b in order.
 //
-// Design. The TPU kernel walks a sequential grid with the batch innermost and
-// carries db across grid steps. Hopper blocks run in parallel and in no
-// order, so the sum over the batch is made deterministic without atomics:
-//   fwd   one block per (q tile of 64, h, b); the whole score row block
-//         [64, Npad] stays in shared memory (N < 512), k/v stream in 64-key
-//         tiles; the ragged edge (197 is no multiple of a tile) is masked.
-//   bwd   three kernels on the current stream:
-//         dq    one block per (q tile of 32, h, b): recomputes the full P and
-//               dP rows, writes dq, the row statistics (max, sum) and the
-//               f32 ds rows of every (b, h) to a scratch buffer [B, H, N, N];
-//         dkdv  one block per (k tile of 64, h, b), looping over q tiles:
-//               recomputes P from S and the row max and sum, reads ds back;
-//         db    one thread per db element sums the scratch over b in the
-//               order b = 0, 1, ... (the TPU kernel's order), so db is
-//               deterministic. The scratch costs one write and two reads
-//               (dkdv, db) of B*H*N*N f32, ~180 MB each at the pair pass:
-//               ~540 MB on top of the function's own ~207 MB, so this
-//               design alone keeps the backward at 3.6x its byte bound or
-//               more.
-//               A db kernel with one block per (h, q tile, k tile) that
-//               loops over b and recomputes its ds tiles would need no
-//               scratch; that is the next step for the backward.
-// S is recomputed from the same tiles in the same order in the dq and dkdv
-// kernels, so both see bit-identical probabilities.
-#include "attention_tiles.cuh"
+// What bounds it: at the XFM-base pair pass (2B = 96 rows, N = 197, H = 12,
+// bf16) the forward must move 118.1 MB and do 11.4 GFLOP (0.035 ms by bytes
+// at 3.35 TB/s), the backward 207.1 MB and 28.6 GFLOP (0.062 ms by bytes).
+// This design takes 0.18 / 0.67 ms there (NVIDIA H100 80GB HBM3, 700 W; the
+// first design 0.49 / 1.47): the mma kernels pad 197 to 256 (4 key tiles,
+// the last holding 5 keys), 69 % more products than the function needs, at
+// the mma.sync rate, and the backward forms S and dP three times (dq,
+// dk/dv, db; db alone is 0.22 ms, 192 blocks each summing 96 rows of b).
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int KT = 64;          // key tile
+// the f32 kernels' tiles (the key tile KT is attention_mma.cuh's 64)
 constexpr int QT_FWD = 64;      // q tile of the forward
 constexpr int QT_BWD = 32;      // q tile of the backward kernels
 
@@ -80,7 +89,7 @@ __device__ void warp_softmax_row(float* s, const float* __restrict__ brow, int N
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (ceil(N/64), H, B)
+// f32 forward: grid (ceil(N/64), H, B)
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -135,7 +144,7 @@ packed_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
 }
 
 // ---------------------------------------------------------------------------
-// backward 1/3: dq and row statistics. grid (ceil(N/32), H, B).
+// f32 backward 1/3: dq and row statistics. grid (ceil(N/32), H, B).
 // stats: [2][B*H*N] = row max, row sum.
 
 template <typename T>
@@ -217,7 +226,7 @@ packed_bwd_dq_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
 }
 
 // ---------------------------------------------------------------------------
-// backward 2/3: dk and dv. grid (ceil(N/64), H, B). P is recomputed from S
+// f32 backward 2/3: dk and dv. grid (ceil(N/64), H, B). P is recomputed from S
 // with the dq kernel's row max and sum; ds is read back from its scratch.
 
 template <typename T>
@@ -285,7 +294,7 @@ packed_bwd_dkdv_kernel(const T* __restrict__ qkv, const float* __restrict__ bias
 }
 
 // ---------------------------------------------------------------------------
-// backward 3/3: db[h] = sum over b of ds[b, h], in the order b = 0, 1, ...
+// f32 backward 3/3: db[h] = sum over b of ds[b, h], in the order b = 0, 1, ...
 // (the TPU kernel's order). ds_rows: [B, H*N*N] f32 from the dq kernel.
 
 __global__ void __launch_bounds__(THREADS)
@@ -299,95 +308,179 @@ packed_bwd_db_kernel(const float* __restrict__ ds_rows, float* __restrict__ db,
   }
 }
 
-// ---------------------------------------------------------------------------
-// host side
 
-template <typename T>
-size_t fwd_smem(int Npad) {
-  return (size_t)(QT_FWD + KT + QT_FWD) * LDT * sizeof(T) +
-         (size_t)(QT_FWD * (Npad + 4) + QT_FWD * LDF) * sizeof(float);
-}
-template <typename T>
-size_t dq_smem(int Npad) {
-  return (size_t)(3 * QT_BWD + KT) * LDT * sizeof(T) +
-         (size_t)(2 * QT_BWD * (Npad + 4) + QT_BWD * LDF) * sizeof(float);
-}
-template <typename T>
-size_t dkdv_smem() {
-  return (size_t)(KT + 4 * QT_BWD) * LDT * sizeof(T) +
-         (size_t)(QT_BWD + 2 * KT) * LDF * sizeof(float);
+// The shared f32 bias [1, H, N, N], as a bias source of attention_mma.cuh,
+// from its copy `pad` [H, N, Npad] whose rows are padded to Npad =
+// round_up(N, 4) floats (16 bytes): each 64 x 64 tile is staged by cp.async
+// beside the K/V or Q/dO tiles it goes with and read as f32 pairs.
+struct PackedBias {
+  const float* pad;
+  int Npad;
+
+  struct Head {
+    const float* base;  // (h, q = 0, key = 0) of the padded copy
+    int N, Npad;
+    using Row = int;    // nothing is kept per row
+    static constexpr bool TILE = false, TILE_F32 = true;
+
+    __device__ constexpr bool present() const { return true; }
+    __device__ Row row(int) const { return 0; }
+    __device__ float at(Row, int) const { return 0.f; }
+    // rows q0 .. q0 + 63 at keys k0 .. k0 + 63 into tile [64 x LDB32]; rows
+    // past N and keys past Npad zero-filled (keys in N .. Npad are the
+    // copy's zeros; every key past N is masked)
+    __device__ void tile_f32_async(float* tile, int q0, int k0) const {
+#pragma unroll
+      for (int j = 0; j < MT * KT / 4 / MMA_THREADS; ++j) {
+        const int i = threadIdx.x + j * MMA_THREADS;
+        const int r = i / (KT / 4), c = (i % (KT / 4)) * 4, q = q0 + r, k = k0 + c;
+        const bool ok = q < N && k < Npad;
+        cp_async16(tile + r * LDB32 + c, ok ? base + (size_t)q * Npad + k : base, ok);
+      }
+    }
+  };
+
+  __device__ Head head(const Dims& d, int, int h) const {
+    return Head{pad + (size_t)h * d.Nq * Npad, (int)d.Nq, Npad};
+  }
+};
+
+// pad [H, N, Npad] = bias [H, N, N] with each row's tail Npad - N zero
+__global__ void __launch_bounds__(THREADS)
+packed_pad_bias_kernel(const float* __restrict__ bias, float* __restrict__ pad, int H, int N,
+                       int Npad) {
+  const size_t total = (size_t)H * N * Npad;
+  for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * THREADS) {
+    const size_t row = i / Npad;
+    const int k = (int)(i - row * Npad);
+    pad[i] = k < N ? bias[row * N + k] : 0.f;
+  }
 }
 
-template <typename T>
-int launch_fwd(const void* qkv, const void* bias, void* out, int B, int N, int H,
-               float scale, cudaStream_t st) {
-  const int Npad = round_up(N, KT);
-  const size_t smem = fwd_smem<T>(Npad);
-  cudaError_t e = allow_smem(packed_fwd_kernel<T>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + QT_FWD - 1) / QT_FWD, H, B);
-  packed_fwd_kernel<T><<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(bias),
-      static_cast<T*>(out), N, H, Npad, scale);
+int pad_bias(const float* bias, float* pad, int H, int N, cudaStream_t st) {
+  const int Npad = round_up(N, 4);
+  const long long total = (long long)H * N * Npad;
+  const int g = (int)((total + THREADS - 1) / THREADS < 132 * 8 ? (total + THREADS - 1) / THREADS
+                                                                : 132 * 8);
+  packed_pad_bias_kernel<<<g, THREADS, 0, st>>>(bias, pad, H, N, Npad);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(const void* qkv, const void* bias, const void* dout, void* dqkv,
-               void* db, void* stats, void* ds_rows, int B, int N, int H,
-               float scale, cudaStream_t st) {
-  const int Npad = round_up(N, KT);
-  const T* q = static_cast<const T*>(qkv);
-  const float* bi = static_cast<const float*>(bias);
-  const T* g = static_cast<const T*>(dout);
-  T* dq = static_cast<T*>(dqkv);
-  float* sts = static_cast<float*>(stats);
-  cudaError_t e;
+// ---------------------------------------------------------------------------
+// host side
 
-  size_t smem = dq_smem<T>(Npad);
-  if ((e = allow_smem(packed_bwd_dq_kernel<T>, smem)) != cudaSuccess) return (int)e;
+size_t fwd_smem(int Npad) {
+  return (size_t)(QT_FWD + KT + QT_FWD) * LDT * sizeof(float) +
+         (size_t)(QT_FWD * (Npad + 4) + QT_FWD * LDF) * sizeof(float);
+}
+size_t dq_smem(int Npad) {
+  return (size_t)(3 * QT_BWD + KT) * LDT * sizeof(float) +
+         (size_t)(2 * QT_BWD * (Npad + 4) + QT_BWD * LDF) * sizeof(float);
+}
+size_t dkdv_smem() {
+  return (size_t)(KT + 4 * QT_BWD) * LDT * sizeof(float) +
+         (size_t)(QT_BWD + 2 * KT) * LDF * sizeof(float);
+}
+
+int launch_fwd_f32(const float* qkv, const float* bias, float* out, int B, int N, int H,
+                   float scale, cudaStream_t st) {
+  const int Npad = round_up(N, KT);
+  const size_t smem = fwd_smem(Npad);
+  cudaError_t e = allow_smem(packed_fwd_kernel<float>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((N + QT_FWD - 1) / QT_FWD, H, B);
+  packed_fwd_kernel<float><<<grid, THREADS, smem, st>>>(qkv, bias, out, N, H, Npad, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_f32(const float* qkv, const float* bias, const float* dout, float* dqkv,
+                   float* db, float* stats, float* ds_rows, int B, int N, int H, float scale,
+                   cudaStream_t st) {
+  const int Npad = round_up(N, KT);
+  cudaError_t e;
+  size_t smem = dq_smem(Npad);
+  if ((e = allow_smem(packed_bwd_dq_kernel<float>, smem)) != cudaSuccess) return (int)e;
   dim3 g1((N + QT_BWD - 1) / QT_BWD, H, B);
-  float* dsr = static_cast<float*>(ds_rows);
-  packed_bwd_dq_kernel<T><<<g1, THREADS, smem, st>>>(q, bi, g, dq, sts, dsr, B, N, H,
-                                                     Npad, scale);
+  packed_bwd_dq_kernel<float><<<g1, THREADS, smem, st>>>(qkv, bias, dout, dqkv, stats, ds_rows,
+                                                         B, N, H, Npad, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  smem = dkdv_smem<T>();
-  if ((e = allow_smem(packed_bwd_dkdv_kernel<T>, smem)) != cudaSuccess) return (int)e;
+  smem = dkdv_smem();
+  if ((e = allow_smem(packed_bwd_dkdv_kernel<float>, smem)) != cudaSuccess) return (int)e;
   dim3 g2(Npad / KT, H, B);
-  packed_bwd_dkdv_kernel<T><<<g2, THREADS, smem, st>>>(q, bi, g, dq, sts, dsr, B, N,
-                                                       H, scale);
+  packed_bwd_dkdv_kernel<float><<<g2, THREADS, smem, st>>>(qkv, bias, dout, dqkv, stats, ds_rows,
+                                                           B, N, H, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   const size_t HNN = (size_t)H * N * N;
   const int g3 = (int)((HNN + THREADS - 1) / THREADS < 132 * 8
                            ? (HNN + THREADS - 1) / THREADS : 132 * 8);
-  packed_bwd_db_kernel<<<g3, THREADS, 0, st>>>(dsr, static_cast<float*>(db), B, HNN);
+  packed_bwd_db_kernel<<<g3, THREADS, 0, st>>>(ds_rows, db, B, HNN);
   return (int)cudaGetLastError();
+}
+
+int launch_fwd_bf16(const bf16* qkv, const float* bias, float* pad, bf16* out, float* stats,
+                    int B, int N, int H, float scale, cudaStream_t st) {
+  const int rc = pad_bias(bias, pad, H, N, st);
+  if (rc != 0) return rc;
+  const int C = H * D;
+  return launch_fwd_mma(qkv, qkv + C, qkv + 2 * C, PackedBias{pad, round_up(N, 4)}, out, stats,
+                        qkv_dims(B, N, H), scale, st);
+}
+
+int launch_bwd_bf16(const bf16* qkv, const float* bias, float* pad, const bf16* out,
+                    const float* stats, const bf16* dout, bf16* dqkv, float* db, float* delta,
+                    int B, int N, int H, float scale, cudaStream_t st) {
+  int rc = pad_bias(bias, pad, H, N, st);
+  if (rc != 0) return rc;
+  const int C = H * D;
+  const Dims d = qkv_dims(B, N, H);
+  const PackedBias pb{pad, round_up(N, 4)};
+  rc = launch_bwd_mma(qkv, qkv + C, qkv + 2 * C, pb, out, dout, stats, delta, dqkv,
+                                dqkv + C, dqkv + 2 * C, d, scale, st);
+  if (rc != 0) return rc;
+  return launch_db_mma(qkv, qkv + C, qkv + 2 * C, pb, dout, stats, delta, db, d, scale, st);
 }
 
 }  // namespace
 
-// is_bf16: 1 for bf16 qkv/out, 0 for f32. bias is f32 [1, H, N, N].
+// is_bf16: 1 for bf16 qkv/out, 0 for f32. bias is f32 [1, H, N, N]; out
+// [B, N, H*64]; stats f32 [2, B*H*N], the row max and sum, written by the
+// bf16 forward (the f32 forward leaves it alone). bf16: pad f32 [H, N,
+// round_up(N, 4)], the bias's padded copy, written here; f32: pad null.
 // Returns a cudaError_t (0 on success).
-extern "C" int xfm_packed_attention_fwd(const void* qkv, const void* bias, void* out,
-                                        int B, int N, int H, float scale,
+extern "C" int xfm_packed_attention_fwd(const void* qkv, const void* bias, void* pad, void* out,
+                                        void* stats, int B, int N, int H, float scale,
                                         int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_fwd<bf16>(qkv, bias, out, B, N, H, scale, st)
-                 : launch_fwd<float>(qkv, bias, out, B, N, H, scale, st);
+  const float* bi = static_cast<const float*>(bias);
+  if (is_bf16)
+    return launch_fwd_bf16(static_cast<const bf16*>(qkv), bi, static_cast<float*>(pad),
+                           static_cast<bf16*>(out), static_cast<float*>(stats), B, N, H, scale,
+                           st);
+  return launch_fwd_f32(static_cast<const float*>(qkv), bi, static_cast<float*>(out), B, N, H,
+                        scale, st);
 }
 
-// dqkv like qkv; db f32 [1, H, N, N]; scratch: stats f32 [2, B*H*N] and
-// ds_rows f32 [B, H, N, N].
-extern "C" int xfm_packed_attention_bwd(const void* qkv, const void* bias,
-                                        const void* dout, void* dqkv, void* db,
-                                        void* stats, void* ds_rows, int B, int N,
-                                        int H, float scale, int is_bf16,
-                                        void* stream) {
+// out: the forward's output (bf16 takes delta = rowsum(dout (.) out) from
+// it); dout [B, N, H*64]; dqkv like qkv; db f32 [1, H, N, N]. bf16: pad as
+// for the forward, stats the forward's, scratch = delta f32 [B*H*N]. f32:
+// pad null, stats a scratch [2, B*H*N] that the dq kernel fills, scratch =
+// ds f32 [B, H, N, N]; out is not read.
+extern "C" int xfm_packed_attention_bwd(const void* qkv, const void* bias, void* pad,
+                                        const void* out, void* stats, const void* dout,
+                                        void* dqkv, void* db, void* scratch, int B, int N, int H,
+                                        float scale, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bwd<bf16>(qkv, bias, dout, dqkv, db, stats, ds_rows, B, N,
-                                    H, scale, st)
-                 : launch_bwd<float>(qkv, bias, dout, dqkv, db, stats, ds_rows, B, N,
-                                     H, scale, st);
+  const float* bi = static_cast<const float*>(bias);
+  float* sts = static_cast<float*>(stats);
+  float* dbf = static_cast<float*>(db);
+  float* scr = static_cast<float*>(scratch);
+  if (is_bf16)
+    return launch_bwd_bf16(static_cast<const bf16*>(qkv), bi, static_cast<float*>(pad),
+                           static_cast<const bf16*>(out), sts, static_cast<const bf16*>(dout),
+                           static_cast<bf16*>(dqkv), dbf, scr, B, N, H, scale, st);
+  return launch_bwd_f32(static_cast<const float*>(qkv), bi, static_cast<const float*>(dout),
+                        static_cast<float*>(dqkv), dbf, sts, scr, B, N, H, scale, st);
 }

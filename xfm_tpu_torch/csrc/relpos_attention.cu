@@ -62,7 +62,8 @@
 //               q tile's bias tile staged [q][key] and read transposed, its
 //               rows' (m, l, delta) prefetched into registers: dv += P^T dO,
 //               dk += dS^T (q*scale);
-//         db    one block per (k tile, q tile, h) loops over b = 0, 1, ...
+//         db    (attention_mma.cuh's `xfm_attn_bwd_db_mma_kernel`, shared
+//               with K1) one block per (k tile, q tile, h) loops over b = 0, 1, ...
 //               in order, the next b's Q, dO, K, V tiles (cp.async) and row
 //               statistics (registers) landing while this one computes; the
 //               block's bias tile, the same for every b, stays in registers;
@@ -125,6 +126,7 @@ struct RelposBias {
     int N, wh, ww, P;
     using Row = int;
     static constexpr bool TILE = true;  // the bf16 kernels stage it
+    static constexpr bool TILE_F32 = false;
 
     __device__ constexpr bool present() const { return true; }
     __device__ Row row(int q) const {
@@ -475,130 +477,6 @@ relpos_bwd_dkdv_kernel(const T* __restrict__ qkv, RelposBias<T> bias,
 }
 
 // ---------------------------------------------------------------------------
-// backward, bf16, after dq and dk/dv: db [H, N, N] f32, ds summed over
-// b = 0, 1, ... in order. grid (ceil(N/64) key tiles, ceil(N/64) q tiles, H), 128 threads;
-// warp w owns q rows 16w .. 16w + 15 of the tile (the dq kernel's layout, so
-// S, dP and P are that kernel's bits).
-
-__global__ void __launch_bounds__(MMA_THREADS)
-relpos_bwd_db_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, RelposBias<bf16> bias,
-                         const bf16* __restrict__ dout, const float* __restrict__ stats,
-                         const float* __restrict__ delta, float* __restrict__ db, Dims d,
-                         float scale) {
-  const int k0 = blockIdx.x * KT, q0 = blockIdx.y * MT, h = blockIdx.z;
-  const int B = (int)d.B, N = (int)d.Nq, H = (int)d.H;
-  const size_t BHN = (size_t)B * H * N;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // two q tiles
-  bf16* Gs = Qs + 2 * MT * LDT;              // two dO tiles
-  bf16* Ks = Gs + 2 * MT * LDT;              // two K tiles
-  bf16* Vs = Ks + 2 * KT * LDT;              // two V tiles
-  bf16* Bs = Vs + 2 * KT * LDT;              // the staged bias tile
-  __shared__ float sm[2][MT], snl[2][MT], sd[2][MT];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int g = lane / 4, t = lane % 4;
-  const auto hb = bias.head(h);
-  // row b's tiles into buffer `buf`, and its rows' statistics (m, l,
-  // delta) into registers; `put` stores them into the buffer, l as
-  // -log2(l) and (0, 0, 0) past N as the dq kernel takes them, after the
-  // current b's compute, by when they have landed
-  const int sq = q0 + threadIdx.x;  // the q row whose statistics this thread keeps
-  float pm = 0.f, pl = 0.f, pd = 0.f;
-  auto fetch = [&](int buf, int b) {
-    const size_t hd = (size_t)h * D;
-    tile_async(Qs + buf * MT * LDT, q + b * d.q_sb + hd, d.q_sn, q0, N);
-    tile_async(Gs + buf * MT * LDT, dout + b * d.g_sb + hd, d.g_sn, q0, N);
-    tile_async(Ks + buf * KT * LDT, k + b * d.k_sb + hd, d.k_sn, k0, N);
-    tile_async(Vs + buf * KT * LDT, v + b * d.v_sb + hd, d.v_sn, k0, N);
-    cp_async_commit();
-    if (threadIdx.x < MT && sq < N) {
-      const size_t row0 = ((size_t)b * H + h) * N;
-      pm = stats[row0 + sq];
-      pl = stats[BHN + row0 + sq];
-      pd = delta[row0 + sq];
-    }
-  };
-  auto put = [&](int buf) {
-    if (threadIdx.x < MT) {
-      sm[buf][threadIdx.x] = pm;
-      snl[buf][threadIdx.x] = sq < N ? -log2f(pl) : 0.f;
-      sd[buf][threadIdx.x] = pd;
-    }
-  };
-
-  hb.tile_async(Bs, hb.stage(q0), k0);
-  fetch(0, 0);
-  put(0);
-  cp_async_wait_all();
-  __syncthreads();
-  // the block's bias tile, the same for every b: the lane's two rows at its
-  // 16 keys, -inf past N (0 + bias is the bias, so s + bt is the dq
-  // kernel's s + bias)
-  float bt[8][4];
-  zero(bt);
-  {
-    const RelposBias<bf16>::Head::Row brow[2] = {hb.row(q0 + warp * 16 + g),
-                                                 hb.row(q0 + warp * 16 + g + 8)};
-    const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-    add_bias_and_mask(bt, hb, brow, row, k0, N, t, Bs + warp * 16 * LDT);
-  }
-  float acc[8][4];
-  zero(acc);
-  for (int b = 0; b < B; ++b) {
-    const int cur = b & 1;
-    if (b + 1 < B) fetch(cur ^ 1, b + 1);  // lands while this b computes
-    unsigned qf[4][4], gf[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      ldsm(qf[kk], Qs + cur * MT * LDT, warp * 16, kk * 16);
-      ldsm(gf[kk], Gs + cur * MT * LDT, warp * 16, kk * 16);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qf[kk][i] = scale_bf16x2(qf[kk][i], scale);
-    }
-    float s[8][4], dp[8][4];
-    zero(s);
-    zero(dp);
-    warp_tile_mma<false>(s, qf, Ks + cur * KT * LDT);  // S = (q*scale) K^T
-    warp_tile_mma<false>(dp, gf, Vs + cur * KT * LDT);  // dP = dO V^T
-    float m[2], nl[2], dl[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = warp * 16 + g + 8 * i;
-      m[i] = sm[cur][r];
-      nl[i] = snl[cur][r];
-      dl[i] = sd[cur][r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = c / 2;
-        // ds in f32, rounded before the sum (no fused multiply-add)
-        acc[nt][c] += __fmul_rn(prob2(s[nt][c] + bt[nt][c], m[i], nl[i]), dp[nt][c] - dl[i]);
-      }
-    if (b + 1 < B) {
-      put(cur ^ 1);
-      cp_async_wait_all();
-    }
-    __syncthreads();
-  }
-  float* out = db + (size_t)h * N * N;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qq = q0 + warp * 16 + g + 8 * i;
-    if (qq >= N) continue;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int key = k0 + nt * 8 + 2 * t + c;
-        if (key < N) out[(size_t)qq * N + key] = acc[nt][2 * i + c];
-      }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // backward, last: ds folded into the compact gradients, from the f32 path's
 // scratch [B, H, N, Npad] or from bf16's db [H, N, N] (B = 1, Npad = N).
 // dcr[h, ci, e] = sum over stripes a = 0, 1, ... of (sum over b = 0, 1, ...
@@ -672,24 +550,6 @@ size_t dkdv_smem() {
   return (size_t)(KT + 4 * QT_DKV) * LDT * sizeof(T) +
          (size_t)(QT_DKV + 2 * KT) * LDF * sizeof(float);
 }
-// the db kernel: two stages of Q, dO, K and V tiles, and its bias tile
-constexpr size_t DB_SMEM = 9 * TILE_BYTES;
-
-// q, k and v in place in qkv [B, N, 3C], dq, dk and dv in place in dqkv,
-// out and dout [B, N, C] contiguous
-Dims relpos_dims(int B, int N, int H) {
-  const long long C = (long long)H * D, C3 = 3 * C;
-  Dims d{};
-  d.B = B;
-  d.Nq = d.Nk = N;
-  d.H = H;
-  d.q_sb = d.k_sb = d.v_sb = d.dq_sb = d.dkv_sb = N * C3;
-  d.q_sn = d.k_sn = d.v_sn = d.dq_sn = d.dkv_sn = C3;
-  d.g_sb = d.o_sb = N * C;
-  d.g_sn = d.o_sn = C;
-  return d;
-}
-
 // The eight shifted copies of the bf16 table that the kernels stage from,
 // crs [H, 8, P] (RelposBias); P must be a multiple of 8 and hold a tile's
 // reach past the table's end: the last row's last key tile reads up to
@@ -711,7 +571,7 @@ int launch_fwd_bf16(const bf16* qkv, const bf16* cr, const float* cls3, bf16* cr
   if (rc != 0) return rc;
   const int C = H * D;
   const RelposBias<bf16> bias{cr, cls3, crs, N, wh, ww, P};
-  return launch_fwd_mma(qkv, qkv + C, qkv + 2 * C, bias, out, stats, relpos_dims(B, N, H),
+  return launch_fwd_mma(qkv, qkv + C, qkv + 2 * C, bias, out, stats, qkv_dims(B, N, H),
                         scale, st);
 }
 
@@ -748,17 +608,13 @@ int launch_bwd_bf16(const bf16* qkv, const bf16* cr, const float* cls3, bf16* cr
   int rc = build_shifted(cr, crs, H, wh, ww, P, st);
   if (rc != 0) return rc;
   const int C = H * D;
-  const Dims d = relpos_dims(B, N, H);
+  const Dims d = qkv_dims(B, N, H);
   const RelposBias<bf16> bias{cr, cls3, crs, N, wh, ww, P};
   rc = launch_bwd_mma(qkv, qkv + C, qkv + 2 * C, bias, out, dout, stats, delta, dqkv,
                       dqkv + C, dqkv + 2 * C, d, scale, st);
   if (rc != 0) return rc;
-  cudaError_t e = allow_smem(relpos_bwd_db_mma_kernel, DB_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + KT - 1) / KT, (N + MT - 1) / MT, H);
-  relpos_bwd_db_mma_kernel<<<grid, MMA_THREADS, DB_SMEM, st>>>(
-      qkv, qkv + C, qkv + 2 * C, bias, dout, stats, delta, db, d, scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  rc = launch_db_mma(qkv, qkv + C, qkv + 2 * C, bias, dout, stats, delta, db, d, scale, st);
+  if (rc != 0) return rc;
   return launch_fold(db, dcr, dcls, 1, N, H, wh, ww, N, st);
 }
 

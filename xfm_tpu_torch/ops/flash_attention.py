@@ -3,7 +3,7 @@
 
 - K1, `flash_attention_packed`: port of `xfm_tpu/ops/flash_attention.py`
   `flash_attention_packed` (`_packed_fwd_kernel` + `_packed_bwd_kernel`),
-  N < 512, a materialized f32 bias; `csrc/packed_attention.cu`.
+  N < 512, a materialized f32 bias [1, H, N, N]; `csrc/packed_attention.cu`.
 - K2, `beit_attention_relpos`: port of `beit_attention_relpos`
   (`_relpos_fwd_kernel` + `_relpos_bwd_kernel`), N = wh·ww + 1 ≥ 512, the
   rel-pos bias expanded inside the kernel from the compact table;
@@ -20,7 +20,7 @@ its plain PyTorch version (`packed_attention_reference`,
 rounding points. There is no fallback: a CUDA tensor a kernel does not take
 raises.
 
-K2's and K3's bf16 paths are one templated set of kernels,
+K1's, K2's and K3's bf16 paths are one templated set of kernels,
 `csrc/attention_mma.cuh`, instantiated with each one's bias source. The
 source note of each kernel (what it replaces, what bounds it on the card and
 how its batch sum is made without atomics) heads its .cu file. Building,
@@ -70,46 +70,79 @@ def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int):
     return B, N, D
 
 
+def _padded_bias(bias: torch.Tensor):
+    """Room for the bf16 kernels' copy of the bias [1, H, N, N] with rows
+    padded to 16 bytes (csrc `PackedBias`, written by the kernel call): f32
+    [H, N, ⌈N/4⌉·4]."""
+    H, N = bias.shape[1], bias.shape[2]
+    return torch.empty(H, N, -(-N // 4) * 4, device=bias.device,
+                       dtype=torch.float32)
+
+
 def packed_attention_fwd(qkv: torch.Tensor, bias: torch.Tensor, scale: float,
-                         num_heads: int) -> torch.Tensor:
+                         num_heads: int):
     """Kernel forward: qkv [B, N, 3HD] (cuda), bias [1, H, N, N] f32 →
-    out [B, N, HD] in qkv's dtype."""
+    (out [B, N, HD] in qkv's dtype, row statistics [2, B·H·N] f32 for the
+    backward; the f32 kernels leave them unwritten and recompute them). bf16
+    takes room for the kernels' padded copy of the bias (`_padded_bias`)."""
     B, N, _ = _check_inputs(qkv, bias, num_heads)
     lib = build_library("packed_attention")
     qkv, bias = _aligned(qkv, bias)
     out = torch.empty(B, N, qkv.shape[-1] // 3, device=qkv.device,
                       dtype=qkv.dtype)
-    stream = stream_of(qkv)
+    stats = torch.empty(2, B * num_heads * N, device=qkv.device,
+                        dtype=torch.float32)
+    bf16 = qkv.dtype == torch.bfloat16
+    pad = _padded_bias(bias) if bf16 else None
     rc = lib.xfm_packed_attention_fwd(
-        qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, N, num_heads,
-        float(scale), int(qkv.dtype == torch.bfloat16), stream)
+        qkv.data_ptr(), bias.data_ptr(), pad.data_ptr() if bf16 else None,
+        out.data_ptr(), stats.data_ptr(), B, N, num_heads, float(scale),
+        int(bf16), stream_of(qkv))
     _check(rc, "packed attention forward launch")
     LAUNCHES["packed_attention_fwd"] += 1
-    return out
+    return out, stats
 
 
 def packed_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
+                         out: torch.Tensor, stats: torch.Tensor,
                          dout: torch.Tensor, scale: float, num_heads: int):
-    """Kernel backward → (dqkv like qkv, db [1, H, N, N] f32 summed over the
-    batch)."""
+    """Kernel backward from the forward's output `out` and row statistics
+    (the bf16 kernels take delta = rowsum(dout ⊙ out) from `out`) → (dqkv
+    like qkv, db [1, H, N, N] f32 summed over the batch). bf16 writes db
+    directly (and takes room for its padded copy of the bias, as the
+    forward); f32 writes every ds row to a scratch [B, H, N, N] f32 first
+    and recomputes the statistics into a scratch of its own."""
     B, N, _ = _check_inputs(qkv, bias, num_heads)
-    if dout.shape != (B, N, qkv.shape[-1] // 3) or dout.device != qkv.device:
-        raise ValueError(f"dout must be [B, N, H*D] beside qkv, got "
-                         f"{tuple(dout.shape)} on {dout.device}")
+    C = qkv.shape[-1] // 3
+    for name, t in (("dout", dout), ("out", out)):
+        if t.shape != (B, N, C) or t.device != qkv.device:
+            raise ValueError(f"{name} must be [B, N, H*D] beside qkv, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    if out.dtype != qkv.dtype or not out.is_contiguous():
+        raise ValueError("out must be the forward's output: contiguous, in "
+                         "qkv's dtype")
+    if stats.shape != (2, B * num_heads * N):
+        raise ValueError(f"stats must be [2, B*H*N], got {tuple(stats.shape)}")
     lib = build_library("packed_attention")
-    qkv, bias, dout = _aligned(qkv, bias, dout.to(qkv.dtype))
+    qkv, bias, out, stats, dout = _aligned(qkv, bias, out, stats,
+                                           dout.to(qkv.dtype))
     dqkv = torch.empty_like(qkv)
     db = torch.empty(1, num_heads, N, N, device=qkv.device,
                      dtype=torch.float32)
-    stats = torch.empty(2, B * num_heads * N, device=qkv.device,
-                        dtype=torch.float32)
-    ds_rows = torch.empty(B, num_heads, N, N, device=qkv.device,
-                          dtype=torch.float32)
-    stream = stream_of(qkv)
+    bf16 = qkv.dtype == torch.bfloat16
+    if bf16:
+        scratch = torch.empty(B * num_heads * N, device=qkv.device,
+                              dtype=torch.float32)  # delta
+    else:
+        stats = torch.empty_like(stats)
+        scratch = torch.empty(B, num_heads, N, N, device=qkv.device,
+                              dtype=torch.float32)  # ds
+    pad = _padded_bias(bias) if bf16 else None
     rc = lib.xfm_packed_attention_bwd(
-        qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-        db.data_ptr(), stats.data_ptr(), ds_rows.data_ptr(), B, N, num_heads,
-        float(scale), int(qkv.dtype == torch.bfloat16), stream)
+        qkv.data_ptr(), bias.data_ptr(), pad.data_ptr() if bf16 else None,
+        out.data_ptr(), stats.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+        db.data_ptr(), scratch.data_ptr(), B, N, num_heads, float(scale),
+        int(bf16), stream_of(qkv))
     _check(rc, "packed attention backward launch")
     LAUNCHES["packed_attention_bwd"] += 1
     return dqkv, db
@@ -118,15 +151,18 @@ def packed_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
 class _PackedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, bias, scale, num_heads):
-        ctx.save_for_backward(qkv, bias)
+        out, stats = packed_attention_fwd(qkv, bias, scale, num_heads)
+        # the output is saved, not recomputed: the caller's out-projection
+        # keeps the same storage alive
+        ctx.save_for_backward(qkv, bias, out, stats)
         ctx.scale, ctx.num_heads = scale, num_heads
-        return packed_attention_fwd(qkv, bias, scale, num_heads)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, bias = ctx.saved_tensors
-        dqkv, db = packed_attention_bwd(qkv, bias, dout, ctx.scale,
-                                        ctx.num_heads)
+        qkv, bias, out, stats = ctx.saved_tensors
+        dqkv, db = packed_attention_bwd(qkv, bias, out, stats, dout,
+                                        ctx.scale, ctx.num_heads)
         return dqkv, db.to(bias.dtype), None, None
 
 

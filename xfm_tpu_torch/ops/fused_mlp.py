@@ -13,7 +13,9 @@ leaves it to XLA). act(h) is never written to memory.
 
 On a CUDA tensor `act_matmul` runs the hand-written kernels
 (`csrc/fused_mlp.cu`: the forward, dh and dW, whose note says what bounds
-them and how dW is summed without atomics); on a CPU tensor the plain
+them and how dW is summed without atomics; in bf16 dW sums `dw_splits`
+chunks of M into a workspace [S, K, N] f32 and a second kernel adds them in
+order); on a CPU tensor the plain
 version (`act_matmul_reference`, `act_matmul_bwd_reference`). A CUDA tensor
 the kernels do not take raises. The models reach K5 only with their
 config's `fused_mlp` flag on (the JAX package's `XFM_MLP_FUSED=1`) for an
@@ -32,6 +34,26 @@ def fused_mlp_ok(act: str) -> bool:
     """The activations K5 computes (the JAX `ActDense`'s list); its
     environment and TPU tests are the config's `fused_mlp` flag here."""
     return act in FUSED_ACT
+
+
+SMS = 132       # the H100's multiprocessors
+DW_TILE = (128, 256)   # csrc `WBM`, `WBN`: a bf16 dW block's [K x N] tile
+DW_STEP = 64           # csrc `WBK`: rows of M a reduction step takes
+
+
+def dw_splits(M: int, K: int, N: int) -> int:
+    """The chunks S that the bf16 dW cuts its sum over M into: 1 when its
+    [K x N] tiles already fill a wave of the card, else enough blocks for
+    about four waves, each chunk at least 8 reduction steps long."""
+    tiles = -(-K // DW_TILE[0]) * -(-N // DW_TILE[1])
+    if tiles >= SMS:
+        return 1
+    return max(1, min(-(-4 * SMS // tiles), -(-M // DW_STEP) // 8))
+
+
+def dw_workspace_shape(M: int, K: int, N: int):
+    """The bf16 dW partials [S, K, N] f32 (written once, read once)."""
+    return (dw_splits(M, K, N), K, N)
 
 
 def _act_pair(act: str):
@@ -99,7 +121,7 @@ def act_matmul_fwd(h, weight, bias, act: str):
 
 
 def act_matmul_bwd(h, weight, g, act: str):
-    """Kernel backward (the dh and dW kernels) → (dh like h, dW like W,
+    """Kernel backward (the dW kernels, then dh) → (dh like h, dW like W,
     db = Σ g in f32, in h's dtype)."""
     M, K, N = _check_mm(h, weight, g, (h.shape[0], weight.shape[0]), "g")
     _act_pair(act)  # raises for an activation the kernel does not compute
@@ -107,13 +129,17 @@ def act_matmul_bwd(h, weight, g, act: str):
     h, weight, g = aligned(h, weight, g)
     dh = torch.empty_like(h)
     dw = torch.empty_like(weight)
+    bf16 = h.dtype == torch.bfloat16
+    ws = (torch.empty(dw_workspace_shape(M, K, N), device=h.device,
+                      dtype=torch.float32) if bf16 else None)
     rc = lib.xfm_act_matmul_bwd(
         h.data_ptr(), weight.data_ptr(), g.data_ptr(), dh.data_ptr(),
-        dw.data_ptr(), M, K, N, FUSED_ACT_ID[act],
-        int(h.dtype == torch.bfloat16), stream_of(h))
+        dw.data_ptr(), ws.data_ptr() if bf16 else None, M, K, N,
+        FUSED_ACT_ID[act], ws.shape[0] if bf16 else 1, int(bf16),
+        stream_of(h))
     check(rc, "fused MLP backward launch")
     LAUNCHES["fused_mlp_bwd"] += 1
-    return dh, dw, g.float().sum(0).to(h.dtype)
+    return dh, dw, g.sum(0, dtype=torch.float32).to(h.dtype)
 
 
 class _ActMatmul(torch.autograd.Function):

@@ -35,8 +35,8 @@ _DP = ctypes.POINTER(ctypes.c_longlong)
 # library name -> its C functions' argument types (source csrc/<name>.cu)
 _LIBRARIES = {
     "packed_attention": {
-        "xfm_packed_attention_fwd": [_VP] * 3 + [_CI] * 3 + [_CF, _CI, _VP],
-        "xfm_packed_attention_bwd": [_VP] * 7 + [_CI] * 3 + [_CF, _CI, _VP],
+        "xfm_packed_attention_fwd": [_VP] * 5 + [_CI] * 3 + [_CF, _CI, _VP],
+        "xfm_packed_attention_bwd": [_VP] * 9 + [_CI] * 3 + [_CF, _CI, _VP],
     },
     "relpos_attention": {
         "xfm_relpos_attention_fwd": [_VP] * 6 + [_CI] * 6 + [_CF, _CI, _VP],
@@ -52,7 +52,7 @@ _LIBRARIES = {
     },
     "fused_mlp": {
         "xfm_act_matmul_fwd": [_VP] * 4 + [_CI] * 5 + [_VP],
-        "xfm_act_matmul_bwd": [_VP] * 5 + [_CI] * 5 + [_VP],
+        "xfm_act_matmul_bwd": [_VP] * 6 + [_CI] * 6 + [_VP],
     },
 }
 KERNEL_LIBRARIES = tuple(_LIBRARIES)

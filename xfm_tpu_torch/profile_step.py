@@ -34,7 +34,9 @@ TOP = 25
 
 def _group(name: str) -> str:
     n = name.lower()
-    if "packed_" in n:
+    # K1's f32 kernels (`packed_*`) and its instantiations of the shared
+    # attention kernels (`xfm_attn_*<PackedBias>`), before K3's `xfm_attn_`
+    if "packed_" in n or "packedbias" in n:
         return "k1_packed_attention"
     # K2's kernels, its instantiations of the shared attention kernels
     # (`xfm_attn_*<RelposBias<...>>`) among them, before K3's `xfm_attn_`
