@@ -54,10 +54,18 @@ Phases, each of which must pass or the script exits non-zero:
      K2 never;
  11. K4 parity: the three variants (plain LN, post-LN, add + LN) forward
      (h, xn) and backward (dx, dγ, dβ) against the plain version at the
-     BEiT rows (R = 18,912, C = 768), the fusion rows (R = 5,760) and a
-     ragged R = 1,100, in bf16 and f32, with the times of the add variant
-     at the main shape, the bound and the default route's
-     F.layer_norm(x + y) as a yardstick;
+     BEiT rows (R = 18,912, C = 768), the fusion rows (R = 5,760), the
+     text rows (R = 1,440) and a ragged R = 1,100, in bf16 and f32; the
+     backward's edges: R = 1, R under the grid, R not a multiple of the
+     row group, C = 1,152 (two warps a row) and C = 8,192 in f32 (the
+     largest stage); ptxas's registers and spills of each K4 kernel (none
+     may spill in the backward); dx, dγ and dβ bit-equal over two calls
+     at R = 18,912 and over calls at other R in between (the fold's
+     tickets reset); the times (forward, backward, their device time with
+     the host's launch time kept out, plain, the default route's
+     F.layer_norm(x + y) as a yardstick) and bounds of the three
+     main-path sites: the BEiT add at R = 18,912, the post-LN at the
+     fusion's 5,760 and the text's 1,440 rows;
  12. K5 parity: forward (y) and backward (dh, dW, db) against the plain
      version for tanh-GELU, the Φ̂ GELU and ReLU at M = 18,912, 5,760,
      1,440 and 100 rows (K = 3,072, N = 768) in bf16 and f32, at M = 130
@@ -125,6 +133,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of fn() in ms: CUDA events around `iters` calls queued
+    behind a sleeping kernel, so that the card runs them back to back
+    whatever the host's launch time (where a call's kernels take less than
+    its host work, `cuda_ms` times the host)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -576,13 +602,16 @@ def _randn(gen, *shape, scale=1.0, shift=0.0):
     return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
 
 
-def k4_work(R: int, C: int, dtype: torch.dtype) -> dict:
+def k4_work(R: int, C: int, dtype: torch.dtype, variant: str = "add"
+            ) -> dict:
     """As `k1_work`, for K4's add + LN variant: x, y, γ, β in, xn and h out;
-    backward xn, dh, dxn and γ in, dx, dγ, dβ out. Its arithmetic is f32 on
-    the CUDA cores (about 8 operations an element forward, 17 backward)."""
+    backward xn, dh, dxn and γ in, dx, dγ, dβ out; the post-LN variant
+    writes no xn and reads no dxn. Its arithmetic is f32 on the CUDA cores
+    (about 8 operations an element forward, 17 backward)."""
     t = R * C * torch.tensor([], dtype=dtype).element_size()
-    return _bounds({"fwd": (4 * t + 2 * C * 4, 8 * R * C),
-                    "bwd": (4 * t + 3 * C * 4, 17 * R * C)},
+    n = 4 if variant == "add" else 3
+    return _bounds({"fwd": (n * t + 2 * C * 4, 8 * R * C),
+                    "bwd": (n * t + 3 * C * 4, 17 * R * C)},
                    PEAK_FLOPS[torch.float32])
 
 
@@ -615,19 +644,50 @@ def k4_parity(variant: str, R: int, C: int, dtype, seed=0) -> dict:
                     dtype)
 
 
-def k4_times(R: int, C: int, dtype) -> dict:
-    """Kernel, plain and library times (ms) of the add variant. The library
-    yardstick is the default route: F.layer_norm of the f32 sum, cast."""
+def k4_deterministic(R: int, C: int, dtype, seed=4) -> None:
+    """The backward's dx, dγ and dβ bit-equal over two calls at R rows,
+    the second after calls at other R (so with the fold's tickets reset by
+    the calls between), and the tickets at 0 after them."""
+    from xfm_tpu_torch.ops import fused_ln as fl
+
+    x, _, gamma, _, dh, dxn = make_k4_inputs(R, C, dtype, seed)
+    first = fl.fused_ln_bwd(x, dh, dxn, gamma, LN_EPS)
+    again = fl.fused_ln_bwd(x, dh, dxn, gamma, LN_EPS)
+    for r in (1, 1440, 5761):
+        fl.fused_ln_bwd(x[:r], dh[:r], None, gamma, LN_EPS)
+    third = fl.fused_ln_bwd(x, dh, dxn, gamma, LN_EPS)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(first, again, third))
+    tickets = int(fl.fold_tickets(x.device, 0).abs().sum())
+    print(f"  K4 R={R} C={C} {str(dtype)[6:]}: dx, dgamma, dbeta bit-equal "
+          f"over two calls and after calls at R = 1, 1440, 5761: {same}; "
+          f"tickets left {tickets}")
+    if not same or tickets:
+        raise AssertionError("K4's backward is not deterministic or left "
+                             "its tickets set")
+
+
+def k4_times(R: int, C: int, dtype, variant: str = "add") -> dict:
+    """Kernel, plain and library times (ms) of the add or post variant, and
+    the kernels' device time a call (`kernel_*_ms`). The library yardstick
+    is the default route: F.layer_norm of the f32 sum, cast (and the sum
+    itself, add)."""
     import torch.nn.functional as F
 
     from xfm_tpu_torch.ops import fused_ln as fl
 
     x, y, gamma, beta, dh, dxn = make_k4_inputs(R, C, dtype, 1)
+    dxn = dxn if variant == "add" else None
     xn, _ = fl.fused_ln_fwd(x, y, gamma, beta, LN_EPS)
     t = {}
     t["fwd_ms"] = cuda_ms(lambda: fl.fused_ln_fwd(x, y, gamma, beta, LN_EPS))
     t["bwd_ms"] = cuda_ms(lambda: fl.fused_ln_bwd(xn, dh, dxn, gamma,
                                                   LN_EPS))
+    t["kernel_fwd_ms"] = device_ms(
+        lambda: fl.fused_ln_fwd(x, y, gamma, beta, LN_EPS))
+    t["kernel_bwd_ms"] = device_ms(
+        lambda: fl.fused_ln_bwd(xn, dh, dxn, gamma, LN_EPS))
     t["plain_fwd_ms"] = cuda_ms(lambda: fl.fused_ln_reference(
         x, y, gamma, beta, LN_EPS), 5)
     t["plain_bwd_ms"] = cuda_ms(lambda: fl.fused_ln_bwd_reference(
@@ -636,14 +696,16 @@ def k4_times(R: int, C: int, dtype) -> dict:
     def library(x, y, gamma, beta):
         s = x.float() + y.float()
         h = F.layer_norm(s, (C,), gamma, beta, LN_EPS)
-        return s.to(dtype), h.to(dtype)
+        return (s.to(dtype), h.to(dtype)) if variant == "add" \
+            else (h.to(dtype),)
 
     with torch.no_grad():
         t["library_fwd_ms"] = cuda_ms(lambda: library(x, y, gamma, beta))
     leaves = [v.clone().requires_grad_(True) for v in (x, y, gamma, beta)]
+    grads = [dxn, dh] if variant == "add" else [dh]
 
     def lib_fwd_bwd():
-        torch.autograd.backward(library(*leaves), [dxn, dh])
+        torch.autograd.backward(library(*leaves), grads)
 
     t["library_fwd_bwd_ms"] = cuda_ms(lib_fwd_bwd)
     t["library_bwd_ms"] = t["library_fwd_bwd_ms"] - t["library_fwd_ms"]
@@ -1043,18 +1105,42 @@ def main() -> int:
     clip = full_width("clip_retrieval")
 
     print("phase 11: K4 parity and times")
+    from xfm_tpu_torch.ops import fused_ln as fl
+
+    print_ptxas("K4", "fused_ln", no_spills_in=("xfm_ln_bwd",))
     for i, (R, dtype) in enumerate((
             (18912, torch.bfloat16), (18912, torch.float32),
             (5760, torch.bfloat16), (5760, torch.float32),
+            (1440, torch.bfloat16), (1440, torch.float32),
             (1100, torch.bfloat16), (1100, torch.float32))):
         for variant in ("plain", "post", "add"):
             err = k4_parity(variant, R, 768, dtype, seed=10 + i)
             if (variant, R, dtype) == ("add", 18912, torch.bfloat16):
                 k4_err = err
-    k4w = k4_work(18912, 768, torch.bfloat16)
-    k4_t = k4_times(18912, 768, torch.bfloat16)
-    print("  K4 times (ms): " + json.dumps(k4_t))
-    print("  K4 bound (k4_work): " + json.dumps(k4w))
+    # the backward's edges: one row; fewer row groups than SMs; a ragged
+    # last group; two warps a row with lanes holding unequal numbers of
+    # vectors; the largest stage (one row of 8,192 f32 a group, 2 stages)
+    for i, (R, C, dtype) in enumerate((
+            (1, 768, torch.bfloat16), (1, 768, torch.float32),
+            (50, 768, torch.bfloat16), (1003, 768, torch.bfloat16),
+            (1003, 768, torch.float32), (999, 1152, torch.bfloat16),
+            (999, 1152, torch.float32), (300, 8192, torch.float32))):
+        for variant in ("post", "add"):
+            k4_parity(variant, R, C, dtype, seed=40 + i)
+    k4_deterministic(18912, 768, torch.bfloat16)
+    k4_sites = {"beit_add": (18912, "add"), "fusion_post": (5760, "post"),
+                "text_post": (1440, "post")}
+    k4_site_t, k4_site_w = {}, {}
+    for site, (R, variant) in k4_sites.items():
+        plan = fl.bwd_plan(R, 768, torch.bfloat16,
+                           fl.sm_count(torch.device("cuda", 0)),
+                           variant == "add")
+        k4_site_w[site] = k4_work(R, 768, torch.bfloat16, variant)
+        k4_site_t[site] = k4_times(R, 768, torch.bfloat16, variant)
+        print(f"  K4 {site} R={R} plan: " + json.dumps(plan._asdict()))
+        print(f"  K4 {site} times (ms): " + json.dumps(k4_site_t[site]))
+        print(f"  K4 {site} bound (k4_work): " + json.dumps(k4_site_w[site]))
+    k4_t, k4w = k4_site_t["beit_add"], k4_site_w["beit_add"]
     print("phase 12: K5 parity and times")
     print_ptxas("K5", "fused_mlp", no_spills_in=("wgmma", "dw_sum"))
     hgmma = sass_count("fused_mlp", "HGMMA")

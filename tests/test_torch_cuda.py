@@ -263,11 +263,15 @@ def test_beit_attention_relpos_autograd_matches_plain(monkeypatch):
      "__nv_bfloat16*, int, int, int)", "k5_fused_mlp"),
     ("void (anonymous namespace)::xfm_act_matmul<float, 1>(...)",
      "k5_fused_mlp"),
+    ("void (anonymous namespace)::xfm_ln_bwd_ring<__nv_bfloat16, 1, true>("
+     "(anonymous namespace)::BwdArgs<__nv_bfloat16>)", "k4_fused_ln"),
+    ("void (anonymous namespace)::xfm_ln_fwd<float, 8, false>(...)",
+     "k4_fused_ln"),
 ])
 def test_profile_groups_file_k2_and_k3_kernels_apart(name, group):
     """`profile_step` files K1's and K2's instantiations of the shared
     attention kernels under K1 and K2, not under K3's `xfm_attn_`, and every
-    K5 kernel under K5 (runs on the CPU)."""
+    K4 and K5 kernel under its own (runs on the CPU)."""
     from xfm_tpu_torch.profile_step import _group
 
     assert _group(name) == group
@@ -558,8 +562,9 @@ def test_fused_ln_kernel_matches_plain(dtype, variant, R, C):
 
 @pytest.mark.cuda
 def test_fused_ln_backward_is_deterministic():
-    """dγ and dβ are summed over the rows without atomics (per-block
-    partials, then a pass in block order): two runs give the same bits."""
+    """dγ and dβ are summed over the rows without atomics on the data
+    (per-block partials, then a fold in block order inside the same
+    launch): two runs give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from xfm_tpu_torch.ops import fused_ln as fl
@@ -568,6 +573,54 @@ def test_fused_ln_backward_is_deterministic():
     first = fl.fused_ln_bwd(x, dh, dxn, gamma, 1e-6)
     again = fl.fused_ln_bwd(x, dh, dxn, gamma, 1e-6)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["post", "add"])
+@pytest.mark.parametrize("R,C", [(1, 768),      # one row
+                                 (50, 768),     # fewer row groups than SMs
+                                 (1003, 768),   # a ragged last row group
+                                 (999, 1152),   # two warps a row, lanes
+                                                # holding unequal vectors
+                                 (300, 8192)])  # the largest stage in f32
+def test_fused_ln_backward_edges(dtype, variant, R, C):
+    """K4's backward (dx, dγ, dβ) against the plain version at the edges
+    of its plan: the row groups, the grid and the ring."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import fused_ln as fl
+
+    x, _, gamma, _, dh, dxn = _ln_inputs(R, C, dtype, seed=R)
+    dxn = dxn if variant == "add" else None
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    for got, want in zip(fl.fused_ln_bwd(x, dh, dxn, gamma, 1e-6),
+                         fl.fused_ln_bwd_reference(x, dh, dxn, gamma, 1e-6)):
+        want = want.float()
+        assert got.shape == want.shape
+        assert (got.float() - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_fused_ln_backward_tickets_reset():
+    """Calls at other R between two calls at R = 18,912 leave the bits of
+    dx, dγ and dβ unchanged, and the fold's tickets at 0; the grid is the
+    card's SM count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import fused_ln as fl
+
+    x, _, gamma, _, dh, dxn = _ln_inputs(18912, 768, torch.bfloat16, 14)
+    first = fl.fused_ln_bwd(x, dh, dxn, gamma, 1e-6)
+    for r in (1, 1440, 5761, 18911):
+        fl.fused_ln_bwd(x[:r], dh[:r], None, gamma, 1e-6)
+    again = fl.fused_ln_bwd(x, dh, dxn, gamma, 1e-6)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert int(fl.fold_tickets(x.device, 0).abs().sum()) == 0
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    assert fl.bwd_plan(18912, 768, torch.bfloat16,
+                       fl.sm_count(x.device)).blocks == sms
 
 
 @pytest.mark.cuda

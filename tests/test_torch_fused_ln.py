@@ -208,3 +208,127 @@ def test_default_route_bf16_backward_gap_is_bounded():
     assert err <= 1e-5 * scale
     err, scale = gaps[torch.bfloat16]
     assert 0 < err <= 2.0 ** -6 * scale
+
+
+# ---- the backward kernel's plan (ops/fused_ln.bwd_plan), here on the CPU
+
+@pytest.mark.parametrize("sms", [114, 132])
+@pytest.mark.parametrize("R", [1, 7, 1440, 5760, 18912])
+def test_bwd_plan_covers_every_row_once(R, sms):
+    """The blocks' contiguous row ranges cover rows 0 .. R-1 once each, in
+    block order, none empty; the grid is the SM count unless the rows have
+    fewer groups."""
+    for C in (768, 1152, 8192):
+        plan = fl.bwd_plan(R, C, torch.bfloat16, sms)
+        assert plan.blocks == min(sms, plan.groups)
+        assert plan.groups * plan.rows >= R > \
+            (plan.groups - 1) * plan.rows
+        stop = 0
+        for b in range(plan.blocks):
+            start, end = fl.block_rows(plan, R, b)
+            assert start == stop and end > start
+            stop = end
+        assert stop == R
+        assert plan.fold_groups * plan.fold_group >= plan.blocks
+        assert (plan.fold_group - 1) ** 2 < plan.blocks \
+            <= plan.fold_group ** 2
+
+
+@pytest.mark.parametrize("has_dxn", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_plan_fits_shared_memory(dtype, has_dxn):
+    """For every C the kernel takes: the ring, γ and the barriers fit in a
+    block's 232,448 bytes; each bulk copy (a full group, and the ragged
+    last group's true bytes) is a multiple of 16 bytes; the block's fold of
+    its row slots ([rows, C] f32) fits in one stage; the ring holds the
+    ~25 KB an SM that keeps 3.35 TB/s busy. C = 8,192 in f32 takes 2
+    stages."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    for C in range(128, 8193, 128):
+        plan = fl.bwd_plan(18912, C, dtype, 132, has_dxn)
+        assert 1 <= plan.stages <= fl.BWD_MAX_STAGES
+        assert plan.smem <= fl.BWD_SMEM_LIMIT <= 232_448
+        assert plan.rows * fl.warps_per_row(C) == fl.BWD_CONSUMER_WARPS
+        assert plan.copy_bytes == plan.rows * C * esz
+        for rows in range(1, plan.rows + 1):
+            assert rows * C * esz % 16 == 0
+        stage = plan.copy_bytes * (3 if has_dxn else 2)
+        assert plan.smem == C * 4 + fl.BWD_BAR_BYTES + plan.stages * stage
+        assert plan.rows * C * 4 <= stage
+        assert plan.stages * stage >= 25 * 1024   # Little's law's bytes
+    big = fl.bwd_plan(18912, 8192, torch.float32, 132, True)
+    assert big.stages == 2 and big.rows == 1
+
+
+def test_bwd_plan_constants_are_the_kernels():
+    """The plan's constants are the ones `csrc/fused_ln.cu` compiles in (the
+    C entry also checks the plan's shared bytes against its own count)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(fl.__file__).resolve().parents[1] / "csrc"
+           / "fused_ln.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("BWD_CWARPS") == fl.BWD_CONSUMER_WARPS
+    assert const("BWD_MAX_STAGES") == fl.BWD_MAX_STAGES
+    assert const("BWD_BAR_BYTES") == fl.BWD_BAR_BYTES
+    assert const("BWD_SMEM_LIMIT") == fl.BWD_SMEM_LIMIT
+    assert const("MAXV") * 4 * 32 == 1024   # a lane holds 32 values a row
+
+
+def _fold_as_the_kernel(xn, dh, sms=132):
+    """dγ, dβ summed in f32 in the kernel's order: each row slot of a block
+    over the block's rows in order, the slots in order, the blocks of a
+    fold group in order, then the fold groups in order."""
+    R, C = xn.shape
+    plan = fl.bwd_plan(R, C, torch.float32, sms, has_dxn=False)
+    x = torch.from_numpy(xn)
+    d = x - x.mean(-1, keepdim=True)
+    xhat = d * torch.rsqrt((d * d).mean(-1, keepdim=True) + EPS)
+    dh = torch.from_numpy(dh)
+    terms = (dh * xhat, dh)
+    rows = plan.rows
+    partial = []
+    for b in range(plan.blocks):
+        start, stop = fl.block_rows(plan, R, b)
+        slots = torch.zeros(2, rows, C)
+        for r in range(start, stop):
+            for w in range(2):
+                slots[w, r % rows] = slots[w, r % rows] + terms[w][r]
+        acc = torch.zeros(2, C)
+        for s in range(rows):
+            acc = acc + slots[:, s]
+        partial.append(acc)
+    group_sums = []
+    for g in range(plan.fold_groups):
+        acc = torch.zeros(2, C)
+        for b in range(g * plan.fold_group,
+                       min((g + 1) * plan.fold_group, plan.blocks)):
+            acc = acc + partial[b]
+        group_sums.append(acc)
+    total = torch.zeros(2, C)
+    for acc in group_sums:
+        total = total + acc
+    return total[0], total[1]
+
+
+@pytest.mark.parametrize("R", [7, 1100, 2000])
+def test_kernel_fold_order_matches_plain_and_pallas(R):
+    """The kernel's order of the dγ/dβ sums, emulated in f32 on the CPU,
+    stays within 1e-5 of the largest |value| of the plain version and of
+    the Pallas `_bwd_kernel` in interpret mode."""
+    x, y, gamma, _, dh, _ = _data(R, C, seed=R + 1)
+    xn = x + y
+    dg, db = _fold_as_the_kernel(xn, dh)
+    _, rdg, rdb = fl.fused_ln_bwd_reference(
+        torch.from_numpy(xn), torch.from_numpy(dh), None,
+        torch.from_numpy(gamma), EPS)
+    _, jdg, jdb = jfl._bwd_pallas(jnp.asarray(xn), jnp.asarray(dh), None,
+                                  jnp.asarray(gamma), EPS, True)
+    for got, plain, pallas in ((dg, rdg, jdg), (db, rdb, jdb)):
+        for want in (plain.numpy(), np.asarray(pallas)):
+            err = np.abs(got.numpy() - want).max()
+            assert err <= 1e-5 * np.abs(want).max()

@@ -68,6 +68,7 @@
 // FMAs (no TF32, so that f32 runs agree with the CPU); its dW blocks each
 // walk all M rows in order.
 #include "attention_tiles.cuh"
+#include "tma_ring.cuh"
 
 #include <cuda.h>
 #include <stdint.h>
@@ -330,34 +331,6 @@ __host__ __device__ constexpr int ring_stages(int mode) {
 }
 constexpr size_t wg_smem(int mode) {
   return (size_t)ring_stages(mode) * STAGE_BYTES + (mode == DH ? H_TILE : 0) + 1024;
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// a barrier that never completes traps (a launch error) instead of hanging
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  for (unsigned tries = 0; !done; ++tries) {
-    if (tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
 }
 
 // one TMA box at (col c, row r) of `map` into shared memory, counted on `bar`

@@ -10,22 +10,37 @@ statistics from the saved, rounded sum, returns the residual's gradient as
 the same tensor as dx, and dγ, dβ in f32, as the JAX package's custom_vjp
 does. On a CUDA tensor each entry runs the hand-written kernel
 (`csrc/fused_ln.cu`, whose note says what bounds it and how dγ/dβ are summed
-without atomics); on a CPU tensor the plain version (`fused_ln_reference`,
-`fused_ln_bwd_reference`). A CUDA tensor the kernel does not take raises.
+without atomics on the data; the backward is one launch of persistent
+blocks laid out by `bwd_plan`); on a CPU tensor the plain version
+(`fused_ln_reference`, `fused_ln_bwd_reference`). A CUDA tensor the kernel
+does not take raises.
 
 The models reach K4 only with their config's `fused_ln` flag on (the JAX
 package's `XFM_FUSED_LN=1`), at the sites `fused_ln_ok` accepts.
 """
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple
+
 import torch
 
 from .kernels import (LAUNCHES, aligned, build_library, check, on_card,
                       stream_of)
 
-# Blocks of the backward kernel: each owns a fixed set of rows and writes
-# one dγ/dβ partial (2 blocks per SM of an H100).
-_BWD_BLOCKS = 264
+# The backward kernel's layout (`csrc/fused_ln.cu`, the BWD_* constants):
+# 8 consumer warps and a producer warp a block, a ring of at most 8 stages
+# behind 256 bytes of barriers and γ, all within 227 KB less 1 KB of
+# dynamic shared memory. The ring holds about BWD_RING_BYTES (at least 2
+# stages, at least the ~25 KB an SM that Little's law asks at 3.35 TB/s):
+# at C = 768 bf16 (add) 2 stages ran 2–4 % faster than 3 and 4, and 6
+# slower still (PERF.md, K4).
+BWD_CONSUMER_WARPS = 8
+BWD_MAX_STAGES = 8
+BWD_BAR_BYTES = 256
+BWD_SMEM_LIMIT = 231_424
+BWD_RING_BYTES = 64 * 1024
 
 
 def fused_ln_ok(shape, dtype) -> bool:
@@ -35,6 +50,76 @@ def fused_ln_ok(shape, dtype) -> bool:
     C = shape[-1]
     return (C % 128 == 0 and C <= 8192
             and dtype in (torch.bfloat16, torch.float32))
+
+
+def warps_per_row(C: int) -> int:
+    """Warps that share a row, so that a lane holds at most 32 of its
+    values (the kernels' `warps_per_row`)."""
+    return next(w for w in (1, 2, 4, 8) if C <= 1024 * w)
+
+
+class BwdPlan(NamedTuple):
+    """The backward kernel's launch (see `bwd_plan`)."""
+    blocks: int       # persistent blocks: one an SM, at most one a group
+    rows: int         # rows a group: one a row slot of the consumer warps
+    groups: int       # row groups in all
+    stages: int       # ring stages
+    smem: int         # dynamic shared bytes
+    copy_bytes: int   # one tensor's bulk copy of a full group
+    fold_group: int   # blocks a ticket of the fold: ⌈√blocks⌉
+    fold_groups: int  # fold groups (tickets over the blocks)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(R: int, C: int, dtype, sms: int,
+             has_dxn: bool = True) -> BwdPlan:
+    """The backward kernel's launch for rows [R, C] on a card with `sms`
+    SMs. The ring takes enough stages for ~64 KB, at least 2, at most 8,
+    as many as fit and at most the groups of the busiest block. Cached: the
+    wrappers call it on every launch."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    rows = BWD_CONSUMER_WARPS // warps_per_row(C)
+    groups = -(-R // rows)
+    blocks = max(1, min(groups, sms))
+    copy_bytes = rows * C * esz
+    stage = copy_bytes * (3 if has_dxn else 2)
+    fixed = C * 4 + BWD_BAR_BYTES
+    stages = min(BWD_MAX_STAGES, max(2, -(-BWD_RING_BYTES // stage)),
+                 (BWD_SMEM_LIMIT - fixed) // stage, -(-groups // blocks))
+    fold_group = math.isqrt(blocks - 1) + 1
+    return BwdPlan(blocks, rows, groups, stages, fixed + stages * stage,
+                   copy_bytes, fold_group, -(-blocks // fold_group))
+
+
+def block_rows(plan: BwdPlan, R: int, b: int) -> tuple:
+    """The rows [start, stop) that block b of `plan` owns, as the kernel
+    reckons them: groups ⌊b·groups / blocks⌋ up to the next block's."""
+    g0 = b * plan.groups // plan.blocks
+    g1 = (b + 1) * plan.groups // plan.blocks
+    return g0 * plan.rows, min(g1 * plan.rows, R)
+
+
+_SMS: dict = {}        # CUDA device -> its SM count
+_COUNTERS: dict = {}   # CUDA device -> the fold's int32 tickets, all 0
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device, read once."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
+def fold_tickets(device, fold_groups: int) -> torch.Tensor:
+    """The device's ticket counters, allocated once (grown when a plan needs
+    more); the kernel leaves them at 0."""
+    counters = _COUNTERS.get(device)
+    if counters is None or counters.numel() < 1 + fold_groups:
+        counters = torch.zeros(1 + fold_groups, device=device,
+                               dtype=torch.int32)
+        _COUNTERS[device] = counters
+    return counters
 
 
 def fused_ln_reference(x, y, gamma, beta, eps):
@@ -125,17 +210,20 @@ def fused_ln_bwd(xn, dh, dxn, gamma, eps):
     lib = build_library("fused_ln")
     xn2, dh2, g = aligned(xn, dh, gamma)
     dxn2 = aligned(dxn)[0] if dxn is not None else None
-    blocks = max(1, min(_BWD_BLOCKS, R))
+    plan = bwd_plan(R, C, xn.dtype, sm_count(xn.device), dxn is not None)
+    counters = fold_tickets(xn.device, plan.fold_groups)
     dx = torch.empty_like(xn2)
     dg = torch.empty(C, device=xn.device, dtype=torch.float32)
     db = torch.empty(C, device=xn.device, dtype=torch.float32)
-    partial = torch.empty(2, blocks, C, device=xn.device, dtype=torch.float32)
+    scratch = torch.empty(2, plan.blocks + plan.fold_groups, C,
+                          device=xn.device, dtype=torch.float32)
     rc = lib.xfm_fused_ln_bwd(
         xn2.data_ptr(), dh2.data_ptr(),
         dxn2.data_ptr() if dxn2 is not None else None, g.data_ptr(),
-        dx.data_ptr(), dg.data_ptr(), db.data_ptr(), partial.data_ptr(), R,
-        C, blocks, float(eps), int(xn.dtype == torch.bfloat16),
-        stream_of(xn))
+        dx.data_ptr(), dg.data_ptr(), db.data_ptr(), scratch.data_ptr(),
+        counters.data_ptr(), R, C, plan.blocks, plan.rows, plan.stages,
+        plan.fold_group, plan.smem, float(eps),
+        int(xn.dtype == torch.bfloat16), stream_of(xn))
     check(rc, "fused LN backward launch")
     LAUNCHES["fused_ln_bwd"] += 1
     return dx, dg, db

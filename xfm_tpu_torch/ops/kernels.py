@@ -48,7 +48,7 @@ _LIBRARIES = {
     },
     "fused_ln": {
         "xfm_fused_ln_fwd": [_VP] * 6 + [_CI] * 2 + [_CF, _CI, _VP],
-        "xfm_fused_ln_bwd": [_VP] * 8 + [_CI] * 3 + [_CF, _CI, _VP],
+        "xfm_fused_ln_bwd": [_VP] * 9 + [_CI] * 7 + [_CF, _CI, _VP],
     },
     "fused_mlp": {
         "xfm_act_matmul_fwd": [_VP] * 4 + [_CI] * 5 + [_VP],
