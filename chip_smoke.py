@@ -82,6 +82,32 @@ Phases, each of which must pass or the script exits non-zero:
  14. full-width fused pretrain: phase 4's step with both fused routes on,
      K1 12 + 12, K4 96 + 72 and K5 48 + 36 launches per step, K2 and K3
      never;
+ 15. kernel parity at the retrieval eval's shapes: K3's forward as the
+     grouped image → text rerank calls it (q the [U·gs, 40, 12, 64]
+     projection viewed as [U, gs·40, 12, 64], k/v [U, 577, 12, 64], the
+     bias [U, 1, 1, 577] from image masks): U = 8, gs = 256 in bf16 with an
+     all-ones mask, with masked tails and in f32; U = 3 (the last chunk)
+     and gs = 16 in bf16; K2's forward at the stage-1 batch, qkv
+     [64, 577, 2304], in bf16 and f32; the times, the bounds and SDPA as
+     the yardstick (K3 with no mask, K2 with the bias as a mask, built
+     untimed);
+ 16. eval slice parity: the eval at full width, depth 2, 384 px, f32, with
+     the BEiT-2 and with the CLIP-ViT tower, on the CPU and on the card,
+     from the same weights: 16 images and 32 captions (T = 40), k_test =
+     16 (gs·T = 640, so K3 takes the grouped rerank on the card), both
+     sides reranking on the CPU's similarities; the score matrices within
+     1e-4 of their largest candidate score, R@K equal, and on the card the
+     grouped image → text rerank equal to the repeat form;
+ 17. the full-width eval: XFM-base from `Retrieval_coco.yaml`'s keys
+     (BEiT-2, 384 px, 12/12/12 layers), bf16 compute, its weights a seeded
+     224 px model saved as a reference checkpoint and loaded through the
+     port's loader (the rel-pos tables interpolated from window 14 to 24);
+     a seeded corpus of 256 images and 1,280 captions (5 each, 8-40
+     tokens), k_test = 256, batch_size_test = 64: stage 1's images/s and
+     texts/s, stage 2's ITM rows/s each way, the total seconds, the peak
+     memory and R@K; K2 forward 48 and K3 forward 384 launches, nothing
+     else; then, where PyYAML and PIL import, `python3 -m
+     xfm_tpu_torch.run --task itr_coco --evaluate` on 8 PNGs;
 then a JSON line of the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
@@ -593,6 +619,332 @@ def k3_times(B, N, H, dtype) -> dict:
     t["library_fwd_bwd_ms"] = cuda_ms(lib_fwd_bwd)
     t["library_bwd_ms"] = t["library_fwd_bwd_ms"] - t["library_fwd_ms"]
     return t
+
+
+def k3_grouped_inputs(U, gs, dtype, bias_kind, seed, T=40, H=12, Nk=577):
+    """q as the grouped rerank gives it to K3 (the cross-attention's
+    [U·gs, T, H·64] projection viewed, without a copy, as
+    [U, gs·T, H, 64]), k/v [U, Nk, H, 64] and the bias [U, 1, 1, Nk] of
+    image masks: all ones ("ones") or image u's last 5 + 40·u keys masked
+    ("tails")."""
+    from xfm_tpu_torch.ops.attention import mask_to_bias
+
+    g = np.random.RandomState(seed)
+    proj = torch.from_numpy(g.randn(U * gs, T, H * 64).astype(np.float32))
+    proj = proj.to("cuda", dtype)
+    q = proj.view(U, gs * T, H, 64)
+    assert q.data_ptr() == proj.data_ptr()
+    k, v = (torch.from_numpy(g.randn(U, Nk, H, 64).astype(np.float32))
+            .to("cuda", dtype) for _ in range(2))
+    atts = np.ones((U, Nk), np.int64)
+    if bias_kind == "tails":
+        for u in range(U):
+            atts[u, Nk - 5 - 40 * u:] = 0
+    return q, k, v, mask_to_bias(torch.from_numpy(atts)).cuda()
+
+
+def k3_grouped_parity(U, gs, dtype, bias_kind="ones", seed=0) -> dict:
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, bias = k3_grouped_inputs(U, gs, dtype, bias_kind, seed)
+    out, _ = fa.flash_attention_fwd(q, k, v, bias, 64 ** -0.5)
+    ref = fa.flash_attention_reference(q, k, v, bias, 64 ** -0.5)
+    torch.cuda.synchronize()
+    return _compare(f"K3 grouped fwd U={U} gs={gs} q={list(q.shape)} "
+                    f"{str(dtype)[6:]} bias={bias_kind}", [("out", out, ref)],
+                    dtype)
+
+
+def k3_grouped_times(U, gs, dtype) -> dict:
+    """Forward times (ms) at the grouped shape with its all-ones mask bias:
+    kernel, plain, and SDPA with no mask; and the kernel with no bias."""
+    import torch.nn.functional as F
+
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, bias = k3_grouped_inputs(U, gs, dtype, "ones", 1)
+    scale = 64 ** -0.5
+    t = {"fwd_ms": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, bias,
+                                                          scale)),
+         "fwd_no_bias_ms": cuda_ms(lambda: fa.flash_attention_fwd(
+             q, k, v, None, scale))}
+    t["plain_fwd_ms"] = cuda_ms(lambda: fa.flash_attention_reference(
+        q, k, v, bias, scale), 5)
+    ql, kl, vl = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    t["library_fwd_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        ql, kl, vl, scale=scale))
+    return t
+
+
+def k2_fwd_parity(B, dtype, seed=0) -> dict:
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    window = (24, 24)
+    qkv, cr, cls3, _ = make_k2_inputs(B, window, 12, dtype, seed)
+    out, _ = fa.relpos_attention_fwd(qkv, cr, cls3, window, 64 ** -0.5, 12)
+    ref = fa.relpos_attention_reference(qkv, cr, cls3, window, 64 ** -0.5,
+                                        12)
+    torch.cuda.synchronize()
+    return _compare(f"K2 fwd B={B} N=577 {str(dtype)[6:]}",
+                    [("out", out, ref)], dtype)
+
+
+def k2_fwd_times(B, dtype) -> dict:
+    """Forward times (ms) at the stage-1 batch: kernel, plain, and SDPA
+    with the bias materialized as a [1, H, N, N] mask (built untimed)."""
+    import torch.nn.functional as F
+
+    from xfm_tpu_torch.ops import flash_attention as fa
+    from xfm_tpu_torch.ops.relpos import expand_compact_rel_pos
+
+    window, H, scale = (24, 24), 12, 64 ** -0.5
+    qkv, cr, cls3, _ = make_k2_inputs(B, window, H, dtype, 1)
+    t = {"fwd_ms": cuda_ms(lambda: fa.relpos_attention_fwd(
+        qkv, cr, cls3, window, scale, H))}
+    t["plain_fwd_ms"] = cuda_ms(lambda: fa.relpos_attention_reference(
+        qkv, cr, cls3, window, scale, H), 5)
+    N = qkv.shape[1]
+    q, k, v = (x.reshape(B, N, H, 64).transpose(1, 2).contiguous()
+               for x in qkv.split(H * 64, dim=-1))
+    mask = expand_compact_rel_pos(cr.float(), cls3, window).to(dtype)
+    t["library_fwd_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale))
+    return t
+
+
+# phase-16 tolerance (f32, CPU vs card, the same weights and similarities):
+# each score matrix on its candidates, relative to its largest |score|
+EVAL_SCORE_RTOL = 1e-4
+
+
+def _scores_close(tag: str, want, got) -> None:
+    """Two rerank score matrices: the same candidate sets (the -100 fill in
+    the same places) and the candidates' scores within EVAL_SCORE_RTOL of
+    the largest |score|."""
+    cand = want != -100.0
+    if not np.array_equal(cand, got != -100.0):
+        raise AssertionError(f"{tag}: the candidate sets differ")
+    err = float(np.abs(want[cand] - got[cand]).max())
+    tol = EVAL_SCORE_RTOL * float(np.abs(want[cand]).max())
+    print(f"  {tag}: {int(cand.sum())} scores, max_abs_err={err:.3e} "
+          f"tol={tol:.3e} {'ok' if err <= tol else 'FAIL'}")
+    if not err <= tol:
+        raise AssertionError(f"{tag}: scores disagree")
+
+
+def eval_slice_parity(clip: bool, n_img=16, per_image=2, k_test=16,
+                      layers=2) -> None:
+    """The eval at full width and depth `layers`, 384 px, f32, on the CPU
+    and on the card from the same weights; both rerank on the CPU's
+    similarities. On the card the grouped image → text rerank launches K3
+    once a layer and chunk of 8 images, the repeat form never."""
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.models import XFMForRetrieval
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks import retrieval
+
+    tower = "clip" if clip else "beit"
+    cfg = configs.xfm_retrieval_eval_config(dtype=torch.float32,
+                                            layers=layers, clip=clip)
+    cpu = build_model(XFMForRetrieval, cfg, "cpu", seed=3)
+    gpu = build_model(XFMForRetrieval, cfg, "cpu", seed=3).to("cuda")
+    data = configs.SyntheticRetrievalEvalData(
+        n_img, per_image, cfg.vision.image_res, cfg.text.vocab_size, seed=5)
+    enc_c = retrieval.encode_corpus(cpu, data, 8)
+    enc_g = retrieval.encode_corpus(gpu, data, 8)
+    for name, i in (("image feats", 1), ("text feats", 3)):
+        _scores_close(f"eval slice {tower} {name}", enc_c[i], enc_g[i])
+    sims = enc_c[1] @ enc_c[3].T
+    prev = os.environ.get("XFM_EVAL_GROUPED")
+    runs, k3 = {}, {}
+    try:
+        for grouped in ("1", "0"):
+            os.environ["XFM_EVAL_GROUPED"] = grouped
+            kernels.reset_launch_counts()
+            runs[grouped] = retrieval.rerank_scores(
+                gpu, enc_g[0], enc_g[2], enc_g[4], sims, k_test)
+            k3[grouped] = kernels.LAUNCHES["flash_attention_fwd"]
+        os.environ["XFM_EVAL_GROUPED"] = "1"
+        want = retrieval.rerank_scores(cpu, *enc_c[0::2], sims, k_test)
+    finally:
+        if prev is None:
+            os.environ.pop("XFM_EVAL_GROUPED", None)
+        else:
+            os.environ["XFM_EVAL_GROUPED"] = prev
+    for d, name in enumerate(("score_i2t", "score_t2i")):
+        _scores_close(f"eval slice {tower} {name} cpu vs cuda", want[d],
+                      runs["1"][d])
+        _scores_close(f"eval slice {tower} {name} grouped vs repeat",
+                      runs["1"][d], runs["0"][d])
+    def recall(scores):
+        return {k: float(v) for k, v in retrieval.itm_eval(
+            *scores, data.img2txt, data.txt2img).items()}
+
+    r_want = recall(want)
+    for grouped, scores in runs.items():
+        r_got = recall(scores)
+        print(f"  eval slice {tower} R@K cpu={r_want} cuda(grouped="
+              f"{grouped})={r_got}")
+        if r_got != r_want:
+            raise AssertionError(f"eval slice {tower}: R@K differ")
+    want_k3 = {"1": layers * -(-n_img // 8), "0": 0}
+    print(f"  eval slice {tower} K3 launches in the image -> text rerank: "
+          f"grouped {k3['1']}, repeat {k3['0']}, expected {want_k3}")
+    if k3 != want_k3:
+        raise AssertionError(f"eval slice {tower}: K3 launched {k3}")
+
+
+def full_eval(n_img=256, per_image=5, k_test=256, seed=0) -> dict:
+    """Phase 17: the full-width eval through `tasks/retrieval.evaluation`,
+    its weights loaded from a 224 px reference checkpoint; launch counts
+    set to 0 just before the eval and read just after."""
+    import tempfile
+
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.models import XFMForRetrieval
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks import retrieval
+    from xfm_tpu_torch.train import checkpoint as ck
+
+    m224 = build_model(XFMForRetrieval, configs.xfm_retrieval_eval_config(
+        image_res=224), "cuda", seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for blk in m224.vision_encoder.blocks:
+            blk.attn.relative_position_bias_table.normal_(0.0, 0.02,
+                                                          generator=g)
+    cfg = configs.xfm_retrieval_eval_config()
+    model = build_model(XFMForRetrieval, cfg, "cuda", seed=seed + 1)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "xfm_base_224.pth")
+        torch.save({"model": ck.reference_state_dict(m224)}, path)
+        t224 = m224.vision_encoder.blocks[0].attn.relative_position_bias_table
+        want0 = ck.interpolate_rel_pos_bias_table(
+            t224.detach().float().cpu().numpy(), (24, 24))
+        del m224
+        missing, unexpected = ck.load_xfm_checkpoint(
+            model, ck.load_torch_state_dict(path))
+    table = model.vision_encoder.blocks[0].attn.relative_position_bias_table
+    print(f"  checkpoint 224 px -> 384 px: {len(missing)} missing, "
+          f"{len(unexpected)} unexpected; rel-pos table "
+          f"{tuple(t224.shape)} -> {tuple(table.shape)}")
+    if missing or unexpected or not np.array_equal(
+            table.detach().cpu().numpy(), want0):
+        raise AssertionError("the checkpoint did not load whole")
+    data = configs.SyntheticRetrievalEvalData(
+        n_img, per_image, cfg.vision.image_res, cfg.text.vocab_size,
+        seed=seed)
+    n_txt = n_img * per_image
+    config = dict(configs.RETRIEVAL_COCO, k_test=k_test)
+    timings = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = retrieval.evaluation(model, data, config, timings)
+    total = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    layers = cfg.vision.depth
+    want = {name: 0 for name in launches}
+    want["relpos_attention_fwd"] = layers * -(-n_img // 64)
+    want["flash_attention_fwd"] = cfg.fusion.num_hidden_layers * \
+        -(-n_img // 8)
+    flops = configs.retrieval_eval_flops(n_img, n_txt, k_test,
+                                         configs.RETRIEVAL_COCO["max_tokens"],
+                                         cfg.vision.num_patches)
+    stage1_s = timings["images_s"] + timings["texts_s"]
+    res = dict(
+        n_img=n_img, n_txt=n_txt, k_test=k_test,
+        tflop_per_s={"stage1": flops["stage1"] / stage1_s / 1e12,
+                     "i2t": flops["i2t"] / timings["i2t_s"] / 1e12,
+                     "t2i": flops["t2i"] / timings["t2i_s"] / 1e12},
+        images_per_s=n_img / timings["images_s"],
+        texts_per_s=n_txt / timings["texts_s"],
+        i2t_rows_per_s=n_img * k_test / timings["i2t_s"],
+        t2i_rows_per_s=n_txt * k_test / timings["t2i_s"],
+        timings_s=timings, total_s=total,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        metrics={k: float(v) for k, v in metrics.items()},
+        launches=launches)
+    print("  full eval: " + json.dumps(res))
+    if launches != want:
+        raise AssertionError(f"eval launches {launches}, expected {want}")
+    if not all(math.isfinite(v) and 0.0 <= v <= 100.0
+               for v in res["metrics"].values()):
+        raise AssertionError(f"eval R@K out of range: {res['metrics']}")
+    return res
+
+
+def cli_eval() -> None:
+    """`python3 -m xfm_tpu_torch.run --task itr_coco --evaluate` on 8 PNGs
+    of 2 captions each (the config `Retrieval_coco.yaml`'s keys, its
+    annotation and image paths replaced), where PyYAML and PIL import;
+    its log's R@K must be finite."""
+    import tempfile
+
+    try:
+        import yaml
+        from PIL import Image
+    except ImportError as e:
+        print(f"  run.py --evaluate: not driven here ({e}); the tests drive "
+              f"it on the CPU")
+        return
+    from xfm_tpu_torch import configs
+
+    with tempfile.TemporaryDirectory() as d:
+        r = np.random.RandomState(0)
+        ann = []
+        for i in range(8):
+            Image.fromarray(r.randint(0, 255, (64, 48, 3)).astype(np.uint8)) \
+                .save(os.path.join(d, f"img{i}.png"))
+            ann.append({"image": f"img{i}.png",
+                        "caption": [f"a photo of thing {i}",
+                                    f"thing number {i} in a photo"]})
+        with open(os.path.join(d, "test.json"), "w") as f:
+            json.dump(ann, f)
+        cfg = {k: v for k, v in configs.RETRIEVAL_COCO.items()
+               if k not in ("train_file", "val_file")}
+        cfg.update(test_file=os.path.join(d, "test.json"), image_root=d)
+        with open(os.path.join(d, "ret.yaml"), "w") as f:
+            yaml.safe_dump(cfg, f)
+        out = os.path.join(d, "out")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "xfm_tpu_torch.run", "--task", "itr_coco",
+             "--config", os.path.join(d, "ret.yaml"), "--evaluate",
+             "--output_dir", out, "--seed", "0"], cwd=REPO,
+            capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            print(res.stdout[-3000:], res.stderr[-3000:])
+            raise AssertionError("run.py --evaluate failed")
+        with open(os.path.join(out, "log.txt")) as f:
+            metrics = json.loads(f.read().splitlines()[-1])["eval"]
+    print(f"  run.py --task itr_coco --evaluate on 8 PNGs: "
+          f"{time.perf_counter() - t0:.1f} s, {metrics}")
+    if not all(math.isfinite(v) and 0.0 <= v <= 100.0
+               for v in metrics.values()):
+        raise AssertionError("run.py --evaluate: R@K out of range")
+
+
+def eval_kernel_entries(k2_err, k2_t, k2w, k3_err, k3_t, k3w,
+                        launches) -> list:
+    """The `kernels` entries of the eval's path: K2's forward at the
+    stage-1 batch and K3's forward at the grouped rerank shape, their
+    launches from phase 17."""
+    out = []
+    for name, prefix, line, src, err, t, w in (
+            ("relpos_attention_fwd_eval_b64", "relpos_attention", 689,
+             "relpos_attention.cu", k2_err, k2_t, k2w),
+            ("flash_attention_fwd_grouped_rerank", "flash_attention", 71,
+             "flash_attention.cu", k3_err, k3_t, k3w)):
+        out.append(dict(
+            name=name, route="cuda", source=f"xfm_tpu_torch/csrc/{src}",
+            replaces=f"xfm_tpu/ops/flash_attention.py:{line}",
+            launches=launches[f"{prefix}_fwd"], max_abs_err=err["out"][0],
+            ms=t["fwd_ms"], plain_ms=t["plain_fwd_ms"],
+            bound_ms=w["fwd"]["bound_ms"], bound_by=w["fwd"]["bound_by"],
+            library_ms=t["library_fwd_ms"]))
+    return out
 
 
 LN_EPS = 1e-6
@@ -1178,6 +1530,33 @@ def main() -> int:
     print(f"  peak memory: fused {fused['max_memory_allocated']} B, "
           f"default {pretrain['max_memory_allocated']} B (phase 4)")
 
+    print("phase 15: K3 and K2 forward parity and times at the eval's "
+          "shapes")
+    bf16, f32 = torch.bfloat16, torch.float32
+    k3g_err = k3_grouped_parity(8, 256, bf16, "ones")
+    k3_grouped_parity(8, 256, bf16, "tails", seed=1)
+    k3_grouped_parity(8, 256, f32, "tails", seed=2)
+    k3_grouped_parity(3, 256, bf16, "ones", seed=3)
+    k3_grouped_parity(8, 16, bf16, "tails", seed=4)
+    q, _, _, bias = k3_grouped_inputs(8, 256, bf16, "ones", 0)
+    k3gw = k3_work(8, q.shape[1], 577, 12, 64, bf16, bias)
+    del q, bias
+    k3g_t = k3_grouped_times(8, 256, bf16)
+    print("  K3 grouped times (ms): " + json.dumps(k3g_t))
+    print("  K3 grouped bound (k3_work): " + json.dumps(k3gw))
+    k2e_err = k2_fwd_parity(64, bf16)
+    k2_fwd_parity(64, f32, seed=1)
+    k2ew = k2_work(B=64, N=577, H=12, D=64, window=(24, 24), dtype=bf16)
+    k2e_t = k2_fwd_times(64, bf16)
+    print("  K2 B=64 times (ms): " + json.dumps(k2e_t))
+    print("  K2 B=64 bound (k2_work): " + json.dumps(k2ew))
+    print("phase 16: eval slice parity, CPU vs card, BEiT-2 and CLIP-ViT")
+    eval_slice_parity(clip=False)
+    eval_slice_parity(clip=True)
+    print("phase 17: the full-width retrieval eval, 384 px")
+    ev = full_eval()
+    cli_eval()
+
     entries = (kernel_entries("packed_attention",
                               "xfm_tpu/ops/flash_attention.py", 983, 1007,
                               "xfm_tpu_torch/csrc/packed_attention.cu",
@@ -1200,7 +1579,9 @@ def main() -> int:
                + kernel_entries("fused_mlp", "xfm_tpu/ops/fused_mlp.py", 75,
                                 84, "xfm_tpu_torch/csrc/fused_mlp.cu",
                                 k5_err, ("dh", "dW", "db"), k5_t, k5w,
-                                fused["launches"], also_bwd=99))
+                                fused["launches"], also_bwd=99)
+               + eval_kernel_entries(k2e_err, k2e_t, k2ew, k3g_err, k3g_t,
+                                     k3gw, ev["launches"]))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

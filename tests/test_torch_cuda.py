@@ -455,6 +455,70 @@ def test_flash_attention_backward_is_deterministic():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("U,gs,bias_kind", [
+    (8, 256, "ones"),        # the eval's i2t chunk: q [8, 10240, 12, 64]
+    (3, 256, "ones"),        # the corpus' last, smaller chunk
+    (8, 16, "tails"),        # gs·T = 640; image masks with masked tails
+    (3, 16, "row_view"),     # the per-row mask's bias[::gs], strided
+])
+def test_flash_attention_forward_at_the_grouped_rerank_shapes(dtype, U, gs,
+                                                              bias_kind):
+    """K3's forward as the grouped image → text rerank calls it: q the
+    cross-attention's [U·gs, 40, 12, 64] projection viewed, without a copy,
+    as [U, gs·40, 12, 64]; k/v [U, 577, 12, 64]; the bias [U, 1, 1, 577]
+    from image masks, or the per-row [U·gs, 1, 1, 577] one read through
+    `bias[::gs]` — against the plain version on the same view."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import flash_attention as fa
+    from xfm_tpu_torch.ops.attention import mask_to_bias
+
+    r = np.random.RandomState(11)
+    T, Nk, H = 40, 577, 12
+    proj = torch.from_numpy(r.randn(U * gs, T, H * 64).astype(np.float32))
+    proj = proj.cuda().to(dtype)
+    q = proj.view(U * gs, T, H, 64).view(U, gs * T, H, 64)
+    assert q.data_ptr() == proj.data_ptr()
+    k, v = (torch.from_numpy(r.randn(U, Nk, H, 64).astype(np.float32))
+            .cuda().to(dtype) for _ in range(2))
+    atts = np.ones((U, Nk), np.int64)
+    if bias_kind != "ones":
+        for u in range(U):
+            atts[u, Nk - 5 - 40 * u:] = 0
+    if bias_kind == "row_view":
+        bias = mask_to_bias(torch.from_numpy(np.repeat(atts, gs, 0))).cuda()
+        bias = bias[::gs]
+        assert bias.stride(0) == gs * Nk
+    else:
+        bias = mask_to_bias(torch.from_numpy(atts)).cuda()
+    out, _ = fa.flash_attention_fwd(q, k, v, bias, 0.125)
+    ref = fa.flash_attention_reference(q, k, v, bias, 0.125)
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max() <= \
+        tol * ref.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relpos_attention_forward_at_the_eval_batch(dtype):
+    """K2's forward at the eval's stage-1 batch (qkv [64, 577, 2304],
+    `batch_size_test` = 64) against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    qkv, cr, cls3, _ = _relpos_inputs(64, (24, 24), 12, dtype, seed=12)
+    out, _ = fa.relpos_attention_fwd(qkv, cr, cls3, (24, 24), 0.125, 12)
+    ref = fa.relpos_attention_reference(qkv, cr, cls3, (24, 24), 0.125, 12)
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max() <= \
+        tol * ref.float().abs().max()
+
+
+@pytest.mark.cuda
 def test_flash_attention_reads_strided_views_in_place():
     """q, k, v as the [B, N, H, D] slices of one [B, N, 3, H, D] projection
     (row stride 3·H·D): the kernel reads them through their strides and

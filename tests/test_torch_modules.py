@@ -153,17 +153,28 @@ def test_hard_negative_draws_follow_the_jax_weights():
 
 
 def test_port_imports_neither_jax_nor_xfm_tpu():
-    """Every module of xfm_tpu_torch and chip_smoke's helpers import in a
-    fresh interpreter without pulling in jax or any xfm_tpu module."""
+    """Every module of xfm_tpu_torch (the eval's tasks/, data/ and run.py
+    among them) and chip_smoke's helpers import in a fresh interpreter
+    without pulling in jax, flax, optax or any xfm_tpu module; PIL, yaml and
+    transformers, which the card's machine may lack, are imported only
+    inside the functions that need them."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import xfm_tpu_torch\n"
-        "for m in pkgutil.walk_packages(xfm_tpu_torch.__path__,"
-        " 'xfm_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "xfm_tpu_torch.__path__, 'xfm_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'xfm_tpu' or m.startswith('xfm_tpu.')]\n"
+        "want = {'xfm_tpu_torch.run', 'xfm_tpu_torch.tasks.retrieval',"
+        " 'xfm_tpu_torch.tasks.common', 'xfm_tpu_torch.core.config',"
+        " 'xfm_tpu_torch.data.tokenization',"
+        " 'xfm_tpu_torch.data.transforms',"
+        " 'xfm_tpu_torch.data.finetune_data'}\n"
+        "lazy = ('PIL', 'yaml', 'transformers')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'flax', 'optax', 'xfm_tpu') + lazy]\n"
+        "bad += sorted(want - set(names))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

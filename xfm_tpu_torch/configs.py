@@ -2,7 +2,10 @@
 CLIP-ViT-B/16 vision tower), their synthetic batches and their FLOP counts:
 copies of `__graft_entry__._xfm_config` / `_batch`,
 `bench.pretrain_step_flops`, `scripts/bench_finetune.py`'s retrieval step
-and `config_from_yaml`'s CLIP branch (those modules import JAX)."""
+and `config_from_yaml`'s CLIP branch (those modules import JAX); and the
+retrieval eval's configuration (`configs/xfm-ft/Retrieval_coco.yaml`, kept
+here as a dict so that no YAML reader is needed) and a seeded in-memory
+corpus with `RetrievalEvalData`'s interface."""
 from __future__ import annotations
 
 import os
@@ -15,7 +18,7 @@ from .models.beit2 import VisionConfig
 from .models.clip_vit import ClipVisionConfig
 from .models.task_models import XFMForPretrain, XFMForRetrieval
 from .models.text_encoder import TextConfig
-from .models.xfm import XFMConfig
+from .models.xfm import XFMConfig, config_from_yaml
 from .train.checkpoint import init_weights
 from .train.optim import create_optimizer
 from .train.schedules import linear_warmup_decay
@@ -114,6 +117,112 @@ def xfm_clip_retrieval_config(image_res=384, hidden=None, layers=None,
                      vision_backbone="clip_vit", embed_dim=256,
                      use_contrastive_loss=True, use_matching_loss=True,
                      dtype=dtype)
+
+
+# configs/xfm-ft/Retrieval_coco.yaml, key for key (a CPU test holds the two
+# equal)
+RETRIEVAL_COCO = {
+    "train_file": ["data/finetune/coco_train.json"],
+    "val_file": "data/finetune/coco_val.json",
+    "test_file": "data/finetune/coco_test.json",
+    "image_root": "data/coco",
+    "use_beit_v2": True,
+    "vision_config": "configs/model/config_beit2_base.json",
+    "image_res": 384, "patch_size": 16, "local_attn_depth": -1,
+    "text_encoder": "data/roberta-base",
+    "text_num_hidden_layers": 12, "text_fusion_start_at": 12,
+    "fusion_num_hidden_layers": 12, "fusion_fusion_start_at": 0,
+    "embed_dim": 256, "temp": 0.07, "learnable_temp": True,
+    "max_tokens": 40, "k_test": 256,
+    "batch_size_train": 24, "batch_size_test": 64,
+    "parallel": {"data": -1, "fsdp": 1, "tensor": 1},
+    "optimizer": {"opt": "adamW", "lr": 3.0e-5, "weight_decay": 0.01,
+                  "lr_mult": 2},
+    "schedular": {"sched": "linear", "lr": 3.0e-5, "epochs": 10,
+                  "num_warmup_steps": 0.1},
+    "accelerator": {"RNG_SEED": 42},
+}
+
+
+def retrieval_eval_yaml(image_res: int = 384, layers: Optional[int] = None,
+                        clip: bool = False, **keys) -> dict:
+    """`RETRIEVAL_COCO` at `image_res`, every encoder cut to `layers` where
+    given, with the CLIP-ViT-B/16 tower (`use_clip_vit` and
+    config_clipvitB.json read into `_vision`) where `clip`; `keys` set on
+    top."""
+    cfg = dict(RETRIEVAL_COCO, image_res=image_res, **keys)
+    if clip:
+        cfg["use_clip_vit"] = True
+        cfg["_vision"] = dict(CLIP_VIT_B16)
+    if layers:
+        cfg.update(text_num_hidden_layers=layers, text_fusion_start_at=layers,
+                   fusion_num_hidden_layers=layers)
+        if clip:
+            cfg["_vision"]["num_hidden_layers"] = layers
+        else:
+            cfg["vision_depth"] = layers
+    return cfg
+
+
+def xfm_retrieval_eval_config(dtype=None, **kw) -> XFMConfig:
+    """The eval's model: `config_from_yaml` of `retrieval_eval_yaml(**kw)`
+    with the ITC and ITM heads, as `tasks/retrieval.main` builds it."""
+    return config_from_yaml(retrieval_eval_yaml(**kw), dtype=dtype,
+                            use_contrastive_loss=True, use_matching_loss=True)
+
+
+class SyntheticRetrievalEvalData:
+    """A seeded in-memory corpus with `data/finetune_data.RetrievalEvalData`'s
+    interface (`image_batches`, `text_batches`, `img2txt`, `txt2img`):
+    `n_img` normal-random NHWC images and `per_image` captions each (image
+    i owns captions per_image·i ...), token ids drawn from [3, vocab - 1),
+    each caption min_tokens..max_tokens long with the cls and sep ids at its
+    ends and padded with `pad_id` to max_tokens."""
+
+    def __init__(self, n_img: int, per_image: int, image_res: int,
+                 vocab: int, max_tokens: int = 40, min_tokens: int = 8,
+                 pad_id: int = 1, seed: int = 0):
+        r = np.random.RandomState(seed)
+        self.images = r.randn(n_img, image_res, image_res, 3).astype(
+            np.float32)
+        n_txt = n_img * per_image
+        lens = r.randint(min_tokens, max_tokens + 1, n_txt)
+        ids = r.randint(3, vocab - 1, (n_txt, max_tokens)).astype(np.int32)
+        pos = np.arange(max_tokens)[None]
+        atts = (pos < lens[:, None]).astype(np.int32)
+        ids[:, 0] = 0
+        ids[np.arange(n_txt), lens - 1] = 2
+        self.ids = np.where(atts == 1, ids, pad_id).astype(np.int32)
+        self.atts = atts
+        self.img2txt = {i: list(range(per_image * i, per_image * (i + 1)))
+                        for i in range(n_img)}
+        self.txt2img = {t: t // per_image for t in range(n_txt)}
+
+    def image_batches(self, batch_size):
+        for s in range(0, len(self.images), batch_size):
+            yield self.images[s:s + batch_size]
+
+    def text_batches(self, batch_size):
+        for s in range(0, len(self.ids), batch_size):
+            yield self.ids[s:s + batch_size], self.atts[s:s + batch_size]
+
+
+def retrieval_eval_flops(n_img: int, n_txt: int, k_test: int, T: int,
+                         patches: int, hidden=768, inter=3072, layers=12
+                         ) -> dict:
+    """Forward model FLOPs of the eval's parts (matmuls only): stage 1
+    (every image, every text), image → text grouped (cross k/v projected
+    once per image) and text → image in the repeat form (cross k/v
+    projected for every row)."""
+    Nv = patches + 1
+    stage1 = (_transformer_flops(layers, hidden, inter, Nv, n_img)
+              + _transformer_flops(layers, hidden, inter, T, n_txt))
+    fusion_rows = _transformer_flops(layers, hidden, inter, T, 1,
+                                     cross_kv=Nv)
+    kv_proj = layers * 2 * 2 * hidden * hidden * Nv
+    i2t = n_img * k_test * (fusion_rows - kv_proj) + n_img * kv_proj
+    t2i = n_txt * k_test * fusion_rows
+    return {"stage1": stage1, "i2t": i2t, "t2i": t2i}
 
 
 def make_batch(B: int, T: int, M: int, image_res: int, num_patches: int,

@@ -7,6 +7,9 @@ package's. Softmax, loss reductions and LayerNorm statistics run in f32.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
+
 import torch
 import torch.nn.functional as F
 
@@ -14,6 +17,30 @@ from ..ops.activations import ACT
 from ..ops.fused_ln import fused_add_ln, fused_ln_ok, fused_ln_post
 from ..ops.fused_mlp import act_dense as fused_act_dense
 from ..ops.fused_mlp import fused_mlp_ok
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    output_dtype: torch.dtype = torch.float32
+
+
+DEFAULT = Policy()
+FULL_F32 = Policy(compute_dtype=torch.float32)
+
+
+def policy_from_config(config: dict) -> Policy:
+    """The task's compute policy (`xfm_tpu/core/precision.py`): the YAML's
+    `compute_dtype`, else `XFM_COMPUTE_DTYPE`, else the `accelerator:`
+    block (FP16_OPT_LEVEL O0 → f32), else bf16 compute."""
+    cd = config.get("compute_dtype") or os.environ.get("XFM_COMPUTE_DTYPE")
+    if cd:
+        return FULL_F32 if str(cd) in ("float32", "fp32", "f32") else DEFAULT
+    acc = config.get("accelerator", {}) or {}
+    if str(acc.get("FP16_OPT_LEVEL", "O1")).upper() == "O0":
+        return FULL_F32
+    return DEFAULT
 
 
 def dense(x: torch.Tensor, layer: torch.nn.Linear,

@@ -4,9 +4,9 @@ from .beit2 import BeitVisionTransformer, VisionConfig
 from .clip_vit import ClipVisionConfig, ClipVisionTransformer
 from .task_models import XFMForPretrain, XFMForRetrieval
 from .text_encoder import TextConfig, TextTransformer
-from .xfm import XFMBase, XFMConfig
+from .xfm import XFMBase, XFMConfig, config_from_yaml
 
 __all__ = ["BeitVisionTransformer", "VisionConfig", "ClipVisionConfig",
            "ClipVisionTransformer", "TextConfig",
            "TextTransformer", "XFMBase", "XFMConfig", "XFMForPretrain",
-           "XFMForRetrieval"]
+           "XFMForRetrieval", "config_from_yaml"]

@@ -4,8 +4,8 @@
 Each holds the XFMBase parameters directly (not under a `backbone.` prefix),
 so its state_dict is the reference's. Of the pretrain step only the default
 path is ported: the 2B-row vision pair pass and the fused 4B-row fusion pass
-for ITM + fusion-MLM. Of retrieval, the fine-tune step and the encoders of
-the eval's first stage; the ITM rerank waits for grouped cross-attention.
+for ITM + fusion-MLM. Of retrieval, the fine-tune step and the eval: the
+encoders of its first stage and the ITM rerank of its second.
 """
 from __future__ import annotations
 
@@ -91,3 +91,25 @@ class XFMForRetrieval(XFMBase):
         text_embeds = self.get_text_embeds(text_ids, text_atts,
                                            deterministic)
         return text_embeds, self.get_features(text_embeds=text_embeds)
+
+    def itm_scores(self, image_embeds, text_embeds, text_atts,
+                   image_row_idx=None, image_group_size=None,
+                   deterministic: bool = True):
+        """ITM logit[:, 1] of each (image, text) row: the eval's second
+        stage. `image_row_idx`: image_embeds holds the unique images and
+        each row takes its own by index. `image_group_size` gs: image_embeds
+        holds U unique images and the U·gs text rows come in contiguous runs
+        of gs candidates per image (the i2t rerank); otherwise row i pairs
+        image i with text i (the repeat form)."""
+        if image_group_size is None and image_row_idx is not None:
+            nrows = image_row_idx.shape[0]
+        else:
+            nrows = image_embeds.shape[0]
+        image_atts = torch.ones(nrows, image_embeds.shape[1],
+                                dtype=torch.int64, device=image_embeds.device)
+        cross = self.get_cross_embeds(
+            image_embeds, image_atts, text_embeds, text_atts,
+            deterministic=deterministic, is_pretrain=False,
+            image_row_idx=image_row_idx,
+            image_group_size=image_group_size)[:, 0, :]
+        return self.itm_head(cross)[:, 1]

@@ -100,18 +100,29 @@ class _SelfOutput(nn.Module):
 class SelfAttention(nn.Module):
     """Self- or cross-attention with the BERT post-LN output. Cross k/v
     project from `encoder_width` features; with `kv_row_idx` they are
-    projected once per unique kv row and gathered per hidden row."""
+    projected once per unique kv row and gathered per hidden row. With
+    `kv_group_size` gs (cross-attention only) kv_source holds U unique rows
+    and the B = U·gs hidden rows come in contiguous runs of gs per kv row:
+    q is viewed, without a copy, as [U, gs·Nq, H, D] against the per-unique
+    k/v (the retrieval rerank's formulation), and the bias's first row of
+    each group stands for the group."""
 
     def __init__(self, c: TextConfig, is_cross: bool = False):
         super().__init__()
         self.c = c
+        self.is_cross = is_cross
         self.self = _SelfProj(c, c.encoder_width if is_cross
                               else c.hidden_size)
         self.output = _SelfOutput(c)
 
     def forward(self, hidden, kv_source, attention_bias,
-                kv_row_idx: Optional[torch.Tensor] = None):
+                kv_row_idx: Optional[torch.Tensor] = None,
+                kv_group_size: Optional[int] = None, prob_gate=None):
         c = self.c
+        if prob_gate is not None:
+            raise NotImplementedError(
+                "kv_group_size with prob_gate (GradCAM) unsupported"
+                if kv_group_size else "prob_gate (GradCAM) is not ported yet")
         H = c.num_attention_heads
         D = c.hidden_size // H
         B, Nq = hidden.shape[:2]
@@ -122,7 +133,15 @@ class SelfAttention(nn.Module):
         if kv_row_idx is not None:
             k = k.index_select(0, kv_row_idx)
             v = v.index_select(0, kv_row_idx)
-        ctx = dot_product_attention(q, k, v, bias=attention_bias)
+        if kv_group_size and self.is_cross:
+            gs = int(kv_group_size)
+            bias = attention_bias
+            if bias is not None and bias.shape[0] == B:
+                bias = bias[::gs]
+            ctx = dot_product_attention(q.view(U, gs * Nq, H, D), k, v,
+                                        bias=bias)
+        else:
+            ctx = dot_product_attention(q, k, v, bias=attention_bias)
         out = dense(ctx.reshape(B, Nq, c.hidden_size), self.output.dense,
                     c.dtype)
         return post_layer_norm(out, hidden, self.output.LayerNorm, c.dtype,
@@ -154,12 +173,14 @@ class TransformerLayer(nn.Module):
         self.output = _Output(c)
 
     def forward(self, hidden, attention_bias=None, encoder_hidden_states=None,
-                encoder_attention_bias=None, encoder_row_idx=None):
+                encoder_attention_bias=None, encoder_row_idx=None,
+                encoder_group_size=None):
         c = self.c
         x = self.attention(hidden, hidden, attention_bias)
         if self.has_cross_attention and encoder_hidden_states is not None:
             x = self.crossattention(x, encoder_hidden_states,
-                                    encoder_attention_bias, encoder_row_idx)
+                                    encoder_attention_bias, encoder_row_idx,
+                                    encoder_group_size)
         h = dense(x, self.intermediate.dense, c.dtype)
         h = act_dense(h, self.output.dense, c.hidden_act, c.dtype,
                       c.fused_mlp)
@@ -224,7 +245,8 @@ class TextTransformer(nn.Module):
     def forward(self, input_ids=None, attention_mask=None,
                 inputs_embeds=None, encoder_hidden_states=None,
                 encoder_attention_mask=None, mode: str = "multi_modal",
-                encoder_row_idx=None, deterministic: bool = True):
+                encoder_row_idx=None, deterministic: bool = True,
+                encoder_group_size=None):
         c = self.c
         _check_deterministic(c, deterministic)
         x = (inputs_embeds if inputs_embeds is not None
@@ -248,7 +270,8 @@ class TextTransformer(nn.Module):
         else:
             lo, hi = 0, c.num_hidden_layers
         for layer in self.roberta.encoder.layer[lo:hi]:
-            x = layer(x, bias, encoder_hidden_states, ebias, encoder_row_idx)
+            x = layer(x, bias, encoder_hidden_states, ebias, encoder_row_idx,
+                      encoder_group_size)
         return x
 
 

@@ -75,6 +75,92 @@ class XFMConfig:
         return self.text.hidden_size
 
 
+def config_from_yaml(config: dict, *, use_contrastive_loss=False,
+                     use_matching_loss=False, use_mlm_loss=False,
+                     use_bbox_loss=False, dtype=None) -> XFMConfig:
+    """XFMConfig from the reference YAML schema, as `xfm_tpu/models/xfm.py`
+    `config_from_yaml` builds it for the BEiT-2 (default) and CLIP-ViT
+    (`use_clip_vit`) towers with a RoBERTa text side. `dtype` None takes
+    the compute dtype of `core.precision.policy_from_config`. The JAX
+    package's environment switches `XFM_FUSED_LN` / `XFM_MLP_FUSED` == "1"
+    become the configs' `fused_ln` / `fused_mlp` (the CLIP tower takes
+    neither, as there). Swin, DeiT and BERT text encoders are not ported."""
+    if dtype is None:
+        from ..core.precision import policy_from_config
+
+        dtype = policy_from_config(config).compute_dtype
+    fused = dict(fused_ln=os.environ.get("XFM_FUSED_LN", "0") == "1",
+                 fused_mlp=os.environ.get("XFM_MLP_FUSED", "0") == "1")
+    vision_cfg_json = config.get("_vision", {})
+    image_res = config.get("image_res", 224)
+    if config.get("use_swin", False) or config.get("use_deit", False):
+        raise NotImplementedError("the Swin and DeiT towers are not ported")
+    if config.get("use_clip_vit", False):
+        vision = ClipVisionConfig(
+            image_res=image_res,
+            patch_size=config.get("patch_size", 16),
+            hidden_size=vision_cfg_json.get("vision_width", 768),
+            num_hidden_layers=vision_cfg_json.get("num_hidden_layers", 12),
+            num_attention_heads=vision_cfg_json.get("num_attention_heads", 12),
+            intermediate_size=vision_cfg_json.get("intermediate_size", 3072),
+            hidden_act=vision_cfg_json.get("hidden_act", "quick_gelu"),
+            local_attn_depth=vision_cfg_json.get(
+                "local_attn_depth", config.get("local_attn_depth", 0)),
+            dtype=dtype)
+        backbone, vwidth = "clip_vit", vision.hidden_size
+    else:
+        large = "large" in str(config.get("vision_config", "base"))
+        vkw = dict(embed_dim=1024, depth=24, num_heads=16) if large else {}
+        for src, dst in (("vision_embed_dim", "embed_dim"),
+                         ("vision_depth", "depth"),
+                         ("vision_num_heads", "num_heads"),
+                         ("patch_size", "patch_size")):
+            if config.get(src) is not None:
+                vkw[dst] = config[src]
+        vision = VisionConfig(
+            image_res=image_res,
+            drop_path_rate=config.get("drop_path_rate", 0.1),
+            init_values=0.1, qkv_bias=True, dtype=dtype,
+            hidden_act=config.get("hidden_act", "gelu"), **fused, **vkw)
+        backbone, vwidth = "beit2", vision.embed_dim
+
+    if "roberta" not in str(config.get("text_encoder", "roberta-base")):
+        raise NotImplementedError("only RoBERTa text encoders are ported")
+    n_text = config.get("text_num_hidden_layers", 12)
+    tkw = dict(fused)
+    if config.get("hidden_act"):
+        tkw["hidden_act"] = config["hidden_act"]
+    for k in ("hidden_dropout_prob", "attention_probs_dropout_prob"):
+        if config.get(k) is not None:
+            tkw[k] = float(config[k])
+    for src, dst in (("text_hidden_size", "hidden_size"),
+                     ("text_num_attention_heads", "num_attention_heads"),
+                     ("text_intermediate_size", "intermediate_size"),
+                     ("text_vocab_size", "vocab_size")):
+        if config.get(src) is not None:
+            tkw[dst] = config[src]
+    text = TextConfig.roberta_base(
+        num_hidden_layers=n_text,
+        fusion_layer=config.get("text_fusion_start_at", n_text),
+        encoder_width=vwidth, dtype=dtype, **tkw)
+    fusion = TextConfig.roberta_base(
+        num_hidden_layers=config.get("fusion_num_hidden_layers", 12),
+        fusion_layer=config.get("fusion_fusion_start_at", 0),
+        encoder_width=vwidth, dtype=dtype, **tkw)
+    return XFMConfig(
+        vision=vision, text=text, fusion=fusion, vision_backbone=backbone,
+        embed_dim=config.get("embed_dim", 256),
+        temp=config.get("temp", 0.07),
+        learnable_temp=config.get("learnable_temp", True),
+        max_temp=config.get("max_temp", 0.5),
+        min_temp=config.get("min_temp", 0.001),
+        detach_text_forMLM=config.get("detach_text_forMLM", True),
+        mim_cls_only=config.get("mim_cls_only", False),
+        use_contrastive_loss=use_contrastive_loss,
+        use_matching_loss=use_matching_loss, use_mlm_loss=use_mlm_loss,
+        use_bbox_loss=use_bbox_loss, dtype=dtype)
+
+
 class XFMBase(nn.Module):
     def __init__(self, c: XFMConfig):
         super().__init__()
@@ -126,17 +212,21 @@ class XFMBase(nn.Module):
 
     def get_cross_embeds(self, image_embeds, image_atts, text_embeds,
                          text_atts, deterministic=True, is_pretrain=True,
-                         image_row_idx=None):
+                         image_row_idx=None, image_group_size=None):
         """Fusion encoder over the text embeds with cross-attention to the
         image embeds. In pretraining the text embeds are detached; a
         fine-tune trains the text encoder through it. With `image_row_idx`
         image_embeds holds the unique images and each row takes its own by
-        index (cross k/v projected once per unique image)."""
+        index (cross k/v projected once per unique image). With
+        `image_group_size` gs the text rows come in contiguous runs of gs
+        per unique image (the rerank's shape): the cross-attention views the
+        queries per image, so k/v are neither repeated nor gathered."""
         return self.fusion_encoder(
             inputs_embeds=text_embeds.detach() if is_pretrain else text_embeds,
             attention_mask=text_atts, encoder_hidden_states=image_embeds,
             encoder_attention_mask=image_atts, deterministic=deterministic,
-            encoder_row_idx=image_row_idx)
+            encoder_row_idx=image_row_idx,
+            encoder_group_size=image_group_size)
 
     def get_features(self, image_embeds=None, text_embeds=None):
         """l2-normalized cls projections → (image_feat, text_feat), or the

@@ -9,17 +9,25 @@
   tower (`clip_vit_from_jax`) is the inverse of `import_clip_vit`.
 - `load_reference_state_dict`: a reference-named torch state dict (e.g. a
   released checkpoint or a golden fixture) into a port module.
+- The load half of `xfm_tpu/train/checkpoint.py`: `load_torch_state_dict`,
+  `strip_prefix`, `choose_layers`, the resolution-change interpolations
+  (`interpolate_abs_pos_embed`, `interpolate_rel_pos_bias_table`) and
+  `load_xfm_checkpoint`, which overlays a reference checkpoint on a port
+  model as `import_xfm_checkpoint` + `merge_params` do; and
+  `reference_state_dict`, a port model's weights under the reference's
+  names and layouts.
 - `init_weights`: random weights that follow the JAX package's initializers.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.patch_embed import patch_kernel_from_conv
+from ..ops.relpos import num_relative_distance
 
 
 def _t(x) -> np.ndarray:
@@ -190,12 +198,11 @@ def to_torch(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 _REFERENCE_BUFFERS = ("relative_position_index", "position_ids")
 
 
-def load_reference_state_dict(model: torch.nn.Module, sd, strict=True):
-    """Load a reference-named state dict (numpy or torch values): the
-    reference's buffers are dropped and its Conv2d patch weight
-    [C, 3, P, P] (BEiT's `patch_embed.proj.weight`, CLIP's
-    `patch_embed.weight`) becomes the matmul kernel. → load_state_dict's
-    result."""
+def _port_layout(sd) -> Dict[str, torch.Tensor]:
+    """Reference entries (numpy or torch values) as the port holds them:
+    the reference's buffers dropped, its Conv2d patch weights [C, 3, P, P]
+    (BEiT's `patch_embed.proj.weight`, CLIP's `patch_embed.weight`) made
+    matmul kernels, floats in f32."""
     out = {}
     for k, v in sd.items():
         if k.rsplit(".", 1)[-1] in _REFERENCE_BUFFERS:
@@ -205,7 +212,236 @@ def load_reference_state_dict(model: torch.nn.Module, sd, strict=True):
                 and v.dim() == 4:
             v = patch_kernel_from_conv(v)
         out[k] = v.float() if v.is_floating_point() else v
-    return model.load_state_dict(out, strict=strict)
+    return out
+
+
+def load_reference_state_dict(model: torch.nn.Module, sd, strict=True):
+    """Load a reference-named state dict in the port's layout
+    (`_port_layout`). → load_state_dict's result."""
+    return model.load_state_dict(_port_layout(sd), strict=strict)
+
+
+# ---------------------------------------------------------------------------
+# the load half: reference checkpoints onto a port model
+
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A torch checkpoint file → {name: float32 numpy array}, unwrapped from
+    a `model` and then a `module` entry where it has them."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and "model" in ckpt:
+        ckpt = ckpt["model"]
+    if isinstance(ckpt, dict) and "module" in ckpt:
+        ckpt = ckpt["module"]
+    return {k: v.detach().float().numpy() for k, v in ckpt.items()
+            if hasattr(v, "numpy")}
+
+
+def strip_prefix(sd: Dict[str, np.ndarray], prefix: str
+                 ) -> Dict[str, np.ndarray]:
+    """The entries under `prefix`, with it cut off."""
+    plen = len(prefix)
+    return {k[plen:]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def choose_layers(sd: Dict[str, np.ndarray], prefix: str,
+                  mapper: Dict[int, int]) -> Dict[str, np.ndarray]:
+    """`<prefix>.{src}.` keys become `<prefix>.{mapper[src]}.`; layers
+    under `prefix` that `mapper` does not name are dropped (an N-layer
+    encoder from an M-layer checkpoint)."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in sd.items():
+        if not k.startswith(prefix + "."):
+            out[k] = v
+            continue
+        head, _, tail = k[len(prefix) + 1:].partition(".")
+        if not head.isdigit():
+            out[k] = v
+        elif int(head) in mapper:
+            out[f"{prefix}.{mapper[int(head)]}.{tail}"] = v
+    return out
+
+
+def _bicubic_axis_weights(src_len: int, dst_len: int):
+    """Per-output-row 4-tap indices and weights of torch's bicubic resize
+    (`F.interpolate(mode='bicubic', align_corners=False)`): half-pixel
+    source coordinates, the Keys kernel with A = −0.75, replicated
+    borders."""
+    scale = src_len / dst_len
+    x = (np.arange(dst_len, dtype=np.float64) + 0.5) * scale - 0.5
+    x0 = np.floor(x).astype(np.int64)
+    A = -0.75
+
+    def k(d):
+        d = np.abs(d)
+        return np.where(
+            d <= 1.0, ((A + 2.0) * d - (A + 3.0)) * d * d + 1.0,
+            np.where(d < 2.0, (((d - 5.0) * d + 8.0) * d - 4.0) * A, 0.0))
+
+    taps = x0[:, None] + np.arange(-1, 3)[None, :]
+    w = k(taps - x[:, None]).astype(np.float32)
+    return np.clip(taps, 0, src_len - 1), w
+
+
+def interpolate_abs_pos_embed(pos: np.ndarray, num_patches: int,
+                              num_extra_tokens: int = 1) -> np.ndarray:
+    """Absolute position embeddings [1, extra + g², C] (or without the
+    leading 1) resized to `num_patches` by separable bicubic interpolation
+    of the square grid; the extra tokens are kept."""
+    if pos.ndim == 2:
+        pos = pos[None]
+    n_old = pos.shape[1] - num_extra_tokens
+    if n_old == num_patches:
+        return pos
+    g_old = int(round(n_old ** 0.5))
+    g_new = int(round(num_patches ** 0.5))
+    extra = pos[:, :num_extra_tokens]
+    grid = np.asarray(pos[:, num_extra_tokens:], np.float32).reshape(
+        1, g_old, g_old, -1)
+    idx, w = _bicubic_axis_weights(g_old, g_new)
+    grid = np.einsum("ia,biawc->biwc", w, grid[:, idx])
+    grid = np.einsum("ja,bijac->bijc", w, grid[:, :, idx])
+    return np.concatenate([extra, grid.reshape(1, g_new * g_new, -1)],
+                          axis=1)
+
+
+def interpolate_rel_pos_bias_table(table: np.ndarray,
+                                   dst_window: Tuple[int, int]
+                                   ) -> np.ndarray:
+    """A BEiT rel-pos table [(2w-1)² + 3, H] resampled to `dst_window` by
+    cubic splines over geometrically spaced source points (the reference's
+    resolution change); the 3 cls distances are kept. scipy is imported
+    only where the window changes."""
+    src_num, heads = table.shape
+    if src_num == num_relative_distance(dst_window):
+        return table
+    src_size = int(round((src_num - 3) ** 0.5))
+    dst_size = 2 * dst_window[0] - 1
+    extra = table[-3:]
+    body = table[:-3].reshape(src_size, src_size, heads)
+
+    # the reference's binary search for the progression's ratio q (bounds
+    # 1.01 / 1.5, stopping at an interval of 1e-6, its last midpoint used):
+    # a tighter search lands on another q and moves the table ~2e-4
+    def geometric_points(n, target_half):
+        left, right = 1.01, 1.5
+        q = (left + right) / 2.0
+        while right - left > 1e-6:
+            q = (left + right) / 2.0
+            gp = (1.0 - q ** (n // 2)) / (1.0 - q)
+            if gp > target_half:
+                right = q
+            else:
+                left = q
+        dis, cur = [], 1.0
+        for i in range(n // 2):
+            dis.append(cur)
+            cur += q ** (i + 1)
+        r = [-d for d in reversed(dis)]
+        return np.array(r + [0.0] + dis) if n % 2 == 1 else np.array(
+            r + dis)
+
+    if src_size != dst_size:
+        src_x = geometric_points(src_size, (dst_size // 2) * 1.0)
+        dst_x = np.arange(-(dst_size // 2), dst_size // 2 + 1,
+                          dtype=np.float64)
+    else:
+        src_x = dst_x = np.arange(src_size, dtype=np.float64)
+
+    from scipy import interpolate as si
+
+    out = np.zeros((dst_size, dst_size, heads), np.float32)
+    for h in range(heads):
+        f = si.RectBivariateSpline(src_x, src_x,
+                                   body[:, :, h].astype(np.float64),
+                                   kx=min(3, src_size - 1),
+                                   ky=min(3, src_size - 1))
+        out[:, :, h] = f(dst_x, dst_x).astype(np.float32)
+    return np.concatenate([out.reshape(dst_size * dst_size, heads), extra],
+                          axis=0)
+
+
+# the CLIP tower's Hugging Face names → the port's
+_CLIP_ALIASES = (("vision_model.", ""), ("embeddings.", ""),
+                 ("patch_embedding.weight", "patch_embed.weight"),
+                 ("position_embedding.weight", "pos_embed.weight"))
+
+
+def _reference_names(sd: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
+    """Reference names and layouts → the port's: the CLIP tower's Hugging
+    Face names mapped, rel-pos tables and position embeddings interpolated
+    to the model's grid, then `_port_layout`."""
+    c = model.config
+
+    def host(v):
+        return np.asarray(v.detach().float().cpu().numpy()
+                          if torch.is_tensor(v) else v, np.float32)
+
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("vision_encoder.") and c.vision_backbone == "clip_vit":
+            rest = k[len("vision_encoder."):]
+            for old, new in _CLIP_ALIASES:
+                if rest.startswith(old):
+                    rest = new + rest[len(old):]
+            k = "vision_encoder." + rest
+        if k.endswith("relative_position_bias_table"):
+            g = c.vision.grid_size
+            v = interpolate_rel_pos_bias_table(host(v), (g, g))
+        elif k in ("vision_encoder.pos_embed.weight",
+                   "vision_encoder.pos_embed"):
+            v, n = host(v), c.vision.num_patches
+            v = interpolate_abs_pos_embed(v, n).reshape(
+                v.shape[:-2] + (n + 1, v.shape[-1]))
+        out[k] = v
+    return _port_layout(out)
+
+
+@torch.no_grad()
+def load_xfm_checkpoint(model, sd: Dict[str, Any]
+                        ) -> Tuple[List[str], List[str]]:
+    """Overlay a reference-named XFM state dict (numpy or torch values, e.g.
+    `load_torch_state_dict`'s) on `model` in place, with the semantics of
+    `xfm_tpu/train/checkpoint.py` `import_xfm_checkpoint` + `merge_params`:
+    strict=False; BEiT rel-pos tables and position embeddings interpolated
+    where the model's grid differs; a shape that differs only by sizes of
+    1 reshaped, any other shape mismatch (a vocabulary of another size, an
+    untransposed kernel) refused with ValueError. → (missing, unexpected):
+    the model's entries the checkpoint does not hold, and the checkpoint's
+    entries the model does not have."""
+    target = model.state_dict()
+    ref = _reference_names(sd, model)
+
+    def squeezed(shape):
+        return tuple(d for d in shape if d != 1)
+
+    for k, v in ref.items():
+        if k in target and v.shape != target[k].shape:
+            if squeezed(v.shape) != squeezed(target[k].shape):
+                raise ValueError(
+                    f"shape mismatch for {k!r}: checkpoint "
+                    f"{tuple(v.shape)} vs model {tuple(target[k].shape)} — "
+                    f"refusing to reinterpret")
+            ref[k] = v.reshape(target[k].shape)
+    for k, v in ref.items():
+        if k in target:
+            target[k].copy_(v.to(target[k].dtype))
+    missing = [k for k in target if k not in ref]
+    unexpected = [k for k in ref if k not in target]
+    return missing, unexpected
+
+
+def reference_state_dict(model) -> Dict[str, torch.Tensor]:
+    """The model's weights under the reference's names and layouts, on the
+    CPU: the patch kernels back in Conv2d layout [C, 3, P, P]."""
+    out = {}
+    for k, v in model.state_dict().items():
+        v = v.detach().float().cpu().clone()
+        if k.endswith(("patch_embed.proj.weight", "patch_embed.weight")):
+            ppc, C = v.shape
+            P = int(round((ppc // 3) ** 0.5))
+            v = v.reshape(P, P, 3, C).permute(3, 2, 0, 1).contiguous()
+        out[k] = v
+    return out
 
 
 def _trunc_normal_(t: torch.Tensor, std: float, g: torch.Generator):
