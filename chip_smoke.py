@@ -108,6 +108,23 @@ Phases, each of which must pass or the script exits non-zero:
      memory and R@K; K2 forward 48 and K3 forward 384 launches, nothing
      else; then, where PyYAML and PIL import, `python3 -m
      xfm_tpu_torch.run --task itr_coco --evaluate` on 8 PNGs;
+ 18. the full-width fine-tune: `run.main` (the entry point of `python3 -m
+     xfm_tpu_torch.run --task itr_coco`, without --evaluate) on
+     `Retrieval_coco.yaml`'s keys with `resume: true`, random weights from
+     the seed, the YAML's dropout and drop-path live,
+     36 synthetic PNGs of 300-640 px with 2 captions each (72 pairs),
+     `--bs 24` (3 steps an epoch), `--epoch 2`, a test split of 16 of
+     those images: each step's seconds and
+     loss (finite), each epoch's and each eval's seconds and launches (K2
+     12 forward + 12 backward a step and nothing else in an epoch; K2
+     forward 12 and K3 forward 24 and nothing else in an eval, the
+     zero-shot one included), the peak memory, `ckpt/` (both epochs) and
+     `ckpt_best/` (the last epoch that raised R_mean, absent if none did);
+     then `ckpt/1` deleted and the same command again: the restored state
+     bit-equal to `ckpt/0` on disk, the run going on at epoch 1 at the
+     schedule's lr for the restored count, its first step's loss bit-equal
+     to the first run's and the others within FT_RESUME_RTOL; the output
+     directory (3.4-4.4 GB a checkpoint) deleted at the end;
 then a JSON line of the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
@@ -119,6 +136,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -141,6 +159,15 @@ TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-4}
 # losses, and each sampled gradient relative to its own max |value|
 SLICE_LOSS_RTOL = 1e-4
 SLICE_GRAD_RTOL = 1e-3
+# phase-18 tolerance for the resumed epoch's losses after its first step:
+# that step runs from the restored state on the same batch and masks, so
+# its loss is bit-equal; its backward sums through atomics (index_add_ of
+# the shared cross-k/v gather), so the next states differ in the last bits.
+# A random-weight model on noise images, whose loss jumps at the second
+# step (4.1 to 5.7), carries those bits through the bf16 activations of
+# the next two steps: 3.9e-5 to 2.9e-3 of the loss measured over four runs
+# on the H100; the bound keeps 7x the largest
+FT_RESUME_RTOL = 2e-2
 
 
 def nvidia_smi_line() -> str:
@@ -926,6 +953,256 @@ def cli_eval() -> None:
         raise AssertionError("run.py --evaluate: R@K out of range")
 
 
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _finetune_corpus(root, n_train, n_test, seed):
+    """`n_train` random PNGs of 300-640 px a side, 2 captions each →
+    (train json, test json): the train file one pair a caption with its
+    image_id; the test file one entry for each of the first `n_test`
+    images with its captions (so that what the steps learn shows in
+    R@K)."""
+    from PIL import Image
+
+    r = np.random.RandomState(seed)
+    words = ["a", "photo", "of", "the", "red", "blue", "dog", "cat", "on",
+             "grass", "with", "sky", "man", "riding", "street"]
+    train, test = [], []
+    for i in range(n_train):
+        # a colour and a wave of its own under pixel noise, so that the
+        # images differ in more than their noise
+        h, w = r.randint(300, 641, 2)
+        yy, xx = np.mgrid[0:h, 0:w]
+        wave = np.sin(xx * r.uniform(0.01, 0.1) + yy * r.uniform(0.01, 0.1)
+                      + r.uniform(0, 2 * np.pi))
+        arr = (r.randint(0, 256, 3) + 60 * wave[..., None] * r.uniform(
+            -1, 1, 3) + r.normal(0, 12, (h, w, 3)))
+        Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+            os.path.join(root, f"img{i}.png"))
+        caps = [" ".join(r.choice(words, 4 + (i + j) % 9)) + f" {i}."
+                for j in range(2)]
+        train += [{"image": f"img{i}.png", "caption": c, "image_id": i}
+                  for c in caps]
+        if i < n_test:
+            test.append({"image": f"img{i}.png", "caption": caps})
+    paths = []
+    for name, ann in (("train.json", train), ("test.json", test)):
+        paths.append(os.path.join(root, name))
+        with open(paths[-1], "w") as f:
+            json.dump(ann, f)
+    return paths
+
+
+def finetune_runs(root, keys=None, n_train=36, n_test=16, bs=24, epochs=2,
+                  seed=0, device="cuda") -> dict:
+    """Phase 18's two runs of `run.main` in `root` (`keys` set on
+    `Retrieval_coco.yaml`'s): the whole fine-tune, then, after deleting
+    ckpt/1, the resumed one. Each eval, epoch and step is recorded:
+    seconds, launches, losses, the lr each step took."""
+    import yaml
+
+    from xfm_tpu_torch import configs, run
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks import retrieval
+    from xfm_tpu_torch.train.schedules import schedule_from_config
+
+    train, test = _finetune_corpus(root, n_train, n_test, seed)
+    cfg = {k: v for k, v in configs.RETRIEVAL_COCO.items()
+           if k != "val_file"}
+    cfg.update(train_file=[train], test_file=test, image_root=root,
+               resume=True, **(keys or {}))
+    cfg_path = os.path.join(root, "ft.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    out = os.path.join(root, "out")
+    argv = ["--task", "itr_coco", "--config", cfg_path, "--output_dir", out,
+            "--bs", str(bs), "--epoch", str(epochs), "--seed", str(seed),
+            "--device", device]
+    real_eval, real_epoch = retrieval.evaluation, retrieval.train_epoch
+    real_resume = retrieval.maybe_resume_epochs
+    rec = {}
+
+    def evaluation(model, data, config, timings=None):
+        _sync()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = real_eval(model, data, config, timings)
+        _sync()
+        rec["evals"].append(dict(s=time.perf_counter() - t0,
+                                 launches=dict(kernels.LAUNCHES),
+                                 r_mean=float(metrics["r_mean"])))
+        return metrics
+
+    def train_epoch(ctx, state, step_fn, loader, generator, epoch, sched,
+                    **kw):
+        steps = []
+
+        def step(state, batch, gen):
+            lr = state.optimizer.lr(state.optimizer.count)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch, gen)
+            loss = metrics["loss"].item()
+            steps.append(dict(s=time.perf_counter() - t0, loss=loss, lr=lr))
+            return state, metrics
+
+        _sync()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, stats = real_epoch(ctx, state, step, loader, generator,
+                                  epoch, sched, **kw)
+        _sync()
+        rec["epochs"].append(dict(
+            epoch=epoch, s=time.perf_counter() - t0,
+            launches=dict(kernels.LAUNCHES), steps=steps, stats=stats,
+            max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                  if device == "cuda" else None)))
+        return state, stats
+
+    def maybe_resume_epochs(ctx, state):
+        state, start = real_resume(ctx, state)
+        if start:  # the restored state against the file it came from
+            saved = torch.load(os.path.join(out, "ckpt", str(start - 1),
+                                            "state.pt"),
+                               map_location=device, weights_only=True)
+            opt = state.optimizer
+            equal = (state.step == saved["step"]
+                     and opt.count == saved["optimizer"]["count"])
+            for name, p in zip(opt.names, opt.params):
+                equal &= torch.equal(p, saved["params"][name])
+            for key in ("mu", "nu"):
+                for name, t in zip(opt.names, getattr(opt, key)):
+                    equal &= torch.equal(t, saved["optimizer"][key][name])
+            rec["restored"] = dict(start=start, bit_equal=bool(equal),
+                                   count=opt.count,
+                                   lr=opt.lr(opt.count))
+            del saved
+        return state, start
+
+    runs = {}
+    retrieval.evaluation = evaluation
+    retrieval.train_epoch = train_epoch
+    retrieval.maybe_resume_epochs = maybe_resume_epochs
+    try:
+        for name in ("full", "resumed"):
+            if name == "resumed":
+                runs["layout"] = {d: sorted(os.listdir(os.path.join(out, d)))
+                                  for d in ("ckpt", "ckpt_best")
+                                  if os.path.isdir(os.path.join(out, d))}
+                shutil.rmtree(os.path.join(out, "ckpt", str(epochs - 1)))
+            rec = dict(evals=[], epochs=[])
+            t0 = time.perf_counter()
+            rec["result"] = run.main(argv)
+            rec["s"] = time.perf_counter() - t0
+            with open(os.path.join(out, "log.txt")) as f:
+                rec["log"] = [json.loads(x) for x in f.read().splitlines()]
+            runs[name] = rec
+    finally:
+        retrieval.evaluation, retrieval.train_epoch = real_eval, real_epoch
+        retrieval.maybe_resume_epochs = real_resume
+    steps_per_epoch = n_train * 2 // bs
+    runs["schedule_lr"] = schedule_from_config(
+        dict(cfg, schedular=dict(cfg["schedular"], epochs=epochs)),
+        steps_per_epoch)(steps_per_epoch * (epochs - 1))
+    runs["steps_per_epoch"] = steps_per_epoch
+    runs["checkpoint_bytes"] = os.path.getsize(os.path.join(
+        out, "ckpt", "0", "state.pt"))
+    return runs
+
+
+def full_finetune(epochs=2, n_test=16) -> dict:
+    """Phase 18: `finetune_runs` at full width on the card, checked; its
+    output directory deleted at the end."""
+    import tempfile
+
+    from xfm_tpu_torch import configs
+
+    root = tempfile.mkdtemp(prefix="xfm_ft_")
+    try:
+        runs = finetune_runs(root, n_test=n_test, epochs=epochs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = configs.xfm_retrieval_eval_config()
+    layers, fusion = cfg.vision.depth, cfg.fusion.num_hidden_layers
+    spe = runs["steps_per_epoch"]
+    names = list(runs["full"]["evals"][0]["launches"])
+    want_eval = {n: 0 for n in names}
+    # one stage-1 batch (batch_size_test 64); k_test = 16 candidates of
+    # 40 tokens (640 ≥ 512 query rows) in chunks of 8 images
+    want_eval.update(relpos_attention_fwd=layers * -(-n_test // 64),
+                     flash_attention_fwd=fusion * -(-n_test // 8))
+    want_epoch = {n: 0 for n in names}
+    want_epoch.update(relpos_attention_fwd=layers * spe,
+                      relpos_attention_bwd=layers * spe)
+    full, resumed = runs["full"], runs["resumed"]
+    for name in ("full", "resumed"):
+        r = runs[name]
+        print(f"  {name}: {r['s']:.1f} s, result {r['result']}")
+        for i, e in enumerate(r["evals"]):
+            print(f"    eval {i}: {e['s']:.2f} s, r_mean {e['r_mean']:.3f}, "
+                  f"launches {json.dumps(e['launches'])}")
+            if e["launches"] != want_eval:
+                raise AssertionError(f"{name} eval {i} launches "
+                                     f"{e['launches']}, expected {want_eval}")
+        for e in r["epochs"]:
+            print(f"    epoch {e['epoch']}: {e['s']:.2f} s, peak memory "
+                  f"{e['max_memory_allocated']} B, step s "
+                  f"{[round(x['s'], 4) for x in e['steps']]}, losses "
+                  f"{[x['loss'] for x in e['steps']]}, lr "
+                  f"{[x['lr'] for x in e['steps']]}, launches "
+                  f"{json.dumps(e['launches'])}")
+            print(f"      logged {json.dumps(e['stats'])}")
+            if e["launches"] != want_epoch or len(e["steps"]) != spe:
+                raise AssertionError(f"{name} epoch {e['epoch']}: "
+                                     f"{len(e['steps'])} steps, launches "
+                                     f"{e['launches']}, expected "
+                                     f"{want_epoch}")
+            if not all(math.isfinite(x["loss"]) for x in e["steps"]):
+                raise AssertionError(f"{name}: a non-finite loss")
+    best, best_epoch = full["log"][0]["r_mean"], None
+    for e in full["log"][1:]:
+        if e["r_mean"] > best:
+            best, best_epoch = e["r_mean"], e["epoch"]
+    want_layout = {"ckpt": [str(i) for i in range(epochs)]}
+    if best_epoch is not None:
+        want_layout["ckpt_best"] = [str(best_epoch)]
+    print(f"  checkpoints after the first run: {runs['layout']} (expected "
+          f"{want_layout}: the best R_mean from epoch {best_epoch}), "
+          f"{runs['checkpoint_bytes']} B each")
+    if runs["layout"] != want_layout:
+        raise AssertionError(f"checkpoint layout {runs['layout']}")
+    if len(full["evals"]) != epochs + 1 or len(full["epochs"]) != epochs:
+        raise AssertionError("the first run: one zero-shot eval and an "
+                             "eval and an epoch each")
+    restored = resumed.get("restored", {})
+    print(f"  resume: {json.dumps(restored)}; schedule lr at count "
+          f"{spe * (epochs - 1)}: {runs['schedule_lr']}")
+    if not (restored.get("bit_equal") and restored["start"] == epochs - 1
+            and [e["epoch"] for e in resumed["epochs"]] == [epochs - 1]
+            and restored["lr"] == runs["schedule_lr"]
+            == resumed["epochs"][0]["steps"][0]["lr"]):
+        raise AssertionError("the resume did not restore the state whole "
+                             "or did not go on at the last epoch")
+    a = [x["loss"] for x in full["epochs"][-1]["steps"]]
+    b = [x["loss"] for x in resumed["epochs"][0]["steps"]]
+    rel = [abs(x - y) / abs(x) for x, y in zip(a, b)]
+    print(f"  last epoch's losses, first run {a}, resumed {b}, "
+          f"relative differences {rel}")
+    if a[0] != b[0] or not all(d <= FT_RESUME_RTOL for d in rel):
+        raise AssertionError("the resumed epoch's losses differ")
+    return dict(r_mean=[e["r_mean"] for e in full["log"]],
+                ckpt_best=runs["layout"].get("ckpt_best"),
+                epoch_s=[e["s"] for e in full["epochs"]],
+                eval_s=[e["s"] for e in full["evals"]],
+                step_s=[x["s"] for e in full["epochs"] for x in e["steps"]],
+                max_memory_allocated=max(e["max_memory_allocated"]
+                                         for e in full["epochs"]),
+                resume_rel=rel)
+
+
 def eval_kernel_entries(k2_err, k2_t, k2w, k3_err, k3_t, k3w,
                         launches) -> list:
     """The `kernels` entries of the eval's path: K2's forward at the
@@ -1317,9 +1594,9 @@ def full_width(path: str, steps: int = 5, warmup: int = 2) -> dict:
     losses, times = [], []
     for _ in range(warmup + steps):
         t0 = time.perf_counter()
-        state, loss = step(state, batch, gen)
+        state, metrics = step(state, batch, gen)
         # a trainer reads each step's loss; the read waits for the step
-        losses.append(loss.item())
+        losses.append(metrics["loss"].item())
         times.append(time.perf_counter() - t0)
     launches = dict(kernels.LAUNCHES)
     dt = float(np.median(times[warmup:]))
@@ -1383,6 +1660,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     print(f"phase 1: device {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
@@ -1556,6 +1834,10 @@ def main() -> int:
     print("phase 17: the full-width retrieval eval, 384 px")
     ev = full_eval()
     cli_eval()
+    print("phase 18: the full-width retrieval fine-tune, 384 px, and its "
+          "resume")
+    ft = full_finetune()
+    print("  fine-tune: " + json.dumps(ft))
 
     entries = (kernel_entries("packed_attention",
                               "xfm_tpu/ops/flash_attention.py", 983, 1007,
@@ -1582,6 +1864,7 @@ def main() -> int:
                                 fused["launches"], also_bwd=99)
                + eval_kernel_entries(k2e_err, k2e_t, k2ew, k3g_err, k3g_t,
                                      k3gw, ev["launches"]))
+    print(f"chip_smoke: 18 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

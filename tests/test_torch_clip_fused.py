@@ -241,7 +241,8 @@ def test_make_clip_retrieval_run_takes_the_fused_routes(plain_calls):
     state, batch, step = configs.make_clip_retrieval_run(
         B=2, T=8, device="cpu", hidden=128, layers=1, heads=2, inter=256,
         vocab=99, fused_ln=True, fused_mlp=True)
-    state, loss = step(state, batch, torch.Generator().manual_seed(0))
+    state, metrics = step(state, batch, torch.Generator().manual_seed(0))
+    loss = metrics["loss"]
     assert torch.isfinite(loss)
     # one layer an encoder: K4 2 (text) + 2 · 3 (fusion), K5 1 + 2
     assert plain_calls == {"fused_ln_reference": 8,

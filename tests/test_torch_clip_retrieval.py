@@ -192,7 +192,8 @@ def test_three_optimizer_steps_match_jax(slice_setup):
     for _ in range(STEPS):
         (jloss, _), g = s["value_and_grad"](jstate.params)
         jstate = japply(jstate, g)
-        state, loss = step(state, batch)
+        state, metrics = step(state, batch)
+        loss = metrics["loss"]
         np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-4)
         jg = state_dict_from_jax(jax.tree.map(np.asarray, g), s["jcfg"])
         for name, p in model.named_parameters():
@@ -245,7 +246,8 @@ def test_make_clip_retrieval_run_on_the_cpu(monkeypatch):
         B=2, T=8, device="cpu", hidden=64, layers=2, heads=1, inter=128,
         vocab=99)
     assert state.model.config.vision.num_patches == 576
-    state, loss = step(state, batch, torch.Generator().manual_seed(0))
+    state, metrics = step(state, batch, torch.Generator().manual_seed(0))
+    loss = metrics["loss"]
     assert torch.isfinite(loss) and state.step == 1
     assert calls == [(577, 577)] * 2
     with pytest.raises(NotImplementedError, match="MIM"):

@@ -780,3 +780,138 @@ def test_fused_mlp_bf16_split_dw_is_deterministic(M):
     assert all(torch.equal(a, b) for a, b in zip(first, again))
     want = fm.act_matmul_bwd_reference(h, w, g, "gelu_tanh")[1].float()
     assert (first[1].float() - want).abs().max() <= 2.0 ** -6 * want.abs().max()
+
+
+# --- the retrieval fine-tune: dropout, the step, the prefetcher ----------
+
+@pytest.mark.cuda
+def test_dropout_masks_from_a_cuda_generator_repeat():
+    """Masks drawn on the card from a CUDA generator: the same seed gives
+    the same bits, another seed others; the keep share near 1 − p."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch.ops import dropout as drop
+
+    x = torch.ones(96, 12, 40, 577, dtype=torch.bfloat16, device="cuda")
+    outs = []
+    for seed in (3, 3, 4):
+        with drop.dropout_generator(
+                torch.Generator(device="cuda").manual_seed(seed)):
+            outs.append((drop.dropout(x, 0.1, False),
+                         drop.drop_path(x, 0.1, False)))
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
+    assert not torch.equal(outs[0][0], outs[2][0])
+    kept = (outs[0][0] != 0).float().mean().item()
+    assert abs(kept - 0.9) < 1e-3
+    with pytest.raises(ValueError, match="torch.Generator"):
+        drop.dropout(x, 0.1, False)
+
+
+def _ft_slice(device, depth=2, seed=3):
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.models import XFMForRetrieval
+    from xfm_tpu_torch.train.checkpoint import init_weights
+
+    cfg = configs.xfm_retrieval_eval_config(
+        dtype=torch.float32, layers=depth,
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+        drop_path_rate=0.0)
+    model = XFMForRetrieval(cfg)
+    init_weights(model, seed)
+    return model.to(device), cfg
+
+
+@pytest.mark.cuda
+def test_finetune_step_dropout_off_matches_cpu():
+    """A depth-2, f32, dropout-off fine-tune step (the task's loss with
+    deterministic=False, the optimizer from the YAML, idx with a repeated
+    image) on the CPU and on the card from the same weights, batch and
+    hard negatives: the losses at rtol 1e-4, two steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import functools
+
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.train.optim import create_optimizer_from_config
+    from xfm_tpu_torch.train.schedules import schedule_from_config
+    from xfm_tpu_torch.train.train_state import (TrainState,
+                                                 make_train_step,
+                                                 retrieval_loss_fn)
+
+    nb = configs.make_retrieval_batch(4, 40, 384, 50265, seed=1)
+    nb["idx"] = np.array([0, 1, 0, 2])
+    neg = (torch.tensor([1, 3, 1, 0]), torch.tensor([3, 2, 3, 1]))
+    step = make_train_step(functools.partial(retrieval_loss_fn,
+                                             deterministic=False))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model, _ = _ft_slice(dev)
+        state = TrainState.create(model, create_optimizer_from_config(
+            model, configs.RETRIEVAL_COCO,
+            schedule_from_config(configs.RETRIEVAL_COCO, 10)))
+        batch = configs.batch_to_torch(nb, dev)
+        batch["hard_negatives"] = tuple(n.to(dev) for n in neg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        losses[dev] = []
+        for _ in range(2):
+            state, m = step(state, batch, gen)
+            losses[dev].append([m[k].item() for k in
+                                ("loss", "loss_itc", "loss_itm")])
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_finetune_step_with_drop_path_runs_k2():
+    """Drop-path and dropout live at 384 px, depth 2, bf16: each step
+    launches K2 twice forward and twice backward, and nothing else."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.models import XFMForRetrieval
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.train.checkpoint import init_weights
+    from xfm_tpu_torch.train.train_state import retrieval_loss_fn
+
+    cfg = configs.xfm_retrieval_eval_config(layers=2)
+    assert cfg.vision.drop_path_rate == 0.1
+    assert cfg.text.hidden_dropout_prob == 0.1
+    model = XFMForRetrieval(cfg).cuda()
+    init_weights(model, 0)
+    batch = configs.batch_to_torch(configs.make_retrieval_batch(
+        4, 40, 384, cfg.text.vocab_size), "cuda")
+    batch["idx"] = torch.arange(4, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        loss, _ = retrieval_loss_fn(model, batch, gen, deterministic=False)
+        loss.backward()
+        assert torch.isfinite(loss)
+    want = {k: 0 for k in kernels.LAUNCHES}
+    want.update(relpos_attention_fwd=4, relpos_attention_bwd=4)
+    assert kernels.LAUNCHES == want
+
+
+@pytest.mark.cuda
+def test_prefetched_batches_arrive_equal():
+    """`DeviceBatches` on the card: pinned host batches copied one batch
+    ahead arrive equal to the host's, in order, as int64 / float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch.data.prefetch import DeviceBatches
+
+    r = np.random.RandomState(0)
+    host = [dict(images=r.randn(8, 64, 64, 3).astype(np.float32),
+                 text_ids=r.randint(0, 99, (8, 40)).astype(np.int32),
+                 idx=np.arange(8, dtype=np.int32) + i) for i in range(6)]
+    batches = DeviceBatches(iter(host), "cuda")
+    got = []
+    for b in batches:
+        assert all(t.is_cuda for t in b.values())
+        got.append({k: v.cpu() for k, v in b.items()})
+    batches.close()
+    assert len(got) == len(host)
+    for g, h in zip(got, host):
+        assert g["text_ids"].dtype == torch.int64
+        assert g["images"].dtype == torch.float32
+        for k in h:
+            assert np.array_equal(g[k].numpy(), h[k]), k

@@ -153,8 +153,9 @@ def test_hard_negative_draws_follow_the_jax_weights():
 
 
 def test_port_imports_neither_jax_nor_xfm_tpu():
-    """Every module of xfm_tpu_torch (the eval's tasks/, data/ and run.py
-    among them) and chip_smoke's helpers import in a fresh interpreter
+    """Every module of xfm_tpu_torch (the fine-tune's and the eval's
+    tasks/, data/, train/ and run.py among them) and chip_smoke's helpers
+    import in a fresh interpreter
     without pulling in jax, flax, optax or any xfm_tpu module; PIL, yaml and
     transformers, which the card's machine may lack, are imported only
     inside the functions that need them."""
@@ -170,7 +171,9 @@ def test_port_imports_neither_jax_nor_xfm_tpu():
         " 'xfm_tpu_torch.tasks.common', 'xfm_tpu_torch.core.config',"
         " 'xfm_tpu_torch.data.tokenization',"
         " 'xfm_tpu_torch.data.transforms',"
-        " 'xfm_tpu_torch.data.finetune_data'}\n"
+        " 'xfm_tpu_torch.data.finetune_data',"
+        " 'xfm_tpu_torch.data.randaugment', 'xfm_tpu_torch.data.prefetch',"
+        " 'xfm_tpu_torch.ops.dropout', 'xfm_tpu_torch.train.metrics'}\n"
         "lazy = ('PIL', 'yaml', 'transformers')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'flax', 'optax', 'xfm_tpu') + lazy]\n"

@@ -118,7 +118,8 @@ def test_three_optimizer_steps_match_jax(slice_setup):
     batch = _port_batch()
     for _ in range(STEPS):
         jstate, jloss = jstep(jstate)
-        state, loss = step(state, batch)
+        state, metrics = step(state, batch)
+        loss = metrics["loss"]
         np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-4)
     assert state.step == STEPS and state.optimizer.count == STEPS
     want = state_dict_from_jax(jax.tree.map(np.asarray, jstate.params),

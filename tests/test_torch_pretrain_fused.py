@@ -172,7 +172,8 @@ def test_fused_pretrain_three_optimizer_steps_match_jax(slice_setup):
     for _ in range(STEPS):
         (jloss, _), g = s["grad_fn"](jstate.params)
         jstate = jstate.apply_gradients(g)
-        state, loss = step(state, batch)
+        state, metrics = step(state, batch)
+        loss = metrics["loss"]
         np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-4)
     want = state_dict_from_jax(jax.tree.map(np.asarray, jstate.params),
                                s["jcfg"])

@@ -157,7 +157,8 @@ def test_three_optimizer_steps_match_jax(slice_setup):
     for _ in range(STEPS):
         (jloss, _), g = s["value_and_grad"](jstate.params)
         jstate = japply(jstate, g)
-        state, loss = step(state, batch)
+        state, metrics = step(state, batch)
+        loss = metrics["loss"]
         np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-4)
         jg = state_dict_from_jax(jax.tree.map(np.asarray, g), s["jcfg"])
         for name, p in model.named_parameters():

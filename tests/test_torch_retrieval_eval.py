@@ -305,8 +305,9 @@ def test_run_evaluate_matches_jax_with_checkpoint(models, tmp_path):
     `retrieval.main`, on a checkpoint the JAX package writes
     (`export_xfm_checkpoint` + `save_torch_checkpoint`) from a 224 px
     model, so both sides interpolate its rel-pos tables to 384 px: the same
-    R@K. Without --evaluate the port refuses: its fine-tune needs dropout
-    and drop-path."""
+    R@K. Without --evaluate the port fine-tunes from the checkpoint (one
+    epoch at batch 4 on the corpus' pairs): a zero-shot eval, an epoch,
+    an eval and ckpt/0."""
     import yaml
 
     from xfm_tpu.models import config_from_yaml as jconfig_from_yaml
@@ -346,8 +347,22 @@ def test_run_evaluate_matches_jax_with_checkpoint(models, tmp_path):
     assert (tmp_path / "port" / "config.yaml").exists()
     log = (tmp_path / "port" / "log.txt").read_text().splitlines()
     assert json.loads(log[-1])["eval"]["r_mean"] == got["r_mean"]
-    with pytest.raises(NotImplementedError, match="dropout and drop-path"):
-        run.main(argv[:-3] + ["--device", "cpu", "--output_dir",
-                              str(tmp_path / "ft")])
+    train = [{"image": a["image"], "caption": c, "image_id": i}
+             for i, a in enumerate(json.loads(open(ann).read()))
+             for c in a["caption"]]
+    (tmp_path / "train.json").write_text(json.dumps(train))
+    ft_path = tmp_path / "ft.yaml"
+    ft_path.write_text(yaml.safe_dump(dict(
+        ycfg, train_file=str(tmp_path / "train.json"))))
+    ft = run.main(["--task", "itr_coco", "--config", str(ft_path),
+                   "--checkpoint", str(ckpt), "--bs", "4", "--epoch", "1",
+                   "--device", "cpu", "--output_dir", str(tmp_path / "ft")])
+    log = [json.loads(line) for line in
+           (tmp_path / "ft" / "log.txt").read_text().splitlines()]
+    assert [e["epoch"] for e in log] == [-1, 0]
+    assert log[0]["r_mean"] == got["r_mean"]  # zero-shot: the same weights
+    assert np.isfinite(log[1]["loss_itc"]) and np.isfinite(log[1]["loss_itm"])
+    assert ft["best_r_mean"] >= log[0]["r_mean"]
+    assert (tmp_path / "ft" / "ckpt" / "0" / "state.pt").exists()
     with pytest.raises(SystemExit):
         run.main(["--task", "vqa", "--config", str(cfg_path)])

@@ -20,8 +20,8 @@ from .models.task_models import XFMForPretrain, XFMForRetrieval
 from .models.text_encoder import TextConfig
 from .models.xfm import XFMConfig, config_from_yaml
 from .train.checkpoint import init_weights
-from .train.optim import create_optimizer
-from .train.schedules import linear_warmup_decay
+from .train.optim import create_optimizer, create_optimizer_from_config
+from .train.schedules import linear_warmup_decay, schedule_from_config
 from .train.train_state import (TrainState, make_train_step,
                                 pretrain_loss_fn, retrieval_loss_fn)
 
@@ -268,7 +268,7 @@ def make_pretrain_run(B: int = 48, T: int = 30, M: int = 15,
     from `seed`, the seeded batch, HF-AdamW on
     linear_warmup_decay(1e-4, 1000, 100); the fused routes as
     `xfm_base_pretrain_config` takes them. → (state, batch, step) with
-    step(state, batch, generator) -> (state, loss)."""
+    step(state, batch, generator) -> (state, metrics)."""
     cfg = xfm_base_pretrain_config(fused_ln=fused_ln, fused_mlp=fused_mlp)
     model = XFMForPretrain(cfg).to(device)
     init_weights(model, seed)
@@ -286,7 +286,7 @@ def make_retrieval_run(B: int = 32, T: int = 40, device="cuda",
     `scripts/bench_finetune.py` drives it: random weights from `seed`, the
     seeded batch, HF-AdamW on linear_warmup_decay(1e-4, 1000, 100) with no
     gradient clip. → (state, batch, step) with step(state, batch,
-    generator) -> (state, loss)."""
+    generator) -> (state, metrics)."""
     return _retrieval_run(xfm_base_retrieval_config(), B, T, device, seed)
 
 
@@ -299,6 +299,29 @@ def make_clip_retrieval_run(B: int = 32, T: int = 40, device="cuda",
     step)."""
     return _retrieval_run(xfm_clip_retrieval_config(**config_kw), B, T,
                           device, seed)
+
+
+def make_retrieval_train_run(B: int = 32, T: int = 40, device="cuda",
+                             seed: int = 0, steps_per_epoch: int = 1000):
+    """The step of the retrieval fine-tune as `tasks/retrieval.main` takes
+    it on `Retrieval_coco.yaml` (`xfm_retrieval_eval_config`: 384 px,
+    drop-path 0.1, text dropout 0.1, bf16): dropout and drop-path live,
+    the batch's image ids `idx` all distinct, HF-AdamW and the schedule
+    from the YAML's blocks at `steps_per_epoch` optimizer steps an epoch.
+    → (state, batch, step) as `make_retrieval_run`'s."""
+    import functools
+
+    model = XFMForRetrieval(xfm_retrieval_eval_config()).to(device)
+    init_weights(model, seed)
+    sched = schedule_from_config(RETRIEVAL_COCO, steps_per_epoch)
+    state = TrainState.create(model, create_optimizer_from_config(
+        model, RETRIEVAL_COCO, sched))
+    cfg = model.config
+    batch = batch_to_torch(make_retrieval_batch(
+        B, T, cfg.vision.image_res, cfg.text.vocab_size), device)
+    batch["idx"] = torch.arange(B, device=device)
+    return state, batch, make_train_step(functools.partial(
+        retrieval_loss_fn, deterministic=False))
 
 
 def _retrieval_run(cfg: XFMConfig, B: int, T: int, device, seed: int):

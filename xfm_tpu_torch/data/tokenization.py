@@ -27,7 +27,10 @@ def pre_caption(caption: str, max_words: int) -> str:
 def build_tokenizer(text_encoder: str):
     """The Bert / Roberta / XLMRoberta tokenizer the path names, with bos
     and eos aliases; raises where `transformers` or the files are
-    missing."""
+    missing, and where what loads holds no word beyond the special tokens
+    (some versions of `transformers` build such a tokenizer for a path
+    that holds no vocabulary, and every word of a caption would read as
+    unknown)."""
     from transformers import (BertTokenizer, RobertaTokenizer,
                               XLMRobertaTokenizer)
 
@@ -41,6 +44,9 @@ def build_tokenizer(text_encoder: str):
     else:
         raise ValueError(f"cannot infer tokenizer family from {text_encoder}")
     tok = cls.from_pretrained(name, local_files_only=True)
+    if len(tok.get_vocab()) <= len(tok.all_special_tokens):
+        raise OSError(f"{text_encoder}: no vocabulary beyond the special "
+                      f"tokens ({len(tok.get_vocab())} entries)")
     if tok.bos_token is None:
         tok.bos_token = tok.cls_token
     if tok.eos_token is None:

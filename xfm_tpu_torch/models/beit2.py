@@ -9,10 +9,13 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..core.precision import act_dense, add_layer_norm, dense, layer_norm
+from ..ops.attention import dot_product_attention
+from ..ops.dropout import drop_path, dropout
 from ..ops.flash_attention import (beit_attention_relpos,
                                    flash_attention_packed, relpos_inkernel_ok)
 from ..ops.patch_embed import extract_patches
@@ -48,11 +51,6 @@ class VisionConfig:
         return self.grid_size ** 2
 
 
-def _check_deterministic(rate: float, deterministic: bool, what: str):
-    if not deterministic and rate > 0.0:
-        raise NotImplementedError(f"{what} with a live rate is not ported yet")
-
-
 class BeitAttention(nn.Module):
     def __init__(self, c: VisionConfig):
         super().__init__()
@@ -73,18 +71,17 @@ class BeitAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, deterministic: bool = True):
         c = self.c
-        _check_deterministic(c.attn_drop_rate, deterministic,
-                             "attention dropout")
-        _check_deterministic(c.drop_rate, deterministic, "dropout")
+        B, N, C = x.shape
         H = c.num_heads
-        D = x.shape[-1] // H
+        D = C // H
         qkv = dense(x, self.qkv, c.dtype)
         if c.qkv_bias:
             qkv = qkv + torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                                    self.v_bias]).to(qkv.dtype)
         table = self.relative_position_bias_table
         window = (c.grid_size, c.grid_size)
-        if relpos_inkernel_ok(x.shape[1], window):
+        attn_drop = not deterministic and c.attn_drop_rate > 0.0
+        if not attn_drop and relpos_inkernel_ok(N, window):
             # N >= 512: K2 expands the compact table in the kernel; the
             # table is rounded to the compute dtype (the JAX package rounds
             # it to bf16 on its accelerator)
@@ -93,8 +90,17 @@ class BeitAttention(nn.Module):
         else:
             # the materialized bias stays f32, as in the JAX package
             bias = beit_rel_pos_bias(table, self.relative_position_index)
-            out = flash_attention_packed(qkv, bias, D ** -0.5, H)
-        return dense(out, self.proj, c.dtype)
+            if not attn_drop:
+                out = flash_attention_packed(qkv, bias, D ** -0.5, H)
+            else:
+                # live attention dropout: the plain attention over views of
+                # the packed projection
+                q, k, v = (t.reshape(B, N, H, D) for t in qkv.split(C, -1))
+                out = dot_product_attention(
+                    q, k, v, bias=bias, deterministic=False,
+                    dropout_rate=c.attn_drop_rate).reshape(B, N, C)
+        return dropout(dense(out, self.proj, c.dtype), c.drop_rate,
+                       deterministic)
 
 
 class _Mlp(nn.Module):
@@ -121,17 +127,20 @@ class BeitBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, deterministic: bool = True):
         c = self.c
-        _check_deterministic(self.drop_path, deterministic, "drop-path")
         h = layer_norm(x, self.norm1, c.dtype)
         h = self.attn(h, deterministic)
         if self.use_ls:
             h = self.gamma_1.to(h.dtype) * h
-        x, h = add_layer_norm(h, x, self.norm2, c.dtype, c.fused_ln)
+        # drop-path on the branch before the residual add (K4's x + y on the
+        # fused route)
+        x, h = add_layer_norm(drop_path(h, self.drop_path, deterministic), x,
+                              self.norm2, c.dtype, c.fused_ln)
         h = dense(h, self.mlp.fc1, c.dtype)
         h = act_dense(h, self.mlp.fc2, c.hidden_act, c.dtype, c.fused_mlp)
+        h = dropout(h, c.drop_rate, deterministic)
         if self.use_ls:
             h = self.gamma_2.to(h.dtype) * h
-        return x + h
+        return x + drop_path(h, self.drop_path, deterministic)
 
 
 class _PatchProj(nn.Module):
@@ -155,8 +164,8 @@ class BeitVisionTransformer(nn.Module):
         self.patch_embed = _PatchEmbed(c)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, C))
         self.mask_token = nn.Parameter(torch.zeros(1, 1, C))
-        dpr = torch.linspace(0, c.drop_path_rate, c.depth).tolist()
-        self.blocks = nn.ModuleList(BeitBlock(c, dpr[i])
+        dpr = np.linspace(0, c.drop_path_rate, c.depth)
+        self.blocks = nn.ModuleList(BeitBlock(c, float(dpr[i]))
                                     for i in range(c.depth))
         self.fc_norm = nn.LayerNorm(C, eps=c.layer_norm_eps)
 

@@ -81,7 +81,8 @@ class ClipEncoderLayer(nn.Module):
         q, k, v = (dense(h, p, c.dtype).reshape(B, N, H, C // H)
                    for p in (a.q_proj, a.k_proj, a.v_proj))
         ctx = dot_product_attention(q, k, v, bias=attn_bias,
-                                    deterministic=deterministic)
+                                    deterministic=deterministic,
+                                    dropout_rate=c.attention_dropout)
         x = x + dense(ctx.reshape(B, N, C), a.out_proj, c.dtype)
         h = layer_norm(x, self.layer_norm2, c.dtype)
         h = dense(ACT[c.hidden_act](dense(h, self.mlp.fc1, c.dtype)),

@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from ..ops.dropout import dropout_generator
 from .xfm import XFMBase
 
 
@@ -23,29 +24,35 @@ class XFMForPretrain(XFMBase):
              hard_negatives=None, deterministic: bool = True):
         """→ dict of ITC, ITM (in-batch hard negatives drawn from
         `generator`, or the given `hard_negatives=(image_neg, text_neg)`),
-        fusion-MLM and MIM losses; the bbox losses are zero."""
+        fusion-MLM and MIM losses; the bbox losses are zero. Unless
+        `deterministic`, the dropout masks come from `generator` too."""
         zero = torch.zeros((), device=text_ids.device)
-        if image_mask is not None:
-            image_embeds, image_embeds_masked = self.get_vision_embeds_pair(
-                images, image_mask, deterministic=deterministic)
-        else:
-            image_embeds = self.get_vision_embeds(
-                images, deterministic=deterministic)
-        image_atts = torch.ones(image_embeds.shape[:2], dtype=torch.int64,
-                                device=image_embeds.device)
-        text_embeds = self.get_text_embeds(text_ids, text_atts,
-                                           deterministic)
-        image_feat, text_feat = self.get_features(image_embeds, text_embeds)
-        out = {"loss_itc": self.get_contrastive_loss(image_feat, text_feat)}
-        out["loss_itm"], out["loss_mlm"] = \
-            self.get_matching_and_fuse_mlm_loss(
-                generator, image_embeds, image_atts, image_feat, text_atts,
-                text_feat, text_embeds, text_ids_masked, masked_pos,
-                masked_ids, deterministic=deterministic,
-                fixed_negatives=hard_negatives)
-        out["loss_mim"] = (self.get_mim_loss(image_embeds_masked,
-                                             image_embeds, image_mask)
-                           if image_mask is not None else zero)
+        with dropout_generator(generator):
+            if image_mask is not None:
+                image_embeds, image_embeds_masked = \
+                    self.get_vision_embeds_pair(images, image_mask,
+                                                deterministic=deterministic)
+            else:
+                image_embeds = self.get_vision_embeds(
+                    images, deterministic=deterministic)
+            image_atts = torch.ones(image_embeds.shape[:2],
+                                    dtype=torch.int64,
+                                    device=image_embeds.device)
+            text_embeds = self.get_text_embeds(text_ids, text_atts,
+                                               deterministic)
+            image_feat, text_feat = self.get_features(image_embeds,
+                                                      text_embeds)
+            out = {"loss_itc": self.get_contrastive_loss(image_feat,
+                                                         text_feat)}
+            out["loss_itm"], out["loss_mlm"] = \
+                self.get_matching_and_fuse_mlm_loss(
+                    generator, image_embeds, image_atts, image_feat,
+                    text_atts, text_feat, text_embeds, text_ids_masked,
+                    masked_pos, masked_ids, deterministic=deterministic,
+                    fixed_negatives=hard_negatives)
+            out["loss_mim"] = (self.get_mim_loss(image_embeds_masked,
+                                                 image_embeds, image_mask)
+                               if image_mask is not None else zero)
         out["loss_bbox"] = out["loss_giou"] = zero
         return out
 
@@ -62,19 +69,26 @@ class XFMForRetrieval(XFMBase):
         """→ (loss_itc, loss_itm): ITC (with `idx`, rows of the same image
         share the positive mass) and ITM over in-batch hard negatives drawn
         from `generator`, or the given `hard_negatives=(image_neg,
-        text_neg)`; the text encoder trains through the fusion passes."""
-        image_embeds = self.get_vision_embeds(images,
-                                              deterministic=deterministic)
-        image_atts = torch.ones(image_embeds.shape[:2], dtype=torch.int64,
-                                device=image_embeds.device)
-        text_embeds = self.get_text_embeds(text_ids, text_atts,
-                                           deterministic)
-        image_feat, text_feat = self.get_features(image_embeds, text_embeds)
-        loss_itc = self.get_contrastive_loss(image_feat, text_feat, idx=idx)
-        loss_itm = self.get_matching_loss(
-            generator, image_embeds, image_atts, image_feat, text_atts,
-            text_feat, text_embeds, idx=idx, is_pretrain=False,
-            deterministic=deterministic, fixed_negatives=hard_negatives)
+        text_neg)`; the text encoder trains through the fusion passes.
+        Unless `deterministic`, the dropout masks come from `generator`
+        too, drawn in the forward's order: vision, text, then (after the
+        hard negatives) the fusion passes."""
+        with dropout_generator(generator):
+            image_embeds = self.get_vision_embeds(
+                images, deterministic=deterministic)
+            image_atts = torch.ones(image_embeds.shape[:2],
+                                    dtype=torch.int64,
+                                    device=image_embeds.device)
+            text_embeds = self.get_text_embeds(text_ids, text_atts,
+                                               deterministic)
+            image_feat, text_feat = self.get_features(image_embeds,
+                                                      text_embeds)
+            loss_itc = self.get_contrastive_loss(image_feat, text_feat,
+                                                 idx=idx)
+            loss_itm = self.get_matching_loss(
+                generator, image_embeds, image_atts, image_feat, text_atts,
+                text_feat, text_embeds, idx=idx, is_pretrain=False,
+                deterministic=deterministic, fixed_negatives=hard_negatives)
         return loss_itc, loss_itm
 
     def forward(self, *args, **kwargs):

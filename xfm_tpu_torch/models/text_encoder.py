@@ -16,6 +16,7 @@ from torch import nn
 from ..core.precision import act_dense, dense, layer_norm, post_layer_norm
 from ..ops.activations import gelu
 from ..ops.attention import dot_product_attention, mask_to_bias
+from ..ops.dropout import dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,12 +55,6 @@ def roberta_position_ids(input_ids: torch.Tensor,
     return torch.cumsum(mask, dim=1) * mask + pad_token_id
 
 
-def _check_deterministic(c: TextConfig, deterministic: bool):
-    if not deterministic and (c.hidden_dropout_prob > 0
-                              or c.attention_probs_dropout_prob > 0):
-        raise NotImplementedError("text dropout is not ported yet")
-
-
 class Embeddings(nn.Module):
     def __init__(self, c: TextConfig):
         super().__init__()
@@ -71,15 +66,17 @@ class Embeddings(nn.Module):
                                                   c.hidden_size)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
 
-    def forward(self, input_ids):
-        """Word + roberta pad-offset position + token type 0 embeddings."""
+    def forward(self, input_ids, deterministic: bool = True):
+        """Word + roberta pad-offset position + token type 0 embeddings,
+        normalized, then dropout."""
         c = self.c
         position_ids = roberta_position_ids(input_ids, c.pad_token_id)
         x = (F.embedding(input_ids, self.word_embeddings.weight).to(c.dtype)
              + F.embedding(position_ids,
                            self.position_embeddings.weight).to(c.dtype)
              + self.token_type_embeddings.weight[0].to(c.dtype))
-        return layer_norm(x, self.LayerNorm, c.dtype)
+        return dropout(layer_norm(x, self.LayerNorm, c.dtype),
+                       c.hidden_dropout_prob, deterministic)
 
 
 class _SelfProj(nn.Module):
@@ -105,7 +102,8 @@ class SelfAttention(nn.Module):
     and the B = U·gs hidden rows come in contiguous runs of gs per kv row:
     q is viewed, without a copy, as [U, gs·Nq, H, D] against the per-unique
     k/v (the retrieval rerank's formulation), and the bias's first row of
-    each group stands for the group."""
+    each group stands for the group. Unless `deterministic`, the
+    probabilities and the output projection take their dropouts."""
 
     def __init__(self, c: TextConfig, is_cross: bool = False):
         super().__init__()
@@ -117,7 +115,8 @@ class SelfAttention(nn.Module):
 
     def forward(self, hidden, kv_source, attention_bias,
                 kv_row_idx: Optional[torch.Tensor] = None,
-                kv_group_size: Optional[int] = None, prob_gate=None):
+                kv_group_size: Optional[int] = None, prob_gate=None,
+                deterministic: bool = True):
         c = self.c
         if prob_gate is not None:
             raise NotImplementedError(
@@ -138,12 +137,17 @@ class SelfAttention(nn.Module):
             bias = attention_bias
             if bias is not None and bias.shape[0] == B:
                 bias = bias[::gs]
-            ctx = dot_product_attention(q.view(U, gs * Nq, H, D), k, v,
-                                        bias=bias)
+            ctx = dot_product_attention(
+                q.view(U, gs * Nq, H, D), k, v, bias=bias,
+                deterministic=deterministic,
+                dropout_rate=c.attention_probs_dropout_prob)
         else:
-            ctx = dot_product_attention(q, k, v, bias=attention_bias)
-        out = dense(ctx.reshape(B, Nq, c.hidden_size), self.output.dense,
-                    c.dtype)
+            ctx = dot_product_attention(
+                q, k, v, bias=attention_bias, deterministic=deterministic,
+                dropout_rate=c.attention_probs_dropout_prob)
+        out = dropout(dense(ctx.reshape(B, Nq, c.hidden_size),
+                            self.output.dense, c.dtype),
+                      c.hidden_dropout_prob, deterministic)
         return post_layer_norm(out, hidden, self.output.LayerNorm, c.dtype,
                                c.fused_ln)
 
@@ -174,16 +178,19 @@ class TransformerLayer(nn.Module):
 
     def forward(self, hidden, attention_bias=None, encoder_hidden_states=None,
                 encoder_attention_bias=None, encoder_row_idx=None,
-                encoder_group_size=None):
+                encoder_group_size=None, deterministic: bool = True):
         c = self.c
-        x = self.attention(hidden, hidden, attention_bias)
+        x = self.attention(hidden, hidden, attention_bias,
+                           deterministic=deterministic)
         if self.has_cross_attention and encoder_hidden_states is not None:
             x = self.crossattention(x, encoder_hidden_states,
                                     encoder_attention_bias, encoder_row_idx,
-                                    encoder_group_size)
+                                    encoder_group_size,
+                                    deterministic=deterministic)
         h = dense(x, self.intermediate.dense, c.dtype)
         h = act_dense(h, self.output.dense, c.hidden_act, c.dtype,
                       c.fused_mlp)
+        h = dropout(h, c.hidden_dropout_prob, deterministic)
         return post_layer_norm(h, x, self.output.LayerNorm, c.dtype,
                                c.fused_ln)
 
@@ -248,9 +255,8 @@ class TextTransformer(nn.Module):
                 encoder_row_idx=None, deterministic: bool = True,
                 encoder_group_size=None):
         c = self.c
-        _check_deterministic(c, deterministic)
         x = (inputs_embeds if inputs_embeds is not None
-             else self.roberta.embeddings(input_ids))
+             else self.roberta.embeddings(input_ids, deterministic))
         bias = mask_to_bias(attention_mask) if attention_mask is not None \
             else None
         ebias = None
@@ -271,7 +277,7 @@ class TextTransformer(nn.Module):
             lo, hi = 0, c.num_hidden_layers
         for layer in self.roberta.encoder.layer[lo:hi]:
             x = layer(x, bias, encoder_hidden_states, ebias, encoder_row_idx,
-                      encoder_group_size)
+                      encoder_group_size, deterministic)
         return x
 
 

@@ -2,16 +2,20 @@
 on the card.
 
     python3 -m xfm_tpu_torch.profile_step
-        [pretrain|pretrain_fused|retrieval|clip_retrieval|retrieval_eval]
-        [--trace PATH]
+        [pretrain|pretrain_fused|retrieval|retrieval_train|clip_retrieval|
+         retrieval_eval] [--trace PATH]
 
 Runs the full-width step of the chosen path as `chip_smoke.py` does
 (pretrain: B = 48 at 224 px, the default; pretrain_fused: the same with the
 fused LayerNorm K4 and the fused MLP matmul K5; retrieval: the 384 px
-fine-tune, B = 32, T = 40; clip_retrieval: the same step with the
+fine-tune, B = 32, T = 40, deterministic; retrieval_train: the step
+of `run.py --task itr_coco` on `Retrieval_coco.yaml`'s model at the same
+B and T, its dropout and drop-path live, the optimizer and schedule from
+the YAML; clip_retrieval: the deterministic retrieval step with the
 CLIP-ViT-B/16 tower; random weights, bf16 compute), then profiles STEPS
 steps
-with torch.profiler. From that one profiled window it prints the device's
+with torch.profiler. It prints the peak memory allocated over the 2
+warm-up steps. From that one profiled window it prints the device's
 span per step (first kernel start to last kernel end, on the trace's clock),
 its busy time per step (sum of kernel times), the idle share of the span,
 the host-clock time per step of the same window (profiler overhead
@@ -179,7 +183,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path", nargs="?", default="pretrain",
                     choices=("pretrain", "pretrain_fused", "retrieval",
-                             "clip_retrieval", "retrieval_eval"))
+                             "retrieval_train", "clip_retrieval",
+                             "retrieval_eval"))
     ap.add_argument("--trace")
     args = ap.parse_args(argv)
     trace = args.trace or f"build/xfm_tpu_torch/profile_{args.path}.json"
@@ -196,12 +201,16 @@ def main(argv=None) -> int:
                 "pretrain_fused": functools.partial(
                     configs.make_pretrain_run, fused_ln=True, fused_mlp=True),
                 "retrieval": configs.make_retrieval_run,
+                "retrieval_train": configs.make_retrieval_train_run,
                 "clip_retrieval": configs.make_clip_retrieval_run}[args.path]
     state, batch, step = make_run()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for _ in range(2):
-        state, loss = step(state, batch, gen)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    print(f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
 
     def one_step():
         nonlocal state

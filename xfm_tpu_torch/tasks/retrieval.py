@@ -1,4 +1,5 @@
-"""The two-stage image-text retrieval eval (`xfm_tpu/tasks/retrieval.py`).
+"""Image-text retrieval: the fine-tune and the two-stage eval
+(`xfm_tpu/tasks/retrieval.py`).
 
 Stage 1 encodes every image (the BEiT-2 tower, through K2 on the card at
 384 px) and every text, and takes the ITC similarity matrix on the host in
@@ -10,12 +11,17 @@ own candidate image). Then R@1/5/10 in both directions. The embeddings stay
 on the model's device between the stages; the similarities, the candidate
 sets and the score matrices are numpy on the host, as in the JAX package.
 
-Only the `--evaluate` branch of `main` is ported: the fine-tune branch
-trains with dropout and drop-path, which the port does not have yet.
+The fine-tune trains ITC + ITM with the YAML's dropouts and drop-path
+live, its masks and hard negatives drawn from a generator seeded from
+(seed, epoch); a zero-shot eval comes first, then an eval and a checkpoint
+after every epoch (`ckpt/<epoch>`, the two newest kept, and `ckpt_best/`
+where R_mean improved), and `resume: true` continues after the newest
+`ckpt/` epoch.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -24,11 +30,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data.finetune_data import RetrievalEvalData
-from ..data.transforms import TestTransform
+from ..data.finetune_data import RetrievalEvalData, RetrievalTrainData
+from ..data.transforms import TestTransform, TrainTransform
 from ..models import XFMForRetrieval, config_from_yaml
 from ..train.checkpoint import init_weights
-from .common import TaskContext, append_log, is_main_process
+from ..train.train_state import retrieval_loss_fn
+from .common import (TaskContext, append_log, build_state, is_main_process,
+                     make_task_step, maybe_resume_epochs,
+                     save_epoch_checkpoint, step_generator, train_epoch)
 
 
 def _device_of(model) -> torch.device:
@@ -226,29 +235,37 @@ def _maybe_shrink_vocab(mcfg, tokenizer):
 
 
 def main(args):
-    """`--evaluate`: random weights from `--seed`, overlaid by
-    `--checkpoint` where given, then `evaluation` on the config's test
-    (else val) annotations → the metrics, printed and appended to
-    <output_dir>/log.txt."""
-    if not getattr(args, "evaluate", False):
-        raise NotImplementedError(
-            "the retrieval fine-tune trains with dropout and drop-path "
-            "(deterministic=False), which the port does not have yet: run "
-            "with --evaluate")
+    """Random weights from `--seed`, overlaid by `--checkpoint` where
+    given. `--evaluate`: `evaluation` on the config's test (else val)
+    annotations → the metrics, printed and appended to
+    <output_dir>/log.txt. Otherwise the fine-tune on `train_file`: a
+    zero-shot eval, then per epoch a pass over the shuffled pairs, an eval,
+    the log line and the checkpoints → {"best_r_mean": ...} (the zero-shot
+    metrics with `epochs: 0`)."""
     ctx = TaskContext.from_args(args)
     cfg = ctx.config
+    image_res = cfg.get("image_res", 384)
+    max_tokens = cfg.get("max_tokens", 40)
     eval_ann = cfg.get("test_file") or cfg.get("val_file")
+    train_ann = cfg.get("train_file")
     tokenizer = build_tokenizer_or_fallback(
-        cfg, lambda: _ann_texts(cfg.get("train_file") or eval_ann))
+        cfg, lambda: _ann_texts(train_ann or eval_ann))
     mcfg = config_from_yaml(cfg, use_contrastive_loss=True,
                             use_matching_loss=True)
     mcfg = _maybe_shrink_vocab(mcfg, tokenizer)
     model = XFMForRetrieval(mcfg).to(ctx.device)
-    init_weights(model, ctx.seed)
-    test_data = RetrievalEvalData(eval_ann,
-                                  TestTransform(cfg.get("image_res", 384)),
+    test_data = RetrievalEvalData(eval_ann, TestTransform(image_res),
                                   cfg["image_root"], tokenizer,
-                                  max_tokens=cfg.get("max_tokens", 40))
+                                  max_tokens=max_tokens)
+    if args.evaluate:
+        init_weights(model, ctx.seed)
+    else:
+        bsz = cfg.get("batch_size_train", 32)
+        train_data = RetrievalTrainData(
+            train_ann, TrainTransform(image_res), cfg["image_root"],
+            tokenizer, max_tokens=max_tokens, batch_size=bsz)
+        state, sched = build_state(ctx, model,
+                                   max(1, len(train_data) // bsz))
     if args.checkpoint:
         from ..train.checkpoint import (load_torch_state_dict,
                                         load_xfm_checkpoint)
@@ -257,8 +274,36 @@ def main(args):
             model, load_torch_state_dict(args.checkpoint))
         print(f"### loaded {args.checkpoint}: {len(missing)} missing",
               flush=True)
-    metrics = evaluation(model, test_data, cfg)
+    if args.evaluate:
+        metrics = evaluation(model, test_data, cfg)
+        if is_main_process():
+            print(metrics, flush=True)
+            append_log(ctx.out_dir, {"eval": metrics})
+        return metrics
+
+    step_fn, accum = make_task_step(ctx, functools.partial(
+        retrieval_loss_fn, deterministic=False))
+    state, start_epoch = maybe_resume_epochs(ctx, state)
+    zs = evaluation(model, test_data, cfg)
+    append_log(ctx.out_dir, {"epoch": -1, **zs})
     if is_main_process():
-        print(metrics, flush=True)
-        append_log(ctx.out_dir, {"eval": metrics})
-    return metrics
+        print(f"zero-shot: {zs}", flush=True)
+    best = zs["r_mean"]
+    epochs = int(cfg.get("schedular", {}).get("epochs", 5))
+    if epochs == 0:
+        return zs
+    for epoch in range(start_epoch, epochs):
+        loader = train_data.epoch(epoch_seed=ctx.seed + epoch)
+        state, stats = train_epoch(ctx, state, step_fn, loader,
+                                   step_generator(ctx, epoch), epoch, sched,
+                                   accum_steps=accum)
+        metrics = evaluation(model, test_data, cfg)
+        append_log(ctx.out_dir, {"epoch": epoch, **stats, **metrics})
+        if is_main_process():
+            print(f"epoch {epoch}: {metrics}", flush=True)
+        save_epoch_checkpoint(ctx, state, epoch)
+        if metrics["r_mean"] > best:
+            best = metrics["r_mean"]
+            save_epoch_checkpoint(ctx, state, epoch, name="ckpt_best",
+                                  keep=1)
+    return {"best_r_mean": best}

@@ -17,11 +17,19 @@
   `reference_state_dict`, a port model's weights under the reference's
   names and layouts.
 - `init_weights`: random weights that follow the JAX package's initializers.
+- The save/restore half of `xfm_tpu/train/checkpoint.py`: `save_checkpoint`,
+  `restore_checkpoint`, `latest_step`, `load_params_from_checkpoint`. A
+  train state goes to `<ckpt_dir>/<step>/state.pt`, written by
+  `torch.save`: the parameters by name, HF-AdamW's moments `mu` and `nu`
+  by name and its `count`, and the state's `step`. The JAX package writes
+  Orbax directories instead; the two formats do not read each other.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+import os
+import shutil
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -499,3 +507,83 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
             blk.gamma_2.fill_(blk.c.init_values)
     if cfg is not None and hasattr(model, "temp"):
         model.temp.fill_(cfg.temp)
+
+
+_STATE_FILE = "state.pt"
+
+
+def _steps(ckpt_dir: str) -> List[int]:
+    """The saved steps under `ckpt_dir`, in order."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit()
+                  and os.path.isfile(os.path.join(ckpt_dir, d, _STATE_FILE)))
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    """The newest step saved under `ckpt_dir`, or None."""
+    steps = _steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def save_checkpoint(ckpt_dir: str, state, step: Optional[int] = None,
+                    keep: int = 3) -> str:
+    """`state` (a `train_state.TrainState`) → `<ckpt_dir>/<step>/state.pt`
+    (step: the state's own by default), written beside and renamed into
+    place; then only the newest `keep` steps stay. → the step's
+    directory."""
+    ckpt_dir = os.path.abspath(ckpt_dir)
+    step = int(state.step if step is None else step)
+    opt = state.optimizer
+    payload = {"params": dict(zip(opt.names, opt.params)),
+               "optimizer": opt.state_dict(), "step": int(state.step)}
+    final = os.path.join(ckpt_dir, str(step))
+    tmp = f"{final}.tmp{os.getpid()}"
+    os.makedirs(tmp, exist_ok=True)
+    with torch.no_grad():
+        torch.save(payload, os.path.join(tmp, _STATE_FILE))
+    if os.path.isdir(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    for old in _steps(ckpt_dir)[:-keep] if keep > 0 else []:
+        shutil.rmtree(os.path.join(ckpt_dir, str(old)))
+    return final
+
+
+def _load(ckpt_dir: str, step: Optional[int], device) -> Optional[dict]:
+    ckpt_dir = os.path.abspath(ckpt_dir)
+    step = latest_step(ckpt_dir) if step is None else step
+    if step is None:
+        return None
+    return torch.load(os.path.join(ckpt_dir, str(step), _STATE_FILE),
+                      map_location=device, weights_only=True)
+
+
+def load_params_from_checkpoint(ckpt_dir: str, step: Optional[int] = None,
+                                device="cpu") -> Dict[str, torch.Tensor]:
+    """The parameters alone of a saved step (the newest by default), by
+    name."""
+    payload = _load(ckpt_dir, step, device)
+    if payload is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    return payload["params"]
+
+
+@torch.no_grad()
+def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None):
+    """The saved step (the newest by default) copied into `state` in place,
+    bit for bit: parameters, the optimizer's moments and count, and the
+    state's step. With nothing saved `state` is returned as it is."""
+    opt = state.optimizer
+    payload = _load(ckpt_dir, step, opt.params[0].device)
+    if payload is None:
+        return state
+    params = payload["params"]
+    if set(params) != set(opt.names):
+        raise KeyError(f"checkpoint parameters differ from the model's: "
+                       f"{sorted(set(params) ^ set(opt.names))[:5]}")
+    for name, p in zip(opt.names, opt.params):
+        p.copy_(params[name])
+    opt.load_state_dict(payload["optimizer"])
+    state.step = int(payload["step"])
+    return state

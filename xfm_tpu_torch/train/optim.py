@@ -99,6 +99,25 @@ class HFAdamW:
         torch._foreach_add_(list(self.params), upd, alpha=-lr)
         return g_norm
 
+    def state_dict(self) -> dict:
+        """The moments by parameter name and the count (the tensors are the
+        live ones, not copies)."""
+        return {"mu": dict(zip(self.names, self.mu)),
+                "nu": dict(zip(self.names, self.nu)), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy `state_dict()`'s moments in place, bit for bit, and its
+        count."""
+        for key in ("mu", "nu"):
+            saved = state[key]
+            if set(saved) != set(self.names):
+                raise KeyError(f"optimizer {key}: names differ from the "
+                               "model's")
+            for name, t in zip(self.names, getattr(self, key)):
+                t.copy_(saved[name])
+        self.count = int(state["count"])
+
 
 def create_optimizer(model: torch.nn.Module, learning_rate,
                      weight_decay: float = 0.01, lr_mult: float = 1.0,
@@ -106,3 +125,16 @@ def create_optimizer(model: torch.nn.Module, learning_rate,
     """HF-AdamW over the model's (deduplicated, tied-once) parameters."""
     return HFAdamW(model.named_parameters(), learning_rate,
                    weight_decay=weight_decay, lr_mult=lr_mult, **kw)
+
+
+def create_optimizer_from_config(model: torch.nn.Module, config: dict,
+                                 learning_rate) -> HFAdamW:
+    """HF-AdamW from the YAML: `optimizer.weight_decay` (0.01) and
+    `optimizer.lr_mult` (1), and a clip to global norm only where
+    `accelerator.CLIP_GRAD_NORM` is set (the fine-tune recipes set none)."""
+    opt = config.get("optimizer", {}) or {}
+    acc = config.get("accelerator", {}) or {}
+    return create_optimizer(model, learning_rate,
+                            weight_decay=opt.get("weight_decay", 0.01),
+                            lr_mult=opt.get("lr_mult", 1.0),
+                            clip_grad_norm=acc.get("CLIP_GRAD_NORM"))
