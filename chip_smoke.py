@@ -125,6 +125,27 @@ Phases, each of which must pass or the script exits non-zero:
      schedule's lr for the restored count, its first step's loss bit-equal
      to the first run's and the others within FT_RESUME_RTOL; the output
      directory (3.4-4.4 GB a checkpoint) deleted at the end;
+ 19. the pretrain task: K1 forward and backward against the plain version
+     at its new caller shapes, qkv [192, 197, 2304] (the image-text and
+     ImageNet pair passes at the YAML's batch of 96) and [80, 197, 2304]
+     (the region stream's 80 images), in bf16 and f32, with the times,
+     the bound and SDPA with the bias as a mask; the four streams' losses
+     and sampled gradients at full width, depth 2, f32, on the CPU and on
+     the card (the region stream again with both fused routes); then
+     `run.main` (the entry point of `python3 -m xfm_tpu_torch.run --task
+     pretrain_DIY`) on `Pretrain_base_4m.yaml`'s keys over seeded JSONL
+     shards of the four streams (48 image-text pairs, 24 region records,
+     48 ImageNet images, 96 texts; PNGs of 256-400 px), `--bs 24`, 3
+     steps with a checkpoint at step 2 and at the end, `resume: true`:
+     each step's seconds, losses (finite, non-zero where the stream's
+     flags ask) and launches (K1 12 + 12 for each image-bearing stream,
+     36 + 36 a step, nothing else), the peak memory; then `ckpt/3`
+     deleted and the command again: the restored state bit-equal to
+     `ckpt/2` on disk, its lr the one the first run took at that count,
+     one step more; the output directory deleted; then `profile_step
+     pretrain_streams` (the step at the YAML's batch sizes on device
+     batches: busy time by group, idle share, peak memory under 80 GB,
+     K1 36 + 36 a step and each stream's own launches);
 then a JSON line of the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
@@ -1224,6 +1245,386 @@ def eval_kernel_entries(k2_err, k2_t, k2w, k3_err, k3_t, k3w,
     return out
 
 
+# --- phase 19: the pretrain task --------------------------------------------
+
+def pretrain_slice_parity() -> None:
+    """f32, full width, depth 2: each of the four streams' losses and
+    sampled gradients (`XFMForPretrain.loss` under the YAML's flags at step
+    0, fixed hard negatives, dropout off) on the CPU and on the card, from
+    the same weights and batches; the region stream once more with both
+    fused routes. On the card K1 runs depth + depth times for each
+    image-bearing stream and never for the text stream; K2 and K3 never;
+    K4 and K5 only on the fused run."""
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.models import XFMForPretrain
+    from xfm_tpu_torch.models.task_models import LOSS_KEYS
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks.pretrain import stream_flags
+
+    yaml_cfg = configs.pretrain_yaml()
+    sizes = dict(configs.stream_batch_sizes(yaml_cfg), image=4, imagenet=4,
+                 regions=4, max_images=6, text=4)
+    sample = {
+        "vision_encoder.blocks.0.attn.qkv.weight": ("image", "region",
+                                                    "imagenet"),
+        "vision_encoder.blocks.1.attn.relative_position_bias_table":
+            ("image", "region", "imagenet"),
+        "vision_encoder.patch_embed.proj.weight": ("image", "region",
+                                                   "imagenet"),
+        "text_encoder.roberta.encoder.layer.0.attention.self.query.weight":
+            ("image", "region", "text"),
+        "text_encoder.lm_head.dense.weight": ("text",),
+        "fusion_encoder.roberta.encoder.layer.1.crossattention.self."
+        "key.weight": ("image", "region"),
+        "itm_head.0.weight": ("image", "region"),
+        "bbox_head.3.weight": ("region",), "temp": ("image", "region")}
+    for fused in (False, True):
+        cfg = configs.xfm_base_pretrain_config(
+            layers=2, dtype=torch.float32, fused_ln=fused, fused_mlp=fused)
+        nb = configs.make_stream_batches(sizes, cfg.vision.image_res,
+                                         cfg.text.vocab_size, seed=1)
+        cpu = build_model(XFMForPretrain, cfg, "cpu", seed=3)
+        gpu = build_model(XFMForPretrain, cfg, "cpu", seed=3).to("cuda")
+        for name in (("region",) if fused else sorted(nb)):
+            flags = stream_flags(name, 0, yaml_cfg)
+            results = {}
+            for tag, model, dev in (("cpu", cpu, "cpu"),
+                                    ("cuda", gpu, "cuda")):
+                model.zero_grad(set_to_none=True)
+                batch = configs.batch_to_torch(nb[name], dev)
+                neg = (torch.tensor([1, 2, 3, 0], device=dev),
+                       torch.tensor([2, 3, 0, 1], device=dev))
+                kernels.reset_launch_counts()
+                out = model.loss(**batch, **flags, hard_negatives=neg)
+                sum(out[k] for k in LOSS_KEYS).backward()
+                results[tag] = ({k: v.item() for k, v in out.items()},
+                                dict(model.named_parameters()),
+                                dict(kernels.LAUNCHES))
+            (lc, pc, _), (lg, pg, launches) = results["cpu"], results["cuda"]
+            tag = f"{name}{' fused' if fused else ''}"
+            k1 = 0 if name == "text" else 2
+            print(f"  pretrain slice {tag} launches {json.dumps(launches)}")
+            if (launches["packed_attention_fwd"], launches[
+                    "packed_attention_bwd"]) != (k1, k1) or any(
+                    launches[k] for k in launches
+                    if k.startswith(("relpos", "flash"))):
+                raise AssertionError(f"pretrain slice {tag}: launches")
+            if fused != bool(launches["fused_ln_fwd"]
+                             and launches["fused_mlp_fwd"]):
+                raise AssertionError(f"pretrain slice {tag}: K4/K5 launches")
+            for k in LOSS_KEYS:
+                ok = math.isclose(lc[k], lg[k], rel_tol=SLICE_LOSS_RTOL,
+                                  abs_tol=1e-7)
+                print(f"  pretrain slice {tag} {k}: cpu={lc[k]:.6f} "
+                      f"cuda={lg[k]:.6f} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"pretrain slice {tag}: {k}")
+            for n, used_by in sample.items():
+                if name not in used_by:
+                    continue
+                a, b = pc[n].grad.float(), pg[n].grad.float().cpu()
+                err = (a - b).abs().max().item()
+                tol = SLICE_GRAD_RTOL * a.abs().max().item()
+                print(f"  pretrain slice {tag} grad {n}: max_abs_err="
+                      f"{err:.3e} tol={tol:.3e}")
+                if not err <= tol:
+                    raise AssertionError(f"pretrain slice {tag}: grad {n}")
+        del cpu, gpu
+        torch.cuda.empty_cache()
+
+
+def _pretrain_corpus(root, seed=0, n_pairs=48, n_regions=24, n_texts=96):
+    """Seeded JSONL shards of the four streams under `root`, images as
+    base64 PNGs of 256-400 px (a colour and a wave under noise), captions
+    from a small vocabulary, texts of 40-150 words → {stream: path}."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    r = np.random.RandomState(seed)
+    words = ["a", "photo", "of", "the", "red", "blue", "dog", "cat", "on",
+             "left", "grass", "with", "sky", "man", "riding", "street",
+             "right", "near", "small", "big", "tree", "car", "house"]
+
+    def png():
+        h, w = r.randint(256, 401, 2)
+        yy, xx = np.mgrid[0:h, 0:w]
+        wave = np.sin(xx * r.uniform(0.01, 0.1) + yy * r.uniform(0.01, 0.1))
+        arr = (r.randint(0, 256, 3) + 60 * wave[..., None]
+               * r.uniform(-1, 1, 3) + r.normal(0, 12, (h, w, 3)))
+        buf = io.BytesIO()
+        Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(buf,
+                                                                   "PNG")
+        return base64.b64encode(buf.getvalue()).decode(), w, h
+
+    def cap(k):
+        return " ".join(r.choice(words, k))
+
+    rows = {"pairs": [], "regions": [], "imagenet": [], "texts": []}
+    for _ in range(n_pairs):
+        rows["pairs"].append({"binary": png()[0], "desc": cap(8)})
+        rows["imagenet"].append({"binary": png()[0]})
+    for _ in range(n_regions):
+        b64, w, h = png()
+        elems = []
+        for _ in range(6):
+            bw, bh = r.randint(16, w // 2), r.randint(16, h // 2)
+            elems.append({"bb": [int(r.randint(0, w - bw)),
+                                 int(r.randint(0, h - bh)), int(bw),
+                                 int(bh)], "caption": cap(5)})
+        rows["regions"].append({"binary": b64, "elems": elems})
+    for _ in range(n_texts):
+        rows["texts"].append({"desc": cap(r.randint(40, 151))})
+    paths = {}
+    for kind, items in rows.items():
+        paths[kind] = os.path.join(root, f"{kind}.jsonl")
+        with open(paths[kind], "w") as f:
+            for item in items:
+                f.write(json.dumps(item) + "\n")
+    return paths
+
+
+def pretrain_task_runs(root, bs=24, steps=3, ckpt_every=2,
+                       device="cuda") -> dict:
+    """`python3 -m xfm_tpu_torch.run --task pretrain_DIY` (`run.main`) on
+    `Pretrain_base_4m.yaml`'s keys over `_pretrain_corpus`, `--bs`, with
+    `max_steps` `steps` and `ckpt_frequent_step` `ckpt_every`, `resume:
+    true`; then the newest checkpoint deleted and the command again. Each
+    step's seconds, launches and losses are recorded, and the restored
+    state against the file it came from."""
+    import yaml
+
+    from xfm_tpu_torch import configs, run
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks import pretrain
+
+    files = _pretrain_corpus(root)
+    cfg = {k: v for k, v in configs.pretrain_yaml().items()
+           if not k.startswith("_")}
+    cfg.update(train_file=[files["pairs"]],
+               train_file_regions=[files["regions"]],
+               train_file_imagenet=[files["imagenet"]],
+               train_file_text=[files["texts"]], max_steps=steps,
+               ckpt_frequent_step=ckpt_every, print_freq=1, resume=True)
+    cfg_path = os.path.join(root, "pt.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    out = os.path.join(root, "out")
+    argv = ["--task", "pretrain_DIY", "--config", cfg_path, "--output_dir",
+            out, "--bs", str(bs), "--device", device]
+    real_step, real_resume = pretrain.make_stream_step, \
+        pretrain.restore_latest
+    rec = {}
+
+    def make_stream_step(loss_fn):
+        step_fn = real_step(loss_fn)
+
+        def step(state, batches, gens):
+            opt = state.optimizer
+            lr = opt.lr(opt.count)
+            _sync()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batches, gens)
+            vals = {k: v.item() for k, v in metrics.items()}
+            rec["steps"].append(dict(s=time.perf_counter() - t0,
+                                     streams=sorted(batches),
+                                     launches=dict(kernels.LAUNCHES),
+                                     losses=vals, lr=lr))
+            return state, metrics
+
+        return step
+
+    def restore_latest(ctx, state):
+        state, step = real_resume(ctx, state)
+        if step is not None:
+            saved = torch.load(os.path.join(out, "ckpt", str(step),
+                                            "state.pt"),
+                               map_location=device, weights_only=True)
+            opt = state.optimizer
+            equal = (state.step == saved["step"]
+                     and opt.count == saved["optimizer"]["count"])
+            for name, p in zip(opt.names, opt.params):
+                equal &= torch.equal(p, saved["params"][name])
+            for key in ("mu", "nu"):
+                for name, t in zip(opt.names, getattr(opt, key)):
+                    equal &= torch.equal(t, saved["optimizer"][key][name])
+            rec["restored"] = dict(step=step, bit_equal=bool(equal),
+                                   count=opt.count, lr=opt.lr(opt.count))
+            del saved
+        return state, step
+
+    runs = {}
+    pretrain.make_stream_step = make_stream_step
+    pretrain.restore_latest = restore_latest
+    try:
+        for name in ("full", "resumed"):
+            if name == "resumed":
+                runs["layout"] = sorted(os.listdir(os.path.join(out,
+                                                                "ckpt")))
+                shutil.rmtree(os.path.join(out, "ckpt", str(steps)))
+            rec = dict(steps=[])
+            _sync()
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rec["result"] = run.main(argv)
+            rec["s"] = time.perf_counter() - t0
+            rec["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
+                                           if device == "cuda" else None)
+            with open(os.path.join(out, "log.txt")) as f:
+                rec["log"] = [json.loads(x) for x in f.read().splitlines()]
+            runs[name] = rec
+    finally:
+        pretrain.make_stream_step = real_step
+        pretrain.restore_latest = real_resume
+    runs["checkpoint_bytes"] = os.path.getsize(os.path.join(
+        out, "ckpt", str(ckpt_every), "state.pt"))
+    with open(os.path.join(out, "config.yaml")) as f:
+        runs["batch_sizes"] = configs.stream_batch_sizes(yaml.safe_load(f))
+    return runs
+
+
+def full_pretrain_task(bs=24, steps=3, ckpt_every=2) -> dict:
+    """Phase 19's task runs at full width on the card, checked: every
+    step's losses finite and non-zero where the stream's flags ask; K1
+    depth + depth launches for each image-bearing stream (three: 36 + 36
+    a step) and no other kernel; `ckpt/` holding the saved steps; the
+    resumed state bit-equal to its file, taking the lr the first run took
+    at that count, going on at the step after it. The output directory is
+    deleted at the end."""
+    import tempfile
+
+    from xfm_tpu_torch import configs
+
+    root = tempfile.mkdtemp(prefix="xfm_pt_")
+    try:
+        runs = pretrain_task_runs(root, bs=bs, steps=steps,
+                                  ckpt_every=ckpt_every)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    depth = configs.xfm_base_pretrain_config().vision.depth
+    on = {"image": {"itc", "itm", "mlm", "mim"},
+          "region": {"itc", "itm", "mlm", "bbox", "giou"},
+          "imagenet": {"mim"}, "text": {"mlm"}}
+    for name in ("full", "resumed"):
+        r = runs[name]
+        print(f"  {name}: {r['s']:.1f} s, peak memory "
+              f"{r['max_memory_allocated']} B, step s "
+              f"{[round(x['s'], 4) for x in r['steps']]}")
+        for i, st in enumerate(r["steps"]):
+            print(f"    step {i}: {json.dumps(st['launches'])} "
+                  f"{json.dumps(st['losses'])}")
+            want = {k: 0 for k in st["launches"]}
+            n_img = sum(1 for n in st["streams"] if n != "text")
+            want.update(packed_attention_fwd=depth * n_img,
+                        packed_attention_bwd=depth * n_img)
+            if st["launches"] != want or n_img != 3:
+                raise AssertionError(f"{name} step {i}: launches "
+                                     f"{st['launches']}, expected {want}")
+            for stream, losses in on.items():
+                for k in ("itc", "itm", "mlm", "mim", "bbox", "giou"):
+                    v = st["losses"][f"{stream}_loss_{k}"]
+                    if not math.isfinite(v) or (v != 0.0) != (k in losses):
+                        raise AssertionError(f"{name} step {i}: "
+                                             f"{stream}_loss_{k} = {v}")
+        print(f"    result {json.dumps(r['result'])}")
+    full, resumed = runs["full"], runs["resumed"]
+    want_layout = sorted({str(s) for s in range(ckpt_every, steps + 1,
+                                                 ckpt_every)}
+                         | {str(steps)})
+    restored = resumed.get("restored", {})
+    last_saved = int(want_layout[-2]) if len(want_layout) > 1 else 0
+    lr_then = full["steps"][last_saved]["lr"]
+    print(f"  checkpoints {runs['layout']} (expected {want_layout}), "
+          f"{runs['checkpoint_bytes']} B each; resume "
+          f"{json.dumps(restored)}, the first run's lr at that count "
+          f"{lr_then}")
+    if (runs["layout"] != want_layout or len(full["steps"]) != steps
+            or not restored.get("bit_equal")
+            or restored["step"] != last_saved
+            or not restored["lr"] == lr_then
+            == resumed["steps"][0]["lr"]
+            or len(resumed["steps"]) != steps - last_saved):
+        raise AssertionError("the pretrain run's checkpoints or its resume")
+    return dict(step_s=[x["s"] for x in full["steps"]],
+                resumed_step_s=[x["s"] for x in resumed["steps"]],
+                run_s=[full["s"], resumed["s"]],
+                max_memory_allocated=full["max_memory_allocated"],
+                checkpoint_bytes=runs["checkpoint_bytes"],
+                batch_sizes=runs["batch_sizes"],
+                throughput={k: full["result"].get(k) for k in (
+                    "samples_per_sec", "device_samples_per_sec")},
+                launches_per_step=full["steps"][0]["launches"])
+
+
+def text_attention_times(B=256, T=128, H=12, rate=0.1) -> dict:
+    """The text stream's plain self-attention (`attention_reference`, which
+    computes in f32) at q/k/v [B, T, H, 64] bf16 with a padding mask:
+    forward and forward + backward, at dropout 0 and `rate` (the YAML's,
+    live in the task), and SDPA with the mask for comparison (ms a
+    call)."""
+    import torch.nn.functional as F
+
+    from xfm_tpu_torch.ops.attention import attention_reference, mask_to_bias
+    from xfm_tpu_torch.ops.dropout import dropout_generator
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, dout = (torch.randn(B, T, H, 64, generator=g, device="cuda")
+                     .to(torch.bfloat16) for _ in range(4))
+    lens = torch.randint(4, T + 1, (B,), generator=g, device="cuda")
+    bias = mask_to_bias((torch.arange(T, device="cuda")[None]
+                         < lens[:, None]).long())
+    t = {}
+    for tag, r in (("", 0.0), ("_dropout", rate)):
+        with torch.no_grad(), dropout_generator(g):
+            t[f"plain{tag}_fwd_ms"] = cuda_ms(lambda: attention_reference(
+                q, k, v, bias, 0.125, r), 10)
+        qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+
+        def fwd_bwd():
+            with dropout_generator(g):
+                attention_reference(qg, kg, vg, bias, 0.125, r).backward(
+                    dout)
+
+        t[f"plain{tag}_fwd_bwd_ms"] = cuda_ms(fwd_bwd, 10)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    mask = bias.to(torch.bfloat16)
+    dt = dout.transpose(1, 2).contiguous()
+    t["library_fwd_bwd_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=0.125).backward(dt), 10)
+    return t
+
+
+def pretrain_kernel_entries(err192, t192, w192, err80, t80, w80,
+                            launches) -> list:
+    """The `kernels` entries of K1 at the pretrain task's caller shapes:
+    the image-text and ImageNet pair passes at the YAML's batch (qkv
+    [192, 197, 2304]) and the region stream's 80 images, with their
+    launches a step from `profile_step pretrain_streams`."""
+    out = []
+    for tag, err, t, w, streams in (
+            ("b192", err192, t192, w192, ("image", "imagenet")),
+            ("b80", err80, t80, w80, ("region",))):
+        n = {k: sum(launches[s][k] for s in streams)
+             for k in launches[streams[0]]}
+        for d, bwd_keys in (("fwd", ("out",)), ("bwd", ("dqkv", "db"))):
+            out.append(dict(
+                name=f"packed_attention_{d}_pretrain_{tag}", route="cuda",
+                source="xfm_tpu_torch/csrc/packed_attention.cu",
+                replaces="xfm_tpu/ops/flash_attention.py:"
+                         f"{983 if d == 'fwd' else 1007}",
+                launches=n[f"packed_attention_{d}"],
+                max_abs_err=max(err[k][0] for k in bwd_keys),
+                ms=t[f"{d}_ms"], plain_ms=t[f"plain_{d}_ms"],
+                bound_ms=w[d]["bound_ms"], bound_by=w[d]["bound_by"],
+                library_ms=t[f"library_{d}_ms"]))
+    return out
+
+
 LN_EPS = 1e-6
 
 
@@ -1839,6 +2240,40 @@ def main() -> int:
     ft = full_finetune()
     print("  fine-tune: " + json.dumps(ft))
 
+    print("phase 19: the pretrain task, its four streams and K1 at their "
+          "shapes")
+    k1_new = {}
+    for B in (192, 80):
+        err = k1_parity(B=B, N=197, H=12, dtype=torch.bfloat16, seed=30 + B)
+        k1_parity(B=B, N=197, H=12, dtype=torch.float32, seed=31 + B)
+        t = k1_times(B=B, N=197, H=12, dtype=torch.bfloat16)
+        w = k1_work(B=B, N=197, H=12, D=64, dtype=torch.bfloat16)
+        print(f"  K1 B={B} times (ms): " + json.dumps(t))
+        print(f"  K1 B={B} bound (k1_work): " + json.dumps(w))
+        k1_new[B] = (err, t, w)
+    pretrain_slice_parity()
+    print("  text stream plain attention [256, 128, 12, 64] bf16 (ms a "
+          "call, 12 a step): " + json.dumps(text_attention_times()))
+    pt = full_pretrain_task()
+    print("  pretrain task: " + json.dumps(pt))
+    from xfm_tpu_torch import profile_step
+
+    prof = profile_step.profile_pretrain_streams(
+        os.path.join(REPO, "build", "xfm_tpu_torch",
+                     "profile_pretrain_streams.json"))
+    top = prof.pop("top")
+    print("  pretrain_streams profile: " + json.dumps(prof))
+    for name, ms, n in top[:12]:
+        print(f"    {ms:9.3f} ms/step {n:6d} calls/step  {name}")
+    k1_step = prof["launches_per_step"]
+    depth = 12  # XFM-base's BEiT blocks; three image-bearing streams
+    want = {k: 0 for k in k1_step}
+    want.update(packed_attention_fwd=3 * depth, packed_attention_bwd=3 * depth)
+    if k1_step != want or prof["max_memory_allocated"] >= 80e9 or not all(
+            math.isfinite(v) for v in prof["losses"].values()):
+        raise AssertionError("pretrain_streams: launches, peak memory or "
+                             "losses")
+
     entries = (kernel_entries("packed_attention",
                               "xfm_tpu/ops/flash_attention.py", 983, 1007,
                               "xfm_tpu_torch/csrc/packed_attention.cu",
@@ -1863,8 +2298,10 @@ def main() -> int:
                                 k5_err, ("dh", "dW", "db"), k5_t, k5w,
                                 fused["launches"], also_bwd=99)
                + eval_kernel_entries(k2e_err, k2e_t, k2ew, k3g_err, k3g_t,
-                                     k3gw, ev["launches"]))
-    print(f"chip_smoke: 18 phases in {time.perf_counter() - t_start:.1f} s")
+                                     k3gw, ev["launches"])
+               + pretrain_kernel_entries(*k1_new[192], *k1_new[80],
+                                         prof["launches_by_stream"]))
+    print(f"chip_smoke: 19 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

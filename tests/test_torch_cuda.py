@@ -21,7 +21,9 @@ def _inputs(B, N, H, D, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,H", [(3, 50, 4), (2, 197, 12), (4, 197, 12),
-                                   (96, 197, 12)])   # the pretrain pair pass
+                                   (96, 197, 12),    # the pretrain pair pass
+                                   (192, 197, 12),   # the pair pass at B 96
+                                   (80, 197, 12)])   # the region stream
 def test_packed_attention_kernel_matches_plain(dtype, B, N, H):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -915,3 +917,52 @@ def test_prefetched_batches_arrive_equal():
         assert g["images"].dtype == torch.float32
         for k in h:
             assert np.array_equal(g[k].numpy(), h[k]), k
+
+
+# the pretrain task's model at depth 2 with head dim 64 (K1's), small
+# batches of every stream
+_STREAM_KEYS = dict(
+    vision_depth=2, vision_embed_dim=128, vision_num_heads=2,
+    text_hidden_size=128, text_num_attention_heads=2,
+    text_intermediate_size=256, text_num_hidden_layers=2,
+    text_fusion_start_at=2, fusion_num_hidden_layers=2, embed_dim=32,
+    text_vocab_size=512, images={"batch_size": 4},
+    images_imagenet={"batch_size": 4},
+    regions={"batch_size": 6, "max_images": 5, "max_regions": 2},
+    texts={"batch_size": 4, "max_tokens": 64, "max_masks": 8})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream,rows", [("image", 8), ("region", 5),
+                                         ("imagenet", 8), ("text", 0)])
+def test_pretrain_stream_launches_k1_per_image_stream(stream, rows,
+                                                      monkeypatch):
+    """The pretrain task's step on one stream, dropout and drop-path live,
+    bf16: K1 depth forward and depth backward launches at the stream's
+    vision rows (the 2B-row pair pass, the region stream's max_images),
+    none for the text stream, and no other kernel; the losses finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.ops import flash_attention as fa
+    from xfm_tpu_torch.ops import kernels
+
+    seen = []
+    real = fa.packed_attention_fwd
+
+    def spy(qkv, *a, **k):
+        seen.append(qkv.shape[0])
+        return real(qkv, *a, **k)
+
+    monkeypatch.setattr(fa, "packed_attention_fwd", spy)
+    state, batches, step, gens = configs.make_pretrain_streams_run(
+        **_STREAM_KEYS)
+    kernels.reset_launch_counts()
+    state, metrics = step(state, {stream: batches[stream]}, gens(0))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    want = {k: 0 for k in kernels.LAUNCHES}
+    if rows:
+        want.update(packed_attention_fwd=2, packed_attention_bwd=2)
+    assert kernels.LAUNCHES == want
+    assert seen == [rows] * (2 if rows else 0)

@@ -72,8 +72,8 @@ def test_xroberta_text_and_mlm_match_reference():
 
 def test_xfm_losses_match_reference():
     """ITC (plain and idx soft labels), ITM with the reference's recorded
-    hard negatives, fusion-MLM and MIM. The bbox losses are not part of the
-    port yet."""
+    hard negatives, fusion-MLM, MIM, and the bbox head's coords with their
+    L1 and GIoU losses."""
     sd, io = load_fixture("golden_xfm_losses.npz")
     cfg = XFMConfig(
         vision=VisionConfig(**VISION),
@@ -106,9 +106,14 @@ def test_xfm_losses_match_reference():
                 _t(io["masked_pos"]), _t(io["masked_ids"])),
             "loss_mim": m.get_mim_loss(embeds_masked, image_embeds, mask),
         }
+        coords = m.predict_bbox(image_embeds, atts, text_embeds)
+        got["loss_bbox"], got["loss_giou"] = m.get_bbox_loss(
+            coords, _t(io["target_bbox"]))
     for k, v in got.items():
         np.testing.assert_allclose(v.item(), float(io[k]), rtol=2e-3,
                                    atol=2e-4, err_msg=k)
+    np.testing.assert_allclose(coords.numpy(), io["coords"], atol=2e-4,
+                               rtol=1e-3)
 
 
 @pytest.mark.parametrize("name", ["golden_beit2.npz", "golden_xroberta.npz",

@@ -153,8 +153,9 @@ def test_hard_negative_draws_follow_the_jax_weights():
 
 
 def test_port_imports_neither_jax_nor_xfm_tpu():
-    """Every module of xfm_tpu_torch (the fine-tune's and the eval's
-    tasks/, data/, train/ and run.py among them) and chip_smoke's helpers
+    """Every module of xfm_tpu_torch (the fine-tune's, the eval's and the
+    pretrain task's tasks/, data/, train/ and run.py among them) and
+    chip_smoke's helpers
     import in a fresh interpreter
     without pulling in jax, flax, optax or any xfm_tpu module; PIL, yaml and
     transformers, which the card's machine may lack, are imported only
@@ -173,7 +174,11 @@ def test_port_imports_neither_jax_nor_xfm_tpu():
         " 'xfm_tpu_torch.data.transforms',"
         " 'xfm_tpu_torch.data.finetune_data',"
         " 'xfm_tpu_torch.data.randaugment', 'xfm_tpu_torch.data.prefetch',"
-        " 'xfm_tpu_torch.ops.dropout', 'xfm_tpu_torch.train.metrics'}\n"
+        " 'xfm_tpu_torch.ops.dropout', 'xfm_tpu_torch.train.metrics',"
+        " 'xfm_tpu_torch.tasks.pretrain', 'xfm_tpu_torch.data.io',"
+        " 'xfm_tpu_torch.data.jsonl', 'xfm_tpu_torch.data.block_masking',"
+        " 'xfm_tpu_torch.data.text_masking',"
+        " 'xfm_tpu_torch.data.pretrain_data'}\n"
         "lazy = ('PIL', 'yaml', 'transformers')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'flax', 'optax', 'xfm_tpu') + lazy]\n"

@@ -5,7 +5,9 @@ copies of `__graft_entry__._xfm_config` / `_batch`,
 and `config_from_yaml`'s CLIP branch (those modules import JAX); and the
 retrieval eval's configuration (`configs/xfm-ft/Retrieval_coco.yaml`, kept
 here as a dict so that no YAML reader is needed) and a seeded in-memory
-corpus with `RetrievalEvalData`'s interface."""
+corpus with `RetrievalEvalData`'s interface; the pretrain task's
+configuration (`configs/xfm-pt/Pretrain_base_4m.yaml`, read as data) and
+its four-stream step on seeded device batches at the YAML's sizes."""
 from __future__ import annotations
 
 import os
@@ -368,3 +370,147 @@ def retrieval_step_flops(B, T, patches, hidden=768, inter=3072,
            + _transformer_flops(layers, hidden, inter, T, B)
            + _transformer_flops(layers, hidden, inter, T, 3 * B, cross_kv=Nv))
     return 3 * fwd
+
+
+PRETRAIN_YAML = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs", "xfm-pt", "Pretrain_base_4m.yaml")
+
+
+def pretrain_yaml(**keys) -> dict:
+    """`configs/xfm-pt/Pretrain_base_4m.yaml` with its vision JSON read in
+    (PyYAML needed) and `keys` set on top."""
+    from .core.config import load_config, resolve_vision_config
+
+    root = os.path.join(os.path.dirname(PRETRAIN_YAML), os.pardir, "model")
+    cfg = resolve_vision_config(load_config(PRETRAIN_YAML),
+                                config_root=os.path.normpath(root))
+    cfg.update(keys)
+    return cfg
+
+
+def stream_batch_sizes(cfg: dict) -> dict:
+    """The per-stream batch keys of a pretrain YAML: rows a step of each
+    stream, region images and regions an image, text lengths and masks."""
+    reg, txt = cfg.get("regions") or {}, cfg.get("texts") or {}
+    return dict(image=(cfg.get("images") or {}).get("batch_size", 32),
+                imagenet=(cfg.get("images_imagenet") or {}).get(
+                    "batch_size", 32),
+                regions=reg.get("batch_size", 32),
+                max_images=reg.get("max_images", 16),
+                max_regions=reg.get("max_regions", 5),
+                text=txt.get("batch_size", 64),
+                T=cfg.get("max_tokens", 30), M=cfg.get("max_masks", 15),
+                text_T=txt.get("max_tokens", 128),
+                text_M=txt.get("max_masks", 20),
+                masked_patches=cfg.get("num_masking_patches", 75))
+
+
+def make_stream_batches(sizes: dict, image_res: int, vocab: int,
+                        patch: int = 16, seed: int = 0) -> dict:
+    """Seeded synthetic batches of the four streams with the streams'
+    shapes ({name: numpy batch}): normal-random images; texts of 4 tokens
+    to full length, cls and sep at their ends, pads after; the masked
+    copy with up to M positions (labels -100 past the real ones); block
+    masks of exactly `masked_patches` patches; the region stream's
+    images padded with zeros to `max_images`, each real image holding
+    `max_regions` regions with a random box, its patch mask and cxcywh
+    target."""
+    r = np.random.RandomState(seed)
+    G = image_res // patch
+    P = G * G
+
+    def images(n):
+        return r.randn(n, image_res, image_res, 3).astype(np.float32)
+
+    def texts(B, T, M):
+        lens = r.randint(4, T + 1, B)
+        atts = (np.arange(T)[None] < lens[:, None]).astype(np.int64)
+        ids = r.randint(5, vocab - 1, (B, T)).astype(np.int64)
+        ids[:, 0] = 0
+        ids[np.arange(B), lens - 1] = 2
+        ids = np.where(atts == 1, ids, 1)
+        pos = np.zeros((B, M), np.int64)
+        lab = np.full((B, M), -100, np.int64)
+        masked = ids.copy()
+        for b in range(B):
+            k = min(M, max(1, (lens[b] - 2) // 2))
+            p = np.sort(r.choice(np.arange(1, lens[b] - 1), k,
+                                 replace=False))
+            pos[b, :k], lab[b, :k] = p, ids[b, p]
+            masked[b, p] = 3
+        return dict(text_ids=ids, text_atts=atts, text_ids_masked=masked,
+                    masked_pos=pos, masked_ids=lab)
+
+    def block_mask(B):
+        m = np.zeros((B, P), bool)
+        for b in range(B):
+            m[b, r.choice(P, sizes["masked_patches"], replace=False)] = True
+        return m
+
+    B, R = sizes["image"], sizes["regions"]
+    n_img = min(sizes["max_images"], -(-R // sizes["max_regions"]))
+    idx = np.arange(R) // sizes["max_regions"] % n_img
+    x0, y0 = r.randint(0, G, (2, R))
+    x1 = np.minimum(G, x0 + r.randint(1, G // 2 + 1, R))
+    y1 = np.minimum(G, y0 + r.randint(1, G // 2 + 1, R))
+    grid_y, grid_x = np.mgrid[0:G, 0:G]
+    inside = ((grid_x[None] >= x0[:, None, None])
+              & (grid_x[None] < x1[:, None, None])
+              & (grid_y[None] >= y0[:, None, None])
+              & (grid_y[None] < y1[:, None, None])).reshape(R, P)
+    region_images = np.zeros((sizes["max_images"], image_res, image_res, 3),
+                             np.float32)
+    region_images[:n_img] = images(n_img)
+    box = np.stack([(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0, y1 - y0], -1)
+    return {
+        "image": dict(images=images(B), image_mask=block_mask(B),
+                      **texts(B, sizes["T"], sizes["M"])),
+        "region": dict(images=region_images,
+                       idx_to_group_img=idx.astype(np.int64),
+                       image_atts=np.concatenate(
+                           [np.ones((R, 1), np.int64),
+                            inside.astype(np.int64)], 1),
+                       target_bbox=(box / G).astype(np.float32),
+                       is_image=np.zeros(R, np.float32),
+                       **texts(R, sizes["T"], sizes["M"])),
+        "imagenet": dict(images=images(sizes["imagenet"]),
+                         image_mask=block_mask(sizes["imagenet"])),
+        "text": texts(sizes["text"], sizes["text_T"], sizes["text_M"]),
+    }
+
+
+def make_pretrain_streams_run(device="cuda", seed: int = 0,
+                              steps_per_epoch: int = 1000, **keys):
+    """The step of `run.py --task pretrain_DIY` on
+    `Pretrain_base_4m.yaml` (`keys` set on top): XFM-base from the YAML
+    (BEiT-2 at 224 px, tanh-GELU, drop-path 0.1, text dropout 0.1, bf16
+    compute, the full RoBERTa vocabulary), HF-AdamW with the clip and the
+    schedule from its blocks, the four streams' batches at its sizes on
+    the device, each stream's loss under its flags at step 0 with dropout
+    live. → (state, batches, step, generators) with step(state, batches,
+    generators) -> (state, metrics) and generators(i) the streams'
+    generators of step i."""
+    from .tasks.pretrain import stream_flags, stream_loss_fn
+    from .train.train_state import make_stream_step
+
+    cfg = pretrain_yaml(**keys)
+    mcfg = config_from_yaml(cfg, use_contrastive_loss=True,
+                            use_matching_loss=True, use_mlm_loss=True,
+                            use_bbox_loss=True)
+    model = XFMForPretrain(mcfg).to(device)
+    init_weights(model, seed)
+    sched = schedule_from_config(cfg, steps_per_epoch)
+    state = TrainState.create(model, create_optimizer_from_config(
+        model, cfg, sched))
+    nb = make_stream_batches(stream_batch_sizes(cfg), mcfg.vision.image_res,
+                             mcfg.text.vocab_size, seed=seed)
+    batches = {k: batch_to_torch(v, device) for k, v in nb.items()}
+    order = sorted(batches)
+    loss_fn = stream_loss_fn({n: stream_flags(n, 0, cfg) for n in order},
+                             {n: cfg.get(f"w{n}", 1.0) for n in order})
+
+    def generators(i):
+        return {n: torch.Generator(device=device).manual_seed(
+            seed * 1000 + 10 * i + j) for j, n in enumerate(order)}
+
+    return state, batches, make_stream_step(loss_fn), generators

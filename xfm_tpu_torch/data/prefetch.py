@@ -1,6 +1,8 @@
 """Host batches prefetched on a thread and copied to the device one batch
 ahead (`xfm_tpu/data/prefetch.py` `Prefetcher`; `DeviceBatches` in place
-of its `device_batches`).
+of its `device_batches`; `StreamBatches` for the pretrain task's streams,
+one thread each, as the JAX task wraps each stream in its own
+`Prefetcher`).
 
 A daemon thread runs the host iterator (decode, augment, collate) and turns
 each batch into torch tensors, pinned when the device is a CUDA card; it
@@ -77,33 +79,54 @@ def _host_tensors(batch: dict, pin: bool) -> dict:
     return out
 
 
-class DeviceBatches:
-    """Host numpy batches → device tensor batches, prefetched `depth` deep
-    on a daemon thread; the copy of batch i + 1 is issued before batch i is
-    handed out. `close()` stops the producer thread."""
+class StreamBatches:
+    """{stream: host loader} → an iterator of {stream: device batch}, one
+    batch of every stream a step: each loader runs on its own prefetch
+    thread (`depth` deep), so the streams decode in parallel, and the
+    copies of step i + 1 are issued before step i's batches are handed
+    out. A stream without images (text) is just a batch without that
+    key. Ends when any loader ends; `close()` stops every thread."""
 
-    def __init__(self, loader: Iterable, device, depth: int = 2):
+    def __init__(self, loaders: dict, device, depth: int = 2):
         self.device = torch.device(device)
         pin = self.device.type == "cuda"
-        self.prefetcher = Prefetcher(
-            (_host_tensors(b, pin) for b in loader), depth=depth)
+        self.prefetchers = {
+            name: Prefetcher((_host_tensors(b, pin) for b in loader),
+                             depth=depth)
+            for name, loader in loaders.items()}
 
-    def _issue(self, host):
-        if host is None:
-            return None
-        return host, {k: v.to(self.device, non_blocking=True)
-                      for k, v in host.items()}
+    def _issue(self, its):
+        out = {}
+        for name, it in its.items():
+            host = next(it, None)
+            if host is None:
+                return None
+            out[name] = (host, {k: v.to(self.device, non_blocking=True)
+                                for k, v in host.items()})
+        return out
 
     def __iter__(self) -> Iterator[dict]:
-        it = iter(self.prefetcher)
-        nxt = self._issue(next(it, None))
+        its = {name: iter(p) for name, p in self.prefetchers.items()}
+        nxt = self._issue(its)
         while nxt is not None:
             cur = nxt
-            nxt = self._issue(next(it, None))
-            yield cur[1]
-            # the step on cur has been enqueued: its host batch may go
+            nxt = self._issue(its)
+            yield {name: dev for name, (_, dev) in cur.items()}
+            # the step on cur has been enqueued: its host batches may go
             del cur
 
     def close(self):
-        self.prefetcher.close()
+        for p in self.prefetchers.values():
+            p.close()
 
+
+class DeviceBatches(StreamBatches):
+    """Host numpy batches → device tensor batches: `StreamBatches` over one
+    loader."""
+
+    def __init__(self, loader: Iterable, device, depth: int = 2):
+        super().__init__({None: loader}, device, depth)
+
+    def __iter__(self) -> Iterator[dict]:
+        for batches in super().__iter__():
+            yield batches[None]

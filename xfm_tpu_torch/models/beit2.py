@@ -213,8 +213,19 @@ class BeitVisionTransformer(nn.Module):
         y = full.reshape(B, 2, *full.shape[1:])
         return y[:, 0], y[:, 1]
 
-    def forward(self, images, mask=None, deterministic: bool = True):
+    def forward(self, images, mask=None, idx_to_group_img=None,
+                image_atts=None, deterministic: bool = True):
         """NHWC images [B, H, W, 3] → [B, 1+num_patches, C]
-        ([avgpool ‖ patches])."""
-        full, _ = self._encode(self.embed(images, mask), deterministic)
-        return full
+        ([avgpool ‖ patches]). Region mode (`idx_to_group_img` [R], the
+        image of each region, and `image_atts` [R, 1+num_patches], its patch
+        mask) → (grouped, full): each region's copy of its image's patches
+        with their mean over the region's mask in the first slot, and the
+        images' rows, both from one pass over the B images."""
+        full, patches = self._encode(self.embed(images, mask), deterministic)
+        if idx_to_group_img is None:
+            return full
+        xg = patches[idx_to_group_img]
+        w = image_atts[:, 1:].to(xg.dtype)[..., None]
+        pooled = (xg * w).sum(dim=1, keepdim=True) / torch.clamp(
+            w.sum(dim=1, keepdim=True), min=1e-6)
+        return torch.cat([pooled, xg], dim=1), full

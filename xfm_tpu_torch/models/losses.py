@@ -70,3 +70,57 @@ def mim_mse_loss(masked_embeds: torch.Tensor, target_embeds: torch.Tensor,
         return masked_mse
     cls_mse = ((masked_embeds[:, 0, :] - target[:, 0, :]) ** 2).mean()
     return masked_mse + cls_mse
+
+
+# --- the bbox losses (`xfm_tpu/models/losses.py`) ---------------------------
+
+def box_cxcywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
+    cx, cy, w, h = b.unbind(-1)
+    return torch.stack([cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w,
+                        cy + 0.5 * h], dim=-1)
+
+
+def box_iou_union(b1: torch.Tensor, b2: torch.Tensor):
+    """Row-wise IoU of xyxy boxes [B, 4] × [B, 4] → (iou [B], union [B])."""
+    a1 = (b1[:, 2] - b1[:, 0]) * (b1[:, 3] - b1[:, 1])
+    a2 = (b2[:, 2] - b2[:, 0]) * (b2[:, 3] - b2[:, 1])
+    lt = torch.maximum(b1[:, :2], b2[:, :2])
+    rb = torch.minimum(b1[:, 2:], b2[:, 2:])
+    wh = torch.clamp(rb - lt, min=0)
+    inter = wh[:, 0] * wh[:, 1]
+    union = a1 + a2 - inter
+    return inter / torch.clamp(union, min=1e-6), union
+
+
+def generalized_box_iou_diag(b1: torch.Tensor,
+                             b2: torch.Tensor) -> torch.Tensor:
+    iou, union = box_iou_union(b1, b2)
+    lt = torch.minimum(b1[:, :2], b2[:, :2])
+    rb = torch.maximum(b1[:, 2:], b2[:, 2:])
+    wh = torch.clamp(rb - lt, min=0)
+    area = wh[:, 0] * wh[:, 1]
+    return iou - (area - union) / torch.clamp(area, min=1e-6)
+
+
+def bbox_loss(output_coord: torch.Tensor, target_bbox: torch.Tensor,
+              is_image: Optional[torch.Tensor] = None):
+    """(L1, 1 − GIoU), each summed and divided by the rows that count.
+    A row whose predicted or target box is degenerate (x2 < x1 or y2 < y1)
+    adds no GIoU term, row by row as in the JAX package (the torch
+    reference zeroes the whole batch's). With `is_image`, the rows where
+    it is 1 are left out of both."""
+    l1 = (output_coord - target_bbox).abs()
+    b1 = box_cxcywh_to_xyxy(output_coord)
+    b2 = box_cxcywh_to_xyxy(target_bbox)
+    degenerate = ((b1[:, 2:] < b1[:, :2]).any(-1)
+                  | (b2[:, 2:] < b2[:, :2]).any(-1))
+    giou = torch.where(degenerate, torch.zeros_like(l1[:, 0]),
+                       1 - generalized_box_iou_diag(b1, b2))
+    if is_image is None:
+        num = output_coord.shape[0]
+    else:
+        keep = 1.0 - is_image.to(l1.dtype)
+        num = torch.clamp(keep.sum(), min=1.0)
+        l1 = l1 * keep[:, None]
+        giou = giou * keep
+    return l1.sum() / num, giou.sum() / num

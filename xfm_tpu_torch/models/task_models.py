@@ -2,10 +2,10 @@
 `XFMForRetrieval`.
 
 Each holds the XFMBase parameters directly (not under a `backbone.` prefix),
-so its state_dict is the reference's. Of the pretrain step only the default
-path is ported: the 2B-row vision pair pass and the fused 4B-row fusion pass
-for ITM + fusion-MLM. Of retrieval, the fine-tune step and the eval: the
-encoders of its first stage and the ITM rerank of its second.
+so its state_dict is the reference's. The pretrain head takes every stream
+of the pretrain task (image-text, region, ImageNet, text-only); of
+retrieval, the fine-tune step and the eval: the encoders of its first stage
+and the ITM rerank of its second.
 """
 from __future__ import annotations
 
@@ -17,43 +17,99 @@ from ..ops.dropout import dropout_generator
 from .xfm import XFMBase
 
 
+LOSS_KEYS = ("loss_itc", "loss_itm", "loss_mlm", "loss_mim", "loss_bbox",
+             "loss_giou")
+
+
 class XFMForPretrain(XFMBase):
-    def loss(self, images, text_ids, text_atts, text_ids_masked, masked_pos,
-             masked_ids, image_mask=None,
+    def loss(self, images=None, text_ids=None, text_atts=None,
+             text_ids_masked=None, masked_pos=None, masked_ids=None,
+             image_mask=None, idx_to_group_img=None, image_atts=None,
+             target_bbox=None, is_image=None, ret_itc=True, ret_match=True,
+             ret_mlm=True, ret_mim=False, ret_bbox=False,
+             ret_bbox_giou=None, data_source=None,
              generator: Optional[torch.Generator] = None,
              hard_negatives=None, deterministic: bool = True):
-        """→ dict of ITC, ITM (in-batch hard negatives drawn from
-        `generator`, or the given `hard_negatives=(image_neg, text_neg)`),
-        fusion-MLM and MIM losses; the bbox losses are zero. Unless
+        """→ {loss_itc, loss_itm, loss_mlm, loss_mim, loss_bbox, loss_giou}
+        of one stream's batch, with the JAX package's branches and flags
+        (a loss turned off is a zero):
+        - `images` None: the text-only stream, the text encoder's MLM;
+        - `ret_bbox`: the region stream: the vision pass in region mode,
+          ITC / ITM / fusion-MLM over the region rows with their patch
+          masks, and (unless `ret_bbox_giou` is False) the bbox L1 and
+          GIoU of the fusion cls over each region's full image rows;
+        - `data_source` "imagenet": MIM alone (text inputs unused);
+        - otherwise the image-text stream: with `ret_mim` and an
+          `image_mask`, the full and masked vision passes as one 2B-row
+          pass and the MIM regression.
+        ITM and fusion-MLM run as one 4B-row fusion pass when both are on
+        (the JAX package's default), else (a `stop_calc` stage has turned
+        one off) as their separate passes. Hard negatives are drawn from `generator`,
+        or given as `hard_negatives=(image_neg, text_neg)`; unless
         `deterministic`, the dropout masks come from `generator` too."""
-        zero = torch.zeros((), device=text_ids.device)
+        ref = images if images is not None else text_ids_masked
+        zero = torch.zeros((), device=ref.device)
+        out = dict.fromkeys(LOSS_KEYS, zero)
         with dropout_generator(generator):
-            if image_mask is not None:
-                image_embeds, image_embeds_masked = \
-                    self.get_vision_embeds_pair(images, image_mask,
-                                                deterministic=deterministic)
+            if images is None:
+                out["loss_mlm"] = self.get_mlm_loss(
+                    text_ids_masked, text_atts, masked_pos, masked_ids,
+                    deterministic=deterministic)
+                return out
+            image_embeds_masked = image_embeds_fullatts = None
+            if ret_bbox:
+                image_embeds, image_embeds_fullatts = self.get_vision_embeds(
+                    images, idx_to_group_img=idx_to_group_img,
+                    image_atts=image_atts, deterministic=deterministic)
             else:
-                image_embeds = self.get_vision_embeds(
-                    images, deterministic=deterministic)
-            image_atts = torch.ones(image_embeds.shape[:2],
-                                    dtype=torch.int64,
-                                    device=image_embeds.device)
-            text_embeds = self.get_text_embeds(text_ids, text_atts,
-                                               deterministic)
-            image_feat, text_feat = self.get_features(image_embeds,
-                                                      text_embeds)
-            out = {"loss_itc": self.get_contrastive_loss(image_feat,
-                                                         text_feat)}
-            out["loss_itm"], out["loss_mlm"] = \
-                self.get_matching_and_fuse_mlm_loss(
-                    generator, image_embeds, image_atts, image_feat,
-                    text_atts, text_feat, text_embeds, text_ids_masked,
-                    masked_pos, masked_ids, deterministic=deterministic,
-                    fixed_negatives=hard_negatives)
-            out["loss_mim"] = (self.get_mim_loss(image_embeds_masked,
-                                                 image_embeds, image_mask)
-                               if image_mask is not None else zero)
-        out["loss_bbox"] = out["loss_giou"] = zero
+                if ret_mim and image_mask is not None:
+                    image_embeds, image_embeds_masked = \
+                        self.get_vision_embeds_pair(
+                            images, image_mask, deterministic=deterministic)
+                else:
+                    image_embeds = self.get_vision_embeds(
+                        images, deterministic=deterministic)
+                image_atts = torch.ones(image_embeds.shape[:2],
+                                        dtype=torch.int64,
+                                        device=image_embeds.device)
+            if data_source != "imagenet":
+                text_embeds = self.get_text_embeds(text_ids, text_atts,
+                                                   deterministic)
+                image_feat, text_feat = self.get_features(image_embeds,
+                                                          text_embeds)
+                if ret_itc:
+                    out["loss_itc"] = self.get_contrastive_loss(image_feat,
+                                                                text_feat)
+                if ret_match and ret_mlm and text_ids_masked is not None:
+                    out["loss_itm"], out["loss_mlm"] = \
+                        self.get_matching_and_fuse_mlm_loss(
+                            generator, image_embeds, image_atts, image_feat,
+                            text_atts, text_feat, text_embeds,
+                            text_ids_masked, masked_pos, masked_ids,
+                            deterministic=deterministic,
+                            fixed_negatives=hard_negatives)
+                else:
+                    if ret_match:
+                        out["loss_itm"] = self.get_matching_loss(
+                            generator, image_embeds, image_atts, image_feat,
+                            text_atts, text_feat, text_embeds,
+                            deterministic=deterministic,
+                            fixed_negatives=hard_negatives)
+                    if ret_mlm:
+                        out["loss_mlm"] = self.get_fuse_mlm_loss(
+                            text_ids_masked, text_atts, image_embeds,
+                            image_atts, masked_pos, masked_ids,
+                            deterministic)
+            if ret_mim and not ret_bbox and image_mask is not None:
+                out["loss_mim"] = self.get_mim_loss(image_embeds_masked,
+                                                    image_embeds, image_mask)
+            giou_on = ret_bbox if ret_bbox_giou is None else ret_bbox_giou
+            if ret_bbox and giou_on and target_bbox is not None:
+                coords = self.predict_bbox(image_embeds_fullatts, text_atts,
+                                           text_embeds,
+                                           deterministic=deterministic)
+                out["loss_bbox"], out["loss_giou"] = self.get_bbox_loss(
+                    coords, target_bbox, is_image)
         return out
 
     def forward(self, *args, **kwargs):

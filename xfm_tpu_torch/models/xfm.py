@@ -85,6 +85,9 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
     package's environment switches `XFM_FUSED_LN` / `XFM_MLP_FUSED` == "1"
     become the configs' `fused_ln` / `fused_mlp` (the CLIP tower takes
     neither, as there). Swin, DeiT and BERT text encoders are not ported."""
+    if config.get("use_vision_tokenizer", False):
+        raise NotImplementedError("use_vision_tokenizer (the VQ-KD MIM "
+                                  "targets) is not ported")
     if dtype is None:
         from ..core.precision import policy_from_config
 
@@ -109,6 +112,10 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
             dtype=dtype)
         backbone, vwidth = "clip_vit", vision.hidden_size
     else:
+        if config.get("local_attn_depth", -1) > 0:
+            raise NotImplementedError(
+                "local_attn_depth > 0 (BEiT's region attention in the last "
+                "blocks, forward_localattn) is not ported")
         large = "large" in str(config.get("vision_config", "base"))
         vkw = dict(embed_dim=1024, depth=24, num_heads=16) if large else {}
         for src, dst in (("vision_embed_dim", "embed_dim"),
@@ -190,11 +197,20 @@ class XFMBase(nn.Module):
 
     # --- encoders ---------------------------------------------------------
 
-    def get_vision_embeds(self, images, mask=None, deterministic=True):
+    def get_vision_embeds(self, images, mask=None, idx_to_group_img=None,
+                          image_atts=None, deterministic=True):
         """NHWC images → [B, 1+num_patches, C]: BEiT [avgpool ‖ patches],
-        CLIP the post-LN [cls ‖ patches]."""
-        return self.vision_encoder(maybe_normalize(images), mask=mask,
-                                   deterministic=deterministic)
+        CLIP the post-LN [cls ‖ patches]. Region mode (`idx_to_group_img`,
+        `image_atts`; BEiT only) → (grouped, full), both [R, 1+num_patches,
+        C]: the region-pooled rows and each region's image's full rows."""
+        out = self.vision_encoder(maybe_normalize(images), mask=mask,
+                                  idx_to_group_img=idx_to_group_img,
+                                  image_atts=image_atts,
+                                  deterministic=deterministic)
+        if idx_to_group_img is None:
+            return out
+        grouped, full = out
+        return grouped, full[idx_to_group_img]
 
     def get_vision_embeds_pair(self, images, mask, deterministic=True):
         """(full, MIM-masked) vision embeds in one 2B-row pass (BEiT-2; the
@@ -358,10 +374,33 @@ class XFMBase(nn.Module):
         logits = self.fusion_encoder.mlm_logits(hidden, masked_pos)
         return cross_entropy(logits, masked_ids)
 
+    def get_mlm_loss(self, text_ids_masked, text_atts, masked_pos,
+                     masked_ids, deterministic=True):
+        """Text-encoder MLM of the text-only stream: the masked text
+        through the text encoder alone and its MLM head."""
+        hidden = self.text_encoder(text_ids_masked, attention_mask=text_atts,
+                                   deterministic=deterministic)
+        logits = self.text_encoder.mlm_logits(hidden, masked_pos)
+        return cross_entropy(logits, masked_ids)
+
     def get_mim_loss(self, image_embeds_masked, targets, mask):
         """MIM feature regression (the MSE branch)."""
         return losses.mim_mse_loss(image_embeds_masked, targets, mask,
                                    cls_too=not self.config.mim_cls_only)
+
+    def get_bbox_loss(self, output_coord, target_bbox, is_image=None):
+        return losses.bbox_loss(output_coord, target_bbox, is_image)
+
+    def predict_bbox(self, image_embeds, text_atts, text_embeds,
+                     is_pretrain=True, deterministic=True):
+        """The fusion cls over all of `image_embeds` → the bbox head →
+        sigmoid cxcywh [B, 4]."""
+        image_atts = torch.ones(image_embeds.shape[:2], dtype=torch.int64,
+                                device=image_embeds.device)
+        cls = self.get_cross_embeds(image_embeds, image_atts, text_embeds,
+                                    text_atts, deterministic,
+                                    is_pretrain)[:, 0, :]
+        return torch.sigmoid(self.bbox_head(cls).float())
 
     def forward(self, images, text_ids, text_atts,
                 deterministic: bool = True):

@@ -3,7 +3,7 @@ on the card.
 
     python3 -m xfm_tpu_torch.profile_step
         [pretrain|pretrain_fused|retrieval|retrieval_train|clip_retrieval|
-         retrieval_eval] [--trace PATH]
+         retrieval_eval|pretrain_streams] [--trace PATH]
 
 Runs the full-width step of the chosen path as `chip_smoke.py` does
 (pretrain: B = 48 at 224 px, the default; pretrain_fused: the same with the
@@ -30,8 +30,16 @@ batch of 64 images (K2) and one of 64 texts, one grouped image → text
 chunk (8 images × k_test 256 candidates, K3) and one text → image chunk in
 the repeat form (8 texts × 256). It prints each unit's span, busy time,
 idle share and groups, and the busy time by group of the whole eval of
-256 images and 1,280 captions (the units × their counts there). Needs a
-CUDA card.
+256 images and 1,280 captions (the units × their counts there).
+
+pretrain_streams profiles the step of `run.py --task pretrain_DIY` on
+`Pretrain_base_4m.yaml` at its batch sizes (image-text 96, regions 96 over
+80 images, ImageNet 96, text 256 × 128 tokens) on seeded device batches:
+the four streams' forward and backward one after another, dropout and
+drop-path live, one clipped HF-AdamW update. It prints the peak memory,
+the span, busy time and idle share a step, the groups, the kernels'
+launches a step, each stream's step alone (launches, busy time, groups)
+and the streams' losses. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -179,12 +187,69 @@ def profile_retrieval_eval(trace: str, reps: int = 2) -> int:
     return 0
 
 
+def profile_pretrain_streams(trace: str, steps: int = STEPS,
+                             **keys) -> dict:
+    """The four-stream step of `run.py --task pretrain_DIY` at
+    `Pretrain_base_4m.yaml`'s batch sizes (`keys` set on top), on seeded
+    device batches (`configs.make_pretrain_streams_run`; no decode): the
+    peak memory of 2 warm-up steps, then one profiled window of `steps`
+    steps → {span, busy, idle share, host ms a step, groups, launches a
+    step (K1-K5 counters over the window), and of each stream's step
+    taken alone after it its launches, span, busy time and groups; peak
+    bytes; the streams' losses of the window's last step}."""
+    from . import configs
+    from .ops import kernels
+
+    state, batches, step, gens = configs.make_pretrain_streams_run(**keys)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    i = 0
+    for i in range(2):
+        state, metrics = step(state, batches, gens(i))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    last = {}
+
+    def one_step():
+        nonlocal state, i
+        i += 1
+        state, m = step(state, batches, gens(i))
+        last.update(m)
+
+    kernels.reset_launch_counts()
+    prof, span, busy, host_ms, kern = _window(one_step, steps)
+    launches = {k: v // steps for k, v in kernels.LAUNCHES.items()}
+    by_stream, streams = {}, {}
+    for name in sorted(batches):  # one stream's step at a time
+        def stream_step(name=name):
+            nonlocal state
+            state, _ = step(state, {name: batches[name]}, gens(i + 1))
+
+        kernels.reset_launch_counts()
+        _, s_span, s_busy, _, s_kern = _window(stream_step, 1)
+        by_stream[name] = dict(kernels.LAUNCHES)
+        streams[name] = dict(device_span_ms=s_span, device_busy_ms=s_busy,
+                             groups_ms=_groups(s_kern))
+    res = dict(device_span_ms=span, device_busy_ms=busy,
+               idle_share=1 - busy / span, host_ms=host_ms,
+               groups_ms_per_step=_groups(kern),
+               launches_per_step=launches, launches_by_stream=by_stream,
+               streams_alone=streams, max_memory_allocated=peak,
+               losses={k: float(v) for k, v in last.items()
+                       if k.startswith(tuple(batches))})
+    os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+    prof.export_chrome_trace(trace)
+    res["top"] = [(name[:110], ms, n // steps) for name, (ms, n) in
+                  sorted(kern.items(), key=lambda kv: -kv[1][0])[:TOP]]
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path", nargs="?", default="pretrain",
                     choices=("pretrain", "pretrain_fused", "retrieval",
                              "retrieval_train", "clip_retrieval",
-                             "retrieval_eval"))
+                             "retrieval_eval", "pretrain_streams"))
     ap.add_argument("--trace")
     args = ap.parse_args(argv)
     trace = args.trace or f"build/xfm_tpu_torch/profile_{args.path}.json"
@@ -193,6 +258,15 @@ def main(argv=None) -> int:
         return 2
     if args.path == "retrieval_eval":
         return profile_retrieval_eval(trace)
+    if args.path == "pretrain_streams":
+        res = profile_pretrain_streams(trace)
+        top = res.pop("top")
+        print(f"max_memory_allocated={res.pop('max_memory_allocated')}")
+        print(json.dumps(res))
+        for name, ms, n in top:
+            print(f"  {ms:9.3f} ms/step {n:6d} calls/step  {name}")
+        print(torch.cuda.get_device_name(0))
+        return 0
     from . import configs
 
     make_run = {"pretrain": functools.partial(configs.make_pretrain_run,

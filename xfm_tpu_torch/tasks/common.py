@@ -1,8 +1,9 @@
-"""What a task's main() shares (`xfm_tpu/tasks/common.py`): the config,
-the output directory, the seed and the device; the train state built from
-the YAML, the step (with gradient accumulation), one epoch of it over
-prefetched device batches, the per-epoch checkpoints and their resume, and
-the epoch log."""
+"""What a task's main() shares (`xfm_tpu/tasks/common.py`): the config
+(`--bs` as the global batch), the output directory, the seed and the
+device; the train state built from the YAML, the step (with gradient
+accumulation), one epoch of it over prefetched device batches, the
+checkpoints (by epoch or by step) and their resume, the step
+generators, and the log."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,13 +37,12 @@ class TaskContext:
                   ) -> "TaskContext":
         """The task YAML with `overrides`, its vision sub-config read (a
         missing relative path looked up under the repository's
-        configs/model), `--bs` (the global train batch: one device a
-        process, so the batch itself) and `--epoch` applied, and the result
-        dumped to <output_dir>/config.yaml."""
+        configs/model), `--bs` (`scale_batch`) and `--epoch` applied, and
+        the result dumped to <output_dir>/config.yaml."""
         cfg = load_config(args.config, overrides)
         cfg = resolve_vision_config(cfg, config_root=_CONFIG_ROOT)
-        if getattr(args, "bs", None) and "batch_size_train" in cfg:
-            cfg["batch_size_train"] = args.bs
+        if getattr(args, "bs", None):
+            scale_batch(cfg, args.bs)
         if getattr(args, "epoch", None):
             cfg.setdefault("schedular", {})["epochs"] = args.epoch
         out = getattr(args, "output_dir", "output")
@@ -51,6 +51,29 @@ class TaskContext:
             dump_config(cfg, os.path.join(out, "config.yaml"))
         return cls(config=cfg, out_dir=out, seed=getattr(args, "seed", 42),
                    device=getattr(args, "device", "cuda"))
+
+
+def world_size() -> int:
+    """The process group's size where one is initialized, else 1."""
+    import torch.distributed as dist
+
+    live = dist.is_available() and dist.is_initialized()
+    return dist.get_world_size() if live else 1
+
+
+def scale_batch(cfg: dict, global_bs: int,
+                n_processes: Optional[int] = None) -> None:
+    """`--bs` as the global batch (`xfm_tpu/tasks/common.py` `_scale_batch`):
+    divided over the processes (one card each; the world size by default)
+    into `batch_size_train` and the `batch_size` of the stream blocks
+    `images`, `texts`, `regions` and `images_imagenet`, where the YAML has
+    them."""
+    n = n_processes or world_size()
+    for key in ("images", "texts", "regions", "images_imagenet"):
+        if isinstance(cfg.get(key), dict) and "batch_size" in cfg[key]:
+            cfg[key]["batch_size"] = max(1, global_bs // n)
+    if "batch_size_train" in cfg:
+        cfg["batch_size_train"] = max(1, global_bs // n)
 
 
 def accum_steps_from_config(cfg: dict) -> int:
@@ -81,40 +104,47 @@ def build_state(ctx: TaskContext, model: torch.nn.Module,
     return TrainState.create(model, opt), sched
 
 
-def save_epoch_checkpoint(ctx: TaskContext, state: TrainState, epoch: int,
-                          name: str = "ckpt", keep: int = 2) -> None:
-    """The state under <out>/<name>/<epoch>, the newest `keep` kept."""
+def save_task_checkpoint(ctx: TaskContext, state: TrainState, index: int,
+                         name: str = "ckpt", keep: int = 2) -> None:
+    """The state under <out>/<name>/<index> (an epoch of the fine-tune, a
+    step of the pretrain task), the newest `keep` kept."""
     from ..train.checkpoint import save_checkpoint
 
     if is_main_process():
-        save_checkpoint(os.path.join(ctx.out_dir, name), state, step=epoch,
+        save_checkpoint(os.path.join(ctx.out_dir, name), state, step=index,
                         keep=keep)
 
 
-def maybe_resume_epochs(ctx: TaskContext, state: TrainState):
-    """With `resume: true` in the YAML and an epoch saved under <out>/ckpt:
-    that state restored in place → (state, the next epoch); else (state,
-    0)."""
+def restore_latest(ctx: TaskContext, state: TrainState):
+    """With `resume: true` in the YAML and a save under <out>/ckpt: the
+    newest restored in place → (state, its index); else (state, None)."""
     from ..train.checkpoint import latest_step, restore_checkpoint
 
-    if not ctx.config.get("resume", False):
-        return state, 0
     ckpt_dir = os.path.join(ctx.out_dir, "ckpt")
     last = latest_step(ckpt_dir)
+    if not ctx.config.get("resume", False) or last is None:
+        return state, None
+    return restore_checkpoint(ckpt_dir, state, step=last), last
+
+
+def maybe_resume_epochs(ctx: TaskContext, state: TrainState):
+    """`restore_latest` for the fine-tune → (state, the epoch to run
+    next: 0 where nothing was restored)."""
+    state, last = restore_latest(ctx, state)
     if last is None:
         return state, 0
-    state = restore_checkpoint(ckpt_dir, state, step=last)
     if is_main_process():
         print(f"### resumed fine-tune from epoch {last}, continuing at "
               f"{last + 1}", flush=True)
     return state, last + 1
 
 
-def step_generator(ctx: TaskContext, epoch: int) -> torch.Generator:
-    """The generator of an epoch's steps (dropout masks and hard
-    negatives), on the task's device, seeded from (seed, epoch): a resumed
-    epoch draws what the epoch it replaces drew."""
-    seed = int(np.random.SeedSequence([ctx.seed, epoch]).generate_state(
+def step_generator(ctx: TaskContext, *key: int) -> torch.Generator:
+    """A generator of dropout masks and hard negatives on the task's
+    device, seeded from (seed, *key): the fine-tune's from (seed, epoch),
+    a pretrain stream's from (seed, step, stream index), so that a resumed
+    run draws what the run it replaces drew."""
+    seed = int(np.random.SeedSequence([ctx.seed, *key]).generate_state(
         1, np.uint64)[0])
     return torch.Generator(device=ctx.device).manual_seed(seed)
 

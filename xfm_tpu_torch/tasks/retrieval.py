@@ -37,7 +37,7 @@ from ..train.checkpoint import init_weights
 from ..train.train_state import retrieval_loss_fn
 from .common import (TaskContext, append_log, build_state, is_main_process,
                      make_task_step, maybe_resume_epochs,
-                     save_epoch_checkpoint, step_generator, train_epoch)
+                     save_task_checkpoint, step_generator, train_epoch)
 
 
 def _device_of(model) -> torch.device:
@@ -301,9 +301,9 @@ def main(args):
         append_log(ctx.out_dir, {"epoch": epoch, **stats, **metrics})
         if is_main_process():
             print(f"epoch {epoch}: {metrics}", flush=True)
-        save_epoch_checkpoint(ctx, state, epoch)
+        save_task_checkpoint(ctx, state, epoch)
         if metrics["r_mean"] > best:
             best = metrics["r_mean"]
-            save_epoch_checkpoint(ctx, state, epoch, name="ckpt_best",
+            save_task_checkpoint(ctx, state, epoch, name="ckpt_best",
                                   keep=1)
     return {"best_r_mean": best}

@@ -79,10 +79,41 @@ def make_accum_train_step(loss_fn: Callable, accumulate_steps: int):
     return step
 
 
+def make_stream_step(loss_fn: Callable):
+    """The multi-stream pretrain step. loss_fn(model, name, batch,
+    generator) -> (the stream's weighted scalar loss, aux dict).
+
+    Returns step(state, batches, generators) -> (state, metrics): for each
+    stream of `batches` ({name: batch}) in the order of its name, the
+    forward and at once the backward of its loss with its generator
+    (`generators[name]`), the gradients summing in `.grad`, so that one
+    stream's activations are freed before the next stream runs; then one
+    optimizer update (the clip sees the summed gradient). This is the
+    gradient of the summed loss that the JAX package differentiates in
+    one pass. metrics = {loss (the sum), grad_norm, **each stream's
+    aux}, detached device tensors."""
+
+    def step(state: TrainState, batches, generators):
+        _zero_grads(state.model)
+        total, metrics = None, {}
+        for name in sorted(batches):
+            loss, aux = loss_fn(state.model, name, batches[name],
+                                generators[name])
+            loss.backward()
+            loss = loss.detach()
+            total = loss if total is None else total + loss
+            metrics.update({k: v.detach() for k, v in aux.items()})
+        g_norm = state.apply_gradients()
+        return state, dict(loss=total, grad_norm=g_norm, **metrics)
+
+    return step
+
+
 def pretrain_loss_fn(model, batch, generator=None):
-    """Sum of the four pretrain losses of `XFMForPretrain.loss` (the JAX
-    package's `__graft_entry__._loss_fn`), deterministic."""
-    out = model.loss(**batch, generator=generator, deterministic=True)
+    """Sum of the four pretrain losses of `XFMForPretrain.loss` with MIM on
+    (the JAX package's `__graft_entry__._loss_fn`), deterministic."""
+    out = model.loss(**batch, ret_mim=True, generator=generator,
+                     deterministic=True)
     total = (out["loss_itc"] + out["loss_itm"] + out["loss_mlm"]
              + out["loss_mim"])
     return total, out
