@@ -146,6 +146,27 @@ Phases, each of which must pass or the script exits non-zero:
      pretrain_streams` (the step at the YAML's batch sizes on device
      batches: busy time by group, idle share, peak memory under 80 GB,
      K1 36 + 36 a step and each stream's own launches);
+ 20. VQA at 480 px: K2 forward and backward against the plain version at
+     the VQA step's shape, qkv [16, 901, 2304] (window 30 x 30), in bf16
+     and f32, the bf16 backward bit-equal over two runs, the times, the
+     bound and SDPA with the bias as a mask; `XFMForVQA`'s loss, sampled
+     gradients and `rank` (the top 128 of 3,129 answers) at full width,
+     depth 2, f32, on the CPU and on the card (K2 2 + 2 in the loss and 2
+     in the rank); then `run.main` (the entry point of `python3 -m
+     xfm_tpu_torch.run --task vqa`) on `VQA.yaml`'s keys over seeded PNGs
+     of 400-640 px (32 train rows of VQA and Visual Genome, 16 test
+     questions with answers, a 3,129-answer list), `--bs 16 --epoch 2`,
+     `start_eval: 0`, `resume: true`: each step's seconds, loss (finite)
+     and launches (K2 12 + 12, nothing else), each eval's (K2 12 a batch
+     of 16, nothing else) and its result file (one answer a question);
+     `ckpt/1` deleted and the command again (the restored state bit-equal
+     to `ckpt/0`, the first loss bit-equal to the first run's); then
+     `--evaluate --checkpoint` from the run's own checkpoint and from a
+     pretrain-format state dict (the decoder from the fusion encoder),
+     each with its accuracies; the directory deleted; then `profile_step`
+     `vqa_rank` and `vqa_train` at the YAML's sizes (busy time by group,
+     idle share, peak memory under 80 GB, K2 12 a rank and 12 + 12 a
+     step);
 then a JSON line of the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
@@ -1625,6 +1646,388 @@ def pretrain_kernel_entries(err192, t192, w192, err80, t80, w80,
     return out
 
 
+# --- phase 20: VQA -----------------------------------------------------------
+
+# phase-20 tolerance of the rank's probabilities, CPU vs card (f32)
+RANK_PROB_ATOL = 1e-4
+VQA_WINDOW = (30, 30)  # 480 px / 16
+
+
+def vqa_slice_parity(B=2, k=128, n_answers=3129) -> None:
+    """f32, full width, depth 2 (2 BEiT, 2 text, 2 fusion and 2 decoder
+    layers), 480 px, the full vocabulary: `XFMForVQA.loss` and sampled
+    gradients and `rank` (k of a seeded `n_answers` list) on the CPU and on
+    the card from the same weights and batch: losses within
+    SLICE_LOSS_RTOL, gradients within SLICE_GRAD_RTOL of their max, the
+    top-k ids equal and their probabilities within RANK_PROB_ATOL. On the
+    card K2 runs 2 + 2 times in the loss and 2 in the rank, nothing else of
+    K1-K5."""
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.models import XFMForVQA
+    from xfm_tpu_torch.ops import kernels
+
+    cfg = configs.vqa_yaml(layers=2, compute_dtype="float32")
+    cpu = build_model(XFMForVQA.from_yaml, cfg, "cpu", seed=3)
+    gpu = build_model(XFMForVQA.from_yaml, cfg, "cpu", seed=3).to("cuda")
+    vocab = cpu.config.text.vocab_size
+    nb = configs.make_vqa_batch(B, 40, 4, 10, 480, vocab, seed=1)
+    ans = configs.make_answer_list(n_answers, 10, vocab, seed=2)
+    sample = ["vision_encoder.blocks.0.attn.qkv.weight",
+              "vision_encoder.blocks.1.attn.relative_position_bias_table",
+              "vision_encoder.patch_embed.proj.weight",
+              "text_encoder.roberta.encoder.layer.0.attention.self.query."
+              "weight",
+              "fusion_encoder.roberta.encoder.layer.1.crossattention.self."
+              "key.weight",
+              "text_decoder.roberta.encoder.layer.0.attention.self.query."
+              "weight",
+              "text_decoder.roberta.encoder.layer.1.crossattention.self."
+              "value.weight",
+              "text_decoder.lm_head.dense.weight",
+              "text_decoder.roberta.embeddings.word_embeddings.weight"]
+    res = {}
+    for tag, model, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+        batch = configs.batch_to_torch(nb, dev)
+        kernels.reset_launch_counts()
+        loss = model.loss(**batch)
+        loss.backward()
+        train_launches = dict(kernels.LAUNCHES)
+        kernels.reset_launch_counts()
+        ids, probs = model.rank(batch["images"], batch["q_ids"],
+                                batch["q_atts"],
+                                *(torch.from_numpy(a).long().to(dev)
+                                  for a in ans), k)
+        res[tag] = (loss.item(), dict(model.named_parameters()), ids.cpu(),
+                    probs.cpu(), train_launches, dict(kernels.LAUNCHES))
+    (lc, pc, ic, qc, _, _), (lg, pg, ig, qg, tl, rl) = res["cpu"], res["cuda"]
+    print(f"  vqa slice launches: loss {json.dumps(tl)}, rank "
+          f"{json.dumps(rl)}")
+    want = {n: 0 for n in tl}
+    want.update(relpos_attention_fwd=2, relpos_attention_bwd=2)
+    if tl != want or rl != dict(want, relpos_attention_bwd=0):
+        raise AssertionError("vqa slice: launches")
+    ok = math.isclose(lc, lg, rel_tol=SLICE_LOSS_RTOL)
+    print(f"  vqa slice loss: cpu={lc:.6f} cuda={lg:.6f} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("vqa slice: loss")
+    for n in sample:
+        a, b = pc[n].grad.float(), pg[n].grad.float().cpu()
+        err = (a - b).abs().max().item()
+        tol = SLICE_GRAD_RTOL * a.abs().max().item()
+        print(f"  vqa slice grad {n}: max_abs_err={err:.3e} tol={tol:.3e}")
+        if not err <= tol:
+            raise AssertionError(f"vqa slice: grad {n}")
+    perr = (qc - qg).abs().max().item()
+    same = torch.equal(ic, ig)
+    print(f"  vqa slice rank (k {k} of {n_answers}): ids equal {same}, "
+          f"probabilities max_abs_err={perr:.3e} tol={RANK_PROB_ATOL:.0e}; "
+          f"top-1 {ig[:, 0].tolist()} at {qg[:, 0].tolist()}")
+    if not (same and perr <= RANK_PROB_ATOL):
+        raise AssertionError("vqa slice: rank_answer")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+
+def _vqa_corpus(root, n_train=32, n_test=16, n_answers=3129, seed=0):
+    """Seeded PNGs of 400-640 px a side under root/coco and root/vg; train
+    rows of both datasets (VQA rows with 10 human answers from a few, VG
+    rows one answer), test rows with question ids (half a list of human
+    answers, half one answer); an answer list of `n_answers`: the answers
+    used, then two-word answers → {train, test, answers, vqa_root,
+    vg_root}."""
+    from PIL import Image
+
+    r = np.random.RandomState(seed)
+    words = ["what", "is", "the", "man", "dog", "cat", "holding", "color",
+             "of", "how", "many", "are", "there", "on", "left", "right",
+             "sky", "car", "street", "wearing"]
+    vocab = ["yes", "no", "red", "blue", "two", "three", "white", "black",
+             "green", "frisbee", "pizza", "left", "right", "tennis", "dog",
+             "cat", "grass", "water", "snow", "table", "umbrella", "kite",
+             "bus", "train", "horse", "bike", "phone", "hat", "shirt",
+             "wood"]
+    answers = vocab[:12]
+    pairs = [f"{a} {b}" for a in vocab for b in vocab if a != b]
+    answer_list = answers + [p for p in pairs][: n_answers - len(answers)]
+    paths = {"vqa_root": os.path.join(root, "coco"),
+             "vg_root": os.path.join(root, "vg")}
+    for d in ("vqa_root", "vg_root"):
+        os.makedirs(paths[d], exist_ok=True)
+    train, test = [], []
+    for i in range(n_train + n_test):
+        ds = "vg" if (i % 3 == 2 and i < n_train) else "vqa"
+        h, w = r.randint(400, 641, 2)
+        yy, xx = np.mgrid[0:h, 0:w]
+        wave = np.sin(xx * r.uniform(0.01, 0.1) + yy * r.uniform(0.01, 0.1))
+        arr = (r.randint(0, 256, 3) + 60 * wave[..., None]
+               * r.uniform(-1, 1, 3) + r.normal(0, 12, (h, w, 3)))
+        name = f"img{i}.png"
+        Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+            os.path.join(paths["vg_root" if ds == "vg" else "vqa_root"],
+                         name))
+        q = " ".join(r.choice(words, 4 + i % 6)) + "?"
+        if i < n_train:
+            ans = (str(r.choice(answers)) if ds == "vg" else
+                   [str(a) for a in r.choice(answers[:2 + i % 6], 10)])
+            train.append({"image": name, "question": q, "answer": ans,
+                          "dataset": ds})
+        else:
+            ans = ([str(a) for a in r.choice(answers, 10)] if i % 2
+                   else str(r.choice(answers)))
+            test.append({"image": name, "question": q, "answer": ans,
+                         "question_id": 10_000 + i, "dataset": "vqa"})
+    for name, obj in (("train", train), ("test", test),
+                      ("answers", answer_list)):
+        paths[name] = os.path.join(root, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(obj, f)
+    return paths
+
+
+def vqa_task_runs(root, bs=16, epochs=2, seed=0) -> dict:
+    """Phase 20's runs of `run.main` for `--task vqa` in `root` on
+    `VQA.yaml`'s keys over `_vqa_corpus` (`start_eval: 0`, `resume:
+    true`): the fine-tune; after deleting ckpt/<last>, the resumed one;
+    `--evaluate --checkpoint` from the run's own checkpoint; and from a
+    pretrain-format state dict (its params without `text_decoder.*`).
+    Each eval, epoch and step is recorded: seconds, launches, losses, the
+    lr each step took, the restored state against its file."""
+    import yaml
+
+    from xfm_tpu_torch import configs, run
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks import vqa
+
+    files = _vqa_corpus(root)
+    cfg = dict(configs.VQA, train_file=[files["train"]],
+               test_file=[files["test"]], answer_list=files["answers"],
+               vqa_root=files["vqa_root"], vg_root=files["vg_root"],
+               start_eval=0, resume=True)
+    cfg_path = os.path.join(root, "vqa.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    out = os.path.join(root, "out")
+    base = ["--task", "vqa", "--config", cfg_path, "--seed", str(seed)]
+    real = (vqa.evaluate, vqa.train_epoch, vqa.maybe_resume_epochs)
+    rec = {}
+
+    def evaluate(model, data, k, out_dir, tag=""):
+        _sync()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        path = real[0](model, data, k, out_dir, tag)
+        _sync()
+        with open(path) as f:
+            rows = json.load(f)
+        rec["evals"].append(dict(s=time.perf_counter() - t0, tag=tag,
+                                 launches=dict(kernels.LAUNCHES),
+                                 rows=len(rows),
+                                 questions=len({r["question_id"]
+                                                for r in rows})))
+        return path
+
+    def train_epoch(ctx, state, step_fn, loader, generator, epoch, sched,
+                    **kw):
+        steps = []
+
+        def step(state, batch, gen):
+            lr = state.optimizer.lr(state.optimizer.count)
+            _sync()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch, gen)
+            loss = metrics["loss"].item()
+            steps.append(dict(s=time.perf_counter() - t0, loss=loss, lr=lr,
+                              launches=dict(kernels.LAUNCHES)))
+            return state, metrics
+
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, stats = real[1](ctx, state, step, loader, generator, epoch,
+                               sched, **kw)
+        _sync()
+        rec["epochs"].append(dict(
+            epoch=epoch, s=time.perf_counter() - t0, steps=steps,
+            max_memory_allocated=torch.cuda.max_memory_allocated()))
+        return state, stats
+
+    def maybe_resume_epochs(ctx, state):
+        state, start = real[2](ctx, state)
+        if start:
+            saved = torch.load(os.path.join(out, "ckpt", str(start - 1),
+                                            "state.pt"),
+                               map_location="cuda", weights_only=True)
+            opt = state.optimizer
+            equal = (state.step == saved["step"]
+                     and opt.count == saved["optimizer"]["count"])
+            for name, p in zip(opt.names, opt.params):
+                equal &= torch.equal(p, saved["params"][name])
+            for key in ("mu", "nu"):
+                for name, t in zip(opt.names, getattr(opt, key)):
+                    equal &= torch.equal(t, saved["optimizer"][key][name])
+            rec["restored"] = dict(start=start, bit_equal=bool(equal),
+                                   count=opt.count)
+            del saved
+        return state, start
+
+    runs = {}
+    vqa.evaluate, vqa.train_epoch, vqa.maybe_resume_epochs = (
+        evaluate, train_epoch, maybe_resume_epochs)
+    last = os.path.join(out, "ckpt", str(epochs - 1), "state.pt")
+    pretrain_sd = os.path.join(root, "pretrain_format.pth")
+    try:
+        for name, argv in (
+                ("full", ["--output_dir", out, "--bs", str(bs), "--epoch",
+                          str(epochs)]),
+                ("resumed", ["--output_dir", out, "--bs", str(bs),
+                             "--epoch", str(epochs)]),
+                ("evaluate_vqa", ["--output_dir", out + "_ev1",
+                                  "--evaluate", "--checkpoint", last]),
+                ("evaluate_pretrain", ["--output_dir", out + "_ev2",
+                                       "--evaluate", "--checkpoint",
+                                       pretrain_sd])):
+            if name == "resumed":
+                runs["layout"] = sorted(os.listdir(os.path.join(out,
+                                                                "ckpt")))
+                runs["checkpoint_bytes"] = os.path.getsize(last)
+                shutil.rmtree(os.path.dirname(last))
+            if name == "evaluate_pretrain":
+                params = torch.load(last, map_location="cpu",
+                                    weights_only=True)["params"]
+                torch.save({"model": {k: v for k, v in params.items()
+                                      if not k.startswith("text_decoder.")}},
+                           pretrain_sd)
+                del params
+            rec = dict(evals=[], epochs=[])
+            t0 = time.perf_counter()
+            rec["result"] = run.main(base + argv)
+            rec["s"] = time.perf_counter() - t0
+            runs[name] = rec
+    finally:
+        vqa.evaluate, vqa.train_epoch, vqa.maybe_resume_epochs = real
+    runs["n_test"] = len(json.load(open(files["test"])))
+    runs["steps_per_epoch"] = len(json.load(open(files["train"]))) // bs
+    return runs
+
+
+def full_vqa_task(epochs=2) -> dict:
+    """Phase 20's task runs at full width on the card, checked: finite
+    losses; K2 12 + 12 a step and 12 an eval batch, nothing else; both
+    checkpoints written; the resume bit-equal to its file and its first
+    loss bit-equal to the first run's; every result file one answer a test
+    question; the accuracies reported. The directory is deleted at the
+    end."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="xfm_vqa_")
+    try:
+        runs = vqa_task_runs(root, epochs=epochs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    depth, n_test, spe = 12, runs["n_test"], runs["steps_per_epoch"]
+    names = list(runs["full"]["evals"][0]["launches"])
+    want_step = dict({n: 0 for n in names}, relpos_attention_fwd=depth,
+                     relpos_attention_bwd=depth)
+    want_eval = dict({n: 0 for n in names},
+                     relpos_attention_fwd=depth * -(-n_test // 16))
+    for name in ("full", "resumed", "evaluate_vqa", "evaluate_pretrain"):
+        r = runs[name]
+        print(f"  {name}: {r['s']:.1f} s, result {json.dumps(r['result'])}")
+        for e in r["evals"]:
+            print(f"    eval {e['tag'] or 'final'}: {e['s']:.2f} s, "
+                  f"{e['rows']} answers, launches {json.dumps(e['launches'])}")
+            if (e["launches"] != want_eval or e["rows"] != n_test
+                    or e["questions"] != n_test):
+                raise AssertionError(f"{name} eval: launches or rows")
+        for e in r["epochs"]:
+            print(f"    epoch {e['epoch']}: {e['s']:.2f} s, peak memory "
+                  f"{e['max_memory_allocated']} B, step s "
+                  f"{[round(x['s'], 4) for x in e['steps']]}, losses "
+                  f"{[x['loss'] for x in e['steps']]}")
+            if len(e["steps"]) != spe or any(
+                    x["launches"] != want_step or not math.isfinite(
+                        x["loss"]) for x in e["steps"]):
+                raise AssertionError(f"{name} epoch {e['epoch']}: steps, "
+                                     f"launches or losses")
+        if not {"vqa_acc_exact", "vqa_acc_official"} <= set(r["result"]):
+            raise AssertionError(f"{name}: no accuracies")
+    full, resumed = runs["full"], runs["resumed"]
+    restored = resumed.get("restored", {})
+    print(f"  checkpoints {runs['layout']}, {runs['checkpoint_bytes']} B "
+          f"each; resume {json.dumps(restored)}")
+    a = [x["loss"] for x in full["epochs"][-1]["steps"]]
+    b = [x["loss"] for x in resumed["epochs"][0]["steps"]]
+    print(f"  last epoch's losses, first run {a}, resumed {b}")
+    if (runs["layout"] != [str(i) for i in range(epochs)]
+            or len(full["epochs"]) != epochs
+            or [e["tag"] for e in full["evals"]]
+            != [f"epoch{i}" for i in range(epochs - 1)] + [""]
+            or not restored.get("bit_equal")
+            or restored["start"] != epochs - 1
+            or [e["epoch"] for e in resumed["epochs"]] != [epochs - 1]
+            or a[0] != b[0]
+            or full["epochs"][-1]["steps"][0]["lr"]
+            != resumed["epochs"][0]["steps"][0]["lr"]):
+        raise AssertionError("the VQA run's checkpoints, evals or resume")
+    return dict(step_s=[x["s"] for e in full["epochs"] for x in e["steps"]],
+                epoch_s=[e["s"] for e in full["epochs"]],
+                eval_s=[e["s"] for n in ("full", "evaluate_vqa",
+                                         "evaluate_pretrain")
+                        for e in runs[n]["evals"]],
+                run_s={n: runs[n]["s"] for n in ("full", "resumed",
+                                                  "evaluate_vqa",
+                                                  "evaluate_pretrain")},
+                max_memory_allocated=max(e["max_memory_allocated"]
+                                         for e in full["epochs"]),
+                checkpoint_bytes=runs["checkpoint_bytes"],
+                accuracy={n: runs[n]["result"] for n in (
+                    "full", "evaluate_vqa", "evaluate_pretrain")})
+
+
+def vqa_phase():
+    """Phase 20 → (K2's errors, times and bound at qkv [16, 901, 2304],
+    `profile_step.profile_vqa`'s units)."""
+    from xfm_tpu_torch import profile_step
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    k2v_shape = dict(B=16, window=VQA_WINDOW, H=12)
+    k2vw = k2_work(B=16, N=901, H=12, D=64, window=VQA_WINDOW, dtype=bf16)
+    k2v_err = k2_parity(**k2v_shape, dtype=bf16, seed=50)
+    k2_parity(**k2v_shape, dtype=f32, seed=51)
+    k2_deterministic(**k2v_shape, dtype=bf16, seed=52)
+    k2v_t = k2_times(**k2v_shape, dtype=bf16)
+    print("  K2 B=16 N=901 times (ms): " + json.dumps(k2v_t))
+    print("  K2 B=16 N=901 bound (k2_work): " + json.dumps(k2vw))
+    vqa_slice_parity()
+    vt = full_vqa_task()
+    print("  vqa task: " + json.dumps(vt))
+    vprof = profile_step.profile_vqa(os.path.join(
+        REPO, "build", "xfm_tpu_torch", "profile_vqa.json"))
+    for unit, r in vprof.items():
+        top = r.pop("top")
+        print(f"  {unit} profile: " + json.dumps(r))
+        for name, ms, n in top[:10]:
+            print(f"    {ms:9.3f} ms/call {n:6d} calls/call  {name}")
+        want = dict({k: 0 for k in r["launches"]}, relpos_attention_fwd=12,
+                    relpos_attention_bwd=12 if unit == "vqa_train" else 0)
+        if (r["launches"] != want or r["max_memory_allocated"] >= 80e9
+                or not math.isfinite(r.get("loss", 0.0))):
+            raise AssertionError(f"{unit}: launches, peak memory or loss")
+    return k2v_err, k2v_t, k2vw, vprof
+
+
+def vqa_kernel_entries(err, times, work, launches) -> list:
+    """K2's `kernels` entries at the VQA step's shape (qkv [16, 901, 2304]
+    bf16), their launches a step from `profile_step vqa_train`."""
+    return [dict(e, name=e["name"] + "_vqa_b16_480px")
+            for e in kernel_entries(
+                "relpos_attention", "xfm_tpu/ops/flash_attention.py", 689,
+                717, "xfm_tpu_torch/csrc/relpos_attention.cu", err,
+                ("dqkv", "dcr", "dcls"), times, work, launches)]
+
+
 LN_EPS = 1e-6
 
 
@@ -2274,6 +2677,10 @@ def main() -> int:
         raise AssertionError("pretrain_streams: launches, peak memory or "
                              "losses")
 
+    print("phase 20: VQA at 480 px: K2 at the step's shape, the slice, "
+          "the task and its profile")
+    k2v_err, k2v_t, k2vw, vprof = vqa_phase()
+
     entries = (kernel_entries("packed_attention",
                               "xfm_tpu/ops/flash_attention.py", 983, 1007,
                               "xfm_tpu_torch/csrc/packed_attention.cu",
@@ -2300,8 +2707,10 @@ def main() -> int:
                + eval_kernel_entries(k2e_err, k2e_t, k2ew, k3g_err, k3g_t,
                                      k3gw, ev["launches"])
                + pretrain_kernel_entries(*k1_new[192], *k1_new[80],
-                                         prof["launches_by_stream"]))
-    print(f"chip_smoke: 19 phases in {time.perf_counter() - t_start:.1f} s")
+                                         prof["launches_by_stream"])
+               + vqa_kernel_entries(k2v_err, k2v_t, k2vw,
+                                    vprof["vqa_train"]["launches"]))
+    print(f"chip_smoke: 20 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -113,6 +113,7 @@ def _relpos_inputs(B, window, H, dtype, seed):
 @pytest.mark.parametrize("B,window,H", [
     (3, (3, 5), 4), (2, (7, 11), 2), (2, (24, 24), 12), (1, (30, 30), 4),
     (2, (30, 30), 12),   # 480 px: N = 901, the model's heads
+    (16, (30, 30), 12),  # the VQA step at 480 px, its batch of 16
     (4, (3, 5), 12),     # N = 16, shorter than one tile
     (2, (20, 30), 2),    # N = 601: ww > wh, tails on both sides
 ])
@@ -966,3 +967,48 @@ def test_pretrain_stream_launches_k1_per_image_stream(stream, rows,
         want.update(packed_attention_fwd=2, packed_attention_bwd=2)
     assert kernels.LAUNCHES == want
     assert seen == [rows] * (2 if rows else 0)
+
+
+@pytest.mark.cuda
+def test_vqa_step_and_rank_launch_k2_only():
+    """The VQA step at full width and depth (12 BEiT blocks at 480 px, bf16,
+    dropout and drop-path live, B = 2): K2 12 + 12 launches and nothing
+    else; the rank of its questions (the top 16 of 200 answers): K2 12
+    forward and nothing else, the probabilities in descending order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.ops import kernels
+
+    state, batch, step, rank = configs.make_vqa_run(B=2, k_test=16,
+                                                    n_answers=200)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    none = {k: 0 for k in kernels.LAUNCHES}
+    kernels.reset_launch_counts()
+    state, m = step(state, batch, gen)
+    assert dict(kernels.LAUNCHES) == dict(none, relpos_attention_fwd=12,
+                                          relpos_attention_bwd=12)
+    assert torch.isfinite(m["loss"])
+    kernels.reset_launch_counts()
+    ids, probs = rank()
+    assert dict(kernels.LAUNCHES) == dict(none, relpos_attention_fwd=12)
+    assert ids.shape == probs.shape == (2, 16)
+    assert (probs[:, :-1] >= probs[:, 1:]).all()
+
+
+@pytest.mark.cuda
+def test_stable_topk_on_the_card_breaks_ties_by_lower_index():
+    """`rank_answer`'s top-k on the card: the CPU's values and indices, and
+    within a run of equal values the indices rising."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch.models.generation import stable_topk
+
+    r = np.random.RandomState(0)
+    x = torch.from_numpy(r.randint(0, 20, (16, 3129)).astype(np.float32))
+    vals, idx = stable_topk(x.cuda(), 128)
+    cpu_vals, cpu_idx = stable_topk(x, 128)
+    assert torch.equal(idx.cpu(), cpu_idx)
+    assert torch.equal(vals.cpu(), cpu_vals)
+    same = vals[:, 1:] == vals[:, :-1]
+    assert same.any() and (idx[:, 1:][same] > idx[:, :-1][same]).all()

@@ -178,7 +178,9 @@ def test_port_imports_neither_jax_nor_xfm_tpu():
         " 'xfm_tpu_torch.tasks.pretrain', 'xfm_tpu_torch.data.io',"
         " 'xfm_tpu_torch.data.jsonl', 'xfm_tpu_torch.data.block_masking',"
         " 'xfm_tpu_torch.data.text_masking',"
-        " 'xfm_tpu_torch.data.pretrain_data'}\n"
+        " 'xfm_tpu_torch.data.pretrain_data',"
+        " 'xfm_tpu_torch.models.generation', 'xfm_tpu_torch.tasks.vqa',"
+        " 'xfm_tpu_torch.eval', 'xfm_tpu_torch.eval.vqa_eval'}\n"
         "lazy = ('PIL', 'yaml', 'transformers')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'flax', 'optax', 'xfm_tpu') + lazy]\n"

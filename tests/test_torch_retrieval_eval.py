@@ -365,4 +365,4 @@ def test_run_evaluate_matches_jax_with_checkpoint(models, tmp_path):
     assert ft["best_r_mean"] >= log[0]["r_mean"]
     assert (tmp_path / "ft" / "ckpt" / "0" / "state.pt").exists()
     with pytest.raises(SystemExit):
-        run.main(["--task", "vqa", "--config", str(cfg_path)])
+        run.main(["--task", "coco_captioning", "--config", str(cfg_path)])

@@ -7,7 +7,9 @@ retrieval eval's configuration (`configs/xfm-ft/Retrieval_coco.yaml`, kept
 here as a dict so that no YAML reader is needed) and a seeded in-memory
 corpus with `RetrievalEvalData`'s interface; the pretrain task's
 configuration (`configs/xfm-pt/Pretrain_base_4m.yaml`, read as data) and
-its four-stream step on seeded device batches at the YAML's sizes."""
+its four-stream step on seeded device batches at the YAML's sizes; and
+VQA's (`configs/xfm-ft/VQA.yaml`, kept as a dict), its fine-tune step and
+its answer ranking on seeded device batches at the YAML's sizes."""
 from __future__ import annotations
 
 import os
@@ -18,6 +20,7 @@ import torch
 
 from .models.beit2 import VisionConfig
 from .models.clip_vit import ClipVisionConfig
+from .models.generation import XFMForVQA
 from .models.task_models import XFMForPretrain, XFMForRetrieval
 from .models.text_encoder import TextConfig
 from .models.xfm import XFMConfig, config_from_yaml
@@ -25,7 +28,8 @@ from .train.checkpoint import init_weights
 from .train.optim import create_optimizer, create_optimizer_from_config
 from .train.schedules import linear_warmup_decay, schedule_from_config
 from .train.train_state import (TrainState, make_train_step,
-                                pretrain_loss_fn, retrieval_loss_fn)
+                                pretrain_loss_fn, retrieval_loss_fn,
+                                vqa_loss_fn)
 
 
 def _env_flag(value: Optional[bool], name: str) -> bool:
@@ -514,3 +518,139 @@ def make_pretrain_streams_run(device="cuda", seed: int = 0,
             seed * 1000 + 10 * i + j) for j, n in enumerate(order)}
 
     return state, batches, make_stream_step(loss_fn), generators
+
+
+# configs/xfm-ft/VQA.yaml, key for key (a CPU test holds the two equal)
+VQA = {
+    "train_file": ["data/finetune/vqa_train.json",
+                   "data/finetune/vqa_nominival.json",
+                   "data/finetune/vg_qa.json"],
+    "test_file": ["data/finetune/vqa_test.json"],
+    "answer_list": "data/finetune/answer_list.json",
+    "vqa_root": "data/coco", "vg_root": "data/visualgenome",
+    "use_beit_v2": True,
+    "vision_config": "configs/model/config_beit2_base.json",
+    "image_res": 480, "patch_size": 16, "local_attn_depth": -1,
+    "text_encoder": "data/roberta-base",
+    "text_num_hidden_layers": 12, "text_fusion_start_at": 12,
+    "fusion_num_hidden_layers": 12, "fusion_fusion_start_at": 0,
+    "num_dec_layers": 12, "decoder_fusion_start_at": 0, "pad_token_id": 1,
+    "k_test": 128, "batch_size_train": 16, "batch_size_test": 16,
+    "parallel": {"data": -1, "fsdp": 1, "tensor": 1},
+    "optimizer": {"opt": "adamW", "lr": 3.0e-5, "weight_decay": 0.01,
+                  "lr_mult": 2},
+    "schedular": {"sched": "linear", "lr": 3.0e-5, "epochs": 8,
+                  "num_warmup_steps": 0.1},
+    "accelerator": {"RNG_SEED": 42},
+}
+
+
+def vqa_yaml(image_res: int = 480, layers: Optional[int] = None,
+             **keys) -> dict:
+    """`VQA` at `image_res`, every encoder and the decoder cut to `layers`
+    where given, `keys` set on top."""
+    cfg = dict(VQA, image_res=image_res)
+    if layers:
+        cfg.update(text_num_hidden_layers=layers, text_fusion_start_at=layers,
+                   fusion_num_hidden_layers=layers, num_dec_layers=layers,
+                   vision_depth=layers)
+    cfg.update(keys)
+    return cfg
+
+
+def _token_rows(r, n: int, T: int, vocab: int, min_len: int,
+                pad_id: int = 1):
+    """n rows of cls (0), 1..T-2 tokens from [5, vocab - 1), sep (2) and
+    pads, each row min_len..T long → (ids, atts) int32."""
+    lens = r.randint(min_len, T + 1, n)
+    atts = (np.arange(T)[None] < lens[:, None]).astype(np.int32)
+    ids = r.randint(5, vocab - 1, (n, T)).astype(np.int32)
+    ids[:, 0] = 0
+    ids[np.arange(n), lens - 1] = 2
+    return np.where(atts == 1, ids, pad_id).astype(np.int32), atts
+
+
+def make_vqa_batch(B: int = 16, T: int = 40, max_answers: int = 4,
+                   L: int = 10, image_res: int = 480, vocab: int = 50265,
+                   seed: int = 0) -> Dict[str, np.ndarray]:
+    """A seeded batch of `VQAData`'s train layout: normal-random images,
+    questions of 6..T tokens, B · max_answers answers of 3..L tokens, each
+    question with 1..max_answers real answers weighted by count / n (their
+    weights summing to 1) and pads of weight 0 after them, `ques_idx` each
+    row's question."""
+    r = np.random.RandomState(seed)
+    q_ids, q_atts = _token_rows(r, B, T, vocab, 6)
+    a_ids, a_atts = _token_rows(r, B * max_answers, L, vocab, 3)
+    weights = np.zeros((B, max_answers), np.float32)
+    for b in range(B):
+        n = r.randint(1, max_answers + 1)
+        weights[b, :n] = r.dirichlet(np.ones(n))
+    pad = weights.reshape(-1) == 0
+    a_ids[pad, 1:], a_atts[pad, 2:] = 1, 0
+    a_ids[pad, 1] = 2
+    return dict(images=r.randn(B, image_res, image_res, 3).astype(np.float32),
+                q_ids=q_ids, q_atts=q_atts, answer_ids=a_ids,
+                answer_atts=a_atts, weights=weights.reshape(-1),
+                ques_idx=np.repeat(np.arange(B, dtype=np.int32),
+                                   max_answers))
+
+
+def make_answer_list(n: int = 3129, L: int = 10, vocab: int = 50265,
+                     seed: int = 0):
+    """A seeded answer list as `VQAData.encode_answer_list` returns one:
+    (ids, atts) [n, L], 1..L-2 tokens between cls and sep."""
+    return _token_rows(np.random.RandomState(seed), n, L, vocab, 3)
+
+
+def make_vqa_run(B: int = 16, T: int = 40, max_answers: int = 4,
+                 L: int = 10, k_test: int = 128, n_answers: int = 3129,
+                 device="cuda", seed: int = 0, steps_per_epoch: int = 1000,
+                 **keys):
+    """The step and the eval batch of `run.py --task vqa` on `VQA.yaml`
+    (`keys` set on top): XFM-base with its 12-layer answer decoder at
+    480 px, the full RoBERTa vocabulary, bf16 compute, random weights from
+    `seed`; HF-AdamW and the schedule from the YAML's blocks; the step with
+    dropout and drop-path live on a `make_vqa_batch` on the device; the
+    rank of that batch's questions against a `make_answer_list` of
+    `n_answers`, top `k_test`. → (state, batch, step, rank) with
+    step(state, batch, generator) -> (state, metrics) and rank() ->
+    (top-k ids, their probabilities)."""
+    import functools
+
+    cfg = vqa_yaml(**keys)
+    model = XFMForVQA.from_yaml(cfg).to(device)
+    init_weights(model, seed)
+    sched = schedule_from_config(cfg, steps_per_epoch)
+    state = TrainState.create(model, create_optimizer_from_config(
+        model, cfg, sched))
+    c = model.config
+    batch = batch_to_torch(make_vqa_batch(B, T, max_answers, L,
+                                          c.vision.image_res,
+                                          c.text.vocab_size, seed), device)
+    ans_ids, ans_atts = (torch.from_numpy(a).long().to(device) for a in
+                         make_answer_list(n_answers, L, c.text.vocab_size,
+                                          seed + 1))
+
+    def rank():
+        return model.rank(batch["images"], batch["q_ids"], batch["q_atts"],
+                          ans_ids, ans_atts, k_test)
+
+    return state, batch, make_train_step(functools.partial(
+        vqa_loss_fn, deterministic=False)), rank
+
+
+def vqa_step_flops(B: int, T: int, n_answers: int, L: int, patches: int,
+                   hidden=768, inter=3072, layers=12, dec_layers=12,
+                   vocab=50265) -> float:
+    """Model FLOPs of one VQA fine-tune step (forward + backward ≈ 3×
+    forward): the vision, text and fusion passes over B questions, the
+    decoder over the n_answers answers cross-attending to the T question
+    states, and the LM head over every answer position."""
+    Nv = patches + 1
+    fwd = (_transformer_flops(layers, hidden, inter, Nv, B)
+           + _transformer_flops(layers, hidden, inter, T, B)
+           + _transformer_flops(layers, hidden, inter, T, B, cross_kv=Nv)
+           + _transformer_flops(dec_layers, hidden, inter, L, n_answers,
+                                cross_kv=T)
+           + 2 * n_answers * L * hidden * (hidden + vocab))
+    return 3 * fwd

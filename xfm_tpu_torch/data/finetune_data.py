@@ -1,11 +1,12 @@
-"""The retrieval fine-tune's and eval's data (`xfm_tpu/data/finetune_data.py`
-`RetrievalTrainData`, `RetrievalEvalData`): annotation lists of the
-reference's json format → fixed-shape numpy batches."""
+"""The retrieval fine-tune's and eval's data and VQA's
+(`xfm_tpu/data/finetune_data.py` `RetrievalTrainData`, `RetrievalEvalData`,
+`VQAData`): annotation lists of the reference's json format → fixed-shape
+numpy batches."""
 from __future__ import annotations
 
 import json
 import os
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -122,3 +123,116 @@ class RetrievalEvalData:
         for s in range(0, len(self.text), batch_size):
             yield _encode_texts(self.tok, self.text[s:s + batch_size],
                                 self.max_tokens)
+
+
+class VQAData:
+    """VQA questions over images under two roots (`image_roots`: {"vqa":
+    ..., "vg": ...}, chosen by each annotation's `dataset`, "vqa" by
+    default). The train split yields each batch's answers in a fixed flat
+    layout of B · `max_answers` rows: a VQA question's distinct answers
+    weighted by count / number of answers, a Visual Genome question's one
+    answer at 0.5, pads of weight 0 after them, `ques_idx` naming each
+    row's question. The test split yields `question_id`s. `answer_list`:
+    the path of the json list of candidate answers the eval ranks."""
+
+    def __init__(self, ann_file, transform, image_roots, tokenizer,
+                 max_tokens=40, answer_max_tokens=10, batch_size=16,
+                 split="train", answer_list: Optional[str] = None,
+                 max_answers=4):
+        self.ann = _load_ann(ann_file)
+        self.transform = transform
+        self.image_roots = image_roots
+        self.tok = tokenizer
+        self.max_tokens = max_tokens
+        self.answer_max_tokens = answer_max_tokens
+        self.batch_size = batch_size
+        self.split = split
+        self.max_answers = max_answers
+        self.answer_list = None
+        if answer_list:
+            with open(answer_list) as f:
+                self.answer_list = json.load(f)
+
+    def __len__(self):
+        return len(self.ann)
+
+    def _image_path(self, a):
+        root = self.image_roots.get(a.get("dataset", "vqa"),
+                                    list(self.image_roots.values())[0])
+        return os.path.join(root, a["image"])
+
+    def encode_answer_list(self):
+        """The answer list as (ids, atts) [A, answer_max_tokens]: cls,
+        tokens, sep, pads. (The JAX package also builds each answer with
+        the sep token appended as text and then encodes the bare list; the
+        port encodes what that computes.)"""
+        return _encode_texts(self.tok, self.answer_list,
+                             self.answer_max_tokens)
+
+    @staticmethod
+    def _swap_left_right(text: str) -> str:
+        return " ".join("right" if w == "left" else "left" if w == "right"
+                        else w for w in text.split())
+
+    def epoch(self, epoch_seed=0) -> Iterator[dict]:
+        """One pass. Train: the order `np.random.default_rng(epoch_seed)`
+        shuffles and, from the same generator after the shuffle, one draw
+        an example for the careful flip (the image mirrored and left/right
+        swapped in the question and answers, at 0.5), the transform
+        reseeded from [epoch_seed, 1] first; a last partial batch is
+        dropped. Test: the file's order, the last batch kept."""
+        order = np.arange(len(self.ann))
+        rng = np.random.default_rng(epoch_seed)
+        train = self.split == "train"
+        if train:
+            rng.shuffle(order)
+            self.transform.reseed([epoch_seed, 1])
+        imgs, qs, ans_rows, qid_rows = [], [], [], []
+        for i in order:
+            a = self.ann[int(i)]
+            img = self.transform(decode_image(self._image_path(a)))
+            question = pre_caption(a["question"], 30)
+            if train and rng.random() < 0.5:
+                img = img[:, ::-1, :].copy()
+                question = self._swap_left_right(question)
+                if isinstance(a.get("answer"), list):
+                    a = dict(a, answer=[self._swap_left_right(x)
+                                        for x in a["answer"]])
+            imgs.append(img)
+            qs.append(question)
+            if train:
+                if a.get("dataset") == "vg":
+                    rows = [(a["answer"], 0.5)]
+                else:
+                    counts = {}
+                    for ans in a["answer"]:
+                        counts[ans] = counts.get(ans, 0) + 1
+                    rows = [(ans, c / len(a["answer"]))
+                            for ans, c in counts.items()]
+                ans_rows.append(rows)
+            else:
+                qid_rows.append(a["question_id"])
+            if len(imgs) == self.batch_size:
+                yield self._pack(imgs, qs, ans_rows, qid_rows)
+                imgs, qs, ans_rows, qid_rows = [], [], [], []
+        if imgs and not train:
+            yield self._pack(imgs, qs, ans_rows, qid_rows)
+
+    def _pack(self, imgs, qs, ans_rows, qid_rows):
+        q_ids, q_atts = _encode_texts(self.tok, qs, self.max_tokens)
+        out = dict(images=np.stack(imgs), q_ids=q_ids, q_atts=q_atts)
+        if self.split != "train":
+            out["question_id"] = np.asarray(qid_rows)
+            return out
+        K = self.max_answers
+        texts, weights, ques_idx = [], [], []
+        for b, rows in enumerate(ans_rows):
+            rows = rows[:K] + [("", 0.0)] * (K - len(rows[:K]))
+            texts += [t for t, _ in rows]
+            weights += [w for _, w in rows]
+            ques_idx += [b] * K
+        ids, atts = _encode_texts(self.tok, texts, self.answer_max_tokens)
+        out.update(answer_ids=ids, answer_atts=atts,
+                   weights=np.asarray(weights, np.float32),
+                   ques_idx=np.asarray(ques_idx, np.int32))
+        return out

@@ -2,7 +2,9 @@
 
 Parameter names are the reference torch names (`roberta.embeddings.*`,
 `roberta.encoder.layer.{i}.attention.self.query.*`, `lm_head.*` with the
-decoder tied to the word embeddings). No decode cache yet.
+decoder tied to the word embeddings). With `is_decoder` the self-attention
+is causal (the answer decoder of VQA), teacher-forced over whole
+sequences: there is no decode cache yet, and no `decode=` argument.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from torch import nn
 
 from ..core.precision import act_dense, dense, layer_norm, post_layer_norm
 from ..ops.activations import gelu
-from ..ops.attention import dot_product_attention, mask_to_bias
+from ..ops.attention import NEG_INF, dot_product_attention, mask_to_bias
 from ..ops.dropout import dropout
 
 
@@ -35,6 +37,7 @@ class TextConfig:
     pad_token_id: int = 1
     fusion_layer: int = 12          # first layer with cross-attention
     encoder_width: int = 768        # width of the cross-attended states
+    is_decoder: bool = False        # causal self-attention
     dtype: torch.dtype = torch.float32
     fused_ln: bool = False          # the post-LN sites through K4
     fused_mlp: bool = False         # output.dense through K5
@@ -102,8 +105,11 @@ class SelfAttention(nn.Module):
     and the B = U·gs hidden rows come in contiguous runs of gs per kv row:
     q is viewed, without a copy, as [U, gs·Nq, H, D] against the per-unique
     k/v (the retrieval rerank's formulation), and the bias's first row of
-    each group stands for the group. Unless `deterministic`, the
-    probabilities and the output projection take their dropouts."""
+    each group stands for the group. With the config's `is_decoder` the
+    self-attention is causal: a `tril` bias of 0 / −1e9 in f32 is added to
+    the mask's bias (a masked future key carries −2e9, as in the JAX
+    package). Unless `deterministic`, the probabilities and the output
+    projection take their dropouts."""
 
     def __init__(self, c: TextConfig, is_cross: bool = False):
         super().__init__()
@@ -132,6 +138,9 @@ class SelfAttention(nn.Module):
         if kv_row_idx is not None:
             k = k.index_select(0, kv_row_idx)
             v = v.index_select(0, kv_row_idx)
+        if c.is_decoder and not self.is_cross:
+            attention_bias = causal_bias(Nq, Nk, hidden.device,
+                                         attention_bias)
         if kv_group_size and self.is_cross:
             gs = int(kv_group_size)
             bias = attention_bias
@@ -281,6 +290,17 @@ class TextTransformer(nn.Module):
         return x
 
 
+def causal_bias(nq: int, nk: int, device,
+                attention_bias: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """The [1, 1, nq, nk] f32 bias of 0 on and below the diagonal and −1e9
+    above it, added to `attention_bias` where one is given."""
+    keep = torch.ones(nq, nk, dtype=torch.bool, device=device).tril()
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    bias = torch.where(keep, zero, zero + NEG_INF)[None, None]
+    return bias if attention_bias is None else attention_bias + bias
+
+
 def gather_positions(hidden: torch.Tensor,
                      positions: torch.Tensor) -> torch.Tensor:
     """[B, N, C] rows at positions [B, M] → [B, M, C]."""
@@ -296,3 +316,20 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     nll = -torch.take_along_dim(logp, safe[..., None], dim=-1)[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     return nll.sum() / valid.sum().clamp(min=1)
+
+
+def per_sample_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100,
+                       label_smoothing: float = 0.0) -> torch.Tensor:
+    """Per-sample summed LM loss over already shifted logits [N, L, V] and
+    labels [N, L] → [N]: the log-softmax in f32, each position's
+    −log p(label), with `label_smoothing` ε mixed as (1 − ε)·nll + ε·(−mean
+    log p), summed over the non-ignored positions."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.take_along_dim(logp, safe[..., None], dim=-1)[..., 0]
+    if label_smoothing > 0.0:
+        nll = ((1.0 - label_smoothing) * nll
+               - label_smoothing * logp.mean(dim=-1))
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum(dim=-1)

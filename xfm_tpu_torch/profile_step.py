@@ -3,7 +3,7 @@ on the card.
 
     python3 -m xfm_tpu_torch.profile_step
         [pretrain|pretrain_fused|retrieval|retrieval_train|clip_retrieval|
-         retrieval_eval|pretrain_streams] [--trace PATH]
+         retrieval_eval|pretrain_streams|vqa_train|vqa_rank] [--trace PATH]
 
 Runs the full-width step of the chosen path as `chip_smoke.py` does
 (pretrain: B = 48 at 224 px, the default; pretrain_fused: the same with the
@@ -39,7 +39,16 @@ the four streams' forward and backward one after another, dropout and
 drop-path live, one clipped HF-AdamW update. It prints the peak memory,
 the span, busy time and idle share a step, the groups, the kernels'
 launches a step, each stream's step alone (launches, busy time, groups)
-and the streams' losses. Needs a CUDA card.
+and the streams' losses.
+
+vqa_train profiles the step of `run.py --task vqa` on `VQA.yaml` (XFM-base
+with its 12-layer answer decoder at 480 px, bf16, the full vocabulary) at
+its batch of 16 questions and 64 answers of 10 tokens on seeded device
+batches, dropout and drop-path live; vqa_rank one eval batch of its 16
+questions through `XFMForVQA.rank` (the top 128 of a 3,129-answer list,
+decoded as 16 groups of 128). Each prints its peak memory, span, busy
+time, idle share, groups and the kernels' launches a call. Needs a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -244,12 +253,74 @@ def profile_pretrain_streams(trace: str, steps: int = STEPS,
     return res
 
 
+def profile_vqa(trace: str, units=("vqa_rank", "vqa_train"),
+                steps: int = STEPS, **keys) -> dict:
+    """`units` of `configs.make_vqa_run` (`keys` on top of `VQA.yaml`'s)
+    on one model, in order: "vqa_rank" (`rank()`, the eval of one batch)
+    and "vqa_train" (the step, dropout live), each the peak memory of its
+    warm-up (2 steps, or 1 rank) and then a profiled window of `steps`
+    calls → {unit: {span, busy, idle share, host ms a call, groups,
+    launches a call (K1-K5 counters over the window), peak bytes, the
+    model's parameter count, and the loss (train) or the top-1 ids
+    (rank)}}; the trace to `trace`, or with several units each unit's to
+    <trace's base>_<unit>.json."""
+    from . import configs
+    from .ops import kernels
+
+    state, batch, step, rank = configs.make_vqa_run(**keys)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    last = {}
+
+    def train_call():
+        nonlocal state
+        state, m = step(state, batch, gen)
+        last["loss"] = m["loss"]
+
+    def rank_call():
+        last["ids"] = rank()[0]
+
+    out = {}
+    for unit in units:
+        fn, warm = {"vqa_train": (train_call, 2),
+                    "vqa_rank": (rank_call, 1)}[unit]
+        for p in state.model.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        kernels.reset_launch_counts()
+        prof, span, busy, host_ms, kern = _window(fn, steps)
+        res = dict(device_span_ms=span, device_busy_ms=busy,
+                   idle_share=1 - busy / span, host_ms=host_ms,
+                   groups_ms=_groups(kern),
+                   launches=({k: v // steps
+                              for k, v in kernels.LAUNCHES.items()}),
+                   max_memory_allocated=peak,
+                   params=sum(p.numel() for p in state.model.parameters()))
+        if unit == "vqa_train":
+            res["loss"] = float(last["loss"])
+        else:
+            res["top1"] = last["ids"][:, 0].tolist()
+        res["top"] = [(name[:110], ms, n // steps) for name, (ms, n) in
+                      sorted(kern.items(), key=lambda kv: -kv[1][0])[:TOP]]
+        base, ext = os.path.splitext(trace)
+        os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+        prof.export_chrome_trace(trace if len(units) == 1
+                                 else f"{base}_{unit}{ext}")
+        out[unit] = res
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path", nargs="?", default="pretrain",
                     choices=("pretrain", "pretrain_fused", "retrieval",
                              "retrieval_train", "clip_retrieval",
-                             "retrieval_eval", "pretrain_streams"))
+                             "retrieval_eval", "pretrain_streams",
+                             "vqa_train", "vqa_rank"))
     ap.add_argument("--trace")
     args = ap.parse_args(argv)
     trace = args.trace or f"build/xfm_tpu_torch/profile_{args.path}.json"
@@ -258,6 +329,15 @@ def main(argv=None) -> int:
         return 2
     if args.path == "retrieval_eval":
         return profile_retrieval_eval(trace)
+    if args.path in ("vqa_train", "vqa_rank"):
+        res = profile_vqa(trace, units=(args.path,))[args.path]
+        top = res.pop("top")
+        print(f"max_memory_allocated={res.pop('max_memory_allocated')}")
+        print(json.dumps(res))
+        for name, ms, n in top:
+            print(f"  {ms:9.3f} ms/call {n:6d} calls/call  {name}")
+        print(torch.cuda.get_device_name(0))
+        return 0
     if args.path == "pretrain_streams":
         res = profile_pretrain_streams(trace)
         top = res.pop("top")

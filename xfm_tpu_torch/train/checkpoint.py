@@ -13,7 +13,8 @@
   `strip_prefix`, `choose_layers`, the resolution-change interpolations
   (`interpolate_abs_pos_embed`, `interpolate_rel_pos_bias_table`) and
   `load_xfm_checkpoint`, which overlays a reference checkpoint on a port
-  model as `import_xfm_checkpoint` + `merge_params` do; and
+  model as `import_xfm_checkpoint` + `merge_params` do; `vqa_checkpoint`,
+  VQA's two routes to its decoder (`xfm_tpu/tasks/vqa.py`); and
   `reference_state_dict`, a port model's weights under the reference's
   names and layouts.
 - `init_weights`: random weights that follow the JAX package's initializers.
@@ -170,7 +171,8 @@ def _mlp_head(p: Dict[str, Any], prefix: str,
 def state_dict_from_jax(params: Dict[str, Any],
                         config) -> Dict[str, torch.Tensor]:
     """JAX XFM param tree (with or without the `backbone` level) → port
-    state_dict for `XFMBase` and its heads, either vision tower."""
+    state_dict for `XFMBase` and its heads, either vision tower, and
+    `XFMForVQA`'s `text_decoder` where the tree has one."""
     bb = params["backbone"] if "backbone" in params else params
     if config.vision_backbone == "clip_vit":
         sd = clip_vit_from_jax(bb["vision_encoder"],
@@ -194,6 +196,11 @@ def state_dict_from_jax(params: Dict[str, Any],
     for head in ("itm_head", "bbox_head"):
         if head in bb:
             _mlp_head(bb[head], head, sd)
+    if "text_decoder" in params:  # XFMForVQA's answer decoder
+        dec = params["text_decoder"]
+        sd.update(text_encoder_from_jax(
+            dec, sum(1 for k in dec if k.startswith("layer_")),
+            "text_decoder"))
     return to_torch(sd)
 
 
@@ -234,12 +241,12 @@ def load_reference_state_dict(model: torch.nn.Module, sd, strict=True):
 
 def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
     """A torch checkpoint file → {name: float32 numpy array}, unwrapped from
-    a `model` and then a `module` entry where it has them."""
+    a `model` and then a `module` entry where it has them, or from the
+    `params` of a train state that `save_checkpoint` wrote."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    if isinstance(ckpt, dict) and "model" in ckpt:
-        ckpt = ckpt["model"]
-    if isinstance(ckpt, dict) and "module" in ckpt:
-        ckpt = ckpt["module"]
+    for key in ("model", "module", "params"):
+        if isinstance(ckpt, dict) and isinstance(ckpt.get(key), dict):
+            ckpt = ckpt[key]
     return {k: v.detach().float().numpy() for k, v in ckpt.items()
             if hasattr(v, "numpy")}
 
@@ -436,6 +443,47 @@ def load_xfm_checkpoint(model, sd: Dict[str, Any]
     missing = [k for k in target if k not in ref]
     unexpected = [k for k in ref if k not in target]
     return missing, unexpected
+
+
+def vqa_checkpoint(sd: Dict[str, Any], model, own_decoder: bool
+                   ) -> Dict[str, Any]:
+    """A reference-named state dict made ready for `load_xfm_checkpoint`
+    on `XFMForVQA`, as `xfm_tpu/tasks/vqa.py` imports one:
+    - `own_decoder` (the eval, or `load_vqa_pretrain`) and the dict holds
+      `text_decoder.*` (a VQA checkpoint): its decoder as it is, the
+      `text_decoder.bert.*` / `text_decoder.cls.predictions.*` variant
+      renamed to the port's RoBERTa names;
+    - otherwise any `text_decoder.*` dropped and, where the dict holds the
+      fusion encoder (a pretrain or retrieval checkpoint), the decoder
+      copied from it, its MLM head included. The fusion encoder's cross
+      k/v take the vision width, the decoder's the text width: where the
+      two differ this raises ValueError."""
+    dec = "text_decoder."
+    if own_decoder and any(k.startswith(dec) for k in sd):
+        out = {}
+        for k, v in sd.items():
+            if k.startswith(dec + "bert."):
+                k = dec + "roberta." + k[len(dec + "bert."):]
+            elif k.startswith(dec + "cls.predictions."):
+                rest = k[len(dec + "cls.predictions."):]
+                rest = rest.replace("transform.LayerNorm.",
+                                    "layer_norm.").replace("transform.", "")
+                k = dec + "lm_head." + rest
+            out[k] = v
+        return out
+    out = {k: v for k, v in sd.items() if not k.startswith(dec)}
+    fusion = {k[len("fusion_encoder."):]: v for k, v in sd.items()
+              if k.startswith(("fusion_encoder.roberta.",
+                               "fusion_encoder.lm_head."))}
+    if fusion:
+        c = model.config
+        if c.fusion.encoder_width != c.text.hidden_size:
+            raise ValueError(
+                f"the decoder cannot start from the fusion encoder: its "
+                f"cross k/v take width {c.fusion.encoder_width}, the "
+                f"decoder's {c.text.hidden_size}")
+        out.update({dec + k: v for k, v in fusion.items()})
+    return out
 
 
 def reference_state_dict(model) -> Dict[str, torch.Tensor]:

@@ -128,3 +128,14 @@ def retrieval_loss_fn(model, batch, generator=None,
     loss_itc, loss_itm = model.loss(**batch, generator=generator,
                                     deterministic=deterministic)
     return loss_itc + loss_itm, {"loss_itc": loss_itc, "loss_itm": loss_itm}
+
+
+def vqa_loss_fn(model, batch, generator=None, deterministic: bool = True):
+    """`XFMForVQA.loss` on a batch of `VQAData`'s train layout (the
+    fine-tune's `loss_fn` with `deterministic=False`, its dropouts drawn
+    from `generator`)."""
+    keys = ("images", "q_ids", "q_atts", "answer_ids", "answer_atts",
+            "ques_idx", "weights")
+    loss = model.loss(**{k: batch[k] for k in keys}, generator=generator,
+                      deterministic=deterministic)
+    return loss, {}
