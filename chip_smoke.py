@@ -167,6 +167,31 @@ Phases, each of which must pass or the script exits non-zero:
      `vqa_rank` and `vqa_train` at the YAML's sizes (busy time by group,
      idle share, peak memory under 80 GB, K2 12 a rank and 12 + 12 a
      step);
+ 21. COCO captioning: K2 forward and backward against the plain version
+     at the caption step's shape, qkv [16, 577, 2304], and K1 at the
+     domain pretrain's, [64, 197, 2304], in bf16 and f32, the bf16
+     backward bit-equal over two runs, the times, the bounds and SDPA
+     with the bias as a mask; `XFMForCaptioning`'s loss and sampled
+     gradients, greedy and beam-3 decoding (the prompt forced, `min_len`
+     5) and SCST's loss and gradients for fixed sequences, at full width,
+     depth 2, 384 px, f32, on the CPU and on the card (the sequences
+     token for token; K2 2 + 2 in the loss and SCST's pass, 2 a decode);
+     then `run.main` for `--task coco_captioning` on `Captioning.yaml`'s
+     keys over seeded PNGs (16 train images with 2 captions each, 16 val
+     images with 5), `--bs 16 --epoch 2`, `resume: true`: each step's
+     seconds, loss (finite) and launches (K2 12 + 12, nothing else), each
+     decode batch's (K2 12 forward, beam 3 over `max_length` 20);
+     `ckpt/1` deleted and the command again (the restored state bit-equal
+     to `ckpt/0`, the first loss bit-equal); `--evaluate --checkpoint`
+     from the run's own checkpoint (the same captions); `scst: true` from
+     `--load_ckpt_from` that checkpoint (K2 36 + 12 a step, the greedy
+     baseline); `Captioning_pretrain.yaml`'s keys over a JSONL of 64
+     pairs, 3 steps at its batch of 64, 224 px (K1 12 + 12 a step);
+     `--task infer_caption` over 8 PNGs; one caption an image, the
+     metrics with SPICE None; the directory deleted; then `profile_step`
+     `caption_train`, `caption_beam`, `caption_scst` and
+     `caption_pretrain` at the YAMLs' sizes (busy time by group, idle
+     share, peak memory under 80 GB, the launches as above);
 then a JSON line of the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
@@ -2028,6 +2053,484 @@ def vqa_kernel_entries(err, times, work, launches) -> list:
                 ("dqkv", "dcr", "dcls"), times, work, launches)]
 
 
+# --- phase 21: COCO captioning ----------------------------------------------
+
+# phase-21 tolerance of the greedy log-probabilities, CPU vs card (f32)
+CAPTION_LOGP_ATOL = 1e-4
+CAPTION_PROMPT = (10, 11, 12, 13)
+
+
+def _grads_close(tag: str, cpu: dict, gpu: dict) -> None:
+    """Each sampled gradient of the card ({name: tensor}) within
+    SLICE_GRAD_RTOL of the CPU's largest value, or raise."""
+    for n in cpu:
+        a, b = cpu[n].float(), gpu[n].float().cpu()
+        err = (a - b).abs().max().item()
+        tol = SLICE_GRAD_RTOL * a.abs().max().item()
+        print(f"  {tag} grad {n}: max_abs_err={err:.3e} tol={tol:.3e}")
+        if not err <= tol:
+            raise AssertionError(f"{tag}: grad {n}")
+
+
+def caption_slice_parity(B=2, n=3) -> None:
+    """f32, full width, depth 2 (2 BEiT blocks and 2 decoder layers), 384
+    px, the full vocabulary: `XFMForCaptioning.loss` and sampled gradients
+    (prompt_length 4), `generate` (greedy, the prompt forced, `min_len` 5,
+    `max_len` 20) and `beam_generate` (K = 3, the same), and SCST's loss
+    and sampled gradients for fixed sequences (n a image) and advantages,
+    on the CPU and on the card from the same weights and inputs: losses
+    within SLICE_LOSS_RTOL, gradients within SLICE_GRAD_RTOL of their
+    max, every sequence token for token, the greedy log-probabilities
+    within CAPTION_LOGP_ATOL. On the card K2 runs 2 + 2 times in the loss
+    and in SCST's pass, 2 forward in each decode, nothing else of
+    K1-K5."""
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.models import (XFMForCaptioning, beam_generate,
+                                      generate)
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks.captioning import scst_loss
+
+    cfg = configs.caption_yaml(layers=2, compute_dtype="float32")
+    cpu = build_model(XFMForCaptioning.from_yaml, cfg, "cpu", seed=3)
+    gpu = build_model(XFMForCaptioning.from_yaml, cfg, "cpu",
+                      seed=3).to("cuda")
+    vocab = cpu.config.text.vocab_size
+    nb = configs.make_caption_batch(B, 30, 384, vocab, CAPTION_PROMPT, seed=1)
+    r = np.random.RandomState(2)
+    seqs = r.randint(5, vocab - 1, (B * n, 20))
+    seqs[:, :4] = CAPTION_PROMPT
+    seqs[0, 9], seqs[0, 10:] = 2, 1
+    adv = r.randn(B * n).astype(np.float32)
+    kw = dict(bos_id=0, eos_id=2, pad_id=1, max_len=20, min_len=5,
+              prompt_ids=CAPTION_PROMPT)
+    sample = ["vision_encoder.blocks.0.attn.qkv.weight",
+              "vision_encoder.blocks.1.attn.relative_position_bias_table",
+              "vision_encoder.patch_embed.proj.weight",
+              "text_decoder.roberta.encoder.layer.0.attention.self.query."
+              "weight",
+              "text_decoder.roberta.encoder.layer.1.crossattention.self."
+              "key.weight",
+              "text_decoder.lm_head.dense.weight",
+              "text_decoder.roberta.embeddings.word_embeddings.weight"]
+    res = {}
+    for tag, model, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+        batch = configs.batch_to_torch(nb, dev)
+        launches = {}
+        kernels.reset_launch_counts()
+        loss = model.loss(batch["images"], batch["text_ids"],
+                          batch["text_atts"])
+        loss.backward()
+        launches["loss"] = dict(kernels.LAUNCHES)
+        grads = {k: p.grad.clone() for k, p in model.named_parameters()
+                 if k in sample}
+        model.zero_grad(set_to_none=True)
+        kernels.reset_launch_counts()
+        greedy, lps = generate(model, batch["images"], **kw)
+        launches["greedy"] = dict(kernels.LAUNCHES)
+        kernels.reset_launch_counts()
+        beams = beam_generate(model, batch["images"], num_beams=3, **kw)
+        launches["beam"] = dict(kernels.LAUNCHES)
+        kernels.reset_launch_counts()
+        sl = scst_loss(model, batch["images"],
+                       torch.from_numpy(seqs).to(dev),
+                       torch.from_numpy(adv).to(dev), 0, 1, 4, n)
+        sl.backward()
+        launches["scst"] = dict(kernels.LAUNCHES)
+        sgrads = {k: p.grad.clone() for k, p in model.named_parameters()
+                  if k in sample}
+        res[tag] = dict(loss=loss.item(), grads=grads, greedy=greedy.cpu(),
+                        lps=lps.cpu(), beams=beams.cpu(), scst=sl.item(),
+                        sgrads=sgrads, launches=launches)
+    c, g = res["cpu"], res["cuda"]
+    print(f"  caption slice launches: {json.dumps(g['launches'])}")
+    none = {k: 0 for k in g["launches"]["loss"]}
+    both = dict(none, relpos_attention_fwd=2, relpos_attention_bwd=2)
+    fwd = dict(none, relpos_attention_fwd=2)
+    if g["launches"] != dict(loss=both, greedy=fwd, beam=fwd, scst=both):
+        raise AssertionError("caption slice: launches")
+    for name in ("loss", "scst"):
+        ok = math.isclose(c[name], g[name], rel_tol=SLICE_LOSS_RTOL)
+        print(f"  caption slice {name}: cpu={c[name]:.6f} "
+              f"cuda={g[name]:.6f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"caption slice: {name}")
+    _grads_close("caption slice", c["grads"], g["grads"])
+    _grads_close("caption scst", c["sgrads"], g["sgrads"])
+    lerr = (c["lps"] - g["lps"]).abs().max().item()
+    same_g = torch.equal(c["greedy"], g["greedy"])
+    same_b = torch.equal(c["beams"], g["beams"])
+    print(f"  caption slice greedy equal {same_g}, log p max_abs_err="
+          f"{lerr:.3e} tol={CAPTION_LOGP_ATOL:.0e}; beam-3 equal {same_b}; "
+          f"greedy {g['greedy'][0].tolist()}, beam {g['beams'][0].tolist()}")
+    if not (same_g and same_b and lerr <= CAPTION_LOGP_ATOL):
+        raise AssertionError("caption slice: sequences")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+
+def _png_file(path, r, lo=300, hi=500):
+    from PIL import Image
+
+    h, w = r.randint(lo, hi + 1, 2)
+    yy, xx = np.mgrid[0:h, 0:w]
+    wave = np.sin(xx * r.uniform(0.01, 0.1) + yy * r.uniform(0.01, 0.1))
+    arr = (r.randint(0, 256, 3) + 60 * wave[..., None] * r.uniform(-1, 1, 3)
+           + r.normal(0, 12, (h, w, 3)))
+    img = Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
+    if path is None:
+        import base64
+        import io
+
+        buf = io.BytesIO()
+        img.save(buf, "PNG")
+        return base64.b64encode(buf.getvalue()).decode()
+    img.save(path)
+    return path
+
+
+def _caption_corpus(root, n_train=16, n_val=16, n_infer=8, n_pairs=64,
+                    seed=0):
+    """Seeded PNGs of 300-500 px a side: `n_train` images with 2
+    Karpathy-style train rows each and `n_val` with a list of 5 captions,
+    all with "coco_<n>" image ids; `n_infer` more in a directory of their
+    own; a JSONL of `n_pairs` image-text pairs (base64 PNGs) → {train,
+    val, image_root, infer_dir, pairs}."""
+    r = np.random.RandomState(seed)
+    words = ["a", "man", "woman", "dog", "cat", "on", "the", "red", "street",
+             "table", "with", "two", "people", "riding", "sitting", "of",
+             "blue", "bus", "near", "grass", "holding", "white", "plate",
+             "food", "train", "water", "sky", "tree", "standing", "in"]
+
+    def cap():
+        return " ".join(r.choice(words, r.randint(5, 13))) + "."
+
+    paths = {"image_root": os.path.join(root, "images"),
+             "infer_dir": os.path.join(root, "infer")}
+    for d in ("image_root", "infer_dir"):
+        os.makedirs(paths[d], exist_ok=True)
+    train, val = [], []
+    for i in range(n_train + n_val):
+        name = f"COCO_{i:06d}.png"
+        _png_file(os.path.join(paths["image_root"], name), r)
+        if i < n_train:
+            train += [{"image": name, "caption": cap(),
+                       "image_id": f"coco_{i}"} for _ in range(2)]
+        else:
+            val.append({"image": name, "caption": [cap() for _ in range(5)],
+                        "image_id": f"coco_{i}"})
+    for i in range(n_infer):
+        _png_file(os.path.join(paths["infer_dir"], f"img{i:03d}.png"), r)
+    for name, obj in (("train", train), ("val", val)):
+        paths[name] = os.path.join(root, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(obj, f)
+    paths["pairs"] = os.path.join(root, "pairs.jsonl")
+    with open(paths["pairs"], "w") as f:
+        for _ in range(n_pairs):
+            f.write(json.dumps({"binary": _png_file(None, r, 240, 320),
+                                "desc": cap()}) + "\n")
+    return paths
+
+
+def caption_task_runs(root, bs=16, epochs=2, seed=0) -> dict:
+    """Phase 21's runs of `run.main` in `root` over `_caption_corpus`:
+    `--task coco_captioning` on `Captioning.yaml`'s keys (`resume: true`)
+    for `epochs`; after deleting ckpt/<last>, the resumed run;
+    `--evaluate --checkpoint` from its own checkpoint; `scst: true` for
+    one epoch from `--load_ckpt_from` that checkpoint;
+    `Captioning_pretrain.yaml`'s keys for 3 steps; `--task infer_caption`
+    from the checkpoint. Every step, decode batch and epoch is recorded:
+    seconds, launches, losses, the sequences' widths, the restored state
+    against its file."""
+    import yaml
+
+    from xfm_tpu_torch import configs, run
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks import captioning
+
+    files = _caption_corpus(root)
+    base = dict(configs.CAPTIONING, train_file=[files["train"]],
+                val_file=files["val"], image_root=files["image_root"],
+                resume=True)
+    cfgs = {"ft": base, "scst": dict(base, scst=True),
+            "infer": dict(base, image_dir=files["infer_dir"]),
+            "pt": dict(configs.CAPTIONING_PRETRAIN,
+                       train_file=[files["pairs"]], max_steps=3,
+                       print_freq=1)}
+    for name, cfg in cfgs.items():
+        with open(os.path.join(root, f"{name}.yaml"), "w") as f:
+            yaml.safe_dump(cfg, f)
+    out = os.path.join(root, "out")
+    real = (captioning._captions, captioning.train_epoch,
+            captioning.maybe_resume_epochs, captioning.make_scst_step,
+            captioning.make_train_step)
+    rec = {}
+
+    def timed(kind, fn, *a, **kw):
+        _sync()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        _sync()
+        return res, dict(kind=kind, s=time.perf_counter() - t0,
+                         launches=dict(kernels.LAUNCHES))
+
+    def _captions(model, images, cfg, ids):
+        seqs, e = timed("decode", real[0], model, images, cfg, ids)
+        e.update(rows=int(seqs.shape[0]), width=int(seqs.shape[1]))
+        rec["decodes"].append(e)
+        return seqs
+
+    def record_step(step):
+        def wrapped(state, *a):
+            lr = state.optimizer.lr(state.optimizer.count)
+            (state, m), e = timed("step", step, state, *a)
+            e.update(loss=float(m["loss"]), lr=lr)
+            rec["steps"].append(e)
+            return state, m
+        return wrapped
+
+    def train_epoch(ctx, state, step_fn, loader, generator, epoch, sched,
+                    **kw):
+        torch.cuda.reset_peak_memory_stats()
+        state, stats = real[1](ctx, state, record_step(step_fn), loader,
+                               generator, epoch, sched, **kw)
+        rec["epochs"].append(dict(
+            epoch=epoch,
+            max_memory_allocated=torch.cuda.max_memory_allocated()))
+        return state, stats
+
+    def maybe_resume_epochs(ctx, state):
+        state, start = real[2](ctx, state)
+        if start:
+            saved = torch.load(os.path.join(out, "ckpt", str(start - 1),
+                                            "state.pt"),
+                               map_location="cuda", weights_only=True)
+            opt = state.optimizer
+            equal = (state.step == saved["step"]
+                     and opt.count == saved["optimizer"]["count"])
+            for name, p in zip(opt.names, opt.params):
+                equal &= torch.equal(p, saved["params"][name])
+            for key in ("mu", "nu"):
+                for name, t in zip(opt.names, getattr(opt, key)):
+                    equal &= torch.equal(t, saved["optimizer"][key][name])
+            rec["restored"] = dict(start=start, bit_equal=bool(equal))
+            del saved
+        return state, start
+
+    captioning._captions = _captions
+    captioning.train_epoch = train_epoch
+    captioning.maybe_resume_epochs = maybe_resume_epochs
+    captioning.make_scst_step = lambda *a: record_step(real[3](*a))
+    captioning.make_train_step = lambda *a: record_step(real[4](*a))
+    last = os.path.join(out, "ckpt", str(epochs - 1), "state.pt")
+    runs = {}
+    try:
+        for name, argv in (
+                ("full", ["--config", "ft", "--output_dir", out, "--bs",
+                          str(bs), "--epoch", str(epochs)]),
+                ("resumed", ["--config", "ft", "--output_dir", out, "--bs",
+                             str(bs), "--epoch", str(epochs)]),
+                ("evaluate", ["--config", "ft", "--output_dir", out + "_ev",
+                              "--evaluate", "--checkpoint", last]),
+                ("scst", ["--config", "scst", "--output_dir", out + "_scst",
+                          "--bs", str(bs), "--epoch", "1",
+                          "--load_ckpt_from", last]),
+                ("pretrain", ["--config", "pt", "--output_dir",
+                              out + "_pt"]),
+                ("infer", ["--task", "infer_caption", "--config", "infer",
+                           "--output_dir", out + "_inf", "--checkpoint",
+                           last])):
+            if name == "resumed":
+                runs["layout"] = sorted(os.listdir(os.path.join(out,
+                                                                "ckpt")))
+                runs["checkpoint_bytes"] = os.path.getsize(last)
+                with open(os.path.join(out, "result",
+                                       "caption_result.json")) as f:
+                    runs["captions"] = json.load(f)
+                shutil.rmtree(os.path.dirname(last))
+            argv = list(argv)
+            argv[argv.index("--config") + 1] = os.path.join(
+                root, argv[argv.index("--config") + 1] + ".yaml")
+            if "--task" not in argv:
+                argv = ["--task", "coco_captioning"] + argv
+            rec = dict(decodes=[], steps=[], epochs=[])
+            t0 = time.perf_counter()
+            rec["result"] = run.main(argv + ["--seed", str(seed)])
+            rec["s"] = time.perf_counter() - t0
+            if name in ("resumed", "evaluate"):
+                with open(os.path.join(out + ("_ev" if name == "evaluate"
+                                              else ""), "result",
+                                       "caption_result.json")) as f:
+                    rec["captions"] = json.load(f)
+            runs[name] = rec
+    finally:
+        (captioning._captions, captioning.train_epoch,
+         captioning.maybe_resume_epochs, captioning.make_scst_step,
+         captioning.make_train_step) = real
+    runs["n_val"] = len(json.load(open(files["val"])))
+    runs["n_infer"] = len(os.listdir(files["infer_dir"]))
+    return runs
+
+
+def full_caption_task(epochs=2) -> dict:
+    """Phase 21's task runs at full width on the card, checked: finite
+    losses; K2 12 + 12 a fine-tune step, 12 a decode batch and 36 + 12 an
+    SCST step (greedy, sampled, the differentiable pass), K1 12 + 12 a
+    domain-pretrain step, nothing else; both checkpoints written; the
+    resume bit-equal to its file and its first loss bit-equal to the first
+    run's; `--evaluate` from the checkpoint captioning as the run did; one
+    caption an image of `max_length` tokens at most; the metrics with
+    SPICE None; peak memory under 80 GB. The directory is deleted at the
+    end."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="xfm_caption_")
+    try:
+        runs = caption_task_runs(root, epochs=epochs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    d = 12
+    names = list(runs["full"]["steps"][0]["launches"])
+    none = {n: 0 for n in names}
+    want = {"ft": dict(none, relpos_attention_fwd=d, relpos_attention_bwd=d),
+            "decode": dict(none, relpos_attention_fwd=d),
+            "scst": dict(none, relpos_attention_fwd=3 * d,
+                         relpos_attention_bwd=d),
+            "pt": dict(none, packed_attention_fwd=d,
+                       packed_attention_bwd=d)}
+    for name in ("full", "resumed", "evaluate", "scst", "pretrain", "infer"):
+        r = runs[name]
+        print(f"  {name}: {r['s']:.1f} s, result "
+              f"{json.dumps(r['result'])[:400]}")
+        kind = {"scst": "scst", "pretrain": "pt"}.get(name, "ft")
+        for e in r["steps"]:
+            print(f"    step {e['s']:.3f} s loss {e['loss']:.4f} "
+                  f"launches {json.dumps(e['launches'])}")
+            if e["launches"] != want[kind] or not math.isfinite(e["loss"]):
+                raise AssertionError(f"{name}: a step's launches or loss")
+        for e in r["decodes"]:
+            print(f"    decode {e['rows']} x {e['width']}: {e['s']:.3f} s, "
+                  f"launches {json.dumps(e['launches'])}")
+            if e["launches"] != want["decode"] or e["width"] != 20:
+                raise AssertionError(f"{name}: a decode's launches or width")
+        for e in r["epochs"]:
+            if e["max_memory_allocated"] >= 80e9:
+                raise AssertionError(f"{name}: peak memory")
+    full, resumed = runs["full"], runs["resumed"]
+    caps = runs["captions"]
+    n_steps = {n: len(runs[n]["steps"]) for n in ("full", "resumed",
+                                                 "scst", "pretrain")}
+    print(f"  checkpoints {runs['layout']}, {runs['checkpoint_bytes']} B "
+          f"each; resume {json.dumps(resumed.get('restored', {}))}; steps "
+          f"{n_steps}; captions {[c['caption'] for c in caps[:4]]}; the "
+          f"resumed run's captions equal: {resumed['captions'] == caps}")
+    spe = len(full["steps"]) // epochs
+    metrics = full["result"]
+    if (runs["layout"] != [str(i) for i in range(epochs)]
+            or not resumed.get("restored", {}).get("bit_equal")
+            or resumed["steps"][0]["loss"] != full["steps"][spe]["loss"]
+            or resumed["steps"][0]["lr"] != full["steps"][spe]["lr"]
+            or n_steps["resumed"] != spe or n_steps["pretrain"] != 3
+            or n_steps["scst"] < 1
+            or sorted(c["image_id"] for c in caps) != sorted(
+                {c["image_id"] for c in caps})
+            or len(caps) != runs["n_val"]
+            or runs["evaluate"]["captions"] != caps
+            or len(runs["infer"]["result"]) != runs["n_infer"]
+            or metrics.get("SPICE", 0) is not None
+            or not {"Bleu_4", "METEOR", "ROUGE_L", "CIDEr"} <= set(metrics)
+            or any(len(c["caption"].split()) > 20 for c in caps)):
+        raise AssertionError("the caption runs' checkpoints, resume, "
+                             "captions or metrics")
+    return dict(step_s=[e["s"] for e in full["steps"]],
+                decode_s=[e["s"] for e in full["decodes"]],
+                scst_step_s=[e["s"] for e in runs["scst"]["steps"]],
+                pretrain_step_s=[e["s"] for e in runs["pretrain"]["steps"]],
+                run_s={n: runs[n]["s"] for n in ("full", "resumed",
+                                                  "evaluate", "scst",
+                                                  "pretrain", "infer")},
+                max_memory_allocated=max(e["max_memory_allocated"]
+                                         for e in full["epochs"]),
+                checkpoint_bytes=runs["checkpoint_bytes"], metrics=metrics)
+
+
+def caption_phase():
+    """Phase 21 → (K2's and K1's errors, times and bounds at qkv [16, 577,
+    2304] and [64, 197, 2304], `profile_step.profile_caption`'s units)."""
+    from xfm_tpu_torch import profile_step
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    k2c_shape = dict(B=16, window=(24, 24), H=12)
+    k2cw = k2_work(B=16, N=577, H=12, D=64, window=(24, 24), dtype=bf16)
+    k2c_err = k2_parity(**k2c_shape, dtype=bf16, seed=60)
+    k2_parity(**k2c_shape, dtype=f32, seed=61)
+    k2_deterministic(**k2c_shape, dtype=bf16, seed=62)
+    k2c_t = k2_times(**k2c_shape, dtype=bf16)
+    print("  K2 B=16 N=577 times (ms): " + json.dumps(k2c_t))
+    print("  K2 B=16 N=577 bound (k2_work): " + json.dumps(k2cw))
+    k1c_err = k1_parity(B=64, N=197, H=12, dtype=bf16, seed=63)
+    k1_parity(B=64, N=197, H=12, dtype=f32, seed=64)
+    k1_deterministic(B=64, N=197, H=12, dtype=bf16, seed=65)
+    k1c_t = k1_times(B=64, N=197, H=12, dtype=bf16)
+    k1cw = k1_work(B=64, N=197, H=12, D=64, dtype=bf16)
+    print("  K1 B=64 N=197 times (ms): " + json.dumps(k1c_t))
+    print("  K1 B=64 N=197 bound (k1_work): " + json.dumps(k1cw))
+    caption_slice_parity()
+    ct = full_caption_task()
+    print("  caption task: " + json.dumps(ct))
+    cprof = profile_step.profile_caption(os.path.join(
+        REPO, "build", "xfm_tpu_torch", "profile_caption.json"))
+    d = 12
+    want = {"caption_train": dict(relpos_attention_fwd=d,
+                                  relpos_attention_bwd=d),
+            "caption_beam": dict(relpos_attention_fwd=d),
+            "caption_scst": dict(relpos_attention_fwd=3 * d,
+                                 relpos_attention_bwd=d),
+            "caption_pretrain": dict(packed_attention_fwd=d,
+                                     packed_attention_bwd=d)}
+    for unit, r in cprof.items():
+        top = r.pop("top")
+        print(f"  {unit} profile: " + json.dumps(r))
+        for name, ms, n in top[:10]:
+            print(f"    {ms:9.3f} ms/call {n:6d} calls/call  {name}")
+        if (r["launches"] != dict({k: 0 for k in r["launches"]},
+                                  **want[unit])
+                or r["max_memory_allocated"] >= 80e9
+                or not math.isfinite(r.get("loss", 0.0))):
+            raise AssertionError(f"{unit}: launches, peak memory or loss")
+    return (k2c_err, k2c_t, k2cw), (k1c_err, k1c_t, k1cw), cprof
+
+
+def caption_kernel_entries(k2c, k1c, k2_main, cprof) -> list:
+    """The `kernels` entries of phase 21: K2 at the caption step's shape
+    (qkv [16, 577, 2304] bf16) with its launches a step
+    (`profile_step caption_train`), K1 at the domain pretrain's ([64, 197,
+    2304], `caption_pretrain`), and K2's forward at [32, 577, 2304] (phase
+    5's error and times, the main retrieval shape) with its launches a
+    beam eval batch (`caption_beam`)."""
+    entries = [dict(e, name=e["name"] + "_caption_b16")
+               for e in kernel_entries(
+                   "relpos_attention", "xfm_tpu/ops/flash_attention.py", 689,
+                   717, "xfm_tpu_torch/csrc/relpos_attention.cu", k2c[0],
+                   ("dqkv", "dcr", "dcls"), k2c[1], k2c[2],
+                   cprof["caption_train"]["launches"])]
+    entries += [dict(e, name=e["name"] + "_caption_pretrain_b64")
+                for e in kernel_entries(
+                    "packed_attention", "xfm_tpu/ops/flash_attention.py",
+                    983, 1007, "xfm_tpu_torch/csrc/packed_attention.cu",
+                    k1c[0], ("dqkv", "db"), k1c[1], k1c[2],
+                    cprof["caption_pretrain"]["launches"])]
+    entries += [dict(e, name=e["name"] + "_caption_beam_b32")
+                for e in kernel_entries(
+                    "relpos_attention", "xfm_tpu/ops/flash_attention.py",
+                    689, 717, "xfm_tpu_torch/csrc/relpos_attention.cu",
+                    k2_main[0], ("dqkv", "dcr", "dcls"), k2_main[1],
+                    k2_main[2], cprof["caption_beam"]["launches"])
+                if e["name"].endswith("_fwd")]
+    return entries
+
+
 LN_EPS = 1e-6
 
 
@@ -2680,6 +3183,9 @@ def main() -> int:
     print("phase 20: VQA at 480 px: K2 at the step's shape, the slice, "
           "the task and its profile")
     k2v_err, k2v_t, k2vw, vprof = vqa_phase()
+    print("phase 21: COCO captioning: K2 and K1 at the new batches, the "
+          "slice, the task and its profile")
+    k2c, k1c, cprof = caption_phase()
 
     entries = (kernel_entries("packed_attention",
                               "xfm_tpu/ops/flash_attention.py", 983, 1007,
@@ -2709,8 +3215,10 @@ def main() -> int:
                + pretrain_kernel_entries(*k1_new[192], *k1_new[80],
                                          prof["launches_by_stream"])
                + vqa_kernel_entries(k2v_err, k2v_t, k2vw,
-                                    vprof["vqa_train"]["launches"]))
-    print(f"chip_smoke: 20 phases in {time.perf_counter() - t_start:.1f} s")
+                                    vprof["vqa_train"]["launches"])
+               + caption_kernel_entries(k2c, k1c, (k2_err, k2_t, k2w),
+                                        cprof))
+    print(f"chip_smoke: 21 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

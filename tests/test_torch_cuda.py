@@ -23,7 +23,8 @@ def _inputs(B, N, H, D, seed):
 @pytest.mark.parametrize("B,N,H", [(3, 50, 4), (2, 197, 12), (4, 197, 12),
                                    (96, 197, 12),    # the pretrain pair pass
                                    (192, 197, 12),   # the pair pass at B 96
-                                   (80, 197, 12)])   # the region stream
+                                   (80, 197, 12),    # the region stream
+                                   (64, 197, 12)])   # caption pretrain
 def test_packed_attention_kernel_matches_plain(dtype, B, N, H):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -114,6 +115,7 @@ def _relpos_inputs(B, window, H, dtype, seed):
     (3, (3, 5), 4), (2, (7, 11), 2), (2, (24, 24), 12), (1, (30, 30), 4),
     (2, (30, 30), 12),   # 480 px: N = 901, the model's heads
     (16, (30, 30), 12),  # the VQA step at 480 px, its batch of 16
+    (16, (24, 24), 12),  # the caption step at 384 px, its batch of 16
     (4, (3, 5), 12),     # N = 16, shorter than one tile
     (2, (20, 30), 2),    # N = 601: ww > wh, tails on both sides
 ])
@@ -1012,3 +1014,66 @@ def test_stable_topk_on_the_card_breaks_ties_by_lower_index():
     assert torch.equal(vals.cpu(), cpu_vals)
     same = vals[:, 1:] == vals[:, :-1]
     assert same.any() and (idx[:, 1:][same] > idx[:, :-1][same]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unit,want", [
+    ("caption_train", dict(relpos_attention_fwd=12, relpos_attention_bwd=12)),
+    ("caption_beam", dict(relpos_attention_fwd=12)),
+    ("caption_scst", dict(relpos_attention_fwd=36, relpos_attention_bwd=12)),
+    ("caption_pretrain", dict(packed_attention_fwd=12,
+                              packed_attention_bwd=12))])
+def test_caption_units_launch_their_kernels_only(unit, want):
+    """Captioning at full width and depth (12 BEiT blocks, a 12-layer
+    decoder, bf16, B = 2): the fine-tune step K2 12 + 12; a beam eval
+    batch K2 12 forward (the decode steps launch nothing of K1-K5); an
+    SCST step with the greedy baseline K2 36 + 12; the domain pretrain's
+    step at 224 px K1 12 + 12; nothing else."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.ops import kernels
+
+    state, call = configs.make_caption_run(unit, B=2)
+    kernels.reset_launch_counts()
+    out = call(0)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == dict(
+        {k: 0 for k in kernels.LAUNCHES}, **want)
+    if unit == "caption_beam":
+        assert out.shape == (2, 20) and (out[:, :4] == torch.tensor(
+            [10, 11, 12, 13], device="cuda")).all()
+    else:
+        assert torch.isfinite(out["loss"])
+
+
+@pytest.mark.cuda
+def test_caption_decode_on_the_card_matches_cpu():
+    """At depth 2 (2 BEiT blocks at 384 px, 2 decoder layers), f32, the
+    full vocabulary: greedy (the prompt forced, `min_len` 5) and beam-3
+    sequences on the card equal the CPU's token for token, the greedy
+    log-probabilities within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.models import (XFMForCaptioning, beam_generate,
+                                      generate)
+    from xfm_tpu_torch.train.checkpoint import init_weights
+
+    cfg = configs.caption_yaml(layers=2, compute_dtype="float32")
+    cpu = XFMForCaptioning.from_yaml(cfg)
+    init_weights(cpu, 4)
+    gpu = XFMForCaptioning.from_yaml(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.cuda()
+    images = torch.from_numpy(np.random.RandomState(5).randn(
+        2, 384, 384, 3).astype(np.float32))
+    kw = dict(bos_id=0, eos_id=2, pad_id=1, max_len=20, min_len=5,
+              prompt_ids=(10, 11, 12, 13))
+    cs, cl = generate(cpu, images, **kw)
+    gs, gl = generate(gpu, images.cuda(), **kw)
+    assert torch.equal(gs.cpu(), cs)
+    assert (gl.cpu() - cl).abs().max() <= 1e-4
+    assert torch.equal(beam_generate(gpu, images.cuda(), num_beams=3,
+                                     **kw).cpu(),
+                       beam_generate(cpu, images, num_beams=3, **kw))

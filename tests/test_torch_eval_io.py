@@ -280,8 +280,8 @@ JAX_ONLY = {
                "use_abs_pos_emb": False, "use_mean_pooling": True,
                "local_attn_depth": -1, "remat": False, "remat_policy": None,
                "seq_shard": False},
-    "text": {"position_style": "roberta", "decode_cache_len": 0,
-             "remat": False, "remat_policy": None, "seq_shard": False},
+    "text": {"position_style": "roberta", "remat": False,
+             "remat_policy": None, "seq_shard": False},
 }
 
 

@@ -153,8 +153,9 @@ def test_hard_negative_draws_follow_the_jax_weights():
 
 
 def test_port_imports_neither_jax_nor_xfm_tpu():
-    """Every module of xfm_tpu_torch (the fine-tune's, the eval's and the
-    pretrain task's tasks/, data/, train/ and run.py among them) and
+    """Every module of xfm_tpu_torch (the fine-tune's, the eval's, the
+    pretrain task's, VQA's and captioning's tasks/, data/, eval/, train/
+    and run.py among them) and
     chip_smoke's helpers
     import in a fresh interpreter
     without pulling in jax, flax, optax or any xfm_tpu module; PIL, yaml and
@@ -180,7 +181,11 @@ def test_port_imports_neither_jax_nor_xfm_tpu():
         " 'xfm_tpu_torch.data.text_masking',"
         " 'xfm_tpu_torch.data.pretrain_data',"
         " 'xfm_tpu_torch.models.generation', 'xfm_tpu_torch.tasks.vqa',"
-        " 'xfm_tpu_torch.eval', 'xfm_tpu_torch.eval.vqa_eval'}\n"
+        " 'xfm_tpu_torch.eval', 'xfm_tpu_torch.eval.vqa_eval',"
+        " 'xfm_tpu_torch.tasks.captioning',"
+        " 'xfm_tpu_torch.eval.caption_metrics', 'xfm_tpu_torch.eval.cider',"
+        " 'xfm_tpu_torch.eval.meteor', 'xfm_tpu_torch.eval.meteor_synonyms',"
+        " 'xfm_tpu_torch.eval.ptb_tokenizer'}\n"
         "lazy = ('PIL', 'yaml', 'transformers')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'flax', 'optax', 'xfm_tpu') + lazy]\n"

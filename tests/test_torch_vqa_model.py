@@ -175,9 +175,21 @@ def test_causal_decoder_matches_jax(padded, monkeypatch):
                    encoder_hidden_states=torch.from_numpy(enc),
                    encoder_attention_mask=torch.from_numpy(enc_atts))
     torch.testing.assert_close(h2[:, :-1], h[:, :-1], rtol=0, atol=0)
-    # no decode cache: the argument does not exist
-    with pytest.raises(TypeError):
-        model(torch.from_numpy(ids).long(), decode=True)
+    if padded:
+        return
+    # the decode cache: token by token, the teacher-forced logits
+    from xfm_tpu_torch.models import DecodeCache
+
+    cache, steps = DecodeCache(), []
+    with torch.no_grad():
+        for t in range(ids.shape[1]):
+            steps.append(model.mlm_logits(model(
+                torch.from_numpy(ids[:, t:t + 1]).long(),
+                encoder_hidden_states=torch.from_numpy(enc),
+                encoder_attention_mask=torch.from_numpy(enc_atts),
+                decode=cache, past_length=t, cross_from_cache=t > 0)))
+    np.testing.assert_allclose(torch.cat(steps, 1).numpy(), np.asarray(jl),
+                               atol=1e-5, rtol=1e-4)
 
 
 def test_decoder_matches_golden_decode_logits():

@@ -9,7 +9,10 @@ corpus with `RetrievalEvalData`'s interface; the pretrain task's
 configuration (`configs/xfm-pt/Pretrain_base_4m.yaml`, read as data) and
 its four-stream step on seeded device batches at the YAML's sizes; and
 VQA's (`configs/xfm-ft/VQA.yaml`, kept as a dict), its fine-tune step and
-its answer ranking on seeded device batches at the YAML's sizes."""
+its answer ranking on seeded device batches at the YAML's sizes; and COCO
+captioning's (`configs/xfm-ft/Captioning.yaml` and `Captioning_pretrain.yaml`,
+kept as dicts): its fine-tune step, beam eval, SCST step and domain-pretrain
+step on seeded device batches at the YAMLs' sizes."""
 from __future__ import annotations
 
 import os
@@ -20,16 +23,16 @@ import torch
 
 from .models.beit2 import VisionConfig
 from .models.clip_vit import ClipVisionConfig
-from .models.generation import XFMForVQA
+from .models.generation import XFMForCaptioning, XFMForVQA
 from .models.task_models import XFMForPretrain, XFMForRetrieval
 from .models.text_encoder import TextConfig
 from .models.xfm import XFMConfig, config_from_yaml
 from .train.checkpoint import init_weights
 from .train.optim import create_optimizer, create_optimizer_from_config
 from .train.schedules import linear_warmup_decay, schedule_from_config
-from .train.train_state import (TrainState, make_train_step,
-                                pretrain_loss_fn, retrieval_loss_fn,
-                                vqa_loss_fn)
+from .train.train_state import (TrainState, caption_loss_fn,
+                                make_train_step, pretrain_loss_fn,
+                                retrieval_loss_fn, vqa_loss_fn)
 
 
 def _env_flag(value: Optional[bool], name: str) -> bool:
@@ -653,4 +656,170 @@ def vqa_step_flops(B: int, T: int, n_answers: int, L: int, patches: int,
            + _transformer_flops(dec_layers, hidden, inter, L, n_answers,
                                 cross_kv=T)
            + 2 * n_answers * L * hidden * (hidden + vocab))
+    return 3 * fwd
+
+
+# configs/xfm-ft/Captioning.yaml and Captioning_pretrain.yaml, key for key
+# (a CPU test holds them equal)
+CAPTIONING = {
+    "train_file": ["data/finetune/coco_karpathy_train.json"],
+    "val_file": "data/finetune/coco_karpathy_val.json",
+    "test_file": "data/finetune/coco_karpathy_test.json",
+    "image_root": "data/coco",
+    "use_beit_v2": True,
+    "vision_config": "configs/model/config_beit2_base.json",
+    "image_res": 384, "patch_size": 16,
+    "text_encoder": "data/roberta-base",
+    "text_num_hidden_layers": 12, "text_fusion_start_at": 12,
+    "fusion_num_hidden_layers": 12, "fusion_fusion_start_at": 0,
+    "num_dec_layers": 12, "decoder_fusion_start_at": 0, "pad_token_id": 1,
+    "prompt": "a picture of ", "prompt_length": 4, "max_tokens": 30,
+    "max_length": 20, "min_length": 5, "num_beams": 3,
+    "batch_size_train": 16, "batch_size_test": 32,
+    "parallel": {"data": -1, "fsdp": 1, "tensor": 1},
+    "optimizer": {"opt": "adamW", "lr": 1.0e-5, "weight_decay": 0.01,
+                  "lr_mult": 2},
+    "schedular": {"sched": "linear", "lr": 1.0e-5, "epochs": 5,
+                  "num_warmup_steps": 0.1},
+}
+CAPTIONING_PRETRAIN = {
+    "domain_pretrain": True,
+    "train_file": ["data/pretrain/caption_pairs.jsonl"],
+    "images": {"image_key": "binary", "is_image_rpath": False,
+               "caption_key": "desc", "batch_size": 64},
+    "image_root": "",
+    "use_beit_v2": True,
+    "vision_config": "configs/model/config_beit2_base.json",
+    "image_res": 224, "patch_size": 16,
+    "text_encoder": "data/roberta-base",
+    "text_num_hidden_layers": 12, "text_fusion_start_at": 12,
+    "fusion_num_hidden_layers": 12, "fusion_fusion_start_at": 0,
+    "num_dec_layers": 12, "decoder_fusion_start_at": 0,
+    "max_tokens": 30, "max_words": 30, "mask_prob": 0.5, "max_masks": 15,
+    "max_steps": 100000,
+    "parallel": {"data": -1, "fsdp": 1, "tensor": 1},
+    "optimizer": {"opt": "adamW", "lr": 1.0e-4, "weight_decay": 0.01},
+    "schedular": {"sched": "linear", "lr": 1.0e-4, "epochs": 1,
+                  "num_warmup_steps": 2500},
+}
+
+
+def caption_yaml(image_res: Optional[int] = None,
+                 layers: Optional[int] = None, pretrain: bool = False,
+                 **keys) -> dict:
+    """`CAPTIONING` (or with `pretrain` `CAPTIONING_PRETRAIN`) at
+    `image_res` where given, every encoder and the decoder cut to `layers`
+    where given, `keys` set on top."""
+    cfg = dict(CAPTIONING_PRETRAIN if pretrain else CAPTIONING)
+    if image_res:
+        cfg["image_res"] = image_res
+    if layers:
+        cfg.update(text_num_hidden_layers=layers, text_fusion_start_at=layers,
+                   fusion_num_hidden_layers=layers, num_dec_layers=layers,
+                   vision_depth=layers)
+    cfg.update(keys)
+    return cfg
+
+
+def make_caption_batch(B: int = 16, T: int = 30, image_res: int = 384,
+                       vocab: int = 50265, prompt_ids=(), seed: int = 0
+                       ) -> Dict[str, np.ndarray]:
+    """A seeded batch of `CaptioningData`'s train layout: normal-random
+    images, captions of 6..T tokens (cls, the prompt's ids where given,
+    tokens, sep, pads) and image ids 0..B-1."""
+    r = np.random.RandomState(seed)
+    ids, atts = _token_rows(r, B, T, vocab, 6 + len(prompt_ids))
+    if prompt_ids:
+        ids[:, 1:1 + len(prompt_ids)] = prompt_ids
+    return dict(images=r.randn(B, image_res, image_res, 3).astype(np.float32),
+                text_ids=ids, text_atts=atts,
+                image_id=np.arange(B, dtype=np.int64))
+
+
+def make_caption_run(unit: str, B: Optional[int] = None, device="cuda",
+                     seed: int = 0, **keys):
+    """One unit of `run.py --task coco_captioning` at the YAMLs' sizes
+    (`keys` set on top): XFM captioning (the BEiT-2 tower and a 12-layer
+    decoder cross-attending from layer 0), the full RoBERTa vocabulary,
+    bf16 compute, random weights from `seed`, HF-AdamW and the schedule
+    from the YAML's blocks, seeded batches on the device:
+    - "caption_train": the fine-tune's step at B = 16, T = 30, 384 px,
+      dropout and drop-path live;
+    - "caption_beam": the beam eval of B = 32 images (beam 3, `min_length`
+      5, `max_length` 20, the prompt forced);
+    - "caption_scst": an SCST step at B = 16, 5 samples an image, the
+      greedy baseline, CIDEr-D rewards against seeded token references;
+    - "caption_pretrain": the domain pretrain's step at B = 64, 224 px
+      (`Captioning_pretrain.yaml`), dropout live.
+    → (state, call) with call(i) running the unit once with the
+    generators of i → its metrics (or the sequences of the beam)."""
+    import functools
+
+    from .models.generation import beam_generate
+
+    pretrain = unit == "caption_pretrain"
+    cfg = caption_yaml(pretrain=pretrain, **keys)
+    model = XFMForCaptioning.from_yaml(cfg).to(device)
+    init_weights(model, seed)
+    sched = schedule_from_config(cfg, 1000)
+    state = TrainState.create(model, create_optimizer_from_config(
+        model, cfg, sched))
+    c = model.config
+    V, res = c.text.vocab_size, c.vision.image_res
+    prompt = (10, 11, 12, 13)[: cfg.get("prompt_length", 0)]
+    B = B or {"caption_beam": cfg.get("batch_size_test", 32),
+              "caption_pretrain": (cfg.get("images") or {}).get(
+                  "batch_size", 64)}.get(unit, cfg.get("batch_size_train",
+                                                       16))
+    batch = batch_to_torch(make_caption_batch(
+        B, cfg.get("max_tokens", 30), res, V, prompt, seed), device)
+
+    def gen(i):
+        return torch.Generator(device=device).manual_seed(seed * 1000 + i)
+
+    if unit in ("caption_train", "caption_pretrain"):
+        step = make_train_step(functools.partial(caption_loss_fn,
+                                                 deterministic=False))
+
+        def call(i):
+            nonlocal state
+            state, m = step(state, batch, gen(i))
+            return m
+    elif unit == "caption_beam":
+        def call(i):
+            return beam_generate(
+                model, batch["images"], bos_id=0, eos_id=2, pad_id=1,
+                max_len=cfg["max_length"], min_len=cfg["min_length"],
+                num_beams=cfg["num_beams"], prompt_ids=prompt)
+    elif unit == "caption_scst":
+        from .eval.cider import CiderD
+        from .tasks.captioning import make_scst_step
+
+        r = np.random.RandomState(seed + 1)
+        refs = {str(b): [" ".join(map(str, r.randint(5, V - 1, 10)))
+                         for _ in range(5)] for b in range(B)}
+        step = make_scst_step(cfg, CiderD(refs), None, (0, 2, 1, prompt))
+        iids = [str(b) for b in range(B)]
+
+        def call(i):
+            nonlocal state
+            state, m = step(state, batch["images"], iids, gen(i))
+            return m
+    else:
+        raise ValueError(f"unit {unit!r}")
+    return state, call
+
+
+def caption_step_flops(B: int, T: int, patches: int, hidden=768,
+                       inter=3072, layers=12, dec_layers=12,
+                       vocab=50265) -> float:
+    """Model FLOPs of one caption fine-tune step (forward + backward ≈ 3×
+    forward): the vision pass over B images, the decoder over B captions
+    of T tokens cross-attending to the image tokens, and the LM head over
+    every caption position."""
+    Nv = patches + 1
+    fwd = (_transformer_flops(layers, hidden, inter, Nv, B)
+           + _transformer_flops(dec_layers, hidden, inter, T, B,
+                                cross_kv=Nv)
+           + 2 * B * T * hidden * (hidden + vocab))
     return 3 * fwd

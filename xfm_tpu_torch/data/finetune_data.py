@@ -1,7 +1,7 @@
-"""The retrieval fine-tune's and eval's data and VQA's
+"""The retrieval fine-tune's and eval's data, VQA's and captioning's
 (`xfm_tpu/data/finetune_data.py` `RetrievalTrainData`, `RetrievalEvalData`,
-`VQAData`): annotation lists of the reference's json format → fixed-shape
-numpy batches."""
+`VQAData`, `CaptioningData`): annotation lists of the reference's json
+format → fixed-shape numpy batches."""
 from __future__ import annotations
 
 import json
@@ -235,4 +235,65 @@ class VQAData:
         out.update(answer_ids=ids, answer_atts=atts,
                    weights=np.asarray(weights, np.float32),
                    ques_idx=np.asarray(ques_idx, np.int32))
+        return out
+
+
+def caption_image_id(a: dict) -> int:
+    """An annotation's COCO image id: its `image_id` (of a string such as
+    "coco_123" the number after the last "_"), else the number at the end
+    of its image's file name."""
+    iid = a.get("image_id")
+    if iid is None:
+        iid = int(a["image"].split("_")[-1].split(".")[0])
+    return int(str(iid).split("_")[-1]) if isinstance(iid, str) else iid
+
+
+class CaptioningData:
+    """COCO-Karpathy captions. Train: an image and its caption, `prompt` +
+    `pre_caption(caption, 30)`, encoded to `max_tokens`; eval: an image and
+    its image id."""
+
+    def __init__(self, ann_file, transform, image_root, tokenizer,
+                 max_tokens=30, batch_size=16, train=True, prompt=""):
+        self.ann = _load_ann(ann_file)
+        self.transform = transform
+        self.image_root = image_root
+        self.tok = tokenizer
+        self.max_tokens = max_tokens
+        self.batch_size = batch_size
+        self.train = train
+        self.prompt = prompt
+
+    def __len__(self):
+        return len(self.ann)
+
+    def epoch(self, epoch_seed=0) -> Iterator[dict]:
+        """One pass. Train: the order `np.random.default_rng(epoch_seed)`
+        shuffles, the transform reseeded from [epoch_seed, 1] first; full
+        batches of images, text_ids, text_atts and image_id, a last partial
+        batch dropped. Eval: the file's order, batches of images and
+        image_id, the last one kept."""
+        order = np.arange(len(self.ann))
+        if self.train:
+            np.random.default_rng(epoch_seed).shuffle(order)
+            self.transform.reseed([epoch_seed, 1])
+        imgs, caps, img_ids = [], [], []
+        for i in order:
+            a = self.ann[int(i)]
+            imgs.append(self.transform(decode_image(
+                os.path.join(self.image_root, a["image"]))))
+            img_ids.append(caption_image_id(a))
+            if self.train:
+                caps.append(self.prompt + pre_caption(a["caption"], 30))
+            if len(imgs) == self.batch_size:
+                yield self._pack(imgs, caps, img_ids)
+                imgs, caps, img_ids = [], [], []
+        if imgs and not self.train:
+            yield self._pack(imgs, caps, img_ids)
+
+    def _pack(self, imgs, caps, img_ids):
+        out = dict(images=np.stack(imgs), image_id=np.asarray(img_ids))
+        if self.train:
+            ids, atts = _encode_texts(self.tok, caps, self.max_tokens)
+            out.update(text_ids=ids, text_atts=atts)
         return out

@@ -1,14 +1,17 @@
 """Models of the port: BEiT-2, CLIP-ViT, the text/fusion encoder and the
-causal answer decoder, XFMBase and the pretrain, retrieval and VQA
-heads."""
+causal decoder with its decode cache, XFMBase and the pretrain,
+retrieval, VQA and captioning heads, and caption decoding."""
 from .beit2 import BeitVisionTransformer, VisionConfig
 from .clip_vit import ClipVisionConfig, ClipVisionTransformer
-from .generation import XFMForVQA
+from .generation import (XFMForCaptioning, XFMForVQA, beam_generate,
+                         generate, top_k_top_p_filtering)
 from .task_models import XFMForPretrain, XFMForRetrieval
-from .text_encoder import TextConfig, TextTransformer
+from .text_encoder import DecodeCache, TextConfig, TextTransformer
 from .xfm import XFMBase, XFMConfig, config_from_yaml
 
 __all__ = ["BeitVisionTransformer", "VisionConfig", "ClipVisionConfig",
-           "ClipVisionTransformer", "TextConfig",
-           "TextTransformer", "XFMBase", "XFMConfig", "XFMForPretrain",
-           "XFMForRetrieval", "XFMForVQA", "config_from_yaml"]
+           "ClipVisionTransformer", "DecodeCache", "TextConfig",
+           "TextTransformer", "XFMBase", "XFMConfig", "XFMForCaptioning",
+           "XFMForPretrain", "XFMForRetrieval", "XFMForVQA",
+           "beam_generate", "config_from_yaml", "generate",
+           "top_k_top_p_filtering"]

@@ -3,8 +3,12 @@
 Parameter names are the reference torch names (`roberta.embeddings.*`,
 `roberta.encoder.layer.{i}.attention.self.query.*`, `lm_head.*` with the
 decoder tied to the word embeddings). With `is_decoder` the self-attention
-is causal (the answer decoder of VQA), teacher-forced over whole
-sequences: there is no decode cache yet, and no `decode=` argument.
+is causal (the answer decoder of VQA, the caption decoder), teacher-forced
+over whole sequences, or one chunk at a time through a `DecodeCache` that
+the caller holds and passes as `decode=` (`xfm_tpu/models/text_encoder.py`'s
+`cache` collection): each layer's self k/v written into preallocated slots
+at the cache's index, its cross k/v projected at the first step and read
+back with `cross_from_cache`.
 """
 from __future__ import annotations
 
@@ -38,6 +42,8 @@ class TextConfig:
     fusion_layer: int = 12          # first layer with cross-attention
     encoder_width: int = 768        # width of the cross-attended states
     is_decoder: bool = False        # causal self-attention
+    decode_cache_len: int = 0       # self k/v slots of a DecodeCache;
+                                    # 0 = max_position_embeddings
     dtype: torch.dtype = torch.float32
     fused_ln: bool = False          # the post-LN sites through K4
     fused_mlp: bool = False         # output.dense through K5
@@ -50,12 +56,51 @@ class TextConfig:
                       **kw})
 
 
-def roberta_position_ids(input_ids: torch.Tensor,
-                         pad_token_id: int) -> torch.Tensor:
-    """Pad-offset positions: non-pad tokens count from pad_token_id + 1,
-    pads stay at pad_token_id."""
+def roberta_position_ids(input_ids: torch.Tensor, pad_token_id: int,
+                         past_length: int = 0) -> torch.Tensor:
+    """Pad-offset positions: non-pad tokens count from pad_token_id + 1 +
+    `past_length` (the tokens already in a decode cache), pads stay at
+    pad_token_id."""
     mask = (input_ids != pad_token_id).to(torch.int64)
-    return torch.cumsum(mask, dim=1) * mask + pad_token_id
+    return (torch.cumsum(mask, dim=1) + past_length) * mask + pad_token_id
+
+
+@dataclasses.dataclass
+class LayerCache:
+    """One layer's decode state: the self-attention's k/v slots [B, L, H,
+    D] and the cross-attention's k/v [U, Nk, H, D] (one row per unique
+    encoder row), each None until the first step writes it."""
+    length: int
+    k: Optional[torch.Tensor] = None
+    v: Optional[torch.Tensor] = None
+    cross_k: Optional[torch.Tensor] = None
+    cross_v: Optional[torch.Tensor] = None
+
+
+class DecodeCache:
+    """The decoder's KV cache for incremental decoding, held by the caller
+    and passed to `TextTransformer(..., decode=cache)` at every step: a
+    `LayerCache` a layer, made at the first step with the config's
+    `decode_cache_len` self k/v slots (else `max_position_embeddings`);
+    `index`, the next free slot, advances by the chunk's length after each
+    call. `reorder(rows)` gathers the self k/v along the batch (the beam
+    search's reorder); the cross k/v stay per unique encoder row."""
+
+    def __init__(self):
+        self.index = 0
+        self.layers: list = []
+
+    def layer(self, i: int, c: "TextConfig") -> LayerCache:
+        while len(self.layers) <= i:
+            self.layers.append(LayerCache(c.decode_cache_len
+                                          or c.max_position_embeddings))
+        return self.layers[i]
+
+    def reorder(self, rows: torch.Tensor) -> None:
+        for lc in self.layers:
+            if lc.k is not None:
+                lc.k = lc.k.index_select(0, rows)
+                lc.v = lc.v.index_select(0, rows)
 
 
 class Embeddings(nn.Module):
@@ -69,11 +114,13 @@ class Embeddings(nn.Module):
                                                   c.hidden_size)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
 
-    def forward(self, input_ids, deterministic: bool = True):
-        """Word + roberta pad-offset position + token type 0 embeddings,
-        normalized, then dropout."""
+    def forward(self, input_ids, deterministic: bool = True,
+                past_length: int = 0):
+        """Word + roberta pad-offset position (after `past_length` cached
+        tokens) + token type 0 embeddings, normalized, then dropout."""
         c = self.c
-        position_ids = roberta_position_ids(input_ids, c.pad_token_id)
+        position_ids = roberta_position_ids(input_ids, c.pad_token_id,
+                                            past_length)
         x = (F.embedding(input_ids, self.word_embeddings.weight).to(c.dtype)
              + F.embedding(position_ids,
                            self.position_embeddings.weight).to(c.dtype)
@@ -109,7 +156,14 @@ class SelfAttention(nn.Module):
     self-attention is causal: a `tril` bias of 0 / −1e9 in f32 is added to
     the mask's bias (a masked future key carries −2e9, as in the JAX
     package). Unless `deterministic`, the probabilities and the output
-    projection take their dropouts."""
+    projection take their dropouts.
+
+    With `decode` (the layer's `LayerCache`) the self-attention writes its
+    k/v into the cache's slots from `index` and attends over all of them,
+    query row j seeing slots ≤ index + j only (causal inside a chunk too):
+    a 0 / −1e9 f32 bias added to `attention_bias`. The cross-attention
+    projects its k/v into the cache, or with `cross_from_cache` reads them
+    from it and projects nothing."""
 
     def __init__(self, c: TextConfig, is_cross: bool = False):
         super().__init__()
@@ -122,7 +176,9 @@ class SelfAttention(nn.Module):
     def forward(self, hidden, kv_source, attention_bias,
                 kv_row_idx: Optional[torch.Tensor] = None,
                 kv_group_size: Optional[int] = None, prob_gate=None,
-                deterministic: bool = True):
+                deterministic: bool = True,
+                decode: Optional[LayerCache] = None, index: int = 0,
+                cross_from_cache: bool = False):
         c = self.c
         if prob_gate is not None:
             raise NotImplementedError(
@@ -132,13 +188,23 @@ class SelfAttention(nn.Module):
         D = c.hidden_size // H
         B, Nq = hidden.shape[:2]
         q = dense(hidden, self.self.query, c.dtype).reshape(B, Nq, H, D)
-        U, Nk = kv_source.shape[:2]
-        k = dense(kv_source, self.self.key, c.dtype).reshape(U, Nk, H, D)
-        v = dense(kv_source, self.self.value, c.dtype).reshape(U, Nk, H, D)
-        if kv_row_idx is not None:
-            k = k.index_select(0, kv_row_idx)
-            v = v.index_select(0, kv_row_idx)
-        if c.is_decoder and not self.is_cross:
+        if decode is not None and self.is_cross and cross_from_cache:
+            k, v = decode.cross_k, decode.cross_v
+            U = k.shape[0]
+        else:
+            U, Nk = kv_source.shape[:2]
+            k = dense(kv_source, self.self.key, c.dtype).reshape(U, Nk, H, D)
+            v = dense(kv_source, self.self.value, c.dtype).reshape(U, Nk, H,
+                                                                   D)
+            if kv_row_idx is not None:
+                k = k.index_select(0, kv_row_idx)
+                v = v.index_select(0, kv_row_idx)
+            if decode is not None and self.is_cross:
+                decode.cross_k, decode.cross_v = k, v
+        if decode is not None and not self.is_cross:
+            k, v, attention_bias = _cached_self_kv(decode, index, k, v,
+                                                   attention_bias)
+        elif c.is_decoder and not self.is_cross:
             attention_bias = causal_bias(Nq, Nk, hidden.device,
                                          attention_bias)
         if kv_group_size and self.is_cross:
@@ -187,15 +253,20 @@ class TransformerLayer(nn.Module):
 
     def forward(self, hidden, attention_bias=None, encoder_hidden_states=None,
                 encoder_attention_bias=None, encoder_row_idx=None,
-                encoder_group_size=None, deterministic: bool = True):
+                encoder_group_size=None, deterministic: bool = True,
+                decode: Optional[LayerCache] = None, index: int = 0,
+                cross_from_cache: bool = False):
         c = self.c
         x = self.attention(hidden, hidden, attention_bias,
-                           deterministic=deterministic)
+                           deterministic=deterministic, decode=decode,
+                           index=index)
         if self.has_cross_attention and encoder_hidden_states is not None:
             x = self.crossattention(x, encoder_hidden_states,
                                     encoder_attention_bias, encoder_row_idx,
                                     encoder_group_size,
-                                    deterministic=deterministic)
+                                    deterministic=deterministic,
+                                    decode=decode,
+                                    cross_from_cache=cross_from_cache)
         h = dense(x, self.intermediate.dense, c.dtype)
         h = act_dense(h, self.output.dense, c.hidden_act, c.dtype,
                       c.fused_mlp)
@@ -243,7 +314,10 @@ class MLMHead(nn.Module):
 class TextTransformer(nn.Module):
     """Encoder stack with mode-sliced layer ranges: 'text' = [0,
     fusion_layer), 'fusion' = [fusion_layer, N), 'multi_modal' = [0, N).
-    `inputs_embeds` bypasses the embeddings."""
+    `inputs_embeds` bypasses the embeddings. `decode` (a `DecodeCache`)
+    runs one incremental step over the chunk `input_ids`, positions after
+    `past_length` tokens, and advances the cache's index; with
+    `cross_from_cache` the cross k/v are the ones the first step cached."""
 
     def __init__(self, c: TextConfig, with_mlm: bool = False):
         super().__init__()
@@ -262,10 +336,13 @@ class TextTransformer(nn.Module):
                 inputs_embeds=None, encoder_hidden_states=None,
                 encoder_attention_mask=None, mode: str = "multi_modal",
                 encoder_row_idx=None, deterministic: bool = True,
-                encoder_group_size=None):
+                encoder_group_size=None,
+                decode: Optional[DecodeCache] = None, past_length: int = 0,
+                cross_from_cache: bool = False):
         c = self.c
         x = (inputs_embeds if inputs_embeds is not None
-             else self.roberta.embeddings(input_ids, deterministic))
+             else self.roberta.embeddings(input_ids, deterministic,
+                                          past_length))
         bias = mask_to_bias(attention_mask) if attention_mask is not None \
             else None
         ebias = None
@@ -284,10 +361,39 @@ class TextTransformer(nn.Module):
             lo, hi = c.fusion_layer, c.num_hidden_layers
         else:
             lo, hi = 0, c.num_hidden_layers
-        for layer in self.roberta.encoder.layer[lo:hi]:
-            x = layer(x, bias, encoder_hidden_states, ebias, encoder_row_idx,
-                      encoder_group_size, deterministic)
+        index = 0 if decode is None else decode.index
+        for i in range(lo, hi):
+            x = self.roberta.encoder.layer[i](
+                x, bias, encoder_hidden_states, ebias, encoder_row_idx,
+                encoder_group_size, deterministic,
+                decode=None if decode is None else decode.layer(i, c),
+                index=index, cross_from_cache=cross_from_cache)
+        if decode is not None:
+            decode.index = index + x.shape[1]
         return x
+
+
+def _cached_self_kv(lc: LayerCache, index: int, k: torch.Tensor,
+                    v: torch.Tensor, attention_bias):
+    """The chunk's k/v [B, Nq, H, D] written into `lc`'s slots from `index`
+    (allocated in their dtype at the first step) → (all slots' k, v, the
+    bias with query row j masked from slots after index + j)."""
+    B, Nq = k.shape[:2]
+    if index + Nq > lc.length:
+        raise ValueError(f"decode cache full: {index} + {Nq} tokens in "
+                         f"{lc.length} slots")
+    if lc.k is None:
+        lc.k = k.new_zeros((B, lc.length) + k.shape[2:])
+        lc.v = v.new_zeros((B, lc.length) + v.shape[2:])
+    lc.k[:, index:index + Nq] = k
+    lc.v[:, index:index + Nq] = v
+    pos = torch.arange(lc.length, device=k.device)
+    qpos = index + torch.arange(Nq, device=k.device)
+    zero = torch.zeros((), dtype=torch.float32, device=k.device)
+    cbias = torch.where(pos[None, :] <= qpos[:, None], zero,
+                        zero + NEG_INF)[None, None]
+    bias = cbias if attention_bias is None else attention_bias + cbias
+    return lc.k, lc.v, bias
 
 
 def causal_bias(nq: int, nk: int, device,

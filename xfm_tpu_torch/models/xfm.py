@@ -168,17 +168,21 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
         use_bbox_loss=use_bbox_loss, dtype=dtype)
 
 
+def vision_tower(c: XFMConfig) -> nn.Module:
+    """The config's vision tower: BEiT-2 or CLIP-ViT."""
+    if c.vision_backbone == "clip_vit":
+        return ClipVisionTransformer(c.vision)
+    if c.vision_backbone == "beit2":
+        return BeitVisionTransformer(c.vision)
+    raise NotImplementedError(f"vision backbone {c.vision_backbone!r} is "
+                              "not ported")
+
+
 class XFMBase(nn.Module):
     def __init__(self, c: XFMConfig):
         super().__init__()
         self.config = c
-        if c.vision_backbone == "clip_vit":
-            self.vision_encoder = ClipVisionTransformer(c.vision)
-        elif c.vision_backbone == "beit2":
-            self.vision_encoder = BeitVisionTransformer(c.vision)
-        else:
-            raise NotImplementedError(f"vision backbone "
-                                      f"{c.vision_backbone!r} is not ported")
+        self.vision_encoder = vision_tower(c)
         self.text_encoder = TextTransformer(c.text, with_mlm=c.use_mlm_loss)
         self.fusion_encoder = TextTransformer(c.fusion, with_mlm=True)
         if c.use_contrastive_loss:

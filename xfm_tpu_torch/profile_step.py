@@ -3,7 +3,8 @@ on the card.
 
     python3 -m xfm_tpu_torch.profile_step
         [pretrain|pretrain_fused|retrieval|retrieval_train|clip_retrieval|
-         retrieval_eval|pretrain_streams|vqa_train|vqa_rank] [--trace PATH]
+         retrieval_eval|pretrain_streams|vqa_train|vqa_rank|caption_train|
+         caption_beam|caption_scst|caption_pretrain] [--trace PATH]
 
 Runs the full-width step of the chosen path as `chip_smoke.py` does
 (pretrain: B = 48 at 224 px, the default; pretrain_fused: the same with the
@@ -47,8 +48,18 @@ its batch of 16 questions and 64 answers of 10 tokens on seeded device
 batches, dropout and drop-path live; vqa_rank one eval batch of its 16
 questions through `XFMForVQA.rank` (the top 128 of a 3,129-answer list,
 decoded as 16 groups of 128). Each prints its peak memory, span, busy
-time, idle share, groups and the kernels' launches a call. Needs a CUDA
-card.
+time, idle share, groups and the kernels' launches a call.
+
+caption_train profiles the step of `run.py --task coco_captioning` on
+`Captioning.yaml` (the BEiT-2 tower at 384 px and a 12-layer decoder
+cross-attending to its patches, bf16, the full vocabulary) at its batch of
+16 captions of 30 tokens, dropout and drop-path live; caption_beam one
+eval batch of 32 images, beam 3, `min_length` 5, `max_length` 20, the
+prompt forced; caption_scst one SCST step of 16 images, 5 samples an
+image with the greedy baseline and CIDEr-D rewards on the host;
+caption_pretrain the domain pretrain's step on `Captioning_pretrain.yaml`
+at its batch of 64 at 224 px. Each prints the same numbers as vqa_train.
+Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -314,13 +325,74 @@ def profile_vqa(trace: str, units=("vqa_rank", "vqa_train"),
     return out
 
 
+CAPTION_UNITS = ("caption_train", "caption_beam", "caption_scst",
+                 "caption_pretrain")
+
+
+def profile_caption(trace: str, units=CAPTION_UNITS, steps: int = STEPS,
+                    **keys) -> dict:
+    """`units` of `configs.make_caption_run` (`keys` on top of the YAMLs'),
+    each on its own model, in order: the peak memory of its warm-up (2
+    calls of a train step, 1 of the others), then a profiled window of
+    `steps` calls → {unit: {span, busy, idle share, host ms a call,
+    groups, launches a call (K1-K5 counters over the window), peak bytes,
+    the model's parameter count, and the loss (the reward too in SCST) or
+    the first sequence (beam)}}; each unit's trace to <trace's
+    base>_<unit>.json (or `trace` for one unit)."""
+    from . import configs
+    from .ops import kernels
+
+    out = {}
+    for unit in units:
+        state, call = configs.make_caption_run(unit, **keys)
+        last = {}
+        n = [0]
+
+        def fn():
+            n[0] += 1
+            last["out"] = call(n[0])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2 if unit in ("caption_train", "caption_pretrain")
+                       else 1):
+            fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        kernels.reset_launch_counts()
+        prof, span, busy, host_ms, kern = _window(fn, steps)
+        res = dict(device_span_ms=span, device_busy_ms=busy,
+                   idle_share=1 - busy / span, host_ms=host_ms,
+                   groups_ms=_groups(kern),
+                   launches=({k: v // steps
+                              for k, v in kernels.LAUNCHES.items()}),
+                   max_memory_allocated=peak,
+                   params=sum(p.numel() for p in state.model.parameters()))
+        if unit == "caption_beam":
+            res["seq0"] = last["out"][0].tolist()
+        else:
+            res["loss"] = float(last["out"]["loss"])
+            if "reward" in last["out"]:
+                res["reward"] = last["out"]["reward"]
+        res["top"] = [(name[:110], ms, c // steps) for name, (ms, c) in
+                      sorted(kern.items(), key=lambda kv: -kv[1][0])[:TOP]]
+        base, ext = os.path.splitext(trace)
+        os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+        prof.export_chrome_trace(trace if len(units) == 1
+                                 else f"{base}_{unit}{ext}")
+        out[unit] = res
+        del state, call, last, prof
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path", nargs="?", default="pretrain",
                     choices=("pretrain", "pretrain_fused", "retrieval",
                              "retrieval_train", "clip_retrieval",
                              "retrieval_eval", "pretrain_streams",
-                             "vqa_train", "vqa_rank"))
+                             "vqa_train", "vqa_rank") + CAPTION_UNITS)
     ap.add_argument("--trace")
     args = ap.parse_args(argv)
     trace = args.trace or f"build/xfm_tpu_torch/profile_{args.path}.json"
@@ -329,8 +401,10 @@ def main(argv=None) -> int:
         return 2
     if args.path == "retrieval_eval":
         return profile_retrieval_eval(trace)
-    if args.path in ("vqa_train", "vqa_rank"):
-        res = profile_vqa(trace, units=(args.path,))[args.path]
+    if args.path in ("vqa_train", "vqa_rank") + CAPTION_UNITS:
+        res = (profile_caption(trace, units=(args.path,))
+               if args.path in CAPTION_UNITS
+               else profile_vqa(trace, units=(args.path,)))[args.path]
         top = res.pop("top")
         print(f"max_memory_allocated={res.pop('max_memory_allocated')}")
         print(json.dumps(res))

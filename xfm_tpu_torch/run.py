@@ -6,19 +6,30 @@
         [--epoch N] [--device cuda|cpu]
     python3 -m xfm_tpu_torch.run --task pretrain_DIY [--config C] ...
     python3 -m xfm_tpu_torch.run --task vqa [--config C] [--evaluate] ...
+    python3 -m xfm_tpu_torch.run --task coco_captioning [--config C]
+        [--evaluate] [--checkpoint CKPT | --load_ckpt_from CKPT] ...
+    python3 -m xfm_tpu_torch.run --task infer_caption [--config C]
+        [--checkpoint CKPT] ...
 
 Of the tasks, retrieval (`itr_coco`, `itr_flickr`: the fine-tune, with a
 zero-shot eval and then train, eval and checkpoint each epoch, and with
 `--evaluate` the eval alone), multi-stream pretraining (`pretrain_DIY`)
 and VQA (`vqa`: the fine-tune, checkpointing each epoch and ranking the
 test split's answers from `start_eval` on and at the end, and with
-`--evaluate` the ranking alone) are ported. With no `--config`, or one
-that does not exist, `pretrain_DIY` takes
-configs/xfm-pt/Pretrain_XBrain_base_4m.yaml and `vqa`
-configs/xfm-ft/VQA.yaml, as the repository's `run.py` falls back. Any
-other task is an argparse error that lists the ported ones. `--bs` is
+`--evaluate` the ranking alone), COCO captioning (`coco_captioning`: the
+fine-tune with its beam-search captions and scores, SCST where the YAML
+sets `scst`, the caption-domain pretrain where it sets `domain_pretrain`,
+and with `--evaluate` the captions and scores alone) and caption
+inference over a directory of images (`infer_caption`) are ported. With
+no `--config`, or one that does not exist, `pretrain_DIY` takes
+configs/xfm-pt/Pretrain_XBrain_base_4m.yaml, `vqa`
+configs/xfm-ft/VQA.yaml and the two caption tasks
+configs/xfm-ft/Captioning.yaml, as the repository's `run.py` falls back.
+Any other task is an argparse error that lists the ported ones. `--bs` is
 the global batch, divided over the processes into the YAML's train and
-stream batch sizes. Runs on the card unless `--device cpu` is given.
+stream batch sizes. `--load_ckpt_from` is read as `--checkpoint` by the
+caption tasks where no `--checkpoint` is given. Runs on the card unless
+`--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -39,6 +50,8 @@ DEFAULT_CONFIGS = {
     "pretrain_DIY": os.path.join(_CONFIGS, "xfm-pt",
                                  "Pretrain_XBrain_base_4m.yaml"),
     "vqa": os.path.join(_CONFIGS, "xfm-ft", "VQA.yaml"),
+    "coco_captioning": os.path.join(_CONFIGS, "xfm-ft", "Captioning.yaml"),
+    "infer_caption": os.path.join(_CONFIGS, "xfm-ft", "Captioning.yaml"),
 }
 
 
@@ -65,17 +78,37 @@ def run_vqa(args):
     return vqa.main(args)
 
 
+def run_captioning(args):
+    from .tasks import captioning
+
+    _default_config(args)
+    return captioning.main_pipeline(args)
+
+
+def run_infer_caption(args):
+    from .tasks import captioning
+
+    _default_config(args)
+    return captioning.main_infer(args)
+
+
 TASKS = {"itr_coco": run_itr, "itr_flickr": run_itr,
-         "pretrain_DIY": run_pretrain, "vqa": run_vqa}
+         "pretrain_DIY": run_pretrain, "vqa": run_vqa,
+         "coco_captioning": run_captioning,
+         "infer_caption": run_infer_caption}
 
 
 def build_parser():
     p = argparse.ArgumentParser(description="xfm_tpu_torch task launcher")
     p.add_argument("--task", required=True, choices=sorted(TASKS))
     p.add_argument("--config", default="",
-                   help="task YAML (pretrain_DIY and vqa have a default)")
+                   help="task YAML (pretrain_DIY, vqa and the caption tasks "
+                        "have a default)")
     p.add_argument("--output_dir", default="output")
     p.add_argument("--checkpoint", default=None)
+    p.add_argument("--load_ckpt_from", default=None,
+                   help="the caption tasks: read as --checkpoint where none "
+                        "is given")
     p.add_argument("--evaluate", action="store_true",
                    help="run the eval only (no fine-tune)")
     p.add_argument("--bs", type=int, default=None,

@@ -14,7 +14,8 @@
   (`interpolate_abs_pos_embed`, `interpolate_rel_pos_bias_table`) and
   `load_xfm_checkpoint`, which overlays a reference checkpoint on a port
   model as `import_xfm_checkpoint` + `merge_params` do; `vqa_checkpoint`,
-  VQA's two routes to its decoder (`xfm_tpu/tasks/vqa.py`); and
+  VQA's two routes to its decoder (`xfm_tpu/tasks/vqa.py`), and
+  `caption_checkpoint`, captioning's three; and
   `reference_state_dict`, a port model's weights under the reference's
   names and layouts.
 - `init_weights`: random weights that follow the JAX package's initializers.
@@ -171,8 +172,9 @@ def _mlp_head(p: Dict[str, Any], prefix: str,
 def state_dict_from_jax(params: Dict[str, Any],
                         config) -> Dict[str, torch.Tensor]:
     """JAX XFM param tree (with or without the `backbone` level) → port
-    state_dict for `XFMBase` and its heads, either vision tower, and
-    `XFMForVQA`'s `text_decoder` where the tree has one."""
+    state_dict for `XFMBase` and its heads, either vision tower, and the
+    `text_decoder` of `XFMForVQA` or `XFMForCaptioning` where the tree has
+    one (the caption tree's backbone holds the vision tower alone)."""
     bb = params["backbone"] if "backbone" in params else params
     if config.vision_backbone == "clip_vit":
         sd = clip_vit_from_jax(bb["vision_encoder"],
@@ -181,12 +183,11 @@ def state_dict_from_jax(params: Dict[str, Any],
     else:
         sd = beit2_from_jax(bb["vision_encoder"], config.vision.depth,
                             "vision_encoder")
-    sd.update(text_encoder_from_jax(bb["text_encoder"],
-                                    config.text.num_hidden_layers,
-                                    "text_encoder"))
-    sd.update(text_encoder_from_jax(bb["fusion_encoder"],
-                                    config.fusion.num_hidden_layers,
-                                    "fusion_encoder"))
+    for name, tc in (("text_encoder", config.text),
+                     ("fusion_encoder", config.fusion)):
+        if name in bb:  # the caption model's backbone holds neither
+            sd.update(text_encoder_from_jax(bb[name], tc.num_hidden_layers,
+                                            name))
     for name in ("vision_proj", "text_proj", "fusion_proj"):
         if name in bb:
             sd[f"{name}.weight"] = _t(bb[name]["kernel"]).T
@@ -196,7 +197,7 @@ def state_dict_from_jax(params: Dict[str, Any],
     for head in ("itm_head", "bbox_head"):
         if head in bb:
             _mlp_head(bb[head], head, sd)
-    if "text_decoder" in params:  # XFMForVQA's answer decoder
+    if "text_decoder" in params:  # the answer or caption decoder
         dec = params["text_decoder"]
         sd.update(text_encoder_from_jax(
             dec, sum(1 for k in dec if k.startswith("layer_")),
@@ -445,6 +446,41 @@ def load_xfm_checkpoint(model, sd: Dict[str, Any]
     return missing, unexpected
 
 
+def _decoder_entries(sd: Dict[str, Any], src: str) -> Dict[str, Any]:
+    """The decoder-shaped entries under `src` (a text, fusion or decoder
+    prefix with its dot) as `text_decoder.*` under the port's RoBERTa
+    names: `<src>roberta.*` and `<src>lm_head.*` as they are, the
+    `<src>bert.*` / `<src>cls.predictions.*` variant renamed."""
+    dec = "text_decoder."
+    out = {}
+    for k, v in sd.items():
+        if not k.startswith(src):
+            continue
+        rest = k[len(src):]
+        if rest.startswith("bert."):
+            rest = "roberta." + rest[len("bert."):]
+        elif rest.startswith("cls.predictions."):
+            rest = rest[len("cls.predictions."):]
+            rest = "lm_head." + rest.replace(
+                "transform.LayerNorm.", "layer_norm.").replace(
+                "transform.", "")
+        elif not rest.startswith(("roberta.", "lm_head.")):
+            continue
+        out[dec + rest] = v
+    return out
+
+
+def _own_decoder(sd: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    """A dict that holds `text_decoder.*`, its decoder under the port's
+    names and every other entry as it is; None where it holds none."""
+    dec = "text_decoder."
+    if not any(k.startswith(dec) for k in sd):
+        return None
+    out = {k: v for k, v in sd.items() if not k.startswith(dec)}
+    out.update(_decoder_entries(sd, dec))
+    return out
+
+
 def vqa_checkpoint(sd: Dict[str, Any], model, own_decoder: bool
                    ) -> Dict[str, Any]:
     """A reference-named state dict made ready for `load_xfm_checkpoint`
@@ -458,23 +494,11 @@ def vqa_checkpoint(sd: Dict[str, Any], model, own_decoder: bool
       copied from it, its MLM head included. The fusion encoder's cross
       k/v take the vision width, the decoder's the text width: where the
       two differ this raises ValueError."""
-    dec = "text_decoder."
-    if own_decoder and any(k.startswith(dec) for k in sd):
-        out = {}
-        for k, v in sd.items():
-            if k.startswith(dec + "bert."):
-                k = dec + "roberta." + k[len(dec + "bert."):]
-            elif k.startswith(dec + "cls.predictions."):
-                rest = k[len(dec + "cls.predictions."):]
-                rest = rest.replace("transform.LayerNorm.",
-                                    "layer_norm.").replace("transform.", "")
-                k = dec + "lm_head." + rest
-            out[k] = v
-        return out
-    out = {k: v for k, v in sd.items() if not k.startswith(dec)}
-    fusion = {k[len("fusion_encoder."):]: v for k, v in sd.items()
-              if k.startswith(("fusion_encoder.roberta.",
-                               "fusion_encoder.lm_head."))}
+    own = _own_decoder(sd) if own_decoder else None
+    if own is not None:
+        return own
+    out = {k: v for k, v in sd.items() if not k.startswith("text_decoder.")}
+    fusion = _decoder_entries(sd, "fusion_encoder.")
     if fusion:
         c = model.config
         if c.fusion.encoder_width != c.text.hidden_size:
@@ -482,7 +506,32 @@ def vqa_checkpoint(sd: Dict[str, Any], model, own_decoder: bool
                 f"the decoder cannot start from the fusion encoder: its "
                 f"cross k/v take width {c.fusion.encoder_width}, the "
                 f"decoder's {c.text.hidden_size}")
-        out.update({dec + k: v for k, v in fusion.items()})
+        out.update(fusion)
+    return out
+
+
+def caption_checkpoint(sd: Dict[str, Any], decoder_from: str = "fusion"
+                       ) -> Dict[str, Any]:
+    """A reference-named state dict made ready for `load_xfm_checkpoint`
+    on `XFMForCaptioning` (`xfm_tpu/tasks/captioning.py` `load_ckpt_into`):
+    - a dict that holds `text_decoder.*` (a caption checkpoint) loads its
+      own decoder (`vqa_checkpoint`'s own-decoder names). The JAX package
+      reads no `text_decoder.*` there and decodes with the fusion weights
+      or an untrained decoder;
+    - `decoder_from="fusion"`: the decoder copied from the fusion encoder,
+      its MLM head included (both cross-attend to the vision width);
+    - `decoder_from="text"` (the caption-domain pretrain): the decoder
+      copied from the text encoder with its `lm_head` (or the `bert.` /
+      `cls.` variant); its cross-attention, which the text encoder lacks,
+      stays at init."""
+    if decoder_from not in ("fusion", "text"):
+        raise ValueError(f"decoder_from {decoder_from!r}: 'fusion' or "
+                         "'text'")
+    own = _own_decoder(sd)
+    if own is not None:
+        return own
+    out = dict(sd)
+    out.update(_decoder_entries(sd, f"{decoder_from}_encoder."))
     return out
 
 

@@ -139,3 +139,13 @@ def vqa_loss_fn(model, batch, generator=None, deterministic: bool = True):
     loss = model.loss(**{k: batch[k] for k in keys}, generator=generator,
                       deterministic=deterministic)
     return loss, {}
+
+
+def caption_loss_fn(model, batch, generator=None,
+                    deterministic: bool = True):
+    """`XFMForCaptioning.loss` on a batch of images, text_ids and text_atts
+    (the fine-tune's and the caption-domain pretrain's `loss_fn` with
+    `deterministic=False`, its dropouts drawn from `generator`)."""
+    loss = model.loss(batch["images"], batch["text_ids"], batch["text_atts"],
+                      generator=generator, deterministic=deterministic)
+    return loss, {}
