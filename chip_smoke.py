@@ -192,6 +192,36 @@ Phases, each of which must pass or the script exits non-zero:
      `caption_train`, `caption_beam`, `caption_scst` and
      `caption_pretrain` at the YAMLs' sizes (busy time by group, idle
      share, peak memory under 80 GB, the launches as above);
+ 22. NLVR2 and RefCOCO grounding: K2 forward and backward against the
+     plain version at the NLVR step's shape, qkv [48, 577, 2304] (24
+     pairs, one tower pass), and its forward at the GradCAM batch's,
+     [8, 577, 2304], in bf16 and f32, the bf16 backward bit-equal over two
+     runs, the times, the bounds and SDPA with the bias as a mask;
+     `XFMForNLVR`'s loss, logits and sampled gradients, `XFMForGrounding`'s
+     boxes, L1, GIoU and sampled gradients, and `itm_gradcam`'s cam at
+     fusion layer 1 with the box it ranks first among 6, at full width,
+     depth 2, 384 px, f32, on the CPU and on the card (K2 2 + 2 in each
+     loss, 2 forward in the logits, the boxes and the cam; the same boxes;
+     no parameter left with a `.grad`), and the bf16 cam's distance from
+     the f32 one; then `run.main` over seeded PNGs of 400-640 px: `--task
+     nlvr` on `NLVR.yaml`'s keys (48 train pairs, 8 val, 8 test), `--bs
+     24 --epoch 2`, `resume: true` (K2 12 + 12 a step, 12 an eval batch),
+     `ckpt/1` deleted and the command again (the restored state bit-equal,
+     the first loss bit-equal), `--evaluate --checkpoint` from it (the
+     last epoch's accuracy); `--task refcoco_bbox` on
+     `Grounding_bbox.yaml`'s keys with `domain_pretrain_config` naming
+     `Grounding_bbox_pretrain.yaml`'s keys over 32 region images: stage 1
+     3 steps at its batch (96 regions over 80 image rows at 224 px, K1
+     12 + 12 a step), stage 2 2 epochs at `--bs 24` from its weights, each
+     of the 12 rel-pos tables [2212, 12] the interpolation of stage 1's
+     [732, 12] (K2 12 + 12 a step, 12 an eval batch), `--evaluate
+     --checkpoint` from it (the last epoch's accuracy); then
+     `tasks.grounding.main_weakly_supervised` over 16 rows with 5
+     candidate boxes (K2 12 a GradCAM batch of 8 at fusion layer 8);
+     accuracies in [0, 1], peak memory under 80 GB; the directory
+     deleted; then `profile_step` `nlvr_train`, `grounding_train` and
+     `gradcam` at the YAMLs' sizes (busy time by group, idle share, peak
+     memory under 80 GB, the launches as above);
 then a JSON line of the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
@@ -2531,6 +2561,683 @@ def caption_kernel_entries(k2c, k1c, k2_main, cprof) -> list:
     return entries
 
 
+# --- phase 22: NLVR2 and RefCOCO grounding -----------------------------------
+
+# phase-22 tolerance of GradCAM's cam, CPU vs card (f32): max |card - CPU|
+# relative to the CPU cam's largest value
+CAM_RTOL = 1e-4
+# the bf16 cam on the card against the f32 one, relative to the f32 cam's
+# largest value (2.05e-2 measured on an H100). The rounding of the whole
+# bf16 model sets this distance, so it does not tell a misplaced gate apart;
+# the gate's own gradient does (GATE_GRAD_RTOL).
+CAM_BF16_RTOL = 5e-2
+# the gated attention's gradient with respect to the gate in bf16, card vs
+# CPU, relative to its largest value: both round dP to bf16 at the same
+# point, so only the order of f32 sums differs; a gate applied after the
+# cast, or P kept in f32 for PV, moves it by more than 2⁻¹⁰
+# (tests/test_torch_gradcam.py)
+GATE_GRAD_RTOL = 2.0 ** -12
+NLVR_WORDS = ["the", "left", "image", "shows", "two", "dogs", "right", "one",
+              "has", "more", "birds", "than", "a", "red", "car", "in",
+              "both", "images", "there", "are", "exactly", "three"]
+
+
+def _close(tag: str, cpu, gpu, rtol: float) -> None:
+    """max |card − CPU| within rtol of max(1, the CPU's largest |value|),
+    or raise."""
+    a, b = cpu.float(), gpu.float().cpu()
+    err = (a - b).abs().max().item()
+    tol = rtol * max(1.0, a.abs().max().item())
+    print(f"  {tag}: max_abs_err={err:.3e} tol={tol:.3e}")
+    if not err <= tol:
+        raise AssertionError(tag)
+
+
+def nlvr_slice_parity(B=2) -> dict:
+    """f32, full width, depth 2 (2 BEiT blocks, 2 text and 2 fusion
+    layers), 384 px, the full vocabulary, on the CPU and on the card from
+    the same weights and inputs: `XFMForNLVR`'s loss, logits and sampled
+    gradients (B pairs: one 2B-image tower pass); `XFMForGrounding`'s
+    boxes, L1, GIoU and sampled gradients; the cam of `itm_gradcam` (an
+    `XFMForRetrieval`) at fusion layer 1 and the box each sample's 6
+    candidates rank first. Losses within SLICE_LOSS_RTOL, logits and
+    boxes within SLICE_LOSS_RTOL of max(1, their largest value), gradients
+    within SLICE_GRAD_RTOL of their max, the cam within CAM_RTOL of its
+    max, the same boxes chosen. On the card K2 runs 2 + 2 in each loss and
+    2 forward in the logits, the boxes and the cam; nothing else. Then the
+    cam in bf16 compute on the card (GradCAM runs in the compute dtype)
+    within CAM_BF16_RTOL of the f32 one's max, choosing the same boxes →
+    {the bf16 cam's error relative to the f32 cam's max, the samples
+    choosing the same box}."""
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.models import (XFMForGrounding, XFMForNLVR,
+                                      XFMForRetrieval, config_from_yaml,
+                                      itm_gradcam, rank_boxes_by_cam)
+    from xfm_tpu_torch.ops import kernels
+
+    f32 = dict(layers=2, compute_dtype="float32")
+    ncfg = config_from_yaml(configs.nlvr_yaml(**f32))
+    gcfg = config_from_yaml(configs.grounding_yaml(**f32),
+                            use_bbox_loss=True)
+    rkw = dict(use_contrastive_loss=True, use_matching_loss=True)
+    rcfg = config_from_yaml(configs.grounding_yaml(**f32), **rkw)
+    V = ncfg.text.vocab_size
+    nb = configs.make_pair_batch(B, 40, 384, V, seed=1)
+    gb = configs.make_grounding_batch(B, 30, 384, V, seed=2)
+    r = np.random.RandomState(3)
+    boxes = r.randint(0, 368, (B, 6, 4))
+    boxes[..., 2:] = np.minimum(boxes[..., :2] + r.randint(16, 200, (B, 6, 2)),
+                                384)
+    common = ["vision_encoder.blocks.0.attn.qkv.weight",
+              "vision_encoder.blocks.1.attn.relative_position_bias_table",
+              "vision_encoder.patch_embed.proj.weight",
+              "text_encoder.roberta.encoder.layer.0.attention.self.query."
+              "weight",
+              "text_encoder.roberta.embeddings.word_embeddings.weight",
+              "fusion_encoder.roberta.encoder.layer.1.crossattention.self."
+              "key.weight"]
+    res, launches = {}, {}
+    for tag, dev in (("cpu", "cpu"), ("cuda", "cuda")):
+        out = res[tag] = {}
+        for name, cls, cfg, seed in (("nlvr", XFMForNLVR, ncfg, 4),
+                                     ("grounding", XFMForGrounding, gcfg, 5)):
+            model = build_model(cls, cfg, "cpu", seed=seed).to(dev)
+            b = configs.batch_to_torch(nb if name == "nlvr" else gb, dev)
+            ins = (b["images"], b["text_ids"].long(), b["text_atts"].long())
+            kernels.reset_launch_counts()
+            if name == "nlvr":
+                loss = model.loss(*ins, b["targets"].long())
+                out["nlvr_loss"] = loss.item()
+            else:
+                lb, lg = model.loss(*ins, b["target_bbox"])
+                loss = lb + lg
+                out["l1"], out["giou"] = lb.item(), lg.item()
+            loss.backward()
+            launches[f"{tag}_{name}_loss"] = dict(kernels.LAUNCHES)
+            head = "cls_head.0.weight" if name == "nlvr" \
+                else "bbox_head.3.weight"
+            out[f"{name}_grads"] = {
+                k: p.grad.clone() for k, p in model.named_parameters()
+                if k in common + [head]}
+            kernels.reset_launch_counts()
+            with torch.no_grad():
+                out[f"{name}_out"] = model.loss(*ins, train=False).cpu()
+            launches[f"{tag}_{name}_eval"] = dict(kernels.LAUNCHES)
+            del model
+        model = build_model(XFMForRetrieval, rcfg, "cpu", seed=6).to(dev)
+        b = configs.batch_to_torch(gb, dev)
+        ins = (b["images"], b["text_ids"].long(), b["text_atts"].long())
+        kernels.reset_launch_counts()
+        out["cam"] = itm_gradcam(model, *ins, block_num=1).cpu()
+        launches[f"{tag}_cam"] = dict(kernels.LAUNCHES)
+        out["no_grad"] = all(p.grad is None for p in model.parameters())
+        out["boxes"] = [int(np.argmax(rank_boxes_by_cam(
+            out["cam"][i].numpy(), boxes[i], 384, 16))) for i in range(B)]
+        if tag == "cuda":
+            bf = build_model(XFMForRetrieval, config_from_yaml(
+                configs.grounding_yaml(layers=2,
+                                       compute_dtype="bfloat16"), **rkw),
+                "cpu", seed=6).to(dev)
+            out["cam_bf16"] = itm_gradcam(bf, *ins, block_num=1).cpu()
+            del bf
+        del model
+    c, g = res["cpu"], res["cuda"]
+    print(f"  nlvr/grounding slice launches: "
+          f"{json.dumps({k: v for k, v in launches.items() if 'cuda' in k})}")
+    none = {k: 0 for k in launches["cuda_cam"]}
+    both = dict(none, relpos_attention_fwd=2, relpos_attention_bwd=2)
+    fwd = dict(none, relpos_attention_fwd=2)
+    if (launches["cuda_nlvr_loss"] != both
+            or launches["cuda_grounding_loss"] != both
+            or launches["cuda_nlvr_eval"] != fwd
+            or launches["cuda_grounding_eval"] != fwd
+            or launches["cuda_cam"] != fwd):
+        raise AssertionError("nlvr/grounding slice: launches")
+    for name in ("nlvr_loss", "l1", "giou"):
+        ok = math.isclose(c[name], g[name], rel_tol=SLICE_LOSS_RTOL)
+        print(f"  slice {name}: cpu={c[name]:.6f} cuda={g[name]:.6f} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"nlvr/grounding slice: {name}")
+    _close("slice nlvr logits", c["nlvr_out"], g["nlvr_out"],
+           SLICE_LOSS_RTOL)
+    _close("slice grounding boxes", c["grounding_out"], g["grounding_out"],
+           SLICE_LOSS_RTOL)
+    _grads_close("nlvr slice", c["nlvr_grads"], g["nlvr_grads"])
+    _grads_close("grounding slice", c["grounding_grads"],
+                 g["grounding_grads"])
+    cerr = (c["cam"] - g["cam"]).abs().max().item()
+    cmax = c["cam"].abs().max().item()
+    print(f"  slice cam [{B}, {c['cam'].shape[1]}]: max_abs_err={cerr:.3e} "
+          f"tol={CAM_RTOL * cmax:.3e}; boxes cpu {c['boxes']} cuda "
+          f"{g['boxes']}; no parameter .grad: {g['no_grad']}")
+    if not (cerr <= CAM_RTOL * cmax and cmax > 0 and c["boxes"] == g["boxes"]
+            and c["no_grad"] and g["no_grad"]):
+        raise AssertionError("nlvr/grounding slice: the cam")
+    berr = (g["cam_bf16"] - g["cam"]).abs().max().item() / cmax
+    bboxes = [int(np.argmax(rank_boxes_by_cam(
+        g["cam_bf16"][i].numpy(), boxes[i], 384, 16))) for i in range(B)]
+    same = sum(int(a == b) for a, b in zip(bboxes, g["boxes"]))
+    print(f"  slice cam bf16 vs f32 on the card: max_abs_err / max = "
+          f"{berr:.3e}; the same box in {same} of {B}")
+    if not (berr <= CAM_BF16_RTOL and bboxes == g["boxes"]):
+        raise AssertionError("nlvr/grounding slice: the bf16 cam")
+    torch.cuda.empty_cache()
+    return dict(cam_bf16_rel_err=berr, cam_bf16_same_boxes=same,
+                cam_rel_err=cerr / cmax)
+
+
+def gate_grad_parity(B=8, Nq=30, Nk=577, H=12, D=64, seed=75) -> dict:
+    """The gated attention (`dot_product_attention(..., prob_gate=)`) in
+    bf16 at the GradCAM batch's cross-attention shape, on the CPU and on
+    the card from the same inputs, for a gate of ones (GradCAM's) and a
+    random one: the output within 2⁻⁷ of its largest value (1 bf16 ulp or
+    more there, so one rounding that falls the other way passes), the
+    gradient with respect to the gate within GATE_GRAD_RTOL of its largest
+    value → {gate kind: that gradient's error relative to its max}."""
+    from xfm_tpu_torch.ops.attention import dot_product_attention
+
+    r = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(r.randn(B, n, H, D).astype(np.float32))
+               .bfloat16() for n in (Nq, Nk, Nk))
+    bias = torch.from_numpy((r.randn(B, 1, 1, Nk) * 2).astype(np.float32))
+    dout = torch.from_numpy(r.randn(B, Nq, H, D).astype(np.float32))
+    res = {}
+    for kind, gate in (("ones", torch.ones(B, H, Nq, Nk)), ("random", (
+            1 + 0.5 * torch.from_numpy(r.randn(B, H, Nq, Nk)).float()))):
+        got = {}
+        for dev in ("cpu", "cuda"):
+            g = gate.detach().to(dev).requires_grad_()
+            out = dot_product_attention(q.to(dev), k.to(dev), v.to(dev),
+                                        bias=bias.to(dev), prob_gate=g)
+            (out.float() * dout.to(dev)).sum().backward()
+            got[dev] = (out.float().cpu(), g.grad.cpu())
+        (oc, gc), (og, gg) = got["cpu"], got["cuda"]
+        oerr = (oc - og).abs().max().item() / oc.abs().max().item()
+        res[kind] = (gc - gg).abs().max().item() / gc.abs().max().item()
+        print(f"  gated attention bf16 [{B}, {Nq}, {Nk}] gate={kind}: out "
+              f"err/max {oerr:.3e} tol {2.0 ** -7:.3e}; d gate err/max "
+              f"{res[kind]:.3e} tol {GATE_GRAD_RTOL:.3e}")
+        if not (oerr <= 2.0 ** -7 and res[kind] <= GATE_GRAD_RTOL):
+            raise AssertionError(f"the gated attention, gate={kind}")
+    return res
+
+
+def _png_pool(image_root, r, n):
+    """`n` seeded PNGs of 400-640 px a side under `image_root` → their
+    [(name, width, height)]; the corpora below draw their rows from them
+    (16 files in place of one a row: 80 for NLVR, 48 for grounding)."""
+    from PIL import Image
+
+    os.makedirs(image_root, exist_ok=True)
+    pool = []
+    for i in range(n):
+        path = _png_file(os.path.join(image_root, f"img{i:03d}.png"), r, 400,
+                         640)
+        pool.append((os.path.basename(path),) + Image.open(path).size)
+    return pool
+
+
+def _nlvr_corpus(root, n_train=24, n_val=8, n_test=8, n_images=16, seed=0):
+    """Seeded 'True' / 'False' labels and sentences over pairs of two
+    different PNGs of `_png_pool` → {train, val, test, image_root}."""
+    r = np.random.RandomState(seed)
+    paths = {"image_root": os.path.join(root, "images")}
+    pool = _png_pool(paths["image_root"], r, n_images)
+    for split, rows in (("train", n_train), ("val", n_val),
+                        ("test", n_test)):
+        ann = []
+        for _ in range(rows):
+            pair = r.choice(n_images, 2, replace=False)
+            ann.append({"images": [pool[i][0] for i in pair],
+                        "label": str(r.choice(["True", "False"])),
+                        "sentence": " ".join(r.choice(NLVR_WORDS,
+                                                      r.randint(6, 16)))})
+        paths[split] = os.path.join(root, f"{split}.json")
+        with open(paths[split], "w") as f:
+            json.dump(ann, f)
+    return paths
+
+
+def _grounding_corpus(root, n_train=24, n_test=8, n_weak=16, n_images=16,
+                      seed=1):
+    """A phrase and a pixel box on a PNG of `_png_pool` a row (train,
+    test); weakly supervised rows with 5 candidate boxes on the 384 px
+    frame and a `gt` index; a JSONL of 32 region images for stage 1 →
+    {train, test, weak, image_root, regions}."""
+    r = np.random.RandomState(seed)
+    paths = {"image_root": os.path.join(root, "images")}
+    pool = _png_pool(paths["image_root"], r, n_images)
+    n = 0
+    for split, rows in (("train", n_train), ("test", n_test),
+                        ("weak", n_weak)):
+        ann = []
+        for _ in range(rows):
+            name, W, H = pool[r.randint(n_images)]
+            n += 1
+            row = {"image": name, "ref_id": n, "text": " ".join(
+                r.choice(NLVR_WORDS, r.randint(3, 10)))}
+            if split == "weak":
+                xy = r.randint(0, 300, (5, 2))
+                row["boxes"] = np.concatenate(
+                    [xy, xy + r.randint(32, 84, (5, 2))], 1).tolist()
+                row["gt"] = int(r.randint(0, 5))
+            else:
+                w, h = r.uniform(40, W / 2), r.uniform(40, H / 2)
+                row["bbox"] = [float(r.uniform(0, W - w)),
+                               float(r.uniform(0, H - h)), float(w),
+                               float(h)]
+            ann.append(row)
+        paths[split] = os.path.join(root, f"{split}.json")
+        with open(paths[split], "w") as f:
+            json.dump(ann, f)
+    os.makedirs(os.path.join(root, "pt"), exist_ok=True)
+    paths["regions"] = _pretrain_corpus(os.path.join(root, "pt"), seed,
+                                        n_pairs=0, n_regions=32,
+                                        n_texts=0)["regions"]
+    return paths
+
+
+def _restored_bit_equal(ckpt, state) -> bool:
+    """The restored train state against the file it came from."""
+    opt = state.optimizer
+    saved = torch.load(ckpt, map_location=opt.params[0].device,
+                       weights_only=True)
+    equal = (state.step == saved["step"]
+             and opt.count == saved["optimizer"]["count"])
+    for name, p in zip(opt.names, opt.params):
+        equal &= torch.equal(p, saved["params"][name])
+    for key in ("mu", "nu"):
+        for name, t in zip(opt.names, getattr(opt, key)):
+            equal &= torch.equal(t, saved["optimizer"][key][name])
+    return bool(equal)
+
+
+def nlvr_task_runs(root, bs=24, epochs=2, seed=0) -> dict:
+    """Phase 22's runs of `run.main` in `root` over `_nlvr_corpus` and
+    `_grounding_corpus`: `--task nlvr` on `NLVR.yaml`'s keys (`resume:
+    true`), the run again after ckpt/<last> is deleted, `--evaluate
+    --checkpoint` from its checkpoint; `--task refcoco_bbox` on
+    `Grounding_bbox.yaml`'s keys with `domain_pretrain_config` naming
+    `Grounding_bbox_pretrain.yaml`'s keys over the region JSONL (3 steps
+    at its batch), then `--evaluate --checkpoint`;
+    `tasks.grounding.main_weakly_supervised` over the weakly supervised
+    rows. Each step, eval, stage-1 step, GradCAM batch and epoch is
+    recorded (seconds, launches, losses), and each run's checkpoint
+    writes (seconds), the restored state against its file, and stage 2's
+    tables against the interpolation of stage 1's."""
+    import types
+
+    import yaml
+
+    from xfm_tpu_torch import configs, run
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks import common, grounding, nlvr, pretrain
+    from xfm_tpu_torch.train.checkpoint import (
+        interpolate_rel_pos_bias_table, load_params_from_checkpoint)
+
+    t0 = time.perf_counter()
+    nf = _nlvr_corpus(os.path.join(root, "nlvr"))
+    gf = _grounding_corpus(os.path.join(root, "ref"))
+    runs = {"corpus_s": time.perf_counter() - t0}
+    cfgs = {
+        "nlvr": dict(configs.NLVR, train_file=[nf["train"]],
+                     val_file=nf["val"], test_file=nf["test"],
+                     image_root=nf["image_root"], resume=True),
+        "stage1": dict(configs.GROUNDING_PRETRAIN,
+                       train_file_regions=[gf["regions"]], max_steps=3,
+                       print_freq=1),
+        "weak": dict(configs.GROUNDING, test_file=gf["weak"],
+                     image_root=gf["image_root"], batch_size=8)}
+    for name in ("nlvr", "stage1", "weak"):
+        with open(os.path.join(root, f"{name}.yaml"), "w") as f:
+            yaml.safe_dump(cfgs[name], f)
+    cfgs["ref"] = dict(configs.GROUNDING, train_file=[gf["train"]],
+                       test_file=gf["test"], image_root=gf["image_root"],
+                       domain_pretrain_config=os.path.join(root,
+                                                           "stage1.yaml"))
+    with open(os.path.join(root, "ref.yaml"), "w") as f:
+        yaml.safe_dump(cfgs["ref"], f)
+    real = dict(n_ev=nlvr.evaluate, g_ev=grounding.evaluate,
+                te=common.train_epoch, re=common.maybe_resume_epochs,
+                save=common.save_task_checkpoint,
+                g_ld=grounding._load_stage1, g_cam=grounding.itm_gradcam,
+                p_step=pretrain.make_stream_step)
+    rec = {}
+
+    def timed(kind, fn, *a, **kw):
+        _sync()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        _sync()
+        return res, dict(kind=kind, s=time.perf_counter() - t0,
+                         launches=dict(kernels.LAUNCHES))
+
+    def evaluate(key):
+        def wrapped(model, data):
+            res, e = timed("eval", real[key], model, data)
+            e.update(batches=-(-len(data) // data.batch_size), **res)
+            rec["evals"].append(e)
+            return res
+        return wrapped
+
+    def train_epoch(ctx, state, step_fn, loader, generator, epoch, sched,
+                    **kw):
+        def step(state, batch, gen):
+            lr = state.optimizer.lr(state.optimizer.count)
+            (state, m), e = timed("step", step_fn, state, batch, gen)
+            e.update(loss=m["loss"].item(), lr=lr)
+            rec["steps"].append(e)
+            return state, m
+
+        torch.cuda.reset_peak_memory_stats()
+        state, stats = real["te"](ctx, state, step, loader, generator,
+                                  epoch, sched, **kw)
+        rec["epochs"].append(dict(
+            epoch=epoch,
+            max_memory_allocated=torch.cuda.max_memory_allocated()))
+        return state, stats
+
+    def save_task_checkpoint(*a, **kw):
+        t0 = time.perf_counter()
+        real["save"](*a, **kw)
+        rec["save_s"].append(time.perf_counter() - t0)
+
+    def maybe_resume_epochs(ctx, state):
+        state, start = real["re"](ctx, state)
+        if start:
+            rec["restored"] = dict(start=start, bit_equal=_restored_bit_equal(
+                os.path.join(ctx.out_dir, "ckpt", str(start - 1),
+                             "state.pt"), state))
+        return state, start
+
+    def load_stage1(model, path):
+        real["g_ld"](model, path)
+        s1 = load_params_from_checkpoint(path)
+        sd = model.state_dict()
+        g = model.config.vision.grid_size
+        keys = [k for k in s1 if k.endswith("relative_position_bias_table")]
+        rec["tables"] = dict(n=len(keys), shapes=sorted({
+            (tuple(s1[k].shape), tuple(sd[k].shape)) for k in keys}),
+            equal=all(np.array_equal(
+                interpolate_rel_pos_bias_table(
+                    s1[k].detach().float().cpu().numpy(), (g, g)),
+                sd[k].cpu().numpy()) for k in keys))
+        del s1
+
+    def stream_step(loss_fn):
+        step = real["p_step"](loss_fn)
+
+        def wrapped(state, batches, gens):
+            (state, m), e = timed("stage1", step, state, batches, gens)
+            e.update(loss=m["loss"].item(),
+                     rows=int(batches["region"]["images"].shape[0]))
+            rec["stage1"].append(e)
+            return state, m
+        return wrapped
+
+    def gradcam(*a, **kw):
+        cam, e = timed("gradcam", real["g_cam"], *a, **kw)
+        e.update(rows=int(cam.shape[0]), block_num=kw.get("block_num"))
+        rec["cams"].append(e)
+        return cam
+
+    nlvr.evaluate, grounding.evaluate = evaluate("n_ev"), evaluate("g_ev")
+    common.train_epoch = train_epoch
+    common.maybe_resume_epochs = maybe_resume_epochs
+    common.save_task_checkpoint = save_task_checkpoint
+    grounding._load_stage1, grounding.itm_gradcam = load_stage1, gradcam
+    pretrain.make_stream_step = stream_step
+    out = os.path.join(root, "out")
+    last = os.path.join(out, "ckpt", str(epochs - 1), "state.pt")
+    gout = os.path.join(root, "ref_out")
+    glast = os.path.join(gout, "ckpt", str(epochs - 1), "state.pt")
+    seed_arg = ["--seed", str(seed)]
+    try:
+        for name, argv in (
+                ("full", ["--task", "nlvr", "--config", "nlvr",
+                          "--output_dir", out, "--bs", str(bs), "--epoch",
+                          str(epochs)]),
+                ("resumed", ["--task", "nlvr", "--config", "nlvr",
+                             "--output_dir", out, "--bs", str(bs),
+                             "--epoch", str(epochs)]),
+                ("evaluate", ["--task", "nlvr", "--config", "nlvr",
+                              "--output_dir", out + "_ev", "--evaluate",
+                              "--checkpoint", last]),
+                ("pipeline", ["--task", "refcoco_bbox", "--config", "ref",
+                              "--output_dir", gout, "--bs", str(bs),
+                              "--epoch", str(epochs)]),
+                ("ref_evaluate", ["--task", "refcoco_bbox", "--config",
+                                  "ref", "--output_dir", gout + "_ev",
+                                  "--evaluate", "--checkpoint", glast]),
+                ("weak", None)):
+            if name == "resumed":
+                runs["layout"] = sorted(os.listdir(os.path.join(out,
+                                                                "ckpt")))
+                runs["checkpoint_bytes"] = os.path.getsize(last)
+                shutil.rmtree(os.path.dirname(last))
+            if name == "pipeline":  # the NLVR checkpoints are done with
+                for d in (out, out + "_ev"):
+                    shutil.rmtree(d, ignore_errors=True)
+            rec = dict(evals=[], steps=[], epochs=[], stage1=[], cams=[],
+                       save_s=[])
+            t0 = time.perf_counter()
+            if argv is None:
+                rec["result"] = grounding.main_weakly_supervised(
+                    types.SimpleNamespace(
+                        config=os.path.join(root, "weak.yaml"),
+                        output_dir=os.path.join(root, "weak_out"),
+                        checkpoint=None, seed=seed, device="cuda"))
+            else:
+                argv = list(argv)
+                i = argv.index("--config") + 1
+                argv[i] = os.path.join(root, argv[i] + ".yaml")
+                rec["result"] = run.main(argv + seed_arg)
+            rec["s"] = time.perf_counter() - t0
+            if name == "ref_evaluate":
+                runs["stage1_layout"] = sorted(os.listdir(os.path.join(
+                    gout, "bbox_pretrain", "ckpt")))
+            runs[name] = rec
+    finally:
+        nlvr.evaluate, grounding.evaluate = real["n_ev"], real["g_ev"]
+        common.train_epoch = real["te"]
+        common.maybe_resume_epochs = real["re"]
+        common.save_task_checkpoint = real["save"]
+        grounding._load_stage1 = real["g_ld"]
+        grounding.itm_gradcam = real["g_cam"]
+        pretrain.make_stream_step = real["p_step"]
+    return runs
+
+
+def full_nlvr_task(epochs=2) -> dict:
+    """Phase 22's task runs at full width on the card, checked: finite
+    losses; K2 12 + 12 a fine-tune step (NLVR and grounding) and 12 an eval
+    batch, K1 12 + 12 a stage-1 step, K2 12 a GradCAM batch, nothing else;
+    the checkpoints written; the NLVR resume bit-equal to its file, its
+    first loss bit-equal to the first run's; `--evaluate` giving the last
+    epoch's accuracy; stage 2's 12 tables [2212, 12] each the
+    interpolation of stage 1's [732, 12]; accuracies in [0, 1]; peak
+    memory under 80 GB. The directory is deleted at the end."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="xfm_nlvr_")
+    try:
+        runs = nlvr_task_runs(root, epochs=epochs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    d = 12
+    names = list(runs["full"]["steps"][0]["launches"])
+    none = {n: 0 for n in names}
+    want = {"step": dict(none, relpos_attention_fwd=d,
+                         relpos_attention_bwd=d),
+            "stage1": dict(none, packed_attention_fwd=d,
+                           packed_attention_bwd=d),
+            "gradcam": dict(none, relpos_attention_fwd=d)}
+    for name in ("full", "resumed", "evaluate", "pipeline", "ref_evaluate",
+                 "weak"):
+        r = runs[name]
+        print(f"  {name}: {r['s']:.1f} s ({sum(r['save_s']):.1f} s in "
+              f"{len(r['save_s'])} checkpoint writes), result "
+              f"{json.dumps(r['result'])}")
+        for e in r["steps"] + r["stage1"] + r["cams"]:
+            print(f"    {e['kind']} {e['s']:.3f} s loss "
+                  f"{e.get('loss', float('nan')):.4f} launches "
+                  f"{json.dumps(e['launches'])}")
+            if (e["launches"] != want[e["kind"]]
+                    or not math.isfinite(e.get("loss", 0.0))):
+                raise AssertionError(f"{name}: a {e['kind']}'s launches or "
+                                     f"loss")
+        for e in r["evals"]:
+            print(f"    eval {e['batches']} batches {e['s']:.3f} s "
+                  f"{json.dumps({k: v for k, v in e.items() if 'acc' in k})}"
+                  f" launches {json.dumps(e['launches'])}")
+            acc = [v for k, v in e.items() if "acc" in k]
+            if (e["launches"] != dict(none, relpos_attention_fwd=d
+                                      * e["batches"])
+                    or not all(0 <= a <= 1 for a in acc)):
+                raise AssertionError(f"{name}: an eval's launches or "
+                                     f"accuracy")
+        for e in r["epochs"]:
+            if e["max_memory_allocated"] >= 80e9:
+                raise AssertionError(f"{name}: peak memory")
+    full, resumed, pipe = runs["full"], runs["resumed"], runs["pipeline"]
+    spe = len(full["steps"]) // epochs
+    tables = pipe.get("tables", {})
+    print(f"  corpora {runs['corpus_s']:.1f} s; nlvr checkpoints "
+          f"{runs['layout']}, {runs['checkpoint_bytes']} B each; resume "
+          f"{json.dumps(resumed.get('restored', {}))}; stage "
+          f"1 {runs['stage1_layout']}, its {len(pipe['stage1'])} steps of "
+          f"{[e['rows'] for e in pipe['stage1']]} image rows; tables "
+          f"{json.dumps(tables)}; weak {json.dumps(runs['weak']['result'])}")
+    nlvr_last = full["evals"][-1]["acc"]
+    ref_last = pipe["evals"][-1]["iou50_acc"]
+    if (runs["layout"] != [str(i) for i in range(epochs)]
+            or not resumed.get("restored", {}).get("bit_equal")
+            or resumed["steps"][0]["loss"] != full["steps"][spe]["loss"]
+            or resumed["steps"][0]["lr"] != full["steps"][spe]["lr"]
+            or len(resumed["steps"]) != spe
+            or len(full["evals"]) != 2 * epochs
+            or runs["evaluate"]["result"] != {"acc": nlvr_last}
+            or runs["stage1_layout"] != ["3"] or len(pipe["stage1"]) != 3
+            or any(e["rows"] != 80 for e in pipe["stage1"])
+            or tables.get("n") != 12 or not tables.get("equal")
+            or tables.get("shapes") != [((732, 12), (2212, 12))]
+            or len(pipe["steps"]) != epochs * spe
+            or len(pipe["evals"]) != epochs
+            or runs["ref_evaluate"]["result"] != {"iou50_acc": ref_last}
+            or not 0 <= runs["weak"]["result"]["gradcam_acc"] <= 1
+            or [e["rows"] for e in runs["weak"]["cams"]] != [8, 8]
+            or {e["block_num"] for e in runs["weak"]["cams"]} != {8}):
+        raise AssertionError("the NLVR and grounding runs' checkpoints, "
+                             "resume, stage hand-off or evals")
+    return dict(nlvr_step_s=[e["s"] for e in full["steps"]],
+                ref_step_s=[e["s"] for e in pipe["steps"]],
+                stage1_step_s=[e["s"] for e in pipe["stage1"]],
+                gradcam_s=[e["s"] for e in runs["weak"]["cams"]],
+                run_s={n: runs[n]["s"] for n in (
+                    "full", "resumed", "evaluate", "pipeline",
+                    "ref_evaluate", "weak")},
+                save_s={n: runs[n]["save_s"] for n in (
+                    "full", "resumed", "pipeline")},
+                corpus_s=runs["corpus_s"],
+                max_memory_allocated=max(
+                    e["max_memory_allocated"]
+                    for e in full["epochs"] + pipe["epochs"]),
+                checkpoint_bytes=runs["checkpoint_bytes"],
+                nlvr=full["result"], ref=pipe["result"],
+                weak=runs["weak"]["result"])
+
+
+def nlvr_phase():
+    """Phase 22 → (K2's errors, times and bounds at qkv [48, 577, 2304]
+    and [24, 577, 2304] (forward and backward) and [8, 577, 2304]
+    (forward), the slice's bf16 cam readings, `profile_step.profile_nlvr`'s
+    units)."""
+    from xfm_tpu_torch import profile_step
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    t0 = time.perf_counter()
+    shape = dict(B=48, window=(24, 24), H=12)
+    k2nw = k2_work(B=48, N=577, H=12, D=64, window=(24, 24), dtype=bf16)
+    k2n_err = k2_parity(**shape, dtype=bf16, seed=70)
+    k2_parity(**shape, dtype=f32, seed=71)
+    k2_deterministic(**shape, dtype=bf16, seed=72)
+    k2n_t = k2_times(**shape, dtype=bf16)
+    print("  K2 B=48 N=577 times (ms): " + json.dumps(k2n_t))
+    print("  K2 B=48 N=577 bound (k2_work): " + json.dumps(k2nw))
+    gshape = dict(B=24, window=(24, 24), H=12)
+    k2bw = k2_work(B=24, N=577, H=12, D=64, window=(24, 24), dtype=bf16)
+    k2b_err = k2_parity(**gshape, dtype=bf16, seed=76)
+    k2_parity(**gshape, dtype=f32, seed=77)
+    k2_deterministic(**gshape, dtype=bf16, seed=78)
+    k2b_t = k2_times(**gshape, dtype=bf16)
+    print("  K2 B=24 N=577 times (ms): " + json.dumps(k2b_t))
+    print("  K2 B=24 N=577 bound (k2_work): " + json.dumps(k2bw))
+    k2g_err = k2_fwd_parity(8, bf16, seed=73)
+    k2_fwd_parity(8, f32, seed=74)
+    k2g_t = k2_fwd_times(8, bf16)
+    k2gw = k2_work(B=8, N=577, H=12, D=64, window=(24, 24), dtype=bf16)
+    print("  K2 B=8 N=577 forward times (ms): " + json.dumps(k2g_t))
+    print("  K2 B=8 N=577 bound (k2_work): " + json.dumps(k2gw))
+    t1 = time.perf_counter()
+    gate_grad_parity()
+    sp = nlvr_slice_parity()
+    t2 = time.perf_counter()
+    nt = full_nlvr_task()
+    t3 = time.perf_counter()
+    print("  nlvr and grounding tasks: " + json.dumps(nt))
+    nprof = profile_step.profile_nlvr(os.path.join(
+        REPO, "build", "xfm_tpu_torch", "profile_nlvr.json"))
+    print(f"  phase 22 seconds: kernels {t1 - t0:.1f}, slice {t2 - t1:.1f}, "
+          f"tasks {t3 - t2:.1f}, profiles {time.perf_counter() - t3:.1f}")
+    want = {"nlvr_train": dict(relpos_attention_fwd=12,
+                               relpos_attention_bwd=12),
+            "grounding_train": dict(relpos_attention_fwd=12,
+                                    relpos_attention_bwd=12),
+            "gradcam": dict(relpos_attention_fwd=12)}
+    for unit, r in nprof.items():
+        top = r.pop("top")
+        print(f"  {unit} profile: " + json.dumps(r))
+        for name, ms, n in top[:10]:
+            print(f"    {ms:9.3f} ms/call {n:6d} calls/call  {name}")
+        if (r["launches"] != dict({k: 0 for k in r["launches"]},
+                                  **want[unit])
+                or r["max_memory_allocated"] >= 80e9
+                or not math.isfinite(r.get("loss", r.get("cam_max")))):
+            raise AssertionError(f"{unit}: launches, peak memory or loss")
+    return ((k2n_err, k2n_t, k2nw), (k2b_err, k2b_t, k2bw),
+            (k2g_err, k2g_t, k2gw), sp, nprof)
+
+
+def nlvr_kernel_entries(k2n, k2b, k2g, nprof) -> list:
+    """The `kernels` entries of phase 22: K2 at the NLVR step's shape (qkv
+    [48, 577, 2304] bf16, forward and backward) with its launches a step
+    (`profile_step nlvr_train`), at the grounding step's ([24, 577, 2304])
+    with its launches a step (`grounding_train`), and K2's forward at the
+    GradCAM batch ([8, 577, 2304]) with its launches a batch
+    (`gradcam`)."""
+    entries = []
+    for (err, t, w), tag, unit in ((k2n, "nlvr_b48", "nlvr_train"),
+                                   (k2b, "grounding_b24", "grounding_train")):
+        entries += [dict(e, name=f"{e['name']}_{tag}")
+                    for e in kernel_entries(
+                        "relpos_attention", "xfm_tpu/ops/flash_attention.py",
+                        689, 717, "xfm_tpu_torch/csrc/relpos_attention.cu",
+                        err, ("dqkv", "dcr", "dcls"), t, w,
+                        nprof[unit]["launches"])]
+    err, t, w = k2g
+    entries.append(dict(
+        name="relpos_attention_fwd_gradcam_b8", route="cuda",
+        source="xfm_tpu_torch/csrc/relpos_attention.cu",
+        replaces="xfm_tpu/ops/flash_attention.py:689",
+        launches=nprof["gradcam"]["launches"]["relpos_attention_fwd"],
+        max_abs_err=err["out"][0], ms=t["fwd_ms"],
+        plain_ms=t["plain_fwd_ms"], bound_ms=w["fwd"]["bound_ms"],
+        bound_by=w["fwd"]["bound_by"], library_ms=t["library_fwd_ms"]))
+    return entries
+
+
 LN_EPS = 1e-6
 
 
@@ -2956,6 +3663,15 @@ def kernel_entries(prefix, tpu_file, line_fwd, line_bwd, src, err, bwd_errs,
     return out
 
 
+PHASE_T = []  # when each phase began (time.perf_counter)
+
+
+def phase(header: str) -> None:
+    """Print a phase's header and note when the phase began."""
+    PHASE_T.append(time.perf_counter())
+    print(header, flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2969,7 +3685,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
-    print(f"phase 1: device {smi}; torch {torch.__version__} "
+    phase(f"phase 1: device {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     from xfm_tpu_torch.ops import kernels
 
@@ -2984,7 +3700,7 @@ def main() -> int:
 
     k1_shape = dict(B=96, N=197, H=12)
     k1w = k1_work(**k1_shape, D=64, dtype=torch.bfloat16)
-    print("phase 2: K1 parity and times")
+    phase("phase 2: K1 parity and times")
     print_ptxas("K1", "packed_attention")
     k1_err = k1_parity(**k1_shape, dtype=torch.bfloat16)
     k1_parity(B=3, N=50, H=4, dtype=torch.bfloat16, seed=1)
@@ -2994,15 +3710,15 @@ def main() -> int:
     k1_t = k1_times(**k1_shape, dtype=torch.bfloat16)
     print("  K1 times (ms): " + json.dumps(k1_t))
     print("  K1 bound: " + json.dumps(k1w))
-    print("phase 3: pretrain slice parity, CPU vs card")
+    phase("phase 3: pretrain slice parity, CPU vs card")
     slice_parity("pretrain")
-    print("phase 4: full-width XFM-base pretrain step")
+    phase("phase 4: full-width XFM-base pretrain step")
     pretrain = full_width("pretrain")
 
     k2_shape = dict(B=32, window=(24, 24), H=12)
     k2w = k2_work(B=32, N=577, H=12, D=64, window=(24, 24),
                   dtype=torch.bfloat16)
-    print("phase 5: K2 parity and times")
+    phase("phase 5: K2 parity and times")
     print_ptxas("K2", "relpos_attention")
     k2_err = k2_parity(**k2_shape, dtype=torch.bfloat16)
     k2_parity(**k2_shape, dtype=torch.float32, seed=1)
@@ -3014,14 +3730,14 @@ def main() -> int:
     k2_t = k2_times(**k2_shape, dtype=torch.bfloat16)
     print("  K2 times (ms): " + json.dumps(k2_t))
     print("  K2 bound (k2_work): " + json.dumps(k2w))
-    print("phase 6: retrieval slice parity, CPU vs card")
+    phase("phase 6: retrieval slice parity, CPU vs card")
     slice_parity("retrieval")
-    print("phase 7: full-width XFM-base retrieval step, 384 px")
+    phase("phase 7: full-width XFM-base retrieval step, 384 px")
     retrieval = full_width("retrieval")
 
     k3_shape = dict(B=32, N=577, H=12)
     k3w = k3_work(B=32, Nq=577, Nk=577, H=12, D=64, dtype=torch.bfloat16)
-    print("phase 8: K3 parity and times")
+    phase("phase 8: K3 parity and times")
     k3_err = k3_parity(32, 577, 577, 12, torch.bfloat16)
     k3_parity(32, 577, 577, 12, torch.float32, seed=1)
     k3_parity(32, 577, 577, 12, torch.bfloat16, "relpos", seed=2)
@@ -3034,14 +3750,14 @@ def main() -> int:
     k3_t = k3_times(**k3_shape, dtype=torch.bfloat16)
     print("  K3 times (ms): " + json.dumps(k3_t))
     print("  K3 bound (k3_work): " + json.dumps(k3w))
-    print("phase 9: CLIP retrieval slice parity, CPU vs card, default and "
+    phase("phase 9: CLIP retrieval slice parity, CPU vs card, default and "
           "fused routes")
     slice_parity("clip_retrieval")
     slice_parity("clip_retrieval_fused")
-    print("phase 10: full-width CLIP-ViT-B/16 retrieval step, 384 px")
+    phase("phase 10: full-width CLIP-ViT-B/16 retrieval step, 384 px")
     clip = full_width("clip_retrieval")
 
-    print("phase 11: K4 parity and times")
+    phase("phase 11: K4 parity and times")
     from xfm_tpu_torch.ops import fused_ln as fl
 
     print_ptxas("K4", "fused_ln", no_spills_in=("xfm_ln_bwd",))
@@ -3078,7 +3794,7 @@ def main() -> int:
         print(f"  K4 {site} times (ms): " + json.dumps(k4_site_t[site]))
         print(f"  K4 {site} bound (k4_work): " + json.dumps(k4_site_w[site]))
     k4_t, k4w = k4_site_t["beit_add"], k4_site_w["beit_add"]
-    print("phase 12: K5 parity and times")
+    phase("phase 12: K5 parity and times")
     print_ptxas("K5", "fused_mlp", no_spills_in=("wgmma", "dw_sum"))
     hgmma = sass_count("fused_mlp", "HGMMA")
     print(f"  K5 HGMMA instructions in the fused_mlp library: "
@@ -3108,14 +3824,14 @@ def main() -> int:
     k5_t = k5_times(18912, torch.bfloat16)
     print("  K5 times (ms): " + json.dumps(k5_t))
     print("  K5 bound (k5_work): " + json.dumps(k5w))
-    print("phase 13: fused pretrain slice parity, CPU vs card")
+    phase("phase 13: fused pretrain slice parity, CPU vs card")
     slice_parity("pretrain_fused")
-    print("phase 14: full-width XFM-base pretrain step, fused LN and MLP")
+    phase("phase 14: full-width XFM-base pretrain step, fused LN and MLP")
     fused = full_width("pretrain_fused")
     print(f"  peak memory: fused {fused['max_memory_allocated']} B, "
           f"default {pretrain['max_memory_allocated']} B (phase 4)")
 
-    print("phase 15: K3 and K2 forward parity and times at the eval's "
+    phase("phase 15: K3 and K2 forward parity and times at the eval's "
           "shapes")
     bf16, f32 = torch.bfloat16, torch.float32
     k3g_err = k3_grouped_parity(8, 256, bf16, "ones")
@@ -3135,18 +3851,18 @@ def main() -> int:
     k2e_t = k2_fwd_times(64, bf16)
     print("  K2 B=64 times (ms): " + json.dumps(k2e_t))
     print("  K2 B=64 bound (k2_work): " + json.dumps(k2ew))
-    print("phase 16: eval slice parity, CPU vs card, BEiT-2 and CLIP-ViT")
+    phase("phase 16: eval slice parity, CPU vs card, BEiT-2 and CLIP-ViT")
     eval_slice_parity(clip=False)
     eval_slice_parity(clip=True)
-    print("phase 17: the full-width retrieval eval, 384 px")
+    phase("phase 17: the full-width retrieval eval, 384 px")
     ev = full_eval()
     cli_eval()
-    print("phase 18: the full-width retrieval fine-tune, 384 px, and its "
+    phase("phase 18: the full-width retrieval fine-tune, 384 px, and its "
           "resume")
     ft = full_finetune()
     print("  fine-tune: " + json.dumps(ft))
 
-    print("phase 19: the pretrain task, its four streams and K1 at their "
+    phase("phase 19: the pretrain task, its four streams and K1 at their "
           "shapes")
     k1_new = {}
     for B in (192, 80):
@@ -3180,12 +3896,15 @@ def main() -> int:
         raise AssertionError("pretrain_streams: launches, peak memory or "
                              "losses")
 
-    print("phase 20: VQA at 480 px: K2 at the step's shape, the slice, "
+    phase("phase 20: VQA at 480 px: K2 at the step's shape, the slice, "
           "the task and its profile")
     k2v_err, k2v_t, k2vw, vprof = vqa_phase()
-    print("phase 21: COCO captioning: K2 and K1 at the new batches, the "
+    phase("phase 21: COCO captioning: K2 and K1 at the new batches, the "
           "slice, the task and its profile")
     k2c, k1c, cprof = caption_phase()
+    phase("phase 22: NLVR2 and RefCOCO grounding: K2 at the new batches, "
+          "the slice, the tasks and their profiles")
+    k2n, k2b, k2g, _, nprof = nlvr_phase()
 
     entries = (kernel_entries("packed_attention",
                               "xfm_tpu/ops/flash_attention.py", 983, 1007,
@@ -3217,8 +3936,12 @@ def main() -> int:
                + vqa_kernel_entries(k2v_err, k2v_t, k2vw,
                                     vprof["vqa_train"]["launches"])
                + caption_kernel_entries(k2c, k1c, (k2_err, k2_t, k2w),
-                                        cprof))
-    print(f"chip_smoke: 21 phases in {time.perf_counter() - t_start:.1f} s")
+                                        cprof)
+               + nlvr_kernel_entries(k2n, k2b, k2g, nprof))
+    ends = PHASE_T[1:] + [time.perf_counter()]
+    by_phase = [round(b - a, 1) for a, b in zip(PHASE_T, ends)]
+    print(f"chip_smoke: 22 phases in {ends[-1] - t_start:.1f} s; seconds "
+          f"by phase {json.dumps(by_phase)}")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

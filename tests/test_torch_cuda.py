@@ -116,6 +116,9 @@ def _relpos_inputs(B, window, H, dtype, seed):
     (2, (30, 30), 12),   # 480 px: N = 901, the model's heads
     (16, (30, 30), 12),  # the VQA step at 480 px, its batch of 16
     (16, (24, 24), 12),  # the caption step at 384 px, its batch of 16
+    (48, (24, 24), 12),  # the NLVR step: 24 pairs, 48 images
+    (24, (24, 24), 12),  # the grounding step: 24 phrases
+    (8, (24, 24), 12),   # the GradCAM batch of 8
     (4, (3, 5), 12),     # N = 16, shorter than one tile
     (2, (20, 30), 2),    # N = 601: ww > wh, tails on both sides
 ])
@@ -1077,3 +1080,68 @@ def test_caption_decode_on_the_card_matches_cpu():
     assert torch.equal(beam_generate(gpu, images.cuda(), num_beams=3,
                                      **kw).cpu(),
                        beam_generate(cpu, images, num_beams=3, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unit,want", [
+    ("nlvr_train", dict(relpos_attention_fwd=12, relpos_attention_bwd=12)),
+    ("grounding_train", dict(relpos_attention_fwd=12,
+                             relpos_attention_bwd=12)),
+    ("gradcam", dict(relpos_attention_fwd=12))])
+def test_nlvr_and_grounding_units_launch_k2_only(unit, want):
+    """At full width and depth (12 BEiT blocks at 384 px, bf16): the NLVR
+    step (2 pairs: one 4-image tower pass), the grounding step (B = 2),
+    dropout and drop-path live, K2 12 + 12; a GradCAM batch (B = 2, fusion
+    layer 8) K2 12 forward, its backward through the fusion layers
+    launching nothing; nothing else of K1-K5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.ops import kernels
+
+    state, call = (configs.make_nlvr_run(B=2) if unit == "nlvr_train"
+                   else configs.make_grounding_run(unit, B=2))
+    kernels.reset_launch_counts()
+    out = call(0)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == dict(
+        {k: 0 for k in kernels.LAUNCHES}, **want)
+    if unit == "gradcam":
+        assert out.shape == (2, 576) and torch.isfinite(out).all()
+        assert all(p.grad is None for p in state.model.parameters())
+    else:
+        assert torch.isfinite(out["loss"])
+
+
+@pytest.mark.cuda
+def test_gradcam_on_the_card_matches_cpu():
+    """At depth 2 (2 BEiT blocks at 384 px, 2 text and fusion layers), f32,
+    the full vocabulary: the cam at fusion layer 1 on the card within
+    1e-4 of its largest value of the CPU's, and the same box chosen for
+    each sample among 5 candidates."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.models import (XFMForRetrieval, config_from_yaml,
+                                      itm_gradcam, rank_boxes_by_cam)
+    from xfm_tpu_torch.train.checkpoint import init_weights
+
+    mcfg = config_from_yaml(configs.grounding_yaml(
+        layers=2, compute_dtype="float32"), use_contrastive_loss=True,
+        use_matching_loss=True)
+    cpu = XFMForRetrieval(mcfg)
+    init_weights(cpu, 6)
+    gpu = XFMForRetrieval(mcfg)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.cuda()
+    b = configs.make_grounding_batch(3, 30, 384, mcfg.text.vocab_size, 7)
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    args = (tb["images"], tb["text_ids"].long(), tb["text_atts"].long())
+    c = itm_gradcam(cpu, *args, block_num=1)
+    g = itm_gradcam(gpu, *(x.cuda() for x in args), block_num=1).cpu()
+    assert (g - c).abs().max() <= 1e-4 * c.abs().max()
+    boxes = np.random.RandomState(8).randint(0, 384, (5, 4))
+    boxes[:, 2:] = np.maximum(boxes[:, 2:], boxes[:, :2] + 16)
+    for i in range(3):
+        assert np.argmax(rank_boxes_by_cam(c[i].numpy(), boxes, 384, 16)) \
+            == np.argmax(rank_boxes_by_cam(g[i].numpy(), boxes, 384, 16))

@@ -15,6 +15,8 @@ which the two update orders leave on weights passing near 0); accumulation's met
 trajectories at the JAX test's rtol 1e-4 / atol 5e-5 for the losses and
 rtol 5e-3 / atol 1e-3 for the pre-clip gradient norms.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -283,6 +285,28 @@ def test_checkpoint_round_trip_bit_equal(tmp_path):
     assert ck.restore_checkpoint(str(tmp_path / "none"), fresh) is fresh
     with pytest.raises(FileNotFoundError):
         ck.load_params_from_checkpoint(str(tmp_path / "none"))
+
+
+def test_link_checkpoint_places_the_same_file(tmp_path):
+    """`link_checkpoint` (the fine-tune's ckpt_best/): the saved step's file
+    under a second directory as the same file, which outlives the first
+    directory's pruning and restores bit-equal; `keep` prunes the second
+    directory as `save_checkpoint` prunes the first."""
+    state = _steps(_tiny_state(0), 2, 0)
+    want = _snapshot(state)
+    src, best = str(tmp_path / "ckpt"), str(tmp_path / "ckpt_best")
+    for epoch in range(3):
+        ck.save_checkpoint(src, state, step=epoch, keep=1)
+        ck.link_checkpoint(src, best, epoch, keep=1)
+        assert os.path.samefile(os.path.join(src, str(epoch), "state.pt"),
+                                os.path.join(best, str(epoch), "state.pt"))
+    ck.save_checkpoint(src, state, step=3, keep=1)
+    assert os.listdir(src) == ["3"] and os.listdir(best) == ["2"]
+    got = _snapshot(ck.restore_checkpoint(best, _steps(_tiny_state(1), 1,
+                                                       1)))
+    for w, g in zip(want[:3], got[:3]):
+        assert all(torch.equal(a, b) for a, b in zip(w, g))
+    assert got[3:] == want[3:]
 
 
 def test_restore_refuses_another_model(tmp_path):

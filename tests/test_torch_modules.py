@@ -154,8 +154,8 @@ def test_hard_negative_draws_follow_the_jax_weights():
 
 def test_port_imports_neither_jax_nor_xfm_tpu():
     """Every module of xfm_tpu_torch (the fine-tune's, the eval's, the
-    pretrain task's, VQA's and captioning's tasks/, data/, eval/, train/
-    and run.py among them) and
+    pretrain task's, VQA's, captioning's, NLVR2's and grounding's tasks/,
+    data/, eval/, models/, train/ and run.py among them) and
     chip_smoke's helpers
     import in a fresh interpreter
     without pulling in jax, flax, optax or any xfm_tpu module; PIL, yaml and
@@ -185,7 +185,9 @@ def test_port_imports_neither_jax_nor_xfm_tpu():
         " 'xfm_tpu_torch.tasks.captioning',"
         " 'xfm_tpu_torch.eval.caption_metrics', 'xfm_tpu_torch.eval.cider',"
         " 'xfm_tpu_torch.eval.meteor', 'xfm_tpu_torch.eval.meteor_synonyms',"
-        " 'xfm_tpu_torch.eval.ptb_tokenizer'}\n"
+        " 'xfm_tpu_torch.eval.ptb_tokenizer', 'xfm_tpu_torch.tasks.nlvr',"
+        " 'xfm_tpu_torch.tasks.grounding', 'xfm_tpu_torch.eval.refer',"
+        " 'xfm_tpu_torch.models.gradcam'}\n"
         "lazy = ('PIL', 'yaml', 'transformers')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'flax', 'optax', 'xfm_tpu') + lazy]\n"

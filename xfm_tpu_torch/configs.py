@@ -12,7 +12,10 @@ VQA's (`configs/xfm-ft/VQA.yaml`, kept as a dict), its fine-tune step and
 its answer ranking on seeded device batches at the YAML's sizes; and COCO
 captioning's (`configs/xfm-ft/Captioning.yaml` and `Captioning_pretrain.yaml`,
 kept as dicts): its fine-tune step, beam eval, SCST step and domain-pretrain
-step on seeded device batches at the YAMLs' sizes."""
+step on seeded device batches at the YAMLs' sizes; and NLVR2's and RefCOCO
+grounding's (`configs/xfm-ft/NLVR.yaml`, `Grounding_bbox.yaml` and
+`Grounding_bbox_pretrain.yaml`, kept as dicts): their fine-tune steps and
+a GradCAM batch on seeded device batches at the YAMLs' sizes."""
 from __future__ import annotations
 
 import os
@@ -24,14 +27,16 @@ import torch
 from .models.beit2 import VisionConfig
 from .models.clip_vit import ClipVisionConfig
 from .models.generation import XFMForCaptioning, XFMForVQA
-from .models.task_models import XFMForPretrain, XFMForRetrieval
+from .models.task_models import (XFMForGrounding, XFMForNLVR,
+                                 XFMForPretrain, XFMForRetrieval)
 from .models.text_encoder import TextConfig
 from .models.xfm import XFMConfig, config_from_yaml
 from .train.checkpoint import init_weights
 from .train.optim import create_optimizer, create_optimizer_from_config
 from .train.schedules import linear_warmup_decay, schedule_from_config
 from .train.train_state import (TrainState, caption_loss_fn,
-                                make_train_step, pretrain_loss_fn,
+                                grounding_loss_fn, make_train_step,
+                                nlvr_loss_fn, pretrain_loss_fn,
                                 retrieval_loss_fn, vqa_loss_fn)
 
 
@@ -823,3 +828,227 @@ def caption_step_flops(B: int, T: int, patches: int, hidden=768,
                                 cross_kv=Nv)
            + 2 * B * T * hidden * (hidden + vocab))
     return 3 * fwd
+
+
+_FT_COMMON = {
+    "use_beit_v2": True,
+    "vision_config": "configs/model/config_beit2_base.json",
+    "image_res": 384, "patch_size": 16,
+    "text_encoder": "data/roberta-base",
+    "text_num_hidden_layers": 12, "text_fusion_start_at": 12,
+    "fusion_num_hidden_layers": 12, "fusion_fusion_start_at": 0,
+    "parallel": {"data": -1, "fsdp": 1, "tensor": 1},
+    "optimizer": {"opt": "adamW", "lr": 3.0e-5, "weight_decay": 0.01,
+                  "lr_mult": 2},
+    "schedular": {"sched": "linear", "lr": 3.0e-5, "epochs": 10,
+                  "num_warmup_steps": 0.1},
+}
+# configs/xfm-ft/NLVR.yaml, Grounding_bbox.yaml and
+# Grounding_bbox_pretrain.yaml, key for key (a CPU test holds them equal)
+NLVR = dict(_FT_COMMON,
+            train_file=["data/finetune/nlvr_train.json"],
+            val_file="data/finetune/nlvr_dev.json",
+            test_file="data/finetune/nlvr_test.json",
+            image_root="data/nlvr2", local_attn_depth=-1, max_tokens=40,
+            batch_size=24, accelerator={"RNG_SEED": 42})
+GROUNDING = dict(_FT_COMMON,
+                 train_file=["data/finetune/refcoco_train.json"],
+                 test_file="data/finetune/refcoco_val.json",
+                 image_root="data/coco", max_tokens=30, batch_size=24)
+GROUNDING_PRETRAIN = {
+    "train_file_regions": ["data/pretrain/regions.jsonl"],
+    "regions": {"image_key": "binary", "is_image_rpath": False,
+                "caption_key": "caption", "batch_size": 96,
+                "max_images": 80, "max_regions": 5,
+                "min_perc_in_image": 0.5},
+    "ret_bbox_loss": True, "ret_bbox_giou": True,
+    "use_beit_v2": True,
+    "vision_config": "configs/model/config_beit2_base.json",
+    "image_res": 224, "patch_size": 16,
+    "text_encoder": "data/roberta-base",
+    "text_num_hidden_layers": 12, "text_fusion_start_at": 12,
+    "fusion_num_hidden_layers": 12, "fusion_fusion_start_at": 0,
+    "embed_dim": 256, "temp": 0.07, "learnable_temp": True,
+    "max_tokens": 30, "max_words": 30, "mask_prob": 0.5, "max_masks": 15,
+    "max_steps": 50000,
+    "parallel": {"data": -1, "fsdp": 1, "tensor": 1},
+    "optimizer": {"opt": "adamW", "lr": 1.0e-4, "weight_decay": 0.01,
+                  "lr_mult": 2},
+    "schedular": {"sched": "linear", "lr": 1.0e-4, "epochs": 1,
+                  "num_warmup_steps": 1000},
+}
+
+
+def _cut(cfg: dict, image_res, layers) -> dict:
+    if image_res:
+        cfg["image_res"] = image_res
+    if layers:
+        cfg.update(text_num_hidden_layers=layers, text_fusion_start_at=layers,
+                   fusion_num_hidden_layers=layers, vision_depth=layers)
+    return cfg
+
+
+def nlvr_yaml(image_res: Optional[int] = None, layers: Optional[int] = None,
+              **keys) -> dict:
+    """`NLVR` at `image_res` where given, every encoder cut to `layers`
+    where given, `keys` set on top."""
+    return dict(_cut(dict(NLVR), image_res, layers), **keys)
+
+
+def grounding_yaml(image_res: Optional[int] = None,
+                   layers: Optional[int] = None, pretrain: bool = False,
+                   **keys) -> dict:
+    """`GROUNDING` (or with `pretrain` `GROUNDING_PRETRAIN`) at `image_res`
+    where given, every encoder cut to `layers` where given, `keys` set on
+    top."""
+    cfg = dict(GROUNDING_PRETRAIN if pretrain else GROUNDING)
+    return dict(_cut(cfg, image_res, layers), **keys)
+
+
+def make_pair_batch(B: int = 24, T: int = 40, image_res: int = 384,
+                    vocab: int = 50265, seed: int = 0
+                    ) -> Dict[str, np.ndarray]:
+    """A seeded batch of `NLVRData`'s layout: 2B normal-random images (the
+    pairs' first images, then their second ones), sentences of 6..T tokens
+    and 0 / 1 targets."""
+    r = np.random.RandomState(seed)
+    ids, atts = _token_rows(r, B, T, vocab, 6)
+    return dict(
+        images=r.randn(2 * B, image_res, image_res, 3).astype(np.float32),
+        text_ids=ids, text_atts=atts,
+        targets=r.randint(0, 2, B).astype(np.int64))
+
+
+def make_grounding_batch(B: int = 24, T: int = 30, image_res: int = 384,
+                         vocab: int = 50265, seed: int = 0
+                         ) -> Dict[str, np.ndarray]:
+    """A seeded batch of `GroundingData`'s layout: normal-random images,
+    phrases of 4..T tokens and target boxes (normalized cxcywh, each side
+    0.1..0.6, inside the image)."""
+    r = np.random.RandomState(seed)
+    ids, atts = _token_rows(r, B, T, vocab, 4)
+    wh = r.uniform(0.1, 0.6, (B, 2))
+    c = wh / 2 + r.uniform(0.0, 1.0, (B, 2)) * (1.0 - wh)
+    return dict(
+        images=r.randn(B, image_res, image_res, 3).astype(np.float32),
+        text_ids=ids, text_atts=atts,
+        target_bbox=np.concatenate([c, wh], 1).astype(np.float32))
+
+
+def _step_call(model, cfg, batch, loss_fn, device, seed):
+    """HF-AdamW and the schedule from the YAML's blocks over `model`, and
+    call(i): one step of `loss_fn` (dropout and drop-path live) on `batch`
+    with the generator of i → (state, call)."""
+    import functools
+
+    state = TrainState.create(model, create_optimizer_from_config(
+        model, cfg, schedule_from_config(cfg, 1000)))
+    step = make_train_step(functools.partial(loss_fn, deterministic=False))
+
+    def call(i):
+        nonlocal state
+        gen = torch.Generator(device=device).manual_seed(seed * 1000 + i)
+        state, m = step(state, batch, gen)
+        return m
+
+    return state, call
+
+
+def make_nlvr_run(B: Optional[int] = None, T: Optional[int] = None,
+                  device="cuda", seed: int = 0, **keys):
+    """The step of `run.py --task nlvr` on `NLVR.yaml` (`keys` set on top):
+    XFM-base at 384 px, the full RoBERTa vocabulary, bf16 compute, random
+    weights from `seed`, HF-AdamW and the schedule from the YAML's blocks,
+    dropout and drop-path live, on a `make_pair_batch` of the YAML's
+    `batch_size` pairs (24: 48 images) and `max_tokens` (40) on the
+    device. → (state, call) with call(i) running one step with the
+    generator of i → its metrics."""
+    cfg = nlvr_yaml(**keys)
+    model = XFMForNLVR(config_from_yaml(cfg)).to(device)
+    init_weights(model, seed)
+    c = model.config
+    batch = batch_to_torch(make_pair_batch(
+        B or cfg["batch_size"], T or cfg["max_tokens"], c.vision.image_res,
+        c.text.vocab_size, seed), device)
+    return _step_call(model, cfg, batch, nlvr_loss_fn, device, seed)
+
+
+def make_grounding_run(unit: str = "grounding_train",
+                       B: Optional[int] = None, device="cuda",
+                       seed: int = 0, **keys):
+    """One unit of `run.py --task refcoco_bbox` on `Grounding_bbox.yaml`
+    (`keys` set on top), XFM-base at 384 px, the full RoBERTa vocabulary,
+    bf16 compute, random weights from `seed`, on seeded device batches:
+    - "grounding_train": the bbox fine-tune's step (`XFMForGrounding`,
+      HF-AdamW and the schedule from the YAML's blocks, dropout and
+      drop-path live) on a `make_grounding_batch` of the YAML's
+      `batch_size` (24) phrases of `max_tokens` (30);
+    - "gradcam": `itm_gradcam` of an `XFMForRetrieval` (no optimizer)
+      over a batch of B = 8 (`main_weakly_supervised`'s default) at
+      fusion layer `block_num` (8).
+    → (state, call) with call(i) running the unit once with the generator
+    of i → its metrics (the step's) or the cam [B, num_patches]."""
+    from .models.gradcam import itm_gradcam
+
+    cfg = grounding_yaml(**keys)
+    gradcam = unit == "gradcam"
+    if unit not in ("grounding_train", "gradcam"):
+        raise ValueError(f"unit {unit!r}")
+    if gradcam:
+        model = XFMForRetrieval(config_from_yaml(
+            cfg, use_contrastive_loss=True, use_matching_loss=True))
+    else:
+        model = XFMForGrounding(config_from_yaml(cfg, use_bbox_loss=True))
+    model = model.to(device)
+    init_weights(model, seed)
+    c = model.config
+    B = B or (8 if gradcam else cfg["batch_size"])
+    batch = batch_to_torch(make_grounding_batch(
+        B, cfg["max_tokens"], c.vision.image_res, c.text.vocab_size, seed),
+        device)
+    if not gradcam:
+        return _step_call(model, cfg, batch, grounding_loss_fn, device, seed)
+    block = cfg.get("block_num", 8)
+
+    def call(i):
+        return itm_gradcam(model, batch["images"], batch["text_ids"],
+                           batch["text_atts"], block_num=block)
+
+    return TrainState.create(model, None), call
+
+
+def nlvr_step_flops(B: int, T: int, patches: int, hidden=768, inter=3072,
+                    layers=12) -> float:
+    """Model FLOPs of one NLVR fine-tune step (forward + backward ≈ 3×
+    forward): the vision pass over 2B images, the text pass over B
+    sentences and the two fusion passes (2B rows) cross-attending to the
+    image tokens."""
+    Nv = patches + 1
+    fwd = (_transformer_flops(layers, hidden, inter, Nv, 2 * B)
+           + _transformer_flops(layers, hidden, inter, T, B)
+           + _transformer_flops(layers, hidden, inter, T, 2 * B,
+                                cross_kv=Nv))
+    return 3 * fwd
+
+
+def grounding_step_flops(B: int, T: int, patches: int, hidden=768,
+                         inter=3072, layers=12) -> float:
+    """Model FLOPs of one grounding fine-tune step (forward + backward ≈ 3×
+    forward): one vision, one text and one fusion pass over B rows."""
+    Nv = patches + 1
+    fwd = (_transformer_flops(layers, hidden, inter, Nv, B)
+           + _transformer_flops(layers, hidden, inter, T, B)
+           + _transformer_flops(layers, hidden, inter, T, B, cross_kv=Nv))
+    return 3 * fwd
+
+
+def gradcam_flops(B: int, T: int, patches: int, block_num: int = 8,
+                  hidden=768, inter=3072, layers=12) -> float:
+    """Model FLOPs of one GradCAM batch: the vision, text and fusion
+    forwards over B rows, and the backward (≈ 2× forward) of the fusion
+    layers from `block_num` on."""
+    Nv = patches + 1
+    fusion = _transformer_flops(1, hidden, inter, T, B, cross_kv=Nv)
+    return (_transformer_flops(layers, hidden, inter, Nv, B)
+            + _transformer_flops(layers, hidden, inter, T, B)
+            + layers * fusion + 2 * (layers - block_num) * fusion)

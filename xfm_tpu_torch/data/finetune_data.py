@@ -1,7 +1,8 @@
-"""The retrieval fine-tune's and eval's data, VQA's and captioning's
-(`xfm_tpu/data/finetune_data.py` `RetrievalTrainData`, `RetrievalEvalData`,
-`VQAData`, `CaptioningData`): annotation lists of the reference's json
-format → fixed-shape numpy batches."""
+"""The retrieval fine-tune's and eval's data, NLVR2's, VQA's,
+captioning's and grounding's (`xfm_tpu/data/finetune_data.py`
+`RetrievalTrainData`, `RetrievalEvalData`, `NLVRData`, `VQAData`,
+`CaptioningData`, `GroundingData`): annotation lists of the reference's
+json format → fixed-shape numpy batches."""
 from __future__ import annotations
 
 import json
@@ -123,6 +124,55 @@ class RetrievalEvalData:
         for s in range(0, len(self.text), batch_size):
             yield _encode_texts(self.tok, self.text[s:s + batch_size],
                                 self.max_tokens)
+
+
+class NLVRData:
+    """NLVR2: two images, a sentence and a 'True' / 'False' label an
+    annotation. Batches hold the images as [all first images; all second
+    images] (2B rows), text_ids, text_atts and targets (1 where
+    `str(label).lower() == "true"`)."""
+
+    def __init__(self, ann_file, transform, image_root, tokenizer,
+                 max_tokens=40, batch_size=16, train=True):
+        self.ann = _load_ann(ann_file)
+        self.transform = transform
+        self.image_root = image_root
+        self.tok = tokenizer
+        self.max_tokens = max_tokens
+        self.batch_size = batch_size
+        self.train = train
+
+    def __len__(self):
+        return len(self.ann)
+
+    def epoch(self, epoch_seed=0) -> Iterator[dict]:
+        """One pass. Train: the order `np.random.default_rng(epoch_seed)`
+        shuffles, the transform reseeded from [epoch_seed, 1] first (the
+        pair's first image transformed before its second); a last partial
+        batch is dropped. Eval: the file's order, the last batch kept."""
+        order = np.arange(len(self.ann))
+        if self.train:
+            np.random.default_rng(epoch_seed).shuffle(order)
+            self.transform.reseed([epoch_seed, 1])
+        buf0, buf1, caps, labels = [], [], [], []
+        for i in order:
+            a = self.ann[int(i)]
+            for buf, name in ((buf0, a["images"][0]), (buf1, a["images"][1])):
+                buf.append(self.transform(decode_image(
+                    os.path.join(self.image_root, name))))
+            caps.append(pre_caption(a["sentence"], 50))
+            labels.append(1 if str(a["label"]).lower() == "true" else 0)
+            if len(buf0) == self.batch_size:
+                yield self._pack(buf0, buf1, caps, labels)
+                buf0, buf1, caps, labels = [], [], [], []
+        if buf0 and not self.train:
+            yield self._pack(buf0, buf1, caps, labels)
+
+    def _pack(self, buf0, buf1, caps, labels):
+        ids, atts = _encode_texts(self.tok, caps, self.max_tokens)
+        images = np.concatenate([np.stack(buf0), np.stack(buf1)], axis=0)
+        return dict(images=images, text_ids=ids, text_atts=atts,
+                    targets=np.asarray(labels, np.int32))
 
 
 class VQAData:
@@ -297,3 +347,64 @@ class CaptioningData:
             ids, atts = _encode_texts(self.tok, caps, self.max_tokens)
             out.update(text_ids=ids, text_atts=atts)
         return out
+
+
+class GroundingData:
+    """RefCOCO-style referring expressions: an image, a phrase
+    (`pre_caption(text, 30)`), its box `bbox` [x, y, w, h] in pixels and
+    `ref_id`. Batches hold images, text_ids, text_atts, target_bbox (cxcywh
+    normalized: by the source image's size, or by the crop a box-aware
+    transform (`maps_box`, `BoxTrainTransform`) returns with the image)
+    and ref_id. An annotation without `bbox` (the weakly supervised one,
+    which carries candidate `boxes`) takes the dummy box (0, 0, 1, 1)."""
+
+    def __init__(self, ann_file, transform, image_root, tokenizer,
+                 max_tokens=30, batch_size=16, train=True):
+        self.ann = _load_ann(ann_file)
+        self.transform = transform
+        self.image_root = image_root
+        self.tok = tokenizer
+        self.max_tokens = max_tokens
+        self.batch_size = batch_size
+        self.train = train
+
+    def __len__(self):
+        return len(self.ann)
+
+    def epoch(self, epoch_seed=0) -> Iterator[dict]:
+        """One pass. Train: the order `np.random.default_rng(epoch_seed)`
+        shuffles, the transform reseeded from [epoch_seed, 1] first; a last
+        partial batch is dropped. Eval: the file's order, the last batch
+        kept."""
+        order = np.arange(len(self.ann))
+        if self.train:
+            np.random.default_rng(epoch_seed).shuffle(order)
+            self.transform.reseed([epoch_seed, 1])
+        maps_box = getattr(self.transform, "maps_box", False)
+        imgs, texts, boxes, ref_ids = [], [], [], []
+        for i in order:
+            a = self.ann[int(i)]
+            img = decode_image(os.path.join(self.image_root, a["image"]))
+            box = a.get("bbox", (0, 0, 1, 1))
+            if maps_box:
+                arr, target = self.transform(img, box)
+            else:
+                W, H = img.size
+                x, y, w, h = box
+                arr = self.transform(img)
+                target = [(x + w / 2) / W, (y + h / 2) / H, w / W, h / H]
+            imgs.append(arr)
+            boxes.append(target)
+            texts.append(pre_caption(a["text"], 30))
+            ref_ids.append(a.get("ref_id", 0))
+            if len(imgs) == self.batch_size:
+                yield self._pack(imgs, texts, boxes, ref_ids)
+                imgs, texts, boxes, ref_ids = [], [], [], []
+        if imgs and not self.train:
+            yield self._pack(imgs, texts, boxes, ref_ids)
+
+    def _pack(self, imgs, texts, boxes, ref_ids):
+        ids, atts = _encode_texts(self.tok, texts, self.max_tokens)
+        return dict(images=np.stack(imgs), text_ids=ids, text_atts=atts,
+                    target_bbox=np.asarray(boxes, np.float32),
+                    ref_id=np.asarray(ref_ids))

@@ -1,7 +1,8 @@
 """Host image transforms (`xfm_tpu/data/transforms.py` `decode_image`,
 `normalize`, `crop_box`, `random_resized_crop`, `TrainTransform`,
-`TestTransform`): NHWC float32 arrays. PIL is imported inside the functions
-that decode or resize."""
+`TestTransform`), and grounding's box-aware `BoxTrainTransform`: NHWC
+float32 arrays. PIL is imported inside the functions that decode or
+resize."""
 from __future__ import annotations
 
 import base64
@@ -121,3 +122,57 @@ class TestTransform:
         Image = _pil()
         img = img.resize((self.image_res, self.image_res), Image.BICUBIC)
         return normalize(np.asarray(img, np.uint8))
+
+
+class BoxTrainTransform:
+    """The grounding fine-tune's train transform, which keeps the target
+    box on the pixels it names: a crop that holds the box, drawn as the
+    region stream draws its crop (x0 ∈ [0, x], y0 ∈ [0, y], x1 ∈
+    [x + w, W], y1 ∈ [y + h, H], on whole pixels), resized bicubic to
+    image_res², then RandAugment(2, 7) over its photometric ops alone (the
+    geometric ones would move pixels under a box that stays put), then
+    `normalize`. Every draw from one numpy generator, which `reseed`
+    starts anew (the data's `epoch` reseeds it each epoch). (The JAX
+    package trains through `TrainTransform`, a random resized crop and
+    geometric RandAugment, and normalizes the box by the uncropped image,
+    so its target names a region the crop has moved or cut away.)"""
+
+    PHOTOMETRIC = ("Identity", "AutoContrast", "Equalize", "Brightness",
+                   "Sharpness")
+    maps_box = True
+
+    def __init__(self, image_res: int):
+        from .randaugment import RandomAugment
+
+        self.image_res = image_res
+        self.randaug = RandomAugment(2, 7, augs=self.PHOTOMETRIC)
+        self.reseed(None)
+
+    def reseed(self, seed) -> None:
+        """Draw from `np.random.default_rng(seed)` from now on."""
+        self.rng = self.randaug.rng = np.random.default_rng(seed)
+
+    def __call__(self, img, box):
+        """img (PIL), box (x, y, w, h) in its pixels → (the image array,
+        the box as cxcywh normalized to the crop, float32 [4])."""
+        import math
+
+        Image = _pil()
+        W, H = img.size
+        x, y, w, h = (float(v) for v in box)
+        bx0, by0 = min(max(x, 0.0), W - 1.0), min(max(y, 0.0), H - 1.0)
+        bx1, by1 = min(max(x + w, bx0 + 1.0), W), min(max(y + h, by0 + 1.0),
+                                                      H)
+        r = self.rng
+        x0 = int(r.integers(0, int(math.floor(bx0)), endpoint=True))
+        y0 = int(r.integers(0, int(math.floor(by0)), endpoint=True))
+        x1 = int(r.integers(min(int(math.ceil(bx1)), W), W, endpoint=True))
+        y1 = int(r.integers(min(int(math.ceil(by1)), H), H, endpoint=True))
+        img = img.crop((x0, y0, x1, y1)).resize(
+            (self.image_res, self.image_res), Image.BICUBIC)
+        img = self.randaug(img)
+        cw, ch = x1 - x0, y1 - y0
+        target = np.asarray([((bx0 + bx1) / 2 - x0) / cw,
+                             ((by0 + by1) / 2 - y0) / ch,
+                             (bx1 - bx0) / cw, (by1 - by0) / ch], np.float32)
+        return normalize(np.asarray(img, np.uint8)), target

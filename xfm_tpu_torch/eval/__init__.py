@@ -1,2 +1,3 @@
-"""Evaluation metrics of the port: VQA accuracy and the caption metrics
-(BLEU, METEOR, ROUGE-L, CIDEr-D over PTB-tokenized text)."""
+"""Evaluation of the port: VQA accuracy, the caption metrics (BLEU, METEOR,
+ROUGE-L, CIDEr-D over PTB-tokenized text) and the REFER annotations of
+grounding."""

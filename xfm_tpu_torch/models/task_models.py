@@ -1,11 +1,15 @@
-"""Task heads (`xfm_tpu/models/task_models.py`): `XFMForPretrain` and
-`XFMForRetrieval`.
+"""Task heads (`xfm_tpu/models/task_models.py`): `XFMForPretrain`,
+`XFMForRetrieval`, `XFMForNLVR` and `XFMForGrounding`.
 
 Each holds the XFMBase parameters directly (not under a `backbone.` prefix),
 so its state_dict is the reference's. The pretrain head takes every stream
 of the pretrain task (image-text, region, ImageNet, text-only); of
 retrieval, the fine-tune step and the eval: the encoders of its first stage
-and the ITM rerank of its second.
+and the ITM rerank of its second. NLVR2 classifies a pair of images against
+one sentence; grounding regresses the box a phrase names. Their heads are
+the ones the JAX package's `init_all` creates from the config: NLVR's
+`cls_head` alone (no ITM head, projections or temperature), grounding's
+`bbox_head` alone.
 """
 from __future__ import annotations
 
@@ -14,7 +18,8 @@ from typing import Optional
 import torch
 
 from ..ops.dropout import dropout_generator
-from .xfm import XFMBase
+from .text_encoder import cross_entropy
+from .xfm import MLPHead, XFMBase
 
 
 LOSS_KEYS = ("loss_itc", "loss_itm", "loss_mlm", "loss_mim", "loss_bbox",
@@ -183,3 +188,67 @@ class XFMForRetrieval(XFMBase):
             image_row_idx=image_row_idx,
             image_group_size=image_group_size)[:, 0, :]
         return self.itm_head(cross)[:, 1]
+
+
+class XFMForNLVR(XFMBase):
+    """Two-image reasoning head (reference models/model_nlvr.py): the
+    pair's images go through the vision tower as one [2B, ...] batch (all
+    first images, then all second ones), two fusion passes share one text
+    encoding, and their cls rows, concatenated (2 × text width), go through
+    a 2-way `MLPHead` (`cls_head.{0,1,3}`)."""
+
+    def __init__(self, c):
+        super().__init__(c)
+        self.cls_head = MLPHead(2 * c.text_width, 2, c.dtype)
+
+    def loss(self, images, text_ids, text_atts, targets=None,
+             train: bool = True, generator: Optional[torch.Generator] = None,
+             deterministic: bool = True):
+        """images [2B, H, W, 3] → the mean cross-entropy against `targets`
+        [B], or with `train=False` the logits [B, 2]. Unless
+        `deterministic`, the dropout masks come from `generator`."""
+        with dropout_generator(generator):
+            image_embeds = self.get_vision_embeds(
+                images, deterministic=deterministic)
+            text_embeds = self.get_text_embeds(text_ids, text_atts,
+                                               deterministic)
+            n = text_ids.shape[0]
+            atts = torch.ones(n, image_embeds.shape[1], dtype=torch.int64,
+                              device=image_embeds.device)
+            cls = [self.get_cross_embeds(
+                half, atts, text_embeds, text_atts, deterministic,
+                is_pretrain=False)[:, 0, :]
+                for half in (image_embeds[:n], image_embeds[n:])]
+            pred = self.cls_head(torch.cat(cls, dim=-1))
+        if not train:
+            return pred
+        return cross_entropy(pred, targets)
+
+    def forward(self, *args, **kwargs):
+        return self.loss(*args, **kwargs)
+
+
+class XFMForGrounding(XFMBase):
+    """RefCOCO bbox regression head (reference models/model_grounding.py):
+    the fusion cls over the whole image → `bbox_head` → sigmoid cxcywh."""
+
+    def loss(self, images, text_ids, text_atts, target_bbox=None,
+             train: bool = True, generator: Optional[torch.Generator] = None,
+             deterministic: bool = True):
+        """→ (L1, GIoU) of the predicted boxes against `target_bbox` [B, 4]
+        (normalized cxcywh), or with `train=False` the boxes [B, 4] f32.
+        Unless `deterministic`, the dropout masks come from `generator`."""
+        with dropout_generator(generator):
+            image_embeds = self.get_vision_embeds(
+                images, deterministic=deterministic)
+            text_embeds = self.get_text_embeds(text_ids, text_atts,
+                                               deterministic)
+            coords = self.predict_bbox(image_embeds, text_atts, text_embeds,
+                                       is_pretrain=False,
+                                       deterministic=deterministic)
+        if not train:
+            return coords
+        return self.get_bbox_loss(coords, target_bbox)
+
+    def forward(self, *args, **kwargs):
+        return self.loss(*args, **kwargs)

@@ -163,7 +163,9 @@ class SelfAttention(nn.Module):
     query row j seeing slots ≤ index + j only (causal inside a chunk too):
     a 0 / −1e9 f32 bias added to `attention_bias`. The cross-attention
     projects its k/v into the cache, or with `cross_from_cache` reads them
-    from it and projects nothing."""
+    from it and projects nothing. `prob_gate` multiplies the probabilities
+    (`dot_product_attention`'s gate route); not with `kv_group_size` in a
+    cross-attention, which raises, as in the JAX package."""
 
     def __init__(self, c: TextConfig, is_cross: bool = False):
         super().__init__()
@@ -180,10 +182,9 @@ class SelfAttention(nn.Module):
                 decode: Optional[LayerCache] = None, index: int = 0,
                 cross_from_cache: bool = False):
         c = self.c
-        if prob_gate is not None:
+        if prob_gate is not None and kv_group_size and self.is_cross:
             raise NotImplementedError(
-                "kv_group_size with prob_gate (GradCAM) unsupported"
-                if kv_group_size else "prob_gate (GradCAM) is not ported yet")
+                "kv_group_size with prob_gate (GradCAM) unsupported")
         H = c.num_attention_heads
         D = c.hidden_size // H
         B, Nq = hidden.shape[:2]
@@ -219,7 +220,8 @@ class SelfAttention(nn.Module):
         else:
             ctx = dot_product_attention(
                 q, k, v, bias=attention_bias, deterministic=deterministic,
-                dropout_rate=c.attention_probs_dropout_prob)
+                dropout_rate=c.attention_probs_dropout_prob,
+                prob_gate=prob_gate)
         out = dropout(dense(ctx.reshape(B, Nq, c.hidden_size),
                             self.output.dense, c.dtype),
                       c.hidden_dropout_prob, deterministic)
@@ -255,7 +257,7 @@ class TransformerLayer(nn.Module):
                 encoder_attention_bias=None, encoder_row_idx=None,
                 encoder_group_size=None, deterministic: bool = True,
                 decode: Optional[LayerCache] = None, index: int = 0,
-                cross_from_cache: bool = False):
+                cross_from_cache: bool = False, cross_prob_gate=None):
         c = self.c
         x = self.attention(hidden, hidden, attention_bias,
                            deterministic=deterministic, decode=decode,
@@ -264,6 +266,7 @@ class TransformerLayer(nn.Module):
             x = self.crossattention(x, encoder_hidden_states,
                                     encoder_attention_bias, encoder_row_idx,
                                     encoder_group_size,
+                                    prob_gate=cross_prob_gate,
                                     deterministic=deterministic,
                                     decode=decode,
                                     cross_from_cache=cross_from_cache)
@@ -317,7 +320,9 @@ class TextTransformer(nn.Module):
     `inputs_embeds` bypasses the embeddings. `decode` (a `DecodeCache`)
     runs one incremental step over the chunk `input_ids`, positions after
     `past_length` tokens, and advances the cache's index; with
-    `cross_from_cache` the cross k/v are the ones the first step cached."""
+    `cross_from_cache` the cross k/v are the ones the first step cached.
+    `cross_gate` ([B|1, H|1, Nq, Nk]) multiplies the cross-attention
+    probabilities of layer `cross_gate_layer` alone (GradCAM's gate)."""
 
     def __init__(self, c: TextConfig, with_mlm: bool = False):
         super().__init__()
@@ -338,7 +343,8 @@ class TextTransformer(nn.Module):
                 encoder_row_idx=None, deterministic: bool = True,
                 encoder_group_size=None,
                 decode: Optional[DecodeCache] = None, past_length: int = 0,
-                cross_from_cache: bool = False):
+                cross_from_cache: bool = False, cross_gate=None,
+                cross_gate_layer: Optional[int] = None):
         c = self.c
         x = (inputs_embeds if inputs_embeds is not None
              else self.roberta.embeddings(input_ids, deterministic,
@@ -367,7 +373,9 @@ class TextTransformer(nn.Module):
                 x, bias, encoder_hidden_states, ebias, encoder_row_idx,
                 encoder_group_size, deterministic,
                 decode=None if decode is None else decode.layer(i, c),
-                index=index, cross_from_cache=cross_from_cache)
+                index=index, cross_from_cache=cross_from_cache,
+                cross_prob_gate=cross_gate if i == cross_gate_layer
+                else None)
         if decode is not None:
             decode.index = index + x.shape[1]
         return x

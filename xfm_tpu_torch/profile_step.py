@@ -4,7 +4,8 @@ on the card.
     python3 -m xfm_tpu_torch.profile_step
         [pretrain|pretrain_fused|retrieval|retrieval_train|clip_retrieval|
          retrieval_eval|pretrain_streams|vqa_train|vqa_rank|caption_train|
-         caption_beam|caption_scst|caption_pretrain] [--trace PATH]
+         caption_beam|caption_scst|caption_pretrain|nlvr_train|
+         grounding_train|gradcam] [--trace PATH]
 
 Runs the full-width step of the chosen path as `chip_smoke.py` does
 (pretrain: B = 48 at 224 px, the default; pretrain_fused: the same with the
@@ -59,6 +60,14 @@ prompt forced; caption_scst one SCST step of 16 images, 5 samples an
 image with the greedy baseline and CIDEr-D rewards on the host;
 caption_pretrain the domain pretrain's step on `Captioning_pretrain.yaml`
 at its batch of 64 at 224 px. Each prints the same numbers as vqa_train.
+
+nlvr_train profiles the step of `run.py --task nlvr` on `NLVR.yaml`
+(XFM-base at 384 px, bf16, the full vocabulary) at its batch of 24 pairs
+(48 images, one tower pass) of 40 tokens, dropout and drop-path live;
+grounding_train the bbox fine-tune's step of `run.py --task refcoco_bbox`
+on `Grounding_bbox.yaml` at its batch of 24 phrases of 30 tokens; gradcam
+one batch of 8 through `itm_gradcam` at fusion layer 8 (the weakly
+supervised grounding). Each prints the same numbers as vqa_train.
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -327,24 +336,23 @@ def profile_vqa(trace: str, units=("vqa_rank", "vqa_train"),
 
 CAPTION_UNITS = ("caption_train", "caption_beam", "caption_scst",
                  "caption_pretrain")
+NLVR_UNITS = ("nlvr_train", "grounding_train", "gradcam")
 
 
-def profile_caption(trace: str, units=CAPTION_UNITS, steps: int = STEPS,
-                    **keys) -> dict:
-    """`units` of `configs.make_caption_run` (`keys` on top of the YAMLs'),
-    each on its own model, in order: the peak memory of its warm-up (2
-    calls of a train step, 1 of the others), then a profiled window of
-    `steps` calls → {unit: {span, busy, idle share, host ms a call,
-    groups, launches a call (K1-K5 counters over the window), peak bytes,
-    the model's parameter count, and the loss (the reward too in SCST) or
-    the first sequence (beam)}}; each unit's trace to <trace's
-    base>_<unit>.json (or `trace` for one unit)."""
-    from . import configs
+def _profile_units(trace: str, units, make, summary, warm,
+                   steps: int = STEPS) -> dict:
+    """Each unit of `units` on its own model (`make(unit)` → (state,
+    call)), in order: the peak memory of its warm-up (`warm(unit)` calls),
+    then a profiled window of `steps` calls → {unit: {span, busy, idle
+    share, host ms a call, groups, launches a call (K1-K5 counters over
+    the window), peak bytes, the model's parameter count, and
+    `summary(unit, the last call's output)`}}; each unit's trace to
+    <trace's base>_<unit>.json (or `trace` for one unit)."""
     from .ops import kernels
 
     out = {}
     for unit in units:
-        state, call = configs.make_caption_run(unit, **keys)
+        state, call = make(unit)
         last = {}
         n = [0]
 
@@ -354,8 +362,7 @@ def profile_caption(trace: str, units=CAPTION_UNITS, steps: int = STEPS,
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for _ in range(2 if unit in ("caption_train", "caption_pretrain")
-                       else 1):
+        for _ in range(warm(unit)):
             fn()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
@@ -368,12 +375,7 @@ def profile_caption(trace: str, units=CAPTION_UNITS, steps: int = STEPS,
                               for k, v in kernels.LAUNCHES.items()}),
                    max_memory_allocated=peak,
                    params=sum(p.numel() for p in state.model.parameters()))
-        if unit == "caption_beam":
-            res["seq0"] = last["out"][0].tolist()
-        else:
-            res["loss"] = float(last["out"]["loss"])
-            if "reward" in last["out"]:
-                res["reward"] = last["out"]["reward"]
+        res.update(summary(unit, last["out"]))
         res["top"] = [(name[:110], ms, c // steps) for name, (ms, c) in
                       sorted(kern.items(), key=lambda kv: -kv[1][0])[:TOP]]
         base, ext = os.path.splitext(trace)
@@ -386,13 +388,58 @@ def profile_caption(trace: str, units=CAPTION_UNITS, steps: int = STEPS,
     return out
 
 
+def profile_caption(trace: str, units=CAPTION_UNITS, steps: int = STEPS,
+                    **keys) -> dict:
+    """`_profile_units` over `configs.make_caption_run`'s units (`keys` on
+    top of the YAMLs'): 2 warm-up calls of a train step, 1 of the others;
+    each with the loss (the reward too in SCST) or the first sequence
+    (beam)."""
+    from . import configs
+
+    def summary(unit, out):
+        if unit == "caption_beam":
+            return {"seq0": out[0].tolist()}
+        return {"loss": float(out["loss"]),
+                **({"reward": out["reward"]} if "reward" in out else {})}
+
+    return _profile_units(
+        trace, units, lambda u: configs.make_caption_run(u, **keys),
+        summary, lambda u: 2 if u in ("caption_train", "caption_pretrain")
+        else 1, steps)
+
+
+def profile_nlvr(trace: str, units=NLVR_UNITS, steps: int = STEPS,
+                 **keys) -> dict:
+    """`_profile_units` over NLVR's and grounding's units at the YAMLs'
+    sizes (`keys` on top): "nlvr_train" (`configs.make_nlvr_run`'s step,
+    24 pairs, 48 images), "grounding_train" and "gradcam"
+    (`configs.make_grounding_run`'s: the step at 24 phrases, a GradCAM
+    batch of 8 at fusion layer 8); 2 warm-up calls of a step, 1 of
+    GradCAM; each with the loss, or the cam's largest value."""
+    from . import configs
+
+    def make(unit):
+        if unit == "nlvr_train":
+            return configs.make_nlvr_run(**keys)
+        return configs.make_grounding_run(unit, **keys)
+
+    def summary(unit, out):
+        if unit == "gradcam":
+            return {"cam_max": float(out.max())}
+        return {"loss": float(out["loss"])}
+
+    return _profile_units(trace, units, make, summary,
+                          lambda u: 1 if u == "gradcam" else 2, steps)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path", nargs="?", default="pretrain",
                     choices=("pretrain", "pretrain_fused", "retrieval",
                              "retrieval_train", "clip_retrieval",
                              "retrieval_eval", "pretrain_streams",
-                             "vqa_train", "vqa_rank") + CAPTION_UNITS)
+                             "vqa_train", "vqa_rank") + CAPTION_UNITS
+                    + NLVR_UNITS)
     ap.add_argument("--trace")
     args = ap.parse_args(argv)
     trace = args.trace or f"build/xfm_tpu_torch/profile_{args.path}.json"
@@ -401,10 +448,11 @@ def main(argv=None) -> int:
         return 2
     if args.path == "retrieval_eval":
         return profile_retrieval_eval(trace)
-    if args.path in ("vqa_train", "vqa_rank") + CAPTION_UNITS:
-        res = (profile_caption(trace, units=(args.path,))
-               if args.path in CAPTION_UNITS
-               else profile_vqa(trace, units=(args.path,)))[args.path]
+    if args.path in ("vqa_train", "vqa_rank") + CAPTION_UNITS + NLVR_UNITS:
+        profile = (profile_caption if args.path in CAPTION_UNITS
+                   else profile_nlvr if args.path in NLVR_UNITS
+                   else profile_vqa)
+        res = profile(trace, units=(args.path,))[args.path]
         top = res.pop("top")
         print(f"max_memory_allocated={res.pop('max_memory_allocated')}")
         print(json.dumps(res))

@@ -10,6 +10,9 @@
         [--evaluate] [--checkpoint CKPT | --load_ckpt_from CKPT] ...
     python3 -m xfm_tpu_torch.run --task infer_caption [--config C]
         [--checkpoint CKPT] ...
+    python3 -m xfm_tpu_torch.run --task nlvr [--config C] [--evaluate] ...
+    python3 -m xfm_tpu_torch.run --task refcoco_bbox [--config C]
+        [--evaluate] [--checkpoint CKPT] [--load_ckpt_from CKPT] ...
 
 Of the tasks, retrieval (`itr_coco`, `itr_flickr`: the fine-tune, with a
 zero-shot eval and then train, eval and checkpoint each epoch, and with
@@ -20,16 +23,24 @@ test split's answers from `start_eval` on and at the end, and with
 fine-tune with its beam-search captions and scores, SCST where the YAML
 sets `scst`, the caption-domain pretrain where it sets `domain_pretrain`,
 and with `--evaluate` the captions and scores alone) and caption
-inference over a directory of images (`infer_caption`) are ported. With
-no `--config`, or one that does not exist, `pretrain_DIY` takes
+inference over a directory of images (`infer_caption`), NLVR2 (`nlvr`:
+the fine-tune with its val and test accuracies each epoch, and with
+`--evaluate` the test accuracy alone) and RefCOCO grounding
+(`refcoco_bbox`: the region-stream domain pretrain at 224 px, then the
+bbox fine-tune at 384 px from its weights, and with `--evaluate` the
+IoU ≥ 0.5 accuracy alone) are ported. With no `--config`, or one that
+does not exist, `pretrain_DIY` takes
 configs/xfm-pt/Pretrain_XBrain_base_4m.yaml, `vqa`
-configs/xfm-ft/VQA.yaml and the two caption tasks
-configs/xfm-ft/Captioning.yaml, as the repository's `run.py` falls back.
+configs/xfm-ft/VQA.yaml, the two caption tasks
+configs/xfm-ft/Captioning.yaml, `nlvr` configs/xfm-ft/NLVR.yaml and
+`refcoco_bbox` configs/xfm-ft/Grounding_bbox.yaml, as the repository's
+`run.py` falls back.
 Any other task is an argparse error that lists the ported ones. `--bs` is
 the global batch, divided over the processes into the YAML's train and
-stream batch sizes. `--load_ckpt_from` is read as `--checkpoint` by the
-caption tasks where no `--checkpoint` is given. Runs on the card unless
-`--device cpu` is given.
+stream batch sizes (or its top-level `batch_size`). `--load_ckpt_from` is
+read as `--checkpoint` by the caption tasks where no `--checkpoint` is
+given, and by `refcoco_bbox` as stage 1's weights (stage 1 then does not
+run). Runs on the card unless `--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -52,6 +63,8 @@ DEFAULT_CONFIGS = {
     "vqa": os.path.join(_CONFIGS, "xfm-ft", "VQA.yaml"),
     "coco_captioning": os.path.join(_CONFIGS, "xfm-ft", "Captioning.yaml"),
     "infer_caption": os.path.join(_CONFIGS, "xfm-ft", "Captioning.yaml"),
+    "nlvr": os.path.join(_CONFIGS, "xfm-ft", "NLVR.yaml"),
+    "refcoco_bbox": os.path.join(_CONFIGS, "xfm-ft", "Grounding_bbox.yaml"),
 }
 
 
@@ -92,23 +105,38 @@ def run_infer_caption(args):
     return captioning.main_infer(args)
 
 
+def run_nlvr(args):
+    from .tasks import nlvr
+
+    _default_config(args)
+    return nlvr.main(args)
+
+
+def run_grounding(args):
+    from .tasks import grounding
+
+    _default_config(args)
+    return grounding.main_bbox_pipeline(args)
+
+
 TASKS = {"itr_coco": run_itr, "itr_flickr": run_itr,
          "pretrain_DIY": run_pretrain, "vqa": run_vqa,
          "coco_captioning": run_captioning,
-         "infer_caption": run_infer_caption}
+         "infer_caption": run_infer_caption, "nlvr": run_nlvr,
+         "refcoco_bbox": run_grounding}
 
 
 def build_parser():
     p = argparse.ArgumentParser(description="xfm_tpu_torch task launcher")
     p.add_argument("--task", required=True, choices=sorted(TASKS))
     p.add_argument("--config", default="",
-                   help="task YAML (pretrain_DIY, vqa and the caption tasks "
-                        "have a default)")
+                   help="task YAML (pretrain_DIY, vqa, the caption tasks, "
+                        "nlvr and refcoco_bbox have a default)")
     p.add_argument("--output_dir", default="output")
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--load_ckpt_from", default=None,
                    help="the caption tasks: read as --checkpoint where none "
-                        "is given")
+                        "is given; refcoco_bbox: stage 1's weights")
     p.add_argument("--evaluate", action="store_true",
                    help="run the eval only (no fine-tune)")
     p.add_argument("--bs", type=int, default=None,

@@ -3,10 +3,12 @@
 device; the train state built from the YAML, the step (with gradient
 accumulation), one epoch of it over prefetched device batches, the
 checkpoints (by epoch or by step) and their resume, the step
-generators, and the log."""
+generators, the epoch loop of a fine-tune with its evals and
+checkpoints, the load of a reference checkpoint, and the log."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 from typing import Optional
@@ -67,13 +69,18 @@ def scale_batch(cfg: dict, global_bs: int,
     divided over the processes (one card each; the world size by default)
     into `batch_size_train` and the `batch_size` of the stream blocks
     `images`, `texts`, `regions` and `images_imagenet`, where the YAML has
-    them."""
+    them; and into a top-level `batch_size` where the YAML has no
+    `batch_size_train` (NLVR.yaml's and Grounding_bbox.yaml's, which the
+    JAX package leaves as they are, so that `--bs` changes nothing
+    there)."""
     n = n_processes or world_size()
     for key in ("images", "texts", "regions", "images_imagenet"):
         if isinstance(cfg.get(key), dict) and "batch_size" in cfg[key]:
             cfg[key]["batch_size"] = max(1, global_bs // n)
     if "batch_size_train" in cfg:
         cfg["batch_size_train"] = max(1, global_bs // n)
+    elif "batch_size" in cfg:
+        cfg["batch_size"] = max(1, global_bs // n)
 
 
 def accum_steps_from_config(cfg: dict) -> int:
@@ -203,3 +210,64 @@ def append_log(out_dir: str, payload: dict) -> None:
     if is_main_process():
         with open(os.path.join(out_dir, "log.txt"), "a") as f:
             f.write(json.dumps(payload) + "\n")
+
+
+def device_inputs(batch: dict, dev) -> tuple:
+    """A host batch's images, text ids and text mask on `dev`, the ids and
+    the mask as int64."""
+    return (torch.from_numpy(batch["images"]).to(dev),
+            torch.from_numpy(batch["text_ids"]).long().to(dev),
+            torch.from_numpy(batch["text_atts"]).long().to(dev))
+
+
+def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
+    """A reference state dict (`--checkpoint`) overlaid on `model` by name
+    (`load_xfm_checkpoint`), the count of parameters it lacked printed."""
+    from ..train.checkpoint import load_torch_state_dict, load_xfm_checkpoint
+
+    missing, _ = load_xfm_checkpoint(model, load_torch_state_dict(path))
+    if is_main_process():
+        print(f"### loaded {path}: {len(missing)} missing", flush=True)
+
+
+def log_eval(ctx: TaskContext, metrics: dict) -> dict:
+    """`--evaluate`'s metrics printed and logged → them."""
+    if is_main_process():
+        print(metrics, flush=True)
+    append_log(ctx.out_dir, {"eval": metrics})
+    return metrics
+
+
+def finetune(ctx: TaskContext, state: TrainState, sched, train_data,
+             loss_fn, evaluate_epoch, best_key: str) -> float:
+    """The fine-tune's epochs, after the newest ckpt/ epoch with `resume:
+    true`: each trains `loss_fn` (dropout live) over `train_data.epoch`
+    (seeded from seed + epoch) with the step generator of (seed, epoch)
+    and `accumulate_steps`, then logs and prints `evaluate_epoch()`'s
+    metrics, saves ckpt/<epoch> (the two newest kept), and where the
+    metric `best_key` improved places that file in ckpt_best/ too, by a
+    hard link → its best value."""
+    from ..train.checkpoint import link_checkpoint
+
+    step_fn, accum = make_task_step(ctx, functools.partial(
+        loss_fn, deterministic=False))
+    state, start_epoch = maybe_resume_epochs(ctx, state)
+    best = 0.0
+    for epoch in range(start_epoch,
+                       int(ctx.config.get("schedular", {}).get("epochs", 10))):
+        loader = train_data.epoch(epoch_seed=ctx.seed + epoch)
+        state, stats = train_epoch(ctx, state, step_fn, loader,
+                                   step_generator(ctx, epoch), epoch, sched,
+                                   accum_steps=accum)
+        metrics = evaluate_epoch()
+        append_log(ctx.out_dir, {"epoch": epoch, **stats, **metrics})
+        if is_main_process():
+            print(f"epoch {epoch}: {metrics}", flush=True)
+        save_task_checkpoint(ctx, state, epoch)
+        if metrics[best_key] > best:
+            best = metrics[best_key]
+            if is_main_process():
+                link_checkpoint(os.path.join(ctx.out_dir, "ckpt"),
+                                os.path.join(ctx.out_dir, "ckpt_best"),
+                                epoch, keep=1)
+    return best

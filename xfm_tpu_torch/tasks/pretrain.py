@@ -180,7 +180,7 @@ def corpus_texts(cfg: dict, max_lines: int = 20000) -> list:
     return texts
 
 
-def main(args) -> dict:
+def main(args, tokenizer=None) -> dict:
     """Random weights from `--seed` (overlaid by `--checkpoint`, a
     reference state dict, where given), `resume`, then steps up to
     `max_steps` (default `epochs` × `train_dataset_size` / the image
@@ -189,11 +189,13 @@ def main(args) -> dict:
     (`<stream>_<loss>`, `loss`, `grad_norm`) with `samples_per_sec` (image
     stream samples over the wall time after two warm-up turns) and
     `device_samples_per_sec` (the same with the wait for input taken
-    out)."""
+    out). `tokenizer` (a pipeline's) replaces the config's."""
     ctx = TaskContext.from_args(args)
     cfg = ctx.config
     _refuse_unported(cfg)
-    tokenizer = build_tokenizer_or_fallback(cfg, lambda: corpus_texts(cfg))
+    if tokenizer is None:
+        tokenizer = build_tokenizer_or_fallback(cfg,
+                                                lambda: corpus_texts(cfg))
     mcfg = _maybe_shrink_vocab(config_from_yaml(
         cfg, use_contrastive_loss=True, use_matching_loss=True,
         use_mlm_loss=True, use_bbox_loss=True), tokenizer)

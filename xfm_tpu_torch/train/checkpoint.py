@@ -172,9 +172,10 @@ def _mlp_head(p: Dict[str, Any], prefix: str,
 def state_dict_from_jax(params: Dict[str, Any],
                         config) -> Dict[str, torch.Tensor]:
     """JAX XFM param tree (with or without the `backbone` level) → port
-    state_dict for `XFMBase` and its heads, either vision tower, and the
-    `text_decoder` of `XFMForVQA` or `XFMForCaptioning` where the tree has
-    one (the caption tree's backbone holds the vision tower alone)."""
+    state_dict for `XFMBase` and its heads, either vision tower, NLVR's
+    `cls_head`, and the `text_decoder` of `XFMForVQA` or `XFMForCaptioning`
+    where the tree has one (the caption tree's backbone holds the vision
+    tower alone)."""
     bb = params["backbone"] if "backbone" in params else params
     if config.vision_backbone == "clip_vit":
         sd = clip_vit_from_jax(bb["vision_encoder"],
@@ -197,6 +198,8 @@ def state_dict_from_jax(params: Dict[str, Any],
     for head in ("itm_head", "bbox_head"):
         if head in bb:
             _mlp_head(bb[head], head, sd)
+    if "cls_head" in params:  # NLVR's, beside the backbone
+        _mlp_head(params["cls_head"], "cls_head", sd)
     if "text_decoder" in params:  # the answer or caption decoder
         dec = params["text_decoder"]
         sd.update(text_encoder_from_jax(
@@ -623,28 +626,53 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def save_checkpoint(ckpt_dir: str, state, step: Optional[int] = None,
-                    keep: int = 3) -> str:
-    """`state` (a `train_state.TrainState`) → `<ckpt_dir>/<step>/state.pt`
-    (step: the state's own by default), written beside and renamed into
-    place; then only the newest `keep` steps stay. → the step's
-    directory."""
+def _place(ckpt_dir: str, step: int, keep: int, write) -> str:
+    """`write(path)` makes `<ckpt_dir>/<step>/state.pt` beside its place,
+    which it is then renamed into; only the newest `keep` steps stay. →
+    the step's directory."""
     ckpt_dir = os.path.abspath(ckpt_dir)
-    step = int(state.step if step is None else step)
-    opt = state.optimizer
-    payload = {"params": dict(zip(opt.names, opt.params)),
-               "optimizer": opt.state_dict(), "step": int(state.step)}
     final = os.path.join(ckpt_dir, str(step))
     tmp = f"{final}.tmp{os.getpid()}"
     os.makedirs(tmp, exist_ok=True)
-    with torch.no_grad():
-        torch.save(payload, os.path.join(tmp, _STATE_FILE))
+    write(os.path.join(tmp, _STATE_FILE))
     if os.path.isdir(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
     for old in _steps(ckpt_dir)[:-keep] if keep > 0 else []:
         shutil.rmtree(os.path.join(ckpt_dir, str(old)))
     return final
+
+
+def save_checkpoint(ckpt_dir: str, state, step: Optional[int] = None,
+                    keep: int = 3) -> str:
+    """`state` (a `train_state.TrainState`) → `<ckpt_dir>/<step>/state.pt`
+    (step: the state's own by default), written beside and renamed into
+    place; then only the newest `keep` steps stay. → the step's
+    directory."""
+    step = int(state.step if step is None else step)
+    opt = state.optimizer
+    payload = {"params": dict(zip(opt.names, opt.params)),
+               "optimizer": opt.state_dict(), "step": int(state.step)}
+    with torch.no_grad():
+        return _place(ckpt_dir, step, keep,
+                      lambda path: torch.save(payload, path))
+
+
+def link_checkpoint(src_dir: str, ckpt_dir: str, step: int,
+                    keep: int = 3) -> str:
+    """The step saved under `src_dir` placed under `ckpt_dir` too, as a
+    hard link of its file (a copy where the file system has none), so
+    that its bytes are not written again; then only the newest `keep`
+    steps stay there. → the step's directory."""
+    src = os.path.join(os.path.abspath(src_dir), str(step), _STATE_FILE)
+
+    def write(path):
+        try:
+            os.link(src, path)
+        except OSError:
+            shutil.copyfile(src, path)
+
+    return _place(ckpt_dir, step, keep, write)
 
 
 def _load(ckpt_dir: str, step: Optional[int], device) -> Optional[dict]:

@@ -149,3 +149,22 @@ def caption_loss_fn(model, batch, generator=None,
     loss = model.loss(batch["images"], batch["text_ids"], batch["text_atts"],
                       generator=generator, deterministic=deterministic)
     return loss, {}
+
+
+def nlvr_loss_fn(model, batch, generator=None, deterministic: bool = True):
+    """`XFMForNLVR.loss` on a batch of `NLVRData` (the fine-tune's `loss_fn`
+    with `deterministic=False`, its dropouts drawn from `generator`)."""
+    loss = model.loss(batch["images"], batch["text_ids"], batch["text_atts"],
+                      batch["targets"], generator=generator,
+                      deterministic=deterministic)
+    return loss, {}
+
+
+def grounding_loss_fn(model, batch, generator=None,
+                      deterministic: bool = True):
+    """L1 + GIoU of `XFMForGrounding.loss` on a batch of `GroundingData`
+    (the fine-tune's `loss_fn` with `deterministic=False`)."""
+    lb, lg = model.loss(batch["images"], batch["text_ids"],
+                        batch["text_atts"], batch["target_bbox"],
+                        generator=generator, deterministic=deterministic)
+    return lb + lg, {"loss_bbox": lb, "loss_giou": lg}
