@@ -222,6 +222,34 @@ Phases, each of which must pass or the script exits non-zero:
      deleted; then `profile_step` `nlvr_train`, `grounding_train` and
      `gradcam` at the YAMLs' sizes (busy time by group, idle share, peak
      memory under 80 GB, the launches as above);
+ 23. ImageNet, the linear probe, GLUE and classify: K1 forward and
+     backward against the plain version at the ImageNet fine-tune's shape,
+     qkv [128, 197, 2304], and at the linear probe's, [512, 197, 2304], in
+     bf16 and f32, the bf16 forward and backward bit-equal over two runs,
+     the times, the bounds and SDPA with the bias as a mask;
+     `XFMForClassification`'s fine-tune soft-target loss and sampled
+     gradients, the probe's loss and head gradients (the tower taking
+     none), one LARS step, GLUE's and STS-B's losses and gradients and the
+     fused logits, at full width, depth 2, 224 px and T = 128, f32, on the
+     CPU and on the card (K1 2 + 2 in the fine-tune, 2 forward in the
+     probe and the fused logits, nothing in GLUE's); then `run.main` over
+     seeded PNGs of 64-112 px: `--task imagenet` on `imagenet1k.yaml`'s
+     keys (128 train images in 8 class folders, 32 val rows whose labels
+     are the initial weights' predictions), 2 epochs of one 128-image step
+     (K1 12 + 12 a step, 12 an eval batch), a checkpoint where the top-1
+     improved, `--evaluate --checkpoint` from it (1.0); on
+     `imagenet1k_lp.yaml`'s keys, 2 epochs of one 512-image step (K1 12 a
+     step; the tower bit-equal across each epoch, the head moved); `--task
+     glue` on `glue_mrpc.yaml`'s keys over 64 + 16 JSONL pairs, 2 epochs of
+     2 steps at its batch of 32 (no K1, K2 or K3), `resume: true`, `ckpt/1`
+     deleted and the command again (the restored state bit-equal, the first
+     loss bit-equal), `--evaluate --checkpoint` (the last epoch's metrics);
+     `--task classify` on 16 + 8 image + text rows at 224 px (the fused
+     classifier; K1 12 + 12 a step, 12 an eval batch); accuracies in
+     [0, 1], peak memory under 80 GB; the directory deleted; then
+     `profile_step` `imagenet_train`, `imagenet_lp` and `glue_train` at
+     the YAMLs' sizes (busy time, idle share, peak memory under 80 GB,
+     MFU over busy time, the launches as above);
 then a JSON line of the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
@@ -3238,6 +3266,576 @@ def nlvr_kernel_entries(k2n, k2b, k2g, nprof) -> list:
     return entries
 
 
+# --- phase 23: ImageNet, the linear probe, GLUE and classify -----------------
+
+CLS_SAMPLED = {
+    "image": ["vision_encoder.blocks.0.attn.qkv.weight",
+              "vision_encoder.blocks.1.attn.relative_position_bias_table",
+              "vision_encoder.patch_embed.proj.weight", "cls_head.0.weight",
+              "cls_head.12.weight"],
+    "text": ["text_encoder.roberta.encoder.layer.0.attention.self.query."
+             "weight", "text_encoder.roberta.embeddings.word_embeddings."
+             "weight", "cls_head.0.weight", "cls_head.3.weight"]}
+
+
+def classify_slice_parity(B=2, T=128) -> None:
+    """f32, full width, depth 2 (2 BEiT blocks at 224 px; 2 text layers at
+    T = 128; the fused classifier with 2 fusion layers too), the full
+    vocabulary and 1,000 labels, on the CPU and on the card from the same
+    weights and inputs: the ImageNet fine-tune's soft-target CE (targets
+    from `mixup_cutmix`) and sampled gradients; the linear probe's hard CE
+    and the head's gradients, the tower's absent on both; one LARS step
+    from them (the head's change); GLUE's CE (2 labels) and STS-B's MSE (1
+    output) with sampled gradients; the fused classifier's logits. Losses
+    within SLICE_LOSS_RTOL, logits of max(1, their largest value),
+    gradients and the LARS step within SLICE_GRAD_RTOL of their max. On the
+    card K1 runs 2 + 2 in the fine-tune's loss, 2 forward in the probe's
+    and the fused logits, nothing in GLUE's."""
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.models import XFMForClassification, config_from_yaml
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks import imagenet
+    from xfm_tpu_torch.train.checkpoint import init_weights
+    from xfm_tpu_torch.train.optim import LARS, trained_parameters
+    from xfm_tpu_torch.train.schedules import half_cosine
+
+    f32 = dict(layers=2, compute_dtype="float32")
+    fused_yaml = configs.glue_yaml(**f32, image_res=224, vision_depth=2,
+                                   fusion_num_hidden_layers=2)
+    specs = {  # name: (yaml, task_name, is_lp, num_labels, seed)
+        "ft": (configs.imagenet_yaml(**f32), "imagenet", False, 1000, 1),
+        "lp": (configs.imagenet_yaml(lp=True, **f32), "imagenet", True,
+               1000, 1),
+        "glue": (configs.glue_yaml(**f32), "glue", False, 2, 2),
+        "stsb": (configs.glue_yaml(**f32), "glue", False, 1, 3),
+        "fused": (fused_yaml, "fused", False, 2, 4)}
+    r = np.random.RandomState(5)
+    images = r.randn(B, 224, 224, 3).astype(np.float32)
+    labels = r.randint(0, 1000, B)
+    mixed, soft = imagenet.mixup_cutmix(np.random.default_rng(6), images,
+                                        labels, 1000)
+    ids, atts = configs._token_rows(r, B, T, 50265, 16)
+    host = dict(images=images, mixed=mixed.astype(np.float32),
+                soft=soft.astype(np.float32), labels=labels.astype(np.int64),
+                ids=ids.astype(np.int64), atts=atts.astype(np.int64),
+                glue=r.randint(0, 2, B).astype(np.int64),
+                stsb=r.uniform(0, 5, B).astype(np.float32))
+    res, launches = {}, {}
+    for tag, dev in (("cpu", "cpu"), ("cuda", "cuda")):
+        out = res[tag] = {}
+        b = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        for name, (ycfg, task, is_lp, nl, seed) in specs.items():
+            model = XFMForClassification(config_from_yaml(ycfg),
+                                         num_labels=nl, task_name=task,
+                                         is_lp=is_lp)
+            init_weights(model, seed)
+            model.to(dev)
+            kernels.reset_launch_counts()
+            if name == "fused":
+                with torch.no_grad():
+                    out["fused_logits"] = model.loss(
+                        b["images"], b["ids"], b["atts"], train=False).cpu()
+                launches[f"{tag}_{name}"] = dict(kernels.LAUNCHES)
+                continue
+            if name == "ft":
+                loss = imagenet.soft_ce(model.loss(images=b["mixed"],
+                                                   train=False), b["soft"])
+            elif name == "lp":
+                loss = model.loss(images=b["images"], targets=b["labels"])
+            else:
+                loss = model.loss(text_ids=b["ids"], text_atts=b["atts"],
+                                  targets=b[name])
+            loss.backward()
+            launches[f"{tag}_{name}"] = dict(kernels.LAUNCHES)
+            out[f"{name}_loss"] = loss.item()
+            sampled = CLS_SAMPLED["text" if task == "glue" else "image"]
+            out[f"{name}_grads"] = {
+                k: p.grad.clone() for k, p in model.named_parameters()
+                if k in sampled and p.grad is not None}
+            if name == "lp":
+                out["lp_tower_grads"] = sum(
+                    p.grad is not None
+                    for p in model.vision_encoder.parameters())
+                head = dict(model.cls_head.named_parameters())
+                before = {k: v.detach().clone() for k, v in head.items()}
+                LARS(trained_parameters(model),
+                     half_cosine(0.4, 1e-6, 50, 2, 4)).step()
+                out["lars_step"] = {k: (head[k].detach() - before[k]).cpu()
+                                    for k in ("0.weight", "12.weight",
+                                              "12.bias")}
+            del model
+    c, g = res["cpu"], res["cuda"]
+    print(f"  classify slice launches: "
+          f"{json.dumps({k: v for k, v in launches.items() if 'cuda' in k})}")
+    none = {k: 0 for k in launches["cuda_ft"]}
+    fwd = dict(none, packed_attention_fwd=2)
+    if (launches["cuda_ft"] != dict(fwd, packed_attention_bwd=2)
+            or launches["cuda_lp"] != fwd or launches["cuda_fused"] != fwd
+            or launches["cuda_glue"] != none
+            or launches["cuda_stsb"] != none):
+        raise AssertionError("classify slice: launches")
+    for name in ("ft", "lp", "glue", "stsb"):
+        ok = math.isclose(c[f"{name}_loss"], g[f"{name}_loss"],
+                          rel_tol=SLICE_LOSS_RTOL)
+        print(f"  slice {name} loss: cpu={c[f'{name}_loss']:.6f} "
+              f"cuda={g[f'{name}_loss']:.6f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"classify slice: {name} loss")
+        _grads_close(f"{name} slice", c[f"{name}_grads"],
+                     g[f"{name}_grads"])
+    if not (set(c["lp_grads"]) == set(g["lp_grads"]) == {
+            "cls_head.0.weight", "cls_head.12.weight"}
+            and c["lp_tower_grads"] == g["lp_tower_grads"] == 0):
+        raise AssertionError("classify slice: the probe's tower took "
+                             "gradients")
+    _grads_close("LARS step", c["lars_step"], g["lars_step"])
+    _close("slice fused logits", c["fused_logits"], g["fused_logits"],
+           SLICE_LOSS_RTOL)
+    torch.cuda.empty_cache()
+
+
+def _classify_corpus(root, n_classes=8, per_class=16, n_val=32,
+                     n_lp=512, n_glue=64, n_glue_val=16, n_cls=16,
+                     n_cls_val=8, seed=0):
+    """Seeded PNGs of 64-112 px a side in `n_classes` class folders
+    (`per_class` each: the fine-tune's `train_root`), a JSONL manifest of
+    `n_lp` rows over them (the probe's 512-image batch), `n_val` more PNGs
+    for the val rows (their manifest is written by the caller), GLUE MRPC
+    pairs (`n_glue` train, `n_glue_val` validation) and classify's image +
+    text rows over the val PNGs → {train_root, lp_manifest, val_pngs,
+    glue_train, glue_val, cls_train, cls_val, image_root}."""
+    r = np.random.RandomState(seed)
+    paths = {"train_root": os.path.join(root, "train"),
+             "image_root": os.path.join(root, "val")}
+    files = []
+    for c in range(n_classes):
+        d = os.path.join(paths["train_root"], f"n{c:08d}")
+        os.makedirs(d)
+        files += [(_png_file(os.path.join(d, f"{i}.png"), r, 64, 112), c)
+                  for i in range(per_class)]
+    paths["lp_manifest"] = os.path.join(root, "lp_train.jsonl")
+    with open(paths["lp_manifest"], "w") as f:
+        for i in range(n_lp):
+            path, label = files[i % len(files)]
+            f.write(json.dumps({"image": path, "label": label}) + "\n")
+    os.makedirs(paths["image_root"])
+    paths["val_pngs"] = [_png_file(os.path.join(paths["image_root"],
+                                                f"{i}.png"), r, 64, 112)
+                         for i in range(n_val)]
+
+    def sentence():
+        return " ".join(r.choice(NLVR_WORDS, r.randint(4, 14)))
+
+    for key, n, row in (
+            ("glue_train", n_glue, lambda i: {"sentence1": sentence(),
+                                               "sentence2": sentence()}),
+            ("glue_val", n_glue_val, lambda i: {"sentence1": sentence(),
+                                                 "sentence2": sentence()}),
+            ("cls_train", n_cls, lambda i: {"image": f"{i % n_val}.png",
+                                             "text": sentence()}),
+            ("cls_val", n_cls_val, lambda i: {
+                "image": f"{(i + n_cls) % n_val}.png", "text": sentence()})):
+        paths[key] = os.path.join(root, f"{key}.jsonl")
+        with open(paths[key], "w") as f:
+            for i in range(n):
+                f.write(json.dumps(dict(row(i), label=int(r.randint(2))))
+                        + "\n")
+    return paths
+
+
+def _initial_predictions(cfg, pngs, seed) -> list:
+    """The class `run.main --task imagenet` with `--seed seed` predicts for
+    each PNG before its first update (the model built, moved to the card
+    and initialized as the task does, the eval transform, bf16)."""
+    from xfm_tpu_torch.data.timm_aug import ImagenetEvalTransform
+    from xfm_tpu_torch.data.transforms import decode_image
+    from xfm_tpu_torch.models import XFMForClassification, config_from_yaml
+    from xfm_tpu_torch.train.checkpoint import init_weights
+
+    model = XFMForClassification(
+        config_from_yaml(cfg), num_labels=cfg["num_labels"],
+        task_name="imagenet", is_lp=cfg["is_lp"]).to("cuda")
+    init_weights(model, seed)
+    tf = ImagenetEvalTransform(cfg["image_res"])
+    images = torch.from_numpy(np.stack([tf(decode_image(p)) for p in pngs]))
+    with torch.no_grad():
+        pred = model.loss(images=images.cuda(), train=False).argmax(-1)
+    del model
+    return pred.cpu().tolist()
+
+
+def classify_task_runs(root, seed=0) -> dict:
+    """Phase 23's runs of `run.main` in `root` over `_classify_corpus`:
+    `--task imagenet` on `imagenet1k.yaml`'s keys (2 epochs of one
+    128-image step), `--evaluate --checkpoint` from its checkpoint; on
+    `imagenet1k_lp.yaml`'s (2 epochs of one 512-image step); `--task
+    glue` on `glue_mrpc.yaml`'s with the JSONL files (2 epochs of 2 steps
+    at its batch of 32, `resume: true`), the run again after ckpt/1 is
+    deleted, `--evaluate --checkpoint`; `--task classify` on image + text
+    rows at 224 px (the fused classifier, 12 layers a tower, 1 epoch of a
+    16-row step). The val rows' labels are the classes the initial weights
+    predict, so that the first eval (after a step at the warm-up's lr of
+    0) scores 1 and writes a checkpoint. Each step, eval and epoch is
+    recorded (seconds, launches, losses, peak memory), the probe's tower
+    before and after each epoch, each checkpoint write (seconds), and the
+    restored state against its file."""
+    import yaml
+
+    from xfm_tpu_torch import configs, run
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks import classify, glue, imagenet
+    from xfm_tpu_torch.train.optim import LARS
+
+    t0 = time.perf_counter()
+    cp = _classify_corpus(root, seed=seed)
+    pred = _initial_predictions(configs.IMAGENET, cp["val_pngs"], seed)
+    val = os.path.join(root, "val.jsonl")
+    with open(val, "w") as f:
+        for path, label in zip(cp["val_pngs"], pred):
+            f.write(json.dumps({"image": path, "label": label}) + "\n")
+    runs = {"corpus_s": time.perf_counter() - t0, "val_labels": pred}
+    cfgs = {
+        "ft": dict(configs.IMAGENET, train_root=cp["train_root"],
+                   val_root=val),
+        "lp": dict(configs.IMAGENET_LP, train_root=cp["lp_manifest"],
+                   val_root=val),
+        "glue": dict(configs.GLUE_MRPC, train_file=cp["glue_train"],
+                     validation_file=cp["glue_val"], num_train_epochs=2,
+                     resume=True),
+        "cls": dict(configs._FT_COMMON, image_res=224, num_labels=2,
+                    train_file=cp["cls_train"], val_file=cp["cls_val"],
+                    image_root=cp["image_root"], max_tokens=40,
+                    batch_size=16),
+    }
+    cfgs["cls"]["schedular"] = dict(cfgs["cls"]["schedular"], epochs=1)
+    for name, cfg in cfgs.items():
+        with open(os.path.join(root, f"{name}.yaml"), "w") as f:
+            yaml.safe_dump(cfg, f)
+    real = dict(i_te=imagenet.train_epoch, g_te=glue.train_epoch,
+                c_te=classify.train_epoch, i_ev=imagenet.evaluate,
+                g_ev=glue.evaluate, c_ev=classify.evaluate,
+                i_save=imagenet.save_checkpoint,
+                g_save=glue.save_task_checkpoint,
+                g_re=glue.maybe_resume_epochs)
+    rec = {}
+
+    def timed(kind, fn, *a, **kw):
+        _sync()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        _sync()
+        return res, dict(kind=kind, s=time.perf_counter() - t0,
+                         launches=dict(kernels.LAUNCHES))
+
+    def train_epoch(key):
+        def wrapped(ctx, state, step_fn, loader, generator, epoch, sched,
+                    **kw):
+            def step(state, batch, gen):
+                opt = state.optimizer  # LARS reads lr(count + 1)
+                lr = opt.lr(opt.count + isinstance(opt, LARS))
+                (state, m), e = timed("step", step_fn, state, batch, gen)
+                e.update(loss=m["loss"].item(), lr=lr,
+                         rows=int(next(iter(batch.values())).shape[0]))
+                rec["steps"].append(e)
+                return state, m
+
+            model = state.model
+            tower = (None if not getattr(model, "frozen_tower", False) else
+                     [p.detach().clone()
+                      for p in model.vision_encoder.parameters()])
+            head = [p.detach().clone() for p in model.cls_head.parameters()]
+            torch.cuda.reset_peak_memory_stats()
+            state, stats = real[key](ctx, state, step, loader, generator,
+                                     epoch, sched, **kw)
+            e = dict(epoch=epoch,
+                     max_memory_allocated=torch.cuda.max_memory_allocated(),
+                     head_moved=any(not torch.equal(a, b) for a, b in zip(
+                         head, model.cls_head.parameters())))
+            if tower is not None:
+                e["tower_bit_equal"] = all(torch.equal(a, b) for a, b in zip(
+                    tower, model.vision_encoder.parameters()))
+            rec["epochs"].append(e)
+            return state, stats
+        return wrapped
+
+    def evaluate(key, batches_of):
+        def wrapped(*a):
+            res, e = timed("eval", real[key], *a)
+            e.update(batches=batches_of(*a), **res)
+            rec["evals"].append(e)
+            return res
+        return wrapped
+
+    def saver(key):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            real[key](*a, **kw)
+            rec["save_s"].append(time.perf_counter() - t0)
+        return wrapped
+
+    def maybe_resume_epochs(ctx, state):
+        state, start = real["g_re"](ctx, state)
+        if start:
+            rec["restored"] = dict(start=start, bit_equal=_restored_bit_equal(
+                os.path.join(ctx.out_dir, "ckpt", str(start - 1),
+                             "state.pt"), state))
+        return state, start
+
+    def cls_evaluate(model, loader):
+        n = [0]
+
+        def counted():
+            for b in loader:
+                n[0] += 1
+                yield b
+
+        res, e = timed("eval", real["c_ev"], model, counted())
+        e.update(batches=n[0], **res)
+        rec["evals"].append(e)
+        return res
+
+    imagenet.train_epoch = train_epoch("i_te")
+    glue.train_epoch = train_epoch("g_te")
+    classify.train_epoch = train_epoch("c_te")
+    imagenet.evaluate = evaluate("i_ev", lambda m, rows, tf, root, bs:
+                                 -(-len(rows) // bs))
+    glue.evaluate = evaluate("g_ev", lambda m, ex, tok, task, bs:
+                             -(-len(ex) // bs))
+    classify.evaluate = cls_evaluate
+    imagenet.save_checkpoint = saver("i_save")
+    glue.save_task_checkpoint = saver("g_save")
+    glue.maybe_resume_epochs = maybe_resume_epochs
+    out = {n: os.path.join(root, f"out_{n}") for n in cfgs}
+    seed_arg = ["--seed", str(seed)]
+    try:
+        for name, argv in (
+                ("ft", ["--task", "imagenet", "--config", "ft", "--epoch",
+                        "2"]),
+                ("ft_evaluate", ["--task", "imagenet", "--config", "ft",
+                                 "--evaluate", "--checkpoint",
+                                 os.path.join(out["ft"], "ckpt", "0",
+                                              "state.pt")]),
+                ("lp", ["--task", "imagenet", "--config", "lp", "--epoch",
+                        "2"]),
+                ("glue", ["--task", "glue", "--config", "glue"]),
+                ("glue_resumed", ["--task", "glue", "--config", "glue"]),
+                ("glue_evaluate", ["--task", "glue", "--config", "glue",
+                                   "--evaluate", "--checkpoint",
+                                   os.path.join(out["glue"], "ckpt", "1",
+                                                "state.pt")]),
+                ("cls", ["--task", "classify", "--config", "cls"])):
+            key = argv[argv.index("--config") + 1]
+            argv = list(argv)
+            argv[argv.index("--config") + 1] = os.path.join(root,
+                                                            f"{key}.yaml")
+            o = out[key] + ("_ev" if name.endswith("evaluate") else "")
+            if name == "glue_resumed":
+                runs["glue_layout"] = sorted(os.listdir(os.path.join(
+                    out["glue"], "ckpt")))
+                runs["glue_best"] = sorted(os.listdir(os.path.join(
+                    out["glue"], "ckpt_best")))
+                shutil.rmtree(os.path.join(out["glue"], "ckpt", "1"))
+            if name == "lp":  # the fine-tune's checkpoints are done with
+                runs["ft_layout"] = sorted(os.listdir(os.path.join(
+                    out["ft"], "ckpt")))
+                shutil.rmtree(out["ft"])
+            rec = dict(evals=[], steps=[], epochs=[], save_s=[])
+            t0 = time.perf_counter()
+            rec["result"] = run.main(argv + ["--output_dir", o] + seed_arg)
+            rec["s"] = time.perf_counter() - t0
+            if name == "lp":
+                runs["lp_layout"] = sorted(os.listdir(os.path.join(
+                    out["lp"], "ckpt")))
+                shutil.rmtree(out["lp"])
+            runs[name] = rec
+    finally:
+        imagenet.train_epoch, glue.train_epoch = real["i_te"], real["g_te"]
+        classify.train_epoch = real["c_te"]
+        imagenet.evaluate, glue.evaluate = real["i_ev"], real["g_ev"]
+        classify.evaluate = real["c_ev"]
+        imagenet.save_checkpoint = real["i_save"]
+        glue.save_task_checkpoint = real["g_save"]
+        glue.maybe_resume_epochs = real["g_re"]
+    return runs
+
+
+def full_classify_task(seed=0) -> dict:
+    """Phase 23's task runs at full width on the card, checked: finite
+    losses; K1 12 + 12 a fine-tune step (ImageNet, classify), 12 a probe
+    step and an eval batch of the image classifiers, and nothing at all
+    (no K1, K2 or K3) in a GLUE step or eval batch; the rows of each step
+    (128, 512, 32, 16); a checkpoint for each epoch whose top-1 improved,
+    the fine-tune's first top-1 1.0 and `--evaluate` from its checkpoint
+    giving 1.0; the probe's tower
+    bit-equal across each epoch while its head moved; the GLUE
+    checkpoints and ckpt_best, the resume bit-equal to its file and its
+    first loss to the first run's, `--evaluate` giving the last epoch's
+    metrics; accuracies in [0, 1]; peak memory under 80 GB. The directory
+    is deleted at the end."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="xfm_classify_")
+    try:
+        runs = classify_task_runs(root, seed=seed)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    names = list(runs["ft"]["steps"][0]["launches"])
+    none = {n: 0 for n in names}
+    k1 = dict(none, packed_attention_fwd=12)
+    want_step = {"ft": dict(k1, packed_attention_bwd=12), "lp": k1,
+                 "glue": none, "glue_resumed": none,
+                 "cls": dict(k1, packed_attention_bwd=12)}
+    want_rows = {"ft": 128, "lp": 512, "glue": 32, "glue_resumed": 32,
+                 "cls": 16}
+    for name in ("ft", "ft_evaluate", "lp", "glue", "glue_resumed",
+                 "glue_evaluate", "cls"):
+        r = runs[name]
+        print(f"  {name}: {r['s']:.1f} s ({sum(r['save_s']):.1f} s in "
+              f"{len(r['save_s'])} checkpoint writes), result "
+              f"{json.dumps(r['result'])}")
+        for e in r["steps"]:
+            print(f"    step {e['s']:.3f} s {e['rows']} rows loss "
+                  f"{e['loss']:.4f} lr {e['lr']:.3g} launches "
+                  f"{json.dumps(e['launches'])}")
+            if (e["launches"] != want_step[name] or e["rows"] !=
+                    want_rows[name] or not math.isfinite(e["loss"])):
+                raise AssertionError(f"{name}: a step's launches, rows or "
+                                     f"loss")
+        for e in r["evals"]:
+            acc = {k: v for k, v in e.items()
+                   if k in ("acc1", "acc", "accuracy", "f1")}
+            print(f"    eval {e['batches']} batches {e['s']:.3f} s "
+                  f"{json.dumps(acc)} launches {json.dumps(e['launches'])}")
+            per = none if name.startswith("glue") else k1
+            want = {k: v * e["batches"] for k, v in per.items()}
+            if e["launches"] != want or not all(
+                    0 <= v <= 1 for v in acc.values()):
+                raise AssertionError(f"{name}: an eval's launches or "
+                                     f"accuracy")
+        for e in r["epochs"]:
+            print(f"    epoch {json.dumps(e)}")
+            if (e["max_memory_allocated"] >= 80e9
+                    or e.get("tower_bit_equal") is False):
+                raise AssertionError(f"{name}: peak memory or the tower")
+    ft, lp, gl, gr = (runs[n] for n in ("ft", "lp", "glue", "glue_resumed"))
+    spe = len(gl["steps"]) // 2
+    print(f"  corpora {runs['corpus_s']:.1f} s; val labels (the initial "
+          f"predictions) {runs['val_labels'][:8]}...; checkpoints: ft "
+          f"{runs['ft_layout']}, lp {runs['lp_layout']}, glue "
+          f"{runs['glue_layout']} best {runs['glue_best']}; resume "
+          f"{json.dumps(gr.get('restored', {}))}")
+    def improved(evals):  # the epochs whose top-1 beat every earlier one
+        best, out = 0.0, []
+        for i, e in enumerate(evals):
+            if e["acc1"] > best:
+                best, out = e["acc1"], out + [str(i)]
+        return out
+
+    if (len(ft["steps"]) != 2 or len(lp["steps"]) != 2
+            or ft["evals"][0]["acc1"] != 1.0
+            or runs["ft_layout"] != improved(ft["evals"]) != []
+            or runs["lp_layout"] != improved(lp["evals"])
+            or runs["ft_evaluate"]["result"] != {"acc1": 1.0}
+            or [e.get("tower_bit_equal") for e in lp["epochs"]]
+            != [True, True] or not lp["epochs"][-1]["head_moved"]
+            or runs["glue_layout"] != ["0", "1"]
+            or len(runs["glue_best"]) != 1
+            or not gr.get("restored", {}).get("bit_equal")
+            or gr["steps"][0]["loss"] != gl["steps"][spe]["loss"]
+            or gr["steps"][0]["lr"] != gl["steps"][spe]["lr"]
+            or len(gr["steps"]) != spe or len(gl["evals"]) != 2
+            or gr["result"] != gl["result"]
+            or runs["glue_evaluate"]["result"] != gl["result"]
+            or len(runs["cls"]["steps"]) != 1):
+        raise AssertionError("the classification runs' checkpoints, "
+                             "resume, probe or evals")
+    return dict(
+        ft_step_s=[e["s"] for e in ft["steps"]],
+        lp_step_s=[e["s"] for e in lp["steps"]],
+        glue_step_s=[e["s"] for e in gl["steps"]],
+        cls_step_s=[e["s"] for e in runs["cls"]["steps"]],
+        eval_s={n: [e["s"] for e in runs[n]["evals"]]
+                for n in ("ft", "lp", "glue", "cls")},
+        run_s={n: runs[n]["s"] for n in (
+            "ft", "ft_evaluate", "lp", "glue", "glue_resumed",
+            "glue_evaluate", "cls")},
+        save_s={n: runs[n]["save_s"] for n in ("ft", "lp", "glue",
+                                               "glue_resumed")},
+        corpus_s=runs["corpus_s"],
+        max_memory_allocated={n: max(e["max_memory_allocated"]
+                                     for e in runs[n]["epochs"])
+                              for n in ("ft", "lp", "glue", "cls")},
+        results={n: runs[n]["result"] for n in ("ft", "lp", "glue", "cls")})
+
+
+def classify_phase():
+    """Phase 23 → (K1's errors, times and bounds at qkv [128, 197, 2304]
+    (forward and backward) and [512, 197, 2304] (forward),
+    `profile_step.profile_classify`'s units)."""
+    from xfm_tpu_torch import profile_step
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    t0 = time.perf_counter()
+    k1 = {}
+    for B, seeds in ((128, (80, 81, 82)), (512, (83, 84, 85))):
+        err = k1_parity(B=B, N=197, H=12, dtype=bf16, seed=seeds[0])
+        k1_parity(B=B, N=197, H=12, dtype=f32, seed=seeds[1])
+        k1_deterministic(B=B, N=197, H=12, dtype=bf16, seed=seeds[2])
+        t = k1_times(B=B, N=197, H=12, dtype=bf16)
+        w = k1_work(B=B, N=197, H=12, D=64, dtype=bf16)
+        print(f"  K1 B={B} N=197 times (ms): " + json.dumps(t))
+        print(f"  K1 B={B} N=197 bound (k1_work): " + json.dumps(w))
+        k1[B] = (err, t, w)
+    t1 = time.perf_counter()
+    classify_slice_parity()
+    t2 = time.perf_counter()
+    ct = full_classify_task()
+    t3 = time.perf_counter()
+    print("  classification tasks: " + json.dumps(ct))
+    cprof = profile_step.profile_classify(os.path.join(
+        REPO, "build", "xfm_tpu_torch", "profile_classify.json"))
+    print(f"  phase 23 seconds: kernels {t1 - t0:.1f}, slice {t2 - t1:.1f}, "
+          f"tasks {t3 - t2:.1f}, profiles {time.perf_counter() - t3:.1f}")
+    want = {"imagenet_train": dict(packed_attention_fwd=12,
+                                   packed_attention_bwd=12),
+            "imagenet_lp": dict(packed_attention_fwd=12),
+            "glue_train": {}}
+    for unit, r in cprof.items():
+        top = r.pop("top")
+        print(f"  {unit} profile: " + json.dumps(r))
+        for name, ms, n in top[:10]:
+            print(f"    {ms:9.3f} ms/call {n:6d} calls/call  {name}")
+        if (r["launches"] != dict({k: 0 for k in r["launches"]},
+                                  **want[unit])
+                or r["max_memory_allocated"] >= 80e9
+                or not math.isfinite(r["loss"])):
+            raise AssertionError(f"{unit}: launches, peak memory or loss")
+    return k1[128], k1[512], cprof
+
+
+def classify_kernel_entries(k1ft, k1lp, cprof) -> list:
+    """The `kernels` entries of phase 23: K1 at the ImageNet fine-tune
+    step's shape (qkv [128, 197, 2304] bf16, forward and backward) with
+    its launches a step (`profile_step imagenet_train`), and K1's forward
+    at the linear probe's ([512, 197, 2304]) with its launches a step
+    (`imagenet_lp`)."""
+    entries = [dict(e, name=e["name"] + "_imagenet_b128")
+               for e in kernel_entries(
+                   "packed_attention", "xfm_tpu/ops/flash_attention.py",
+                   983, 1007, "xfm_tpu_torch/csrc/packed_attention.cu",
+                   k1ft[0], ("dqkv", "db"), k1ft[1], k1ft[2],
+                   cprof["imagenet_train"]["launches"])]
+    entries += [dict(e, name=e["name"] + "_imagenet_lp_b512")
+                for e in kernel_entries(
+                    "packed_attention", "xfm_tpu/ops/flash_attention.py",
+                    983, 1007, "xfm_tpu_torch/csrc/packed_attention.cu",
+                    k1lp[0], ("dqkv", "db"), k1lp[1], k1lp[2],
+                    cprof["imagenet_lp"]["launches"])
+                if e["name"].endswith("_fwd")]
+    return entries
+
+
 LN_EPS = 1e-6
 
 
@@ -3905,6 +4503,9 @@ def main() -> int:
     phase("phase 22: NLVR2 and RefCOCO grounding: K2 at the new batches, "
           "the slice, the tasks and their profiles")
     k2n, k2b, k2g, _, nprof = nlvr_phase()
+    phase("phase 23: ImageNet, the linear probe, GLUE and classify: K1 at "
+          "the new batches, the slice, the tasks and their profiles")
+    k1ft, k1lp, clprof = classify_phase()
 
     entries = (kernel_entries("packed_attention",
                               "xfm_tpu/ops/flash_attention.py", 983, 1007,
@@ -3937,10 +4538,11 @@ def main() -> int:
                                     vprof["vqa_train"]["launches"])
                + caption_kernel_entries(k2c, k1c, (k2_err, k2_t, k2w),
                                         cprof)
-               + nlvr_kernel_entries(k2n, k2b, k2g, nprof))
+               + nlvr_kernel_entries(k2n, k2b, k2g, nprof)
+               + classify_kernel_entries(k1ft, k1lp, clprof))
     ends = PHASE_T[1:] + [time.perf_counter()]
     by_phase = [round(b - a, 1) for a, b in zip(PHASE_T, ends)]
-    print(f"chip_smoke: 22 phases in {ends[-1] - t_start:.1f} s; seconds "
+    print(f"chip_smoke: 23 phases in {ends[-1] - t_start:.1f} s; seconds "
           f"by phase {json.dumps(by_phase)}")
     print(json.dumps({"kernels": entries}))
     print(smi)

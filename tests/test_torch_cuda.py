@@ -24,7 +24,9 @@ def _inputs(B, N, H, D, seed):
                                    (96, 197, 12),    # the pretrain pair pass
                                    (192, 197, 12),   # the pair pass at B 96
                                    (80, 197, 12),    # the region stream
-                                   (64, 197, 12)])   # caption pretrain
+                                   (64, 197, 12),    # caption pretrain
+                                   (128, 197, 12),   # ImageNet fine-tune
+                                   (512, 197, 12)])  # the linear probe
 def test_packed_attention_kernel_matches_plain(dtype, B, N, H):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -1145,3 +1147,59 @@ def test_gradcam_on_the_card_matches_cpu():
     for i in range(3):
         assert np.argmax(rank_boxes_by_cam(c[i].numpy(), boxes, 384, 16)) \
             == np.argmax(rank_boxes_by_cam(g[i].numpy(), boxes, 384, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [128, 512])
+def test_packed_attention_bf16_is_deterministic_at_classification_batches(B):
+    """K1's bf16 forward and backward at the ImageNet fine-tune's and the
+    linear probe's batches (qkv [128 | 512, 197, 2304]: 6,144 (b, h)
+    pairs, element offsets up to 2.3e8; db summed over the batch in
+    order): two runs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    qkv, bias, g = _inputs(B, 197, 12, 64, seed=12)
+    tq = torch.from_numpy(qkv).cuda().to(torch.bfloat16)
+    tb = torch.from_numpy(bias).cuda()
+    tg = torch.from_numpy(g).cuda().to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        out, stats = fa.packed_attention_fwd(tq, tb, 0.125, 12)
+        runs.append((out,) + fa.packed_attention_bwd(tq, tb, out, stats, tg,
+                                                     0.125, 12))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unit,want", [
+    ("imagenet_train", dict(packed_attention_fwd=12,
+                            packed_attention_bwd=12)),
+    ("imagenet_lp", dict(packed_attention_fwd=12)),
+    ("glue_train", {})])
+def test_classification_units_launch_k1_only(unit, want):
+    """At full width and depth (12 BEiT blocks at 224 px, the 12-layer text
+    encoder at T = 128, bf16), B = 2: the ImageNet fine-tune step (dropout
+    and drop-path live, soft targets) K1 12 + 12; the linear probe's step
+    K1 12 forward, its tower bit-equal after the step and its head moved;
+    the GLUE step nothing of K1-K5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.ops import kernels
+
+    state, call = (configs.make_glue_run(B=2) if unit == "glue_train"
+                   else configs.make_imagenet_run(unit, B=2))
+    before = {n: p.detach().clone()
+              for n, p in state.model.named_parameters()}
+    kernels.reset_launch_counts()
+    out = call(0)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == dict(
+        {k: 0 for k in kernels.LAUNCHES}, **want)
+    assert torch.isfinite(out["loss"])
+    moved = {n for n, p in state.model.named_parameters()
+             if not torch.equal(p, before[n])}
+    if unit == "imagenet_lp":
+        assert moved and all(n.startswith("cls_head.") for n in moved)

@@ -154,13 +154,13 @@ def test_hard_negative_draws_follow_the_jax_weights():
 
 def test_port_imports_neither_jax_nor_xfm_tpu():
     """Every module of xfm_tpu_torch (the fine-tune's, the eval's, the
-    pretrain task's, VQA's, captioning's, NLVR2's and grounding's tasks/,
-    data/, eval/, models/, train/ and run.py among them) and
-    chip_smoke's helpers
+    pretrain task's, VQA's, captioning's, NLVR2's, grounding's, ImageNet's,
+    GLUE's and classify's tasks/, data/, eval/, models/, train/ and run.py
+    among them) and chip_smoke's helpers
     import in a fresh interpreter
-    without pulling in jax, flax, optax or any xfm_tpu module; PIL, yaml and
-    transformers, which the card's machine may lack, are imported only
-    inside the functions that need them."""
+    without pulling in jax, flax, optax or any xfm_tpu module; PIL, yaml,
+    transformers, h5py and datasets, which the card's machine may lack, are
+    imported only inside the functions that need them."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import xfm_tpu_torch\n"
@@ -187,8 +187,11 @@ def test_port_imports_neither_jax_nor_xfm_tpu():
         " 'xfm_tpu_torch.eval.meteor', 'xfm_tpu_torch.eval.meteor_synonyms',"
         " 'xfm_tpu_torch.eval.ptb_tokenizer', 'xfm_tpu_torch.tasks.nlvr',"
         " 'xfm_tpu_torch.tasks.grounding', 'xfm_tpu_torch.eval.refer',"
-        " 'xfm_tpu_torch.models.gradcam'}\n"
-        "lazy = ('PIL', 'yaml', 'transformers')\n"
+        " 'xfm_tpu_torch.models.gradcam', 'xfm_tpu_torch.tasks.imagenet',"
+        " 'xfm_tpu_torch.tasks.glue', 'xfm_tpu_torch.tasks.classify',"
+        " 'xfm_tpu_torch.data.timm_aug', 'xfm_tpu_torch.data.probe_datasets',"
+        " 'xfm_tpu_torch.eval.glue_metrics'}\n"
+        "lazy = ('PIL', 'yaml', 'transformers', 'h5py', 'datasets')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'flax', 'optax', 'xfm_tpu') + lazy]\n"
         "bad += sorted(want - set(names))\n"

@@ -507,5 +507,14 @@ def test_run_falls_back_to_the_default_config(monkeypatch, tmp_path):
     assert seen["config"].endswith(
         os.path.join("configs", "xfm-pt", "Pretrain_XBrain_base_4m.yaml"))
     assert os.path.exists(seen["config"])
-    with pytest.raises(SystemExit):
-        run.main(["--task", "itr_coco", "--output_dir", str(tmp_path)])
+    from xfm_tpu_torch.tasks import retrieval
+
+    got = []
+    monkeypatch.setattr(retrieval, "main", lambda args: got.append(
+        args.config))
+    for task in ("itr_coco", "itr_flickr"):
+        run.main(["--task", task, "--output_dir", str(tmp_path)])
+    ft = os.path.join(os.path.dirname(seen["config"]), os.pardir, "xfm-ft")
+    assert got == [os.path.join(os.path.normpath(ft), name) for name in (
+        "Retrieval_coco.yaml", "Retrieval_flickr.yaml")]
+    assert all(os.path.exists(c) for c in got)

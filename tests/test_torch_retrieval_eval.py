@@ -307,7 +307,8 @@ def test_run_evaluate_matches_jax_with_checkpoint(models, tmp_path):
     model, so both sides interpolate its rel-pos tables to 384 px: the same
     R@K. Without --evaluate the port fine-tunes from the checkpoint (one
     epoch at batch 4 on the corpus' pairs): a zero-shot eval, an epoch,
-    an eval and ckpt/0."""
+    an eval and ckpt/0. The launcher's tasks are the repository's
+    `run.py`'s."""
     import yaml
 
     from xfm_tpu.models import config_from_yaml as jconfig_from_yaml
@@ -364,5 +365,10 @@ def test_run_evaluate_matches_jax_with_checkpoint(models, tmp_path):
     assert np.isfinite(log[1]["loss_itc"]) and np.isfinite(log[1]["loss_itm"])
     assert ft["best_r_mean"] >= log[0]["r_mean"]
     assert (tmp_path / "ft" / "ckpt" / "0" / "state.pt").exists()
+    # every task of the repository's run.py is ported; any other is an
+    # argparse error
+    import run as repo_run
+
+    assert set(run.TASKS) == set(repo_run.TASKS)
     with pytest.raises(SystemExit):
-        run.main(["--task", "imagenet", "--config", str(cfg_path)])
+        run.main(["--task", "imagenet22k", "--config", str(cfg_path)])

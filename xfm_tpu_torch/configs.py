@@ -15,7 +15,11 @@ kept as dicts): its fine-tune step, beam eval, SCST step and domain-pretrain
 step on seeded device batches at the YAMLs' sizes; and NLVR2's and RefCOCO
 grounding's (`configs/xfm-ft/NLVR.yaml`, `Grounding_bbox.yaml` and
 `Grounding_bbox_pretrain.yaml`, kept as dicts): their fine-tune steps and
-a GradCAM batch on seeded device batches at the YAMLs' sizes."""
+a GradCAM batch on seeded device batches at the YAMLs' sizes; and the
+classifiers' (`configs/xfm-ft/imagenet1k.yaml`, `imagenet1k_lp.yaml` and
+`glue_mrpc.yaml`, kept as dicts): the ImageNet fine-tune step, the linear
+probe's step and the GLUE step on seeded device batches at the YAMLs'
+sizes."""
 from __future__ import annotations
 
 import os
@@ -27,13 +31,15 @@ import torch
 from .models.beit2 import VisionConfig
 from .models.clip_vit import ClipVisionConfig
 from .models.generation import XFMForCaptioning, XFMForVQA
-from .models.task_models import (XFMForGrounding, XFMForNLVR,
-                                 XFMForPretrain, XFMForRetrieval)
+from .models.task_models import (XFMForClassification, XFMForGrounding,
+                                 XFMForNLVR, XFMForPretrain,
+                                 XFMForRetrieval)
 from .models.text_encoder import TextConfig
 from .models.xfm import XFMConfig, config_from_yaml
 from .train.checkpoint import init_weights
 from .train.optim import create_optimizer, create_optimizer_from_config
-from .train.schedules import linear_warmup_decay, schedule_from_config
+from .train.schedules import (half_cosine, linear_warmup_decay,
+                              schedule_from_config)
 from .train.train_state import (TrainState, caption_loss_fn,
                                 grounding_loss_fn, make_train_step,
                                 nlvr_loss_fn, pretrain_loss_fn,
@@ -944,6 +950,12 @@ def _step_call(model, cfg, batch, loss_fn, device, seed):
     state = TrainState.create(model, create_optimizer_from_config(
         model, cfg, schedule_from_config(cfg, 1000)))
     step = make_train_step(functools.partial(loss_fn, deterministic=False))
+    return _stepper(state, step, batch, device, seed)
+
+
+def _stepper(state, step, batch, device, seed):
+    """→ (state, call) with call(i) running `step` on `batch` with the
+    generator of i → its metrics."""
 
     def call(i):
         nonlocal state
@@ -1052,3 +1064,167 @@ def gradcam_flops(B: int, T: int, patches: int, block_num: int = 8,
     return (_transformer_flops(layers, hidden, inter, Nv, B)
             + _transformer_flops(layers, hidden, inter, T, B)
             + layers * fusion + 2 * (layers - block_num) * fusion)
+
+
+_IMAGENET_COMMON = {
+    "train_root": "data/imagenet/train", "val_root": "data/imagenet/val",
+    "task_name": "imagenet", "num_labels": 1000,
+    "use_beit_v2": True,
+    "vision_config": "configs/model/config_beit2_base.json",
+    "image_res": 224, "patch_size": 16,
+    "text_encoder": "data/roberta-base",
+    "text_num_hidden_layers": 12, "text_fusion_start_at": 12,
+    "fusion_num_hidden_layers": 0, "fusion_fusion_start_at": 0,
+    "parallel": {"data": -1, "fsdp": 1, "tensor": 1},
+}
+# configs/xfm-ft/imagenet1k.yaml, imagenet1k_lp.yaml and glue_mrpc.yaml,
+# key for key (a CPU test holds them equal)
+IMAGENET = dict(_IMAGENET_COMMON, is_lp=False, batch_size=128,
+                warmup_epochs=5, mixup=0.8, label_smoothing=0.1,
+                optimizer={"opt": "adamW", "lr": 1.0e-3, "min_lr": 1.0e-6,
+                           "weight_decay": 0.05},
+                schedular={"sched": "cosine", "lr": 1.0e-3, "epochs": 30})
+IMAGENET_LP = dict(_IMAGENET_COMMON, is_lp=True, batch_size=512,
+                   warmup_epochs=2, mixup=0.0,
+                   optimizer={"opt": "lars", "lr": 0.4, "weight_decay": 0.0},
+                   schedular={"sched": "cosine", "lr": 0.4, "epochs": 50})
+GLUE_MRPC = {
+    "train_file": None, "validation_file": None, "test_file": None,
+    "glue_datasets": "data/glue_datasets",
+    "task_name": "mrpc", "num_labels": 2, "max_length": 128,
+    "per_device_train_batch_size": 32, "per_device_eval_batch_size": 8,
+    "learning_rate": 5.0e-5, "weight_decay": 0.0, "num_train_epochs": 20,
+    "max_train_steps": None, "num_warmup_steps": 0, "seed": 42,
+    "lr_scheduler_type": "linear",
+    "use_beit_v2": True,
+    "vision_config": "configs/model/config_beit2_base.json",
+    "image_res": 384, "patch_size": 16,
+    "text_encoder": "data/roberta-base",
+    "text_num_hidden_layers": 12, "text_fusion_start_at": 12,
+    "fusion_num_hidden_layers": 0, "fusion_fusion_start_at": 0,
+    "parallel": {"data": -1, "fsdp": 1, "tensor": 1},
+}
+
+
+def imagenet_yaml(lp: bool = False, image_res: Optional[int] = None,
+                  layers: Optional[int] = None, **keys) -> dict:
+    """`IMAGENET` (or with `lp` `IMAGENET_LP`) at `image_res` where given,
+    the vision tower cut to `layers` where given, `keys` set on top."""
+    cfg = dict(IMAGENET_LP if lp else IMAGENET)
+    if image_res:
+        cfg["image_res"] = image_res
+    if layers:
+        cfg["vision_depth"] = layers
+    return dict(cfg, **keys)
+
+
+def glue_yaml(layers: Optional[int] = None, **keys) -> dict:
+    """`GLUE_MRPC` with the text encoder cut to `layers` where given, `keys`
+    set on top."""
+    cfg = dict(GLUE_MRPC)
+    if layers:
+        cfg.update(text_num_hidden_layers=layers, text_fusion_start_at=layers)
+    return dict(cfg, **keys)
+
+
+IMAGENET_UNITS = ("imagenet_train", "imagenet_lp")
+
+
+def make_imagenet_run(unit: str = "imagenet_train", B: Optional[int] = None,
+                      device="cuda", seed: int = 0, **keys):
+    """One step of `run.py --task imagenet` at the YAML's batch, 224 px,
+    bf16 compute, random weights from `seed`, on a seeded device batch of
+    normal-random images (`keys` set on top of the YAML):
+    - "imagenet_train" (`imagenet1k.yaml`, B = 128): the fine-tune step,
+      HF-AdamW at decay 0.05 on the half-cosine schedule, soft CE on
+      targets `mixup_cutmix` drew once on the host, dropout and drop-path
+      live;
+    - "imagenet_lp" (`imagenet1k_lp.yaml`, B = 512): the linear probe's
+      step, the tower frozen, LARS on the head, hard CE.
+    → (state, call) with call(i) running one step with the generator of i
+    → its metrics."""
+    from .tasks import imagenet
+
+    if unit not in IMAGENET_UNITS:
+        raise ValueError(f"unit {unit!r}")
+    cfg = imagenet_yaml(lp=unit == "imagenet_lp", **keys)
+    model = XFMForClassification(
+        config_from_yaml(cfg), num_labels=cfg["num_labels"],
+        task_name="imagenet", is_lp=cfg["is_lp"]).to(device)
+    init_weights(model, seed)
+    B = B or cfg["batch_size"]
+    res = model.config.vision.image_res
+    r = np.random.RandomState(seed)
+    batch = {"images": r.randn(B, res, res, 3).astype(np.float32),
+             "targets": r.randint(0, cfg["num_labels"], B).astype(np.int64)}
+    batch = next(imagenet.mixed([batch], cfg, np.random.default_rng(seed),
+                                cfg["num_labels"]))
+    opt = cfg["optimizer"]
+    sched = half_cosine(opt["lr"], opt.get("min_lr", 1e-6),
+                        cfg["schedular"]["epochs"], cfg["warmup_epochs"],
+                        1000)
+    state = TrainState.create(model, imagenet.build_optimizer(model, cfg,
+                                                              sched))
+    return _stepper(state, make_train_step(imagenet.make_loss_fn(cfg)),
+                    batch_to_torch(batch, device), device, seed)
+
+
+def make_glue_run(B: Optional[int] = None, T: Optional[int] = None,
+                  device="cuda", seed: int = 0, **keys):
+    """The step of `run.py --task glue` on `glue_mrpc.yaml` (`keys` set on
+    top): the 12-layer RoBERTa text encoder and `MLPHead`, the full
+    vocabulary, bf16 compute, random weights from `seed`, HF-AdamW (decay
+    0, clip 1) on the linear schedule, dropout live, on a seeded device
+    batch of the YAML's `per_device_train_batch_size` (32) sentence pairs
+    of `max_length` (128) tokens at most. → (state, call) with call(i)
+    running one step with the generator of i → its metrics."""
+    import functools
+
+    from .tasks.glue import glue_loss_fn
+
+    cfg = glue_yaml(**keys)
+    model = XFMForClassification(config_from_yaml(cfg),
+                                 num_labels=cfg["num_labels"],
+                                 task_name="glue").to(device)
+    init_weights(model, seed)
+    r = np.random.RandomState(seed)
+    B = B or cfg["per_device_train_batch_size"]
+    ids, atts = _token_rows(r, B, T or cfg["max_length"],
+                            model.config.text.vocab_size, 16)
+    batch = batch_to_torch(dict(text_ids=ids.astype(np.int64),
+                                text_atts=atts.astype(np.int64),
+                                targets=r.randint(0, cfg["num_labels"], B)
+                                .astype(np.int64)), device)
+    state = TrainState.create(model, create_optimizer(
+        model, linear_warmup_decay(cfg["learning_rate"], 1000, 0),
+        weight_decay=cfg["weight_decay"], clip_grad_norm=1.0))
+    step = make_train_step(functools.partial(glue_loss_fn,
+                                             deterministic=False))
+    return _stepper(state, step, batch, device, seed)
+
+
+def deep_head_flops(B: int, in_dim: int = 1536,
+                    num_labels: int = 1000) -> float:
+    """Forward FLOPs of `DeepMLPHead` over B rows (its five matmuls)."""
+    d = in_dim // 2
+    dims = [in_dim, 4 * d, 8 * d, 4 * d, 2 * d, num_labels]
+    return 2 * B * sum(a * b for a, b in zip(dims, dims[1:]))
+
+
+def imagenet_step_flops(B: int, patches: int, lp: bool = False,
+                        hidden=768, inter=3072, layers=12,
+                        num_labels=1000) -> float:
+    """Model FLOPs of one ImageNet step (forward + backward ≈ 3× forward):
+    the tower over B images and the 48.7 M-parameter `DeepMLPHead`; under
+    `lp` the tower's forward alone and the head's three."""
+    tower = _transformer_flops(layers, hidden, inter, patches + 1, B)
+    head = deep_head_flops(B, 2 * hidden, num_labels)
+    return (tower if lp else 3 * tower) + 3 * head
+
+
+def glue_step_flops(B: int, T: int, hidden=768, inter=3072, layers=12,
+                    num_labels=2) -> float:
+    """Model FLOPs of one GLUE step (forward + backward ≈ 3× forward): the
+    text encoder over B rows of T tokens and the `MLPHead` on the cls."""
+    head = 2 * B * (hidden * 2 * hidden + 2 * hidden * num_labels)
+    return 3 * (_transformer_flops(layers, hidden, inter, T, B) + head)

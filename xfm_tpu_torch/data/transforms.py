@@ -25,9 +25,12 @@ def _pil():
 
 
 def decode_image(source):
-    """Path / bytes / base64 string / uint8 array → RGB PIL image."""
+    """Path / bytes / base64 string / uint8 array ([H, W], [H, W, 1] or
+    [H, W, 3]: a row of an npz split) → RGB PIL image."""
     Image = _pil()
     if isinstance(source, np.ndarray):
+        if source.ndim == 3 and source.shape[-1] == 1:
+            source = source[..., 0]
         if source.ndim == 2:
             source = np.stack([source] * 3, axis=-1)
         return Image.fromarray(source.astype(np.uint8)).convert("RGB")

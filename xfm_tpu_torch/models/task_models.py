@@ -1,5 +1,6 @@
 """Task heads (`xfm_tpu/models/task_models.py`): `XFMForPretrain`,
-`XFMForRetrieval`, `XFMForNLVR` and `XFMForGrounding`.
+`XFMForRetrieval`, `XFMForNLVR`, `XFMForGrounding`, and the classifiers
+`XFMForClassification` (with `DeepMLPHead`) and `TextClassifier`.
 
 Each holds the XFMBase parameters directly (not under a `backbone.` prefix),
 so its state_dict is the reference's. The pretrain head takes every stream
@@ -9,17 +10,24 @@ and the ITM rerank of its second. NLVR2 classifies a pair of images against
 one sentence; grounding regresses the box a phrase names. Their heads are
 the ones the JAX package's `init_all` creates from the config: NLVR's
 `cls_head` alone (no ITM head, projections or temperature), grounding's
-`bbox_head` alone.
+`bbox_head` alone. A classifier holds only the towers its branch runs
+(the leaves of the JAX tree its `init_all` creates): the image branch the
+vision tower, the text branch the text encoder, the fused one the whole
+backbone.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
+from torch import nn
 
+from ..core.precision import dense, layer_norm
+from ..ops.activations import gelu
 from ..ops.dropout import dropout_generator
-from .text_encoder import cross_entropy
-from .xfm import MLPHead, XFMBase
+from .text_encoder import TextTransformer, cross_entropy
+from .xfm import MLPHead, XFMBase, vision_tower
 
 
 LOSS_KEYS = ("loss_itc", "loss_itm", "loss_mlm", "loss_mim", "loss_bbox",
@@ -249,6 +257,145 @@ class XFMForGrounding(XFMBase):
         if not train:
             return coords
         return self.get_bbox_loss(coords, target_bbox)
+
+    def forward(self, *args, **kwargs):
+        return self.loss(*args, **kwargs)
+
+
+class DeepMLPHead(nn.Sequential):
+    """The ImageNet / linear-probe head (reference
+    models/model_classification.py:38-53): four Linear → LayerNorm →
+    GELU(erf) blocks at widths 4d, 8d, 4d, 2d with d = in_dim / 2 (the input
+    is [cls ‖ mean-patch], twice the feature width), then the output
+    Linear; Linear at indices 0, 3, 6, 9 and 12, LayerNorm at 1, 4, 7, 10,
+    as the reference's `nn.Sequential` names them. f32 parameters, compute
+    in `dtype`."""
+
+    def __init__(self, in_dim: int, output_dim: int, dtype: torch.dtype):
+        d = in_dim // 2
+        layers, prev = [], in_dim
+        for w in (4 * d, 8 * d, 4 * d, 2 * d):
+            layers += [nn.Linear(prev, w), nn.LayerNorm(w, eps=1e-6),
+                       nn.GELU()]
+            prev = w
+        super().__init__(*layers, nn.Linear(prev, output_dim))
+        self.dtype = dtype
+
+    def forward(self, x):
+        for i in range(0, 12, 3):
+            x = gelu(layer_norm(dense(x, self[i], self.dtype), self[i + 1],
+                                self.dtype))
+        return dense(x, self[12], self.dtype)
+
+
+class XFMForClassification(XFMBase):
+    """GLUE / ImageNet / linear-probe / generic classifier (reference
+    models/model_classification.py:17-96), by `task_name`:
+    - "glue": the text encoder's cls → `MLPHead`;
+    - "imagenet": the vision embeds' [cls ‖ mean of the patches] →
+      `DeepMLPHead`;
+    - "fused": the fusion encoder's cls over the image → `MLPHead`.
+    `is_lp` (a linear probe) takes `DeepMLPHead` whatever the branch, and in
+    the image branch freezes the tower: its parameters take no gradient
+    (so no optimizer holds them) and it runs with no graph, dropout and
+    drop-path still live, as the JAX package's `stop_gradient` of the
+    embeds in train mode. The loss is the cross-entropy, or the MSE where
+    `num_labels` is 1 (STS-B)."""
+
+    def __init__(self, c, num_labels: int = 2, task_name: str = "glue",
+                 is_lp: bool = False):
+        if task_name not in ("glue", "imagenet", "fused"):
+            raise ValueError(f"task_name {task_name!r}")
+        if task_name == "fused":
+            super().__init__(c)
+        else:
+            nn.Module.__init__(self)
+            self.config = c
+            if task_name == "imagenet":
+                self.vision_encoder = vision_tower(c)
+            else:
+                self.text_encoder = TextTransformer(c.text)
+        self.num_labels, self.task_name = num_labels, task_name
+        self.is_lp = is_lp
+        width = 2 * c.vision_width if task_name == "imagenet" \
+            else c.text_width
+        deep = task_name == "imagenet" or is_lp
+        self.cls_head = (DeepMLPHead if deep else MLPHead)(
+            width, num_labels, c.dtype)
+        self.frozen_tower = is_lp and task_name == "imagenet"
+        if self.frozen_tower:
+            self.vision_encoder.requires_grad_(False)
+
+    def features(self, images=None, text_ids=None, text_atts=None,
+                 deterministic: bool = True):
+        """The head's input: the text cls where `images` is None, the
+        image [cls ‖ mean-patch] where `text_ids` is None, else the fusion
+        cls."""
+        if images is None:
+            return self.text_encoder(text_ids, attention_mask=text_atts,
+                                     deterministic=deterministic)[:, 0, :]
+        if text_ids is None:
+            frozen = torch.no_grad() if self.frozen_tower \
+                else contextlib.nullcontext()
+            with frozen:
+                emb = self.get_vision_embeds(images,
+                                             deterministic=deterministic)
+            return torch.cat([emb[:, 0, :], emb[:, 1:, :].mean(1)], dim=-1)
+        image_embeds = self.get_vision_embeds(images,
+                                              deterministic=deterministic)
+        image_atts = torch.ones(image_embeds.shape[:2], dtype=torch.int64,
+                                device=image_embeds.device)
+        text_embeds = self.get_text_embeds(text_ids, text_atts,
+                                           deterministic)
+        return self.get_cross_embeds(image_embeds, image_atts, text_embeds,
+                                     text_atts, deterministic,
+                                     is_pretrain=False)[:, 0, :]
+
+    def loss(self, images=None, text_ids=None, text_atts=None, targets=None,
+             train: bool = True, generator: Optional[torch.Generator] = None,
+             deterministic: bool = True):
+        """→ the loss against `targets` [B] (class ids, or values where
+        `num_labels` is 1), or with `train=False` the logits [B,
+        num_labels]. Unless `deterministic`, the dropout masks come from
+        `generator`."""
+        with dropout_generator(generator):
+            pred = self.cls_head(self.features(images, text_ids, text_atts,
+                                               deterministic))
+        if not train:
+            return pred
+        if self.num_labels == 1:
+            return torch.mean((pred.reshape(-1).float()
+                               - targets.reshape(-1).float()) ** 2)
+        return cross_entropy(pred, targets)
+
+    def forward(self, *args, **kwargs):
+        return self.loss(*args, **kwargs)
+
+
+class TextClassifier(nn.Module):
+    """The text-only classifier (reference models/model_classification.py:
+    98-150, Classify.py `use_text_classifier`): the text encoder alone and
+    an `MLPHead` over its cls, cross-entropy; no vision or fusion
+    parameters."""
+
+    def __init__(self, text_config, num_labels: int = 2):
+        super().__init__()
+        self.config = text_config
+        self.text_encoder = TextTransformer(text_config)
+        self.cls_head = MLPHead(text_config.hidden_size, num_labels,
+                                text_config.dtype)
+
+    def loss(self, images=None, text_ids=None, text_atts=None, targets=None,
+             train: bool = True, generator: Optional[torch.Generator] = None,
+             deterministic: bool = True):
+        """As `XFMForClassification.loss`; `images` is ignored."""
+        with dropout_generator(generator):
+            hidden = self.text_encoder(text_ids, attention_mask=text_atts,
+                                       deterministic=deterministic)
+            pred = self.cls_head(hidden[:, 0, :])
+        if not train:
+            return pred
+        return cross_entropy(pred, targets)
 
     def forward(self, *args, **kwargs):
         return self.loss(*args, **kwargs)

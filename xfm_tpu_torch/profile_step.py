@@ -5,7 +5,8 @@ on the card.
         [pretrain|pretrain_fused|retrieval|retrieval_train|clip_retrieval|
          retrieval_eval|pretrain_streams|vqa_train|vqa_rank|caption_train|
          caption_beam|caption_scst|caption_pretrain|nlvr_train|
-         grounding_train|gradcam] [--trace PATH]
+         grounding_train|gradcam|imagenet_train|imagenet_lp|glue_train]
+        [--trace PATH]
 
 Runs the full-width step of the chosen path as `chip_smoke.py` does
 (pretrain: B = 48 at 224 px, the default; pretrain_fused: the same with the
@@ -68,6 +69,18 @@ grounding_train the bbox fine-tune's step of `run.py --task refcoco_bbox`
 on `Grounding_bbox.yaml` at its batch of 24 phrases of 30 tokens; gradcam
 one batch of 8 through `itm_gradcam` at fusion layer 8 (the weakly
 supervised grounding). Each prints the same numbers as vqa_train.
+
+imagenet_train profiles the step of `run.py --task imagenet` on
+`imagenet1k.yaml` (the BEiT-2 tower at 224 px and the 1,000-way
+`DeepMLPHead`, bf16) at its batch of 128 images, soft targets from mixup,
+dropout and drop-path live; imagenet_lp the linear probe's step on
+`imagenet1k_lp.yaml` at its batch of 512 (the tower frozen, LARS on the
+head); glue_train the step of `run.py --task glue` on `glue_mrpc.yaml`
+(the 12-layer RoBERTa text encoder and `MLPHead`) at its batch of 32
+pairs of 128 tokens. Each prints the same numbers as vqa_train, and the
+model FLOPs of its step (`configs.imagenet_step_flops`,
+`glue_step_flops`) over its busy time against the card's 989 TFLOP/s
+(bf16, dense).
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -82,6 +95,7 @@ import time
 import torch
 
 STEPS = 3
+BF16_PEAK_FLOPS = 989e12  # H100 SXM, dense (NVIDIA's data sheet)
 TOP = 25
 
 
@@ -432,6 +446,43 @@ def profile_nlvr(trace: str, units=NLVR_UNITS, steps: int = STEPS,
                           lambda u: 1 if u == "gradcam" else 2, steps)
 
 
+CLASSIFY_UNITS = ("imagenet_train", "imagenet_lp", "glue_train")
+
+
+def profile_classify(trace: str, units=CLASSIFY_UNITS, steps: int = STEPS,
+                     **keys) -> dict:
+    """`_profile_units` over the classification units at the YAMLs' sizes
+    (`keys` on top): "imagenet_train" and "imagenet_lp"
+    (`configs.make_imagenet_run`: B = 128 and 512 at 224 px) and
+    "glue_train" (`configs.make_glue_run`: B = 32, T = 128); 2 warm-up
+    calls each; each with its loss, its step's model FLOPs and their rate
+    over the busy time as a share of the card's bf16 peak (`mfu_busy`)."""
+    from . import configs
+
+    def make(unit):
+        if unit == "glue_train":
+            return configs.make_glue_run(**keys)
+        return configs.make_imagenet_run(unit, **keys)
+
+    out = _profile_units(trace, units, make,
+                         lambda u, m: {"loss": float(m["loss"])},
+                         lambda u: 2, steps)
+    for unit, res in out.items():
+        if unit == "glue_train":
+            c = configs.GLUE_MRPC
+            flops = configs.glue_step_flops(c["per_device_train_batch_size"],
+                                            c["max_length"])
+        else:
+            c = configs.IMAGENET_LP if unit == "imagenet_lp" \
+                else configs.IMAGENET
+            flops = configs.imagenet_step_flops(
+                c["batch_size"], (c["image_res"] // c["patch_size"]) ** 2,
+                lp=unit == "imagenet_lp")
+        res.update(step_flops=flops, mfu_busy=flops / (
+            res["device_busy_ms"] * 1e-3) / BF16_PEAK_FLOPS)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path", nargs="?", default="pretrain",
@@ -439,7 +490,7 @@ def main(argv=None) -> int:
                              "retrieval_train", "clip_retrieval",
                              "retrieval_eval", "pretrain_streams",
                              "vqa_train", "vqa_rank") + CAPTION_UNITS
-                    + NLVR_UNITS)
+                    + NLVR_UNITS + CLASSIFY_UNITS)
     ap.add_argument("--trace")
     args = ap.parse_args(argv)
     trace = args.trace or f"build/xfm_tpu_torch/profile_{args.path}.json"
@@ -448,9 +499,11 @@ def main(argv=None) -> int:
         return 2
     if args.path == "retrieval_eval":
         return profile_retrieval_eval(trace)
-    if args.path in ("vqa_train", "vqa_rank") + CAPTION_UNITS + NLVR_UNITS:
+    if args.path in ("vqa_train", "vqa_rank") + CAPTION_UNITS + NLVR_UNITS \
+            + CLASSIFY_UNITS:
         profile = (profile_caption if args.path in CAPTION_UNITS
                    else profile_nlvr if args.path in NLVR_UNITS
+                   else profile_classify if args.path in CLASSIFY_UNITS
                    else profile_vqa)
         res = profile(trace, units=(args.path,))[args.path]
         top = res.pop("top")

@@ -69,18 +69,19 @@ def scale_batch(cfg: dict, global_bs: int,
     divided over the processes (one card each; the world size by default)
     into `batch_size_train` and the `batch_size` of the stream blocks
     `images`, `texts`, `regions` and `images_imagenet`, where the YAML has
-    them; and into a top-level `batch_size` where the YAML has no
-    `batch_size_train` (NLVR.yaml's and Grounding_bbox.yaml's, which the
-    JAX package leaves as they are, so that `--bs` changes nothing
-    there)."""
+    them; and where it has no `batch_size_train`, into a top-level
+    `batch_size` (NLVR.yaml's, Grounding_bbox.yaml's, imagenet1k.yaml's)
+    or GLUE's `per_device_train_batch_size`, which the JAX package leaves
+    as they are, so that `--bs` changes nothing there."""
     n = n_processes or world_size()
     for key in ("images", "texts", "regions", "images_imagenet"):
         if isinstance(cfg.get(key), dict) and "batch_size" in cfg[key]:
             cfg[key]["batch_size"] = max(1, global_bs // n)
-    if "batch_size_train" in cfg:
-        cfg["batch_size_train"] = max(1, global_bs // n)
-    elif "batch_size" in cfg:
-        cfg["batch_size"] = max(1, global_bs // n)
+    for key in ("batch_size_train", "batch_size",
+                "per_device_train_batch_size"):
+        if key in cfg:
+            cfg[key] = max(1, global_bs // n)
+            break
 
 
 def accum_steps_from_config(cfg: dict) -> int:

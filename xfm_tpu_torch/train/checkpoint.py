@@ -22,9 +22,11 @@
 - The save/restore half of `xfm_tpu/train/checkpoint.py`: `save_checkpoint`,
   `restore_checkpoint`, `latest_step`, `load_params_from_checkpoint`. A
   train state goes to `<ckpt_dir>/<step>/state.pt`, written by
-  `torch.save`: the parameters by name, HF-AdamW's moments `mu` and `nu`
-  by name and its `count`, and the state's `step`. The JAX package writes
-  Orbax directories instead; the two formats do not read each other.
+  `torch.save`: the model's parameters by name (a frozen tower's too),
+  the optimizer's state (HF-AdamW's moments `mu` and `nu` by name and its
+  `count`; LARS's `mu` and `count`), and the state's `step`. The JAX
+  package writes Orbax directories instead; the two formats do not read
+  each other.
 """
 from __future__ import annotations
 
@@ -161,32 +163,45 @@ def clip_vit_from_jax(p: Dict[str, Any], num_layers: int,
 
 def _mlp_head(p: Dict[str, Any], prefix: str,
               sd: Dict[str, np.ndarray]) -> None:
-    sd[f"{prefix}.0.weight"] = _t(p["fc1"]["kernel"]).T
-    sd[f"{prefix}.0.bias"] = _t(p["fc1"]["bias"])
-    sd[f"{prefix}.1.weight"] = _t(p["ln"]["scale"])
-    sd[f"{prefix}.1.bias"] = _t(p["ln"]["bias"])
-    sd[f"{prefix}.3.weight"] = _t(p["fc2"]["kernel"]).T
-    sd[f"{prefix}.3.bias"] = _t(p["fc2"]["bias"])
+    """An `MLPHead` (fc1, ln, fc2 → indices 0, 1, 3) or a `DeepMLPHead`
+    (fc0…fc3, ln0…ln3, out → 0, 1, 3, 4, 6, 7, 9, 10, 12)."""
+    if "fc0" in p:
+        pairs = [(f"fc{j}", 3 * j) for j in range(4)] + [
+            (f"ln{j}", 3 * j + 1) for j in range(4)] + [("out", 12)]
+    else:
+        pairs = [("fc1", 0), ("ln", 1), ("fc2", 3)]
+    for src, idx in pairs:
+        if "kernel" in p[src]:
+            sd[f"{prefix}.{idx}.weight"] = _t(p[src]["kernel"]).T
+        else:
+            sd[f"{prefix}.{idx}.weight"] = _t(p[src]["scale"])
+        sd[f"{prefix}.{idx}.bias"] = _t(p[src]["bias"])
 
 
 def state_dict_from_jax(params: Dict[str, Any],
                         config) -> Dict[str, torch.Tensor]:
     """JAX XFM param tree (with or without the `backbone` level) → port
-    state_dict for `XFMBase` and its heads, either vision tower, NLVR's
-    `cls_head`, and the `text_decoder` of `XFMForVQA` or `XFMForCaptioning`
-    where the tree has one (the caption tree's backbone holds the vision
-    tower alone)."""
+    state_dict for `XFMBase` and its heads, either vision tower, the
+    `cls_head` of NLVR or of a classifier (`MLPHead` or `DeepMLPHead`),
+    and the `text_decoder` of `XFMForVQA` or `XFMForCaptioning` where the
+    tree has one. A tree may lack towers: the caption tree's backbone
+    holds the vision tower alone, an image classifier's too, a text
+    classifier's the text encoder alone (`TextClassifier`'s with no
+    backbone level; its `config` the text config)."""
     bb = params["backbone"] if "backbone" in params else params
-    if config.vision_backbone == "clip_vit":
+    sd: Dict[str, np.ndarray] = {}
+    if "vision_encoder" in bb and config.vision_backbone == "clip_vit":
         sd = clip_vit_from_jax(bb["vision_encoder"],
                                config.vision.num_hidden_layers,
                                "vision_encoder")
-    else:
+    elif "vision_encoder" in bb:
         sd = beit2_from_jax(bb["vision_encoder"], config.vision.depth,
                             "vision_encoder")
-    for name, tc in (("text_encoder", config.text),
-                     ("fusion_encoder", config.fusion)):
-        if name in bb:  # the caption model's backbone holds neither
+    texts = (("text_encoder", config),) if not hasattr(config, "text") \
+        else (("text_encoder", config.text), ("fusion_encoder",
+                                              config.fusion))
+    for name, tc in texts:
+        if name in bb:
             sd.update(text_encoder_from_jax(bb[name], tc.num_hidden_layers,
                                             name))
     for name in ("vision_proj", "text_proj", "fusion_proj"):
@@ -198,7 +213,7 @@ def state_dict_from_jax(params: Dict[str, Any],
     for head in ("itm_head", "bbox_head"):
         if head in bb:
             _mlp_head(bb[head], head, sd)
-    if "cls_head" in params:  # NLVR's, beside the backbone
+    if "cls_head" in params:  # beside the backbone
         _mlp_head(params["cls_head"], "cls_head", sd)
     if "text_decoder" in params:  # the answer or caption decoder
         dec = params["text_decoder"]
@@ -396,6 +411,8 @@ def _reference_names(sd: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
                           if torch.is_tensor(v) else v, np.float32)
 
     out = {}
+    if not hasattr(model, "vision_encoder"):  # a text classifier's
+        return _port_layout(sd)
     for k, v in sd.items():
         if k.startswith("vision_encoder.") and c.vision_backbone == "clip_vit":
             rest = k[len("vision_encoder."):]
@@ -650,9 +667,9 @@ def save_checkpoint(ckpt_dir: str, state, step: Optional[int] = None,
     place; then only the newest `keep` steps stay. → the step's
     directory."""
     step = int(state.step if step is None else step)
-    opt = state.optimizer
-    payload = {"params": dict(zip(opt.names, opt.params)),
-               "optimizer": opt.state_dict(), "step": int(state.step)}
+    payload = {"params": dict(state.model.named_parameters()),
+               "optimizer": state.optimizer.state_dict(),
+               "step": int(state.step)}
     with torch.no_grad():
         return _place(ckpt_dir, step, keep,
                       lambda path: torch.save(payload, path))
@@ -697,18 +714,19 @@ def load_params_from_checkpoint(ckpt_dir: str, step: Optional[int] = None,
 @torch.no_grad()
 def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None):
     """The saved step (the newest by default) copied into `state` in place,
-    bit for bit: parameters, the optimizer's moments and count, and the
-    state's step. With nothing saved `state` is returned as it is."""
-    opt = state.optimizer
-    payload = _load(ckpt_dir, step, opt.params[0].device)
+    bit for bit: the model's parameters, the optimizer's state (moments
+    and count), and the state's step. With nothing saved `state` is
+    returned as it is."""
+    named = dict(state.model.named_parameters())
+    payload = _load(ckpt_dir, step, next(iter(named.values())).device)
     if payload is None:
         return state
     params = payload["params"]
-    if set(params) != set(opt.names):
+    if set(params) != set(named):
         raise KeyError(f"checkpoint parameters differ from the model's: "
-                       f"{sorted(set(params) ^ set(opt.names))[:5]}")
-    for name, p in zip(opt.names, opt.params):
+                       f"{sorted(set(params) ^ set(named))[:5]}")
+    for name, p in named.items():
         p.copy_(params[name])
-    opt.load_state_dict(payload["optimizer"])
+    state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return state

@@ -1,4 +1,5 @@
-"""4-group HF-AdamW (`xfm_tpu/train/optim.py` `create_optimizer`).
+"""4-group HF-AdamW (`xfm_tpu/train/optim.py` `create_optimizer`) and
+LARS (`lars`, the linear probe's).
 
 Its own step, not `torch.optim.AdamW`, whose eps placement and decay differ.
 Per step, in this order, as the JAX package's optax chain does:
@@ -10,6 +11,10 @@ Per step, in this order, as the JAX package's optax chain does:
   5. ×lr(count), with count read before it is incremented.
 Parameters without a gradient are stepped with a zero gradient, as JAX does
 (so they still decay). Updates are in place, with `torch._foreach_*` ops.
+Both optimizers take the parameters that require a gradient: a frozen
+tower (a linear probe's) holds no optimizer state and never moves, where
+the JAX package's optimizers step it with a zero gradient, so that a
+weight decay above 0 moves it.
 """
 from __future__ import annotations
 
@@ -119,11 +124,78 @@ class HFAdamW:
         self.count = int(state["count"])
 
 
+class LARS:
+    """LARS (`xfm_tpu/train/optim.py` `lars`, reference optim.py:53-87):
+    for a parameter of rank > 1, g + wd·p scaled by the trust ratio
+    `trust_coefficient`·‖p‖/‖g‖ (1 where either norm is 0); rank ≤ 1 takes
+    its gradient as it is, with no decay; then heavy-ball momentum
+    mu = momentum·mu + g and p -= lr(count + 1)·mu, the count incremented
+    first, as optax's `lars` reads the schedule."""
+
+    def __init__(self, named_params, learning_rate: Callable[[int], float]
+                 | float, weight_decay: float = 0.0, momentum: float = 0.9,
+                 trust_coefficient: float = 0.001):
+        self.names, self.params = zip(*named_params)
+        self.lr = (learning_rate if callable(learning_rate)
+                   else (lambda _step, v=learning_rate: v))
+        self.weight_decay = weight_decay
+        self.momentum = momentum
+        self.trust_coefficient = trust_coefficient
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        """One update from the parameters' `.grad`; returns the global norm
+        of the gradients (a device tensor)."""
+        grads = [p.grad.float() if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        g_norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+        for i, (p, g) in enumerate(zip(self.params, grads)):
+            if p.dim() > 1:
+                if self.weight_decay:
+                    g = g + self.weight_decay * p
+                pn = torch.linalg.vector_norm(p)
+                gn = torch.linalg.vector_norm(g)
+                one = torch.ones_like(pn)
+                q = torch.where(pn > 0, torch.where(
+                    gn > 0, self.trust_coefficient * pn / gn, one), one)
+                grads[i] = g * q
+        torch._foreach_mul_(self.mu, self.momentum)
+        torch._foreach_add_(self.mu, grads)
+        self.count += 1
+        torch._foreach_add_(list(self.params), self.mu,
+                            alpha=-self.lr(self.count))
+        return g_norm
+
+    def state_dict(self) -> dict:
+        """The momenta by parameter name and the count (the tensors are the
+        live ones, not copies)."""
+        return {"mu": dict(zip(self.names, self.mu)), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy `state_dict()`'s momenta in place, bit for bit, and its
+        count."""
+        if set(state["mu"]) != set(self.names):
+            raise KeyError("optimizer mu: names differ from the model's")
+        for name, t in zip(self.names, self.mu):
+            t.copy_(state["mu"][name])
+        self.count = int(state["count"])
+
+
+def trained_parameters(model: torch.nn.Module) -> list:
+    """(name, parameter) of the model's (deduplicated, tied-once)
+    parameters that require a gradient."""
+    return [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+
+
 def create_optimizer(model: torch.nn.Module, learning_rate,
                      weight_decay: float = 0.01, lr_mult: float = 1.0,
                      **kw) -> HFAdamW:
-    """HF-AdamW over the model's (deduplicated, tied-once) parameters."""
-    return HFAdamW(model.named_parameters(), learning_rate,
+    """HF-AdamW over the model's `trained_parameters`."""
+    return HFAdamW(trained_parameters(model), learning_rate,
                    weight_decay=weight_decay, lr_mult=lr_mult, **kw)
 
 
