@@ -102,7 +102,7 @@ Phases, each of which must pass or the script exits non-zero:
      (BEiT-2, 384 px, 12/12/12 layers), bf16 compute, its weights a seeded
      224 px model saved as a reference checkpoint and loaded through the
      port's loader (the rel-pos tables interpolated from window 14 to 24);
-     a seeded corpus of 256 images and 1,280 captions (5 each, 8-40
+     a seeded corpus of 256 images and 512 captions (2 each, 8-40
      tokens), k_test = 256, batch_size_test = 64: stage 1's images/s and
      texts/s, stage 2's ITM rows/s each way, the total seconds, the peak
      memory and R@K; K2 forward 48 and K3 forward 384 launches, nothing
@@ -250,6 +250,29 @@ Phases, each of which must pass or the script exits non-zero:
      `profile_step` `imagenet_train`, `imagenet_lp` and `glue_train` at
      the YAMLs' sizes (busy time, idle share, peak memory under 80 GB,
      MFU over busy time, the launches as above);
+ 24. the pretrain task's optional branches: at depth 2, f32, CPU vs card,
+     the frozen VQ-KD tokenizer's projections and code ids (an id may
+     differ only at a near-tie of its two best distances, within 1e-5;
+     the count reported), the image, region and ImageNet streams with
+     MIM's cross-entropy over 8,192 codes and region attention in the last
+     block (losses, sampled gradients; K1 2 + 2, 1 + 1, 2 + 2), the shared
+     rel-pos table through K1, CLIP-ViT's region mode in both forms, one
+     VQ-KD training step with the CLIP teacher from injected k-means means
+     (losses, the EMA's codebook, gradients), three HF-AdamW steps under
+     master weights (bf16 parameters, f32 masters, live == rounded
+     master) and the fused route under bf16 parameters (K4 and K5
+     launched); `run.main` for `--task pretrain_DIY` on
+     `Pretrain_base_4m.yaml`'s keys with the tokenizer, `local_attn_depth:
+     3`, `bf16_params` and `bench_redispatch: 2` over a trimmed
+     `_pretrain_corpus`, `--bs 24`, 3 steps, `resume: true` (K1 12 + 12 in
+     the image-text and ImageNet streams, 9 + 9 in the region stream, no
+     other kernel; finite losses; the first step's MIM CE within 0.5 of
+     ln 8192 + 1/2; bf16 parameters and f32 masters saved; the resume bit
+     for bit; the `### redispatch` line; peak memory under 80 GB); one
+     full-width VQ-KD training step at 224 px with the CLIP ViT-B/16
+     teacher (f32); then `profile_step` `pretrain_vqkd` and
+     `pretrain_bf16` at the YAML's sizes (K1 33 + 33 and 36 + 36 a step,
+     peak memory under 80 GB, MFU over busy time);
 then a JSON line of the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
@@ -384,13 +407,19 @@ def k1_work(B: int, N: int, H: int, D: int, dtype: torch.dtype) -> dict:
                    PEAK_FLOPS[dtype])
 
 
+def _device_randn(g, *shape, scale=1.0):
+    """Normal draws made on the generator's device (seeded inputs of the
+    kernel checks; drawing them on the host took seconds at B = 512)."""
+    return torch.randn(*shape, generator=g, device=g.device) * scale
+
+
 def make_k1_inputs(B, N, H, dtype, seed, device="cuda"):
-    g = np.random.RandomState(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
     C = H * 64
-    qkv = torch.from_numpy(g.randn(B, N, 3 * C).astype(np.float32))
-    bias = torch.from_numpy(0.5 * g.randn(1, H, N, N).astype(np.float32))
-    dout = torch.from_numpy(g.randn(B, N, C).astype(np.float32))
-    return (qkv.to(device, dtype), bias.to(device), dout.to(device, dtype))
+    qkv = _device_randn(g, B, N, 3 * C)
+    bias = _device_randn(g, 1, H, N, N, scale=0.5)
+    dout = _device_randn(g, B, N, C)
+    return qkv.to(dtype), bias, dout.to(dtype)
 
 
 def k1_parity(B, N, H, dtype, seed=0) -> dict:
@@ -500,15 +529,13 @@ def make_k2_inputs(B, window, H, dtype, seed, device="cuda"):
 
     wh, ww = window
     N = wh * ww + 1
-    g = np.random.RandomState(seed)
-    qkv = torch.from_numpy(g.randn(B, N, 3 * H * 64).astype(np.float32))
-    table = torch.from_numpy(0.5 * g.randn(
-        (2 * wh - 1) * (2 * ww - 1) + 3, H).astype(np.float32))
-    dout = torch.from_numpy(g.randn(B, N, H * 64).astype(np.float32))
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = _device_randn(g, B, N, 3 * H * 64)
+    table = _device_randn(g, (2 * wh - 1) * (2 * ww - 1) + 3, H, scale=0.5)
+    dout = _device_randn(g, B, N, H * 64)
     cr, cls3 = compact_rel_pos(table, wh, ww)
     cr = cr.to(dtype).reshape(H, ww, (2 * wh - 1) * ww)
-    return (qkv.to(device, dtype), cr.to(device), cls3.to(dtype).float()
-            .to(device), dout.to(device, dtype))
+    return qkv.to(dtype), cr, cls3.to(dtype).float(), dout.to(dtype)
 
 
 def k2_parity(B, window, H, dtype, seed=0) -> dict:
@@ -688,15 +715,13 @@ def make_k3_inputs(B, Nq, Nk, H, dtype, bias_kind, seed, device="cuda"):
     masks its last 7·b keys."""
     from xfm_tpu_torch.ops.attention import mask_to_bias
 
-    g = np.random.RandomState(seed)
-    q = torch.from_numpy(g.randn(B, Nq, H, 64).astype(np.float32))
-    k, v = (torch.from_numpy(g.randn(B, Nk, H, 64).astype(np.float32))
-            for _ in range(2))
-    dout = torch.from_numpy(g.randn(B, Nq, H, 64).astype(np.float32))
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = _device_randn(g, B, Nq, H, 64)
+    k, v = (_device_randn(g, B, Nk, H, 64) for _ in range(2))
+    dout = _device_randn(g, B, Nq, H, 64)
     bias = None
     if bias_kind in ("relpos", "relpos_bf16"):
-        bias = torch.from_numpy(0.5 * g.randn(1, H, Nq, Nk).astype(
-            np.float32)).to(device)
+        bias = _device_randn(g, 1, H, Nq, Nk, scale=0.5)
         if bias_kind == "relpos_bf16":
             bias = bias.to(torch.bfloat16)
     elif bias_kind == "mask":
@@ -781,13 +806,11 @@ def k3_grouped_inputs(U, gs, dtype, bias_kind, seed, T=40, H=12, Nk=577):
     ("tails")."""
     from xfm_tpu_torch.ops.attention import mask_to_bias
 
-    g = np.random.RandomState(seed)
-    proj = torch.from_numpy(g.randn(U * gs, T, H * 64).astype(np.float32))
-    proj = proj.to("cuda", dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    proj = _device_randn(g, U * gs, T, H * 64).to(dtype)
     q = proj.view(U, gs * T, H, 64)
     assert q.data_ptr() == proj.data_ptr()
-    k, v = (torch.from_numpy(g.randn(U, Nk, H, 64).astype(np.float32))
-            .to("cuda", dtype) for _ in range(2))
+    k, v = (_device_randn(g, U, Nk, H, 64).to(dtype) for _ in range(2))
     atts = np.ones((U, Nk), np.int64)
     if bias_kind == "tails":
         for u in range(U):
@@ -946,7 +969,7 @@ def eval_slice_parity(clip: bool, n_img=16, per_image=2, k_test=16,
         raise AssertionError(f"eval slice {tower}: K3 launched {k3}")
 
 
-def full_eval(n_img=256, per_image=5, k_test=256, seed=0) -> dict:
+def full_eval(n_img=256, per_image=2, k_test=256, seed=0) -> dict:
     """Phase 17: the full-width eval through `tasks/retrieval.evaluation`,
     its weights loaded from a 224 px reference checkpoint; launch counts
     set to 0 just before the eval and read just after."""
@@ -3836,6 +3859,674 @@ def classify_kernel_entries(k1ft, k1lp, cprof) -> list:
     return entries
 
 
+# --- phase 24: the pretrain task's optional branches ------------------------
+
+# phase-24 near-tie rule: a code id of the tokenizer may differ between the
+# card and the CPU only where the CPU's two smallest f32 distances to the
+# codebook are this close (argmin over f32 sums in other orders)
+CODE_TIE_ATOL = 1e-5
+# phase-24 bound for gradients kept in bf16 (bf16 parameters): the f32
+# bound plus one bf16 rounding of each side at the tensor's largest value
+BF16_GRAD_RTOL = SLICE_GRAD_RTOL + 2.0 ** -8
+# phase-24 bound for the losses of the 2nd and 3rd master-weight steps: the
+# first update's elements of near-zero gradient take Adam's ±lr either way
+# on the two devices, so later losses move apart by more than f32's noise
+MASTER_LOSS_RTOL = 1e-3
+
+
+def _code_ids_close(tag, vq_cpu, z_cpu, ids_cpu, ids_gpu) -> int:
+    """The card's code ids against the CPU's under the near-tie rule →
+    how many differ; raise where one differs away from a near-tie."""
+    from xfm_tpu_torch.models.vqkd import l2norm
+
+    cb = vq_cpu.quantize.embedding.weight
+    flat = l2norm(z_cpu.float()).reshape(-1, cb.shape[1])
+    d = ((flat ** 2).sum(-1, keepdim=True) - 2 * flat @ cb.T
+         + (cb ** 2).sum(-1)[None])
+    two = d.topk(2, dim=-1, largest=False).values
+    gap = two[:, 1] - two[:, 0]
+    differ = ids_cpu.reshape(-1) != ids_gpu.cpu().reshape(-1)
+    bad = differ & (gap > CODE_TIE_ATOL)
+    print(f"  {tag}: {int(differ.sum())} of {differ.numel()} ids differ, "
+          f"{int(bad.sum())} away from a near-tie (gap > {CODE_TIE_ATOL})")
+    if bad.any():
+        raise AssertionError(f"{tag}: code ids")
+    return int(differ.sum())
+
+
+def _vqkd_slice_model(**vision):
+    """XFM-base at depth 2, f32, with the tokenizer's code head (8,192
+    codes) and the vision config's `vision` fields."""
+    import dataclasses
+
+    from xfm_tpu_torch import configs
+
+    cfg = configs.xfm_base_pretrain_config(layers=2, dtype=torch.float32)
+    return dataclasses.replace(
+        cfg, use_vision_tokenizer=True, codebook_size=8192,
+        vision=dataclasses.replace(cfg.vision, **vision))
+
+
+def vqkd_slice_parity(B=4) -> dict:
+    """f32, full width, depth 2, CPU vs card: the tokenizer's projections
+    and code ids (near-tie rule); the pretrain streams with MIM's CE and
+    region attention in the last block (losses, sampled gradients; K1 2 + 2
+    in the image and ImageNet streams, 1 + 1 in the region stream); the
+    shared rel-pos table through K1 (tower outputs and gradients, K1 2 + 2);
+    CLIP-ViT's region mode in both forms; one VQ-KD training step with the
+    CLIP teacher from injected k-means means (losses, the EMA's codebook,
+    sampled gradients); three steps of HF-AdamW under master weights; the
+    fused route (K4, K5) under bf16 parameters. → {check: ids differing}."""
+    import copy
+    import dataclasses
+
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.models import XFMForPretrain
+    from xfm_tpu_torch.models.beit2 import (BeitVisionTransformer,
+                                            VisionConfig)
+    from xfm_tpu_torch.models.clip_vit import (ClipVisionConfig,
+                                               ClipVisionTransformer)
+    from xfm_tpu_torch.models.task_models import LOSS_KEYS
+    from xfm_tpu_torch.models.teachers import CLIPTeacher, teacher_features
+    from xfm_tpu_torch.models.vqkd import (VQKD, kmeans_init_vq_stats,
+                                           l2norm, vqkd_config_from_yaml)
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks.pretrain import frozen_tokenizer, stream_flags
+    from xfm_tpu_torch.train.optim import HFAdamW, with_master_weights
+
+    out = {}
+    yaml_cfg = configs.pretrain_yaml(**configs.PRETRAIN_VQKD_KEYS)
+    sizes = dict(configs.stream_batch_sizes(yaml_cfg), image=B, imagenet=B,
+                 regions=B, max_images=B + 2, text=B)
+    nb = configs.make_stream_batches(sizes, 224, 50265, seed=24)
+    # the tokenizer at depth 2: projections, code ids
+    vq_cpu, _ = frozen_tokenizer(dict(configs.PRETRAIN_VQKD_KEYS,
+                                      tokenizer_depth=2), "cpu")
+    vq_gpu = copy.deepcopy(vq_cpu).to("cuda")
+    images = torch.from_numpy(nb["image"]["images"])
+    with torch.no_grad():
+        zc, zg = vq_cpu._encode_z(images), vq_gpu._encode_z(images.cuda())
+        idc = vq_cpu.quantize.indices(zc)
+        idg = vq_gpu.quantize.indices(zg)
+    _close("tokenizer z", zc, zg, SLICE_LOSS_RTOL)
+    out["tokenizer_ids"] = _code_ids_close("tokenizer ids", vq_cpu, zc, idc,
+                                           idg)
+    codes = {"image": idc}
+    with torch.no_grad():
+        codes["imagenet"] = vq_cpu.get_codebook_indices(
+            torch.from_numpy(nb["imagenet"]["images"]))
+    del vq_cpu, vq_gpu
+
+    # the pretrain streams: MIM's CE, region attention in the last block
+    cfg = _vqkd_slice_model(local_attn_depth=1)
+    cpu = build_model(XFMForPretrain, cfg, "cpu", seed=3)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    sample = {"lm_head.weight": ("image", "imagenet"),
+              "vision_encoder.blocks.0.attn.qkv.weight": ("image", "region",
+                                                          "imagenet"),
+              "vision_encoder.blocks.1.attn.relative_position_bias_table":
+                  ("image", "region", "imagenet"),
+              "vision_encoder.blocks.1.mlp.fc2.weight": ("region",),
+              "fusion_encoder.roberta.encoder.layer.1.crossattention.self."
+              "key.weight": ("image", "region"),
+              "bbox_head.3.weight": ("region",)}
+    want_k1 = {"image": 2, "imagenet": 2, "region": 1}
+    for name in ("image", "region", "imagenet"):
+        flags = stream_flags(name, 0, yaml_cfg)
+        res = {}
+        for tag, model, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+            model.zero_grad(set_to_none=True)
+            batch = configs.batch_to_torch(nb[name], dev)
+            if name in codes:
+                batch["vqkd_code_ids"] = codes[name].to(dev)
+            n = batch["images"].shape[0] if name != "region" else B
+            neg = (torch.roll(torch.arange(n, device=dev), 1),
+                   torch.roll(torch.arange(n, device=dev), 2))
+            kernels.reset_launch_counts()
+            o = model.loss(**batch, **flags, hard_negatives=neg)
+            sum(o[k] for k in LOSS_KEYS).backward()
+            res[tag] = ({k: v.item() for k, v in o.items()},
+                        dict(model.named_parameters()),
+                        dict(kernels.LAUNCHES))
+        (lc, pc, _), (lg, pg, launches) = res["cpu"], res["cuda"]
+        k1 = want_k1[name]
+        print(f"  vqkd slice {name} launches {json.dumps(launches)}")
+        if launches != dict({k: 0 for k in launches},
+                            packed_attention_fwd=k1, packed_attention_bwd=k1):
+            raise AssertionError(f"vqkd slice {name}: launches")
+        for k in LOSS_KEYS:
+            ok = math.isclose(lc[k], lg[k], rel_tol=SLICE_LOSS_RTOL,
+                              abs_tol=1e-7)
+            print(f"  vqkd slice {name} {k}: cpu={lc[k]:.6f} "
+                  f"cuda={lg[k]:.6f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"vqkd slice {name}: {k}")
+        _grads_close(f"vqkd slice {name}",
+                     {n: pc[n].grad for n, s in sample.items() if name in s},
+                     {n: pg[n].grad for n, s in sample.items() if name in s})
+    del cpu, gpu
+
+    # the shared table through K1 (a tower with per-block tables too)
+    vcfg = VisionConfig(image_res=224, depth=2, drop_path_rate=0.0,
+                        use_shared_rel_pos_bias=True)
+    cpu = build_model(BeitVisionTransformer, vcfg, "cpu", seed=5)
+    with torch.no_grad():
+        t = cpu.rel_pos_bias.relative_position_bias_table
+        t.copy_(torch.randn(t.shape, generator=torch.Generator()
+                            .manual_seed(6)))
+    gpu = copy.deepcopy(cpu).to("cuda")
+    g = torch.randn(B, 197, 768, generator=torch.Generator().manual_seed(7))
+    grads = {}
+    for tag, m, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+        kernels.reset_launch_counts()
+        y = m(images.to(dev))
+        (y * g.to(dev)).sum().backward()
+        grads[tag] = (y.detach(), {n: p.grad for n, p in
+                                   m.named_parameters()})
+        launches = dict(kernels.LAUNCHES)
+    print(f"  shared table launches {json.dumps(launches)}")
+    if (launches["packed_attention_fwd"], launches["packed_attention_bwd"]) \
+            != (2, 2):
+        raise AssertionError("shared table: K1 launches")
+    _close("shared table tower out", grads["cpu"][0], grads["cuda"][0],
+           SLICE_LOSS_RTOL)
+    _grads_close("shared table", {n: grads["cpu"][1][n] for n in (
+        "rel_pos_bias.relative_position_bias_table",
+        "blocks.1.attn.relative_position_bias_table",
+        "blocks.0.attn.qkv.weight")}, {n: grads["cuda"][1][n] for n in (
+            "rel_pos_bias.relative_position_bias_table",
+            "blocks.1.attn.relative_position_bias_table",
+            "blocks.0.attn.qkv.weight")})
+    del cpu, gpu
+
+    # CLIP-ViT region mode, both forms
+    reg = nb["region"]
+    gen = torch.Generator().manual_seed(16)
+    n_img = reg["images"].shape[0]
+    g_r = torch.randn(len(reg["idx_to_group_img"]), 197, 768, generator=gen)
+    g_f = torch.randn(n_img, 197, 768, generator=gen)
+    for local in (1, 0):
+        ccfg = ClipVisionConfig(image_res=224, num_hidden_layers=2,
+                                local_attn_depth=local)
+        cpu = build_model(ClipVisionTransformer, ccfg, "cpu", seed=8)
+        gpu = copy.deepcopy(cpu).to("cuda")
+        outs = {}
+        for tag, m, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+            r_, f_ = m(torch.from_numpy(reg["images"]).to(dev),
+                       idx_to_group_img=torch.from_numpy(
+                           reg["idx_to_group_img"]).to(dev),
+                       image_atts=torch.from_numpy(reg["image_atts"]).to(dev))
+            ((r_ * g_r.to(dev)).sum() + (f_ * g_f.to(dev)).sum()).backward()
+            outs[tag] = (r_.detach(), f_.detach(),
+                         {n: p.grad for n, p in m.named_parameters()})
+        _close(f"clip region local={local} rows", outs["cpu"][0],
+               outs["cuda"][0], SLICE_LOSS_RTOL)
+        _close(f"clip region local={local} image rows", outs["cpu"][1],
+               outs["cuda"][1], SLICE_LOSS_RTOL)
+        names = ("encoder.layers.1.self_attn.q_proj.weight",
+                 "encoder.layers.0.mlp.fc1.weight")
+        _grads_close(f"clip region local={local}",
+                     {n: outs["cpu"][2][n] for n in names},
+                     {n: outs["cuda"][2][n] for n in names})
+        del cpu, gpu
+
+    # one VQ-KD training step with the CLIP teacher, from injected means
+    vq_cfg = vqkd_config_from_yaml({
+        "tokenizer_model": "vqkd_encoder_base_decoder_1x768x12_clip",
+        "tokenizer_depth": 2, "codebook_size": 512, "codebook_dim": 32})
+    vq_cpu = build_model(VQKD, vq_cfg, "cpu", seed=9)
+    teacher = build_model(CLIPTeacher, ClipVisionConfig(num_hidden_layers=2),
+                          "cpu", seed=10)
+    with torch.no_grad():
+        z = vq_cpu._encode_z(images)
+        gen = torch.Generator().manual_seed(11)
+        flat = l2norm(z.reshape(-1, 32))
+        means0 = flat[torch.randperm(flat.shape[0], generator=gen)[:512]]
+        vq_cpu.load_vq_stats(kmeans_init_vq_stats(gen, z, 512,
+                                                  means=means0))
+    vq_gpu = copy.deepcopy(vq_cpu).to("cuda")
+    teacher_gpu = copy.deepcopy(teacher).to("cuda")
+    res = {}
+    for tag, m, t, dev in (("cpu", vq_cpu, teacher, "cpu"),
+                           ("cuda", vq_gpu, teacher_gpu, "cuda")):
+        feats = teacher_features(t, images.to(dev))
+        loss, aux = m(images.to(dev), feats)
+        loss.backward()
+        res[tag] = (feats, {k: v.detach() for k, v in aux.items()},
+                    dict(m.named_parameters()),
+                    m.quantize.embedding.weight.detach().clone())
+    (fc, ac, pc, cbc), (fg, ag, pg, cbg) = res["cpu"], res["cuda"]
+    _close("clip teacher features", fc, fg, SLICE_LOSS_RTOL)
+    for k in ("rec_loss", "vq_loss"):
+        if not math.isclose(ac[k].item(), ag[k].item(),
+                            rel_tol=SLICE_LOSS_RTOL, abs_tol=1e-7):
+            raise AssertionError(f"vqkd step {k}")
+        print(f"  vqkd step {k}: cpu={ac[k].item():.6f} "
+              f"cuda={ag[k].item():.6f} ok")
+    n_diff = _code_ids_close("vqkd step ids", vq_cpu, z, ac["ids"],
+                             ag["ids"])
+    out["vqkd_step_ids"] = n_diff
+    differ = ac["ids"].reshape(-1) != ag["ids"].cpu().reshape(-1)
+    moved = set(ac["ids"].reshape(-1)[differ].tolist()) | set(
+        ag["ids"].cpu().reshape(-1)[differ].tolist())
+    keep = torch.tensor([i not in moved for i in range(512)])
+    _close("vqkd step EMA codebook", cbc[keep], cbg[keep], SLICE_LOSS_RTOL)
+    _grads_close("vqkd step", {n: pc[n].grad for n in (
+        "encoder.blocks.0.attn.qkv.weight", "decoder.blocks.0.mlp.fc1.weight",
+        "decode_task_layer.2.weight", "encode_task_layer.0.weight")},
+        {n: pg[n].grad for n in (
+            "encoder.blocks.0.attn.qkv.weight",
+            "decoder.blocks.0.mlp.fc1.weight", "decode_task_layer.2.weight",
+            "encode_task_layer.0.weight")})
+    del vq_cpu, vq_gpu, teacher, teacher_gpu
+
+    # three HF-AdamW steps under master weights (bf16 parameters, f32
+    # compute), then the fused route (K4, K5) under bf16 parameters
+    for fused in (False, True):
+        mcfg = _vqkd_slice_model()
+        if fused:
+            mcfg = dataclasses.replace(
+                mcfg, vision=dataclasses.replace(mcfg.vision, fused_ln=True,
+                                                 fused_mlp=True))
+        cpu = build_model(XFMForPretrain, mcfg, "cpu", seed=12)
+        gpu = copy.deepcopy(cpu).to("cuda")
+        flags = stream_flags("image", 0, yaml_cfg)
+        res = {}
+        for tag, m, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+            opt = with_master_weights(
+                list(m.named_parameters()),
+                lambda named: HFAdamW(named, 1e-4, weight_decay=0.01,
+                                      lr_mult=2.0))
+            with torch.no_grad():
+                for p in m.parameters():
+                    p.data = p.data.to(torch.bfloat16)
+            batch = configs.batch_to_torch(nb["image"], dev)
+            batch["vqkd_code_ids"] = codes["image"].to(dev)
+            neg = (torch.tensor([1, 2, 3, 0], device=dev),
+                   torch.tensor([2, 3, 0, 1], device=dev))
+            losses, launches = [], []
+            for _ in range(1 if fused else 3):
+                m.zero_grad(set_to_none=True)
+                kernels.reset_launch_counts()
+                o = m.loss(**batch, **flags, hard_negatives=neg)
+                total = sum(o[k] for k in LOSS_KEYS)
+                total.backward()
+                launches.append(dict(kernels.LAUNCHES))
+                losses.append(total.item())
+                grads = {n: p.grad.detach().clone()
+                         for n, p in m.named_parameters()
+                         if p.grad is not None}
+                if not fused:
+                    opt.step()
+            for p, mm in zip(opt.params, opt.masters):
+                if p.dtype != torch.bfloat16 or mm.dtype != torch.float32 \
+                        or not torch.equal(p.detach(),
+                                           mm.to(torch.bfloat16)):
+                    raise AssertionError("master weights: live != master")
+            res[tag] = (losses, grads, launches[-1])
+        (lc, gc, _), (lg, gg, launches) = res["cpu"], res["cuda"]
+        tag = "bf16 params fused" if fused else "master weights"
+        print(f"  {tag} losses cpu={lc} cuda={lg}; launches "
+              f"{json.dumps(launches)}")
+        for i, (a, b) in enumerate(zip(lc, lg)):
+            rtol = SLICE_LOSS_RTOL if i == 0 else MASTER_LOSS_RTOL
+            if not math.isclose(a, b, rel_tol=rtol):
+                raise AssertionError(f"{tag}: loss of step {i}")
+        if fused and not (launches["fused_ln_fwd"] and launches[
+                "fused_ln_bwd"] and launches["fused_mlp_fwd"]
+                and launches["fused_mlp_bwd"]):
+            raise AssertionError("bf16 params fused: K4/K5 launches")
+        if fused:
+            for n in ("vision_encoder.blocks.0.norm2.weight",
+                      "vision_encoder.blocks.1.mlp.fc2.weight",
+                      "vision_encoder.blocks.0.attn.qkv.weight"):
+                a, b = gc[n].float(), gg[n].float().cpu()
+                err = (a - b).abs().max().item()
+                tol = BF16_GRAD_RTOL * a.abs().max().item()
+                print(f"  {tag} grad {n} ({gg[n].dtype}): max_abs_err="
+                      f"{err:.3e} tol={tol:.3e}")
+                if not err <= tol:
+                    raise AssertionError(f"{tag}: grad {n}")
+        del cpu, gpu
+    torch.cuda.empty_cache()
+    return out
+
+
+class _Tee:
+    """stdout copied into a list of lines as it is written."""
+
+    def __init__(self, stream):
+        self.stream, self.lines = stream, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.stream.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def _state_equal(a, b) -> bool:
+    """Nested dicts of tensors and numbers, bit for bit."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_state_equal(a[k], b[k]) for k in a)
+    if torch.is_tensor(a):
+        return a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+    return a == b
+
+
+def vqkd_task_runs(root, bs=24, steps=3, ckpt_every=2) -> dict:
+    """`run.main` for `--task pretrain_DIY` on `Pretrain_base_4m.yaml`'s
+    keys with `configs.PRETRAIN_VQKD_KEYS`, `bf16_params` and
+    `bench_redispatch: 2` over `_pretrain_corpus` (trimmed), `--bs`, with
+    `max_steps` `steps` and `ckpt_frequent_step` `ckpt_every`, `resume:
+    true`; then the newest checkpoint deleted and the command again. Each
+    step's seconds, launches by stream and losses are recorded, the
+    restored state (parameters, masters, moments, count) against the file
+    it came from, the printed lines."""
+    import yaml
+
+    from xfm_tpu_torch import configs, run
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks import pretrain
+
+    files = _pretrain_corpus(root, n_pairs=24, n_regions=12, n_texts=48)
+    cfg = {k: v for k, v in configs.pretrain_yaml().items()
+           if not k.startswith("_")}
+    cfg.update(configs.PRETRAIN_VQKD_KEYS, bf16_params=True,
+               bench_redispatch=2, train_file=[files["pairs"]],
+               train_file_regions=[files["regions"]],
+               train_file_imagenet=[files["imagenet"]],
+               train_file_text=[files["texts"]], max_steps=steps,
+               ckpt_frequent_step=ckpt_every, print_freq=1, resume=True)
+    cfg_path = os.path.join(root, "pt_vqkd.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    out = os.path.join(root, "out")
+    argv = ["--task", "pretrain_DIY", "--config", cfg_path, "--output_dir",
+            out, "--bs", str(bs), "--device", "cuda"]
+    real_loss_fn, real_resume = pretrain.stream_loss_fn, \
+        pretrain.restore_latest
+    rec = {}
+
+    def stream_loss_fn(*a, **k):
+        loss_fn = real_loss_fn(*a, **k)
+
+        def counted(model, name, batch, generator):
+            # the step runs each stream's forward and then its backward
+            # before the next stream's loss: the counts read here are the
+            # previous stream's whole
+            if rec.get("pending"):
+                rec["by_stream"].append((rec["pending"],
+                                         dict(kernels.LAUNCHES)))
+            kernels.reset_launch_counts()
+            rec["pending"] = name
+            return loss_fn(model, name, batch, generator)
+
+        return counted
+
+    def restore_latest(ctx, state):
+        state, step = real_resume(ctx, state)
+        if step is not None:
+            saved = torch.load(os.path.join(out, "ckpt", str(step),
+                                            "state.pt"),
+                               map_location="cuda", weights_only=True)
+            opt = state.optimizer
+            equal = state.step == saved["step"] and _state_equal(
+                opt.state_dict(), saved["optimizer"])
+            for name, p in zip(opt.names, opt.params):
+                equal &= torch.equal(p, saved["params"][name])
+            rec["restored"] = dict(
+                step=step, bit_equal=bool(equal), count=opt.count,
+                live=sorted({str(p.dtype) for p in opt.params}),
+                masters=sorted({str(t.dtype) for t in
+                                opt.state_dict()["master"].values()}))
+            del saved
+        return state, step
+
+    runs = {}
+    real_step = pretrain.make_stream_step
+
+    def make_stream_step(loss_fn):
+        step_fn = real_step(loss_fn)
+
+        def step(state, batches, gens):
+            _sync()
+            t0 = time.perf_counter()
+            rec.update(by_stream=[], pending=None)
+            state, metrics = step_fn(state, batches, gens)
+            vals = {k: v.item() for k, v in metrics.items()}
+            rec["by_stream"].append((rec.pop("pending"),
+                                     dict(kernels.LAUNCHES)))
+            rec["steps"].append(dict(s=time.perf_counter() - t0,
+                                     by_stream=rec.pop("by_stream"),
+                                     losses=vals))
+            return state, metrics
+
+        return step
+
+    pretrain.make_stream_step = make_stream_step
+    pretrain.restore_latest = restore_latest
+    pretrain.stream_loss_fn = stream_loss_fn
+    tee = _Tee(sys.stdout)
+    try:
+        for name in ("full", "resumed"):
+            if name == "resumed":
+                runs["layout"] = sorted(os.listdir(os.path.join(out,
+                                                                "ckpt")))
+                shutil.rmtree(os.path.join(out, "ckpt", str(steps)))
+            rec = dict(steps=[])
+            _sync()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sys.stdout = tee
+            try:
+                rec["result"] = run.main(argv)
+            finally:
+                sys.stdout = tee.stream
+            rec["s"] = time.perf_counter() - t0
+            rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            runs[name] = rec
+    finally:
+        pretrain.make_stream_step = real_step
+        pretrain.restore_latest = real_resume
+        pretrain.stream_loss_fn = real_loss_fn
+        sys.stdout = tee.stream
+    runs["printed"] = "".join(tee.lines).splitlines()
+    saved = torch.load(os.path.join(out, "ckpt", str(ckpt_every),
+                                    "state.pt"), map_location="cpu",
+                       weights_only=True)
+    runs["saved_dtypes"] = dict(
+        params=sorted({str(t.dtype) for t in saved["params"].values()}),
+        masters=sorted({str(t.dtype) for t in
+                        saved["optimizer"]["master"].values()}))
+    runs["checkpoint_bytes"] = os.path.getsize(os.path.join(
+        out, "ckpt", str(ckpt_every), "state.pt"))
+    return runs
+
+
+def full_vqkd_task(bs=24, steps=3, ckpt_every=2) -> dict:
+    """Phase 24's task runs at full width on the card, checked: every
+    step's losses finite and non-zero where the stream's flags ask; K1 12 +
+    12 in the image-text and ImageNet streams and 9 + 9 in the region
+    stream (the 12 − 3 blocks before region attention), nothing else; the
+    first step's MIM CE within 0.5 of ln 8192 + 1/2 (unit-variance logits
+    from the random head); the saved parameters bf16 and masters f32; the
+    resumed state bit-equal to its file; the `### redispatch` line and its
+    rate; peak memory under 80 GB."""
+    import tempfile
+
+    from xfm_tpu_torch import configs
+
+    root = tempfile.mkdtemp(prefix="xfm_vqkd_")
+    try:
+        runs = vqkd_task_runs(root, bs=bs, steps=steps, ckpt_every=ckpt_every)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    depth = configs.xfm_base_pretrain_config().vision.depth
+    k = configs.PRETRAIN_VQKD_KEYS["local_attn_depth"]
+    k1 = {"image": depth, "imagenet": depth, "region": depth - k, "text": 0}
+    on = {"image": {"itc", "itm", "mlm", "mim"},
+          "region": {"itc", "itm", "mlm", "bbox", "giou"},
+          "imagenet": {"mim"}, "text": {"mlm"}}
+    for name in ("full", "resumed"):
+        r = runs[name]
+        print(f"  {name}: {r['s']:.1f} s, peak memory "
+              f"{r['max_memory_allocated']} B, step s "
+              f"{[round(x['s'], 4) for x in r['steps']]}")
+        for i, st in enumerate(r["steps"]):
+            print(f"    step {i}: {json.dumps(st['by_stream'])} "
+                  f"{json.dumps(st['losses'])}")
+            for stream, launches in st["by_stream"]:
+                want = dict({x: 0 for x in launches},
+                            packed_attention_fwd=k1[stream],
+                            packed_attention_bwd=k1[stream])
+                if launches != want:
+                    raise AssertionError(f"{name} step {i} {stream}: "
+                                         f"launches {launches}")
+            for stream, losses in on.items():
+                for key in ("itc", "itm", "mlm", "mim", "bbox", "giou"):
+                    v = st["losses"][f"{stream}_loss_{key}"]
+                    if not math.isfinite(v) or (v != 0.0) != (key in losses):
+                        raise AssertionError(f"{name} step {i}: "
+                                             f"{stream}_loss_{key} = {v}")
+        if r["max_memory_allocated"] >= 80e9:
+            raise AssertionError(f"{name}: peak memory")
+        print(f"    result {json.dumps(r['result'])}")
+    full, resumed = runs["full"], runs["resumed"]
+    expect = math.log(8192) + 0.5
+    first = {s: full["steps"][0]["losses"][f"{s}_loss_mim"]
+             for s in ("image", "imagenet")}
+    printed = [x for x in runs["printed"] if x.startswith("### redispatch")]
+    restored = resumed.get("restored", {})
+    print(f"  first-step MIM CE {json.dumps(first)} (ln 8192 + 1/2 = "
+          f"{expect:.4f}); saved {json.dumps(runs['saved_dtypes'])}, "
+          f"{runs['checkpoint_bytes']} B; resume {json.dumps(restored)}; "
+          f"{printed}")
+    if (any(abs(v - expect) > 0.5 for v in first.values())
+            or runs["saved_dtypes"] != dict(params=["torch.bfloat16"],
+                                            masters=["torch.float32"])
+            or not restored.get("bit_equal")
+            or restored.get("live") != ["torch.bfloat16"]
+            or restored.get("masters") != ["torch.float32"]
+            or runs["layout"] != [str(ckpt_every), str(steps)]
+            or len(full["steps"]) != steps + 2  # + 2 redispatched steps
+            or len(resumed["steps"]) != steps - ckpt_every
+            or len(printed) != 1
+            or not full["result"].get("redispatch_samples_per_sec", 0) > 0):
+        raise AssertionError("the tokenizer path's run: MIM CE, dtypes, "
+                             "resume or redispatch")
+    return dict(step_s=[x["s"] for x in full["steps"]],
+                resumed_step_s=[x["s"] for x in resumed["steps"]],
+                run_s=[full["s"], resumed["s"]],
+                max_memory_allocated=full["max_memory_allocated"],
+                checkpoint_bytes=runs["checkpoint_bytes"],
+                first_step_loss_mim=first,
+                throughput={k: full["result"].get(k) for k in (
+                    "samples_per_sec", "device_samples_per_sec",
+                    "redispatch_samples_per_sec")})
+
+
+def vqkd_full_step(B=16) -> dict:
+    """One full-width VQ-KD training step at 224 px on the card: the
+    tokenizer of `vqkd_encoder_base_decoder_3x768x12_clip` (12-block f32
+    encoder, 8,192 codes of 32, 3-block decoder) regressing the CLIP
+    ViT-B/16 teacher's projected features (f32, random weights), the EMA
+    step of the codebook and one HF-AdamW update: seconds, peak memory,
+    finite losses, ids in range, the codebook moved."""
+    from xfm_tpu_torch.models.clip_vit import ClipVisionConfig
+    from xfm_tpu_torch.models.teachers import CLIPTeacher, teacher_features
+    from xfm_tpu_torch.models.vqkd import VQKD, vqkd_config_from_yaml
+    from xfm_tpu_torch.train.optim import HFAdamW
+
+    cfg = vqkd_config_from_yaml({})
+    vq = build_model(VQKD, cfg, "cuda", seed=13)
+    teacher = build_model(CLIPTeacher, ClipVisionConfig(), "cuda", seed=14)
+    opt = HFAdamW(list(vq.named_parameters()), 1e-4)
+    images = torch.randn(B, 224, 224, 3, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(15))
+    cb0 = vq.quantize.embedding.weight.clone()
+    res = {}
+    for i in range(2):  # the first builds and warms up
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        vq.zero_grad(set_to_none=True)
+        loss, aux = vq(images, teacher_features(teacher, images))
+        loss.backward()
+        opt.step()
+        _sync()
+        res[f"step{i}_s"] = time.perf_counter() - t0
+    res.update(loss=loss.item(), rec_loss=aux["rec_loss"].item(),
+               teacher_norm=teacher_features(teacher, images).norm().item(),
+               vq_loss=aux["vq_loss"].item(),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               ids_max=int(aux["ids"].max()),
+               codes_used=int(aux["ids"].unique().numel()),
+               codebook_moved=bool(not torch.equal(
+                   cb0, vq.quantize.embedding.weight)))
+    print("  full-width VQ-KD step: " + json.dumps(res))
+    if (not all(math.isfinite(res[k]) for k in ("loss", "rec_loss",
+                                                  "vq_loss"))
+            or not 0 < res["rec_loss"] < 2 or not res["teacher_norm"] > 0
+            or not 0 <= res["ids_max"] < 8192 or not res["codebook_moved"]
+            or res["max_memory_allocated"] >= 80e9):
+        raise AssertionError("full-width VQ-KD step")
+    del vq, teacher, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def vqkd_phase():
+    """Phase 24 → the `profile_step` units `pretrain_vqkd` and
+    `pretrain_bf16`: the slice, the task, the full-width tokenizer step,
+    the two units (K1 33 + 33 and 36 + 36 a step, nothing else; peak
+    memory under 80 GB; finite losses)."""
+    from xfm_tpu_torch import configs, profile_step
+
+    t0 = time.perf_counter()
+    ties = vqkd_slice_parity()
+    t1 = time.perf_counter()
+    vt = full_vqkd_task()
+    print("  tokenizer path task: " + json.dumps(vt))
+    t2 = time.perf_counter()
+    vqkd_full_step()
+    t3 = time.perf_counter()
+    profs = {}
+    depth = configs.xfm_base_pretrain_config().vision.depth
+    k = configs.PRETRAIN_VQKD_KEYS["local_attn_depth"]
+    for unit, n in (("pretrain_vqkd", 3 * depth - k),
+                    ("pretrain_bf16", 3 * depth)):
+        r = profile_step.profile_pretrain_streams(
+            None, **profile_step.STREAM_UNITS[unit])
+        top = r.pop("top")
+        print(f"  {unit} profile: " + json.dumps(r))
+        for name, ms, calls in top[:10]:
+            print(f"    {ms:9.3f} ms/step {calls:6d} calls/step  {name}")
+        want = dict({x: 0 for x in r["launches_per_step"]},
+                    packed_attention_fwd=n, packed_attention_bwd=n)
+        if (r["launches_per_step"] != want
+                or r["max_memory_allocated"] >= 80e9
+                or not all(math.isfinite(v) for v in r["losses"].values())):
+            raise AssertionError(f"{unit}: launches, peak memory or losses")
+        profs[unit] = r
+    print(f"  phase 24 seconds: slice {t1 - t0:.1f}, task {t2 - t1:.1f}, "
+          f"tokenizer step {t3 - t2:.1f}, profiles "
+          f"{time.perf_counter() - t3:.1f}; near-tie ids {json.dumps(ties)}")
+    return profs
+
+
+def vqkd_kernel_entries(k1_192, k1_80, vprof) -> list:
+    """The `kernels` entries of phase 24: K1 at the tokenizer path's caller
+    shapes (the image-text and ImageNet pair passes at [192, 197, 2304],
+    the region stream's 9 blocks at [80, 197, 2304]; phase 19's times)
+    with their launches a step in `profile_step pretrain_vqkd`."""
+    return [dict(e, name=e["name"].replace("_pretrain_", "_pretrain_vqkd_"))
+            for e in pretrain_kernel_entries(*k1_192, *k1_80,
+                                             vprof["launches_by_stream"])]
+
+
 LN_EPS = 1e-6
 
 
@@ -4506,6 +5197,9 @@ def main() -> int:
     phase("phase 23: ImageNet, the linear probe, GLUE and classify: K1 at "
           "the new batches, the slice, the tasks and their profiles")
     k1ft, k1lp, clprof = classify_phase()
+    phase("phase 24: the pretrain task's optional branches: the VQ-KD "
+          "tokenizer, region attention, the shared table, bf16 parameters")
+    qprof = vqkd_phase()
 
     entries = (kernel_entries("packed_attention",
                               "xfm_tpu/ops/flash_attention.py", 983, 1007,
@@ -4539,10 +5233,12 @@ def main() -> int:
                + caption_kernel_entries(k2c, k1c, (k2_err, k2_t, k2w),
                                         cprof)
                + nlvr_kernel_entries(k2n, k2b, k2g, nprof)
-               + classify_kernel_entries(k1ft, k1lp, clprof))
+               + classify_kernel_entries(k1ft, k1lp, clprof)
+               + vqkd_kernel_entries(k1_new[192], k1_new[80],
+                                     qprof["pretrain_vqkd"]))
     ends = PHASE_T[1:] + [time.perf_counter()]
     by_phase = [round(b - a, 1) for a, b in zip(PHASE_T, ends)]
-    print(f"chip_smoke: 23 phases in {ends[-1] - t_start:.1f} s; seconds "
+    print(f"chip_smoke: 24 phases in {ends[-1] - t_start:.1f} s; seconds "
           f"by phase {json.dumps(by_phase)}")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -142,15 +142,22 @@ def test_clip_vit_from_jax_round_trips_through_import_clip_vit(jax_tower):
 
 
 def test_mim_mask_and_region_mode_raise():
-    model = ClipVisionTransformer(ClipVisionConfig(
-        image_res=32, patch_size=8, hidden_size=24, num_hidden_layers=1,
-        num_attention_heads=2, intermediate_size=48))
+    """A MIM mask still raises (CLIP has no mask token, as in JAX); region
+    mode, ported since, returns (region rows, image rows) in both forms
+    (tests/test_torch_region_attention.py holds them to JAX)."""
     images = torch.zeros(1, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match="MIM"):
-        model(images, mask=torch.zeros(1, 16, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="region mode"):
-        model(images, idx_to_group_img=torch.zeros(1, dtype=torch.int64),
-              image_atts=torch.ones(1, 17))
+    for local in (0, 1):
+        model = ClipVisionTransformer(ClipVisionConfig(
+            image_res=32, patch_size=8, hidden_size=24, num_hidden_layers=1,
+            num_attention_heads=2, intermediate_size=48,
+            local_attn_depth=local))
+        with pytest.raises(NotImplementedError, match="MIM"):
+            model(images, mask=torch.zeros(1, 16, dtype=torch.bool))
+        region, full = model(images,
+                             idx_to_group_img=torch.zeros(2,
+                                                          dtype=torch.int64),
+                             image_atts=torch.ones(2, 17))
+        assert region.shape == (2, 17, 24) and full.shape == (1, 17, 24)
 
 
 def test_init_weights_follows_the_jax_initializers():

@@ -1203,3 +1203,156 @@ def test_classification_units_launch_k1_only(unit, want):
              if not torch.equal(p, before[n])}
     if unit == "imagenet_lp":
         assert moved and all(n.startswith("cls_head.") for n in moved)
+
+
+def _tower_pair(seed, **kw):
+    """A depth-2 BEiT tower at 224 px, f32, on the CPU and its copy on the
+    card (the shared table, if any, set to random values)."""
+    import copy
+
+    from xfm_tpu_torch.models.beit2 import (BeitVisionTransformer,
+                                            VisionConfig)
+    from xfm_tpu_torch.train.checkpoint import init_weights
+
+    cpu = BeitVisionTransformer(VisionConfig(image_res=224, depth=2,
+                                             drop_path_rate=0.0, **kw))
+    init_weights(cpu, seed)
+    with torch.no_grad():
+        for n, p in cpu.named_parameters():
+            if n.endswith("relative_position_bias_table"):
+                p.copy_(torch.randn(p.shape))
+    return cpu, copy.deepcopy(cpu).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,k1", [
+    (dict(use_shared_rel_pos_bias=True), 2),
+    (dict(use_rel_pos_bias=False, use_shared_rel_pos_bias=True), 2),
+    (dict(local_attn_depth=1), 1)])
+def test_shared_table_and_region_attention_match_cpu(kw, k1):
+    """The shared table's bias (with and without per-block tables) through
+    K1 in both blocks, and region attention in the last block (K1 in the
+    first only, the masked rows on the plain attention): outputs and
+    gradients card vs CPU in f32 (1e-4 of the largest value; gradients
+    1e-3), K1 launched k1 + k1 times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch.ops import kernels
+
+    torch.manual_seed(0)
+    cpu, gpu = _tower_pair(1, **kw)
+    x = torch.randn(3, 224, 224, 3)
+    idx = torch.tensor([0, 0, 1, 2, 2])
+    atts = (torch.rand(5, 197) < 0.5).long()
+    atts[:, 0] = 1
+    outs = {}
+    for tag, m, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+        kernels.reset_launch_counts()
+        if kw.get("local_attn_depth"):
+            r, f = m(x.to(dev), idx_to_group_img=idx.to(dev),
+                     image_atts=atts.to(dev))
+            y = torch.cat([r, f])
+        else:
+            y = m(x.to(dev))
+        y.square().mean().backward()
+        outs[tag] = (y.detach().cpu(), {n: p.grad.cpu() for n, p in
+                                        m.named_parameters()
+                                        if p.grad is not None})
+    assert kernels.LAUNCHES["packed_attention_fwd"] == k1
+    assert kernels.LAUNCHES["packed_attention_bwd"] == k1
+    (yc, gc), (yg, gg) = outs["cpu"], outs["cuda"]
+    assert (yc - yg).abs().max() <= 1e-4 * yc.abs().max()
+    for n, a in gc.items():
+        assert (a - gg[n]).abs().max() <= 1e-3 * a.abs().max() + 1e-7, n
+
+
+@pytest.mark.cuda
+def test_tokenizer_code_ids_on_the_card_match_cpu():
+    """The frozen tokenizer at full width (depth 2, f32, 8,192 codes) on
+    the card: its projections within 1e-4 of the CPU's, and an id differs
+    only where the CPU's two best distances are within 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import copy
+
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.models.vqkd import l2norm
+    from xfm_tpu_torch.tasks.pretrain import frozen_tokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, _ = frozen_tokenizer(dict(configs.PRETRAIN_VQKD_KEYS,
+                                   tokenizer_depth=2), "cpu")
+    gpu = copy.deepcopy(cpu).cuda()
+    x = torch.randn(4, 224, 224, 3)
+    with torch.no_grad():
+        zc, zg = cpu._encode_z(x), gpu._encode_z(x.cuda()).cpu()
+        ic, ig = cpu.quantize.indices(zc), gpu.quantize.indices(zg.cuda())
+    assert (zc - zg).abs().max() <= 1e-4 * max(1.0, zc.abs().max())
+    cb = cpu.quantize.embedding.weight
+    flat = l2norm(zc).reshape(-1, 32)
+    d = (flat ** 2).sum(-1, keepdim=True) - 2 * flat @ cb.T + (
+        cb ** 2).sum(-1)
+    two = d.topk(2, dim=-1, largest=False).values
+    differ = ic.reshape(-1) != ig.cpu().reshape(-1)
+    assert not (differ & (two[:, 1] - two[:, 0] > 1e-5)).any()
+
+
+@pytest.mark.cuda
+def test_bf16_params_fused_route_launches_k4_k5():
+    """Under bf16 parameters (f32 compute) the fused route hands K4 its γ
+    and β in f32 and K5 its W and b in the compute dtype: both launch, and
+    the parameters' gradients come back bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch.configs import (batch_to_torch, make_batch,
+                                       xfm_base_pretrain_config)
+    from xfm_tpu_torch.models import XFMForPretrain
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.train.checkpoint import init_weights
+
+    cfg = xfm_base_pretrain_config(layers=2, dtype=torch.float32,
+                                   fused_ln=True, fused_mlp=True)
+    model = XFMForPretrain(cfg).cuda()
+    init_weights(model, 0)
+    model.to(torch.bfloat16)
+    batch = batch_to_torch(make_batch(4, 30, 15, 224, 196, cfg.text.vocab_size,
+                                      seed=0), "cuda")
+    kernels.reset_launch_counts()
+    out = model.loss(**batch, ret_mim=True,
+                     hard_negatives=(torch.tensor([1, 2, 3, 0]).cuda(),
+                                     torch.tensor([2, 3, 0, 1]).cuda()))
+    sum(out.values()).backward()
+    for k in ("fused_ln_fwd", "fused_ln_bwd", "fused_mlp_fwd",
+              "fused_mlp_bwd"):
+        assert kernels.LAUNCHES[k] > 0, k
+    w = model.vision_encoder.blocks[0].norm2.weight
+    assert w.dtype == w.grad.dtype == torch.bfloat16
+    assert torch.isfinite(w.grad.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unit,k1", [("pretrain_vqkd", 33),
+                                     ("pretrain_bf16", 36)])
+def test_tokenizer_and_bf16_units_launch_k1_only(unit, k1):
+    """The four-stream step at the YAML's batch sizes with the tokenizer
+    and region attention in the last 3 blocks (K1 12 + 12 + 9 forward and
+    as many backward: the region stream's first 9 blocks only), and with
+    bf16 parameters (12 + 12 + 12): nothing else of K1-K5, finite losses,
+    the bf16 unit's parameters bf16 after its step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch import configs, profile_step
+    from xfm_tpu_torch.ops import kernels
+
+    state, batches, step, gens = configs.make_pretrain_streams_run(
+        **profile_step.STREAM_UNITS[unit])
+    kernels.reset_launch_counts()
+    state, metrics = step(state, batches, gens(0))
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == dict(
+        {k: 0 for k in kernels.LAUNCHES}, packed_attention_fwd=k1,
+        packed_attention_bwd=k1)
+    assert all(torch.isfinite(v) for v in metrics.values() if v.dim() == 0)
+    if unit == "pretrain_bf16":
+        assert {p.dtype for p in state.model.parameters()} == {
+            torch.bfloat16}

@@ -116,6 +116,35 @@ def test_xfm_losses_match_reference():
                                rtol=1e-3)
 
 
+def test_vqkd_tokenizer_matches_reference():
+    """The reference VQ-KD tokenizer's encode (encoder → f32 tanh task
+    layer → nearest normalized code) through the port's
+    `import_vqkd_checkpoint`: the projections z and the quantized vectors
+    to the bounds of tests/test_golden_parity.py, the code ids equal. Only
+    the decoder (unused by the tokenizer) and the mask token stay at
+    init."""
+    from xfm_tpu_torch.models.vqkd import VQKD, vqkd_config_from_yaml
+    from xfm_tpu_torch.train.checkpoint import load_vqkd_checkpoint
+
+    sd, io = load_fixture("golden_vqkd.npz")
+    m = VQKD(vqkd_config_from_yaml(
+        {"tokenizer_model": "vqkd_encoder_base_decoder_1x768x12_clip",
+         "image_res": 32, "patch_size": 16, "tokenizer_embed_dim": 32,
+         "tokenizer_depth": 1, "tokenizer_num_heads": 2,
+         "codebook_size": 16, "codebook_dim": 8}))
+    missing, _ = load_vqkd_checkpoint(m, sd)
+    assert not [k for k in missing if not k.startswith(
+        ("decoder.", "decode_task_layer.")) and k != "encoder.mask_token"]
+    images = _t(io["images"].transpose(0, 2, 3, 1))
+    with torch.no_grad():
+        z = m._encode_z(images)
+        ids = m.get_codebook_indices(images)
+    np.testing.assert_allclose(z.numpy(), io["z"], atol=2e-4, rtol=1e-3)
+    np.testing.assert_array_equal(ids.numpy(), io["ids"])
+    zq = m.quantize.embedding.weight[ids.reshape(-1)].reshape(io["zq"].shape)
+    np.testing.assert_allclose(zq.numpy(), io["zq"], atol=2e-4, rtol=1e-3)
+
+
 @pytest.mark.parametrize("name", ["golden_beit2.npz", "golden_xroberta.npz",
                                   "golden_xfm_losses.npz"])
 def test_reference_rel_pos_index_equals_the_ports(name):

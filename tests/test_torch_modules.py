@@ -155,8 +155,9 @@ def test_hard_negative_draws_follow_the_jax_weights():
 def test_port_imports_neither_jax_nor_xfm_tpu():
     """Every module of xfm_tpu_torch (the fine-tune's, the eval's, the
     pretrain task's, VQA's, captioning's, NLVR2's, grounding's, ImageNet's,
-    GLUE's and classify's tasks/, data/, eval/, models/, train/ and run.py
-    among them) and chip_smoke's helpers
+    GLUE's and classify's tasks/, data/, eval/, models/ (the VQ-KD
+    tokenizer and its teachers too), train/ and run.py among them) and
+    chip_smoke's helpers
     import in a fresh interpreter
     without pulling in jax, flax, optax or any xfm_tpu module; PIL, yaml,
     transformers, h5py and datasets, which the card's machine may lack, are
@@ -190,7 +191,8 @@ def test_port_imports_neither_jax_nor_xfm_tpu():
         " 'xfm_tpu_torch.models.gradcam', 'xfm_tpu_torch.tasks.imagenet',"
         " 'xfm_tpu_torch.tasks.glue', 'xfm_tpu_torch.tasks.classify',"
         " 'xfm_tpu_torch.data.timm_aug', 'xfm_tpu_torch.data.probe_datasets',"
-        " 'xfm_tpu_torch.eval.glue_metrics'}\n"
+        " 'xfm_tpu_torch.eval.glue_metrics', 'xfm_tpu_torch.models.vqkd',"
+        " 'xfm_tpu_torch.models.teachers'}\n"
         "lazy = ('PIL', 'yaml', 'transformers', 'h5py', 'datasets')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'flax', 'optax', 'xfm_tpu') + lazy]\n"

@@ -287,21 +287,34 @@ def test_calc_image_bbox_loss_drops_is_image(calc):
                                       batches["region"]["is_image"])
 
 
+# the tokenizer's small-model keys (the tiny run's 32 px, 16 px patches)
+TINY_TOKENIZER = dict(tokenizer_embed_dim=32, tokenizer_depth=1,
+                      tokenizer_num_heads=2, codebook_size=16,
+                      codebook_dim=8)
+
+
 @pytest.mark.parametrize("key,value", [
     ("use_vision_tokenizer", True), ("local_attn_depth", 2),
     ("bf16_params", True), ("device_randaug", True),
     ("bench_redispatch", 4)])
 def test_unported_keys_raise(tmp_path, key, value):
-    """A YAML key whose branch the port lacks raises NotImplementedError
-    before any step, never running as something else."""
+    """The one key whose branch the port lacks (`device_randaug`) raises
+    NotImplementedError before any step, never running as something else;
+    the keys of the branches ported since (the tokenizer, region
+    attention, bf16 parameters, the redispatch probe) now run a step to
+    finite losses."""
     files = write_corpus(str(tmp_path / "data"), n=4)
     cfg = _task_config(files)
     if key == "device_randaug":
         cfg["images"][key] = value
-    else:
-        cfg[key] = value
-    with pytest.raises(NotImplementedError):
-        _run(tmp_path, cfg, "out")
+        with pytest.raises(NotImplementedError):
+            _run(tmp_path, cfg, "out")
+        return
+    cfg.update({key: value, "max_steps": 1, "ckpt_frequent_step": 1})
+    if key == "use_vision_tokenizer":
+        cfg.update(TINY_TOKENIZER)
+    stats = _run(tmp_path, cfg, "out")
+    assert np.isfinite(stats["loss"])
 
 
 def test_stream_step_equals_one_summed_backward():

@@ -19,7 +19,10 @@ a GradCAM batch on seeded device batches at the YAMLs' sizes; and the
 classifiers' (`configs/xfm-ft/imagenet1k.yaml`, `imagenet1k_lp.yaml` and
 `glue_mrpc.yaml`, kept as dicts): the ImageNet fine-tune step, the linear
 probe's step and the GLUE step on seeded device batches at the YAMLs'
-sizes."""
+sizes; and the keys of the pretrain task's optional branches
+(`PRETRAIN_VQKD_KEYS`, the VQ-KD tokenizer with region attention in the
+last 3 blocks; `bf16_params`), which `make_pretrain_streams_run` takes, with
+the FLOP count of that step (`pretrain_streams_flops`)."""
 from __future__ import annotations
 
 import os
@@ -497,6 +500,15 @@ def make_stream_batches(sizes: dict, image_res: int, vocab: int,
     }
 
 
+# the pretrain task's optional branches as this repository runs them on the
+# card: the released tokenizer's layout (random weights from the task's
+# fixed seed) and region attention in the last quarter of the blocks
+PRETRAIN_VQKD_KEYS = {
+    "use_vision_tokenizer": True,
+    "tokenizer_model": "vqkd_encoder_base_decoder_3x768x12_clip",
+    "codebook_size": 8192, "codebook_dim": 32, "local_attn_depth": 3}
+
+
 def make_pretrain_streams_run(device="cuda", seed: int = 0,
                               steps_per_epoch: int = 1000, **keys):
     """The step of `run.py --task pretrain_DIY` on
@@ -505,10 +517,14 @@ def make_pretrain_streams_run(device="cuda", seed: int = 0,
     compute, the full RoBERTa vocabulary), HF-AdamW with the clip and the
     schedule from its blocks, the four streams' batches at its sizes on
     the device, each stream's loss under its flags at step 0 with dropout
-    live. → (state, batches, step, generators) with step(state, batches,
-    generators) -> (state, metrics) and generators(i) the streams'
-    generators of step i."""
-    from .tasks.pretrain import stream_flags, stream_loss_fn
+    live; with `use_vision_tokenizer` the frozen tokenizer's code ids as
+    MIM's targets (`tasks.pretrain.frozen_tokenizer`), with
+    `bf16_params` bf16 parameters and f32 masters
+    (`tasks.common.maybe_bf16_params`). → (state, batches, step,
+    generators) with step(state, batches, generators) -> (state, metrics)
+    and generators(i) the streams' generators of step i."""
+    from .tasks.common import TaskContext, maybe_bf16_params
+    from .tasks.pretrain import frozen_tokenizer, stream_flags, stream_loss_fn
     from .train.train_state import make_stream_step
 
     cfg = pretrain_yaml(**keys)
@@ -520,18 +536,73 @@ def make_pretrain_streams_run(device="cuda", seed: int = 0,
     sched = schedule_from_config(cfg, steps_per_epoch)
     state = TrainState.create(model, create_optimizer_from_config(
         model, cfg, sched))
+    state = maybe_bf16_params(TaskContext(config=cfg, out_dir="",
+                                          device=device), state, sched)
+    code_ids_fn = None
+    if cfg.get("use_vision_tokenizer", False):
+        _, code_ids_fn = frozen_tokenizer(cfg, device)
     nb = make_stream_batches(stream_batch_sizes(cfg), mcfg.vision.image_res,
                              mcfg.text.vocab_size, seed=seed)
     batches = {k: batch_to_torch(v, device) for k, v in nb.items()}
     order = sorted(batches)
     loss_fn = stream_loss_fn({n: stream_flags(n, 0, cfg) for n in order},
-                             {n: cfg.get(f"w{n}", 1.0) for n in order})
+                             {n: cfg.get(f"w{n}", 1.0) for n in order},
+                             code_ids_fn=code_ids_fn)
 
     def generators(i):
         return {n: torch.Generator(device=device).manual_seed(
             seed * 1000 + 10 * i + j) for j, n in enumerate(order)}
 
     return state, batches, make_stream_step(loss_fn), generators
+
+
+def pretrain_streams_flops(cfg: dict, hidden=768, inter=3072, layers=12,
+                           vocab=50265, code_dim=32) -> float:
+    """Model FLOPs (matmuls) of one four-stream pretrain step at the
+    YAML's sizes (`stream_batch_sizes(cfg)`), forward + backward ≈ 3×
+    forward: the image-text stream's pair pass (2B rows), clean and masked
+    text passes, the 4B-row fusion pass and the MLM head; the region
+    stream's tower over `max_images` rows (with `local_attn_depth` k, the
+    last k blocks over regions + images), its text passes, the 4R-row
+    fusion pass, the bbox pass and the MLM head; ImageNet's pair pass; the
+    text stream's encoder and MLM head; MIM's code head under the
+    tokenizer; plus the frozen tokenizer's forward alone (its encoder over
+    the MIM streams' images, the projection and the code distances)."""
+    sz = stream_batch_sizes(cfg)
+    Nv = (cfg.get("image_res", 224) // cfg.get("patch_size", 16)) ** 2 + 1
+    T, M = sz["T"], sz["M"]
+    tf = _transformer_flops
+    tokenizer = cfg.get("use_vision_tokenizer", False)
+    K = cfg.get("codebook_size", 8192)
+
+    def image_text(B):
+        return (tf(layers, hidden, inter, Nv, 2 * B)
+                + 2 * tf(layers, hidden, inter, T, B)
+                + tf(layers, hidden, inter, T, 4 * B, cross_kv=Nv)
+                + 2 * B * M * hidden * vocab)
+
+    def mim_head(B):
+        return 2 * B * (Nv - 1) * hidden * K if tokenizer else 0
+
+    B, R, I = sz["image"], sz["regions"], sz["max_images"]
+    k = max(0, cfg.get("local_attn_depth", -1))
+    region = (tf(layers - k, hidden, inter, Nv, I)
+              + tf(k, hidden, inter, Nv, I + R)
+              + 2 * tf(layers, hidden, inter, T, R)
+              + tf(layers, hidden, inter, T, 5 * R, cross_kv=Nv)
+              + 2 * R * M * hidden * vocab)
+    imagenet = tf(layers, hidden, inter, Nv, 2 * sz["imagenet"])
+    text = (tf(layers, hidden, inter, sz["text_T"], sz["text"])
+            + 2 * sz["text"] * sz["text_M"] * hidden * vocab)
+    fwd = (image_text(B) + mim_head(B) + region + imagenet
+           + mim_head(sz["imagenet"]) + text)
+    tok = 0
+    if tokenizer:
+        n = B + sz["imagenet"]
+        tok = (tf(layers, hidden, inter, Nv, n)
+               + 2 * n * (Nv - 1) * (hidden * hidden + hidden * code_dim
+                                     + code_dim * K))
+    return 3 * fwd + tok
 
 
 # configs/xfm-ft/VQA.yaml, key for key (a CPU test holds the two equal)

@@ -1,9 +1,12 @@
 """Compute-dtype policy (`xfm_tpu/core/precision.py`).
 
-Parameters stay f32; each op casts its inputs and weights to the compute
-dtype (bf16 or f32, the configs' `dtype`), as flax's `dtype=` does.
-`torch.autocast` is not used: its rounding points differ from the JAX
-package's. Softmax, loss reductions and LayerNorm statistics run in f32.
+Parameters are f32 (or bf16 under `bf16_params`, with f32 masters in the
+optimizer: `train/optim.with_master_weights`); each op casts its inputs and
+weights to the compute dtype (bf16 or f32, the configs' `dtype`), as
+flax's `dtype=` does. `torch.autocast` is not used: its rounding points
+differ from the JAX package's. Softmax, loss reductions and LayerNorm
+statistics run in f32, LayerNorm's γ and β taken in f32 whatever their
+storage (a no-op for f32 parameters).
 """
 from __future__ import annotations
 
@@ -54,8 +57,9 @@ def layer_norm(x: torch.Tensor, layer: torch.nn.LayerNorm,
                dtype: torch.dtype) -> torch.Tensor:
     """flax `nn.LayerNorm(dtype=...)`: statistics and affine in f32, result
     in `dtype`."""
-    return F.layer_norm(x.float(), layer.normalized_shape, layer.weight,
-                        layer.bias, layer.eps).to(dtype)
+    return F.layer_norm(x.float(), layer.normalized_shape,
+                        layer.weight.float(), layer.bias.float(),
+                        layer.eps).to(dtype)
 
 
 def add_layer_norm(x: torch.Tensor, residual: torch.Tensor,
@@ -67,11 +71,12 @@ def add_layer_norm(x: torch.Tensor, residual: torch.Tensor,
     takes K4 where it takes the rows; otherwise the plain composition, whose
     backward is autograd's."""
     if fused and fused_ln_ok(x.shape, dtype):
-        return fused_add_ln(x.to(dtype), residual.to(dtype), layer.weight,
-                            layer.bias, layer.eps)
+        return fused_add_ln(x.to(dtype), residual.to(dtype),
+                            layer.weight.float(), layer.bias.float(),
+                            layer.eps)
     s = x.to(dtype).float() + residual.to(dtype).float()
-    h = F.layer_norm(s, layer.normalized_shape, layer.weight, layer.bias,
-                     layer.eps)
+    h = F.layer_norm(s, layer.normalized_shape, layer.weight.float(),
+                     layer.bias.float(), layer.eps)
     return s.to(dtype), h.to(dtype)
 
 
@@ -81,8 +86,9 @@ def post_layer_norm(x: torch.Tensor, residual: torch.Tensor,
     """LN(x + residual) for the post-LN BERT sites (`fused_ln_post` with
     `fused`, else `add_layer_norm`'s)."""
     if fused and fused_ln_ok(x.shape, dtype):
-        return fused_ln_post(x.to(dtype), residual.to(dtype), layer.weight,
-                             layer.bias, layer.eps)
+        return fused_ln_post(x.to(dtype), residual.to(dtype),
+                             layer.weight.float(), layer.bias.float(),
+                             layer.eps)
     return add_layer_norm(x, residual, layer, dtype)[1]
 
 

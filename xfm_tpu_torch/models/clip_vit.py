@@ -10,7 +10,10 @@ mlp.fc1, mlp.fc2}.*`, `post_layernorm.*`). The patch embedding is a matmul
 with no bias over NHWC patches; its kernel `patch_embed.weight` is kept in
 matmul layout [P·P·3, C] (`train/checkpoint.py` converts the reference's
 Conv2d weight). Each self-attention goes through `dot_product_attention`,
-so at N ≥ 512 (384 px: N = 577) it is the long-sequence kernel K3.
+so at N ≥ 512 (384 px: N = 577) it is the long-sequence kernel K3. Region
+mode (the pretrain region stream) takes both JAX forms: the last
+`local_attn_depth` layers over each region's masked copy, or (at 0) a
+masked average-pool readout.
 """
 from __future__ import annotations
 
@@ -118,20 +121,23 @@ class ClipVisionTransformer(nn.Module):
         self.post_layernorm = nn.LayerNorm(C, eps=c.layer_norm_eps)
 
     def forward(self, images, mask=None, idx_to_group_img=None,
-                image_atts=None, deterministic: bool = True) -> torch.Tensor:
+                image_atts=None, deterministic: bool = True):
         """NHWC images [B, H, W, 3] → [B, 1 + num_patches, C], post-LN over
         all tokens (the cls token first). `image_atts` ([B, N] of {0, 1})
-        masks keys in every layer."""
+        masks keys in every layer. Region mode (`idx_to_group_img` [R], the
+        image of each region, and `image_atts` [R, N], its patch mask) →
+        (region rows [R, N, C], image rows [B, N, C]): with
+        `local_attn_depth` k > 0 the first L − k layers run over the B
+        images and the last k over [R regions ‖ B images], each region's
+        copy of its image's rows with its mask; with k = 0 every layer runs
+        over the B images and each region's first slot is the mean of its
+        image's patch rows over its mask."""
         if mask is not None:
             # as the JAX tower: CLIP-ViT has no mask token, and ignoring the
             # mask would make the MIM loss MSE(x, x) = 0
             raise NotImplementedError(
                 "CLIP-ViT has no MIM mask path: use the BEiT-2 backbone for "
                 "MIM pretraining")
-        if idx_to_group_img is not None:
-            raise NotImplementedError(
-                "CLIP-ViT region mode (idx_to_group_img, the pretrain bbox "
-                "stream) is not ported yet")
         c = self.c
         x = extract_patches(images.to(c.dtype), c.patch_size)
         x = x @ self.patch_embed.weight.to(c.dtype)  # CLIP's conv has no bias
@@ -139,7 +145,31 @@ class ClipVisionTransformer(nn.Module):
         cls = self.class_embedding.to(c.dtype).expand(B, 1, C)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.weight.to(c.dtype)
         x = layer_norm(x, self.pre_layrnorm, c.dtype)
-        bias = mask_to_bias(image_atts) if image_atts is not None else None
-        for layer in self.encoder.layers:
-            x = layer(x, attn_bias=bias, deterministic=deterministic)
-        return layer_norm(x, self.post_layernorm, c.dtype)
+        layers = self.encoder.layers
+        if idx_to_group_img is None:
+            bias = mask_to_bias(image_atts) if image_atts is not None else None
+            for layer in layers:
+                x = layer(x, attn_bias=bias, deterministic=deterministic)
+            return layer_norm(x, self.post_layernorm, c.dtype)
+        if c.local_attn_depth > 0:
+            split = c.num_hidden_layers - c.local_attn_depth
+            for layer in layers[:split]:
+                x = layer(x, deterministic=deterministic)
+            xall = torch.cat([x[idx_to_group_img], x])
+            bias = mask_to_bias(torch.cat([
+                image_atts.float(), torch.ones(x.shape[:2],
+                                               device=x.device)]))
+            for layer in layers[split:]:
+                xall = layer(xall, attn_bias=bias,
+                             deterministic=deterministic)
+            out = layer_norm(xall, self.post_layernorm, c.dtype)
+            R = idx_to_group_img.shape[0]
+            return out[:R], out[R:]
+        for layer in layers:
+            x = layer(x, deterministic=deterministic)
+        x = layer_norm(x, self.post_layernorm, c.dtype)
+        xg = x[idx_to_group_img][:, 1:]
+        w = image_atts[:, 1:].to(xg.dtype)[..., None]
+        pooled = (xg * w).sum(dim=1, keepdim=True) / torch.clamp(
+            w.sum(dim=1, keepdim=True), min=1e-6)
+        return torch.cat([pooled, xg], dim=1), x

@@ -72,6 +72,18 @@ def mim_mse_loss(masked_embeds: torch.Tensor, target_embeds: torch.Tensor,
     return masked_mse + cls_mse
 
 
+def mim_vqkd_loss(logits: torch.Tensor, code_ids: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """MIM cross-entropy against the frozen VQ-KD tokenizer's code ids at
+    the masked patches: logits [B, N, codebook], code_ids and mask [B, N];
+    log-softmax in f32, the mean over masked patches (at least 1)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.take_along_dim(logp, code_ids[..., None].long(),
+                                dim=-1)[..., 0]
+    w = mask.to(nll.dtype)
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
 # --- the bbox losses (`xfm_tpu/models/losses.py`) ---------------------------
 
 def box_cxcywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:

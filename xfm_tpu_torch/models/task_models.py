@@ -42,7 +42,8 @@ class XFMForPretrain(XFMBase):
              ret_mlm=True, ret_mim=False, ret_bbox=False,
              ret_bbox_giou=None, data_source=None,
              generator: Optional[torch.Generator] = None,
-             hard_negatives=None, deterministic: bool = True):
+             hard_negatives=None, vqkd_code_ids=None,
+             deterministic: bool = True):
         """→ {loss_itc, loss_itm, loss_mlm, loss_mim, loss_bbox, loss_giou}
         of one stream's batch, with the JAX package's branches and flags
         (a loss turned off is a zero):
@@ -54,7 +55,9 @@ class XFMForPretrain(XFMBase):
         - `data_source` "imagenet": MIM alone (text inputs unused);
         - otherwise the image-text stream: with `ret_mim` and an
           `image_mask`, the full and masked vision passes as one 2B-row
-          pass and the MIM regression.
+          pass and MIM: the regression, or with the tokenizer the CE
+          against `vqkd_code_ids` ([B, num_patches], the frozen VQ-KD
+          tokenizer's ids of the unmasked images).
         ITM and fusion-MLM run as one 4B-row fusion pass when both are on
         (the JAX package's default), else (a `stop_calc` stage has turned
         one off) as their separate passes. Hard negatives are drawn from `generator`,
@@ -114,8 +117,9 @@ class XFMForPretrain(XFMBase):
                             image_atts, masked_pos, masked_ids,
                             deterministic)
             if ret_mim and not ret_bbox and image_mask is not None:
-                out["loss_mim"] = self.get_mim_loss(image_embeds_masked,
-                                                    image_embeds, image_mask)
+                out["loss_mim"] = self.get_mim_loss(
+                    image_embeds_masked, image_embeds, image_mask,
+                    vqkd_code_ids=vqkd_code_ids)
             giou_on = ret_bbox if ret_bbox_giou is None else ret_bbox_giou
             if ret_bbox and giou_on and target_bbox is not None:
                 coords = self.predict_bbox(image_embeds_fullatts, text_atts,

@@ -62,6 +62,8 @@ class XFMConfig:
     use_matching_loss: bool = False
     use_mlm_loss: bool = False
     use_bbox_loss: bool = False
+    use_vision_tokenizer: bool = False
+    codebook_size: int = 8192
     dtype: torch.dtype = torch.float32
 
     @property
@@ -84,10 +86,10 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
     the compute dtype of `core.precision.policy_from_config`. The JAX
     package's environment switches `XFM_FUSED_LN` / `XFM_MLP_FUSED` == "1"
     become the configs' `fused_ln` / `fused_mlp` (the CLIP tower takes
-    neither, as there). Swin, DeiT and BERT text encoders are not ported."""
-    if config.get("use_vision_tokenizer", False):
-        raise NotImplementedError("use_vision_tokenizer (the VQ-KD MIM "
-                                  "targets) is not ported")
+    neither, as there). `use_vision_tokenizer` adds the MIM code head
+    (`codebook_size` classes); `local_attn_depth` > 0 runs region attention
+    in the last blocks of either tower. Swin, DeiT and BERT text encoders
+    are not ported."""
     if dtype is None:
         from ..core.precision import policy_from_config
 
@@ -112,10 +114,6 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
             dtype=dtype)
         backbone, vwidth = "clip_vit", vision.hidden_size
     else:
-        if config.get("local_attn_depth", -1) > 0:
-            raise NotImplementedError(
-                "local_attn_depth > 0 (BEiT's region attention in the last "
-                "blocks, forward_localattn) is not ported")
         large = "large" in str(config.get("vision_config", "base"))
         vkw = dict(embed_dim=1024, depth=24, num_heads=16) if large else {}
         for src, dst in (("vision_embed_dim", "embed_dim"),
@@ -128,7 +126,9 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
             image_res=image_res,
             drop_path_rate=config.get("drop_path_rate", 0.1),
             init_values=0.1, qkv_bias=True, dtype=dtype,
-            hidden_act=config.get("hidden_act", "gelu"), **fused, **vkw)
+            hidden_act=config.get("hidden_act", "gelu"),
+            local_attn_depth=config.get("local_attn_depth", -1), **fused,
+            **vkw)
         backbone, vwidth = "beit2", vision.embed_dim
 
     if "roberta" not in str(config.get("text_encoder", "roberta-base")):
@@ -165,7 +165,9 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
         mim_cls_only=config.get("mim_cls_only", False),
         use_contrastive_loss=use_contrastive_loss,
         use_matching_loss=use_matching_loss, use_mlm_loss=use_mlm_loss,
-        use_bbox_loss=use_bbox_loss, dtype=dtype)
+        use_bbox_loss=use_bbox_loss,
+        use_vision_tokenizer=config.get("use_vision_tokenizer", False),
+        codebook_size=config.get("codebook_size", 8192), dtype=dtype)
 
 
 def vision_tower(c: XFMConfig) -> nn.Module:
@@ -194,6 +196,9 @@ class XFMBase(nn.Module):
             self.itm_head = MLPHead(c.text_width, 2, c.dtype)
         if c.use_bbox_loss:
             self.bbox_head = MLPHead(c.text_width, 4, c.dtype)
+        if c.use_vision_tokenizer:
+            # the MIM code head (the JAX package's `mim_lm_head`)
+            self.lm_head = nn.Linear(c.vision_width, c.codebook_size)
         if c.vision_width != c.text_width:
             # kept for checkpoint round trips; no forward uses it (as in the
             # reference and the JAX package)
@@ -206,7 +211,8 @@ class XFMBase(nn.Module):
         """NHWC images → [B, 1+num_patches, C]: BEiT [avgpool ‖ patches],
         CLIP the post-LN [cls ‖ patches]. Region mode (`idx_to_group_img`,
         `image_atts`; BEiT only) → (grouped, full), both [R, 1+num_patches,
-        C]: the region-pooled rows and each region's image's full rows."""
+        C]: the region rows (pooled, or with `local_attn_depth` > 0 from
+        the masked last blocks) and each region's image's full rows."""
         out = self.vision_encoder(maybe_normalize(images), mask=mask,
                                   idx_to_group_img=idx_to_group_img,
                                   image_atts=image_atts,
@@ -387,8 +393,21 @@ class XFMBase(nn.Module):
         logits = self.text_encoder.mlm_logits(hidden, masked_pos)
         return cross_entropy(logits, masked_ids)
 
-    def get_mim_loss(self, image_embeds_masked, targets, mask):
-        """MIM feature regression (the MSE branch)."""
+    def get_mim_loss(self, image_embeds_masked, targets, mask,
+                     vqkd_code_ids=None):
+        """MIM: with `use_vision_tokenizer` the CE of `lm_head` over the
+        masked patches against the tokenizer's code ids (ValueError where
+        they are missing); otherwise the feature regression (MSE) against
+        the unmasked forward."""
+        if self.config.use_vision_tokenizer:
+            if vqkd_code_ids is None:
+                raise ValueError(
+                    "use_vision_tokenizer=True: MIM needs vqkd_code_ids from "
+                    "the frozen VQ-KD tokenizer (the pretrain task computes "
+                    "them when the YAML sets use_vision_tokenizer)")
+            logits = dense(image_embeds_masked[:, 1:, :], self.lm_head,
+                           self.config.dtype)
+            return losses.mim_vqkd_loss(logits, vqkd_code_ids, mask)
         return losses.mim_mse_loss(image_embeds_masked, targets, mask,
                                    cls_too=not self.config.mim_cls_only)
 

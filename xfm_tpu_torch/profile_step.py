@@ -5,7 +5,8 @@ on the card.
         [pretrain|pretrain_fused|retrieval|retrieval_train|clip_retrieval|
          retrieval_eval|pretrain_streams|vqa_train|vqa_rank|caption_train|
          caption_beam|caption_scst|caption_pretrain|nlvr_train|
-         grounding_train|gradcam|imagenet_train|imagenet_lp|glue_train]
+         grounding_train|gradcam|imagenet_train|imagenet_lp|glue_train|
+         pretrain_vqkd|pretrain_bf16]
         [--trace PATH]
 
 Runs the full-width step of the chosen path as `chip_smoke.py` does
@@ -81,6 +82,15 @@ pairs of 128 tokens. Each prints the same numbers as vqa_train, and the
 model FLOPs of its step (`configs.imagenet_step_flops`,
 `glue_step_flops`) over its busy time against the card's 989 TFLOP/s
 (bf16, dense).
+pretrain_vqkd profiles pretrain_streams' step with the pretrain task's
+optional branches on (`configs.PRETRAIN_VQKD_KEYS`: the frozen VQ-KD
+tokenizer, random weights, whose f32 encoder gives the MIM streams' code
+ids, MIM's cross-entropy over 8,192 codes, region attention in the last 3
+blocks of the region stream; f32 parameters); pretrain_bf16 the step of
+the shipped YAML with `bf16_params` (bf16 parameters, f32 masters in the
+optimizer). Each prints what pretrain_streams prints, and the model FLOPs
+of its step (`configs.pretrain_streams_flops`, the tokenizer's forward
+counted) over its busy time against the card's bf16 peak.
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -236,7 +246,8 @@ def profile_pretrain_streams(trace: str, steps: int = STEPS,
     `Pretrain_base_4m.yaml`'s batch sizes (`keys` set on top), on seeded
     device batches (`configs.make_pretrain_streams_run`; no decode): the
     peak memory of 2 warm-up steps, then one profiled window of `steps`
-    steps → {span, busy, idle share, host ms a step, groups, launches a
+    steps (its chrome trace written to `trace` unless that is None) →
+    {span, busy, idle share, host ms a step, groups, launches a
     step (K1-K5 counters over the window), and of each stream's step
     taken alone after it its launches, span, busy time and groups; peak
     bytes; the streams' losses of the window's last step}."""
@@ -244,6 +255,7 @@ def profile_pretrain_streams(trace: str, steps: int = STEPS,
     from .ops import kernels
 
     state, batches, step, gens = configs.make_pretrain_streams_run(**keys)
+    flops = configs.pretrain_streams_flops(configs.pretrain_yaml(**keys))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     i = 0
@@ -278,10 +290,13 @@ def profile_pretrain_streams(trace: str, steps: int = STEPS,
                groups_ms_per_step=_groups(kern),
                launches_per_step=launches, launches_by_stream=by_stream,
                streams_alone=streams, max_memory_allocated=peak,
+               step_flops=flops,
+               mfu_busy=flops / (busy * 1e-3) / BF16_PEAK_FLOPS,
                losses={k: float(v) for k, v in last.items()
                        if k.startswith(tuple(batches))})
-    os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
-    prof.export_chrome_trace(trace)
+    if trace:
+        os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+        prof.export_chrome_trace(trace)
     res["top"] = [(name[:110], ms, n // steps) for name, (ms, n) in
                   sorted(kern.items(), key=lambda kv: -kv[1][0])[:TOP]]
     return res
@@ -348,6 +363,15 @@ def profile_vqa(trace: str, units=("vqa_rank", "vqa_train"),
     return out
 
 
+def _stream_units() -> dict:
+    from .configs import PRETRAIN_VQKD_KEYS
+
+    return {"pretrain_vqkd": dict(PRETRAIN_VQKD_KEYS),
+            "pretrain_bf16": {"bf16_params": True}}
+
+
+# the pretrain task's step with its optional branches: unit → YAML keys
+STREAM_UNITS = _stream_units()
 CAPTION_UNITS = ("caption_train", "caption_beam", "caption_scst",
                  "caption_pretrain")
 NLVR_UNITS = ("nlvr_train", "grounding_train", "gradcam")
@@ -490,7 +514,7 @@ def main(argv=None) -> int:
                              "retrieval_train", "clip_retrieval",
                              "retrieval_eval", "pretrain_streams",
                              "vqa_train", "vqa_rank") + CAPTION_UNITS
-                    + NLVR_UNITS + CLASSIFY_UNITS)
+                    + NLVR_UNITS + CLASSIFY_UNITS + tuple(STREAM_UNITS))
     ap.add_argument("--trace")
     args = ap.parse_args(argv)
     trace = args.trace or f"build/xfm_tpu_torch/profile_{args.path}.json"
@@ -513,8 +537,9 @@ def main(argv=None) -> int:
             print(f"  {ms:9.3f} ms/call {n:6d} calls/call  {name}")
         print(torch.cuda.get_device_name(0))
         return 0
-    if args.path == "pretrain_streams":
-        res = profile_pretrain_streams(trace)
+    if args.path in ("pretrain_streams",) + tuple(STREAM_UNITS):
+        res = profile_pretrain_streams(trace,
+                                       **STREAM_UNITS.get(args.path, {}))
         top = res.pop("top")
         print(f"max_memory_allocated={res.pop('max_memory_allocated')}")
         print(json.dumps(res))

@@ -112,6 +112,30 @@ def build_state(ctx: TaskContext, model: torch.nn.Module,
     return TrainState.create(model, opt), sched
 
 
+def maybe_bf16_params(ctx: TaskContext, state: TrainState, sched
+                      ) -> TrainState:
+    """`bf16_params: true` in the YAML: the optimizer rebuilt from the YAML
+    over f32 master copies of the trained parameters
+    (`optim.with_master_weights`), then every f32 parameter of the model
+    made bf16 in place. Call it after any checkpoint import (the f32
+    originals seed the masters) and before the resume (whose state has
+    this form), as the JAX package orders it."""
+    if not ctx.config.get("bf16_params", False):
+        return state
+    from ..train.optim import trained_parameters, with_master_weights
+
+    model = state.model
+    opt = with_master_weights(
+        trained_parameters(model),
+        lambda masters: create_optimizer_from_config(
+            model, ctx.config, sched, named_params=masters))
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dtype == torch.float32:
+                p.data = p.data.to(torch.bfloat16)
+    return TrainState(model=model, optimizer=opt, step=state.step)
+
+
 def save_task_checkpoint(ctx: TaskContext, state: TrainState, index: int,
                          name: str = "ckpt", keep: int = 2) -> None:
     """The state under <out>/<name>/<index> (an epoch of the fine-tune, a

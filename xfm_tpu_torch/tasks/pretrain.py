@@ -25,9 +25,18 @@ every `ckpt_frequent_step` steps and at the end (<out>/ckpt/<step>), and
 with `resume: true` the newest save is restored and the run goes on from
 its step (the streams start anew, as in the JAX package).
 
-Not ported, and refused with NotImplementedError: `use_vision_tokenizer`
-and `local_attn_depth > 0` (by `config_from_yaml`), `device_randaug` (by
-the streams), `bf16_params` and `bench_redispatch` (here).
+The optional branches: `use_vision_tokenizer` builds the frozen VQ-KD
+tokenizer (`frozen_tokenizer`: `tokenizer_model`, `codebook_size`,
+`codebook_dim`, the weights of `tokenizer_weight` where given, else a
+fixed-seed initialization) whose code ids of the unmasked images are MIM's
+cross-entropy targets in every stream with MIM on; `local_attn_depth` > 0
+runs the region stream's last blocks as region attention; `bf16_params`
+keeps the parameters bf16 with f32 masters in the optimizer
+(`common.maybe_bf16_params`, after `--checkpoint` and before the resume);
+`bench_redispatch: N` steps N more times on the last batches after the run
+and reports their rate (`redispatch_samples_per_sec`, a `### redispatch`
+line). `device_randaug` is not ported and the streams refuse it with
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -44,13 +53,17 @@ from ..models import XFMForPretrain, config_from_yaml
 from ..models.task_models import LOSS_KEYS
 from ..train.metrics import MetricLogger, is_main_process
 from ..train.train_state import make_stream_step
-from .common import (TaskContext, append_log, build_state, restore_latest,
-                     save_task_checkpoint, step_generator)
+from .common import (TaskContext, append_log, build_state,
+                     maybe_bf16_params, restore_latest, save_task_checkpoint,
+                     step_generator)
 from .retrieval import _maybe_shrink_vocab, build_tokenizer_or_fallback
 
 # a fixed id per stream name: the seed of its TrainTransform
 STREAM_IDS = {"image": 1, "web": 2, "aux": 3, "text": 4, "imagenet": 5,
               "region": 6}
+# the seed of the frozen tokenizer's initialization where no
+# `tokenizer_weight` is given (the JAX package's PRNGKey(7))
+TOKENIZER_SEED = 7
 
 
 def _transform(cfg: dict, seed: int, name: str) -> TrainTransform:
@@ -119,15 +132,20 @@ def stream_flags(name: str, step: int, cfg: dict) -> dict:
 
 
 def stream_loss_fn(flags: dict, weights: dict,
-                   calc_image_bbox_loss: bool = False):
+                   calc_image_bbox_loss: bool = False, code_ids_fn=None):
     """The loss of `train_state.make_stream_step` for streams under
     `flags` ({name: stream_flags}) and `weights`: `w<stream>` × the sum of
     the stream's losses, dropout and drop-path live → (loss, {<stream>_<loss
     key>: value}). With `calc_image_bbox_loss` the region stream's
-    whole-image rows count in its bbox losses (`is_image` dropped)."""
+    whole-image rows count in its bbox losses (`is_image` dropped). With
+    `code_ids_fn` (the frozen tokenizer's) a stream with MIM on and images
+    takes the code ids of its images as `vqkd_code_ids`."""
     def loss_fn(model, name, batch, generator):
         if name == "region" and calc_image_bbox_loss:
             batch = dict(batch, is_image=None)
+        if (code_ids_fn is not None and flags[name].get("ret_mim")
+                and batch.get("images") is not None):
+            batch = dict(batch, vqkd_code_ids=code_ids_fn(batch["images"]))
         out = model.loss(**batch, **flags[name], generator=generator,
                          deterministic=False)
         loss = weights[name] * sum(out[k] for k in LOSS_KEYS)
@@ -136,12 +154,29 @@ def stream_loss_fn(flags: dict, weights: dict,
     return loss_fn
 
 
-def _refuse_unported(cfg: dict) -> None:
-    for key, what in (("bf16_params", "bf16 live parameters with f32 "
-                                      "master weights"),
-                      ("bench_redispatch", "the redispatch probe")):
-        if cfg.get(key):
-            raise NotImplementedError(f"{key} ({what}) is not ported")
+def frozen_tokenizer(cfg: dict, device="cuda"):
+    """The YAML's VQ-KD tokenizer (`vqkd_config_from_yaml`), initialized
+    on `device` from `TOKENIZER_SEED`, then overlaid with the weights of
+    `tokenizer_weight` where the YAML names a file (the encoder, the
+    projection and the codebook: `import_vqkd_checkpoint`), frozen, in eval
+    mode, on `device` → (tokenizer, code_ids_fn), code_ids_fn(images) its
+    code ids under `no_grad`."""
+    from ..models.vqkd import VQKD, vqkd_config_from_yaml
+    from ..train.checkpoint import (init_weights, load_torch_state_dict,
+                                    load_vqkd_checkpoint)
+
+    vq = VQKD(vqkd_config_from_yaml(cfg)).to(device)
+    init_weights(vq, TOKENIZER_SEED)
+    if cfg.get("tokenizer_weight"):
+        load_vqkd_checkpoint(vq, load_torch_state_dict(
+            cfg["tokenizer_weight"]))
+    vq = vq.eval().requires_grad_(False)
+
+    @torch.no_grad()
+    def code_ids_fn(images):
+        return vq.get_codebook_indices(images)
+
+    return vq, code_ids_fn
 
 
 def corpus_texts(cfg: dict, max_lines: int = 20000) -> list:
@@ -187,12 +222,12 @@ def main(args, tokenizer=None) -> dict:
     batch). Prints every `print_freq` steps, appends the running averages
     to <output_dir>/log.txt at each checkpoint → those averages
     (`<stream>_<loss>`, `loss`, `grad_norm`) with `samples_per_sec` (image
-    stream samples over the wall time after two warm-up turns) and
+    stream samples over the wall time after two warm-up turns),
     `device_samples_per_sec` (the same with the wait for input taken
-    out). `tokenizer` (a pipeline's) replaces the config's."""
+    out) and, under `bench_redispatch`, `redispatch_samples_per_sec`.
+    `tokenizer` (a pipeline's) replaces the config's."""
     ctx = TaskContext.from_args(args)
     cfg = ctx.config
-    _refuse_unported(cfg)
     if tokenizer is None:
         tokenizer = build_tokenizer_or_fallback(cfg,
                                                 lambda: corpus_texts(cfg))
@@ -200,6 +235,9 @@ def main(args, tokenizer=None) -> dict:
         cfg, use_contrastive_loss=True, use_matching_loss=True,
         use_mlm_loss=True, use_bbox_loss=True), tokenizer)
     model = XFMForPretrain(mcfg).to(ctx.device)
+    code_ids_fn = None
+    if cfg.get("use_vision_tokenizer", False):
+        _, code_ids_fn = frozen_tokenizer(cfg, ctx.device)
     streams = build_streams(cfg, tokenizer, ctx.seed)
     if not streams:
         raise ValueError("no pretraining streams configured")
@@ -217,6 +255,7 @@ def main(args, tokenizer=None) -> dict:
             model, load_torch_state_dict(args.checkpoint))
         print(f"### loaded {args.checkpoint}: {len(missing)} missing",
               flush=True)
+    state = maybe_bf16_params(ctx, state, sched)
     state, step = restore_latest(ctx, state)
     if step is None:
         step = state.step
@@ -244,8 +283,8 @@ def main(args, tokenizer=None) -> dict:
             flags = {n: stream_flags(n, step, cfg) for n in order}
             gens = {n: step_generator(ctx, step, i)
                     for i, n in enumerate(order)}
-            step_fn = make_stream_step(stream_loss_fn(flags, weights,
-                                                      calc_image_bbox))
+            step_fn = make_stream_step(stream_loss_fn(
+                flags, weights, calc_image_bbox, code_ids_fn))
             metrics = {}
             if text_separate:
                 state, tm = step_fn(state, {"text": batches.pop("text")},
@@ -272,9 +311,29 @@ def main(args, tokenizer=None) -> dict:
                 append_log(ctx.out_dir, {"step": step,
                                          **logger.global_avg(),
                                          "elapsed": time.time() - t0})
+        redispatch = int(cfg.get("bench_redispatch", 0))
+        rate_redispatch = None
+        if redispatch and perf["steps"] > 2:
+            # N more steps on the last batches, already on the device: the
+            # step's rate with no input wait and no new copies
+            t_r = time.perf_counter()
+            for k in range(redispatch):
+                gens = {n: step_generator(ctx, step + k, i)
+                        for i, n in enumerate(order)}
+                state, sm = step_fn(state, batches, gens)
+                torch.stack([v.float() for v in sm.values()
+                             if v.dim() == 0]).tolist()
+            rate_redispatch = bs_main * redispatch / (time.perf_counter()
+                                                      - t_r)
+            if is_main_process():
+                print(f"### redispatch {rate_redispatch:.1f} "
+                      "samples/s/process (device-resident input)",
+                      flush=True)
     finally:
         batches_iter.close()
     stats = logger.global_avg()
+    if rate_redispatch is not None:
+        stats["redispatch_samples_per_sec"] = rate_redispatch
     if perf["secs"] > 0:
         stats["samples_per_sec"] = perf["samples"] / perf["secs"]
         dev_secs = perf["secs"] - perf["input_secs"]

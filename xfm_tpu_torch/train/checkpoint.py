@@ -9,6 +9,12 @@
   tower (`clip_vit_from_jax`) is the inverse of `import_clip_vit`.
 - `load_reference_state_dict`: a reference-named torch state dict (e.g. a
   released checkpoint or a golden fixture) into a port module.
+- `vqkd_from_jax`, `clip_teacher_from_jax`, `dino_teacher_from_jax`: the
+  JAX VQ-KD tokenizer (with its `vq_stats`) and teachers → the port's.
+- The importers of the tokenizer's checkpoints (`import_vqkd_checkpoint`,
+  `load_vqkd_checkpoint`) and of its teachers' released weights
+  (`import_openai_clip_visual`, `import_clip_teacher`,
+  `import_dino_teacher`).
 - The load half of `xfm_tpu/train/checkpoint.py`: `load_torch_state_dict`,
   `strip_prefix`, `choose_layers`, the resolution-change interpolations
   (`interpolate_abs_pos_embed`, `interpolate_rel_pos_bias_table`) and
@@ -93,38 +99,58 @@ def text_encoder_from_jax(p: Dict[str, Any], num_layers: int,
     return sd
 
 
+def _beit_block_from_jax(bp: Dict[str, Any], b: str,
+                         sd: Dict[str, np.ndarray]) -> None:
+    """One JAX BeitBlock's params → reference names under `b`."""
+    for nm in ("norm1", "norm2"):
+        sd[f"{b}.{nm}.weight"] = _t(bp[nm]["scale"])
+        sd[f"{b}.{nm}.bias"] = _t(bp[nm]["bias"])
+    if "gamma_1" in bp:
+        sd[f"{b}.gamma_1"] = _t(bp["gamma_1"])
+        sd[f"{b}.gamma_2"] = _t(bp["gamma_2"])
+    a = bp["attn"]
+    sd[f"{b}.attn.qkv.weight"] = _t(a["qkv"]["kernel"]).T
+    sd[f"{b}.attn.q_bias"] = _t(a["q_bias"])
+    sd[f"{b}.attn.v_bias"] = _t(a["v_bias"])
+    sd[f"{b}.attn.proj.weight"] = _t(a["proj"]["kernel"]).T
+    sd[f"{b}.attn.proj.bias"] = _t(a["proj"]["bias"])
+    if "relative_position_bias_table" in a:
+        sd[f"{b}.attn.relative_position_bias_table"] = _t(
+            a["relative_position_bias_table"])
+    for fc in ("fc1", "fc2"):
+        sd[f"{b}.mlp.{fc}.weight"] = _t(bp[fc]["kernel"]).T
+        sd[f"{b}.mlp.{fc}.bias"] = _t(bp[fc]["bias"])
+
+
+def _ln_from_jax(p: Dict[str, Any], dst: str,
+                 sd: Dict[str, np.ndarray]) -> None:
+    sd[f"{dst}.weight"] = _t(p["scale"])
+    sd[f"{dst}.bias"] = _t(p["bias"])
+
+
 def beit2_from_jax(p: Dict[str, Any], depth: int,
                    prefix: str = "") -> Dict[str, np.ndarray]:
     """JAX BeitVisionTransformer params → reference names under `prefix`
-    (patch kernel kept in matmul layout)."""
+    (patch kernel kept in matmul layout): the optional forms where the
+    tree has them (the mask token, `pos_embed`, per-block tables, the
+    shared table as `rel_pos_bias.relative_position_bias_table`, `fc_norm`
+    or the final norm as `norm`)."""
     sd: Dict[str, np.ndarray] = {}
     v = _pre(prefix)
     sd[f"{v}patch_embed.proj.weight"] = _t(p["patch_embed_kernel"])
     sd[f"{v}patch_embed.proj.bias"] = _t(p["patch_embed_bias"])
     sd[f"{v}cls_token"] = _t(p["cls_token"])
-    sd[f"{v}mask_token"] = _t(p["mask_token"])
+    for src, dst in (("mask_token", "mask_token"), ("pos_embed", "pos_embed"),
+                     ("shared_rel_pos_table",
+                      "rel_pos_bias.relative_position_bias_table")):
+        if src in p:
+            sd[f"{v}{dst}"] = _t(p[src])
     for i in range(depth):
-        bp = p[f"block_{i}"]
-        b = f"{v}blocks.{i}"
-        for nm in ("norm1", "norm2"):
-            sd[f"{b}.{nm}.weight"] = _t(bp[nm]["scale"])
-            sd[f"{b}.{nm}.bias"] = _t(bp[nm]["bias"])
-        if "gamma_1" in bp:
-            sd[f"{b}.gamma_1"] = _t(bp["gamma_1"])
-            sd[f"{b}.gamma_2"] = _t(bp["gamma_2"])
-        a = bp["attn"]
-        sd[f"{b}.attn.qkv.weight"] = _t(a["qkv"]["kernel"]).T
-        sd[f"{b}.attn.q_bias"] = _t(a["q_bias"])
-        sd[f"{b}.attn.v_bias"] = _t(a["v_bias"])
-        sd[f"{b}.attn.proj.weight"] = _t(a["proj"]["kernel"]).T
-        sd[f"{b}.attn.proj.bias"] = _t(a["proj"]["bias"])
-        sd[f"{b}.attn.relative_position_bias_table"] = _t(
-            a["relative_position_bias_table"])
-        for fc in ("fc1", "fc2"):
-            sd[f"{b}.mlp.{fc}.weight"] = _t(bp[fc]["kernel"]).T
-            sd[f"{b}.mlp.{fc}.bias"] = _t(bp[fc]["bias"])
-    sd[f"{v}fc_norm.weight"] = _t(p["fc_norm"]["scale"])
-    sd[f"{v}fc_norm.bias"] = _t(p["fc_norm"]["bias"])
+        _beit_block_from_jax(p[f"block_{i}"], f"{v}blocks.{i}", sd)
+    if "fc_norm" in p:
+        _ln_from_jax(p["fc_norm"], f"{v}fc_norm", sd)
+    if "final_norm" in p:
+        _ln_from_jax(p["final_norm"], f"{v}norm", sd)
     return sd
 
 
@@ -213,6 +239,9 @@ def state_dict_from_jax(params: Dict[str, Any],
     for head in ("itm_head", "bbox_head"):
         if head in bb:
             _mlp_head(bb[head], head, sd)
+    if "mim_lm_head" in bb:  # the MIM code head
+        sd["lm_head.weight"] = _t(bb["mim_lm_head"]["kernel"]).T
+        sd["lm_head.bias"] = _t(bb["mim_lm_head"]["bias"])
     if "cls_head" in params:  # beside the backbone
         _mlp_head(params["cls_head"], "cls_head", sd)
     if "text_decoder" in params:  # the answer or caption decoder
@@ -221,6 +250,54 @@ def state_dict_from_jax(params: Dict[str, Any],
             dec, sum(1 for k in dec if k.startswith("layer_")),
             "text_decoder"))
     return to_torch(sd)
+
+
+def _dense_from_jax(p: Dict[str, Any], dst: str,
+                    sd: Dict[str, np.ndarray]) -> None:
+    sd[f"{dst}.weight"] = _t(p["kernel"]).T
+    sd[f"{dst}.bias"] = _t(p["bias"])
+
+
+def vqkd_from_jax(variables: Dict[str, Any],
+                  config) -> Dict[str, torch.Tensor]:
+    """JAX VQKD variables ({'params', 'vq_stats'}) → the port's `VQKD`
+    state_dict: the encoder, `encode_task_layer.{0,2}`, the decoder
+    (`in_proj`, blocks, `norm`), `decode_task_layer.{0,2}`, and the
+    codebook and cluster sizes as `quantize.embedding.{weight,
+    cluster_size}`."""
+    p = variables["params"]
+    sd = beit2_from_jax(p["encoder"], config.encoder.depth, "encoder")
+    for j, idx in ((0, 0), (1, 2)):
+        _dense_from_jax(p[f"encode_task_layer_{j}"],
+                        f"encode_task_layer.{idx}", sd)
+        _dense_from_jax(p[f"decode_task_layer_{j}"],
+                        f"decode_task_layer.{idx}", sd)
+    dec = p["decoder"]
+    if "in_proj" in dec:
+        _dense_from_jax(dec["in_proj"], "decoder.in_proj", sd)
+    for i in range(config.decoder_depth):
+        _beit_block_from_jax(dec[f"block_{i}"], f"decoder.blocks.{i}", sd)
+    _ln_from_jax(dec["norm"], "decoder.norm", sd)
+    q = variables["vq_stats"]["quantize"]
+    sd["quantize.embedding.weight"] = _t(q["codebook"])
+    sd["quantize.embedding.cluster_size"] = _t(q["cluster_size"])
+    return to_torch(sd)
+
+
+def clip_teacher_from_jax(params: Dict[str, Any],
+                          config) -> Dict[str, torch.Tensor]:
+    """JAX CLIPTeacher params → the port's: `visual.*` and `proj`."""
+    sd = clip_vit_from_jax(params["visual"], config.num_hidden_layers,
+                           "visual")
+    sd["proj"] = _t(params["proj"])
+    return to_torch(sd)
+
+
+def dino_teacher_from_jax(params: Dict[str, Any],
+                          config) -> Dict[str, torch.Tensor]:
+    """JAX DINOTeacher params → the port's `backbone.*`."""
+    return to_torch(beit2_from_jax(params["backbone"], config.depth,
+                                   "backbone"))
 
 
 def to_torch(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -466,6 +543,124 @@ def load_xfm_checkpoint(model, sd: Dict[str, Any]
     return missing, unexpected
 
 
+def import_vqkd_checkpoint(sd: Dict[str, Any], vqkd_config
+                           ) -> Dict[str, torch.Tensor]:
+    """A torch VQ-KD tokenizer checkpoint → the entries of the port's `VQKD`
+    that the tokenizer reads (`xfm_tpu/train/checkpoint.py`
+    `import_vqkd_checkpoint`): the encoder (its patch kernel made a matmul
+    kernel, its position embedding interpolated to the config's grid),
+    `encode_task_layer.{0,2}` and the codebook with its cluster sizes
+    (`quantize.embedding.{weight, cluster_size}`). The teacher, scaling
+    and loss entries and the decoder are dropped (the decoder stays at its
+    init, as in the JAX package)."""
+    keep = ("encoder.", "encode_task_layer.", "quantize.embedding.weight",
+            "quantize.embedding.cluster_size")
+    out = {}
+    for k, v in sd.items():
+        if not k.startswith(keep):
+            continue
+        if k == "encoder.pos_embed":
+            v = interpolate_abs_pos_embed(
+                np.asarray(torch.as_tensor(v).float()),
+                vqkd_config.encoder.num_patches)
+        out[k] = v
+    return _port_layout(out)
+
+
+def load_vqkd_checkpoint(model, sd: Dict[str, Any]
+                         ) -> Tuple[List[str], List[str]]:
+    """`import_vqkd_checkpoint` loaded into a port `VQKD` in place
+    (strict=False: what the checkpoint lacks stays at init) → (missing,
+    unexpected)."""
+    res = model.load_state_dict(import_vqkd_checkpoint(sd, model.config),
+                                strict=False)
+    return list(res.missing_keys), list(res.unexpected_keys)
+
+
+def import_openai_clip_visual(sd: Dict[str, Any], config
+                              ) -> Dict[str, torch.Tensor]:
+    """An OpenAI CLIP image tower (`conv1`, `ln_pre`, `transformer.
+    resblocks.{i}` with the fused `attn.in_proj_*`, `ln_post`; rooted at
+    `visual.`) → the port's `ClipVisionTransformer` names: the fused q/k/v
+    split, the position embedding interpolated to the config's grid."""
+    def t(k):
+        return torch.as_tensor(np.asarray(sd[k]) if not torch.is_tensor(
+            sd[k]) else sd[k]).float()
+
+    pos = t("positional_embedding").numpy()
+    if pos.shape[0] - 1 != config.num_patches:
+        pos = interpolate_abs_pos_embed(pos[None], config.num_patches)[0]
+    out = {"class_embedding": t("class_embedding").reshape(-1),
+           "patch_embed.weight": patch_kernel_from_conv(t("conv1.weight")),
+           "pos_embed.weight": torch.from_numpy(np.asarray(pos, np.float32))}
+    for dst, src in (("pre_layrnorm", "ln_pre"),
+                     ("post_layernorm", "ln_post")):
+        out[f"{dst}.weight"], out[f"{dst}.bias"] = (t(f"{src}.weight"),
+                                                    t(f"{src}.bias"))
+    C = config.hidden_size
+    for i in range(config.num_hidden_layers):
+        b, d = f"transformer.resblocks.{i}", f"encoder.layers.{i}"
+        w, bias = t(f"{b}.attn.in_proj_weight"), t(f"{b}.attn.in_proj_bias")
+        for j, proj in enumerate(("q_proj", "k_proj", "v_proj")):
+            out[f"{d}.self_attn.{proj}.weight"] = w[j * C:(j + 1) * C]
+            out[f"{d}.self_attn.{proj}.bias"] = bias[j * C:(j + 1) * C]
+        for dst, src in (("layer_norm1", "ln_1"), ("layer_norm2", "ln_2"),
+                         ("self_attn.out_proj", "attn.out_proj"),
+                         ("mlp.fc1", "mlp.c_fc"), ("mlp.fc2", "mlp.c_proj")):
+            out[f"{d}.{dst}.weight"] = t(f"{b}.{src}.weight")
+            out[f"{d}.{dst}.bias"] = t(f"{b}.{src}.bias")
+    return out
+
+
+def import_clip_teacher(sd: Dict[str, Any], clip_config
+                        ) -> Dict[str, torch.Tensor]:
+    """A released OpenAI CLIP checkpoint → the port's `CLIPTeacher`
+    (`visual.*` and `proj`; the text tower dropped)."""
+    vis = strip_prefix(sd, "visual.")
+    out = {f"visual.{k}": v for k, v in
+           import_openai_clip_visual(vis, clip_config).items()}
+    out["proj"] = torch.as_tensor(np.asarray(vis["proj"]) if not
+                                  torch.is_tensor(vis["proj"])
+                                  else vis["proj"]).float()
+    return out
+
+
+def import_dino_teacher(sd: Dict[str, Any], config
+                        ) -> Dict[str, torch.Tensor]:
+    """A DINO ViT-B/16 checkpoint (timm names, `module.` stripped) → the
+    port's `DINOTeacher` (`backbone.*`): the fused qkv bias split into
+    q_bias and v_bias, its k part dropped (a constant on every key moves
+    each query's scores alike, which softmax ignores), the position
+    embedding interpolated to the config's grid, the final `norm`."""
+    if any(k.startswith("module.") for k in sd):
+        sd = strip_prefix(sd, "module.")
+
+    def a(k):
+        v = sd[k]
+        return np.asarray(v.detach().float().numpy() if torch.is_tensor(v)
+                          else v, np.float32)
+
+    out = {"patch_embed.proj.weight": a("patch_embed.proj.weight"),
+           "patch_embed.proj.bias": a("patch_embed.proj.bias"),
+           "cls_token": a("cls_token"),
+           "pos_embed": interpolate_abs_pos_embed(a("pos_embed"),
+                                                  config.num_patches)}
+    C = config.embed_dim
+    for i in range(config.depth):
+        b = f"blocks.{i}"
+        bias = a(f"{b}.attn.qkv.bias")
+        out[f"{b}.attn.qkv.weight"] = a(f"{b}.attn.qkv.weight")
+        out[f"{b}.attn.q_bias"] = bias[:C]
+        out[f"{b}.attn.v_bias"] = bias[2 * C:]
+        for nm in ("norm1", "norm2", "attn.proj", "mlp.fc1", "mlp.fc2"):
+            out[f"{b}.{nm}.weight"] = a(f"{b}.{nm}.weight")
+            out[f"{b}.{nm}.bias"] = a(f"{b}.{nm}.bias")
+    if "norm.weight" in sd:
+        out["norm.weight"], out["norm.bias"] = a("norm.weight"), a(
+            "norm.bias")
+    return {f"backbone.{k}": v for k, v in _port_layout(out).items()}
+
+
 def _decoder_entries(sd: Dict[str, Any], src: str) -> Dict[str, Any]:
     """The decoder-shaped entries under `src` (a text, fusion or decoder
     prefix with its dot) as `text_decoder.*` under the port's RoBERTa
@@ -583,9 +778,12 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
     lecun-normal (truncated), zero biases, LayerNorm ones, embeddings
     normal(1/√width), BEiT's patch kernel and cls/mask tokens trunc-normal
     0.02, BEiT proj/fc2 trunc-normal 0.02/√(2·layer) (`fix_init`),
-    LayerScale at its init value, zero rel-pos tables, CLIP's class
-    embedding, patch kernel and position embedding normal(0.02), temp at its
-    init value."""
+    LayerScale at its init value, zero rel-pos tables, BEiT's absolute
+    position embedding trunc-normal 0.02, CLIP's class embedding, patch
+    kernel and position embedding and the CLIP teacher's `proj`
+    normal(0.02), temp at its init value.
+    The `fix_init` rescale takes every BEiT block stack of the model (the
+    vision tower's; a tokenizer's encoder and decoder)."""
     dev = next(model.parameters()).device
     g = torch.Generator(device=dev).manual_seed(seed)
     for m in model.modules():
@@ -603,10 +801,10 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
                              generator=g)
     for name, p in model.named_parameters():
         last = name.rsplit(".", 1)[-1]
-        if last in ("cls_token", "mask_token") or name.endswith(
+        if last in ("cls_token", "mask_token", "pos_embed") or name.endswith(
                 "patch_embed.proj.weight"):
             _trunc_normal_(p, 0.02, g)
-        elif last == "class_embedding" or name.endswith(
+        elif last in ("class_embedding", "proj") or name.endswith(
                 ("patch_embed.weight", "pos_embed.weight")):
             p.normal_(0.0, 0.02, generator=g)
         elif last in ("q_bias", "v_bias", "relative_position_bias_table") \
@@ -614,14 +812,18 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
                 or name.endswith("lm_head.bias"):
             p.zero_()
     cfg = getattr(model, "config", None)
-    vision = getattr(model, "vision_encoder", model)
-    for i, blk in enumerate(getattr(vision, "blocks", [])):
-        std = 0.02 / math.sqrt(2.0 * (i + 1))
-        _trunc_normal_(blk.attn.proj.weight, std, g)
-        _trunc_normal_(blk.mlp.fc2.weight, std, g)
-        if blk.use_ls:
-            blk.gamma_1.fill_(blk.c.init_values)
-            blk.gamma_2.fill_(blk.c.init_values)
+    for m in model.modules():
+        blocks = getattr(m, "blocks", None)
+        if not (isinstance(blocks, torch.nn.ModuleList) and len(blocks)
+                and hasattr(blocks[0], "use_ls")):
+            continue
+        for i, blk in enumerate(blocks):
+            std = 0.02 / math.sqrt(2.0 * (i + 1))
+            _trunc_normal_(blk.attn.proj.weight, std, g)
+            _trunc_normal_(blk.mlp.fc2.weight, std, g)
+            if blk.use_ls:
+                blk.gamma_1.fill_(blk.c.init_values)
+                blk.gamma_2.fill_(blk.c.init_values)
     if cfg is not None and hasattr(model, "temp"):
         model.temp.fill_(cfg.temp)
 

@@ -15,6 +15,12 @@ Both optimizers take the parameters that require a gradient: a frozen
 tower (a linear probe's) holds no optimizer state and never moves, where
 the JAX package's optimizers step it with a zero gradient, so that a
 weight decay above 0 moves it.
+
+`with_master_weights` (`bf16_params`): the live parameters are bf16, the
+optimizer steps f32 master copies from their gradients, and each live
+parameter is then set to its rounded master. The JAX package adds the bf16
+difference (rounded master − live) to the live parameter instead, which
+lands within 1 bf16 ulp of the rounded master.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ import torch
 # fresh heads boosted by lr_mult, on torch parameter names
 DEFAULT_BOOST_PATTERNS = (
     r".*vision_proj.*", r".*text_proj.*", r"(^|.*\.)temp$",
-    r".*itm_head.*", r".*bbox_head.*", r".*cls_head.*", r".*mim_lm_head.*",
+    r".*itm_head.*", r".*bbox_head.*", r".*cls_head.*",
+    r"lm_head\.",  # the MIM code head (JAX `mim_lm_head`), top level only
 )
 
 
@@ -200,13 +207,66 @@ def create_optimizer(model: torch.nn.Module, learning_rate,
 
 
 def create_optimizer_from_config(model: torch.nn.Module, config: dict,
-                                 learning_rate) -> HFAdamW:
+                                 learning_rate, named_params=None) -> HFAdamW:
     """HF-AdamW from the YAML: `optimizer.weight_decay` (0.01) and
     `optimizer.lr_mult` (1), and a clip to global norm only where
-    `accelerator.CLIP_GRAD_NORM` is set (the fine-tune recipes set none)."""
+    `accelerator.CLIP_GRAD_NORM` is set (the fine-tune recipes set none);
+    over `named_params` where given (master copies), else over the model's
+    `trained_parameters`."""
     opt = config.get("optimizer", {}) or {}
     acc = config.get("accelerator", {}) or {}
-    return create_optimizer(model, learning_rate,
-                            weight_decay=opt.get("weight_decay", 0.01),
-                            lr_mult=opt.get("lr_mult", 1.0),
-                            clip_grad_norm=acc.get("CLIP_GRAD_NORM"))
+    return HFAdamW(named_params or trained_parameters(model), learning_rate,
+                   weight_decay=opt.get("weight_decay", 0.01),
+                   lr_mult=opt.get("lr_mult", 1.0),
+                   clip_grad_norm=acc.get("CLIP_GRAD_NORM"))
+
+
+class MasterWeights:
+    """An optimizer (`HFAdamW`, `LARS`) over f32 master copies of the live
+    parameters (bf16 under `bf16_params`): `step` hands each live
+    parameter's gradient to its master, steps the masters and sets each
+    live parameter to its master rounded to the live dtype. `state_dict`
+    holds the masters beside the inner optimizer's state, so a restore is
+    bit-equal. `names`, `params` (the live ones), `count` and `lr` are the
+    inner optimizer's view."""
+
+    def __init__(self, named_params, make_inner: Callable):
+        self.names, self.params = zip(*named_params)
+        self.masters = [p.detach().float().clone() for p in self.params]
+        self.inner = make_inner(list(zip(self.names, self.masters)))
+        self.lr = self.inner.lr
+
+    @property
+    def count(self) -> int:
+        return self.inner.count
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        for p, m in zip(self.params, self.masters):
+            # widened here, where the inner step would widen it anyway
+            m.grad = None if p.grad is None else p.grad.float()
+        try:
+            g_norm = self.inner.step()
+        finally:
+            for m in self.masters:
+                m.grad = None
+        torch._foreach_copy_(list(self.params), self.masters)
+        return g_norm
+
+    def state_dict(self) -> dict:
+        return {"master": dict(zip(self.names, self.masters)),
+                "inner": self.inner.state_dict()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        if set(state["master"]) != set(self.names):
+            raise KeyError("optimizer master: names differ from the model's")
+        for name, m in zip(self.names, self.masters):
+            m.copy_(state["master"][name])
+        self.inner.load_state_dict(state["inner"])
+
+
+# the JAX package's name: `make_inner(named masters)` (an HF-AdamW or LARS)
+# stepping f32 copies of `named_params`, taken when it is called, so call
+# it while the parameters are still f32 (`tasks/common.maybe_bf16_params`)
+with_master_weights = MasterWeights
