@@ -273,6 +273,27 @@ Phases, each of which must pass or the script exits non-zero:
      teacher (f32); then `profile_step` `pretrain_vqkd` and
      `pretrain_bf16` at the YAML's sizes (K1 33 + 33 and 36 + 36 a step,
      peak memory under 80 GB, MFU over busy time);
+ 25. the pretrain task's input path: the host's CPU count and g++, the
+     probe for libjpeg's and libpng's headers and the C++ loader's build
+     (`xfm_tpu_torch/native`; a failed build with the headers present
+     fails the phase, their absence prints `native_loader: unavailable
+     (<reason>)` and skips what needs the loader); over 64 seeded photos
+     of 300-1,600 px (JPEGs, 4 PNGs) and a JPEG cut before its scan: PIL's
+     decode + `TrainTransform` (images/s) and RandAugment (ms an image) on
+     one thread, and where the loader builds `decode_batch` at 224 px with
+     crops and flips on the YAML's 4 threads and on one (images/s; status
+     1 on the cut JPEG alone) and C++ RandAugment on one thread; device
+     RandAugment's ops on [96, 224, 224, 3] uint8 on the card and on the
+     CPU with the same signs, and two rounds from the same draws (each
+     within 1 level; the share apart), its time per two rounds; where the
+     loader builds, `run.main` for `--task pretrain_DIY` on
+     `Pretrain_base_4m.yaml`'s keys (its `num_workers`) over JPEGs of
+     300-1,600 px, `--bs 24`, 3 steps, without and with `device_randaug`
+     (the loader's batches counted, uint8 images reaching the model, K1
+     36 + 36 a step and nothing else, finite losses, the rates); then
+     `profile_step pretrain_randaug` (uint8 images, RandAugment on the card
+     before the loss: K1 36 + 36, the RandAugment's busy ms and share)
+     beside phase 19's `pretrain_streams`;
 then a JSON line of the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
@@ -281,6 +302,7 @@ Needs one CUDA card; imports nothing of JAX or of the xfm_tpu package.
 """
 from __future__ import annotations
 
+import base64
 import json
 import math
 import os
@@ -4952,6 +4974,315 @@ def kernel_entries(prefix, tpu_file, line_fwd, line_bwd, src, err, bwd_errs,
     return out
 
 
+def _jpeg_blobs(r, n, lo=300, hi=1600, n_png=4):
+    """n seeded encoded photos (a colour, a wave, noise) of lo-hi px a
+    side: JPEGs (quality 80-95), the last `n_png` of them PNGs, and one
+    JPEG more cut before its scan (its header reads, its body does not
+    decode) → list of bytes."""
+    import io
+
+    from PIL import Image
+
+    out = []
+    noise = r.randint(-10, 11, (hi, hi, 3)).astype(np.float32)
+    for i in range(n):
+        h, w = r.randint(lo, hi + 1, 2)
+        yy, xx = np.mgrid[0:h, 0:w]
+        wave = np.sin(xx * r.uniform(0.005, 0.05) + yy * r.uniform(0.005,
+                                                                   0.05))
+        arr = np.clip(r.randint(0, 256, 3) + 60 * wave[..., None]
+                      * r.uniform(-1, 1, 3) + noise[:h, :w], 0,
+                      255).astype(np.uint8)
+        buf = io.BytesIO()
+        if i >= n - n_png:
+            Image.fromarray(arr).save(buf, "PNG")
+        else:
+            Image.fromarray(arr).save(buf, "JPEG",
+                                      quality=int(r.randint(80, 96)))
+        out.append(buf.getvalue())
+    out.append(out[0][:out[0].index(b"\xff\xda")])
+    return out
+
+
+def _rate(fn, n_items, reps=2) -> float:
+    """Items/s of fn(), the best of `reps` runs on the host's clock."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return n_items / best
+
+
+def host_rates(blobs, threads=4, size=224) -> dict:
+    """The pretrain stream's host work on `blobs` (the last one broken
+    past its header): where the loader builds, `decode_batch` at `size`
+    with `crop_box` crops (scale 0.2-1) and flips on `threads` threads
+    (images/s), its status on the broken slot, and C++ RandAugment on one
+    thread (ms an image); on every host, PIL's path on one thread: decode +
+    `TrainTransform` (images/s) and RandAugment's `apply_plan` alone (ms
+    an image)."""
+    from xfm_tpu_torch import native
+    from xfm_tpu_torch.data.transforms import (TrainTransform, crop_box,
+                                               decode_image)
+
+    r = np.random.default_rng(0)
+    t = TrainTransform(size, scale=(0.2, 1.0), seed=0)
+    good = blobs[:-1]
+    plans = [t.randaug.plan(r) for _ in good]
+    out = {}
+    pil = [np.asarray(decode_image(b).resize((size, size)), np.uint8)
+           for b in good]
+    out["pil_train_transform_images_per_s"] = _rate(
+        lambda: [t(decode_image(b)) for b in good], len(good))
+    out["pil_randaug_ms_per_image"] = 1e3 / _rate(
+        lambda: [t.randaug.apply_plan(p, plan)
+                 for p, plan in zip(pil, plans)], len(good))
+    if not native.available():
+        return out
+    dims = [native.image_dims(b, fast=True) for b in blobs]
+    crops = np.asarray([crop_box(w, h, (0.2, 1.0), rng=r) for w, h in dims],
+                       np.int32)
+    flips = (r.random(len(blobs)) < 0.5).astype(np.int32)
+    images, status = native.decode_batch(blobs, size, crops, flips,
+                                         threads=threads)
+    out["status"] = status.tolist()
+    if status[-1] != 1 or status[:-1].any():
+        raise AssertionError(f"decode status {status.tolist()}")
+    out[f"decode_images_per_s_{threads}_threads"] = _rate(
+        lambda: native.decode_batch(blobs, size, crops, flips,
+                                    threads=threads), len(blobs))
+    out["decode_images_per_s_1_thread"] = _rate(
+        lambda: native.decode_batch(blobs, size, crops, flips, threads=1),
+        len(blobs))
+    aug = images[:-1].copy()
+    out["cpp_randaug_ms_per_image"] = 1e3 / _rate(
+        lambda: native.randaugment_batch(aug, plans, 7, threads=1),
+        len(good))
+    return out
+
+
+def device_randaug_check(B=96, S=224, seed=0) -> dict:
+    """`device_aug`'s ops on a seeded uint8 batch [B, S, S, 3] on the card
+    and on the CPU with the same signs (alternating): each within 1 level,
+    the share of values apart; two rounds from the same injected draws
+    (within 1 level a round); then `randaugment_batch` (draws from a card
+    generator) timed with CUDA events, ms per two rounds."""
+    from xfm_tpu_torch.data import device_aug as da
+
+    r = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:S, 0:S]
+    u8 = np.empty((B, S, S, 3), np.uint8)
+    for b in range(B):
+        wave = np.sin(xx * r.uniform(0.02, 0.1) + yy * r.uniform(0.02, 0.1))
+        u8[b] = np.clip(r.randint(0, 256, 3) + 60 * wave[..., None]
+                        * r.uniform(-1, 1, 3) + r.normal(0, 10, (S, S, 3)),
+                        0, 255)
+    cpu = torch.from_numpy(u8).float()
+    gpu = cpu.cuda()
+    sign = torch.tensor([1.0, -1.0] * (B // 2) + [1.0] * (B % 2))
+    res = {}
+    for name in da.RANDAUG_DEFAULT[1:]:
+        a = torch.round(torch.clamp(da.apply_op(name, gpu, 7, sign.cuda()),
+                                    0, 255)).cpu()
+        c = torch.round(torch.clamp(da.apply_op(name, cpu, 7, sign), 0,
+                                    255))
+        d = (a - c).abs()
+        res[name] = dict(max=float(d.max()), share_apart=float(
+            (d > 0).float().mean()))
+        if d.max() > 1.0:
+            raise AssertionError(f"device RandAugment {name}: card vs CPU "
+                                 f"{float(d.max())} levels apart")
+    g = torch.Generator().manual_seed(seed)
+    x_cpu, x_gpu = cpu, gpu
+    for k in range(2):
+        op, applied, neg = da.randaug_draws(B, len(da.RANDAUG_DEFAULT), g)
+        x_cpu = da.randaug_round(x_cpu, op, applied, neg)
+        x_gpu = da.randaug_round(x_gpu, op.cuda(), applied.cuda(),
+                                 neg.cuda())
+        d = (x_gpu.cpu() - x_cpu).abs()
+        res[f"round_{k}"] = dict(max=float(d.max()), share_apart=float(
+            (d > 0).float().mean()))
+        if d.max() > 1.0:
+            raise AssertionError(f"device RandAugment round {k}: card vs "
+                                 f"CPU {float(d.max())} levels apart")
+        x_cpu = x_gpu.cpu()
+    images = torch.from_numpy(u8).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    res["ms_two_rounds"] = cuda_ms(
+        lambda: da.randaugment_batch(images, gen), iters=10)
+    return res
+
+
+def input_task_runs(root, device_randaug: bool, bs=24, steps=3) -> dict:
+    """`run.main` for `--task pretrain_DIY` on `Pretrain_base_4m.yaml`'s
+    keys (its `num_workers` included) over `_pretrain_corpus` with the
+    image-text and ImageNet images JPEGs of 300-1,600 px, `--bs`, `steps`
+    steps, `device_randaug` on both blocks or off: each step's launches
+    and losses, the dtype of the images each stream fed the model, the
+    loader's batches, the result's rates."""
+    import yaml
+
+    from xfm_tpu_torch import configs, native, run
+    from xfm_tpu_torch.models import XFMForPretrain
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks import pretrain
+
+    files = _pretrain_corpus(root, n_pairs=48, n_regions=12, n_texts=48)
+    r = np.random.RandomState(7)
+    for kind in ("pairs", "imagenet"):
+        with open(files[kind]) as f:
+            rows = [json.loads(x) for x in f]
+        blobs = _jpeg_blobs(r, len(rows), n_png=0)[:len(rows)]
+        with open(files[kind], "w") as f:
+            for row, blob in zip(rows, blobs):
+                row["binary"] = base64.b64encode(blob).decode()
+                f.write(json.dumps(row) + "\n")
+    cfg = {k: v for k, v in configs.pretrain_yaml().items()
+           if not k.startswith("_")}
+    for block in ("images", "images_imagenet"):
+        cfg[block] = dict(cfg[block], device_randaug=device_randaug)
+    cfg.update(train_file=[files["pairs"]],
+               train_file_regions=[files["regions"]],
+               train_file_imagenet=[files["imagenet"]],
+               train_file_text=[files["texts"]], max_steps=steps,
+               ckpt_frequent_step=10 ** 6, print_freq=1)
+    cfg_path = os.path.join(root, "in.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    rec = dict(steps=[], fed={})
+    real_step, real_loss = pretrain.make_stream_step, XFMForPretrain.loss
+
+    def make_stream_step(loss_fn):
+        step_fn = real_step(loss_fn)
+
+        def step(state, batches, gens):
+            _sync()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batches, gens)
+            rec["steps"].append(dict(
+                s=time.perf_counter() - t0,
+                launches=dict(kernels.LAUNCHES),
+                losses={k: v.item() for k, v in metrics.items()}))
+            return state, metrics
+
+        return step
+
+    def loss(self, images=None, **kw):
+        if images is not None:
+            rec["fed"][kw.get("data_source")] = str(images.dtype)
+        return real_loss(self, images=images, **kw)
+
+    before = native.DECODED["batches"]
+    pretrain.make_stream_step = make_stream_step
+    XFMForPretrain.loss = loss
+    try:
+        rec["result"] = run.main(["--task", "pretrain_DIY", "--config",
+                                  cfg_path, "--output_dir",
+                                  os.path.join(root, "out"), "--bs",
+                                  str(bs), "--device", "cuda"])
+    finally:
+        pretrain.make_stream_step = real_step
+        XFMForPretrain.loss = real_loss
+    rec["loader_batches"] = native.DECODED["batches"] - before
+    return rec
+
+
+def input_phase(pt_throughput: dict, streams_prof: dict) -> dict:
+    """Phase 25: the toolchain and the header probe, the loader's build;
+    the host rates (`host_rates`); device RandAugment card vs CPU and its
+    time (`device_randaug_check`); the task through the loader, off and
+    with `device_randaug`, where the loader builds; `profile_step
+    pretrain_randaug` beside phase 19's `pretrain_streams`
+    (`streams_prof`, the same step without the RandAugment)."""
+    import tempfile
+
+    from xfm_tpu_torch import native, profile_step
+
+    smi = nvidia_smi_line()
+    gxx = shutil.which("g++")
+    version = (subprocess.run([gxx, "--version"], capture_output=True,
+                              text=True).stdout.splitlines()[0]
+               if gxx else "g++ not found")
+    t0 = time.perf_counter()
+    reason = native.unavailable_reason()
+    print(f"  host: {os.cpu_count()} CPUs; {version}; card {smi}")
+    if reason is None:
+        print(f"  header probe: jpeglib.h and png.h found; loader "
+              f"{native.library_path()} ready in "
+              f"{time.perf_counter() - t0:.1f} s")
+    else:
+        print(f"  native_loader: unavailable ({reason})")
+    out = {"native_loader": reason or "built"}
+    t0 = time.perf_counter()
+    r = np.random.RandomState(25)
+    blobs = _jpeg_blobs(r, 64)
+    rates = host_rates(blobs)
+    print(f"  host rates ({os.cpu_count()} CPUs, {smi}; "
+          f"{time.perf_counter() - t0:.1f} s): " + json.dumps(rates))
+    out["host_rates"] = rates
+    t0 = time.perf_counter()
+    aug = device_randaug_check()
+    print(f"  device RandAugment [96, 224, 224, 3] ({smi}; "
+          f"{time.perf_counter() - t0:.1f} s): " + json.dumps(aug))
+    out["device_randaug"] = aug
+    if reason is None:
+        depth = 12
+        want = dict(packed_attention_fwd=3 * depth,
+                    packed_attention_bwd=3 * depth)
+        for on in (False, True):
+            root = tempfile.mkdtemp(prefix="xfm_in_")
+            try:
+                rec = input_task_runs(root, device_randaug=on)
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+            for i, st in enumerate(rec["steps"]):
+                got = {k: v for k, v in st["launches"].items() if v}
+                if got != want or not all(math.isfinite(v) for v in
+                                          st["losses"].values()):
+                    raise AssertionError(f"device_randaug {on} step {i}: "
+                                         f"{got} {st['losses']}")
+            if (rec["loader_batches"] <= 0
+                    or rec["fed"].get("image") != "torch.uint8"
+                    or rec["fed"].get("imagenet") != "torch.uint8"):
+                raise AssertionError(f"the loader's batches: "
+                                     f"{rec['loader_batches']} {rec['fed']}")
+            tp = {k: rec["result"].get(k) for k in (
+                "samples_per_sec", "device_samples_per_sec")}
+            print(f"  task device_randaug={on}: loader batches "
+                  f"{rec['loader_batches']}, fed {json.dumps(rec['fed'])}, "
+                  f"step s {[round(x['s'], 4) for x in rec['steps']]}, "
+                  f"{json.dumps(tp)} ({os.cpu_count()} CPUs, {smi})")
+            out[f"task_device_randaug_{on}"] = tp
+    else:
+        print("  task through the loader skipped (no loader); phase 19's "
+              "run of the same keys decoded with PIL: "
+              + json.dumps(pt_throughput))
+    t0 = time.perf_counter()
+    prof = profile_step.profile_pretrain_streams(
+        os.path.join(REPO, "build", "xfm_tpu_torch",
+                     "profile_pretrain_randaug.json"),
+        **profile_step.STREAM_UNITS["pretrain_randaug"])
+    prof.pop("top")
+    want = {k: 0 for k in prof["launches_per_step"]}
+    want.update(packed_attention_fwd=36, packed_attention_bwd=36)
+    if (prof["launches_per_step"] != want
+            or prof["max_memory_allocated"] >= 80e9
+            or not all(math.isfinite(v) for v in prof["losses"].values())):
+        raise AssertionError("pretrain_randaug: launches, peak memory or "
+                             "losses")
+    keys = ("device_busy_ms", "idle_share", "device_span_ms", "host_ms",
+            "randaug_busy_ms", "randaug_share", "max_memory_allocated",
+            "mfu_busy")
+    for unit, p in (("pretrain_randaug", prof),
+                    ("pretrain_streams", streams_prof)):
+        out[unit] = {k: p[k] for k in keys if k in p}
+        print(f"  {unit} ({smi}): " + json.dumps(out[unit]))
+    print(f"  profile {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 PHASE_T = []  # when each phase began (time.perf_counter)
 
 
@@ -5200,6 +5531,10 @@ def main() -> int:
     phase("phase 24: the pretrain task's optional branches: the VQ-KD "
           "tokenizer, region attention, the shared table, bf16 parameters")
     qprof = vqkd_phase()
+    phase("phase 25: the pretrain task's input path: the C++ loader, uint8 "
+          "batches, device RandAugment")
+    inp = input_phase(pt["throughput"], prof)
+    print("  input path: " + json.dumps(inp["native_loader"]))
 
     entries = (kernel_entries("packed_attention",
                               "xfm_tpu/ops/flash_attention.py", 983, 1007,
@@ -5238,7 +5573,7 @@ def main() -> int:
                                      qprof["pretrain_vqkd"]))
     ends = PHASE_T[1:] + [time.perf_counter()]
     by_phase = [round(b - a, 1) for a, b in zip(PHASE_T, ends)]
-    print(f"chip_smoke: 24 phases in {ends[-1] - t_start:.1f} s; seconds "
+    print(f"chip_smoke: 25 phases in {ends[-1] - t_start:.1f} s; seconds "
           f"by phase {json.dumps(by_phase)}")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -1356,3 +1356,101 @@ def test_tokenizer_and_bf16_units_launch_k1_only(unit, k1):
     if unit == "pretrain_bf16":
         assert {p.dtype for p in state.model.parameters()} == {
             torch.bfloat16}
+
+
+def _aug_batch(B, S=224, seed=0):
+    """Seeded uint8 photo-like images [B, S, S, 3]: a colour, a wave and
+    noise, so that every op moves pixels."""
+    r = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:S, 0:S]
+    out = np.empty((B, S, S, 3), np.uint8)
+    for b in range(B):
+        wave = np.sin(xx * r.uniform(0.02, 0.1) + yy * r.uniform(0.02, 0.1))
+        out[b] = np.clip(r.randint(0, 256, 3) + 60 * wave[..., None]
+                         * r.uniform(-1, 1, 3) + r.normal(0, 10, (S, S, 3)),
+                         0, 255)
+    return torch.from_numpy(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["AutoContrast", "Equalize", "Brightness",
+                                  "Sharpness", "ShearX", "ShearY",
+                                  "TranslateX", "TranslateY", "Rotate"])
+def test_randaugment_ops_on_the_card_match_cpu(name):
+    """Each device RandAugment op on [8, 224, 224, 3] on the card within 1
+    uint8 level of the same op on the CPU, both signs in the batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch.data import device_aug as da
+
+    imgs = _aug_batch(8).float()
+    sign = torch.tensor([1.0, -1.0] * 4)
+
+    def run(dev):
+        out = da.apply_op(name, imgs.to(dev), 7, sign.to(dev))
+        return torch.round(torch.clamp(out, 0, 255)).cpu()
+
+    d = (run("cuda") - run("cpu")).abs()
+    assert d.max() <= 1.0, (name, float(d.max()))
+
+
+@pytest.mark.cuda
+def test_randaugment_batch_on_the_card_matches_cpu():
+    """Two rounds from the same injected draws, card vs CPU, within 1 level
+    a round; `randaugment_batch` from one card generator seed twice gives
+    one output, uint8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch.data import device_aug as da
+
+    imgs = _aug_batch(16, seed=1).float()
+    g = torch.Generator().manual_seed(0)
+    cpu, gpu = imgs, imgs.cuda()
+    for _ in range(2):
+        op, applied, neg = da.randaug_draws(16, 10, g)
+        cpu = da.randaug_round(cpu, op, applied, neg)
+        gpu = da.randaug_round(gpu, op.cuda(), applied.cuda(), neg.cuda())
+        assert (gpu.cpu() - cpu).abs().max() <= 1.0
+        cpu = gpu.cpu()
+    u8 = imgs.to(torch.uint8).cuda()
+    a = da.randaugment_batch(u8, torch.Generator("cuda").manual_seed(3))
+    b = da.randaugment_batch(u8, torch.Generator("cuda").manual_seed(3))
+    assert a.dtype == torch.uint8 and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_randaug_unit_launches_k1_only_on_uint8_batches():
+    """`pretrain_randaug`: the image-text and ImageNet streams' images
+    uint8 on the card and augmented there, K1 36 + 36 a step and nothing
+    else, finite losses."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch import configs, profile_step
+    from xfm_tpu_torch.ops import kernels
+
+    state, batches, step, gens = configs.make_pretrain_streams_run(
+        **profile_step.STREAM_UNITS["pretrain_randaug"])
+    assert {n: batches[n]["images"].dtype for n in ("image", "imagenet")} \
+        == {"image": torch.uint8, "imagenet": torch.uint8}
+    kernels.reset_launch_counts()
+    state, metrics = step(state, batches, gens(0))
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == dict(
+        {k: 0 for k in kernels.LAUNCHES}, packed_attention_fwd=36,
+        packed_attention_bwd=36)
+    assert all(torch.isfinite(v) for v in metrics.values() if v.dim() == 0)
+
+
+@pytest.mark.cuda
+def test_uint8_batches_reach_the_card_as_uint8():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch.data.prefetch import DeviceBatches
+
+    host = [dict(images=_aug_batch(4, S=32, seed=i).numpy()) for i in range(3)]
+    batches = DeviceBatches(iter(host), "cuda")
+    got = [b["images"] for b in batches]
+    batches.close()
+    assert all(t.is_cuda and t.dtype == torch.uint8 for t in got)
+    for g, h in zip(got, host):
+        np.testing.assert_array_equal(g.cpu().numpy(), h["images"])

@@ -234,11 +234,164 @@ def test_io_helpers(tmp_path):
         ShardedLineReader(str(tmp_path / "missing*.jsonl"))
 
 
-def test_device_randaug_raises(corpus):
+@pytest.fixture
+def native_loader():
+    from xfm_tpu_torch import native
+
+    if not native.available():
+        pytest.skip(f"native loader unavailable "
+                    f"({native.unavailable_reason()})")
+
+
+def _jpeg_b64(rng, h, w, quality=90):
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:h, 0:w]
+    arr = (rng.integers(0, 256, 3) + 60 * np.sin(xx / rng.uniform(3, 9)
+                                                 + yy / rng.uniform(3, 9))
+           [..., None] + rng.normal(0, 20, (h, w, 3)))
+    buf = io.BytesIO()
+    Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+        buf, "JPEG", quality=quality)
+    return buf.getvalue()
+
+
+def _cut_before_scan(blob: bytes) -> bytes:
+    """A JPEG cut just before its scan: the header (and its size) reads,
+    the full decode fails."""
+    return blob[:blob.index(b"\xff\xda")]
+
+
+def write_jpeg_corpus(root, n=12, seed=0):
+    """Image-text and ImageNet shards of JPEGs (40-200 px, so that some
+    crops decode at 1/2 or 1/4 scale at 32 px), one PNG, a slot whose
+    header reads but whose body does not (position 5) and a blob that is
+    no image (position 9) → {"pairs": path, "imagenet": path}."""
+    rng = np.random.default_rng(seed)
+    paths = {}
+    for kind in ("pairs", "imagenet"):
+        rows = []
+        for i in range(n):
+            h, w = (int(v) for v in rng.integers(40, 201, 2))
+            blob = _jpeg_b64(rng, h, w)
+            if i == 5:
+                blob = _cut_before_scan(blob)
+            elif i == 9:
+                blob = b"no image here" * 20
+            b64 = (base64.b64decode(_png_b64(rng, 36, 44)) if i == 3
+                   else blob)
+            row = {"binary": base64.b64encode(b64).decode()}
+            if kind == "pairs":
+                row["desc"] = " ".join(rng.choice(WORDS, 5))
+            rows.append(row)
+        paths[kind] = os.path.join(root, f"{kind}.jsonl")
+        with open(paths[kind], "w") as f:
+            for row in rows:
+                f.write(json.dumps(row) + "\n")
+    return paths
+
+
+def _native_streams(cfg, tok, jax_side: bool, **block):
+    """The image-text and ImageNet streams at the YAML's `num_workers: 4`
+    (the C++ loader), `block` set on both stream blocks."""
+    if jax_side:
+        from xfm_tpu.data import pretrain_data as pd
+        from xfm_tpu.data.transforms import TrainTransform as T
+    else:
+        import xfm_tpu_torch.data.pretrain_data as pd
+        T = TrainTransform
+    res = cfg["image_res"]
+    cfg = dict(cfg, images=dict(cfg["images"], num_workers=4, **block),
+               images_imagenet=dict(cfg["images_imagenet"], num_workers=4,
+                                    **block))
+    return {
+        "image": pd.ImageTextStream(cfg["train_file"], cfg, tok,
+                                    T(res, scale=(0.2, 1.0), seed=5)),
+        "imagenet": pd.ImageStream(cfg["train_file_imagenet"], cfg,
+                                   T(res, scale=(0.2, 1.0), seed=6)),
+    }
+
+
+def _assert_batches_equal(ours, theirs, n, tag):
+    for i in range(n):
+        a, b = next(ours), next(theirs)
+        assert sorted(a) == sorted(b), (tag, i)
+        for k in a:
+            assert a[k].dtype == np.asarray(b[k]).dtype, (tag, i, k)
+            np.testing.assert_array_equal(a[k], np.asarray(b[k]),
+                                          err_msg=f"{tag} batch {i} {k}")
+        assert a["images"].dtype == np.uint8
+
+
+@pytest.mark.parametrize("device_randaug", [False, True])
+@pytest.mark.parametrize("name", ["image", "imagenet"])
+def test_native_stream_batches_equal_jax(tmp_path, native_loader, name,
+                                         device_randaug):
+    """At the YAML's `num_workers` both packages decode through their C++
+    loaders: uint8 batches bit-equal over JPEGs (DCT-scaled among them), a
+    PNG, a body that fails past its header and a blob that is no image,
+    with C++ RandAugment, or none under `device_randaug` (then
+    `device_randaug_active` on both sides)."""
+    files = write_jpeg_corpus(str(tmp_path))
+    cfg, tok = stream_config({"pairs": [files["pairs"]], "regions": [],
+                              "imagenet": [files["imagenet"]],
+                              "texts": []}), SimpleTokenizer.from_texts(WORDS)
+    ours = _native_streams(cfg, tok, False,
+                           device_randaug=device_randaug)[name]
+    theirs = _native_streams(cfg, tok, True,
+                             device_randaug=device_randaug)[name]
+    assert ours.native_batch is not None and theirs.native_batch is not None
+    assert ours.device_randaug_active == theirs.device_randaug_active \
+        == device_randaug
+    _assert_batches_equal(iter(ours), iter(theirs), 4, name)
+
+
+def test_native_stream_substitutes_the_broken_pair(tmp_path, native_loader):
+    """A slot whose header reads but whose body does not decode takes a
+    good slot's pixels and its caption too (the pair repeated, never
+    mismatched), as in the JAX package; the undecodable blob is skipped at
+    admission."""
+    files = write_jpeg_corpus(str(tmp_path))
+    cfg = stream_config({"pairs": [files["pairs"]], "regions": [],
+                         "imagenet": [files["imagenet"]], "texts": []})
+    tok = SimpleTokenizer.from_texts(WORDS)
+    cfg["images"]["batch_size"] = 11  # the 11 admitted rows of one pass
+    # un-augmented, so that the substituted pixels show as they are
+    stream = _native_streams(cfg, tok, False, device_randaug=True)["image"]
+    stream.reader.shuffle = False
+    batch = next(iter(stream))
+    theirs = _native_streams(cfg, tok, True, device_randaug=True)["image"]
+    theirs.reader.shuffle = False
+    _assert_batches_equal(iter([batch]), iter(theirs), 1, "image")
+    # row 5 (the broken body) holds row 0's pixels and caption
+    np.testing.assert_array_equal(batch["images"][5], batch["images"][0])
+    np.testing.assert_array_equal(batch["text_ids"][5], batch["text_ids"][0])
+
+
+def test_native_pil_randaug_equals_jax(tmp_path, native_loader, monkeypatch):
+    """XFM_NATIVE_RANDAUG=0: the loader's batches augmented by PIL on the
+    thread pool, bit-equal to the JAX package's."""
+    monkeypatch.setenv("XFM_NATIVE_RANDAUG", "0")
+    files = write_jpeg_corpus(str(tmp_path))
+    cfg = stream_config({"pairs": [files["pairs"]], "regions": [],
+                         "imagenet": [files["imagenet"]], "texts": []})
+    tok = SimpleTokenizer.from_texts(WORDS)
+    _assert_batches_equal(iter(_native_streams(cfg, tok, False)["image"]),
+                          iter(_native_streams(cfg, tok, True)["image"]), 2,
+                          "image")
+
+
+def test_region_stream_ignores_device_randaug(corpus):
+    """The region stream decodes with PIL whatever its block says, and
+    `device_randaug` changes nothing there, as in the JAX package."""
     cfg, tok = corpus
-    cfg = dict(cfg, images=dict(cfg["images"], device_randaug=True))
-    with pytest.raises(NotImplementedError):
-        ImageTextStream(cfg["train_file"], cfg, tok, TrainTransform(32))
+    on = dict(cfg, regions=dict(cfg["regions"], num_workers=2,
+                                device_randaug=True))
+    a = next(iter(RegionTextStream(cfg["train_file_regions"], cfg, tok)))
+    b = next(iter(RegionTextStream(on["train_file_regions"], on, tok)))
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert b["images"].dtype == np.float32
 
 
 def test_streams_run_past_what_they_cannot_read(corpus):

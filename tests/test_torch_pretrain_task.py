@@ -298,23 +298,73 @@ TINY_TOKENIZER = dict(tokenizer_embed_dim=32, tokenizer_depth=1,
     ("bf16_params", True), ("device_randaug", True),
     ("bench_redispatch", 4)])
 def test_unported_keys_raise(tmp_path, key, value):
-    """The one key whose branch the port lacks (`device_randaug`) raises
-    NotImplementedError before any step, never running as something else;
-    the keys of the branches ported since (the tokenizer, region
-    attention, bf16 parameters, the redispatch probe) now run a step to
-    finite losses."""
+    """The keys of the branches the port once refused (the tokenizer,
+    region attention, bf16 parameters, device RandAugment on the image
+    block, the redispatch probe) each run a step to finite losses."""
     files = write_corpus(str(tmp_path / "data"), n=4)
     cfg = _task_config(files)
     if key == "device_randaug":
         cfg["images"][key] = value
-        with pytest.raises(NotImplementedError):
-            _run(tmp_path, cfg, "out")
-        return
+        key, value = "max_steps", 1
     cfg.update({key: value, "max_steps": 1, "ckpt_frequent_step": 1})
     if key == "use_vision_tokenizer":
         cfg.update(TINY_TOKENIZER)
     stats = _run(tmp_path, cfg, "out")
     assert np.isfinite(stats["loss"])
+
+
+@pytest.mark.parametrize("device_randaug", [False, True])
+def test_task_feeds_the_loader_batches(tmp_path, monkeypatch,
+                                       device_randaug):
+    """At the YAML's `num_workers` the image-text and ImageNet streams
+    hand uint8 images to the model; with `device_randaug` on both blocks
+    the task runs RandAugment on them before the loss, stream i drawing
+    from (seed, step, RANDAUG_KEY + i), so that another step or seed draws
+    anew; without it the C++ RandAugment ran on the host and the task
+    runs none."""
+    from xfm_tpu_torch import native
+
+    if not native.available():
+        pytest.skip(f"native loader unavailable "
+                    f"({native.unavailable_reason()})")
+    files = write_corpus(str(tmp_path / "data"), n=6)
+    cfg = _task_config(files, max_steps=2, ckpt_frequent_step=2)
+    cfg["images_imagenet"]["num_workers"] = 4
+    for block in ("images", "images_imagenet"):
+        cfg[block]["device_randaug"] = device_randaug
+    seen, fed = [], {}
+    real_aug, real_loss = pretrain.randaugment_batch, XFMForPretrain.loss
+
+    def spy_aug(images, gen):
+        out = real_aug(images, gen)
+        seen.append((images.dtype, tuple(images.shape), gen.initial_seed(),
+                     bool(torch.equal(out, images))))
+        return out
+
+    def spy_loss(self, images=None, **kw):
+        if images is not None:
+            fed.setdefault(kw.get("data_source"), images.dtype)
+        return real_loss(self, images=images, **kw)
+
+    monkeypatch.setattr(pretrain, "randaugment_batch", spy_aug)
+    monkeypatch.setattr(XFMForPretrain, "loss", spy_loss)
+    stats = _run(tmp_path, cfg, "out", seed=3)
+    assert np.isfinite(stats["loss"])
+    assert fed == {"image": torch.uint8, "imagenet": torch.uint8,
+                   "region": torch.float32}
+    if not device_randaug:
+        assert seen == []
+        return
+    order = sorted(["image", "imagenet", "region", "text"])
+    from xfm_tpu_torch.tasks.common import TaskContext, step_generator
+
+    ctx = TaskContext(config=cfg, out_dir="", device="cpu", seed=3)
+    want = [step_generator(ctx, step, pretrain.RANDAUG_KEY
+                           + order.index(n)).initial_seed()
+            for step in range(2) for n in ("image", "imagenet")]
+    assert [s[2] for s in seen] == want and len(set(want)) == 4
+    assert all(s[0] == torch.uint8 and s[1] == (4, 32, 32, 3) for s in seen)
+    assert not all(s[3] for s in seen)  # some image changed
 
 
 def test_stream_step_equals_one_summed_backward():

@@ -167,6 +167,22 @@ def test_device_batches_equal_the_host_batches():
             assert np.array_equal(g[k].numpy(), h[k]), k
 
 
+def test_device_batches_keep_uint8_images():
+    """The C++ loader's uint8 images cross as uint8 (the model normalizes
+    them on the device), other integers as int64."""
+    r = np.random.RandomState(1)
+    host = [dict(images=r.randint(0, 256, (2, 8, 8, 3)).astype(np.uint8),
+                 image_mask=r.rand(2, 4) < 0.5,
+                 text_ids=r.randint(0, 9, (2, 5)).astype(np.int32))]
+    batches = prefetch.DeviceBatches(iter(host), "cpu")
+    (got,) = list(batches)
+    batches.close()
+    assert got["images"].dtype == torch.uint8
+    assert got["image_mask"].dtype == torch.bool
+    assert got["text_ids"].dtype == torch.int64
+    np.testing.assert_array_equal(got["images"].numpy(), host[0]["images"])
+
+
 def test_prefetchers_under_thread_switching_keep_their_order():
     """More consumer threads than cores, each draining its own Prefetcher
     with a tiny queue, at a shortened switch interval: every stream comes

@@ -509,8 +509,14 @@ PRETRAIN_VQKD_KEYS = {
     "codebook_size": 8192, "codebook_dim": 32, "local_attn_depth": 3}
 
 
+# the streams whose images the shipped YAML decodes through the C++ loader
+# (`num_workers`) and, under `device_randaug`, augments on the card
+RANDAUG_STREAMS = ("image", "imagenet")
+
+
 def make_pretrain_streams_run(device="cuda", seed: int = 0,
-                              steps_per_epoch: int = 1000, **keys):
+                              steps_per_epoch: int = 1000,
+                              device_randaug: bool = False, **keys):
     """The step of `run.py --task pretrain_DIY` on
     `Pretrain_base_4m.yaml` (`keys` set on top): XFM-base from the YAML
     (BEiT-2 at 224 px, tanh-GELU, drop-path 0.1, text dropout 0.1, bf16
@@ -520,14 +526,23 @@ def make_pretrain_streams_run(device="cuda", seed: int = 0,
     live; with `use_vision_tokenizer` the frozen tokenizer's code ids as
     MIM's targets (`tasks.pretrain.frozen_tokenizer`), with
     `bf16_params` bf16 parameters and f32 masters
-    (`tasks.common.maybe_bf16_params`). → (state, batches, step,
-    generators) with step(state, batches, generators) -> (state, metrics)
-    and generators(i) the streams' generators of step i."""
+    (`tasks.common.maybe_bf16_params`); with `device_randaug` the image
+    and ImageNet streams' images seeded uint8, as the loader hands them
+    over, and each step first runs RandAugment on them on the device
+    (`tasks.pretrain.device_randaugment`, their generators under
+    ("randaug", name)). → (state, batches, step, generators) with
+    step(state, batches, generators) -> (state, metrics) and
+    generators(i) the streams' generators of step i."""
     from .tasks.common import TaskContext, maybe_bf16_params
-    from .tasks.pretrain import frozen_tokenizer, stream_flags, stream_loss_fn
+    from .tasks.pretrain import (RANDAUG_KEY, device_randaugment,
+                                 frozen_tokenizer, stream_flags,
+                                 stream_loss_fn)
     from .train.train_state import make_stream_step
 
     cfg = pretrain_yaml(**keys)
+    if device_randaug:
+        for block in ("images", "images_imagenet"):
+            cfg[block] = dict(cfg[block], device_randaug=True)
     mcfg = config_from_yaml(cfg, use_contrastive_loss=True,
                             use_matching_loss=True, use_mlm_loss=True,
                             use_bbox_loss=True)
@@ -543,17 +558,34 @@ def make_pretrain_streams_run(device="cuda", seed: int = 0,
         _, code_ids_fn = frozen_tokenizer(cfg, device)
     nb = make_stream_batches(stream_batch_sizes(cfg), mcfg.vision.image_res,
                              mcfg.text.vocab_size, seed=seed)
+    if device_randaug:
+        r = np.random.RandomState(seed + 1)
+        for name in RANDAUG_STREAMS:
+            nb[name]["images"] = r.randint(
+                0, 256, nb[name]["images"].shape).astype(np.uint8)
     batches = {k: batch_to_torch(v, device) for k, v in nb.items()}
     order = sorted(batches)
     loss_fn = stream_loss_fn({n: stream_flags(n, 0, cfg) for n in order},
                              {n: cfg.get(f"w{n}", 1.0) for n in order},
                              code_ids_fn=code_ids_fn)
+    step = make_stream_step(loss_fn)
+    augmented = RANDAUG_STREAMS if device_randaug else ()
 
     def generators(i):
-        return {n: torch.Generator(device=device).manual_seed(
+        gens = {n: torch.Generator(device=device).manual_seed(
             seed * 1000 + 10 * i + j) for j, n in enumerate(order)}
+        gens.update({("randaug", n): torch.Generator(
+            device=device).manual_seed(seed * 1000 + 10 * i + RANDAUG_KEY
+                                       + order.index(n))
+            for n in augmented})
+        return gens
 
-    return state, batches, make_stream_step(loss_fn), generators
+    def stream_step(state, batches, gens):
+        batches = device_randaugment(batches, {
+            n: gens[("randaug", n)] for n in augmented if n in batches})
+        return step(state, batches, gens)
+
+    return state, batches, stream_step if augmented else step, generators
 
 
 def pretrain_streams_flops(cfg: dict, hidden=768, inter=3072, layers=12,

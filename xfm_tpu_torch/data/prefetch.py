@@ -69,12 +69,14 @@ class Prefetcher:
 
 
 def _host_tensors(batch: dict, pin: bool) -> dict:
-    """A numpy batch → CPU tensors (integers as int64), pinned if `pin`."""
+    """A numpy batch → CPU tensors (integers as int64 but uint8, the
+    loader's images, which the model normalizes on the device), pinned if
+    `pin`."""
     out = {}
     for k, v in batch.items():
         a = np.ascontiguousarray(v)
-        t = torch.from_numpy(a.astype(np.int64) if a.dtype.kind in "iu"
-                             else a)
+        wide = a.dtype.kind in "iu" and a.dtype != np.uint8
+        t = torch.from_numpy(a.astype(np.int64) if wide else a)
         out[k] = t.pin_memory() if pin else t
     return out
 

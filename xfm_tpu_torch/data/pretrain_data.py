@@ -13,12 +13,24 @@ Each stream owns one numpy generator (seeded from seed + rank, + 1, 2, 3
 by kind, as in the JAX package) that every draw of its text masking,
 block masking, caption choice and region crop comes from; images go
 through the transform given (its own generator). A sample that fails to
-decode or encode is skipped. Decoding runs in Python (PIL) on the calling
-thread: the `num_workers` of a stream block, which selects the JAX
-package's C++ loader, is ignored here, and `device_randaug` raises.
+decode or encode is skipped.
+
+Where a stream block sets `num_workers` > 0, the image-text and ImageNet
+streams decode a batch at a time through the C++ loader
+(`transforms.NativeBatchTransform` on `num_workers` threads; the header
+probe admits a sample, a body that then fails to decode is replaced by a
+good slot of the batch, its caption with it) and yield uint8 images,
+which the model normalizes on the device; with the block's
+`device_randaug` they leave un-augmented (`device_randaug_active`) and
+the task runs RandAugment on the device. Without workers, with
+XFM_NATIVE_LOADER=0 or where the loader is unavailable, they decode with
+PIL on the calling thread and yield normalized float32, as the JAX
+package does. The region stream decodes with PIL whatever its block says
+and ignores `device_randaug`, as in the JAX package.
 """
 from __future__ import annotations
 
+import base64
 import copy
 import math
 from typing import Iterator, Optional
@@ -130,14 +142,48 @@ def _block_masker(config: dict, rng) -> BlockMaskingGenerator:
                                  config.get("min_num_patches", 16), rng=rng)
 
 
-def _no_device_randaug(sub: dict, key: str) -> None:
-    if sub.get("device_randaug", False):
-        raise NotImplementedError(
-            f"{key}.device_randaug: RandAugment on the device is not "
-            "ported; the stream augments on the host")
+def _native_batch(sub: dict, transform):
+    """The C++ loader's batch transform of a stream block with
+    `num_workers` > 0 and a TrainTransform-shaped transform, else None."""
+    workers = sub.get("num_workers", 0)
+    if not workers or not hasattr(transform, "randaug"):
+        return None
+    from .transforms import NativeBatchTransform
+
+    return NativeBatchTransform.maybe_build(
+        transform, workers, device_randaug=sub.get("device_randaug", False))
 
 
-class ImageTextStream:
+class _NativeImages:
+    """The loader half of the image-text and ImageNet streams."""
+
+    native_batch = None
+    # whether a sample may hold a list of images, one drawn (image-text)
+    image_lists = True
+
+    @property
+    def device_randaug_active(self) -> bool:
+        """True where the batches leave un-augmented uint8 and the task
+        must run `device_aug.randaugment_batch` on them."""
+        return bool(self.native_batch is not None
+                    and self.native_batch.device_randaug)
+
+    def _blob(self, ann) -> bytes:
+        """The encoded image of a sample: the file at its path, or its
+        (base64) bytes, one of a list drawn where `image_lists`."""
+        v = ann[self.image_key]
+        if self.is_image_rpath:
+            with open(v, "rb") as f:
+                return f.read()
+        if isinstance(v, list) and not self.image_lists:
+            raise ValueError("a list of images")
+        v = _maybe_b64(v, self.rng)
+        if isinstance(v, str):
+            return base64.b64decode(v)
+        return bytes(v)
+
+
+class ImageTextStream(_NativeImages):
     """→ batches {images, text_ids, text_atts, text_ids_masked, masked_pos,
     masked_ids, image_mask}."""
 
@@ -146,7 +192,6 @@ class ImageTextStream:
                  batch_size: Optional[int] = None, seed=0,
                  with_image_mask=True, is_aux=False):
         sub = config.get(config_key, {}) or {}
-        _no_device_randaug(sub, config_key)
         self.reader = ShardedLineReader(files, rank, world_size, seed=seed)
         self.image_key = sub.get("image_key", "binary")
         self.is_image_rpath = sub.get("is_image_rpath", False)
@@ -160,6 +205,41 @@ class ImageTextStream:
         self.prep = _text_prep(tokenizer, config, self.rng)
         self.with_image_mask = with_image_mask
         self.block_masker = _block_masker(config, self.rng)
+        self.native_batch = _native_batch(sub, transform)
+
+    def _iter_native(self) -> Iterator[dict]:
+        nbt = self.native_batch
+        blobs, dims, caps = [], [], []
+        for ann in self.reader.iter_json():
+            try:
+                caption = _get_caption(ann[self.caption_key], self.rng,
+                                       self.language)
+                blob = self._blob(ann)
+                d = nbt.probe(blob)
+                if d is None:
+                    raise ValueError("undecodable image")
+            except Exception as e:  # a broken sample is skipped
+                if self.print_broken:
+                    print(f"broken sample skipped: {e}", flush=True)
+                continue
+            blobs.append(blob)
+            dims.append(d)
+            caps.append(caption)
+            if len(blobs) == self.batch_size:
+                images, sub = nbt(blobs, dims)
+                if images is not None:
+                    caps = [caps[int(j)] for j in sub]
+                    enc = [self.prep.encode_masked(c) for c in caps]
+                    ids, atts, idsm, mpos, mids = (np.stack(z)
+                                                   for z in zip(*enc))
+                    batch = dict(images=images, text_ids=ids, text_atts=atts,
+                                 text_ids_masked=idsm, masked_pos=mpos,
+                                 masked_ids=mids)
+                    if self.with_image_mask:
+                        batch["image_mask"] = self.block_masker.batch(
+                            self.batch_size)
+                    yield batch
+                blobs, dims, caps = [], [], []
 
     def examples(self) -> Iterator[dict]:
         for ann in self.reader.iter_json():
@@ -179,6 +259,9 @@ class ImageTextStream:
                     print(f"broken sample skipped: {e}", flush=True)
 
     def __iter__(self) -> Iterator[dict]:
+        if self.native_batch is not None:
+            yield from self._iter_native()
+            return
         buf: list[dict] = []
         for ex in self.examples():
             buf.append(ex)
@@ -206,7 +289,6 @@ class RegionTextStream:
     def __init__(self, files, config: dict, tokenizer, rank=0, world_size=1,
                  config_key="regions", seed=0):
         sub = config.get(config_key, {}) or {}
-        _no_device_randaug(sub, config_key)
         self.reader = ShardedLineReader(files, rank, world_size, seed=seed)
         self.image_key = sub.get("image_key", "binary")
         self.is_image_rpath = sub.get("is_image_rpath", False)
@@ -385,22 +467,49 @@ class TextStream:
                 buf = []
 
 
-class ImageStream:
+class ImageStream(_NativeImages):
     """Image-only batches {images, image_mask} (the ImageNet MIM
     source)."""
+
+    image_lists = False
 
     def __init__(self, files, config: dict, transform, rank=0, world_size=1,
                  config_key="images_imagenet", seed=0):
         sub = config.get(config_key, {}) or {}
-        _no_device_randaug(sub, config_key)
         self.reader = ShardedLineReader(files, rank, world_size, seed=seed)
         self.image_key = sub.get("image_key", "binary")
+        self.is_image_rpath = sub.get("is_image_rpath", False)
         self.batch_size = sub.get("batch_size", 32)
         self.transform = transform
         self.rng = np.random.default_rng(seed + rank + 2)
         self.block_masker = _block_masker(config, self.rng)
+        self.native_batch = _native_batch(sub, transform)
+
+    def _iter_native(self) -> Iterator[dict]:
+        nbt = self.native_batch
+        blobs, dims = [], []
+        for ann in self.reader.iter_json():
+            try:
+                blob = self._blob(ann)
+                d = nbt.probe(blob)
+                if d is None:
+                    raise ValueError("undecodable image")
+            except Exception:
+                continue
+            blobs.append(blob)
+            dims.append(d)
+            if len(blobs) == self.batch_size:
+                images, _ = nbt(blobs, dims)
+                if images is not None:
+                    yield dict(images=images,
+                               image_mask=self.block_masker.batch(
+                                   self.batch_size))
+                blobs, dims = [], []
 
     def __iter__(self) -> Iterator[dict]:
+        if self.native_batch is not None:
+            yield from self._iter_native()
+            return
         buf = []
         for ann in self.reader.iter_json():
             try:

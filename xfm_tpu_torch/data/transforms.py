@@ -1,8 +1,9 @@
 """Host image transforms (`xfm_tpu/data/transforms.py` `decode_image`,
 `normalize`, `crop_box`, `random_resized_crop`, `TrainTransform`,
-`TestTransform`), and grounding's box-aware `BoxTrainTransform`: NHWC
-float32 arrays. PIL is imported inside the functions that decode or
-resize."""
+`NativeBatchTransform`, `TestTransform`), and grounding's box-aware
+`BoxTrainTransform`: NHWC float32 arrays, or uint8 batches from the C++
+loader (`NativeBatchTransform`). PIL is imported inside the functions
+that decode or resize."""
 from __future__ import annotations
 
 import base64
@@ -111,6 +112,97 @@ class TrainTransform:
         if self.randaug is not None:
             img = self.randaug(img)
         return normalize(np.asarray(img, np.uint8))
+
+
+class NativeBatchTransform:
+    """A `TrainTransform` over encoded blobs, a batch at a time, through
+    the C++ loader (`xfm_tpu_torch.native`): the crops (`crop_box`) and
+    flips drawn from the transform's generator, decode + crop + bilinear
+    resize + flip on `workers` threads, then the batch's RandAugment plans
+    (`RandomAugment.plan`, the same generator) applied by the C++ ops, or
+    by PIL on a thread pool under XFM_NATIVE_RANDAUG=0. Emits uint8
+    [B, S, S, 3]: the model normalizes on the device
+    (`device_aug.maybe_normalize`). With `device_randaug` the plans are
+    not drawn and the batch leaves un-augmented, for
+    `device_aug.randaugment_batch` on the device. The pixels differ from
+    `TrainTransform`'s by the resize filter (bilinear, PIL's bicubic)."""
+
+    def __init__(self, train_transform: TrainTransform, workers: int = 8,
+                 device_randaug: bool = False):
+        from .. import native
+
+        self.native = native
+        self.transform = train_transform
+        self.randaug = train_transform.randaug
+        self.workers = max(1, workers)
+        self.pool = None
+        self.device_randaug = bool(device_randaug
+                                   and self.randaug is not None)
+
+    @classmethod
+    def maybe_build(cls, train_transform, workers: int,
+                    device_randaug: bool = False):
+        """→ an instance, or None where `workers` <= 0,
+        XFM_NATIVE_LOADER=0 or the loader is unavailable."""
+        import os
+
+        from .. import native
+
+        if workers <= 0 or os.environ.get("XFM_NATIVE_LOADER", "1") == "0":
+            return None
+        if not native.available():
+            return None
+        return cls(train_transform, workers, device_randaug=device_randaug)
+
+    def probe(self, blob: bytes):
+        """(w, h) from the header, or None where the blob does not
+        decode: the stream skips it at admission."""
+        return self.native.image_dims(blob, fast=True)
+
+    def __call__(self, blobs: list, dims: list):
+        """→ (uint8 images, sub), or (None, None) when no blob of the batch
+        decodes. sub[i] is the slot whose pixels slot i holds: a slot whose
+        full decode failed (a body broken past its header) takes the pixels
+        of a good one, the first failed the first good and so on, and a
+        caller with a paired modality takes sub's entries of it too, so
+        that the batch holds a repeated pair, never a mismatched one."""
+        t, n = self.transform, len(blobs)
+        crops = np.asarray(
+            [crop_box(w, h, t.scale, rng=t.rng) for w, h in dims], np.int32)
+        hflips = ((t.rng.random(n) < 0.5).astype(np.int32)
+                  if t.hflip else np.zeros((n,), np.int32))
+        u8, status = self.native.decode_batch(
+            blobs, t.image_res, crops, hflips, threads=self.workers)
+        good = np.flatnonzero(status == 0)
+        if good.size == 0:
+            return None, None
+        sub = np.arange(n)
+        for j, i in enumerate(np.flatnonzero(status != 0)):
+            sub[i] = good[j % good.size]
+            u8[i] = u8[sub[i]]
+        return self._augment(u8), sub
+
+    def _augment(self, u8):
+        import os
+
+        if self.randaug is None or self.device_randaug:
+            return u8
+        plans = [self.randaug.plan(self.transform.rng)
+                 for _ in range(len(u8))]
+        if os.environ.get("XFM_NATIVE_RANDAUG", "1") != "0":
+            self.native.randaugment_batch(u8, plans, self.randaug.M,
+                                          threads=self.workers)
+            return u8
+        if self.pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self.pool = ThreadPoolExecutor(self.workers)
+
+        def one(i):
+            return np.asarray(self.randaug.apply_plan(u8[i], plans[i]),
+                              np.uint8)
+
+        return np.stack(list(self.pool.map(one, range(len(u8)))))
 
 
 class TestTransform:

@@ -6,7 +6,7 @@ on the card.
          retrieval_eval|pretrain_streams|vqa_train|vqa_rank|caption_train|
          caption_beam|caption_scst|caption_pretrain|nlvr_train|
          grounding_train|gradcam|imagenet_train|imagenet_lp|glue_train|
-         pretrain_vqkd|pretrain_bf16]
+         pretrain_vqkd|pretrain_bf16|pretrain_randaug]
         [--trace PATH]
 
 Runs the full-width step of the chosen path as `chip_smoke.py` does
@@ -88,9 +88,15 @@ tokenizer, random weights, whose f32 encoder gives the MIM streams' code
 ids, MIM's cross-entropy over 8,192 codes, region attention in the last 3
 blocks of the region stream; f32 parameters); pretrain_bf16 the step of
 the shipped YAML with `bf16_params` (bf16 parameters, f32 masters in the
-optimizer). Each prints what pretrain_streams prints, and the model FLOPs
-of its step (`configs.pretrain_streams_flops`, the tokenizer's forward
-counted) over its busy time against the card's bf16 peak.
+optimizer); pretrain_randaug the step of the shipped YAML with
+`device_randaug` on the image-text and ImageNet blocks (their images
+uint8, as the C++ loader hands them over, and RandAugment(2, 7) on the
+card before the loss, `tasks.pretrain.device_randaugment`). Each prints
+what pretrain_streams prints, and the model FLOPs of its step
+(`configs.pretrain_streams_flops`, the tokenizer's forward counted) over
+its busy time against the card's bf16 peak; pretrain_randaug also the
+busy time of the RandAugment alone (its own window after the step's) and
+its share of the step's.
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -250,11 +256,13 @@ def profile_pretrain_streams(trace: str, steps: int = STEPS,
     {span, busy, idle share, host ms a step, groups, launches a
     step (K1-K5 counters over the window), and of each stream's step
     taken alone after it its launches, span, busy time and groups; peak
-    bytes; the streams' losses of the window's last step}."""
+    bytes; the streams' losses of the window's last step; under
+    `device_randaug` the RandAugment's busy ms a step and its share}."""
     from . import configs
     from .ops import kernels
 
     state, batches, step, gens = configs.make_pretrain_streams_run(**keys)
+    keys.pop("device_randaug", None)
     flops = configs.pretrain_streams_flops(configs.pretrain_yaml(**keys))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -294,6 +302,13 @@ def profile_pretrain_streams(trace: str, steps: int = STEPS,
                mfu_busy=flops / (busy * 1e-3) / BF16_PEAK_FLOPS,
                losses={k: float(v) for k, v in last.items()
                        if k.startswith(tuple(batches))})
+    aug = [n for n in configs.RANDAUG_STREAMS if ("randaug", n) in gens(0)]
+    if aug:
+        from .tasks.pretrain import device_randaugment
+
+        _, _, aug_busy, _, _ = _window(lambda: device_randaugment(
+            batches, {n: gens(i)[("randaug", n)] for n in aug}), steps)
+        res.update(randaug_busy_ms=aug_busy, randaug_share=aug_busy / busy)
     if trace:
         os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
         prof.export_chrome_trace(trace)
@@ -367,7 +382,8 @@ def _stream_units() -> dict:
     from .configs import PRETRAIN_VQKD_KEYS
 
     return {"pretrain_vqkd": dict(PRETRAIN_VQKD_KEYS),
-            "pretrain_bf16": {"bf16_params": True}}
+            "pretrain_bf16": {"bf16_params": True},
+            "pretrain_randaug": {"device_randaug": True}}
 
 
 # the pretrain task's step with its optional branches: unit → YAML keys

@@ -35,8 +35,15 @@ keeps the parameters bf16 with f32 masters in the optimizer
 (`common.maybe_bf16_params`, after `--checkpoint` and before the resume);
 `bench_redispatch: N` steps N more times on the last batches after the run
 and reports their rate (`redispatch_samples_per_sec`, a `### redispatch`
-line). `device_randaug` is not ported and the streams refuse it with
-NotImplementedError.
+line).
+
+The input path: an image stream whose block sets `num_workers` decodes
+through the C++ loader and hands uint8 images to the card, which
+normalizes them (`data/pretrain_data`); with the block's `device_randaug`
+the loader leaves them un-augmented and each step runs RandAugment(2, 7)
+on them on the card before the loss (and before the frozen tokenizer's
+code ids), stream i drawing from a generator seeded from (`--seed`, step,
+`RANDAUG_KEY` + i) (`device_randaugment`).
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ import time
 
 import torch
 
+from ..data.device_aug import randaugment_batch
 from ..data.prefetch import StreamBatches
 from ..data.pretrain_data import (ImageStream, ImageTextStream,
                                   RegionTextStream, TextStream)
@@ -64,6 +72,9 @@ STREAM_IDS = {"image": 1, "web": 2, "aux": 3, "text": 4, "imagenet": 5,
 # the seed of the frozen tokenizer's initialization where no
 # `tokenizer_weight` is given (the JAX package's PRNGKey(7))
 TOKENIZER_SEED = 7
+# stream i's device RandAugment draws from (seed, step, RANDAUG_KEY + i)
+# (the JAX step folds 1000 + i into its key)
+RANDAUG_KEY = 1000
 
 
 def _transform(cfg: dict, seed: int, name: str) -> TrainTransform:
@@ -154,6 +165,20 @@ def stream_loss_fn(flags: dict, weights: dict,
     return loss_fn
 
 
+def device_randaugment(batches: dict, generators: dict) -> dict:
+    """RandAugment(2, 7) on the device (`device_aug.randaugment_batch`)
+    of the uint8 images of each stream in `generators` ({name: its
+    generator}) → the batches with those images replaced."""
+    out = dict(batches)
+    for name, gen in generators.items():
+        batch = batches.get(name)
+        if (batch is not None and batch.get("images") is not None
+                and batch["images"].dtype == torch.uint8):
+            out[name] = dict(batch, images=randaugment_batch(batch["images"],
+                                                             gen))
+    return out
+
+
 def frozen_tokenizer(cfg: dict, device="cuda"):
     """The YAML's VQ-KD tokenizer (`vqkd_config_from_yaml`), initialized
     on `device` from `TOKENIZER_SEED`, then overlaid with the weights of
@@ -242,6 +267,8 @@ def main(args, tokenizer=None) -> dict:
     if not streams:
         raise ValueError("no pretraining streams configured")
     order = sorted(streams)
+    randaug = [i for i, n in enumerate(order)
+               if getattr(streams[n], "device_randaug_active", False)]
     weights = {s: cfg.get(f"w{s}", 1.0) for s in streams}
     bs_main = (cfg.get("images") or {}).get("batch_size", 32)
     steps_per_epoch = max(1, cfg.get("train_dataset_size", 10000)
@@ -280,6 +307,10 @@ def main(args, tokenizer=None) -> dict:
             t_step = time.perf_counter()
             batches = next(source)
             t_input = time.perf_counter() - t_step
+            if randaug:
+                batches = device_randaugment(batches, {
+                    order[i]: step_generator(ctx, step, RANDAUG_KEY + i)
+                    for i in randaug})
             flags = {n: stream_flags(n, step, cfg) for n in order}
             gens = {n: step_generator(ctx, step, i)
                     for i, n in enumerate(order)}
