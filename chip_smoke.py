@@ -102,8 +102,8 @@ Phases, each of which must pass or the script exits non-zero:
      (BEiT-2, 384 px, 12/12/12 layers), bf16 compute, its weights a seeded
      224 px model saved as a reference checkpoint and loaded through the
      port's loader (the rel-pos tables interpolated from window 14 to 24);
-     a seeded corpus of 256 images and 512 captions (2 each, 8-40
-     tokens), k_test = 256, batch_size_test = 64: stage 1's images/s and
+     a seeded corpus of 256 images and 256 captions (1 each, 8-40
+     tokens; 2 each in PRs 17-18, 5 before), k_test = 256, batch_size_test = 64: stage 1's images/s and
      texts/s, stage 2's ITM rows/s each way, the total seconds, the peak
      memory and R@K; K2 forward 48 and K3 forward 384 launches, nothing
      else; then, where PyYAML and PIL import, `python3 -m
@@ -294,6 +294,29 @@ Phases, each of which must pass or the script exits non-zero:
      `profile_step pretrain_randaug` (uint8 images, RandAugment on the card
      before the loss: K1 36 + 36, the RandAugment's busy ms and share)
      beside phase 19's `pretrain_streams`;
+ 26. the Swin-B and DeiT towers and the BERT text encoder: K3 with no
+     bias at DeiT's shape, q/k/v [32, 577, 12, 64] bf16 as views of the
+     qkv projection: forward and backward (out, dq, dk, dv) bit-equal over
+     two runs and against the plain version within phase 8's gate, the
+     times, the bound and SDPA; the retrieval losses and sampled gradients
+     with Swin-B (window 12, depths cut to 2, 2, 2, 2) + BERT-base at
+     depth 2 and with DeiT-B/16 + RoBERTa-base at depth 2, 384 px, B = 4,
+     f32, on the CPU and on the card (K3 2 + 2 in the DeiT slice, no
+     kernel in the Swin one); the full-width Swin-B + BERT-base retrieval
+     fine-tune step at 384 px, B = 32, T = 40, bf16, dropout and drop-path
+     live, 5 steps on one batch with the same draws (finite losses, the
+     last below the first, no kernel launched, the peak memory), then a
+     seeded Swin-B
+     tower at 224 px, window 7, in the reference's names loaded into it
+     through `load_xfm_checkpoint` (each table interpolated 13² → 23²);
+     the DeiT-B/16 step likewise (K3 12 + 12 a step, nothing else);
+     `run.main` for `--task itr_coco` on `Retrieval_coco.yaml`'s keys with
+     `use_swin: true`, `config_swinB_384.json` and
+     `data/bert-base-uncased` over 16 seeded PNGs (2 steps at `--bs 16`,
+     one epoch; no kernel launched), then `--evaluate --checkpoint` from
+     its own `ckpt/0` (the epoch's R@K); then `profile_step`
+     `swin_retrieval_train` and `deit_retrieval_train` (busy time, idle
+     share, MFU over busy time, the launches as above);
 then a JSON line of the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
@@ -781,13 +804,14 @@ def k3_parity(B, Nq, Nk, H, dtype, bias_kind=None, seed=0) -> dict:
                     f"{str(dtype)[6:]} bias={bias_kind}", pairs, dtype)
 
 
-def k3_times(B, N, H, dtype) -> dict:
-    """Kernel, plain and library times (ms) at one shape, no bias."""
+def k3_times(B, N, H, dtype, inputs=None) -> dict:
+    """Kernel, plain and library times (ms) at one shape, no bias; on
+    `inputs` (q, k, v, dout) where given, else `make_k3_inputs`'."""
     import torch.nn.functional as F
 
     from xfm_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, dout, _ = make_k3_inputs(B, N, N, H, dtype, None, 1)
+    q, k, v, dout = inputs or make_k3_inputs(B, N, N, H, dtype, None, 1)[:4]
     scale = 64 ** -0.5
     out, stats = fa.flash_attention_fwd(q, k, v, None, scale)
     t = {}
@@ -991,7 +1015,7 @@ def eval_slice_parity(clip: bool, n_img=16, per_image=2, k_test=16,
         raise AssertionError(f"eval slice {tower}: K3 launched {k3}")
 
 
-def full_eval(n_img=256, per_image=2, k_test=256, seed=0) -> dict:
+def full_eval(n_img=256, per_image=1, k_test=256, seed=0) -> dict:
     """Phase 17: the full-width eval through `tasks/retrieval.evaluation`,
     its weights loaded from a 224 px reference checkpoint; launch counts
     set to 0 just before the eval and read just after."""
@@ -4784,7 +4808,10 @@ def slice_parity(path: str) -> None:
     the card are checked), "retrieval" (384 px, so K2 on the card) or
     "clip_retrieval" (384 px with the CLIP-ViT tower, so K3 on the card)
     or "clip_retrieval_fused" (the same with K4 and K5 in the text and
-    fusion encoders, their launches checked)."""
+    fusion encoders, their launches checked), "swin_retrieval" (Swin-B,
+    window 12, its stages cut to depths 2, 2, 2, 2, and BERT-base at depth
+    2; no kernel on the card) or "deit_retrieval" (DeiT-B/16 and
+    RoBERTa-base at depth 2; K3 2 + 2 on the card, checked)."""
     from xfm_tpu_torch import configs
     from xfm_tpu_torch.models import XFMForPretrain, XFMForRetrieval
     from xfm_tpu_torch.ops import kernels
@@ -4815,6 +4842,22 @@ def slice_parity(path: str) -> None:
         if path == "retrieval":
             cfg = configs.xfm_base_retrieval_config(layers=2,
                                                     dtype=torch.float32)
+        elif path == "swin_retrieval":
+            cfg = configs.xfm_swin_retrieval_config(
+                depths=(2, 2, 2, 2), layers=2, dtype=torch.float32)
+            vision_sample = [
+                "vision_encoder.layers.0.blocks.1.attn."
+                "relative_position_bias_table",
+                "vision_encoder.layers.2.blocks.0.attn.qkv.weight",
+                "vision_encoder.layers.0.downsample.reduction.weight",
+                "vision_encoder.patch_embed.proj.weight"]
+        elif path == "deit_retrieval":
+            cfg = configs.xfm_deit_retrieval_config(layers=2,
+                                                    dtype=torch.float32)
+            vision_sample = ["vision_encoder.blocks.0.attn.qkv.weight",
+                             "vision_encoder.blocks.1.attn.proj.weight",
+                             "vision_encoder.pos_embed",
+                             "vision_encoder.patch_embed.proj.weight"]
         else:
             fused = path == "clip_retrieval_fused"
             cfg = configs.xfm_clip_retrieval_config(layers=2,
@@ -4852,7 +4895,9 @@ def slice_parity(path: str) -> None:
         results[name] = ({k: v.item() for k, v in out.items()},
                          dict(model.named_parameters()))
     fused_counts = {"pretrain_fused": fused_launches_per_step,
-                    "clip_retrieval_fused": clip_fused_launches_per_step}
+                    "clip_retrieval_fused": clip_fused_launches_per_step,
+                    "swin_retrieval": lambda c: {"flash_attention": (0, 0)},
+                    "deit_retrieval": lambda c: {"flash_attention": (2, 2)}}
     if path in fused_counts:
         for k, (f, b) in fused_counts[path](cfg).items():
             got = (kernels.LAUNCHES[f"{k}_fwd"], kernels.LAUNCHES[f"{k}_bwd"])
@@ -5286,6 +5331,269 @@ def input_phase(pt_throughput: dict, streams_prof: dict) -> dict:
 PHASE_T = []  # when each phase began (time.perf_counter)
 
 
+# --- phase 26: the Swin-B and DeiT towers and the BERT text encoder ---------
+
+def k3_deit_inputs(B, N, H, dtype, seed):
+    """q, k, v as a DeiT block hands them to K3: [B, N, H, 64] views of the
+    qkv projection [B, N, 3·H·64], read in place; dout [B, N, H, 64]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C = H * 64
+    qkv = _device_randn(g, B, N, 3 * C).to(dtype)
+    q, k, v = (t.reshape(B, N, H, 64) for t in qkv.split(C, -1))
+    return q, k, v, _device_randn(g, B, N, H, 64).to(dtype)
+
+
+def k3_deit_check(B=32, N=577, H=12, dtype=torch.bfloat16, seed=60) -> dict:
+    """K3 with no bias at DeiT's shape: the forward and backward twice on
+    the same inputs → the same bits, or raise; (out, dq, dk, dv) against
+    the plain version within TOL (phase 8's gate) → the errors."""
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout = k3_deit_inputs(B, N, H, dtype, seed)
+    scale = 64 ** -0.5
+    runs = []
+    for _ in range(2):
+        out, stats = fa.flash_attention_fwd(q, k, v, None, scale)
+        dq, dk, dv, db = fa.flash_attention_bwd(q, k, v, None, out, stats,
+                                                dout, scale)
+        if db is not None:
+            raise AssertionError("K3 computed a db with no bias")
+        runs.append((out, dq, dk, dv))
+    torch.cuda.synchronize()
+    names = ("out", "dq", "dk", "dv")
+    for name, a, b in zip(names, *runs):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K3 DeiT shape: {name} differs between "
+                                 "two runs")
+    print(f"  K3 B={B} N={N} H={H} no bias: out, dq, dk, dv bit-equal over "
+          "two runs")
+    refs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    ref = fa.flash_attention_reference(*refs, None, scale)
+    ref.backward(dout)
+    torch.cuda.synchronize()
+    return _compare(f"K3 parity (DeiT's views) B={B} N={N} H={H} "
+                    f"{str(dtype)[6:]} no bias",
+                    list(zip(names, runs[0], [ref] + [r.grad for r in refs])),
+                    dtype)
+
+
+def tower_full_width(kind: str, steps: int = 5) -> dict:
+    """The full-width retrieval fine-tune step of `kind` ("swin": Swin-B,
+    window 12, + BERT-base; "deit": DeiT-B/16 + RoBERTa-base) at 384 px,
+    B = 32, T = 40, bf16, dropout and drop-path live, the YAML's optimizer
+    with its schedule over one step an epoch (lr 0 at the first step, 3e-5
+    at the second, then down): `steps` steps on one batch, each read back;
+    launches counted over them. Each step draws its masks and hard
+    negatives from the generator reseeded to 0, so the loss depends on the
+    weights alone (with a new draw a step, the draws' spread, ~0.05, hides
+    what 3e-5 moves in 5 steps): finite, and the last below the first.
+    → the times, losses, launches, peak memory, MFU and the state (for the
+    checkpoint round trip)."""
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.ops import kernels
+
+    make = (configs.make_swin_retrieval_train_run if kind == "swin"
+            else configs.make_deit_retrieval_train_run)
+    state, batch, step = make(32, 40, steps_per_epoch=1)
+    cfg = state.model.config
+    gen = torch.Generator(device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen.manual_seed(0))
+        losses.append(metrics["loss"].item())
+        times.append(time.perf_counter() - t0)
+    launches = dict(kernels.LAUNCHES)
+    dt = float(np.median(times[1:]))
+    flops = configs.tower_retrieval_step_flops(cfg, 32, 40)
+    res = dict(step_ms=dt * 1e3, samples_per_s=32 / dt,
+               mfu=flops / dt / PEAK_FLOPS[torch.bfloat16],
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               losses=losses, step_s=times, launches=launches,
+               params=sum(p.numel() for p in state.model.parameters()))
+    print(f"  {kind} full width: " + json.dumps(res))
+    if not all(math.isfinite(v) for v in losses) or not (
+            losses[-1] < losses[0]):
+        raise AssertionError(f"{kind} full width: losses {losses}")
+    depth = 0 if kind == "swin" else cfg.vision.depth
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want.update(flash_attention_fwd=depth * steps,
+                flash_attention_bwd=depth * steps)
+    if launches != want:
+        raise AssertionError(f"{kind} full width: launches {launches}, "
+                             f"expected {want}")
+    res["state"] = state
+    return res
+
+
+def swin_checkpoint_round_trip(model) -> dict:
+    """A seeded Swin-B tower at 224 px, window 7, under the reference's
+    names (Conv2d patch weight, the `relative_position_index` and
+    `attn_mask` buffers a released checkpoint holds) loaded through
+    `load_xfm_checkpoint` into `model` (window 12): each table [169, H]
+    the port's `_interp_swin_table` of its source to [529, H], every other
+    tower weight as it was, nothing unexpected, only non-tower entries
+    missing."""
+    import dataclasses
+
+    from xfm_tpu_torch.models.swin import SwinTransformer
+    from xfm_tpu_torch.ops.patch_embed import patch_kernel_from_conv
+    from xfm_tpu_torch.train import checkpoint as ck
+
+    src = SwinTransformer(dataclasses.replace(
+        model.config.vision, image_res=224, window_size=7,
+        dtype=torch.float32))
+    ck.init_weights(src, 5)
+    sd = {f"vision_encoder.{k}": v
+          for k, v in ck.reference_state_dict(src).items()}
+    sd.update({f"vision_encoder.{k}": b for k, b in src.named_buffers()})
+    t0 = time.perf_counter()
+    missing, unexpected = ck.load_xfm_checkpoint(model, sd)
+    _sync()
+    secs = time.perf_counter() - t0
+    got = model.state_dict()
+    n_tables = 0
+    for k, v in sd.items():
+        if k.endswith(("relative_position_index", "attn_mask")):
+            continue
+        if k.endswith("relative_position_bias_table"):
+            want = torch.from_numpy(ck._interp_swin_table(v.numpy(), 529))
+            n_tables += 1
+        elif k.endswith("patch_embed.proj.weight"):
+            want = patch_kernel_from_conv(v)
+        else:
+            want = v
+        if not torch.equal(got[k].float().cpu(), want.float()):
+            raise AssertionError(f"Swin round trip: {k}")
+    tower_missing = [k for k in missing if k.startswith("vision_encoder.")]
+    res = dict(s=secs, tables=n_tables, entries=len(sd),
+               missing_outside_tower=len(missing), unexpected=unexpected)
+    print("  Swin-B window 7 → 12 checkpoint: " + json.dumps(res))
+    if unexpected or tower_missing or n_tables != sum(
+            model.config.vision.depths):
+        raise AssertionError(f"Swin round trip: unexpected {unexpected}, "
+                             f"tower entries missing {tower_missing}")
+    return res
+
+
+def swin_task_runs(root, n_train=16, n_test=8, bs=16, seed=0,
+                   device="cuda") -> dict:
+    """`run.main` for `--task itr_coco` on `Retrieval_coco.yaml`'s keys with
+    `use_swin: true`, `vision_config: configs/model/config_swinB_384.json`
+    and `text_encoder: data/bert-base-uncased` (absent: the tokenizer falls
+    back to the captions' words) over `_finetune_corpus`, `--bs` 16,
+    `--epoch 1`: the zero-shot and the epoch's evals, each step's loss;
+    then `--evaluate --checkpoint` from its own `ckpt/0/state.pt`, whose
+    R@K must be the epoch's. No kernel is launched: the windows hold 144
+    tokens, and the grouped rerank's keys are the 145 image rows."""
+    import yaml
+
+    from xfm_tpu_torch import configs, run
+    from xfm_tpu_torch.ops import kernels
+
+    train, test = _finetune_corpus(root, n_train, n_test, seed)
+    cfg = {k: v for k, v in configs.swin_retrieval_yaml().items()
+           if k not in ("val_file", "_vision")}
+    cfg.update(train_file=[train], test_file=test, image_root=root)
+    cfg_path = os.path.join(root, "Retrieval_coco.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    out = os.path.join(root, "out")
+    argv = ["--task", "itr_coco", "--config", cfg_path, "--output_dir", out,
+            "--bs", str(bs), "--epoch", "1", "--seed", str(seed),
+            "--device", device]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run.main(argv)
+    _sync()
+    train_s = time.perf_counter() - t0
+    with open(os.path.join(out, "log.txt")) as f:
+        log = [json.loads(x) for x in f.read().splitlines()]
+    ckpt = os.path.join(out, "ckpt", "0", "state.pt")
+    t0 = time.perf_counter()
+    metrics = run.main(argv + ["--evaluate", "--checkpoint", ckpt])
+    _sync()
+    eval_s = time.perf_counter() - t0
+    res = dict(train_s=train_s, evaluate_s=eval_s, result=result,
+               log=log, evaluate=metrics, launches=dict(kernels.LAUNCHES),
+               checkpoint_bytes=os.path.getsize(ckpt))
+    print("  itr_coco with use_swin: " + json.dumps(res, default=float))
+    epoch = [e for e in log if e["epoch"] == 0]
+    if ([e["epoch"] for e in log] != [-1, 0] or not all(
+            math.isfinite(epoch[0][k]) for k in ("loss_itc", "loss_itm"))
+            or any(res["launches"].values())):
+        raise AssertionError("itr_coco with use_swin: log or launches")
+    for k in ("txt_r1", "txt_r5", "img_r1", "img_r5", "r_mean"):
+        if float(metrics[k]) != float(epoch[0][k]):
+            raise AssertionError(f"--evaluate from ckpt/0: {k} "
+                                 f"{metrics[k]} vs the epoch's "
+                                 f"{epoch[0][k]}")
+    return res
+
+
+def tower_phase() -> dict:
+    """Phase 26 → (K3's errors, times and bound at DeiT's shape, the DeiT
+    step's launches, the profiles)."""
+    import tempfile
+
+    from xfm_tpu_torch import profile_step
+
+    smi = nvidia_smi_line()
+    k3d_err = k3_deit_check()
+    q, k, v, dout = k3_deit_inputs(32, 577, 12, torch.bfloat16, 61)
+    k3d_t = k3_times(32, 577, 12, torch.bfloat16, inputs=(q, k, v, dout))
+    del q, k, v, dout
+    k3d_w = k3_work(32, 577, 577, 12, 64, torch.bfloat16)
+    print(f"  K3 DeiT shape times (ms, {smi}): " + json.dumps(k3d_t))
+    print("  K3 DeiT shape bound (k3_work): " + json.dumps(k3d_w))
+    slice_parity("swin_retrieval")
+    slice_parity("deit_retrieval")
+    swin = tower_full_width("swin")
+    swin_checkpoint_round_trip(swin.pop("state").model)
+    torch.cuda.empty_cache()
+    deit = tower_full_width("deit")
+    del deit["state"]
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="xfm_swin_")
+    try:
+        swin_task_runs(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    prof = profile_step.profile_tower_retrieval(os.path.join(
+        REPO, "build", "xfm_tpu_torch", "profile_tower_retrieval.json"))
+    for unit, res in prof.items():
+        top = res.pop("top")
+        print(f"  {unit} profile ({smi}): " + json.dumps(res))
+        for name, ms, n in top[:8]:
+            print(f"    {ms:9.3f} ms/step {n:6d} calls/step  {name}")
+        depth = 12 if unit == "deit_retrieval_train" else 0
+        want = {name: 0 for name in res["launches"]}
+        want.update(flash_attention_fwd=depth, flash_attention_bwd=depth)
+        if res["launches"] != want or res["max_memory_allocated"] >= 80e9:
+            raise AssertionError(f"{unit}: launches or peak memory")
+    print(f"  peak memory (B): Swin-B + BERT step "
+          f"{swin['max_memory_allocated']}, DeiT-B step "
+          f"{deit['max_memory_allocated']}")
+    return dict(k3=(k3d_err, k3d_t, k3d_w), deit_launches=deit["launches"],
+                prof=prof)
+
+
+def tower_kernel_entries(k3d_err, k3d_t, k3d_w, launches) -> list:
+    """The `kernels` entries of K3 at DeiT's shape, q/k/v [32, 577, 12, 64]
+    with no bias, forward and backward, their launches from phase 26's
+    DeiT steps."""
+    out = kernel_entries("flash_attention", "xfm_tpu/ops/flash_attention.py",
+                         71, 334, "xfm_tpu_torch/csrc/flash_attention.cu",
+                         k3d_err, ("dq", "dk", "dv"), k3d_t, k3d_w,
+                         launches, also_bwd=227)
+    for e in out:
+        e["name"] += "_deit_b577"
+    return out
+
+
 def phase(header: str) -> None:
     """Print a phase's header and note when the phase began."""
     PHASE_T.append(time.perf_counter())
@@ -5535,6 +5843,10 @@ def main() -> int:
           "batches, device RandAugment")
     inp = input_phase(pt["throughput"], prof)
     print("  input path: " + json.dumps(inp["native_loader"]))
+    phase("phase 26: the Swin-B and DeiT towers and the BERT text encoder: "
+          "K3 at DeiT's shape, the slices, the steps, the task and the "
+          "profiles")
+    tw = tower_phase()
 
     entries = (kernel_entries("packed_attention",
                               "xfm_tpu/ops/flash_attention.py", 983, 1007,
@@ -5570,10 +5882,11 @@ def main() -> int:
                + nlvr_kernel_entries(k2n, k2b, k2g, nprof)
                + classify_kernel_entries(k1ft, k1lp, clprof)
                + vqkd_kernel_entries(k1_new[192], k1_new[80],
-                                     qprof["pretrain_vqkd"]))
+                                     qprof["pretrain_vqkd"])
+               + tower_kernel_entries(*tw["k3"], tw["deit_launches"]))
     ends = PHASE_T[1:] + [time.perf_counter()]
     by_phase = [round(b - a, 1) for a, b in zip(PHASE_T, ends)]
-    print(f"chip_smoke: 25 phases in {ends[-1] - t_start:.1f} s; seconds "
+    print(f"chip_smoke: 26 phases in {ends[-1] - t_start:.1f} s; seconds "
           f"by phase {json.dumps(by_phase)}")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -1454,3 +1454,59 @@ def test_uint8_batches_reach_the_card_as_uint8():
     assert all(t.is_cuda and t.dtype == torch.uint8 for t in got)
     for g, h in zip(got, host):
         np.testing.assert_array_equal(g.cpu().numpy(), h["images"])
+
+
+@pytest.mark.cuda
+def test_flash_attention_at_deit_shape_with_no_bias():
+    """K3 as DeiT-B/16's blocks call it at 384 px: q/k/v [32, 577, 12, 64]
+    bf16 views of the qkv projection [32, 577, 2304], no bias: out, dq, dk
+    and dv within 2⁻⁶ of their largest plain value (phase 8's gate), the
+    same bits over two runs, and no db."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xfm_tpu_torch.ops import flash_attention as fa
+
+    r = np.random.RandomState(11)
+    qkv = torch.from_numpy(r.randn(32, 577, 2304).astype(np.float32)).cuda()
+    qkv = qkv.to(torch.bfloat16)
+    q, k, v = (t.reshape(32, 577, 12, 64) for t in qkv.split(768, -1))
+    assert q.stride(1) == 2304
+    g = torch.from_numpy(r.randn(32, 577, 12, 64).astype(np.float32)).cuda()
+    g = g.to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        out, stats = fa.flash_attention_fwd(q, k, v, None, 0.125)
+        grads = fa.flash_attention_bwd(q, k, v, None, out, stats, g, 0.125)
+        assert grads[3] is None
+        runs.append((out,) + grads[:3])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    refs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    ref = fa.flash_attention_reference(*refs, None, 0.125)
+    ref.backward(g)
+    for got, want in zip(runs[0], [ref] + [x.grad for x in refs]):
+        want = want.float()
+        assert (got.float() - want).abs().max() <= 2.0 ** -6 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unit,k3", [("swin", 0), ("deit", 12)])
+def test_tower_retrieval_steps_launch_their_kernels_only(unit, k3):
+    """The full-width retrieval fine-tune step with Swin-B + BERT-base
+    (no kernel: windows of 144 tokens, text and fusion under 512) and with
+    DeiT-B/16 (K3 12 + 12 a step, nothing else), finite losses."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.ops import kernels
+
+    make = (configs.make_swin_retrieval_train_run if unit == "swin"
+            else configs.make_deit_retrieval_train_run)
+    state, batch, step = make(32, 40)
+    kernels.reset_launch_counts()
+    state, metrics = step(state, batch,
+                          torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == dict(
+        {k: 0 for k in kernels.LAUNCHES}, flash_attention_fwd=k3,
+        flash_attention_bwd=k3)
+    assert torch.isfinite(metrics["loss"])

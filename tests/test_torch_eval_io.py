@@ -278,8 +278,7 @@ def test_data_layer_is_bit_equal_to_jax(tmp_path):
 JAX_ONLY = {
     "top": {},
     "vision": {"remat": False, "remat_policy": None, "seq_shard": False},
-    "text": {"position_style": "roberta", "remat": False,
-             "remat_policy": None, "seq_shard": False},
+    "text": {"remat": False, "remat_policy": None, "seq_shard": False},
 }
 
 

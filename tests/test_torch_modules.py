@@ -156,7 +156,7 @@ def test_port_imports_neither_jax_nor_xfm_tpu():
     """Every module of xfm_tpu_torch (the fine-tune's, the eval's, the
     pretrain task's, VQA's, captioning's, NLVR2's, grounding's, ImageNet's,
     GLUE's and classify's tasks/, data/, eval/, models/ (the VQ-KD
-    tokenizer and its teachers too), native/ (the C++ loader's binding,
+    tokenizer and its teachers, the Swin and DeiT towers too), native/ (the C++ loader's binding,
     which builds nothing when imported), train/ and run.py among them) and
     chip_smoke's helpers
     import in a fresh interpreter
@@ -193,7 +193,8 @@ def test_port_imports_neither_jax_nor_xfm_tpu():
         " 'xfm_tpu_torch.tasks.glue', 'xfm_tpu_torch.tasks.classify',"
         " 'xfm_tpu_torch.data.timm_aug', 'xfm_tpu_torch.data.probe_datasets',"
         " 'xfm_tpu_torch.eval.glue_metrics', 'xfm_tpu_torch.models.vqkd',"
-        " 'xfm_tpu_torch.models.teachers', 'xfm_tpu_torch.native'}\n"
+        " 'xfm_tpu_torch.models.teachers', 'xfm_tpu_torch.native',"
+        " 'xfm_tpu_torch.models.swin', 'xfm_tpu_torch.models.deit'}\n"
         "lazy = ('PIL', 'yaml', 'transformers', 'h5py', 'datasets')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'flax', 'optax', 'xfm_tpu') + lazy]\n"

@@ -22,7 +22,12 @@ probe's step and the GLUE step on seeded device batches at the YAMLs'
 sizes; and the keys of the pretrain task's optional branches
 (`PRETRAIN_VQKD_KEYS`, the VQ-KD tokenizer with region attention in the
 last 3 blocks; `bf16_params`), which `make_pretrain_streams_run` takes, with
-the FLOP count of that step (`pretrain_streams_flops`)."""
+the FLOP count of that step (`pretrain_streams_flops`); and the retrieval
+fine-tune with the Swin-B tower (`configs/model/config_swinB_384.json`,
+read as data) and BERT-base text and fusion encoders, or with the DeiT-B/16
+tower (`xfm_swin_retrieval_config`, `xfm_deit_retrieval_config`), their
+train steps and their FLOP counts (Swin's windows and patch merging counted
+on their own, `swin_flops`)."""
 from __future__ import annotations
 
 import os
@@ -52,6 +57,20 @@ from .train.train_state import (TrainState, caption_loss_fn,
 def _env_flag(value: Optional[bool], name: str) -> bool:
     """An explicit flag, or the JAX package's environment switch `name`."""
     return os.environ.get(name, "0") == "1" if value is None else bool(value)
+
+
+def new_model(make, device, seed: int) -> torch.nn.Module:
+    """`make()` constructed with its parameters allocated on `device` (not
+    built on the host and copied: seconds of host time a full-width model),
+    its host-built buffers moved there, and the weights of
+    `init_weights(model, seed)`, which sets every parameter. Not for a
+    module whose constructor draws from a host generator (`VQKD`'s
+    codebook)."""
+    with torch.device(device):
+        model = make()
+    model = model.to(device)
+    init_weights(model, seed)
+    return model
 
 
 def xfm_base_pretrain_config(hidden=768, layers=12, heads=12, inter=3072,
@@ -293,8 +312,7 @@ def make_pretrain_run(B: int = 48, T: int = 30, M: int = 15,
     `xfm_base_pretrain_config` takes them. → (state, batch, step) with
     step(state, batch, generator) -> (state, metrics)."""
     cfg = xfm_base_pretrain_config(fused_ln=fused_ln, fused_mlp=fused_mlp)
-    model = XFMForPretrain(cfg).to(device)
-    init_weights(model, seed)
+    model = new_model(lambda: XFMForPretrain(cfg), device, seed)
     state = TrainState.create(model, create_optimizer(
         model, linear_warmup_decay(1e-4, 1000, 100)))
     batch = batch_to_torch(make_batch(B, T, M, cfg.vision.image_res,
@@ -325,17 +343,18 @@ def make_clip_retrieval_run(B: int = 32, T: int = 40, device="cuda",
 
 
 def make_retrieval_train_run(B: int = 32, T: int = 40, device="cuda",
-                             seed: int = 0, steps_per_epoch: int = 1000):
+                             seed: int = 0, steps_per_epoch: int = 1000,
+                             config: Optional[XFMConfig] = None):
     """The step of the retrieval fine-tune as `tasks/retrieval.main` takes
     it on `Retrieval_coco.yaml` (`xfm_retrieval_eval_config`: 384 px,
-    drop-path 0.1, text dropout 0.1, bf16): dropout and drop-path live,
-    the batch's image ids `idx` all distinct, HF-AdamW and the schedule
-    from the YAML's blocks at `steps_per_epoch` optimizer steps an epoch.
-    → (state, batch, step) as `make_retrieval_run`'s."""
+    drop-path 0.1, text dropout 0.1, bf16; or `config`): dropout and
+    drop-path live, the batch's image ids `idx` all distinct, HF-AdamW and
+    the schedule from the YAML's blocks at `steps_per_epoch` optimizer
+    steps an epoch. → (state, batch, step) as `make_retrieval_run`'s."""
     import functools
 
-    model = XFMForRetrieval(xfm_retrieval_eval_config()).to(device)
-    init_weights(model, seed)
+    model = new_model(lambda: XFMForRetrieval(
+        config or xfm_retrieval_eval_config()), device, seed)
     sched = schedule_from_config(RETRIEVAL_COCO, steps_per_epoch)
     state = TrainState.create(model, create_optimizer_from_config(
         model, RETRIEVAL_COCO, sched))
@@ -348,8 +367,7 @@ def make_retrieval_train_run(B: int = 32, T: int = 40, device="cuda",
 
 
 def _retrieval_run(cfg: XFMConfig, B: int, T: int, device, seed: int):
-    model = XFMForRetrieval(cfg).to(device)
-    init_weights(model, seed)
+    model = new_model(lambda: XFMForRetrieval(cfg), device, seed)
     state = TrainState.create(model, create_optimizer(
         model, linear_warmup_decay(1e-4, 1000, 100), clip_grad_norm=None))
     batch = batch_to_torch(make_retrieval_batch(
@@ -357,14 +375,17 @@ def _retrieval_run(cfg: XFMConfig, B: int, T: int, device, seed: int):
     return state, batch, make_train_step(retrieval_loss_fn)
 
 
-def _transformer_flops(n_layers, hidden, inter, seq, batch, cross_kv=0):
-    """Forward FLOPs of one encoder stack (matmuls only)."""
+def _transformer_flops(n_layers, hidden, inter, seq, batch, cross_kv=0,
+                       kv_width=None):
+    """Forward FLOPs of one encoder stack (matmuls only); with `cross_kv`
+    tokens of width `kv_width` (the hidden width by default) to
+    cross-attend to."""
     per_tok = 4 * hidden * hidden + 2 * hidden * inter
     attn = 2 * 2 * seq * seq * hidden
     cross = 0
     if cross_kv:
         per_tok += 2 * hidden * hidden
-        cross = (2 * 2 * hidden * hidden * cross_kv
+        cross = (2 * 2 * hidden * (kv_width or hidden) * cross_kv
                  + 2 * 2 * seq * cross_kv * hidden)
     return n_layers * (2 * seq * per_tok + attn + cross) * batch
 
@@ -382,15 +403,142 @@ def pretrain_step_flops(B, T, M, patches, hidden=768, inter=3072, layers=12,
 
 
 def retrieval_step_flops(B, T, patches, hidden=768, inter=3072,
-                         layers=12) -> float:
+                         layers=12, vision_fwd=None,
+                         vision_width=None) -> float:
     """Model FLOPs of one retrieval fine-tune step (forward + backward ≈ 3×
-    forward): one vision pass, one text pass, the fusion passes over 3B
-    rows (the positive and the two hard-negative sets)."""
+    forward): one vision pass (a ViT of the text's sizes over `patches` + 1
+    tokens, or `vision_fwd` FLOPs), one text pass, the fusion passes over
+    3B rows (the positive and the two hard-negative sets) cross-attending
+    to `patches` + 1 tokens of width `vision_width` (the text's by
+    default)."""
     Nv = patches + 1
-    fwd = (_transformer_flops(layers, hidden, inter, Nv, B)
-           + _transformer_flops(layers, hidden, inter, T, B)
-           + _transformer_flops(layers, hidden, inter, T, 3 * B, cross_kv=Nv))
+    if vision_fwd is None:
+        vision_fwd = _transformer_flops(layers, hidden, inter, Nv, B)
+    fwd = (vision_fwd + _transformer_flops(layers, hidden, inter, T, B)
+           + _transformer_flops(layers, hidden, inter, T, 3 * B,
+                                cross_kv=Nv, kv_width=vision_width))
     return 3 * fwd
+
+
+# configs/model/config_swinB_384.json: Swin-B at 384 px, window 12
+SWIN_B_384_JSON = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs", "model", "config_swinB_384.json")
+
+
+def swin_retrieval_yaml(layers: Optional[int] = None, depths=None,
+                        **keys) -> dict:
+    """`RETRIEVAL_COCO` with `use_swin` (`config_swinB_384.json` read into
+    `_vision`) and `text_encoder: data/bert-base-uncased`; `depths` (a
+    tuple of 4) cuts the tower's stages, `layers` the text and fusion
+    encoders; `keys` set on top."""
+    from .core.config import load_json
+
+    vision = load_json(SWIN_B_384_JSON)
+    if depths:
+        vision["depths"] = list(depths)
+    cfg = dict(RETRIEVAL_COCO, use_beit_v2=False, use_swin=True,
+               vision_config="configs/model/config_swinB_384.json",
+               _vision=vision, image_res=vision["image_res"],
+               text_encoder="data/bert-base-uncased", **keys)
+    if layers:
+        cfg.update(text_num_hidden_layers=layers, text_fusion_start_at=layers,
+                   fusion_num_hidden_layers=layers)
+    return cfg
+
+
+def xfm_swin_retrieval_config(dtype=None, **kw) -> XFMConfig:
+    """The retrieval model of `swin_retrieval_yaml(**kw)` as
+    `tasks/retrieval.main` builds it (ITC + ITM heads): Swin-B, window 12,
+    width 1024, drop-path 0.1; BERT-base text and fusion encoders (LN eps
+    1e-12, pad 0, absolute positions), 12 + 12 layers."""
+    return config_from_yaml(swin_retrieval_yaml(**kw), dtype=dtype,
+                            use_contrastive_loss=True, use_matching_loss=True)
+
+
+# the DeiT-B/16 tower's sizes in `config_from_yaml`'s `use_deit` keys
+DEIT_B16 = dict(vision_width=768, num_hidden_layers=12,
+                num_attention_heads=12)
+
+
+def deit_retrieval_yaml(image_res: int = 384, layers: Optional[int] = None,
+                        **keys) -> dict:
+    """`RETRIEVAL_COCO` with `use_deit` (DeiT-B/16, patch 16, at
+    `image_res`: 577 tokens at 384 px) and its RoBERTa text side; `layers`
+    cuts every encoder; `keys` set on top."""
+    vision = dict(DEIT_B16)
+    cfg = dict(RETRIEVAL_COCO, use_beit_v2=False, use_deit=True,
+               _vision=vision, image_res=image_res, **keys)
+    if layers:
+        vision["num_hidden_layers"] = layers
+        cfg.update(text_num_hidden_layers=layers, text_fusion_start_at=layers,
+                   fusion_num_hidden_layers=layers)
+    return cfg
+
+
+def xfm_deit_retrieval_config(dtype=None, **kw) -> XFMConfig:
+    """The retrieval model of `deit_retrieval_yaml(**kw)` (ITC + ITM
+    heads): its 12 blocks at 384 px go to K3 with no bias."""
+    return config_from_yaml(deit_retrieval_yaml(**kw), dtype=dtype,
+                            use_contrastive_loss=True, use_matching_loss=True)
+
+
+def make_swin_retrieval_train_run(B: int = 32, T: int = 40, device="cuda",
+                                  seed: int = 0, **kw):
+    """`make_retrieval_train_run` with `xfm_swin_retrieval_config(**kw)`:
+    Swin-B + BERT-base at 384 px, bf16, dropout and drop-path live."""
+    return make_retrieval_train_run(B, T, device, seed,
+                                    config=xfm_swin_retrieval_config(**kw))
+
+
+def make_deit_retrieval_train_run(B: int = 32, T: int = 40, device="cuda",
+                                  seed: int = 0, **kw):
+    """`make_retrieval_train_run` with `xfm_deit_retrieval_config(**kw)`:
+    DeiT-B/16 + RoBERTa-base at 384 px, bf16; K3 forward and backward in
+    each of the tower's blocks."""
+    return make_retrieval_train_run(B, T, device, seed,
+                                    config=xfm_deit_retrieval_config(**kw))
+
+
+def swin_flops(vc, B: int) -> float:
+    """Forward FLOPs of the Swin tower `vc` (a `SwinConfig`) on B images
+    (matmuls only): the patch embedding, then in each block the qkv,
+    output and MLP projections on every token and the scores and the
+    weighted sum inside each window of ws² tokens, and the patch merging's
+    4C → 2C reduction between stages."""
+    H = vc.image_res // vc.patch_size
+    L = H * H
+    fl = 2 * L * vc.patch_size ** 2 * 3 * vc.embed_dim
+    for si, depth in enumerate(vc.depths):
+        C = vc.embed_dim * 2 ** si
+        ws = min(vc.window_size, H)
+        hid = int(C * vc.mlp_ratio)
+        per_block = 2 * L * (4 * C * C + 2 * C * hid) + 2 * 2 * L * ws * ws * C
+        fl += depth * per_block
+        if si < len(vc.depths) - 1:
+            fl += 2 * (L // 4) * 4 * C * 2 * C
+            H //= 2
+            L = H * H
+    return fl * B
+
+
+def tower_retrieval_step_flops(cfg: XFMConfig, B: int, T: int) -> float:
+    """`retrieval_step_flops` of a Swin or DeiT retrieval model `cfg`: the
+    Swin tower counted by `swin_flops` (its 1 + (res/32)² output rows of
+    width `num_features` cross-attended), DeiT as a ViT of its sizes."""
+    t = cfg.text
+    kw = dict(hidden=t.hidden_size, inter=t.intermediate_size,
+              layers=t.num_hidden_layers)
+    vc = cfg.vision
+    if cfg.vision_backbone == "swin":
+        tokens = (vc.image_res // vc.patch_size // 2 ** (len(vc.depths)
+                                                          - 1)) ** 2
+        return retrieval_step_flops(B, T, tokens, vision_fwd=swin_flops(
+            vc, B), vision_width=vc.num_features, **kw)
+    vision_fwd = _transformer_flops(vc.depth, vc.embed_dim,
+                                    int(vc.embed_dim * vc.mlp_ratio),
+                                    vc.num_patches + 1, B)
+    return retrieval_step_flops(B, T, vc.num_patches, vision_fwd=vision_fwd,
+                                vision_width=vc.embed_dim, **kw)
 
 
 PRETRAIN_YAML = os.path.join(os.path.dirname(os.path.dirname(
@@ -546,8 +694,7 @@ def make_pretrain_streams_run(device="cuda", seed: int = 0,
     mcfg = config_from_yaml(cfg, use_contrastive_loss=True,
                             use_matching_loss=True, use_mlm_loss=True,
                             use_bbox_loss=True)
-    model = XFMForPretrain(mcfg).to(device)
-    init_weights(model, seed)
+    model = new_model(lambda: XFMForPretrain(mcfg), device, seed)
     sched = schedule_from_config(cfg, steps_per_epoch)
     state = TrainState.create(model, create_optimizer_from_config(
         model, cfg, sched))
@@ -735,8 +882,7 @@ def make_vqa_run(B: int = 16, T: int = 40, max_answers: int = 4,
     import functools
 
     cfg = vqa_yaml(**keys)
-    model = XFMForVQA.from_yaml(cfg).to(device)
-    init_weights(model, seed)
+    model = new_model(lambda: XFMForVQA.from_yaml(cfg), device, seed)
     sched = schedule_from_config(cfg, steps_per_epoch)
     state = TrainState.create(model, create_optimizer_from_config(
         model, cfg, sched))
@@ -873,8 +1019,8 @@ def make_caption_run(unit: str, B: Optional[int] = None, device="cuda",
 
     pretrain = unit == "caption_pretrain"
     cfg = caption_yaml(pretrain=pretrain, **keys)
-    model = XFMForCaptioning.from_yaml(cfg).to(device)
-    init_weights(model, seed)
+    model = new_model(lambda: XFMForCaptioning.from_yaml(cfg), device,
+                      seed)
     sched = schedule_from_config(cfg, 1000)
     state = TrainState.create(model, create_optimizer_from_config(
         model, cfg, sched))
@@ -1079,8 +1225,8 @@ def make_nlvr_run(B: Optional[int] = None, T: Optional[int] = None,
     device. → (state, call) with call(i) running one step with the
     generator of i → its metrics."""
     cfg = nlvr_yaml(**keys)
-    model = XFMForNLVR(config_from_yaml(cfg)).to(device)
-    init_weights(model, seed)
+    model = new_model(lambda: XFMForNLVR(config_from_yaml(cfg)), device,
+                      seed)
     c = model.config
     batch = batch_to_torch(make_pair_batch(
         B or cfg["batch_size"], T or cfg["max_tokens"], c.vision.image_res,
@@ -1110,12 +1256,12 @@ def make_grounding_run(unit: str = "grounding_train",
     if unit not in ("grounding_train", "gradcam"):
         raise ValueError(f"unit {unit!r}")
     if gradcam:
-        model = XFMForRetrieval(config_from_yaml(
-            cfg, use_contrastive_loss=True, use_matching_loss=True))
+        model = new_model(lambda: XFMForRetrieval(config_from_yaml(
+            cfg, use_contrastive_loss=True, use_matching_loss=True)),
+            device, seed)
     else:
-        model = XFMForGrounding(config_from_yaml(cfg, use_bbox_loss=True))
-    model = model.to(device)
-    init_weights(model, seed)
+        model = new_model(lambda: XFMForGrounding(config_from_yaml(
+            cfg, use_bbox_loss=True)), device, seed)
     c = model.config
     B = B or (8 if gradcam else cfg["batch_size"])
     batch = batch_to_torch(make_grounding_batch(
@@ -1251,10 +1397,9 @@ def make_imagenet_run(unit: str = "imagenet_train", B: Optional[int] = None,
     if unit not in IMAGENET_UNITS:
         raise ValueError(f"unit {unit!r}")
     cfg = imagenet_yaml(lp=unit == "imagenet_lp", **keys)
-    model = XFMForClassification(
+    model = new_model(lambda: XFMForClassification(
         config_from_yaml(cfg), num_labels=cfg["num_labels"],
-        task_name="imagenet", is_lp=cfg["is_lp"]).to(device)
-    init_weights(model, seed)
+        task_name="imagenet", is_lp=cfg["is_lp"]), device, seed)
     B = B or cfg["batch_size"]
     res = model.config.vision.image_res
     r = np.random.RandomState(seed)
@@ -1286,10 +1431,9 @@ def make_glue_run(B: Optional[int] = None, T: Optional[int] = None,
     from .tasks.glue import glue_loss_fn
 
     cfg = glue_yaml(**keys)
-    model = XFMForClassification(config_from_yaml(cfg),
-                                 num_labels=cfg["num_labels"],
-                                 task_name="glue").to(device)
-    init_weights(model, seed)
+    model = new_model(lambda: XFMForClassification(
+        config_from_yaml(cfg), num_labels=cfg["num_labels"],
+        task_name="glue"), device, seed)
     r = np.random.RandomState(seed)
     B = B or cfg["per_device_train_batch_size"]
     ids, atts = _token_rows(r, B, T or cfg["max_length"],

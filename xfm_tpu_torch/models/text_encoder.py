@@ -1,14 +1,22 @@
-"""RoBERTa-style text / fusion encoder (`xfm_tpu/models/text_encoder.py`).
+"""RoBERTa- or BERT-style text / fusion encoder
+(`xfm_tpu/models/text_encoder.py`).
 
-Parameter names are the reference torch names (`roberta.embeddings.*`,
-`roberta.encoder.layer.{i}.attention.self.query.*`, `lm_head.*` with the
-decoder tied to the word embeddings). With `is_decoder` the self-attention
-is causal (the answer decoder of VQA, the caption decoder), teacher-forced
-over whole sequences, or one chunk at a time through a `DecodeCache` that
-the caller holds and passes as `decode=` (`xfm_tpu/models/text_encoder.py`'s
-`cache` collection): each layer's self k/v written into preallocated slots
-at the cache's index, its cross k/v projected at the first step and read
-back with `cross_from_cache`.
+Parameter names are the reference torch names of RoBERTa
+(`roberta.embeddings.*`, `roberta.encoder.layer.{i}.attention.self.query.*`,
+`lm_head.*` with the decoder tied to the word embeddings) for either
+config: a BERT tower's reference names (`bert.*`,
+`cls.predictions.{transform.dense, transform.LayerNorm, bias, decoder}`)
+are mapped by `train/checkpoint.py` on the way in and out. The configs
+differ in their sizes, pad id and LayerNorm eps and in `position_style`:
+RoBERTa's pad-offset positions or BERT's absolute ones.
+
+With `is_decoder` the self-attention is causal (the answer decoder of VQA,
+the caption decoder), teacher-forced over whole sequences, or one chunk at
+a time through a `DecodeCache` that the caller holds and passes as
+`decode=` (`xfm_tpu/models/text_encoder.py`'s `cache` collection): each
+layer's self k/v written into preallocated slots at the cache's index, its
+cross k/v projected at the first step and read back with
+`cross_from_cache`.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ class TextConfig:
     type_vocab_size: int = 1
     layer_norm_eps: float = 1e-5
     pad_token_id: int = 1
+    position_style: str = "roberta"  # 'roberta' pad-offset | 'bert' absolute
     fusion_layer: int = 12          # first layer with cross-attention
     encoder_width: int = 768        # width of the cross-attended states
     is_decoder: bool = False        # causal self-attention
@@ -52,7 +61,14 @@ class TextConfig:
     def roberta_base(cls, **kw):
         return cls(**{**dict(vocab_size=50265, max_position_embeddings=514,
                              pad_token_id=1, layer_norm_eps=1e-5,
-                             type_vocab_size=1),
+                             position_style="roberta", type_vocab_size=1),
+                      **kw})
+
+    @classmethod
+    def bert_base(cls, **kw):
+        return cls(**{**dict(vocab_size=30522, max_position_embeddings=512,
+                             pad_token_id=0, layer_norm_eps=1e-12,
+                             position_style="bert", type_vocab_size=2),
                       **kw})
 
 
@@ -115,16 +131,27 @@ class Embeddings(nn.Module):
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
 
     def forward(self, input_ids, deterministic: bool = True,
-                past_length: int = 0):
-        """Word + roberta pad-offset position (after `past_length` cached
-        tokens) + token type 0 embeddings, normalized, then dropout."""
+                past_length: int = 0, token_type_ids=None):
+        """Word + position (after `past_length` cached tokens: RoBERTa's
+        pad-offset ones, or BERT's absolute past_length, past_length + 1,
+        ...) + token type embeddings (type 0 unless `token_type_ids` are
+        given), normalized, then dropout."""
         c = self.c
-        position_ids = roberta_position_ids(input_ids, c.pad_token_id,
-                                            past_length)
+        if c.position_style == "roberta":
+            position_ids = roberta_position_ids(input_ids, c.pad_token_id,
+                                                past_length)
+        else:
+            position_ids = torch.arange(
+                past_length, past_length + input_ids.shape[1],
+                device=input_ids.device)[None]
+        types = (self.token_type_embeddings.weight[0]
+                 if token_type_ids is None else
+                 F.embedding(token_type_ids,
+                             self.token_type_embeddings.weight))
         x = (F.embedding(input_ids, self.word_embeddings.weight).to(c.dtype)
              + F.embedding(position_ids,
                            self.position_embeddings.weight).to(c.dtype)
-             + self.token_type_embeddings.weight[0].to(c.dtype))
+             + types.to(c.dtype))
         return dropout(layer_norm(x, self.LayerNorm, c.dtype),
                        c.hidden_dropout_prob, deterministic)
 
@@ -317,7 +344,8 @@ class MLMHead(nn.Module):
 class TextTransformer(nn.Module):
     """Encoder stack with mode-sliced layer ranges: 'text' = [0,
     fusion_layer), 'fusion' = [fusion_layer, N), 'multi_modal' = [0, N).
-    `inputs_embeds` bypasses the embeddings. `decode` (a `DecodeCache`)
+    `inputs_embeds` bypasses the embeddings; `token_type_ids` (zeros
+    unless given) go to them otherwise. `decode` (a `DecodeCache`)
     runs one incremental step over the chunk `input_ids`, positions after
     `past_length` tokens, and advances the cache's index; with
     `cross_from_cache` the cross k/v are the ones the first step cached.
@@ -344,11 +372,12 @@ class TextTransformer(nn.Module):
                 encoder_group_size=None,
                 decode: Optional[DecodeCache] = None, past_length: int = 0,
                 cross_from_cache: bool = False, cross_gate=None,
-                cross_gate_layer: Optional[int] = None):
+                cross_gate_layer: Optional[int] = None,
+                token_type_ids=None):
         c = self.c
         x = (inputs_embeds if inputs_embeds is not None
              else self.roberta.embeddings(input_ids, deterministic,
-                                          past_length))
+                                          past_length, token_type_ids))
         bias = mask_to_bias(attention_mask) if attention_mask is not None \
             else None
         ebias = None

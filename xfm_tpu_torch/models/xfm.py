@@ -1,5 +1,6 @@
 """XFMBase: the vision / text / fusion composite (`xfm_tpu/models/xfm.py`),
-with the BEiT-2 or the CLIP-ViT vision tower (`XFMConfig.vision_backbone`).
+with the BEiT-2, CLIP-ViT, Swin or DeiT vision tower
+(`XFMConfig.vision_backbone`) and RoBERTa or BERT text and fusion encoders.
 Parameter names are the reference torch names."""
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from ..ops.activations import gelu
 from . import losses
 from .beit2 import BeitVisionTransformer, VisionConfig
 from .clip_vit import ClipVisionConfig, ClipVisionTransformer
+from .deit import DeitConfig, DeitVisionTransformer
+from .swin import SwinConfig, SwinTransformer
 from .text_encoder import TextConfig, TextTransformer, cross_entropy
 
 
@@ -47,10 +50,11 @@ class MLPHead(nn.Sequential):
 
 @dataclasses.dataclass(frozen=True)
 class XFMConfig:
-    vision: Union[VisionConfig, ClipVisionConfig] = VisionConfig()
+    vision: Union[VisionConfig, ClipVisionConfig, SwinConfig,
+                  DeitConfig] = VisionConfig()
     text: TextConfig = TextConfig.roberta_base()
     fusion: TextConfig = TextConfig.roberta_base(fusion_layer=0)
-    vision_backbone: str = "beit2"   # beit2 | clip_vit
+    vision_backbone: str = "beit2"   # beit2 | clip_vit | swin | deit
     embed_dim: int = 256
     temp: float = 0.07
     learnable_temp: bool = True
@@ -70,6 +74,8 @@ class XFMConfig:
     def vision_width(self) -> int:
         if self.vision_backbone == "clip_vit":
             return self.vision.hidden_size
+        if self.vision_backbone == "swin":
+            return self.vision.num_features
         return self.vision.embed_dim
 
     @property
@@ -81,15 +87,17 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
                      use_matching_loss=False, use_mlm_loss=False,
                      use_bbox_loss=False, dtype=None) -> XFMConfig:
     """XFMConfig from the reference YAML schema, as `xfm_tpu/models/xfm.py`
-    `config_from_yaml` builds it for the BEiT-2 (default) and CLIP-ViT
-    (`use_clip_vit`) towers with a RoBERTa text side. `dtype` None takes
+    `config_from_yaml` builds it: the CLIP-ViT (`use_clip_vit`), DeiT
+    (`use_deit`), Swin (`use_swin`, its sizes from `_vision`, patch 4,
+    width `num_features`) or BEiT-2 (default) tower, in that order, and a
+    RoBERTa text side, or BERT-base for a `text_encoder` without "roberta"
+    in its name. `dtype` None takes
     the compute dtype of `core.precision.policy_from_config`. The JAX
     package's environment switches `XFM_FUSED_LN` / `XFM_MLP_FUSED` == "1"
     become the configs' `fused_ln` / `fused_mlp` (the CLIP tower takes
     neither, as there). `use_vision_tokenizer` adds the MIM code head
     (`codebook_size` classes); `local_attn_depth` > 0 runs region attention
-    in the last blocks of either tower. Swin, DeiT and BERT text encoders
-    are not ported."""
+    in the last blocks of the BEiT-2 or CLIP tower."""
     if dtype is None:
         from ..core.precision import policy_from_config
 
@@ -98,8 +106,6 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
                  fused_mlp=os.environ.get("XFM_MLP_FUSED", "0") == "1")
     vision_cfg_json = config.get("_vision", {})
     image_res = config.get("image_res", 224)
-    if config.get("use_swin", False) or config.get("use_deit", False):
-        raise NotImplementedError("the Swin and DeiT towers are not ported")
     if config.get("use_clip_vit", False):
         vision = ClipVisionConfig(
             image_res=image_res,
@@ -113,6 +119,24 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
                 "local_attn_depth", config.get("local_attn_depth", 0)),
             dtype=dtype)
         backbone, vwidth = "clip_vit", vision.hidden_size
+    elif config.get("use_deit", False):
+        vision = DeitConfig(
+            image_res=image_res, patch_size=config.get("patch_size", 16),
+            embed_dim=vision_cfg_json.get("vision_width", 768),
+            depth=vision_cfg_json.get("num_hidden_layers", 12),
+            num_heads=vision_cfg_json.get("num_attention_heads", 12),
+            dtype=dtype)
+        backbone, vwidth = "deit", vision.embed_dim
+    elif config.get("use_swin", False):
+        vision = SwinConfig(
+            image_res=vision_cfg_json.get("image_res", image_res),
+            patch_size=4,
+            embed_dim=vision_cfg_json.get("embed_dim", 128),
+            depths=tuple(vision_cfg_json.get("depths", (2, 2, 18, 2))),
+            num_heads=tuple(vision_cfg_json.get("num_heads",
+                                                (4, 8, 16, 32))),
+            window_size=vision_cfg_json.get("window_size", 7), dtype=dtype)
+        backbone, vwidth = "swin", vision.num_features
     else:
         large = "large" in str(config.get("vision_config", "base"))
         vkw = dict(embed_dim=1024, depth=24, num_heads=16) if large else {}
@@ -131,8 +155,9 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
             **vkw)
         backbone, vwidth = "beit2", vision.embed_dim
 
-    if "roberta" not in str(config.get("text_encoder", "roberta-base")):
-        raise NotImplementedError("only RoBERTa text encoders are ported")
+    mk = (TextConfig.roberta_base
+          if "roberta" in str(config.get("text_encoder", "roberta-base"))
+          else TextConfig.bert_base)
     n_text = config.get("text_num_hidden_layers", 12)
     tkw = dict(fused)
     if config.get("hidden_act"):
@@ -146,11 +171,11 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
                      ("text_vocab_size", "vocab_size")):
         if config.get(src) is not None:
             tkw[dst] = config[src]
-    text = TextConfig.roberta_base(
+    text = mk(
         num_hidden_layers=n_text,
         fusion_layer=config.get("text_fusion_start_at", n_text),
         encoder_width=vwidth, dtype=dtype, **tkw)
-    fusion = TextConfig.roberta_base(
+    fusion = mk(
         num_hidden_layers=config.get("fusion_num_hidden_layers", 12),
         fusion_layer=config.get("fusion_fusion_start_at", 0),
         encoder_width=vwidth, dtype=dtype, **tkw)
@@ -171,13 +196,13 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
 
 
 def vision_tower(c: XFMConfig) -> nn.Module:
-    """The config's vision tower: BEiT-2 or CLIP-ViT."""
-    if c.vision_backbone == "clip_vit":
-        return ClipVisionTransformer(c.vision)
-    if c.vision_backbone == "beit2":
-        return BeitVisionTransformer(c.vision)
-    raise NotImplementedError(f"vision backbone {c.vision_backbone!r} is "
-                              "not ported")
+    """The config's vision tower: BEiT-2, CLIP-ViT, Swin or DeiT."""
+    towers = {"beit2": BeitVisionTransformer,
+              "clip_vit": ClipVisionTransformer, "swin": SwinTransformer,
+              "deit": DeitVisionTransformer}
+    if c.vision_backbone not in towers:
+        raise ValueError(f"unknown vision backbone {c.vision_backbone!r}")
+    return towers[c.vision_backbone](c.vision)
 
 
 class XFMBase(nn.Module):
@@ -208,11 +233,12 @@ class XFMBase(nn.Module):
 
     def get_vision_embeds(self, images, mask=None, idx_to_group_img=None,
                           image_atts=None, deterministic=True):
-        """NHWC images → [B, 1+num_patches, C]: BEiT [avgpool ‖ patches],
-        CLIP the post-LN [cls ‖ patches]. Region mode (`idx_to_group_img`,
-        `image_atts`; BEiT only) → (grouped, full), both [R, 1+num_patches,
-        C]: the region rows (pooled, or with `local_attn_depth` > 0 from
-        the masked last blocks) and each region's image's full rows."""
+        """NHWC images → [B, 1+tokens, C]: BEiT [avgpool ‖ patches], CLIP
+        and DeiT the post-LN [cls ‖ patches], Swin [avgpool ‖ final-stage
+        tokens]. Region mode (`idx_to_group_img`, `image_atts`; BEiT, CLIP
+        and Swin; DeiT raises) → (grouped, full), both [R, 1+tokens, C]:
+        the region rows (pooled, or with `local_attn_depth` > 0 from the
+        masked last blocks) and each region's image's full rows."""
         out = self.vision_encoder(maybe_normalize(images), mask=mask,
                                   idx_to_group_img=idx_to_group_img,
                                   image_atts=image_atts,
@@ -224,10 +250,12 @@ class XFMBase(nn.Module):
 
     def get_vision_embeds_pair(self, images, mask, deterministic=True):
         """(full, MIM-masked) vision embeds in one 2B-row pass (BEiT-2; the
-        CLIP tower has no mask path and raises)."""
+        CLIP, Swin and DeiT towers have no mask path and raise, as their
+        masked pass does in the JAX package)."""
         if self.config.vision_backbone != "beit2":
-            raise NotImplementedError("CLIP-ViT has no MIM mask path: use "
-                                      "the BEiT-2 backbone for MIM")
+            raise NotImplementedError(
+                f"the {self.config.vision_backbone} tower has no MIM mask "
+                "path: use the BEiT-2 backbone for MIM")
         return self.vision_encoder.pair(maybe_normalize(images), mask,
                                         deterministic=deterministic)
 

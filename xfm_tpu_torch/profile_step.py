@@ -6,7 +6,8 @@ on the card.
          retrieval_eval|pretrain_streams|vqa_train|vqa_rank|caption_train|
          caption_beam|caption_scst|caption_pretrain|nlvr_train|
          grounding_train|gradcam|imagenet_train|imagenet_lp|glue_train|
-         pretrain_vqkd|pretrain_bf16|pretrain_randaug]
+         pretrain_vqkd|pretrain_bf16|pretrain_randaug|swin_retrieval_train|
+         deit_retrieval_train]
         [--trace PATH]
 
 Runs the full-width step of the chosen path as `chip_smoke.py` does
@@ -97,6 +98,11 @@ what pretrain_streams prints, and the model FLOPs of its step
 its busy time against the card's bf16 peak; pretrain_randaug also the
 busy time of the RandAugment alone (its own window after the step's) and
 its share of the step's.
+swin_retrieval_train and deit_retrieval_train profile the step of
+retrieval_train with the Swin-B tower (window 12, 145 output rows of width
+1024) and BERT-base text and fusion encoders, and with the DeiT-B/16 tower
+(K3 forward and backward in its 12 blocks) and RoBERTa-base; each prints
+the same numbers as imagenet_train (`configs.tower_retrieval_step_flops`).
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -523,6 +529,42 @@ def profile_classify(trace: str, units=CLASSIFY_UNITS, steps: int = STEPS,
     return out
 
 
+TOWER_UNITS = ("swin_retrieval_train", "deit_retrieval_train")
+
+
+def profile_tower_retrieval(trace: str, units=TOWER_UNITS,
+                            steps: int = STEPS, **keys) -> dict:
+    """`_profile_units` over the retrieval fine-tune's step with the other
+    towers, as `make_retrieval_train_run` takes it (B = 32, T = 40, 384 px,
+    bf16, dropout and drop-path live; `keys` to the config):
+    "swin_retrieval_train" (`configs.make_swin_retrieval_train_run`:
+    Swin-B, window 12, and BERT-base) and "deit_retrieval_train"
+    (`configs.make_deit_retrieval_train_run`: DeiT-B/16, K3 in its 12
+    blocks); 2 warm-up steps each; each with its loss, its step's model
+    FLOPs (`configs.tower_retrieval_step_flops`) and their rate over the
+    busy time as a share of the card's bf16 peak (`mfu_busy`)."""
+    from . import configs
+
+    def make(unit):
+        run = (configs.make_swin_retrieval_train_run
+               if unit == "swin_retrieval_train"
+               else configs.make_deit_retrieval_train_run)
+        state, batch, step = run(**keys)
+        return configs._stepper(state, step, batch, "cuda", 0)
+
+    out = _profile_units(trace, units, make,
+                         lambda u, m: {"loss": float(m["loss"])},
+                         lambda u: 2, steps)
+    for unit, res in out.items():
+        cfg = (configs.xfm_swin_retrieval_config
+               if unit == "swin_retrieval_train"
+               else configs.xfm_deit_retrieval_config)(**keys)
+        flops = configs.tower_retrieval_step_flops(cfg, 32, 40)
+        res.update(step_flops=flops, mfu_busy=flops / (
+            res["device_busy_ms"] * 1e-3) / BF16_PEAK_FLOPS)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path", nargs="?", default="pretrain",
@@ -530,7 +572,8 @@ def main(argv=None) -> int:
                              "retrieval_train", "clip_retrieval",
                              "retrieval_eval", "pretrain_streams",
                              "vqa_train", "vqa_rank") + CAPTION_UNITS
-                    + NLVR_UNITS + CLASSIFY_UNITS + tuple(STREAM_UNITS))
+                    + NLVR_UNITS + CLASSIFY_UNITS + TOWER_UNITS
+                    + tuple(STREAM_UNITS))
     ap.add_argument("--trace")
     args = ap.parse_args(argv)
     trace = args.trace or f"build/xfm_tpu_torch/profile_{args.path}.json"
@@ -540,10 +583,11 @@ def main(argv=None) -> int:
     if args.path == "retrieval_eval":
         return profile_retrieval_eval(trace)
     if args.path in ("vqa_train", "vqa_rank") + CAPTION_UNITS + NLVR_UNITS \
-            + CLASSIFY_UNITS:
+            + CLASSIFY_UNITS + TOWER_UNITS:
         profile = (profile_caption if args.path in CAPTION_UNITS
                    else profile_nlvr if args.path in NLVR_UNITS
                    else profile_classify if args.path in CLASSIFY_UNITS
+                   else profile_tower_retrieval if args.path in TOWER_UNITS
                    else profile_vqa)
         res = profile(trace, units=(args.path,))[args.path]
         top = res.pop("top")

@@ -6,7 +6,9 @@
   `export_xfm_checkpoint`: Dense kernels transposed, the decoder tied to the
   word embeddings; the patch kernel stays in the port's matmul layout
   [P·P·3, C] (the export writes the reference's Conv2d layout). The CLIP-ViT
-  tower (`clip_vit_from_jax`) is the inverse of `import_clip_vit`.
+  tower (`clip_vit_from_jax`) is the inverse of `import_clip_vit`, the Swin
+  tower's (`swin_from_jax`) of `import_swin`; the DeiT tower
+  (`deit_from_jax`) takes the reference's timm names.
 - `load_reference_state_dict`: a reference-named torch state dict (e.g. a
   released checkpoint or a golden fixture) into a port module.
 - `vqkd_from_jax`, `clip_teacher_from_jax`, `dino_teacher_from_jax`: the
@@ -17,13 +19,16 @@
   `import_dino_teacher`).
 - The load half of `xfm_tpu/train/checkpoint.py`: `load_torch_state_dict`,
   `strip_prefix`, `choose_layers`, the resolution-change interpolations
-  (`interpolate_abs_pos_embed`, `interpolate_rel_pos_bias_table`) and
+  (`interpolate_abs_pos_embed`, `interpolate_rel_pos_bias_table`, Swin's
+  `_interp_swin_table`) and
   `load_xfm_checkpoint`, which overlays a reference checkpoint on a port
   model as `import_xfm_checkpoint` + `merge_params` do; `vqa_checkpoint`,
   VQA's two routes to its decoder (`xfm_tpu/tasks/vqa.py`), and
   `caption_checkpoint`, captioning's three; and
   `reference_state_dict`, a port model's weights under the reference's
-  names and layouts.
+  names and layouts. A BERT text or fusion encoder keeps the port's
+  RoBERTa names (`roberta.*`, `lm_head.*`); its reference names
+  (`bert.*`, `cls.predictions.*`) are mapped on load and on export.
 - `init_weights`: random weights that follow the JAX package's initializers.
 - The save/restore half of `xfm_tpu/train/checkpoint.py`: `save_checkpoint`,
   `restore_checkpoint`, `latest_step`, `load_params_from_checkpoint`. A
@@ -187,6 +192,61 @@ def clip_vit_from_jax(p: Dict[str, Any], num_layers: int,
     return sd
 
 
+def swin_from_jax(p: Dict[str, Any], config,
+                  prefix: str = "") -> Dict[str, np.ndarray]:
+    """JAX SwinTransformer params (`patch_embed`, `patch_norm`,
+    `stage{s}_block{b}`, `merge{s}`, `norm`) → reference names under
+    `prefix` (the inverse of `xfm_tpu/train/checkpoint.py` `import_swin`;
+    patch kernel kept in matmul layout)."""
+    sd: Dict[str, np.ndarray] = {}
+    v = _pre(prefix)
+    sd[f"{v}patch_embed.proj.weight"] = _t(p["patch_embed"]["kernel"])
+    sd[f"{v}patch_embed.proj.bias"] = _t(p["patch_embed"]["bias"])
+    _ln_from_jax(p["patch_norm"], f"{v}patch_embed.norm", sd)
+    for si, depth in enumerate(config.depths):
+        for bi in range(depth):
+            bp, b = p[f"stage{si}_block{bi}"], f"{v}layers.{si}.blocks.{bi}"
+            _ln_from_jax(bp["norm1"], f"{b}.norm1", sd)
+            _ln_from_jax(bp["norm2"], f"{b}.norm2", sd)
+            _dense_from_jax(bp["qkv"], f"{b}.attn.qkv", sd)
+            _dense_from_jax(bp["proj"], f"{b}.attn.proj", sd)
+            sd[f"{b}.attn.relative_position_bias_table"] = _t(
+                bp["relative_position_bias_table"])
+            _dense_from_jax(bp["fc1"], f"{b}.mlp.fc1", sd)
+            _dense_from_jax(bp["fc2"], f"{b}.mlp.fc2", sd)
+        if si < len(config.depths) - 1:
+            d = f"{v}layers.{si}.downsample"
+            _ln_from_jax(p[f"merge{si}"]["norm"], f"{d}.norm", sd)
+            sd[f"{d}.reduction.weight"] = _t(
+                p[f"merge{si}"]["reduction"]["kernel"]).T
+    _ln_from_jax(p["norm"], f"{v}norm", sd)
+    return sd
+
+
+def deit_from_jax(p: Dict[str, Any], depth: int,
+                  prefix: str = "") -> Dict[str, np.ndarray]:
+    """JAX DeitVisionTransformer params (`patch_embed_kernel`,
+    `patch_embed_bias`, `cls_token`, `pos_embed`, `block_{i}`, `norm`) →
+    the reference's timm names under `prefix` (patch kernel kept in matmul
+    layout)."""
+    sd: Dict[str, np.ndarray] = {}
+    v = _pre(prefix)
+    sd[f"{v}patch_embed.proj.weight"] = _t(p["patch_embed_kernel"])
+    sd[f"{v}patch_embed.proj.bias"] = _t(p["patch_embed_bias"])
+    sd[f"{v}cls_token"] = _t(p["cls_token"])
+    sd[f"{v}pos_embed"] = _t(p["pos_embed"])
+    for i in range(depth):
+        bp, b = p[f"block_{i}"], f"{v}blocks.{i}"
+        _ln_from_jax(bp["norm1"], f"{b}.norm1", sd)
+        _ln_from_jax(bp["norm2"], f"{b}.norm2", sd)
+        _dense_from_jax(bp["qkv"], f"{b}.attn.qkv", sd)
+        _dense_from_jax(bp["proj"], f"{b}.attn.proj", sd)
+        _dense_from_jax(bp["fc1"], f"{b}.mlp.fc1", sd)
+        _dense_from_jax(bp["fc2"], f"{b}.mlp.fc2", sd)
+    _ln_from_jax(p["norm"], f"{v}norm", sd)
+    return sd
+
+
 def _mlp_head(p: Dict[str, Any], prefix: str,
               sd: Dict[str, np.ndarray]) -> None:
     """An `MLPHead` (fc1, ln, fc2 → indices 0, 1, 3) or a `DeepMLPHead`
@@ -210,19 +270,26 @@ def state_dict_from_jax(params: Dict[str, Any],
     state_dict for `XFMBase` and its heads, either vision tower, the
     `cls_head` of NLVR or of a classifier (`MLPHead` or `DeepMLPHead`),
     and the `text_decoder` of `XFMForVQA` or `XFMForCaptioning` where the
-    tree has one. A tree may lack towers: the caption tree's backbone
+    tree has one; any of the four vision towers (a BERT text tree is
+    RoBERTa's in both packages). A tree may lack towers: the caption tree's backbone
     holds the vision tower alone, an image classifier's too, a text
     classifier's the text encoder alone (`TextClassifier`'s with no
     backbone level; its `config` the text config)."""
     bb = params["backbone"] if "backbone" in params else params
     sd: Dict[str, np.ndarray] = {}
-    if "vision_encoder" in bb and config.vision_backbone == "clip_vit":
-        sd = clip_vit_from_jax(bb["vision_encoder"],
-                               config.vision.num_hidden_layers,
+    if "vision_encoder" in bb:
+        kind, vc = config.vision_backbone, config.vision
+        if kind == "clip_vit":
+            sd = clip_vit_from_jax(bb["vision_encoder"],
+                                   vc.num_hidden_layers, "vision_encoder")
+        elif kind == "swin":
+            sd = swin_from_jax(bb["vision_encoder"], vc, "vision_encoder")
+        elif kind == "deit":
+            sd = deit_from_jax(bb["vision_encoder"], vc.depth,
                                "vision_encoder")
-    elif "vision_encoder" in bb:
-        sd = beit2_from_jax(bb["vision_encoder"], config.vision.depth,
-                            "vision_encoder")
+        else:
+            sd = beit2_from_jax(bb["vision_encoder"], vc.depth,
+                                "vision_encoder")
     texts = (("text_encoder", config),) if not hasattr(config, "text") \
         else (("text_encoder", config.text), ("fusion_encoder",
                                               config.fusion))
@@ -306,7 +373,8 @@ def to_torch(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 # buffers the reference saves that the port rebuilds itself
-_REFERENCE_BUFFERS = ("relative_position_index", "position_ids")
+_REFERENCE_BUFFERS = ("relative_position_index", "position_ids",
+                      "attn_mask")
 
 
 def _port_layout(sd) -> Dict[str, torch.Tensor]:
@@ -471,6 +539,59 @@ def interpolate_rel_pos_bias_table(table: np.ndarray,
                           axis=0)
 
 
+def _keys_cubic_weights(src_len: int, dst_len: int) -> np.ndarray:
+    """[src_len, dst_len] weights of `jax.image.resize(..., "cubic")` along
+    one axis when it upsamples: the Keys kernel with a = −0.5 at half-pixel
+    centres, taps outside the input dropped and each column renormalized
+    to sum 1."""
+    x = (np.arange(dst_len) + 0.5) * (src_len / dst_len) - 0.5
+    d = np.abs(x[None, :] - np.arange(src_len)[:, None])
+    w = np.where(d >= 1.0, ((-0.5 * d + 2.5) * d - 4.0) * d + 2.0,
+                 ((1.5 * d - 2.5) * d) * d + 1.0)
+    w = np.where(d >= 2.0, 0.0, w)
+    return w / w.sum(axis=0, keepdims=True)
+
+
+def _interp_swin_table(table: np.ndarray, dst_num: int) -> np.ndarray:
+    """A Swin rel-pos table [(2w−1)², H] resized to `dst_num` rows as
+    `xfm_tpu/train/checkpoint.py` `_interp_swin_table` does it: its
+    (2w−1) × (2w−1) grid by the cubic of `jax.image.resize` (Keys, a =
+    −0.5; not torch's bicubic, a = −0.75), separably, in float64."""
+    src = int(round(table.shape[0] ** 0.5))
+    dst = int(round(dst_num ** 0.5))
+    grid = np.asarray(table, np.float64).reshape(src, src, -1)
+    w = _keys_cubic_weights(src, dst)
+    out = np.einsum("ai,bj,abh->ijh", w, w, grid)
+    return out.reshape(dst * dst, -1).astype(np.float32)
+
+
+# a text tower's names: the port's (RoBERTa's) and BERT's reference ones,
+# each prefix before any shorter one it starts with
+_BERT_NAMES = (
+    ("roberta.", "bert."),
+    ("lm_head.layer_norm.", "cls.predictions.transform.LayerNorm."),
+    ("lm_head.dense.", "cls.predictions.transform.dense."),
+    ("lm_head.", "cls.predictions."))
+
+
+def _from_bert_name(rest: str) -> Optional[str]:
+    """A text tower's entry name under BERT's reference names (`bert.*`,
+    `cls.predictions.*`) → the port's (`roberta.*`, `lm_head.*`); None for
+    a name of neither form."""
+    for port, ref in _BERT_NAMES:
+        if rest.startswith(ref):
+            return port + rest[len(ref):]
+    return None
+
+
+def _to_bert_name(rest: str) -> str:
+    """The inverse of `_from_bert_name` on the port's names."""
+    for port, ref in _BERT_NAMES:
+        if rest.startswith(port):
+            return ref + rest[len(port):]
+    return rest
+
+
 # the CLIP tower's Hugging Face names → the port's
 _CLIP_ALIASES = (("vision_model.", ""), ("embeddings.", ""),
                  ("patch_embedding.weight", "patch_embed.weight"),
@@ -479,8 +600,10 @@ _CLIP_ALIASES = (("vision_model.", ""), ("embeddings.", ""),
 
 def _reference_names(sd: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
     """Reference names and layouts → the port's: the CLIP tower's Hugging
-    Face names mapped, rel-pos tables and position embeddings interpolated
-    to the model's grid, then `_port_layout`."""
+    Face names and the text towers' BERT names mapped, rel-pos tables
+    (BEiT's by `interpolate_rel_pos_bias_table`, Swin's by
+    `_interp_swin_table`) and position embeddings interpolated to the
+    model's grid, then `_port_layout`."""
     c = model.config
 
     def host(v):
@@ -497,7 +620,15 @@ def _reference_names(sd: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
                 if rest.startswith(old):
                     rest = new + rest[len(old):]
             k = "vision_encoder." + rest
-        if k.endswith("relative_position_bias_table"):
+        tower, _, rest = k.partition(".")
+        if tower in ("text_encoder", "fusion_encoder"):
+            k = f"{tower}.{_from_bert_name(rest) or rest}"
+        if k.endswith("relative_position_bias_table") and \
+                c.vision_backbone == "swin":
+            dst = (2 * c.vision.window_size - 1) ** 2
+            if v.shape[0] != dst:
+                v = _interp_swin_table(host(v), dst)
+        elif k.endswith("relative_position_bias_table"):
             g = c.vision.grid_size
             v = interpolate_rel_pos_bias_table(host(v), (g, g))
         elif k in ("vision_encoder.pos_embed.weight",
@@ -515,8 +646,10 @@ def load_xfm_checkpoint(model, sd: Dict[str, Any]
     """Overlay a reference-named XFM state dict (numpy or torch values, e.g.
     `load_torch_state_dict`'s) on `model` in place, with the semantics of
     `xfm_tpu/train/checkpoint.py` `import_xfm_checkpoint` + `merge_params`:
-    strict=False; BEiT rel-pos tables and position embeddings interpolated
-    where the model's grid differs; a shape that differs only by sizes of
+    strict=False; rel-pos tables (BEiT's, or Swin's to the config's
+    window) and position embeddings (BEiT's, CLIP's, DeiT's) interpolated
+    where the model's grid differs; a BERT text or fusion encoder's
+    `bert.*` / `cls.predictions.*` names taken as the port's; a shape that differs only by sizes of
     1 reshaped, any other shape mismatch (a vocabulary of another size, an
     untransposed kernel) refused with ValueError. → (missing, unexpected):
     the model's entries the checkpoint does not hold, and the checkpoint's
@@ -672,16 +805,9 @@ def _decoder_entries(sd: Dict[str, Any], src: str) -> Dict[str, Any]:
         if not k.startswith(src):
             continue
         rest = k[len(src):]
-        if rest.startswith("bert."):
-            rest = "roberta." + rest[len("bert."):]
-        elif rest.startswith("cls.predictions."):
-            rest = rest[len("cls.predictions."):]
-            rest = "lm_head." + rest.replace(
-                "transform.LayerNorm.", "layer_norm.").replace(
-                "transform.", "")
-        elif not rest.startswith(("roberta.", "lm_head.")):
-            continue
-        out[dec + rest] = v
+        rest = _from_bert_name(rest) or rest
+        if rest.startswith(("roberta.", "lm_head.")):
+            out[dec + rest] = v
     return out
 
 
@@ -752,7 +878,12 @@ def caption_checkpoint(sd: Dict[str, Any], decoder_from: str = "fusion"
 
 def reference_state_dict(model) -> Dict[str, torch.Tensor]:
     """The model's weights under the reference's names and layouts, on the
-    CPU: the patch kernels back in Conv2d layout [C, 3, P, P]."""
+    CPU: the patch kernels back in Conv2d layout [C, 3, P, P], a BERT text
+    or fusion encoder under `bert.*` / `cls.predictions.*`."""
+    c = getattr(model, "config", None)
+    bert = {f"{name}_encoder" for name in ("text", "fusion")
+            if getattr(getattr(c, name, None), "position_style",
+                       None) == "bert"}
     out = {}
     for k, v in model.state_dict().items():
         v = v.detach().float().cpu().clone()
@@ -760,6 +891,9 @@ def reference_state_dict(model) -> Dict[str, torch.Tensor]:
             ppc, C = v.shape
             P = int(round((ppc // 3) ** 0.5))
             v = v.reshape(P, P, 3, C).permute(3, 2, 0, 1).contiguous()
+        tower, _, rest = k.partition(".")
+        if tower in bert:
+            k = f"{tower}.{_to_bert_name(rest)}"
         out[k] = v
     return out
 
@@ -783,7 +917,9 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
     kernel and position embedding and the CLIP teacher's `proj`
     normal(0.02), temp at its init value.
     The `fix_init` rescale takes every BEiT block stack of the model (the
-    vision tower's; a tokenizer's encoder and decoder)."""
+    vision tower's; a tokenizer's encoder and decoder). A Swin tower's
+    patch kernel is lecun-normal (a Dense in the JAX tower) and its
+    rel-pos tables trunc-normal 0.02."""
     dev = next(model.parameters()).device
     g = torch.Generator(device=dev).manual_seed(seed)
     for m in model.modules():
@@ -824,6 +960,16 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
             if blk.use_ls:
                 blk.gamma_1.fill_(blk.c.init_values)
                 blk.gamma_2.fill_(blk.c.init_values)
+    from ..models.swin import SwinTransformer
+
+    for m in model.modules():
+        if isinstance(m, SwinTransformer):
+            w = m.patch_embed.proj.weight
+            _trunc_normal_(w, math.sqrt(1.0 / w.shape[0])
+                           / 0.87962566103423978, g)
+            for name, p in m.named_parameters():
+                if name.endswith("relative_position_bias_table"):
+                    _trunc_normal_(p, 0.02, g)
     if cfg is not None and hasattr(model, "temp"):
         model.temp.fill_(cfg.temp)
 
