@@ -317,6 +317,22 @@ Phases, each of which must pass or the script exits non-zero:
      its own `ckpt/0` (the epoch's R@K); then `profile_step`
      `swin_retrieval_train` and `deit_retrieval_train` (busy time, idle
      share, MFU over busy time, the launches as above);
+ 27. data parallelism under `torchrun --standalone --nproc_per_node=<the
+     card count>` (NCCL; `NCCL_SOCKET_IFNAME=lo`): `python3 -m
+     xfm_tpu_torch.run --task pretrain_DIY` on `Pretrain_base_4m.yaml`'s
+     keys over phase 19's corpora, full width and depth, 2 steps at
+     `--bs` 24 a card (its rank 0 printing the backend, the world size and
+     every rank's launches: K1 72 + 72 and nothing else; each step's
+     reduced loss from its log), at the same time as `--task itr_coco`
+     (phase 18's corpus and keys, one epoch at `--bs 24`) and, in
+     this process, the pretrain run without `torchrun`; with one card the
+     torchrun run is held to it (the first loss bit-equal, the second
+     within phase 18's bound, the saved parameters within 1e-5); the
+     fine-tune's zero-shot R_mean equals phase 18's, then `--evaluate
+     --checkpoint` its `ckpt/0` under `torchrun` equals the epoch's eval;
+     with two cards or more also the bf16 pretrain step on a fixed global
+     batch of 32 on two processes against one (`python3 chip_smoke.py
+     --dp-step`), else a line saying it could not run;
 then a JSON line of the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
@@ -361,6 +377,17 @@ SLICE_GRAD_RTOL = 1e-3
 # the next two steps: 3.9e-5 to 2.9e-3 of the loss measured over four runs
 # on the H100; the bound keeps 7x the largest
 FT_RESUME_RTOL = 2e-2
+# phase-27 tolerances. One process under torchrun against the same run
+# without it: the first step's loss is bit-equal (the same weights, data
+# and draws); the second step's starts from states that the first step's
+# atomics (index_add_ of the shared cross-k/v gather, as in phase 18) left
+# apart in the last bits, so its loss is held to phase 18's bound and the
+# saved parameters to 1e-5, far above the second update's size at the
+# warm-up's lr (1e-4 / 2500 a step: each element moves ~4e-8). Two cards
+# on a fixed global batch against one: the bf16 step's losses and the
+# gradient norm, each rank's rows through its own bf16 matmuls.
+DP_PARAM_ATOL = 1e-5
+DP_BF16_RTOL = 2e-2
 
 
 def nvidia_smi_line() -> str:
@@ -5594,6 +5621,264 @@ def tower_kernel_entries(k3d_err, k3d_t, k3d_w, launches) -> list:
     return out
 
 
+def _dp_env() -> dict:
+    """The environment of phase 27's launches: NCCL bootstraps over the
+    loopback interface (the card's machine has no network)."""
+    env = dict(os.environ, NCCL_SOCKET_IFNAME="lo", OMP_NUM_THREADS="4")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [x for x in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if x])
+    return env
+
+
+def _torchrun(nproc: int, args: list) -> subprocess.Popen:
+    """`torchrun --standalone --nproc_per_node=nproc` of `args`, started."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={nproc}", *args], cwd=REPO, env=_dp_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc: subprocess.Popen, tag: str, timeout: int = 600) -> str:
+    """A launch waited for (killed at `timeout`) → its standard output;
+    a non-zero exit raises with the ends of both streams."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    if proc.returncode != 0:
+        print(out[-3000:], err[-3000:])
+        raise AssertionError(f"{tag}: exit {proc.returncode}")
+    return out
+
+
+def _processes_line(out: str, tag: str):
+    """The launcher's `### processes W backend B launches by rank [...]`
+    line → (W, B, [each rank's launches])."""
+    for line in out.splitlines():
+        if line.startswith("### processes "):
+            head, launches = line.split(" launches by rank ", 1)
+            words = head.split()
+            return int(words[2]), words[4], json.loads(launches)
+    raise AssertionError(f"{tag}: no '### processes' line")
+
+
+def _last_log(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        return [json.loads(x) for x in f.read().splitlines()]
+
+
+def _launch_counts(by_rank, want: dict, tag: str) -> None:
+    for r, got in enumerate(by_rank):
+        print(f"  {tag} rank {r} launches {json.dumps(got)}")
+        if got != want:
+            raise AssertionError(f"{tag} rank {r}: launches {got}, "
+                                 f"expected {want}")
+
+
+def dp_step_worker(out_dir: str, B: int = 32) -> int:
+    """`python3 chip_smoke.py --dp-step OUT` under torchrun: the full-width
+    bf16 pretrain step (`configs.make_pretrain_run`, weights from seed 0)
+    on rank r's rows of a fixed global batch of `B` with fixed hard
+    negatives (the next row of the global batch); rank 0 writes the step's
+    reduced losses and gradient norm to OUT/dp_step_<W>.json."""
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.core import mesh
+
+    dev = mesh.maybe_init_distributed("cuda")
+    state, batch, step = configs.make_pretrain_run(B=B, device=dev)
+    roll = torch.roll(torch.arange(B, device=dev), -1)
+    batch = mesh.rank_slice(dict(batch, hard_negatives=(roll, roll)))
+    state, metrics = step(state, batch, None)
+    vals = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
+    if mesh.rank() == 0:
+        with open(os.path.join(out_dir, f"dp_step_{mesh.world_size()}.json"),
+                  "w") as f:
+            json.dump(vals, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_fixed_batch(root: str) -> dict:
+    """Phase 27 on two cards or more: `dp_step_worker` on one process and
+    on two, one after the other → the two steps' values, held to each
+    other at the bf16 tolerance."""
+    got = {}
+    for n in (1, 2):
+        _finish(_torchrun(n, [os.path.join(REPO, "chip_smoke.py"),
+                              "--dp-step", root]), f"dp-step W={n}")
+        with open(os.path.join(root, f"dp_step_{n}.json")) as f:
+            got[n] = json.load(f)
+        print(f"  fixed global batch of 32, W = {n}: {json.dumps(got[n])}")
+    for k in ("loss", "loss_itc", "loss_itm", "loss_mlm", "loss_mim",
+              "grad_norm"):
+        a, b = got[1][k], got[2][k]
+        if not abs(a - b) <= DP_BF16_RTOL * abs(a):
+            raise AssertionError(f"fixed global batch: {k} {b} on two "
+                                 f"processes, {a} on one")
+    return got
+
+
+def dp_phase(zero_shot_r_mean: float) -> dict:
+    """Phase 27 (see the module docstring); its directory deleted at the
+    end."""
+    import tempfile
+
+    import yaml
+
+    from xfm_tpu_torch import configs, run
+    from xfm_tpu_torch.ops import kernels
+
+    W = torch.cuda.device_count()
+    depth = configs.xfm_base_pretrain_config().vision.depth
+    root = tempfile.mkdtemp(prefix="xfm_dp_")
+    try:
+        os.makedirs(os.path.join(root, "pt"))
+        files = _pretrain_corpus(os.path.join(root, "pt"))
+        if W > 1:  # a shard a rank at least (the reader splits by file)
+            for kind, path in files.items():
+                with open(path) as f:
+                    lines = f.read().splitlines()
+                files[kind] = []
+                for r in range(W):
+                    files[kind].append(f"{path[:-6]}_{r}.jsonl")
+                    with open(files[kind][-1], "w") as f:
+                        f.write("\n".join(lines[r::W]) + "\n")
+        shards = {k: v if isinstance(v, list) else [v]
+                  for k, v in files.items()}
+        cfg = {k: v for k, v in configs.pretrain_yaml().items()
+               if not k.startswith("_")}
+        cfg.update(train_file=shards["pairs"],
+                   train_file_regions=shards["regions"],
+                   train_file_imagenet=shards["imagenet"],
+                   train_file_text=shards["texts"], max_steps=2,
+                   ckpt_frequent_step=2, print_freq=1)
+        pt_cfg = os.path.join(root, "pt.yaml")
+        with open(pt_cfg, "w") as f:
+            yaml.safe_dump(cfg, f)
+        ft_root = os.path.join(root, "ft")
+        os.makedirs(ft_root)
+        train, test = _finetune_corpus(ft_root, 36, 16, 0)
+        ft = {k: v for k, v in configs.RETRIEVAL_COCO.items()
+              if k != "val_file"}
+        ft.update(train_file=[train], test_file=test, image_root=ft_root)
+        ft_cfg = os.path.join(root, "ft.yaml")
+        with open(ft_cfg, "w") as f:
+            yaml.safe_dump(ft, f)
+        out = {k: os.path.join(root, k) for k in ("pt_tr", "pt_plain",
+                                                  "ft_tr", "ft_ev")}
+        pt_args = ["--task", "pretrain_DIY", "--config", pt_cfg,
+                   "--device", "cuda"]
+        ft_args = ["-m", "xfm_tpu_torch.run", "--task", "itr_coco",
+                   "--config", ft_cfg, "--device", "cuda", "--seed", "0"]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pt_tr = _torchrun(W, ["-m", "xfm_tpu_torch.run", *pt_args,
+                              "--bs", str(24 * W), "--output_dir",
+                              out["pt_tr"]])
+        ft_tr = _torchrun(W, [*ft_args, "--bs", "24", "--epoch", "1",
+                              "--output_dir", out["ft_tr"]])
+        kernels.reset_launch_counts()
+        run.main([*pt_args, "--bs", "24", "--output_dir", out["pt_plain"]])
+        plain_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        t_plain = time.perf_counter() - t0
+        pt_out = _finish(pt_tr, "pretrain_DIY under torchrun")
+        ft_out = _finish(ft_tr, "itr_coco under torchrun")
+        t_both = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        ev = _finish(_torchrun(W, [
+            *ft_args, "--evaluate", "--checkpoint",
+            os.path.join(out["ft_tr"], "ckpt", "0", "state.pt"),
+            "--output_dir", out["ft_ev"]]), "itr_coco --evaluate")
+        t_all = time.perf_counter() - t0
+        print(f"  seconds: the plain pretrain run {t_plain:.1f} (the two "
+              f"torchrun runs beside it, all done at {t_both:.1f}), the "
+              f"eval's launch {t_all - t_both:.1f}")
+
+        world, backend, by_rank = _processes_line(pt_out, "pretrain_DIY")
+        print(f"  pretrain_DIY under torchrun: world {world}, backend "
+              f"{backend}")
+        if world != W or backend != "nccl":
+            raise AssertionError(f"pretrain_DIY: world {world}, backend "
+                                 f"{backend}")
+        k1 = {"packed_attention_fwd": 2 * 3 * depth,
+              "packed_attention_bwd": 2 * 3 * depth}
+        _launch_counts(by_rank, k1, "pretrain_DIY")
+        _launch_counts([plain_launches], k1, "pretrain_DIY without torchrun")
+        tr_log, plain_log = _last_log(out["pt_tr"]), _last_log(
+            out["pt_plain"])
+        tr_losses, plain_losses = tr_log[-1]["losses"], plain_log[-1][
+            "losses"]
+        print(f"  reduced loss of each step: torchrun {tr_losses}, "
+              f"without {plain_losses}")
+        if len(tr_losses) != 2 or not all(map(math.isfinite, tr_losses)):
+            raise AssertionError(f"pretrain_DIY losses {tr_losses}")
+        result = dict(world=world, backend=backend, pretrain_launches=by_rank,
+                      pretrain_losses=tr_losses, seconds=t_all)
+        if W == 1:
+            a = torch.load(os.path.join(out["pt_tr"], "ckpt", "2",
+                                        "state.pt"), map_location="cpu",
+                           weights_only=True, mmap=True)["params"]
+            b = torch.load(os.path.join(out["pt_plain"], "ckpt", "2",
+                                        "state.pt"), map_location="cpu",
+                           weights_only=True, mmap=True)["params"]
+            equal = sum(torch.equal(a[n], b[n]) for n in b)
+            diff = max((a[n].float() - b[n].float()).abs().max().item()
+                       for n in b)
+            rel = abs(tr_losses[1] - plain_losses[1]) / abs(plain_losses[1])
+            print(f"  W = 1 against the run without torchrun: first loss "
+                  f"bit-equal {tr_losses[0] == plain_losses[0]}, second "
+                  f"relative difference {rel}; saved parameters bit-equal "
+                  f"{equal} of {len(b)}, max |difference| {diff}")
+            if (tr_losses[0] != plain_losses[0] or rel > FT_RESUME_RTOL
+                    or set(a) != set(b) or diff > DP_PARAM_ATOL):
+                raise AssertionError("pretrain_DIY under torchrun differs "
+                                     "from the run without it")
+            result.update(params_bit_equal=f"{equal}/{len(b)}",
+                          params_max_diff=diff, second_loss_rel=rel)
+
+        world, backend, by_rank = _processes_line(ft_out, "itr_coco")
+        ft_log = _last_log(out["ft_tr"])
+        print(f"  itr_coco under torchrun: world {world}, backend "
+              f"{backend}; R_mean zero-shot {ft_log[0]['r_mean']} (phase "
+              f"18: {zero_shot_r_mean}), after the epoch "
+              f"{ft_log[1]['r_mean']}; losses {ft_log[1]['loss_itc']}, "
+              f"{ft_log[1]['loss_itm']}")
+        for r, got in enumerate(by_rank):
+            print(f"  itr_coco rank {r} launches {json.dumps(got)}")
+            if not (got.get("relpos_attention_fwd")
+                    and got.get("relpos_attention_bwd")):
+                raise AssertionError(f"itr_coco rank {r}: K2 not launched")
+        if ([e["epoch"] for e in ft_log] != [-1, 0]
+                or backend != "nccl" or world != W
+                or (W == 1 and ft_log[0]["r_mean"] != zero_shot_r_mean)):
+            raise AssertionError("itr_coco under torchrun: its log, backend "
+                                 "or zero-shot R_mean")
+        world, backend, by_rank = _processes_line(ev, "itr_coco --evaluate")
+        metrics = _last_log(out["ft_ev"])[-1]["eval"]
+        print(f"  itr_coco --evaluate under torchrun: {json.dumps(metrics)}"
+              f"; launches by rank {json.dumps(by_rank)}")
+        if metrics != {k: ft_log[1][k] for k in metrics}:
+            raise AssertionError("the eval of ckpt/0 differs from the "
+                                 "epoch's eval")
+        result.update(ft_r_mean=[e["r_mean"] for e in ft_log],
+                      eval_launches=by_rank)
+        if W >= 2:
+            result["fixed_batch"] = dp_fixed_batch(root)
+        else:
+            print("  two processes on a fixed global batch: not run, this "
+                  "machine has one card (NCCL puts one rank on a card); "
+                  "the CPU tests run two gloo processes")
+        return result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase(header: str) -> None:
     """Print a phase's header and note when the phase began."""
     PHASE_T.append(time.perf_counter())
@@ -5847,6 +6132,10 @@ def main() -> int:
           "K3 at DeiT's shape, the slices, the steps, the task and the "
           "profiles")
     tw = tower_phase()
+    phase("phase 27: data parallelism under torchrun (NCCL): pretrain_DIY "
+          "and itr_coco")
+    dp = dp_phase(ft["r_mean"][0])
+    print("  data parallel: " + json.dumps(dp))
 
     entries = (kernel_entries("packed_attention",
                               "xfm_tpu/ops/flash_attention.py", 983, 1007,
@@ -5886,7 +6175,7 @@ def main() -> int:
                + tower_kernel_entries(*tw["k3"], tw["deit_launches"]))
     ends = PHASE_T[1:] + [time.perf_counter()]
     by_phase = [round(b - a, 1) for a, b in zip(PHASE_T, ends)]
-    print(f"chip_smoke: 26 phases in {ends[-1] - t_start:.1f} s; seconds "
+    print(f"chip_smoke: 27 phases in {ends[-1] - t_start:.1f} s; seconds "
           f"by phase {json.dumps(by_phase)}")
     print(json.dumps({"kernels": entries}))
     print(smi)
@@ -5897,4 +6186,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-step"]:
+        sys.exit(dp_step_worker(sys.argv[2]))
     sys.exit(main())

@@ -319,7 +319,8 @@ def test_task_feeds_the_loader_batches(tmp_path, monkeypatch,
     """At the YAML's `num_workers` the image-text and ImageNet streams
     hand uint8 images to the model; with `device_randaug` on both blocks
     the task runs RandAugment on them before the loss, stream i drawing
-    from (seed, step, RANDAUG_KEY + i), so that another step or seed draws
+    from the rank generator of (seed, step, RANDAUG_KEY + i), so that
+    another step or seed draws
     anew; without it the C++ RandAugment ran on the host and the task
     runs none."""
     from xfm_tpu_torch import native
@@ -360,7 +361,7 @@ def test_task_feeds_the_loader_batches(tmp_path, monkeypatch,
 
     ctx = TaskContext(config=cfg, out_dir="", device="cpu", seed=3)
     want = [step_generator(ctx, step, pretrain.RANDAUG_KEY
-                           + order.index(n)).initial_seed()
+                           + order.index(n)).rank.initial_seed()
             for step in range(2) for n in ("image", "imagenet")]
     assert [s[2] for s in seen] == want and len(set(want)) == 4
     assert all(s[0] == torch.uint8 and s[1] == (4, 32, 32, 3) for s in seen)

@@ -2,7 +2,14 @@
 captioning's and grounding's (`xfm_tpu/data/finetune_data.py`
 `RetrievalTrainData`, `RetrievalEvalData`, `NLVRData`, `VQAData`,
 `CaptioningData`, `GroundingData`): annotation lists of the reference's
-json format → fixed-shape numpy batches."""
+json format → fixed-shape numpy batches.
+
+Under a process group of W ranks a training epoch of the retrieval, VQA
+and captioning data gives rank r rows [r·b, (r+1)·b) of each global batch
+of W·b rows of one permutation (`core/mesh.rank_rows`), so that the
+union over the ranks is the one-process order, its transform reseeded
+with the rank folded in (`core/mesh.rank_seed`); their test splits give
+rank r the examples r, r + W, … (`core/mesh.rank_strided`)."""
 from __future__ import annotations
 
 import json
@@ -11,6 +18,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from ..core.mesh import rank_rows, rank_seed, rank_strided
 from .tokenization import pre_caption
 from .transforms import decode_image
 
@@ -66,7 +74,8 @@ class RetrievalTrainData:
         text_ids, text_atts and idx; a last partial batch is dropped."""
         order = np.arange(len(self.ann))
         np.random.default_rng(epoch_seed).shuffle(order)
-        self.transform.reseed([epoch_seed, 1])
+        order = rank_rows(order, self.batch_size)
+        self.transform.reseed(rank_seed([epoch_seed, 1]))
         buf_img, buf_cap, buf_idx = [], [], []
         for i in order:
             a = self.ann[int(i)]
@@ -236,13 +245,19 @@ class VQAData:
         train = self.split == "train"
         if train:
             rng.shuffle(order)
-            self.transform.reseed([epoch_seed, 1])
+            flips = rng.random(len(order)) < 0.5
+            rows = rank_rows(np.arange(len(order)), self.batch_size)
+            order, flips = order[rows], flips[rows]
+            self.transform.reseed(rank_seed([epoch_seed, 1]))
+        else:
+            order = rank_strided(order)
+            flips = np.zeros(len(order), bool)
         imgs, qs, ans_rows, qid_rows = [], [], [], []
-        for i in order:
+        for i, flip in zip(order, flips):
             a = self.ann[int(i)]
             img = self.transform(decode_image(self._image_path(a)))
             question = pre_caption(a["question"], 30)
-            if train and rng.random() < 0.5:
+            if flip:
                 img = img[:, ::-1, :].copy()
                 question = self._swap_left_right(question)
                 if isinstance(a.get("answer"), list):
@@ -326,7 +341,10 @@ class CaptioningData:
         order = np.arange(len(self.ann))
         if self.train:
             np.random.default_rng(epoch_seed).shuffle(order)
-            self.transform.reseed([epoch_seed, 1])
+            order = rank_rows(order, self.batch_size)
+            self.transform.reseed(rank_seed([epoch_seed, 1]))
+        else:
+            order = rank_strided(order)
         imgs, caps, img_ids = [], [], []
         for i in order:
             a = self.ann[int(i)]

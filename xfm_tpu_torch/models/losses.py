@@ -1,9 +1,19 @@
-"""Pretraining and fine-tune losses (`xfm_tpu/models/losses.py`)."""
+"""Pretraining and fine-tune losses (`xfm_tpu/models/losses.py`).
+
+Under a process group of W ranks each loss is W × this rank's share of the
+global-batch loss that the JAX package computes (`core/mesh`): ITC takes
+the other ranks' features from `all_gather_with_grad` and averages over
+its own rows, the hard negatives are drawn over the gathered similarity
+matrix from the generator equal on every rank, and a mean over a count
+divides by the global count (`mesh.mean_divisor`). On one process each is
+the loss over its batch, as before."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from ..core import mesh
 
 
 def _ce_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -15,7 +25,10 @@ def contrastive_loss(image_feat: torch.Tensor, text_feat: torch.Tensor,
                      temp: torch.Tensor,
                      idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ITC over l2-normalized features; with `idx`, duplicate images share
-    soft positive mass."""
+    soft positive mass. Under a process group: this rank's rows against
+    every rank's features (`_contrastive_loss_ranks`)."""
+    if mesh.is_distributed():
+        return _contrastive_loss_ranks(image_feat, text_feat, temp, idx)
     logits = (image_feat @ text_feat.T).float() / temp
     n = logits.shape[0]
     if idx is None:
@@ -31,6 +44,26 @@ def contrastive_loss(image_feat: torch.Tensor, text_feat: torch.Tensor,
     return (li2t + lt2i) / 2
 
 
+def _contrastive_loss_ranks(image_feat, text_feat, temp, idx=None):
+    """ITC of this rank's B rows against the W·B gathered features (whose
+    backward carries the other ranks' gradients back), averaged over the
+    rank's rows: W × its share of the global loss."""
+    images = mesh.all_gather_with_grad(image_feat)
+    texts = mesh.all_gather_with_grad(text_feat)
+    i2t = (image_feat @ texts.T).float() / temp
+    t2i = (text_feat @ images.T).float() / temp
+    n = image_feat.shape[0]
+    own = torch.arange(n, device=i2t.device) + mesh.rank() * n
+    if idx is None:
+        return (_ce_logits(i2t, own) + _ce_logits(t2i, own)) / 2
+    idx = idx.reshape(-1)
+    pos = (idx[:, None] == mesh.all_gather(idx)[None, :]).float()
+    labels = pos / pos.sum(dim=1, keepdim=True)
+    li2t = -(torch.log_softmax(i2t, -1) * labels).sum(-1).mean()
+    lt2i = -(torch.log_softmax(t2i, -1) * labels).sum(-1).mean()
+    return (li2t + lt2i) / 2
+
+
 def hard_negative_indices(generator: torch.Generator,
                           image_feat: torch.Tensor, text_feat: torch.Tensor,
                           temp: torch.Tensor,
@@ -38,7 +71,22 @@ def hard_negative_indices(generator: torch.Generator,
     """In-batch hard negatives: each row draws one negative with weights
     softmax(sim) + 1e-5, positives zeroed (the diagonal, or with `idx` every
     pair of rows with the same image id), from `generator` (on the
-    features' device). → (image_neg, text_neg), each [B] int64."""
+    features' device). → (image_neg, text_neg), each [B] int64. Under a
+    process group the draw runs over the gathered global batch, the same on
+    every rank from the shared generator, and each rank keeps its own rows'
+    negatives: indices into the global batch."""
+    if not mesh.is_distributed():
+        return _draw_negatives(generator, image_feat, text_feat, temp, idx)
+    n = image_feat.shape[0]
+    image_neg, text_neg = _draw_negatives(
+        generator, mesh.all_gather(image_feat.detach()),
+        mesh.all_gather(text_feat.detach()), temp,
+        None if idx is None else mesh.all_gather(idx.reshape(-1)))
+    own = slice(mesh.rank() * n, (mesh.rank() + 1) * n)
+    return image_neg[own], text_neg[own]
+
+
+def _draw_negatives(generator, image_feat, text_feat, temp, idx):
     with torch.no_grad():
         sim_i2t = (image_feat @ text_feat.T).float() / temp
         sim_t2i = sim_i2t.T
@@ -58,14 +106,15 @@ def hard_negative_indices(generator: torch.Generator,
 
 def mim_mse_loss(masked_embeds: torch.Tensor, target_embeds: torch.Tensor,
                  mask: torch.Tensor, cls_too: bool = True) -> torch.Tensor:
-    """MIM feature regression: MSE at the masked patches against the
-    detached unmasked forward, plus the cls slot unless `cls_too` is off.
-    Computed in the embeddings' dtype, as the JAX package does."""
+    """MIM feature regression: MSE at the masked patches (over the global
+    count of masked values) against the detached unmasked forward, plus
+    the cls slot unless `cls_too` is off. Computed in the embeddings'
+    dtype, as the JAX package does."""
     target = target_embeds.detach()
     diff2 = (masked_embeds[:, 1:, :] - target[:, 1:, :]) ** 2
     w = mask.to(diff2.dtype)[..., None]
-    masked_mse = (diff2 * w).sum() / torch.clamp(
-        w.sum() * diff2.shape[-1], min=1.0)
+    masked_mse = (diff2 * w).sum() / mesh.mean_divisor(
+        w.sum() * diff2.shape[-1])
     if not cls_too:
         return masked_mse
     cls_mse = ((masked_embeds[:, 0, :] - target[:, 0, :]) ** 2).mean()
@@ -76,12 +125,13 @@ def mim_vqkd_loss(logits: torch.Tensor, code_ids: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """MIM cross-entropy against the frozen VQ-KD tokenizer's code ids at
     the masked patches: logits [B, N, codebook], code_ids and mask [B, N];
-    log-softmax in f32, the mean over masked patches (at least 1)."""
+    log-softmax in f32, the mean over the global count of masked patches
+    (at least 1)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.take_along_dim(logp, code_ids[..., None].long(),
                                 dim=-1)[..., 0]
     w = mask.to(nll.dtype)
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return (nll * w).sum() / mesh.mean_divisor(w.sum())
 
 
 # --- the bbox losses (`xfm_tpu/models/losses.py`) ---------------------------
@@ -120,7 +170,8 @@ def bbox_loss(output_coord: torch.Tensor, target_bbox: torch.Tensor,
     A row whose predicted or target box is degenerate (x2 < x1 or y2 < y1)
     adds no GIoU term, row by row as in the JAX package (the torch
     reference zeroes the whole batch's). With `is_image`, the rows where
-    it is 1 are left out of both."""
+    it is 1 are left out of both, and the count of the rest is the global
+    one."""
     l1 = (output_coord - target_bbox).abs()
     b1 = box_cxcywh_to_xyxy(output_coord)
     b2 = box_cxcywh_to_xyxy(target_bbox)
@@ -132,7 +183,7 @@ def bbox_loss(output_coord: torch.Tensor, target_bbox: torch.Tensor,
         num = output_coord.shape[0]
     else:
         keep = 1.0 - is_image.to(l1.dtype)
-        num = torch.clamp(keep.sum(), min=1.0)
+        num = mesh.mean_divisor(keep.sum())
         l1 = l1 * keep[:, None]
         giou = giou * keep
     return l1.sum() / num, giou.sum() / num

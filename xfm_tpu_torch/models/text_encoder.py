@@ -451,13 +451,20 @@ def gather_positions(hidden: torch.Tensor,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_index: int = -100) -> torch.Tensor:
-    """Mean cross-entropy over non-ignored labels, in f32."""
+                  ignore_index: int = -100,
+                  over_ranks: bool = False) -> torch.Tensor:
+    """Mean cross-entropy over non-ignored labels, in f32. `over_ranks`:
+    over the count of every rank's non-ignored labels (`mesh.mean_divisor`:
+    the masked-token MLM, whose count differs from rank to rank)."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.take_along_dim(logp, safe[..., None], dim=-1)[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
+    if over_ranks:
+        from ..core.mesh import mean_divisor
+
+        return nll.sum() / mean_divisor(valid.sum())
     return nll.sum() / valid.sum().clamp(min=1)
 
 

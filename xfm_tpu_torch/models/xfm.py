@@ -11,6 +11,7 @@ from typing import Union
 import torch
 from torch import nn
 
+from ..core import mesh
 from ..core.precision import dense, layer_norm
 from ..data.device_aug import maybe_normalize
 from ..ops.activations import gelu
@@ -314,13 +315,25 @@ class XFMBase(nn.Module):
 
     def _negatives(self, generator, image_feat, text_feat, fixed_negatives,
                    idx=None):
+        """(image_neg, text_neg) of this rank's rows: indices into the
+        global batch (every rank's rows in rank order; on one process the
+        batch), drawn from the shared generator or given."""
         if fixed_negatives is not None:
             return fixed_negatives
         if generator is None:
             raise ValueError("hard negatives need a torch.Generator or "
                              "fixed_negatives")
-        return losses.hard_negative_indices(generator, image_feat, text_feat,
-                                            self.clamped_temp(), idx=idx)
+        return losses.hard_negative_indices(
+            mesh.shared_generator(generator), image_feat, text_feat,
+            self.clamped_temp(), idx=idx)
+
+    @staticmethod
+    def _global_rows(x, index, grad: bool = True):
+        """Rows `index` (into the global batch) of every rank's `x`
+        gathered, with gradient back to the rank that owns each where
+        `grad`; on one process `x[index]`."""
+        src = mesh.all_gather_with_grad(x) if grad else mesh.all_gather(x)
+        return src[index]
 
     def _itm_loss(self, cls_rows):
         B = cls_rows.shape[0] // 3
@@ -340,22 +353,35 @@ class XFMBase(nn.Module):
         `XFM_SHARED_CROSS_KV` = "1" / "0" forces the shared / gathered form
         at any length, as there. `fixed_negatives=(image_neg, text_neg)`
         replaces the draw; `idx` (image ids) keeps rows of the same image
-        from being drawn."""
+        from being drawn. Under a process group the negatives are rows of
+        the global batch, gathered from the ranks that own them; the
+        shared form then projects this rank's images and its negatives'."""
         image_neg, text_neg = self._negatives(generator, image_feat,
                                               text_feat, fixed_negatives, idx)
-        text_embeds_all = torch.cat([text_embeds, text_embeds[text_neg]])
-        text_atts_all = torch.cat([text_atts, text_atts[text_neg]])
+        rows = self._global_rows
+        text_embeds_all = torch.cat([text_embeds, rows(text_embeds,
+                                                       text_neg)])
+        text_atts_all = torch.cat([text_atts, rows(text_atts, text_neg,
+                                                   False)])
         if shared_cross_kv(image_embeds.shape[1]):
-            row_idx = torch.cat([image_neg, torch.arange(
-                image_neg.shape[0], device=image_neg.device,
-                dtype=image_neg.dtype)])
-            image_embeds_all = image_embeds
-            image_atts_all = image_atts[row_idx]
+            ar = torch.arange(image_neg.shape[0], device=image_neg.device,
+                              dtype=image_neg.dtype)
+            if mesh.is_distributed():
+                image_embeds_all = torch.cat([image_embeds, rows(
+                    image_embeds, image_neg)])
+                atts_pool = torch.cat([image_atts, rows(image_atts,
+                                                        image_neg, False)])
+                row_idx = torch.cat([ar + ar.shape[0], ar])
+            else:
+                image_embeds_all, atts_pool = image_embeds, image_atts
+                row_idx = torch.cat([image_neg, ar])
+            image_atts_all = atts_pool[row_idx]
         else:
             row_idx = None
-            image_embeds_all = torch.cat([image_embeds[image_neg],
+            image_embeds_all = torch.cat([rows(image_embeds, image_neg),
                                           image_embeds])
-            image_atts_all = torch.cat([image_atts[image_neg], image_atts])
+            image_atts_all = torch.cat([rows(image_atts, image_neg, False),
+                                        image_atts])
         cross_pos = self.get_cross_embeds(
             image_embeds, image_atts, text_embeds, text_atts, deterministic,
             is_pretrain)[:, 0, :]
@@ -371,7 +397,10 @@ class XFMBase(nn.Module):
                                        masked_ids, deterministic=True,
                                        fixed_negatives=None):
         """ITM (1 positive + 2 hard-negative rows) and fusion-MLM in one
-        4B-row fusion pass; image k/v are projected once per unique image."""
+        4B-row fusion pass; image k/v are projected once per unique image
+        (under a process group: this rank's and its negatives', gathered
+        from the ranks that own them). The MLM mean is over every rank's
+        masked tokens."""
         B = text_atts.shape[0]
         image_neg, text_neg = self._negatives(generator, image_feat,
                                               text_feat, fixed_negatives)
@@ -380,22 +409,31 @@ class XFMBase(nn.Module):
         if self.config.detach_text_forMLM:
             enc_masked = enc_masked.detach()
         text_embeds = text_embeds.detach()
+        rows = self._global_rows
         # rows: [pos ‖ text_pos×image_neg ‖ text_neg×image_pos ‖ mlm]
-        emb_all = torch.cat([text_embeds, text_embeds, text_embeds[text_neg],
-                             enc_masked])
-        atts_all = torch.cat([text_atts, text_atts, text_atts[text_neg],
-                              text_atts])
+        emb_all = torch.cat([text_embeds, text_embeds,
+                             rows(text_embeds, text_neg, False), enc_masked])
+        atts_all = torch.cat([text_atts, text_atts,
+                              rows(text_atts, text_neg, False), text_atts])
         ar = torch.arange(B, device=image_neg.device, dtype=image_neg.dtype)
-        row_idx = torch.cat([ar, image_neg, ar, ar])
+        if mesh.is_distributed():
+            pool = torch.cat([image_embeds, rows(image_embeds, image_neg)])
+            atts_pool = torch.cat([image_atts, rows(image_atts, image_neg,
+                                                    False)])
+            row_idx = torch.cat([ar, ar + B, ar, ar])
+        else:
+            pool, atts_pool = image_embeds, image_atts
+            row_idx = torch.cat([ar, image_neg, ar, ar])
         hidden = self.fusion_encoder(
             inputs_embeds=emb_all, attention_mask=atts_all,
-            encoder_hidden_states=image_embeds,
-            encoder_attention_mask=image_atts[row_idx],
+            encoder_hidden_states=pool,
+            encoder_attention_mask=atts_pool[row_idx],
             deterministic=deterministic, encoder_row_idx=row_idx)
         loss_itm = self._itm_loss(hidden[: 3 * B, 0, :])
         mlm_logits = self.fusion_encoder.mlm_logits(hidden[3 * B:],
                                                     masked_pos)
-        return loss_itm, cross_entropy(mlm_logits, masked_ids)
+        return loss_itm, cross_entropy(mlm_logits, masked_ids,
+                                       over_ranks=True)
 
     def get_fuse_mlm_loss(self, text_ids_masked, text_atts, image_embeds,
                           image_atts, masked_pos, masked_ids,
@@ -410,7 +448,7 @@ class XFMBase(nn.Module):
             encoder_hidden_states=image_embeds,
             encoder_attention_mask=image_atts, deterministic=deterministic)
         logits = self.fusion_encoder.mlm_logits(hidden, masked_pos)
-        return cross_entropy(logits, masked_ids)
+        return cross_entropy(logits, masked_ids, over_ranks=True)
 
     def get_mlm_loss(self, text_ids_masked, text_atts, masked_pos,
                      masked_ids, deterministic=True):
@@ -419,7 +457,7 @@ class XFMBase(nn.Module):
         hidden = self.text_encoder(text_ids_masked, attention_mask=text_atts,
                                    deterministic=deterministic)
         logits = self.text_encoder.mlm_logits(hidden, masked_pos)
-        return cross_entropy(logits, masked_ids)
+        return cross_entropy(logits, masked_ids, over_ranks=True)
 
     def get_mim_loss(self, image_embeds_masked, targets, mask,
                      vqkd_code_ids=None):

@@ -6,9 +6,10 @@ A mask keeps an element where a uniform draw is below 1 − rate, as
 `jax.random.bernoulli` does, and survivors are divided by 1 − rate in the
 input's dtype. Masks are drawn with `torch.rand(..., generator=g)` from the
 generator of the innermost `dropout_generator(g)` block, never from the
-global RNG: the step's generator, shared with the hard-negative draw, in
-the forward's order. With `deterministic` or a rate of 0 nothing is drawn
-and the input comes back as it is.
+global RNG: the step's generator (its rank generator, where it is a
+`core.mesh.StepGenerators`, so that each rank draws its own rows' masks),
+in the forward's order. With `deterministic` or a rate of 0 nothing is
+drawn and the input comes back as it is.
 """
 from __future__ import annotations
 
@@ -18,14 +19,17 @@ from typing import Optional
 
 import torch
 
+from ..core.mesh import rank_generator
+
 _GENERATOR: contextvars.ContextVar[Optional[torch.Generator]] = \
     contextvars.ContextVar("dropout_generator", default=None)
 
 
 @contextlib.contextmanager
 def dropout_generator(generator: Optional[torch.Generator]):
-    """Live dropout inside the block draws its masks from `generator`."""
-    token = _GENERATOR.set(generator)
+    """Live dropout inside the block draws its masks from `generator` (a
+    `StepGenerators`' rank generator)."""
+    token = _GENERATOR.set(rank_generator(generator))
     try:
         yield
     finally:

@@ -36,6 +36,17 @@ stream batch sizes (or its top-level `batch_size`, or GLUE's
 `--checkpoint` by the caption tasks where no `--checkpoint` is given, and
 by `refcoco_bbox` as stage 1's weights (stage 1 then does not run). Runs
 on the card unless `--device cpu` is given.
+
+Under `torchrun` the processes form one data-parallel group before the
+task starts (`core/mesh.maybe_init_distributed`): NCCL with process i on
+card `LOCAL_RANK` (`--device cuda` is read as "cuda:LOCAL_RANK"), gloo
+with `--device cpu`; a launch that asks for a card where none is visible
+raises. `pretrain_DIY`, `itr_coco`, `itr_flickr`, `vqa`,
+`coco_captioning` and `infer_caption` run on any number of processes;
+the tasks of `SINGLE_PROCESS_TASKS` refuse more than one
+(`core/mesh.MultiProcessUnsupported`). At the end rank 0 prints the
+backend, the world size and every rank's kernel launches (`###
+processes ...`).
 """
 from __future__ import annotations
 
@@ -92,6 +103,9 @@ TASKS = {"itr_coco": ("retrieval", "main"),
          "refcoco_bbox": ("grounding", "main_bbox_pipeline"),
          "imagenet": ("imagenet", "main"), "glue": ("glue", "main"),
          "classify": ("classify", "main")}
+# tasks that refuse more than one process (ROADMAP.md, Queue 1 item 7)
+SINGLE_PROCESS_TASKS = ("nlvr", "refcoco_bbox", "imagenet", "glue",
+                        "classify")
 
 
 def build_parser():
@@ -116,16 +130,59 @@ def build_parser():
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--epoch", type=int, default=None)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--dist", default="",
+                   help="accepted as the repository's run.py accepts it; "
+                        "the process group comes from torchrun's variables")
+    p.add_argument("--master_port", type=int, default=None,
+                   help="MASTER_PORT where torchrun's variables lack it")
     return p
 
 
+def _report_processes() -> None:
+    """Under a process group (a torchrun launch): every rank's kernel
+    launches gathered to rank 0 (a collective of the backend, NCCL on the
+    card), which prints them with the backend and the world size."""
+    import json
+
+    import torch.distributed as dist
+
+    from .ops import kernels
+
+    if not dist.is_initialized():
+        return
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, launches)
+    if dist.get_rank() == 0:
+        print(f"### processes {dist.get_world_size()} backend "
+              f"{dist.get_backend()} launches by rank {json.dumps(every)}",
+              flush=True)
+
+
 def main(argv=None):
+    import torch.distributed as dist
+
+    from .core import mesh
+
     args = build_parser().parse_args(argv)
-    args.config = resolve_config(args)
-    os.makedirs(args.output_dir, exist_ok=True)
-    module, entry = TASKS[args.task]
-    task = importlib.import_module(f"xfm_tpu_torch.tasks.{module}")
-    return getattr(task, entry)(args)
+    if args.master_port is not None:
+        os.environ.setdefault("MASTER_PORT", str(args.master_port))
+    owns_group = not dist.is_initialized()
+    args.device = mesh.maybe_init_distributed(args.device)
+    owns_group &= dist.is_initialized()
+    try:
+        if args.task in SINGLE_PROCESS_TASKS:
+            mesh.require_single_process(args.task)
+        args.config = resolve_config(args)
+        os.makedirs(args.output_dir, exist_ok=True)
+        module, entry = TASKS[args.task]
+        task = importlib.import_module(f"xfm_tpu_torch.tasks.{module}")
+        result = getattr(task, entry)(args)
+        _report_processes()
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+    return result
 
 
 if __name__ == "__main__":

@@ -39,6 +39,13 @@ Where the port differs from the JAX task, on purpose:
   epoch;
 - the fine-tune writes its final captions as <output_dir>/result/
   caption_result.json, as `--evaluate` does.
+
+Under a process group each rank trains on its rows of every global batch
+(`data/finetune_data`; the domain pretrain on its part of the shards) and
+decodes the val images r, r + W, …; rank 0 merges the captions
+(`vqa.collect_results`) and scores them. SCST's samples draw from each
+rank's own generator. `infer_caption` captions every image on every rank
+and rank 0 writes the file.
 """
 from __future__ import annotations
 
@@ -50,6 +57,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import mesh
 from ..data.finetune_data import CaptioningData, _load_ann, caption_image_id
 from ..data.transforms import TestTransform, TrainTransform, decode_image
 from ..eval.caption_metrics import coco_caption_eval
@@ -203,14 +211,18 @@ def _score_captions(results: list, cfg: dict) -> dict:
 
 
 def _evaluate(ctx: TaskContext, model, data, tokenizer, pids) -> dict:
+    """This rank's captions, merged on rank 0 (`collect_results`), which
+    scores them → the scores, on every rank."""
     results = generate_captions(model, data, tokenizer, ctx.config, pids)
     path = collect_results(results, os.path.join(ctx.out_dir, "result"),
                            "caption_result")
-    metrics = _score_captions(results, ctx.config)
+    metrics = None
     if is_main_process():
+        with open(path) as f:
+            metrics = _score_captions(json.load(f), ctx.config)
         print("wrote", path, flush=True)
         print(metrics, flush=True)
-    return metrics
+    return mesh.broadcast_object(metrics)
 
 
 def main(args, scst: bool = False) -> dict:
@@ -337,7 +349,7 @@ def make_scst_step(cfg: dict, cider: CiderD, tokenizer, ids):
             greedy_rew = _reward(cider, tokenizer, greedy[:, P:], iids, eos,
                                  pad, 1)
         samples, _ = generate(model, images, greedy=False,
-                              generator=generator,
+                              generator=mesh.rank_generator(generator),
                               top_k=int(cfg.get("sample_top_k", 0)),
                               top_p=float(cfg.get("sample_top_p", 1.0)),
                               num_return_sequences=n, **kw)
@@ -390,7 +402,7 @@ def train_scst(ctx: TaskContext, state, train_data: CaptioningData,
                       f"{m['reward']:.3f}", flush=True)
             step += 1
         append_log(ctx.out_dir, {"epoch": epoch, "scst": True,
-                                 **logger.global_avg()})
+                                 **logger.synced_global_avg()})
         save_task_checkpoint(ctx, state, epoch)
     return state
 
@@ -427,7 +439,8 @@ def main_domain_pretrain(args) -> dict:
     rank, world = _process_slot(None, None)
     stream = ImageTextStream(cfg["train_file"], cfg, tokenizer,
                              TrainTransform(image_res, hflip=False,
-                                            seed=[ctx.seed, 1]),
+                                            seed=mesh.rank_seed([ctx.seed,
+                                                                 1])),
                              rank=rank, world_size=world,
                              with_image_mask=False)
     state, sched = build_state(ctx, model, 1)
@@ -453,7 +466,7 @@ def main_domain_pretrain(args) -> dict:
     finally:
         batches.close()
     save_task_checkpoint(ctx, state, max_steps)
-    stats = logger.global_avg()
+    stats = logger.synced_global_avg()
     append_log(ctx.out_dir, {"step": max_steps, **stats})
     return stats
 

@@ -1,10 +1,12 @@
 """What a task's main() shares (`xfm_tpu/tasks/common.py`): the config
-(`--bs` as the global batch), the output directory, the seed and the
-device; the train state built from the YAML, the step (with gradient
-accumulation), one epoch of it over prefetched device batches, the
-checkpoints (by epoch or by step) and their resume, the step
-generators, the epoch loop of a fine-tune with its evals and
-checkpoints, the load of a reference checkpoint, and the log."""
+(`--bs` as the global batch, the `parallel` block checked against the
+process group), the output directory, the seed and the device; the train
+state built from the YAML (the same on every rank), the step (with
+gradient accumulation), one epoch of it over prefetched device batches,
+the checkpoints (by epoch or by step, written by rank 0) and their
+resume, the step generators, the epoch loop of a fine-tune with its
+evals and checkpoints, the load of a reference checkpoint, and the
+log."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,9 +15,9 @@ import json
 import os
 from typing import Optional
 
-import numpy as np
 import torch
 
+from ..core import mesh
 from ..core.config import dump_config, load_config, resolve_vision_config
 from ..train.metrics import MetricLogger, is_main_process
 from ..train.optim import create_optimizer_from_config
@@ -39,10 +41,12 @@ class TaskContext:
                   ) -> "TaskContext":
         """The task YAML with `overrides`, its vision sub-config read (a
         missing relative path looked up under the repository's
-        configs/model), `--bs` (`scale_batch`) and `--epoch` applied, and
-        the result dumped to <output_dir>/config.yaml."""
+        configs/model), its `parallel` block checked against the process
+        group (`mesh_from_config`), `--bs` (`scale_batch`) and `--epoch`
+        applied, and the result dumped to <output_dir>/config.yaml."""
         cfg = load_config(args.config, overrides)
         cfg = resolve_vision_config(cfg, config_root=_CONFIG_ROOT)
+        mesh.mesh_from_config(cfg)
         if getattr(args, "bs", None):
             scale_batch(cfg, args.bs)
         if getattr(args, "epoch", None):
@@ -55,12 +59,7 @@ class TaskContext:
                    device=getattr(args, "device", "cuda"))
 
 
-def world_size() -> int:
-    """The process group's size where one is initialized, else 1."""
-    import torch.distributed as dist
-
-    live = dist.is_available() and dist.is_initialized()
-    return dist.get_world_size() if live else 1
+world_size = mesh.world_size
 
 
 def scale_batch(cfg: dict, global_bs: int,
@@ -99,13 +98,15 @@ def opt_steps_per_epoch(cfg: dict, micro_steps_per_epoch: int) -> int:
 
 def build_state(ctx: TaskContext, model: torch.nn.Module,
                 steps_per_epoch: int):
-    """The model's random weights from `ctx.seed`, HF-AdamW and the
-    schedule from the YAML's `optimizer`, `accelerator` and `schedular`
-    blocks → (TrainState, schedule). `steps_per_epoch` is in
-    micro-batches; the schedule's horizon in optimizer steps."""
+    """The model's random weights from `ctx.seed` (rank 0's broadcast to
+    the other ranks), HF-AdamW and the schedule from the YAML's
+    `optimizer`, `accelerator` and `schedular` blocks → (TrainState,
+    schedule). `steps_per_epoch` is in micro-batches; the schedule's
+    horizon in optimizer steps."""
     from ..train.checkpoint import init_weights
 
     init_weights(model, ctx.seed)
+    mesh.broadcast_parameters(model)
     sched = schedule_from_config(
         ctx.config, opt_steps_per_epoch(ctx.config, steps_per_epoch))
     opt = create_optimizer_from_config(model, ctx.config, sched)
@@ -139,17 +140,20 @@ def maybe_bf16_params(ctx: TaskContext, state: TrainState, sched
 def save_task_checkpoint(ctx: TaskContext, state: TrainState, index: int,
                          name: str = "ckpt", keep: int = 2) -> None:
     """The state under <out>/<name>/<index> (an epoch of the fine-tune, a
-    step of the pretrain task), the newest `keep` kept."""
+    step of the pretrain task), the newest `keep` kept: written by rank 0
+    alone, the other ranks waiting for it at a barrier."""
     from ..train.checkpoint import save_checkpoint
 
     if is_main_process():
         save_checkpoint(os.path.join(ctx.out_dir, name), state, step=index,
                         keep=keep)
+    mesh.barrier()
 
 
 def restore_latest(ctx: TaskContext, state: TrainState):
     """With `resume: true` in the YAML and a save under <out>/ckpt: the
-    newest restored in place → (state, its index); else (state, None)."""
+    newest restored in place on every rank → (state, its index); else
+    (state, None)."""
     from ..train.checkpoint import latest_step, restore_checkpoint
 
     ckpt_dir = os.path.join(ctx.out_dir, "ckpt")
@@ -171,14 +175,14 @@ def maybe_resume_epochs(ctx: TaskContext, state: TrainState):
     return state, last + 1
 
 
-def step_generator(ctx: TaskContext, *key: int) -> torch.Generator:
-    """A generator of dropout masks and hard negatives on the task's
-    device, seeded from (seed, *key): the fine-tune's from (seed, epoch),
-    a pretrain stream's from (seed, step, stream index), so that a resumed
-    run draws what the run it replaces drew."""
-    seed = int(np.random.SeedSequence([ctx.seed, *key]).generate_state(
-        1, np.uint64)[0])
-    return torch.Generator(device=ctx.device).manual_seed(seed)
+def step_generator(ctx: TaskContext, *key: int) -> mesh.StepGenerators:
+    """The step's generators on the task's device (`mesh.StepGenerators`):
+    the hard negatives' (`shared`, equal on every rank) seeded from (seed,
+    *key), the dropout masks' (`rank`) from the same entropy spawned at the
+    rank: the fine-tune's from (seed, epoch), a pretrain stream's from
+    (seed, step, stream index), so that a resumed run draws what the run
+    it replaces drew."""
+    return mesh.step_generators(ctx.seed, key, ctx.device)
 
 
 def make_task_step(ctx: TaskContext, loss_fn):
@@ -201,7 +205,7 @@ def _group_batches(loader, k: int):
 
 
 def train_epoch(ctx: TaskContext, state: TrainState, step_fn, loader,
-                generator: torch.Generator, epoch: int, sched=None,
+                generator: mesh.StepGenerators, epoch: int, sched=None,
                 accum_steps: int = 1):
     """One epoch of `step_fn(state, batch, generator)` over `loader`'s host
     batches, prefetched and copied to `ctx.device` one batch ahead. Every

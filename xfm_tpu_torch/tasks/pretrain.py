@@ -18,12 +18,22 @@ computes too (the flags follow each step; the JAX package holds a group's
 flags from its first step). With `calc_image_bbox_loss: true` the
 region stream's whole-image rows count in the bbox and GIoU losses too
 (`is_image` dropped, as in the JAX package). Dropout and drop-path are live; stream i (in the order of the
-names) draws its masks and hard negatives from a generator seeded from
-(`--seed`, step, i), and each image stream augments with its own
-TrainTransform seeded from (`--seed`, the stream's id). The state is saved
+names) draws its hard negatives from a generator seeded from (`--seed`,
+step, i), equal on every rank, and its masks from one with the rank
+folded in (`common.step_generator`), and each image stream augments with
+its own TrainTransform seeded from (`--seed`, the stream's id, and the
+rank where more than one process runs). The state is saved
 every `ckpt_frequent_step` steps and at the end (<out>/ckpt/<step>), and
 with `resume: true` the newest save is restored and the run goes on from
 its step (the streams start anew, as in the JAX package).
+
+Under `torchrun` each of the W processes reads its own part of every
+stream's shards (`ShardedLineReader`'s split by rank; its masking
+generators seeded from seed + rank), so that a step takes W × each
+block's `batch_size` rows (`--bs` is divided over the processes); the
+losses are the global batch's (`core/mesh`) and the gradients are
+averaged once a step. The log and the checkpoints are rank 0's, the
+logged averages summed over the ranks.
 
 The optional branches: `use_vision_tokenizer` builds the frozen VQ-KD
 tokenizer (`frozen_tokenizer`: `tokenizer_model`, `codebook_size`,
@@ -42,7 +52,7 @@ through the C++ loader and hands uint8 images to the card, which
 normalizes them (`data/pretrain_data`); with the block's `device_randaug`
 the loader leaves them un-augmented and each step runs RandAugment(2, 7)
 on them on the card before the loss (and before the frozen tokenizer's
-code ids), stream i drawing from a generator seeded from (`--seed`, step,
+code ids), stream i drawing from the rank generator of (`--seed`, step,
 `RANDAUG_KEY` + i) (`device_randaugment`).
 """
 from __future__ import annotations
@@ -59,6 +69,7 @@ from ..data.pretrain_data import (ImageStream, ImageTextStream,
 from ..data.transforms import TrainTransform
 from ..models import XFMForPretrain, config_from_yaml
 from ..models.task_models import LOSS_KEYS
+from ..core import mesh
 from ..train.metrics import MetricLogger, is_main_process
 from ..train.train_state import make_stream_step
 from .common import (TaskContext, append_log, build_state,
@@ -79,13 +90,15 @@ RANDAUG_KEY = 1000
 
 def _transform(cfg: dict, seed: int, name: str) -> TrainTransform:
     return TrainTransform(cfg.get("image_res", 224), scale=(0.2, 1.0),
-                          seed=[seed, STREAM_IDS[name]])
+                          seed=mesh.rank_seed([seed, STREAM_IDS[name]]))
 
 
 def build_streams(cfg: dict, tokenizer, seed: int = 42, rank: int = 0,
                   world_size: int = 1) -> dict:
-    """The streams the config names ({name: stream}); the image streams
-    each with their own TrainTransform seeded from (`seed`, stream id)."""
+    """The streams the config names ({name: stream}) as process `rank` of
+    `world_size` reads them; the image streams each with their own
+    TrainTransform seeded from (`seed`, stream id, and this process's rank
+    under a process group of more than one)."""
     streams = {}
     if cfg.get("train_file"):
         streams["image"] = ImageTextStream(
@@ -245,7 +258,8 @@ def main(args, tokenizer=None) -> dict:
     reference state dict, where given), `resume`, then steps up to
     `max_steps` (default `epochs` × `train_dataset_size` / the image
     batch). Prints every `print_freq` steps, appends the running averages
-    to <output_dir>/log.txt at each checkpoint → those averages
+    (summed over the ranks) and each step's loss since the last line
+    (`losses`) to <output_dir>/log.txt at each checkpoint → those averages
     (`<stream>_<loss>`, `loss`, `grad_norm`) with `samples_per_sec` (image
     stream samples over the wall time after two warm-up turns),
     `device_samples_per_sec` (the same with the wait for input taken
@@ -263,7 +277,8 @@ def main(args, tokenizer=None) -> dict:
     code_ids_fn = None
     if cfg.get("use_vision_tokenizer", False):
         _, code_ids_fn = frozen_tokenizer(cfg, ctx.device)
-    streams = build_streams(cfg, tokenizer, ctx.seed)
+    streams = build_streams(cfg, tokenizer, ctx.seed, mesh.rank(),
+                            mesh.world_size())
     if not streams:
         raise ValueError("no pretraining streams configured")
     order = sorted(streams)
@@ -298,6 +313,7 @@ def main(args, tokenizer=None) -> dict:
     print_freq = cfg.get("print_freq", 50)
 
     logger = MetricLogger()
+    step_losses = []  # each step's (global) loss since the last log line
     batches_iter = StreamBatches({n: streams[n] for n in order}, ctx.device)
     source = iter(batches_iter)
     perf = {"samples": 0, "secs": 0.0, "input_secs": 0.0, "steps": 0}
@@ -309,7 +325,7 @@ def main(args, tokenizer=None) -> dict:
             t_input = time.perf_counter() - t_step
             if randaug:
                 batches = device_randaugment(batches, {
-                    order[i]: step_generator(ctx, step, RANDAUG_KEY + i)
+                    order[i]: step_generator(ctx, step, RANDAUG_KEY + i).rank
                     for i in randaug})
             flags = {n: stream_flags(n, step, cfg) for n in order}
             gens = {n: step_generator(ctx, step, i)
@@ -327,6 +343,7 @@ def main(args, tokenizer=None) -> dict:
             names = [k for k, v in metrics.items() if v.dim() == 0]
             vals = torch.stack([metrics[k].float() for k in names]).tolist()
             logger.update(**dict(zip(names, vals)))
+            step_losses.append(vals[names.index("loss")])
             perf["steps"] += 1
             if perf["steps"] > 2:  # the first steps build and warm up
                 perf["secs"] += time.perf_counter() - t_step
@@ -340,8 +357,10 @@ def main(args, tokenizer=None) -> dict:
             if step % ckpt_step == 0 or step >= max_steps:
                 save_task_checkpoint(ctx, state, step, keep=3)
                 append_log(ctx.out_dir, {"step": step,
-                                         **logger.global_avg(),
+                                         **logger.synced_global_avg(),
+                                         "losses": step_losses,
                                          "elapsed": time.time() - t0})
+                step_losses = []
         redispatch = int(cfg.get("bench_redispatch", 0))
         rate_redispatch = None
         if redispatch and perf["steps"] > 2:
@@ -362,7 +381,7 @@ def main(args, tokenizer=None) -> dict:
                       flush=True)
     finally:
         batches_iter.close()
-    stats = logger.global_avg()
+    stats = logger.synced_global_avg()
     if rate_redispatch is not None:
         stats["redispatch_samples_per_sec"] = rate_redispatch
     if perf["secs"] > 0:

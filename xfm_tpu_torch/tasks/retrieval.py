@@ -17,6 +17,13 @@ live, its masks and hard negatives drawn from a generator seeded from
 after every epoch (`ckpt/<epoch>`, the two newest kept, and `ckpt_best/`
 where R_mean improved), and `resume: true` continues after the newest
 `ckpt/` epoch.
+
+Under a process group each rank trains on its rows of every global batch
+(`data/finetune_data`), ITC and the hard negatives run over the global
+batch (`models/losses`), and the eval's stage 1 runs on every rank while
+stage 2 scores rank r's rows r, r + W, … of each direction; the slices
+are merged exactly (`merge_rerank_scores`) and rank 0 computes R@K, which
+every rank returns.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import mesh
 from ..data.finetune_data import RetrievalEvalData, RetrievalTrainData
 from ..data.transforms import TestTransform, TrainTransform
 from ..models import XFMForRetrieval, config_from_yaml
@@ -45,13 +53,8 @@ def _device_of(model) -> torch.device:
 
 
 def _process_slot(process_index, process_count):
-    import torch.distributed as dist
-
-    live = dist.is_available() and dist.is_initialized()
-    pid = (dist.get_rank() if live else 0) if process_index is None \
-        else process_index
-    pcount = (dist.get_world_size() if live else 1) if process_count is None \
-        else process_count
+    pid = mesh.rank() if process_index is None else process_index
+    pcount = mesh.world_size() if process_count is None else process_count
     return pid, pcount
 
 
@@ -147,14 +150,28 @@ def rerank_scores(model, img_embeds, txt_embeds, txt_atts, sims,
     return score_i2t, score_t2i
 
 
-def merge_rerank_scores(score_i2t, score_t2i):
-    """The processes' row slices combined: a no-op on one process. More than
-    one raises: the gather across processes is not ported yet."""
-    _, pcount = _process_slot(None, None)
+def merge_rerank_scores(score_i2t, score_t2i, chunk: int = 1024):
+    """The processes' row slices combined: every row is scored by one
+    process and holds the -100 fill on the others, so the sum over the
+    processes plus (P − 1)·100 is the owner's value, exactly: the sum runs
+    in f64, where the f32 scores and the ±100 steps are exact (an f32 sum
+    would round through them; an elementwise max would clamp a logit below
+    -100). Gathered in row chunks of `chunk`, so that the host holds
+    P × chunk rows at a time. A no-op on one process."""
+    pcount = mesh.world_size()
     if pcount == 1:
         return score_i2t, score_t2i
-    raise NotImplementedError("merging the rerank of several processes is "
-                              "not ported yet")
+    shift = 100.0 * (pcount - 1)
+
+    def merge(mat):
+        out = np.empty_like(mat)
+        for s in range(0, mat.shape[0], chunk):
+            part = mesh.all_gather_numpy(mat[s:s + chunk])
+            out[s:s + chunk] = (part.astype(np.float64).sum(axis=0)
+                                + shift).astype(mat.dtype)
+        return out
+
+    return merge(score_i2t), merge(score_t2i)
 
 
 def itm_eval(score_i2t, score_t2i, img2txt, txt2img) -> dict:
@@ -196,7 +213,11 @@ def evaluation(model, eval_data, config: dict,
     s_i2t, s_t2i = rerank_scores(model, img_embeds, txt_embeds, txt_atts,
                                  sims, k_test, timings=timings)
     s_i2t, s_t2i = merge_rerank_scores(s_i2t, s_t2i)
-    return itm_eval(s_i2t, s_t2i, eval_data.img2txt, eval_data.txt2img)
+    metrics = None
+    if is_main_process():
+        metrics = itm_eval(s_i2t, s_t2i, eval_data.img2txt,
+                           eval_data.txt2img)
+    return mesh.broadcast_object(metrics)
 
 
 def build_tokenizer_or_fallback(cfg, texts_fn=None):

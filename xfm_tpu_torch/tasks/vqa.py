@@ -20,6 +20,11 @@ where it has one and the run evaluates (or the YAML sets
 files are missing, the fallback SimpleTokenizer is built over the
 questions and answers of the train and test files and the answer list
 (the JAX package builds it over no text at all).
+
+Under a process group each rank trains on its rows of every global batch
+(`data/finetune_data`) and ranks the test questions r, r + W, …;
+`collect_results` merges the ranks' results on rank 0, which computes the
+accuracies that every rank returns.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import os
 import numpy as np
 import torch
 
+from ..core import mesh
 from ..data.finetune_data import VQAData, _load_ann
 from ..data.transforms import TestTransform, TrainTransform
 from ..eval.vqa_eval import vqa_accuracy
@@ -44,20 +50,28 @@ from .retrieval import (_device_of, _maybe_shrink_vocab, _process_slot,
 
 
 def collect_results(result: list, out_dir: str, filename: str) -> str:
-    """The results written as this process's shard
-    (<out_dir>/<filename>_rank0.json) and merged into <out_dir>/<filename>.json
-    → the merged file's path. More than one process raises: the gather
-    across processes is not ported yet."""
-    _, pcount = _process_slot(None, None)
-    if pcount > 1:
-        raise NotImplementedError("merging the VQA results of several "
-                                  "processes is not ported yet")
+    """This process's results written as its shard
+    (<out_dir>/<filename>_rank<r>.json); after a barrier rank 0 merges the
+    shards into <out_dir>/<filename>.json → the merged file's path, which
+    every rank may read once this returns. Rank r holds the examples r,
+    r + W, … of the split (`data/finetune_data`), so the merge interleaves
+    the shards back into the split's order."""
+    r, pcount = _process_slot(None, None)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"{filename}_rank0.json"), "w") as f:
+    with open(os.path.join(out_dir, f"{filename}_rank{r}.json"), "w") as f:
         json.dump(result, f)
+    mesh.barrier()
     final = os.path.join(out_dir, f"{filename}.json")
-    with open(final, "w") as f:
-        json.dump(result, f)
+    if is_main_process():
+        shards = []
+        for k in range(pcount):
+            with open(os.path.join(out_dir, f"{filename}_rank{k}.json")) as f:
+                shards.append(json.load(f))
+        merged = [shards[i % pcount][i // pcount]
+                  for i in range(sum(map(len, shards)))]
+        with open(final, "w") as f:
+            json.dump(merged, f)
+    mesh.barrier()
     return final
 
 
@@ -137,7 +151,8 @@ def vqa_texts(cfg: dict) -> list:
 
 def _report(ctx: TaskContext, path: str, data: VQAData,
             epoch=None) -> dict:
-    acc = calculate_acc(path, data) if is_main_process() else {}
+    acc = mesh.broadcast_object(calculate_acc(path, data)
+                                if is_main_process() else {})
     if acc:
         if is_main_process():
             print(acc, flush=True)

@@ -2,7 +2,9 @@
 and global average, and `MetricLogger`, which holds one per name and prints
 the rate of a loop every `print_freq` steps. Printing is left to process 0
 (rank 0 of an initialized process group); the global averages are summed
-across the group by `synchronize_between_processes`."""
+across the group by `synchronize_between_processes` (in one all-reduce on
+the rank's own device), or read so without changing the meters by
+`synced_global_avg`."""
 from __future__ import annotations
 
 import datetime
@@ -27,6 +29,22 @@ def is_main_process() -> bool:
     return dist is None or dist.get_rank() == 0
 
 
+def _summed(pairs: list) -> list:
+    """[(count, total), ...] summed over the process group in one
+    all-reduce, on this rank's card under NCCL (the CPU under gloo); as
+    they are on one process. Every rank must pass the same names."""
+    dist = _group()
+    if dist is None or dist.get_world_size() == 1 or not pairs:
+        return [(int(c), float(t)) for c, t in pairs]
+    import torch
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else "cpu")
+    t = torch.tensor(pairs, dtype=torch.float64, device=dev)
+    dist.all_reduce(t)
+    return [(int(c), float(s)) for c, s in t.tolist()]
+
+
 class SmoothedValue:
     """The last `window_size` values and the count and total of all."""
 
@@ -45,17 +63,7 @@ class SmoothedValue:
 
     def synchronize_between_processes(self):
         """Sum [count, total] over the process group (no-op alone)."""
-        dist = _group()
-        if dist is None or dist.get_world_size() == 1:
-            return
-        import torch
-
-        dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
-        t = torch.tensor([self.count, self.total], dtype=torch.float64,
-                         device=dev)
-        dist.all_reduce(t)
-        self.count = int(t[0].item())
-        self.total = float(t[1].item())
+        self.count, self.total = _summed([(self.count, self.total)])[0]
 
     @property
     def median(self):
@@ -89,8 +97,24 @@ class MetricLogger:
             self.meters[k].update(float(v))
 
     def synchronize_between_processes(self):
-        for m in self.meters.values():
-            m.synchronize_between_processes()
+        """Every meter's [count, total] summed over the process group."""
+        names = sorted(self.meters)
+        summed = _summed([(self.meters[k].count, self.meters[k].total)
+                          for k in names])
+        for k, (count, total) in zip(names, summed):
+            self.meters[k].count, self.meters[k].total = count, total
+
+    def synced_global_avg(self) -> dict[str, float]:
+        """`global_avg` of the meters summed over the process group, the
+        meters left as they are (so that it may be read at every log
+        line)."""
+        if _group() is None:
+            return self.global_avg()
+        names = sorted(self.meters)
+        summed = _summed([(self.meters[k].count, self.meters[k].total)
+                          for k in names])
+        return {k: total / max(count, 1)
+                for k, (count, total) in zip(names, summed)}
 
     def __getattr__(self, name):
         if name in self.meters:

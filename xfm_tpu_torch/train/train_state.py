@@ -1,4 +1,10 @@
-"""Train state and train step (`xfm_tpu/train/train_state.py`)."""
+"""Train state and train step (`xfm_tpu/train/train_state.py`).
+
+Under a process group the gradients are averaged over the ranks once an
+optimizer step, in `TrainState.apply_gradients` before the optimizer's
+clip (`core/mesh.reduce_gradients`, in f32 whatever the gradients' dtype,
+bf16 under `bf16_params` included), and the steps' scalar metrics are the
+global ones (`core/mesh.reduce_metrics`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -6,6 +12,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..core.mesh import reduce_gradients, reduce_metrics
 from .optim import HFAdamW
 
 
@@ -16,6 +23,7 @@ class TrainState:
     step: int = 0
 
     def apply_gradients(self) -> torch.Tensor:
+        reduce_gradients(self.model.parameters())
         g_norm = self.optimizer.step()
         self.step += 1
         return g_norm
@@ -43,8 +51,9 @@ def make_train_step(loss_fn: Callable):
         loss, aux = loss_fn(state.model, batch, generator)
         loss.backward()
         g_norm = state.apply_gradients()
-        return state, dict(loss=loss.detach(), grad_norm=g_norm,
-                           **{k: v.detach() for k, v in aux.items()})
+        return state, reduce_metrics(dict(
+            loss=loss.detach(), grad_norm=g_norm,
+            **{k: v.detach() for k, v in aux.items()}))
 
     return step
 
@@ -74,7 +83,7 @@ def make_accum_train_step(loss_fn: Callable, accumulate_steps: int):
         g_norm = state.apply_gradients()
         metrics = {name: v / k for name, v in sums.items()}
         metrics["grad_norm"] = g_norm
-        return state, metrics
+        return state, reduce_metrics(metrics)
 
     return step
 
@@ -104,7 +113,8 @@ def make_stream_step(loss_fn: Callable):
             total = loss if total is None else total + loss
             metrics.update({k: v.detach() for k, v in aux.items()})
         g_norm = state.apply_gradients()
-        return state, dict(loss=total, grad_norm=g_norm, **metrics)
+        return state, reduce_metrics(dict(loss=total, grad_norm=g_norm,
+                                          **metrics))
 
     return step
 
