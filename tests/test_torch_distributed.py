@@ -223,16 +223,27 @@ def test_mesh_from_config_refuses_other_axes(axis):
 
 def test_single_process_tasks_refuse_and_cards_are_checked(monkeypatch,
                                                             tmp_path):
-    """A task of `run.SINGLE_PROCESS_TASKS` refuses a group of two at
-    start; under torchrun's variables `--device cuda` without a card
+    """A task that does not run on more than one process refuses a group
+    of two at the start of its entry point, called through the launcher
+    or directly; under torchrun's variables `--device cuda` without a card
     raises before any rendezvous."""
+    import importlib
+
     from xfm_tpu_torch import run
 
+    config = tmp_path / "task.yaml"
+    config.write_text("{}\n")
     monkeypatch.setattr(mesh, "world_size", lambda: 2)
-    for task in run.SINGLE_PROCESS_TASKS:
+    for task in ("nlvr", "refcoco_bbox", "imagenet", "glue", "classify"):
+        argv = ["--task", task, "--config", str(config), "--output_dir",
+                str(tmp_path), "--device", "cpu"]
         with pytest.raises(mesh.MultiProcessUnsupported, match=task):
-            run.main(["--task", task, "--output_dir", str(tmp_path),
-                      "--device", "cpu"])
+            run.main(argv)
+        module, entry = run.TASKS[task]
+        main = getattr(importlib.import_module(
+            f"xfm_tpu_torch.tasks.{module}"), entry)
+        with pytest.raises(mesh.MultiProcessUnsupported, match=task):
+            main(run.build_parser().parse_args(argv))
     monkeypatch.undo()
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "1")

@@ -63,9 +63,7 @@ def new_model(make, device, seed: int) -> torch.nn.Module:
     """`make()` constructed with its parameters allocated on `device` (not
     built on the host and copied: seconds of host time a full-width model),
     its host-built buffers moved there, and the weights of
-    `init_weights(model, seed)`, which sets every parameter. Not for a
-    module whose constructor draws from a host generator (`VQKD`'s
-    codebook)."""
+    `init_weights(model, seed)`, which sets every parameter."""
     with torch.device(device):
         model = make()
     model = model.to(device)

@@ -286,7 +286,7 @@ def barrier() -> None:
         dist.barrier()
 
 
-def _collective_device():
+def collective_device():
     """Where the backend's collectives take their tensors: this process's
     card under NCCL, the CPU under gloo."""
     dist = _dist()
@@ -297,7 +297,7 @@ def _collective_device():
 
 def all_gather_numpy(a: np.ndarray) -> np.ndarray:
     """The ranks' arrays (equal shapes) stacked → [W, *shape]."""
-    t = torch.from_numpy(np.ascontiguousarray(a)).to(_collective_device())
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(collective_device())
     return all_gather(t[None]).cpu().numpy()
 
 
@@ -308,7 +308,7 @@ def broadcast_object(obj, src: int = 0):
         return obj
     box = [obj]
     dist.broadcast_object_list(box, src=src,
-                               device=_collective_device())
+                               device=collective_device())
     return box[0]
 
 

@@ -3,10 +3,10 @@
 Under a process group of W ranks each loss is W × this rank's share of the
 global-batch loss that the JAX package computes (`core/mesh`): ITC takes
 the other ranks' features from `all_gather_with_grad` and averages over
-its own rows, the hard negatives are drawn over the gathered similarity
-matrix from the generator equal on every rank, and a mean over a count
-divides by the global count (`mesh.mean_divisor`). On one process each is
-the loss over its batch, as before."""
+its own rows and columns, the hard negatives are drawn over the gathered
+similarity matrix from the generator equal on every rank, and a mean over
+a count divides by the global count (`mesh.mean_divisor`). On one
+process each is the loss over its batch."""
 from __future__ import annotations
 
 from typing import Optional
@@ -24,40 +24,23 @@ def _ce_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def contrastive_loss(image_feat: torch.Tensor, text_feat: torch.Tensor,
                      temp: torch.Tensor,
                      idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """ITC over l2-normalized features; with `idx`, duplicate images share
-    soft positive mass. Under a process group: this rank's rows against
-    every rank's features (`_contrastive_loss_ranks`)."""
-    if mesh.is_distributed():
-        return _contrastive_loss_ranks(image_feat, text_feat, temp, idx)
-    logits = (image_feat @ text_feat.T).float() / temp
-    n = logits.shape[0]
-    if idx is None:
-        labels = torch.arange(n, device=logits.device)
-        li2t = _ce_logits(logits, labels)
-        lt2i = _ce_logits(logits.T, labels)
-    else:
-        idx = idx.reshape(-1, 1)
-        pos = (idx == idx.T).float()
-        labels = pos / pos.sum(dim=1, keepdim=True)
-        li2t = -(torch.log_softmax(logits, -1) * labels).sum(-1).mean()
-        lt2i = -(torch.log_softmax(logits.T, -1) * labels).sum(-1).mean()
-    return (li2t + lt2i) / 2
-
-
-def _contrastive_loss_ranks(image_feat, text_feat, temp, idx=None):
-    """ITC of this rank's B rows against the W·B gathered features (whose
-    backward carries the other ranks' gradients back), averaged over the
-    rank's rows: W × its share of the global loss."""
+    """ITC over l2-normalized features: the similarities of the W·B
+    gathered features (whose backward carries the other ranks' gradients
+    back), image → text over this rank's rows and text → image over its
+    columns, averaged over the rank's B rows: W × its share of the global
+    loss. With `idx`, duplicate images share soft positive mass over the
+    gathered `idx`."""
     images = mesh.all_gather_with_grad(image_feat)
     texts = mesh.all_gather_with_grad(text_feat)
-    i2t = (image_feat @ texts.T).float() / temp
-    t2i = (text_feat @ images.T).float() / temp
+    logits = (images @ texts.T).float() / temp
     n = image_feat.shape[0]
-    own = torch.arange(n, device=i2t.device) + mesh.rank() * n
+    own = slice(mesh.rank() * n, (mesh.rank() + 1) * n)
+    i2t, t2i = logits[own], logits.T[own]
     if idx is None:
-        return (_ce_logits(i2t, own) + _ce_logits(t2i, own)) / 2
-    idx = idx.reshape(-1)
-    pos = (idx[:, None] == mesh.all_gather(idx)[None, :]).float()
+        labels = torch.arange(own.start, own.stop, device=logits.device)
+        return (_ce_logits(i2t, labels) + _ce_logits(t2i, labels)) / 2
+    ids = mesh.all_gather(idx.reshape(-1))
+    pos = (ids[own, None] == ids[None, :]).float()
     labels = pos / pos.sum(dim=1, keepdim=True)
     li2t = -(torch.log_softmax(i2t, -1) * labels).sum(-1).mean()
     lt2i = -(torch.log_softmax(t2i, -1) * labels).sum(-1).mean()
@@ -71,37 +54,29 @@ def hard_negative_indices(generator: torch.Generator,
     """In-batch hard negatives: each row draws one negative with weights
     softmax(sim) + 1e-5, positives zeroed (the diagonal, or with `idx` every
     pair of rows with the same image id), from `generator` (on the
-    features' device). → (image_neg, text_neg), each [B] int64. Under a
-    process group the draw runs over the gathered global batch, the same on
-    every rank from the shared generator, and each rank keeps its own rows'
-    negatives: indices into the global batch."""
-    if not mesh.is_distributed():
-        return _draw_negatives(generator, image_feat, text_feat, temp, idx)
+    features' device). → (image_neg, text_neg), each [B] int64 indices into
+    the global batch. The draw runs over the gathered global batch, the
+    same on every rank from the shared generator, and each rank keeps its
+    own rows' negatives."""
     n = image_feat.shape[0]
-    image_neg, text_neg = _draw_negatives(
-        generator, mesh.all_gather(image_feat.detach()),
-        mesh.all_gather(text_feat.detach()), temp,
-        None if idx is None else mesh.all_gather(idx.reshape(-1)))
-    own = slice(mesh.rank() * n, (mesh.rank() + 1) * n)
-    return image_neg[own], text_neg[own]
-
-
-def _draw_negatives(generator, image_feat, text_feat, temp, idx):
     with torch.no_grad():
-        sim_i2t = (image_feat @ text_feat.T).float() / temp
+        images = mesh.all_gather(image_feat)
+        texts = mesh.all_gather(text_feat)
+        sim_i2t = (images @ texts.T).float() / temp
         sim_t2i = sim_i2t.T
         if idx is None:
             mask = torch.eye(sim_i2t.shape[0], dtype=torch.bool,
                              device=sim_i2t.device)
         else:
-            idx = idx.reshape(-1, 1)
-            mask = idx == idx.T
+            ids = mesh.all_gather(idx.reshape(-1))[:, None]
+            mask = ids == ids.T
         zero = torch.zeros((), device=sim_i2t.device)
         wi2t = torch.where(mask, zero, torch.softmax(sim_i2t, -1) + 1e-5)
         wt2i = torch.where(mask, zero, torch.softmax(sim_t2i, -1) + 1e-5)
         text_neg = torch.multinomial(wi2t, 1, generator=generator)[:, 0]
         image_neg = torch.multinomial(wt2i, 1, generator=generator)[:, 0]
-    return image_neg, text_neg
+    own = slice(mesh.rank() * n, (mesh.rank() + 1) * n)
+    return image_neg[own], text_neg[own]
 
 
 def mim_mse_loss(masked_embeds: torch.Tensor, target_embeds: torch.Tensor,

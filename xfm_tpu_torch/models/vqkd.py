@@ -134,9 +134,10 @@ class _Codebook(nn.Module):
 
     def __init__(self, num_codes: int, code_dim: int):
         super().__init__()
+        # drawn on the host wherever the module is built: one codebook
         g = torch.Generator().manual_seed(0)
         self.register_buffer("weight", l2norm(
-            torch.randn(num_codes, code_dim, generator=g)))
+            torch.randn(num_codes, code_dim, generator=g, device="cpu")))
         self.register_buffer("cluster_size", torch.zeros(num_codes))
 
 

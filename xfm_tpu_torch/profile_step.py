@@ -333,7 +333,7 @@ def profile_vqa(trace: str, units=("vqa_rank", "vqa_train"),
     launches a call (K1-K5 counters over the window), peak bytes, the
     model's parameter count, and the loss (train) or the top-1 ids
     (rank)}}; the trace to `trace`, or with several units each unit's to
-    <trace's base>_<unit>.json."""
+    <trace's base>_<unit>.json (none where `trace` is None)."""
     from . import configs
     from .ops import kernels
 
@@ -376,10 +376,11 @@ def profile_vqa(trace: str, units=("vqa_rank", "vqa_train"),
             res["top1"] = last["ids"][:, 0].tolist()
         res["top"] = [(name[:110], ms, n // steps) for name, (ms, n) in
                       sorted(kern.items(), key=lambda kv: -kv[1][0])[:TOP]]
-        base, ext = os.path.splitext(trace)
-        os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
-        prof.export_chrome_trace(trace if len(units) == 1
-                                 else f"{base}_{unit}{ext}")
+        if trace:
+            base, ext = os.path.splitext(trace)
+            os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+            prof.export_chrome_trace(trace if len(units) == 1
+                                     else f"{base}_{unit}{ext}")
         out[unit] = res
     return out
 
@@ -407,7 +408,8 @@ def _profile_units(trace: str, units, make, summary, warm,
     share, host ms a call, groups, launches a call (K1-K5 counters over
     the window), peak bytes, the model's parameter count, and
     `summary(unit, the last call's output)`}}; each unit's trace to
-    <trace's base>_<unit>.json (or `trace` for one unit)."""
+    <trace's base>_<unit>.json (or `trace` for one unit; none where
+    `trace` is None)."""
     from .ops import kernels
 
     out = {}
@@ -438,10 +440,11 @@ def _profile_units(trace: str, units, make, summary, warm,
         res.update(summary(unit, last["out"]))
         res["top"] = [(name[:110], ms, c // steps) for name, (ms, c) in
                       sorted(kern.items(), key=lambda kv: -kv[1][0])[:TOP]]
-        base, ext = os.path.splitext(trace)
-        os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
-        prof.export_chrome_trace(trace if len(units) == 1
-                                 else f"{base}_{unit}{ext}")
+        if trace:
+            base, ext = os.path.splitext(trace)
+            os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+            prof.export_chrome_trace(trace if len(units) == 1
+                                     else f"{base}_{unit}{ext}")
         out[unit] = res
         del state, call, last, prof
         torch.cuda.empty_cache()

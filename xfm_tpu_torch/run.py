@@ -43,8 +43,9 @@ card `LOCAL_RANK` (`--device cuda` is read as "cuda:LOCAL_RANK"), gloo
 with `--device cpu`; a launch that asks for a card where none is visible
 raises. `pretrain_DIY`, `itr_coco`, `itr_flickr`, `vqa`,
 `coco_captioning` and `infer_caption` run on any number of processes;
-the tasks of `SINGLE_PROCESS_TASKS` refuse more than one
-(`core/mesh.MultiProcessUnsupported`). At the end rank 0 prints the
+`nlvr`, `refcoco_bbox`, `imagenet`, `glue` and `classify` refuse more
+than one at the start of their entry points
+(`core/mesh.require_single_process`). At the end rank 0 prints the
 backend, the world size and every rank's kernel launches (`###
 processes ...`).
 """
@@ -103,9 +104,6 @@ TASKS = {"itr_coco": ("retrieval", "main"),
          "refcoco_bbox": ("grounding", "main_bbox_pipeline"),
          "imagenet": ("imagenet", "main"), "glue": ("glue", "main"),
          "classify": ("classify", "main")}
-# tasks that refuse more than one process (ROADMAP.md, Queue 1 item 7)
-SINGLE_PROCESS_TASKS = ("nlvr", "refcoco_bbox", "imagenet", "glue",
-                        "classify")
 
 
 def build_parser():
@@ -171,8 +169,6 @@ def main(argv=None):
     args.device = mesh.maybe_init_distributed(args.device)
     owns_group &= dist.is_initialized()
     try:
-        if args.task in SINGLE_PROCESS_TASKS:
-            mesh.require_single_process(args.task)
         args.config = resolve_config(args)
         os.makedirs(args.output_dir, exist_ok=True)
         module, entry = TASKS[args.task]

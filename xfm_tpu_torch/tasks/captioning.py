@@ -138,9 +138,10 @@ def build_model(cfg: dict, tokenizer, device) -> XFMForCaptioning:
     """`XFMForCaptioning.from_yaml` at the tokenizer's vocabulary and pad
     id, on `device`."""
     mcfg = _maybe_shrink_vocab(config_from_yaml(cfg), tokenizer)
-    return XFMForCaptioning.from_yaml(
-        cfg, mcfg, pad_token_id=getattr(tokenizer, "pad_token_id", 1)
-    ).to(device)
+    with torch.device(device):  # built there: no host init, no copy
+        return XFMForCaptioning.from_yaml(
+            cfg, mcfg, pad_token_id=getattr(tokenizer, "pad_token_id", 1)
+        ).to(device)
 
 
 def load_ckpt_into(model, ckpt_path: str,
@@ -429,14 +430,13 @@ def main_domain_pretrain(args) -> dict:
     from ..data.prefetch import StreamBatches
     from ..train.metrics import MetricLogger
     from .pretrain import corpus_texts
-    from .retrieval import _process_slot
 
     ctx = TaskContext.from_args(args)
     cfg = ctx.config
     image_res = cfg.get("image_res", 224)
     tokenizer = build_tokenizer_or_fallback(cfg, lambda: corpus_texts(cfg))
     model = build_model(cfg, tokenizer, ctx.device)
-    rank, world = _process_slot(None, None)
+    rank, world = mesh.rank(), mesh.world_size()
     stream = ImageTextStream(cfg["train_file"], cfg, tokenizer,
                              TrainTransform(image_res, hflip=False,
                                             seed=mesh.rank_seed([ctx.seed,

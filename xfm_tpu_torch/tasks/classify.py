@@ -22,6 +22,7 @@ import os
 import numpy as np
 import torch
 
+from ..core import mesh
 from ..data.finetune_data import _encode_texts
 from ..data.transforms import TestTransform, TrainTransform, decode_image
 from ..models import XFMForClassification, config_from_yaml
@@ -114,6 +115,7 @@ def main(args) -> dict:
     """Random weights from `--seed`, overlaid by `--checkpoint` where
     given. `--evaluate`: the val accuracy alone → {"acc"}. Otherwise the
     fine-tune → {"best_acc"}."""
+    mesh.require_single_process("classify")
     ctx = TaskContext.from_args(args)
     cfg = ctx.config
     if int((cfg.get("parallel", {}) or {}).get("pipe", 1) or 1) > 1:
@@ -125,7 +127,8 @@ def main(args) -> dict:
     val_rows = load_rows(cfg.get("val_file", cfg["train_file"]))
     tokenizer = build_tokenizer_or_fallback(cfg, lambda: [
         r["text"] for r in train_rows + val_rows if "text" in r])
-    model, has_img = build_model(cfg, tokenizer, train_rows)
+    with torch.device(ctx.device):  # built there: no host init, no copy
+        model, has_img = build_model(cfg, tokenizer, train_rows)
     model = model.to(ctx.device)
     T, bsz = cfg.get("max_tokens", 40), cfg.get("batch_size", 16)
     train_tf = TrainTransform(image_res) if has_img else None

@@ -59,9 +59,6 @@ class TaskContext:
                    device=getattr(args, "device", "cuda"))
 
 
-world_size = mesh.world_size
-
-
 def scale_batch(cfg: dict, global_bs: int,
                 n_processes: Optional[int] = None) -> None:
     """`--bs` as the global batch (`xfm_tpu/tasks/common.py` `_scale_batch`):
@@ -72,7 +69,7 @@ def scale_batch(cfg: dict, global_bs: int,
     `batch_size` (NLVR.yaml's, Grounding_bbox.yaml's, imagenet1k.yaml's)
     or GLUE's `per_device_train_batch_size`, which the JAX package leaves
     as they are, so that `--bs` changes nothing there."""
-    n = n_processes or world_size()
+    n = n_processes or mesh.world_size()
     for key in ("images", "texts", "regions", "images_imagenet"):
         if isinstance(cfg.get(key), dict) and "batch_size" in cfg[key]:
             cfg[key]["batch_size"] = max(1, global_bs // n)

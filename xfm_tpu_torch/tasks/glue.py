@@ -30,6 +30,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..core import mesh
 from ..eval import glue_metrics
 from ..models import XFMForClassification, config_from_yaml
 from ..train.checkpoint import init_weights, link_checkpoint
@@ -40,7 +41,7 @@ from ..train.train_state import TrainState
 from .common import (TaskContext, append_log, load_reference_checkpoint,
                      log_eval, make_task_step, maybe_resume_epochs,
                      opt_steps_per_epoch, save_task_checkpoint,
-                     step_generator, train_epoch, world_size)
+                     step_generator, train_epoch)
 from .retrieval import _maybe_shrink_vocab, build_tokenizer_or_fallback
 
 TASK_KEYS = {
@@ -161,6 +162,7 @@ def main(args) -> dict:
     """Random weights from `--seed`, overlaid by `--checkpoint` where
     given. `--evaluate`: the validation metrics alone. Otherwise the
     fine-tune → the last epoch's metrics (with MNLI's `mm_*`)."""
+    mesh.require_single_process("glue")
     ctx = TaskContext.from_args(args)
     cfg = ctx.config
     task = cfg["task_name"]
@@ -171,17 +173,18 @@ def main(args) -> dict:
     tokenizer = build_tokenizer_or_fallback(
         cfg, lambda: [a + " " + (b or "") for a, b, _ in train_ex])
     tokenize = make_tokenize_fn(tokenizer, cfg.get("max_length", 128))
-    model = XFMForClassification(
-        _maybe_shrink_vocab(config_from_yaml(cfg), tokenizer),
-        num_labels=num_labels, task_name="glue").to(ctx.device)
+    with torch.device(ctx.device):  # built there: no host init, no copy
+        model = XFMForClassification(
+            _maybe_shrink_vocab(config_from_yaml(cfg), tokenizer),
+            num_labels=num_labels, task_name="glue").to(ctx.device)
     init_weights(model, ctx.seed)
     if args.checkpoint:
         load_reference_checkpoint(model, args.checkpoint)
-    eval_bs = cfg.get("per_device_eval_batch_size", 8) * world_size()
+    eval_bs = cfg.get("per_device_eval_batch_size", 8) * mesh.world_size()
     if args.evaluate:
         return log_eval(ctx, evaluate(model, val_ex, tokenize, task,
                                       eval_bs))
-    bsz = cfg.get("per_device_train_batch_size", 32) * world_size()
+    bsz = cfg.get("per_device_train_batch_size", 32) * mesh.world_size()
     epochs = int(cfg.get("num_train_epochs", 3))
     total = cfg.get("max_train_steps") or epochs * opt_steps_per_epoch(
         cfg, max(1, len(train_ex) // bsz))

@@ -39,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import mesh
 from ..data.finetune_data import GroundingData, _load_ann
 from ..data.transforms import BoxTrainTransform, TestTransform
 from ..models import (XFMForGrounding, XFMForRetrieval, config_from_yaml,
@@ -120,14 +121,16 @@ def main(args, stage1: Optional[str] = None, tokenizer=None) -> dict:
     `stage1` (stage 1's checkpoint) where given. `--evaluate`: the test
     accuracy alone → {"iou50_acc"}. Otherwise the fine-tune →
     {"best_iou50"}. `tokenizer` (the pipeline's) replaces the config's."""
+    mesh.require_single_process("refcoco_bbox")
     ctx = TaskContext.from_args(args)
     cfg = ctx.config
     image_res = cfg.get("image_res", 384)
     if tokenizer is None:
         tokenizer = build_tokenizer_or_fallback(
             cfg, lambda: grounding_texts(cfg))
-    model = XFMForGrounding(_maybe_shrink_vocab(
-        config_from_yaml(cfg, use_bbox_loss=True), tokenizer)).to(ctx.device)
+    with torch.device(ctx.device):  # built there: no host init, no copy
+        model = XFMForGrounding(_maybe_shrink_vocab(config_from_yaml(
+            cfg, use_bbox_loss=True), tokenizer)).to(ctx.device)
 
     def data(ann, train):
         return GroundingData(ann, BoxTrainTransform(image_res) if train
@@ -174,6 +177,7 @@ def main_bbox_pipeline(args) -> dict:
     """`run.py --task refcoco_bbox`: stage 1 (unless `--evaluate` or
     `--load_ckpt_from`, or no stage-1 YAML resolves), then `main` from its
     checkpoint (or from `--load_ckpt_from`)."""
+    mesh.require_single_process("refcoco_bbox")
     from ..core.config import load_config
 
     dp_cfg = stage1_config(args.config)
@@ -216,9 +220,10 @@ def main_weakly_supervised(args) -> dict:
     image_res = cfg.get("image_res", 384)
     tokenizer = build_tokenizer_or_fallback(cfg, lambda: [
         a.get("text", "") for a in _load_ann(cfg["test_file"])])
-    model = XFMForRetrieval(_maybe_shrink_vocab(config_from_yaml(
-        cfg, use_contrastive_loss=True, use_matching_loss=True),
-        tokenizer)).to(ctx.device)
+    with torch.device(ctx.device):  # built there: no host init, no copy
+        model = XFMForRetrieval(_maybe_shrink_vocab(config_from_yaml(
+            cfg, use_contrastive_loss=True, use_matching_loss=True),
+            tokenizer)).to(ctx.device)
     init_weights(model, ctx.seed)
     if args.checkpoint:
         load_reference_checkpoint(model, args.checkpoint)

@@ -28,6 +28,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..core import mesh
 from ..data.prefetch import DeviceBatches
 from ..data.timm_aug import ImagenetEvalTransform, ImagenetTrainTransform
 from ..data.transforms import decode_image
@@ -237,6 +238,7 @@ def main(args) -> dict:
     """Random weights from `--seed`, overlaid by `--checkpoint` where
     given. `--evaluate`: the top-1 on the val rows → {"acc1"}. Otherwise
     the fine-tune (or the probe) → {"best_acc1"}."""
+    mesh.require_single_process("imagenet")
     ctx = TaskContext.from_args(args)
     cfg = ctx.config
     if int((cfg.get("parallel", {}) or {}).get("pipe", 1) or 1) > 1:
@@ -249,9 +251,11 @@ def main(args) -> dict:
             "uses 'batch' (configs/xfm-ft/imagenet1k.yaml:38)")
     image_res = cfg.get("image_res", 224)
     train_rows, val_rows, num_labels = load_rows(cfg)
-    model = XFMForClassification(
-        config_from_yaml(cfg), num_labels=num_labels, task_name="imagenet",
-        is_lp=bool(cfg.get("is_lp", False))).to(ctx.device)
+    with torch.device(ctx.device):  # built there: no host init, no copy
+        model = XFMForClassification(
+            config_from_yaml(cfg), num_labels=num_labels,
+            task_name="imagenet",
+            is_lp=bool(cfg.get("is_lp", False))).to(ctx.device)
     init_weights(model, ctx.seed)
     if args.checkpoint:
         load_reference_checkpoint(model, args.checkpoint)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import mesh
 from ..data.finetune_data import NLVRData, _load_ann
 from ..data.transforms import TestTransform, TrainTransform
 from ..models import XFMForNLVR, config_from_yaml
@@ -56,12 +57,14 @@ def main(args) -> dict:
     """Random weights from `--seed`, overlaid by `--checkpoint` where given.
     `--evaluate`: the test accuracy alone → {"acc"}. Otherwise the
     fine-tune → {"best_val_acc"}."""
+    mesh.require_single_process("nlvr")
     ctx = TaskContext.from_args(args)
     cfg = ctx.config
     image_res = cfg.get("image_res", 384)
     tokenizer = build_tokenizer_or_fallback(cfg, lambda: nlvr_texts(cfg))
-    model = XFMForNLVR(_maybe_shrink_vocab(config_from_yaml(cfg),
-                                           tokenizer)).to(ctx.device)
+    with torch.device(ctx.device):  # built there: no host init, no copy
+        model = XFMForNLVR(_maybe_shrink_vocab(config_from_yaml(cfg),
+                                               tokenizer)).to(ctx.device)
 
     def data(ann, train):
         return NLVRData(ann, TrainTransform(image_res) if train

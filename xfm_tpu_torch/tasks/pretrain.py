@@ -203,7 +203,8 @@ def frozen_tokenizer(cfg: dict, device="cuda"):
     from ..train.checkpoint import (init_weights, load_torch_state_dict,
                                     load_vqkd_checkpoint)
 
-    vq = VQKD(vqkd_config_from_yaml(cfg)).to(device)
+    with torch.device(device):  # built there: no host init, no copy
+        vq = VQKD(vqkd_config_from_yaml(cfg)).to(device)
     init_weights(vq, TOKENIZER_SEED)
     if cfg.get("tokenizer_weight"):
         load_vqkd_checkpoint(vq, load_torch_state_dict(
@@ -273,7 +274,8 @@ def main(args, tokenizer=None) -> dict:
     mcfg = _maybe_shrink_vocab(config_from_yaml(
         cfg, use_contrastive_loss=True, use_matching_loss=True,
         use_mlm_loss=True, use_bbox_loss=True), tokenizer)
-    model = XFMForPretrain(mcfg).to(ctx.device)
+    with torch.device(ctx.device):  # built there: no host init, no copy
+        model = XFMForPretrain(mcfg).to(ctx.device)
     code_ids_fn = None
     if cfg.get("use_vision_tokenizer", False):
         _, code_ids_fn = frozen_tokenizer(cfg, ctx.device)

@@ -52,12 +52,6 @@ def _device_of(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def _process_slot(process_index, process_count):
-    pid = mesh.rank() if process_index is None else process_index
-    pcount = mesh.world_size() if process_count is None else process_count
-    return pid, pcount
-
-
 @torch.no_grad()
 def encode_corpus(model, eval_data, batch_size: int,
                   text_batch_size: int = 0, timings: Optional[dict] = None):
@@ -106,7 +100,8 @@ def rerank_scores(model, img_embeds, txt_embeds, txt_atts, sims,
     = "0" scores image → text in the repeat form too. `timings` gets the
     host seconds of each direction (`i2t_s`, `t2i_s`; every chunk ends on
     reading its scores back)."""
-    pid, pcount = _process_slot(process_index, process_count)
+    pid = mesh.rank() if process_index is None else process_index
+    pcount = mesh.world_size() if process_count is None else process_count
     t0 = time.perf_counter()
     dev = img_embeds.device
 
@@ -274,7 +269,8 @@ def main(args):
     mcfg = config_from_yaml(cfg, use_contrastive_loss=True,
                             use_matching_loss=True)
     mcfg = _maybe_shrink_vocab(mcfg, tokenizer)
-    model = XFMForRetrieval(mcfg).to(ctx.device)
+    with torch.device(ctx.device):  # built there: no host init, no copy
+        model = XFMForRetrieval(mcfg).to(ctx.device)
     test_data = RetrievalEvalData(eval_ann, TestTransform(image_res),
                                   cfg["image_root"], tokenizer,
                                   max_tokens=max_tokens)

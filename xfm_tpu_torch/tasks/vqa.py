@@ -45,7 +45,7 @@ from ..train.train_state import vqa_loss_fn
 from .common import (TaskContext, append_log, build_state, is_main_process,
                      make_task_step, maybe_resume_epochs,
                      save_task_checkpoint, step_generator, train_epoch)
-from .retrieval import (_device_of, _maybe_shrink_vocab, _process_slot,
+from .retrieval import (_device_of, _maybe_shrink_vocab,
                         build_tokenizer_or_fallback)
 
 
@@ -56,7 +56,7 @@ def collect_results(result: list, out_dir: str, filename: str) -> str:
     every rank may read once this returns. Rank r holds the examples r,
     r + W, … of the split (`data/finetune_data`), so the merge interleaves
     the shards back into the split's order."""
-    r, pcount = _process_slot(None, None)
+    r, pcount = mesh.rank(), mesh.world_size()
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"{filename}_rank{r}.json"), "w") as f:
         json.dump(result, f)
@@ -173,9 +173,11 @@ def main(args) -> dict:
     image_res = cfg.get("image_res", 480)
     tokenizer = build_tokenizer_or_fallback(cfg,
                                             lambda: vqa_texts(cfg))
-    model = XFMForVQA.from_yaml(
-        cfg, _maybe_shrink_vocab(config_from_yaml(cfg), tokenizer),
-        pad_token_id=getattr(tokenizer, "pad_token_id", 1)).to(ctx.device)
+    with torch.device(ctx.device):  # built there: no host init, no copy
+        model = XFMForVQA.from_yaml(
+            cfg, _maybe_shrink_vocab(config_from_yaml(cfg), tokenizer),
+            pad_token_id=getattr(tokenizer, "pad_token_id", 1)
+        ).to(ctx.device)
     roots = {"vqa": cfg.get("vqa_root", "."), "vg": cfg.get("vg_root", ".")}
     test_data = VQAData(cfg["test_file"], TestTransform(image_res), roots,
                         tokenizer, batch_size=cfg.get("batch_size_test", 16),

@@ -1045,8 +1045,9 @@ def _load(ckpt_dir: str, step: Optional[int], device) -> Optional[dict]:
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         return None
+    # mapped, not read through: each tensor is copied once, to `device`
     return torch.load(os.path.join(ckpt_dir, str(step), _STATE_FILE),
-                      map_location=device, weights_only=True)
+                      map_location=device, weights_only=True, mmap=True)
 
 
 def load_params_from_checkpoint(ckpt_dir: str, step: Optional[int] = None,

@@ -1,9 +1,9 @@
 """Metric logging (`xfm_tpu/train/metrics.py`): `SmoothedValue`, a windowed
 and global average, and `MetricLogger`, which holds one per name and prints
-the rate of a loop every `print_freq` steps. Printing is left to process 0
-(rank 0 of an initialized process group); the global averages are summed
-across the group by `synchronize_between_processes` (in one all-reduce on
-the rank's own device), or read so without changing the meters by
+the rate of a loop every `print_freq` steps. Printing is left to rank 0
+(`core/mesh`); the global averages are summed across the process group by
+`synchronize_between_processes` (in one all-reduce on the device of the
+group's collectives), or read so without changing the meters by
 `synced_global_avg`."""
 from __future__ import annotations
 
@@ -13,35 +13,24 @@ from collections import defaultdict, deque
 from typing import Iterable
 
 import numpy as np
+import torch
 
-
-def _group():
-    """The initialized default process group's torch.distributed, or
-    None."""
-    import torch.distributed as dist
-
-    return dist if dist.is_available() and dist.is_initialized() else None
+from ..core import mesh
 
 
 def is_main_process() -> bool:
-    """Rank 0 of an initialized process group, else true (one process)."""
-    dist = _group()
-    return dist is None or dist.get_rank() == 0
+    """Rank 0 of the process group (true on one process)."""
+    return mesh.rank() == 0
 
 
 def _summed(pairs: list) -> list:
     """[(count, total), ...] summed over the process group in one
-    all-reduce, on this rank's card under NCCL (the CPU under gloo); as
-    they are on one process. Every rank must pass the same names."""
-    dist = _group()
-    if dist is None or dist.get_world_size() == 1 or not pairs:
+    all-reduce (`mesh.all_reduce_sum`); as they are on one process. Every
+    rank must pass the same names."""
+    if not mesh.is_distributed() or not pairs:
         return [(int(c), float(t)) for c, t in pairs]
-    import torch
-
-    dev = (torch.device("cuda", torch.cuda.current_device())
-           if dist.get_backend() == "nccl" else "cpu")
-    t = torch.tensor(pairs, dtype=torch.float64, device=dev)
-    dist.all_reduce(t)
+    t = mesh.all_reduce_sum(torch.tensor(
+        pairs, dtype=torch.float64, device=mesh.collective_device()))
     return [(int(c), float(s)) for c, s in t.tolist()]
 
 
@@ -108,7 +97,7 @@ class MetricLogger:
         """`global_avg` of the meters summed over the process group, the
         meters left as they are (so that it may be read at every log
         line)."""
-        if _group() is None:
+        if not mesh.is_distributed():
             return self.global_avg()
         names = sorted(self.meters)
         summed = _summed([(self.meters[k].count, self.meters[k].total)
