@@ -211,15 +211,16 @@ Phases, each of which must pass or the script exits non-zero:
      last epoch's accuracy); `--task refcoco_bbox` on
      `Grounding_bbox.yaml`'s keys with `domain_pretrain_config` naming
      `Grounding_bbox_pretrain.yaml`'s keys over 32 region images: stage 1
-     3 steps at its batch (96 regions over 80 image rows at 224 px, K1
+     one step at its batch (96 regions over 80 image rows at 224 px, K1
      12 + 12 a step), stage 2 2 epochs at `--bs 24` from its weights, each
      of the 12 rel-pos tables [2212, 12] the interpolation of stage 1's
      [732, 12] (K2 12 + 12 a step, 12 an eval batch), `--evaluate
      --checkpoint` from it (the last epoch's accuracy); then
      `tasks.grounding.main_weakly_supervised` over 16 rows with 5
      candidate boxes (K2 12 a GradCAM batch of 8 at fusion layer 8);
-     accuracies in [0, 1], peak memory under 80 GB; the directory
-     deleted; then `profile_step` `nlvr_train`, `grounding_train` and
+     accuracies in [0, 1], peak memory under 80 GB; the runs' outputs
+     deleted (the corpora kept for phase 28); then `profile_step`
+     `nlvr_train`, `grounding_train` and
      `gradcam` at the YAMLs' sizes (busy time by group, idle share, peak
      memory under 80 GB, the launches as above);
  23. ImageNet, the linear probe, GLUE and classify: K1 forward and
@@ -246,7 +247,8 @@ Phases, each of which must pass or the script exits non-zero:
      loss bit-equal), `--evaluate --checkpoint` (the last epoch's metrics);
      `--task classify` on 16 + 8 image + text rows at 224 px (the fused
      classifier; K1 12 + 12 a step, 12 an eval batch); accuracies in
-     [0, 1], peak memory under 80 GB; the directory deleted; then
+     [0, 1], peak memory under 80 GB; the runs' outputs deleted (the
+     corpora kept for phase 28); then
      `profile_step` `imagenet_train`, `imagenet_lp` and `glue_train` at
      the YAMLs' sizes (busy time, idle share, peak memory under 80 GB,
      MFU over busy time, the launches as above);
@@ -336,6 +338,25 @@ Phases, each of which must pass or the script exits non-zero:
      with two cards or more also the bf16 pretrain step on a fixed global
      batch of 32 on two processes against one (`python3 chip_smoke.py
      --dp-step`), else a line saying it could not run;
+ 28. data parallelism for the other fine-tunes, the same way: `python3
+     chip_smoke.py --dp-task` (`run.main` with each train step's reduced
+     loss recorded) under `torchrun --standalone --nproc_per_node=<the
+     card count>`, four launches at a time, over phases 22's and 23's
+     corpora and YAMLs at full width and depth: `--task nlvr` (one epoch
+     of 2 steps at `--bs 24`, on phase 22's schedule of 4 steps),
+     `refcoco_bbox` (stage 1 one step, stage 2 one epoch at `--bs 24`;
+     with two cards or more the region JSONL in a shard a rank),
+     `imagenet` (one epoch at `--bs 128`) and its probe (`--bs 512`),
+     `glue` (one epoch of 2 steps at `--bs 32`, on phase 23's horizon of
+     4 steps) and `classify` (one epoch at `--bs 16`); each rank's
+     launches (K2 12 + 12 a step for NLVR and stage 2, K1 12 + 12 for
+     stage 1, ImageNet and classify, K1 12 for the probe, none for GLUE,
+     and K2 or K1 12 an eval batch of the rank's); with one card each run
+     held to phase 22's or 23's without torchrun (the first loss
+     bit-equal, epoch 0's eval metrics equal); with two cards or more the
+     `--evaluate` of each run's `ckpt/0` under torchrun held to one
+     process's at the rank's batch, else a line saying it could not run;
+     phases 22's and 23's directories deleted;
 then a JSON line of the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
@@ -344,6 +365,7 @@ Needs one CUDA card; imports nothing of JAX or of the xfm_tpu package.
 """
 from __future__ import annotations
 
+import atexit
 import base64
 import json
 import math
@@ -2877,7 +2899,7 @@ def _png_pool(image_root, r, n):
     return pool
 
 
-def _nlvr_corpus(root, n_train=24, n_val=8, n_test=8, n_images=16, seed=0):
+def _nlvr_corpus(root, n_train=48, n_val=8, n_test=8, n_images=16, seed=0):
     """Seeded 'True' / 'False' labels and sentences over pairs of two
     different PNGs of `_png_pool` → {train, val, test, image_root}."""
     r = np.random.RandomState(seed)
@@ -2958,7 +2980,7 @@ def nlvr_task_runs(root, bs=24, epochs=2, seed=0) -> dict:
     true`), the run again after ckpt/<last> is deleted, `--evaluate
     --checkpoint` from its checkpoint; `--task refcoco_bbox` on
     `Grounding_bbox.yaml`'s keys with `domain_pretrain_config` naming
-    `Grounding_bbox_pretrain.yaml`'s keys over the region JSONL (3 steps
+    `Grounding_bbox_pretrain.yaml`'s keys over the region JSONL (one step
     at its batch), then `--evaluate --checkpoint`;
     `tasks.grounding.main_weakly_supervised` over the weakly supervised
     rows. Each step, eval, stage-1 step, GradCAM batch and epoch is
@@ -2984,7 +3006,7 @@ def nlvr_task_runs(root, bs=24, epochs=2, seed=0) -> dict:
                      val_file=nf["val"], test_file=nf["test"],
                      image_root=nf["image_root"], resume=True),
         "stage1": dict(configs.GROUNDING_PRETRAIN,
-                       train_file_regions=[gf["regions"]], max_steps=3,
+                       train_file_regions=[gf["regions"]], max_steps=1,
                        print_freq=1),
         "weak": dict(configs.GROUNDING, test_file=gf["weak"],
                      image_root=gf["image_root"], batch_size=8)}
@@ -3149,7 +3171,7 @@ def nlvr_task_runs(root, bs=24, epochs=2, seed=0) -> dict:
     return runs
 
 
-def full_nlvr_task(epochs=2) -> dict:
+def full_nlvr_task(epochs=2, keep_corpora=False) -> dict:
     """Phase 22's task runs at full width on the card, checked: finite
     losses; K2 12 + 12 a fine-tune step (NLVR and grounding) and 12 an eval
     batch, K1 12 + 12 a stage-1 step, K2 12 a GradCAM batch, nothing else;
@@ -3157,14 +3179,28 @@ def full_nlvr_task(epochs=2) -> dict:
     first loss bit-equal to the first run's; `--evaluate` giving the last
     epoch's accuracy; stage 2's 12 tables [2212, 12] each the
     interpolation of stage 1's [732, 12]; accuracies in [0, 1]; peak
-    memory under 80 GB. The directory is deleted at the end."""
+    memory under 80 GB. The directory is deleted at the end, but with
+    `keep_corpora` its corpora and YAMLs, which stay for phase 28
+    (`corpus_root` of the result; `dp_ref`: the first step's loss and
+    epoch 0's eval of the NLVR run and of stage 2), which deletes them."""
     import tempfile
 
     root = tempfile.mkdtemp(prefix="xfm_nlvr_")
+    keep = False
     try:
-        runs = nlvr_task_runs(root, epochs=epochs)
+        out = _checked_nlvr_runs(root, epochs)
+        if keep_corpora:  # and gone at the latest when the script ends
+            keep = bool(atexit.register(shutil.rmtree, root, True))
+        return out
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+def _checked_nlvr_runs(root, epochs) -> dict:
+    runs = nlvr_task_runs(root, epochs=epochs)
+    for name in ("out", "out_ev", "ref_out", "ref_out_ev", "weak_out"):
+        shutil.rmtree(os.path.join(root, name), ignore_errors=True)
     d = 12
     names = list(runs["full"]["steps"][0]["launches"])
     none = {n: 0 for n in names}
@@ -3218,11 +3254,11 @@ def full_nlvr_task(epochs=2) -> dict:
             or len(resumed["steps"]) != spe
             or len(full["evals"]) != 2 * epochs
             or runs["evaluate"]["result"] != {"acc": nlvr_last}
-            or runs["stage1_layout"] != ["3"] or len(pipe["stage1"]) != 3
+            or runs["stage1_layout"] != ["1"] or len(pipe["stage1"]) != 1
             or any(e["rows"] != 80 for e in pipe["stage1"])
             or tables.get("n") != 12 or not tables.get("equal")
             or tables.get("shapes") != [((732, 12), (2212, 12))]
-            or len(pipe["steps"]) != epochs * spe
+            or len(pipe["steps"]) != epochs  # 24 rows at --bs 24
             or len(pipe["evals"]) != epochs
             or runs["ref_evaluate"]["result"] != {"iou50_acc": ref_last}
             or not 0 <= runs["weak"]["result"]["gradcam_acc"] <= 1
@@ -3245,14 +3281,21 @@ def full_nlvr_task(epochs=2) -> dict:
                     for e in full["epochs"] + pipe["epochs"]),
                 checkpoint_bytes=runs["checkpoint_bytes"],
                 nlvr=full["result"], ref=pipe["result"],
-                weak=runs["weak"]["result"])
+                weak=runs["weak"]["result"], corpus_root=root,
+                dp_ref={"nlvr": dict(
+                    loss=full["steps"][0]["loss"], steps=len(full["steps"]),
+                    metrics={"val_acc": full["evals"][0]["acc"],
+                             "test_acc": full["evals"][1]["acc"]}),
+                        "refcoco_bbox": dict(
+                    loss=pipe["steps"][0]["loss"],
+                    metrics={"iou50_acc": pipe["evals"][0]["iou50_acc"]})})
 
 
-def nlvr_phase():
+def nlvr_phase(keep_corpora=False):
     """Phase 22 → (K2's errors, times and bounds at qkv [48, 577, 2304]
     and [24, 577, 2304] (forward and backward) and [8, 577, 2304]
     (forward), the slice's bf16 cam readings, `profile_step.profile_nlvr`'s
-    units)."""
+    units, `full_nlvr_task`'s result)."""
     from xfm_tpu_torch import profile_step
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -3283,7 +3326,7 @@ def nlvr_phase():
     gate_grad_parity()
     sp = nlvr_slice_parity()
     t2 = time.perf_counter()
-    nt = full_nlvr_task()
+    nt = full_nlvr_task(keep_corpora=keep_corpora)
     t3 = time.perf_counter()
     print("  nlvr and grounding tasks: " + json.dumps(nt))
     nprof = profile_step.profile_nlvr(None, steps=PROFILE_STEPS)
@@ -3305,7 +3348,7 @@ def nlvr_phase():
                 or not math.isfinite(r.get("loss", r.get("cam_max")))):
             raise AssertionError(f"{unit}: launches, peak memory or loss")
     return ((k2n_err, k2n_t, k2nw), (k2b_err, k2b_t, k2bw),
-            (k2g_err, k2g_t, k2gw), sp, nprof)
+            (k2g_err, k2g_t, k2gw), sp, nprof, nt)
 
 
 def nlvr_kernel_entries(k2n, k2b, k2g, nprof) -> list:
@@ -3584,7 +3627,7 @@ def classify_task_runs(root, seed=0) -> dict:
     real = dict(i_te=imagenet.train_epoch, g_te=glue.train_epoch,
                 c_te=classify.train_epoch, i_ev=imagenet.evaluate,
                 g_ev=glue.evaluate, c_ev=classify.evaluate,
-                i_save=imagenet.save_checkpoint,
+                i_save=imagenet.save_task_checkpoint,
                 g_save=glue.save_task_checkpoint,
                 g_re=glue.maybe_resume_epochs)
     rec = {}
@@ -3673,7 +3716,7 @@ def classify_task_runs(root, seed=0) -> dict:
     glue.evaluate = evaluate("g_ev", lambda m, ex, tok, task, bs:
                              -(-len(ex) // bs))
     classify.evaluate = cls_evaluate
-    imagenet.save_checkpoint = saver("i_save")
+    imagenet.save_task_checkpoint = saver("i_save")
     glue.save_task_checkpoint = saver("g_save")
     glue.maybe_resume_epochs = maybe_resume_epochs
     out = {n: os.path.join(root, f"out_{n}") for n in cfgs}
@@ -3724,13 +3767,13 @@ def classify_task_runs(root, seed=0) -> dict:
         classify.train_epoch = real["c_te"]
         imagenet.evaluate, glue.evaluate = real["i_ev"], real["g_ev"]
         classify.evaluate = real["c_ev"]
-        imagenet.save_checkpoint = real["i_save"]
+        imagenet.save_task_checkpoint = real["i_save"]
         glue.save_task_checkpoint = real["g_save"]
         glue.maybe_resume_epochs = real["g_re"]
     return runs
 
 
-def full_classify_task(seed=0) -> dict:
+def full_classify_task(seed=0, keep_corpora=False) -> dict:
     """Phase 23's task runs at full width on the card, checked: finite
     losses; K1 12 + 12 a fine-tune step (ImageNet, classify), 12 a probe
     step and an eval batch of the image classifiers, and nothing at all
@@ -3742,14 +3785,28 @@ def full_classify_task(seed=0) -> dict:
     checkpoints and ckpt_best, the resume bit-equal to its file and its
     first loss to the first run's, `--evaluate` giving the last epoch's
     metrics; accuracies in [0, 1]; peak memory under 80 GB. The directory
-    is deleted at the end."""
+    is deleted at the end, but with `keep_corpora` its corpora and YAMLs,
+    which stay for phase 28 (`corpus_root` of the result; `dp_ref`: each
+    run's first step loss and epoch 0's eval), which deletes them."""
     import tempfile
 
     root = tempfile.mkdtemp(prefix="xfm_classify_")
+    keep = False
     try:
-        runs = classify_task_runs(root, seed=seed)
+        out = _checked_classify_runs(root, seed)
+        if keep_corpora:  # and gone at the latest when the script ends
+            keep = bool(atexit.register(shutil.rmtree, root, True))
+        return out
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+def _checked_classify_runs(root, seed) -> dict:
+    runs = classify_task_runs(root, seed=seed)
+    for name in os.listdir(root):
+        if name.startswith("out_"):
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
     names = list(runs["ft"]["steps"][0]["launches"])
     none = {n: 0 for n in names}
     k1 = dict(none, packed_attention_fwd=12)
@@ -3836,13 +3893,22 @@ def full_classify_task(seed=0) -> dict:
         max_memory_allocated={n: max(e["max_memory_allocated"]
                                      for e in runs[n]["epochs"])
                               for n in ("ft", "lp", "glue", "cls")},
-        results={n: runs[n]["result"] for n in ("ft", "lp", "glue", "cls")})
+        results={n: runs[n]["result"] for n in ("ft", "lp", "glue", "cls")},
+        corpus_root=root,
+        dp_ref={task: dict(
+            loss=runs[n]["steps"][0]["loss"], steps=len(runs[n]["steps"]),
+            metrics={k: v for k, v in runs[n]["evals"][0].items()
+                     if k in keys}) for task, n, keys in (
+            ("imagenet", "ft", ("acc1",)), ("probe", "lp", ("acc1",)),
+            ("glue", "glue", ("accuracy", "f1")),
+            ("classify", "cls", ("acc",)))})
 
 
-def classify_phase():
+def classify_phase(keep_corpora=False):
     """Phase 23 → (K1's errors, times and bounds at qkv [128, 197, 2304]
     (forward and backward) and [512, 197, 2304] (forward),
-    `profile_step.profile_classify`'s units)."""
+    `profile_step.profile_classify`'s units, `full_classify_task`'s
+    result)."""
     from xfm_tpu_torch import profile_step
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -3860,7 +3926,7 @@ def classify_phase():
     t1 = time.perf_counter()
     classify_slice_parity()
     t2 = time.perf_counter()
-    ct = full_classify_task()
+    ct = full_classify_task(keep_corpora=keep_corpora)
     t3 = time.perf_counter()
     print("  classification tasks: " + json.dumps(ct))
     cprof = profile_step.profile_classify(None, steps=PROFILE_STEPS)
@@ -3880,7 +3946,7 @@ def classify_phase():
                 or r["max_memory_allocated"] >= 80e9
                 or not math.isfinite(r["loss"])):
             raise AssertionError(f"{unit}: launches, peak memory or loss")
-    return k1[128], k1[512], cprof
+    return k1[128], k1[512], cprof, ct
 
 
 def classify_kernel_entries(k1ft, k1lp, cprof) -> list:
@@ -5333,9 +5399,10 @@ def input_phase(pt_throughput: dict, streams_prof: dict) -> dict:
 
 
 PHASE_T = []  # when each phase began (time.perf_counter)
-# the launches of phase 27 are killed where they would carry the run past
-# this many seconds from its start (the run's limit is 1,200 s), so that a
-# hung process group ends the run with its output rather than at the limit
+# the launches of phases 27 and 28 are killed where they would carry the
+# run past this many seconds from its start (the run's limit is 1,200 s),
+# so that a hung process group ends the run with its output rather than at
+# the limit
 DEADLINE_S = 1140.0
 
 
@@ -5894,6 +5961,257 @@ def dp_phase(zero_shot_r_mean: float) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def dp_task_worker(out_dir: str, argv: list) -> int:
+    """`python3 chip_smoke.py --dp-task OUT ARGS` under torchrun: `run.main
+    (ARGS)`, the `python3 -m xfm_tpu_torch.run` entry, with each train
+    step's reduced loss recorded (the step functions that the tasks hand
+    to `train_epoch` wrapped); each rank writes its losses, the wall
+    clock (`time.time`) on entering and on leaving `run.main` and its
+    peak device memory to OUT/losses_<rank>.json."""
+    entered = time.time()
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from xfm_tpu_torch import run
+    from xfm_tpu_torch.tasks import classify, common, glue, imagenet
+
+    losses = []
+
+    def recording(real):
+        def train_epoch(ctx, state, step_fn, loader, generator, epoch,
+                        sched, **kw):
+            def step(state, batch, gen):
+                state, m = step_fn(state, batch, gen)
+                losses.append(m["loss"].item())
+                return state, m
+            return real(ctx, state, step, loader, generator, epoch, sched,
+                        **kw)
+        return train_epoch
+
+    for module in (common, imagenet, glue, classify):
+        module.train_epoch = recording(module.train_epoch)
+    run.main(argv)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"losses_{os.environ.get('RANK', '0')}"
+                           ".json"), "w") as f:
+        json.dump(dict(losses=losses, entered=entered, left=time.time(),
+                       max_memory_allocated=torch.cuda.max_memory_allocated()),
+                  f)
+    return 0
+
+
+# phase 28's launches on the card at once (device memory, host cores)
+DP_TASK_CONCURRENCY = 4
+
+
+def _rank_eval_batches(n_rows: int, batch: int, rank: int,
+                       world: int) -> int:
+    """The eval batches of `batch` rows that rank `rank` of `world` takes
+    of `n_rows` rows (`core/mesh.rank_batches`)."""
+    return len(range(rank, -(-n_rows // batch), world))
+
+
+def _dp_task_launches(task: str, rank: int, world: int) -> dict:
+    """Rank `rank`'s kernel launches in phase 28's run of `task` at
+    `world` processes: a step's on each of its train steps (K2 12 + 12 for
+    NLVR and stage 2, K1 12 + 12 for ImageNet, stage 1 and classify, K1 12
+    for the probe, none for GLUE) and K2 or K1 12 on each of its eval
+    batches (`rank_batches` of the val and test rows at its batch)."""
+    d, k1f, k1b = 12, "packed_attention_fwd", "packed_attention_bwd"
+    k2f, k2b = "relpos_attention_fwd", "relpos_attention_bwd"
+
+    def evals(*splits):
+        return sum(_rank_eval_batches(n, bs // world, rank, world)
+                   for n, bs in splits)
+
+    if task == "nlvr":  # 2 steps of 24 pairs; val and test 8 pairs each
+        return {k2f: d * (2 + evals((8, 24), (8, 24))), k2b: 2 * d}
+    if task == "refcoco_bbox":  # stage 1's step, stage 2's step, 8 tests
+        return {k1f: d, k1b: d, k2f: d * (1 + evals((8, 24))), k2b: d}
+    if task == "imagenet":  # one step of 128; 32 val rows
+        return {k1f: d * (1 + evals((32, 128))), k1b: d}
+    if task == "probe":  # one step of 512, the tower frozen; 32 val rows
+        return {k1f: d * (1 + evals((32, 512)))}
+    if task == "classify":  # one step of 16; 8 val rows
+        return {k1f: d * (1 + evals((8, 16))), k1b: d}
+    return {}
+
+
+def dp_tasks_phase(nt: dict, ct: dict) -> dict:
+    """Phase 28 (see the module docstring) over phases 22's and 23's
+    corpora and YAMLs (`nt`, `ct`: their `full_*_task` results), which it
+    deletes at the end with its own directory."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import yaml
+
+    W = torch.cuda.device_count()
+    n_root, c_root = nt["corpus_root"], ct["corpus_root"]
+    ref = dict(nt["dp_ref"], **ct["dp_ref"])
+    root = tempfile.mkdtemp(prefix="xfm_dp_tasks_")
+    t0 = time.perf_counter()
+    try:
+        def yaml_of(path, **keys):
+            with open(path) as f:
+                cfg = yaml.safe_load(f)
+            cfg.update(keys)
+            out = os.path.join(root, os.path.basename(path))
+            with open(out, "w") as f:
+                yaml.safe_dump(cfg, f)
+            return out
+
+        nlvr_cfg = yaml.safe_load(open(os.path.join(n_root, "nlvr.yaml")))
+        # one epoch of phase 22's 2 steps on its schedule of 2 epochs
+        sched = dict(nlvr_cfg["schedular"],
+                     num_training_steps=ref["nlvr"]["steps"])
+        ref_yaml = os.path.join(n_root, "ref.yaml")
+        if W > 1:  # stage 1's region JSONL in a shard a rank
+            stage1 = yaml.safe_load(open(os.path.join(n_root,
+                                                      "stage1.yaml")))
+            path = stage1["train_file_regions"][0]
+            with open(path) as f:
+                lines = f.read().splitlines()
+            shards = []
+            for r in range(W):
+                shards.append(os.path.join(root, f"regions_{r}.jsonl"))
+                with open(shards[-1], "w") as f:
+                    f.write("\n".join(lines[r::W]) + "\n")
+            stage1_dp = yaml_of(os.path.join(n_root, "stage1.yaml"),
+                                train_file_regions=shards)
+            ref_yaml = yaml_of(ref_yaml, domain_pretrain_config=stage1_dp)
+        # started in this order, the two largest with the two smallest
+        args = {
+            "refcoco_bbox": ["--task", "refcoco_bbox", "--config", ref_yaml,
+                             "--bs", "24", "--epoch", "1"],
+            "nlvr": ["--task", "nlvr", "--config", yaml_of(
+                os.path.join(n_root, "nlvr.yaml"), schedular=sched),
+                     "--bs", "24", "--epoch", "1"],
+            # one epoch of phase 23's 2 steps on its horizon of 2 epochs
+            "glue": ["--task", "glue", "--config", yaml_of(
+                os.path.join(c_root, "glue.yaml"), num_train_epochs=1,
+                max_train_steps=ref["glue"]["steps"]), "--bs", "32"],
+            "probe": ["--task", "imagenet", "--config",
+                      os.path.join(c_root, "lp.yaml"), "--bs", "512",
+                      "--epoch", "1"],
+            "imagenet": ["--task", "imagenet", "--config",
+                         os.path.join(c_root, "ft.yaml"), "--bs", "128",
+                         "--epoch", "1"],
+            "classify": ["--task", "classify", "--config",
+                         os.path.join(c_root, "cls.yaml"), "--bs", "16"],
+        }
+        out = {t: os.path.join(root, t) for t in args}
+        seconds = {}
+
+        def launch(tag, nproc, argv, out_dir):
+            t = time.time()
+            text = _finish(_torchrun(nproc, [
+                os.path.join(REPO, "chip_smoke.py"), "--dp-task", out_dir,
+                *argv, "--device", "cuda", "--seed", "0", "--output_dir",
+                out_dir]), tag)
+            seconds[os.path.basename(out_dir)] = (t, time.time())
+            return text
+
+        torch.cuda.empty_cache()
+        t_wall = time.time()
+        with ThreadPoolExecutor(DP_TASK_CONCURRENCY) as pool:
+            jobs = {t: pool.submit(launch, f"{t} under torchrun", W, a,
+                                   out[t]) for t, a in args.items()}
+            stdout = {t: j.result() for t, j in jobs.items()}
+        t_runs = time.perf_counter() - t0
+        result = dict(world=W)
+        for task in args:
+            world, backend, by_rank = _processes_line(stdout[task], task)
+            log = [e for e in _last_log(out[task]) if "epoch" in e]
+            with open(os.path.join(out[task], "losses_0.json")) as f:
+                rec = json.load(f)
+            losses = rec["losses"]
+            metrics = {k: log[0][k] for k in ref[task]["metrics"]}
+            start, end = seconds[task]
+            times = dict(start=start - t_wall, to_entry=rec["entered"] - start,
+                         run_main=rec["left"] - rec["entered"],
+                         to_exit=end - rec["left"], total=end - start)
+            print(f"  {task}: world {world}, backend {backend}; seconds "
+                  f"{json.dumps({k: round(v, 1) for k, v in times.items()})}"
+                  f"; peak {rec['max_memory_allocated']} B; step losses "
+                  f"{losses}; epoch 0 {json.dumps(metrics)}")
+            if (world != W or backend != "nccl" or len(log) != 1
+                    or not losses or not all(map(math.isfinite, losses))):
+                raise AssertionError(f"{task} under torchrun: its world, "
+                                     f"backend, log or losses")
+            for r, got in enumerate(by_rank):
+                want = _dp_task_launches(task, r, W)
+                print(f"  {task} rank {r} launches {json.dumps(got)}")
+                if got != want:
+                    raise AssertionError(f"{task} rank {r}: launches {got}, "
+                                         f"expected {want}")
+            if W == 1:
+                same = (losses[0] == ref[task]["loss"]
+                        and metrics == ref[task]["metrics"])
+                print(f"  {task} against phase 22/23's run without torchrun:"
+                      f" first loss {losses[0]} / {ref[task]['loss']}, "
+                      f"epoch 0 {json.dumps(ref[task]['metrics'])}: "
+                      f"{'equal' if same else 'DIFFERENT'}")
+                if not same:
+                    raise AssertionError(f"{task} under torchrun differs "
+                                         f"from phase 22/23's run")
+            result[task] = dict(losses=losses, metrics=metrics,
+                                launches=by_rank, seconds=times,
+                                max_memory_allocated=rec[
+                                    "max_memory_allocated"])
+        if W >= 2:
+            result["evaluate"] = _dp_task_evaluates(args, out, launch, W)
+        else:
+            print("  --evaluate of a two-process run's checkpoint under "
+                  "torchrun against one process: not run, this machine has "
+                  "one card (NCCL puts one rank on a card); the CPU tests "
+                  "run two gloo processes")
+        result.update(seconds=time.perf_counter() - t0, runs_s=t_runs)
+        return result
+    finally:
+        for d in (root, n_root, c_root):
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def _dp_task_evaluates(args, out, launch, W) -> dict:
+    """Phase 28 on two cards or more: each run's `ckpt/0` (classify saves
+    none; the probe where its top-1 improved) evaluated under torchrun at
+    W processes and by one process at the rank's batch → both metrics,
+    held equal."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    global_bs = {"nlvr": 24, "refcoco_bbox": 24, "imagenet": 128,
+                 "probe": 512, "glue": 32}
+    jobs, got = {}, {}
+    with ThreadPoolExecutor(DP_TASK_CONCURRENCY) as pool:
+        for task, bs in global_bs.items():
+            ckpt = os.path.join(out[task], "ckpt", "0", "state.pt")
+            if not os.path.exists(ckpt):
+                print(f"  {task}: no ckpt/0 (its top-1 did not improve)")
+                continue
+            for n, b in ((W, bs), (1, bs // W)):  # --task T --config C
+                argv = args[task][:4] + ["--bs", str(b), "--evaluate",
+                                         "--checkpoint", ckpt]
+                jobs[task, n] = pool.submit(
+                    launch, f"{task} --evaluate W={n}", n, argv,
+                    out[task] + f"_ev{n}")
+        for (task, n), j in jobs.items():
+            j.result()
+            got[task, n] = _last_log(out[task] + f"_ev{n}")[-1]["eval"]
+    result = {}
+    for task in global_bs:
+        if (task, W) not in got:
+            continue
+        a, b = got[task, W], got[task, 1]
+        print(f"  {task} --evaluate of ckpt/0: {W} processes "
+              f"{json.dumps(a)}, one {json.dumps(b)}")
+        if a != b:
+            raise AssertionError(f"{task}: the eval on {W} processes "
+                                 f"differs from one process's")
+        result[task] = a
+    return result
+
+
 def phase(header: str) -> None:
     """Print a phase's header, on standard error too with the seconds since
     the run began, and note when the phase began."""
@@ -6133,10 +6451,10 @@ def main() -> int:
     k2c, k1c, cprof = caption_phase()
     phase("phase 22: NLVR2 and RefCOCO grounding: K2 at the new batches, "
           "the slice, the tasks and their profiles")
-    k2n, k2b, k2g, _, nprof = nlvr_phase()
+    k2n, k2b, k2g, _, nprof, nt = nlvr_phase(keep_corpora=True)
     phase("phase 23: ImageNet, the linear probe, GLUE and classify: K1 at "
           "the new batches, the slice, the tasks and their profiles")
-    k1ft, k1lp, clprof = classify_phase()
+    k1ft, k1lp, clprof, ct = classify_phase(keep_corpora=True)
     phase("phase 24: the pretrain task's optional branches: the VQ-KD "
           "tokenizer, region attention, the shared table, bf16 parameters")
     qprof = vqkd_phase()
@@ -6152,6 +6470,10 @@ def main() -> int:
           "and itr_coco")
     dp = dp_phase(ft["r_mean"][0])
     print("  data parallel: " + json.dumps(dp))
+    phase("phase 28: data parallelism under torchrun (NCCL): nlvr, "
+          "refcoco_bbox, imagenet, the probe, glue and classify")
+    dpt = dp_tasks_phase(nt, ct)
+    print("  data parallel tasks: " + json.dumps(dpt))
 
     entries = (kernel_entries("packed_attention",
                               "xfm_tpu/ops/flash_attention.py", 983, 1007,
@@ -6191,7 +6513,7 @@ def main() -> int:
                + tower_kernel_entries(*tw["k3"], tw["deit_launches"]))
     ends = PHASE_T[1:] + [time.perf_counter()]
     by_phase = [round(b - a, 1) for a, b in zip(PHASE_T, ends)]
-    print(f"chip_smoke: 27 phases in {ends[-1] - t_start:.1f} s; seconds "
+    print(f"chip_smoke: 28 phases in {ends[-1] - t_start:.1f} s; seconds "
           f"by phase {json.dumps(by_phase)}")
     print(json.dumps({"kernels": entries}))
     print(smi)
@@ -6204,4 +6526,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-step"]:
         sys.exit(dp_step_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--dp-task"]:
+        sys.exit(dp_task_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

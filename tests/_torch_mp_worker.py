@@ -22,6 +22,14 @@ case gives to OUT/rank<r>.pt. The cases:
   g. `merge_rerank_scores` of the ranks' row slices;
   h. `collect_results` of the ranks' shards;
   k. `rank_rows` / `rank_strided` of an order.
+
+With SPEC's `suite` "tasks" (`tests/test_torch_distributed_tasks.py`)
+the process runs `run_task_cases` instead: one step of NLVR, grounding's
+stage 2, the ImageNet fine-tune (mixup off), the linear probe (LARS),
+GLUE and classify's fused branch, each on the rank's rows of a global
+batch of 4; each task's eval on a split of 5 rows in batches of 2 (W
+does not divide it); and the ImageNet loader's mixup over the rank's
+rows.
 """
 import os
 import sys
@@ -289,6 +297,234 @@ def run_cases(spec, out_dir) -> dict:
         h=case_collect(os.path.join(out_dir, "result")), k=case_rows())
 
 
+# --- the five tasks' steps and evals --------------------------------------
+
+TASK_KW = dict(image_res=64, layers=2, vision_embed_dim=64,
+               vision_num_heads=2, text_hidden_size=64,
+               text_num_attention_heads=2, text_intermediate_size=128,
+               text_vocab_size=60, compute_dtype="float32",
+               drop_path_rate=0.0)
+TASKS = ("nlvr", "grounding", "imagenet", "probe", "glue", "stsb",
+         "classify")
+NL = 5  # ImageNet's classes
+EVAL_BS = 2
+
+
+def task_yaml(name: str) -> dict:
+    """The task's YAML at 2 layers a tower, width 64, 64 px, f32 (mixup
+    and cutmix off for ImageNet)."""
+    from xfm_tpu_torch import configs
+
+    if name == "nlvr":
+        return configs.nlvr_yaml(**TASK_KW)
+    if name == "grounding":
+        return configs.grounding_yaml(**TASK_KW)
+    if name in ("imagenet", "probe"):
+        return configs.imagenet_yaml(lp=name == "probe", num_labels=NL,
+                                     mixup=0.0, cutmix=0.0, **TASK_KW)
+    if name in ("glue", "stsb"):
+        return configs.glue_yaml(task_name="mrpc" if name == "glue"
+                                 else "stsb", **TASK_KW)
+    return configs.nlvr_yaml(num_labels=2, **TASK_KW)  # classify, fused
+
+
+def task_model(name: str):
+    """The port's model of `name`, as the task's main builds it."""
+    from xfm_tpu_torch.models import (XFMForClassification, XFMForGrounding,
+                                      XFMForNLVR, config_from_yaml)
+
+    cfg = task_yaml(name)
+    if name == "nlvr":
+        return XFMForNLVR(config_from_yaml(cfg))
+    if name == "grounding":
+        return XFMForGrounding(config_from_yaml(cfg, use_bbox_loss=True))
+    if name in ("imagenet", "probe"):
+        return XFMForClassification(config_from_yaml(cfg), num_labels=NL,
+                                    task_name="imagenet",
+                                    is_lp=name == "probe")
+    if name in ("glue", "stsb"):
+        return XFMForClassification(config_from_yaml(cfg),
+                                    num_labels=2 if name == "glue" else 1,
+                                    task_name="glue")
+    return XFMForClassification(config_from_yaml(cfg), num_labels=2,
+                                task_name="fused")
+
+
+def make_task_batches(seed: int = 11) -> dict:
+    """Each task's global batch of 4 rows (numpy, seeded); NLVR's images
+    [all first images; all second images]."""
+    r = np.random.RandomState(seed)
+    B, T = 4, 8
+
+    def text():
+        ids = r.randint(5, 40, (B, T)).astype(np.int64)
+        ids[:, 0] = 1
+        atts = np.ones((B, T), np.int64)
+        for b in range(B):
+            n = T - b
+            ids[b, n - 1], ids[b, n:], atts[b, n:] = 2, 0, 0
+        return ids, atts
+
+    def images(n=B):
+        return r.randn(n, 64, 64, 3).astype(np.float32)
+
+    out = {}
+    ids, atts = text()
+    out["nlvr"] = dict(images=images(2 * B), text_ids=ids, text_atts=atts,
+                       targets=np.array([1, 0, 0, 1], np.int64))
+    ids, atts = text()
+    out["grounding"] = dict(
+        images=images(), text_ids=ids, text_atts=atts,
+        target_bbox=r.uniform(0.2, 0.6, (B, 4)).astype(np.float32))
+    out["imagenet"] = dict(images=images(),
+                           targets=np.array([0, 3, 4, 1], np.int64))
+    out["probe"] = dict(images=images(),
+                        targets=np.array([2, 2, 0, 4], np.int64))
+    ids, atts = text()
+    out["glue"] = dict(text_ids=ids, text_atts=atts,
+                       targets=np.array([1, 0, 1, 1], np.int32))
+    out["stsb"] = dict(text_ids=ids, text_atts=atts,
+                       targets=r.uniform(0, 5, B).astype(np.float32))
+    ids, atts = text()
+    out["classify"] = dict(images=images(), text_ids=ids, text_atts=atts,
+                           targets=np.array([0, 1, 1, 0], np.int32))
+    return out
+
+
+def local_batch(name: str, batch: dict) -> dict:
+    """The rank's rows of a global batch as torch tensors, integers as
+    int64 as `data/prefetch` copies them: NLVR's pairs with both of each
+    pair's images, every other task's `rank_slice`."""
+    from xfm_tpu_torch.core import mesh
+
+    if name == "nlvr":
+        images = batch["images"].reshape(2, -1, *batch["images"].shape[1:])
+        batch = mesh.rank_slice(dict(batch, images=images.swapaxes(0, 1)))
+        batch["images"] = np.ascontiguousarray(
+            batch["images"].swapaxes(0, 1)).reshape(
+                -1, *batch["images"].shape[2:])
+    else:
+        batch = mesh.rank_slice(batch)
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v.astype(np.int64) if v.dtype.kind in "iu" else v))
+        for k, v in batch.items()}
+
+
+def _task_state(name: str, state_dict):
+    """The model with `state_dict` and the task's optimizer at lr `LR`."""
+    from xfm_tpu_torch.tasks import imagenet
+    from xfm_tpu_torch.train.optim import (create_optimizer,
+                                           create_optimizer_from_config)
+    from xfm_tpu_torch.train.train_state import TrainState
+
+    model = task_model(name)
+    model.load_state_dict(state_dict, strict=True)
+    cfg = task_yaml(name)
+
+    def sched(step):
+        return LR
+
+    if name in ("imagenet", "probe"):
+        opt = imagenet.build_optimizer(model, cfg, sched)
+    elif name in ("glue", "stsb"):
+        opt = create_optimizer(model, sched, weight_decay=0.0,
+                               clip_grad_norm=1.0)
+    else:
+        opt = create_optimizer_from_config(model, cfg, sched)
+    return TrainState.create(model, opt)
+
+
+def _task_loss_fn(name: str):
+    from xfm_tpu_torch.tasks import classify, glue, imagenet
+    from xfm_tpu_torch.train import train_state
+
+    if name in ("imagenet", "probe"):
+        return imagenet.make_loss_fn(task_yaml(name))
+    return {"nlvr": train_state.nlvr_loss_fn,
+            "grounding": train_state.grounding_loss_fn,
+            "glue": glue.glue_loss_fn, "stsb": glue.glue_loss_fn,
+            "classify": classify.classify_loss_fn}[name]
+
+
+def case_task_step(spec, name: str) -> dict:
+    """One step of the task's loss (dropout off) on the rank's rows."""
+    from xfm_tpu_torch.core import mesh
+    from xfm_tpu_torch.train.train_state import make_train_step
+
+    state = _task_state(name, spec["state_dicts"][name])
+    gen = mesh.step_generators(0, (1,), "cpu")
+    state, metrics = make_train_step(_task_loss_fn(name))(
+        state, local_batch(name, spec["batches"][name]), gen)
+    return _record(state, metrics)
+
+
+def case_task_evals(spec) -> dict:
+    """Each task's eval, as its main calls it, on 5 rows in batches of
+    `EVAL_BS` (3 and 2 rows on two ranks) → the metrics."""
+    from xfm_tpu_torch.core import mesh
+    from xfm_tpu_torch.data.finetune_data import GroundingData, NLVRData
+    from xfm_tpu_torch.data.timm_aug import ImagenetEvalTransform
+    from xfm_tpu_torch.data.tokenization import SimpleTokenizer
+    from xfm_tpu_torch.data.transforms import TestTransform
+    from xfm_tpu_torch.tasks import classify, glue, grounding, imagenet, nlvr
+
+    d = spec["data"]
+    tok = SimpleTokenizer(d["words"])
+    models = {}
+    for name in TASKS:
+        models[name] = task_model(name).eval()
+        models[name].load_state_dict(spec["state_dicts"][name], strict=True)
+    tf = TestTransform(64)
+    out = {"rows": len(mesh.rank_batches(list(range(5)), EVAL_BS))}
+    out["nlvr"] = nlvr.evaluate(models["nlvr"], NLVRData(
+        d["nlvr"], tf, d["root"], tok, max_tokens=10, batch_size=EVAL_BS,
+        train=False))
+    out["grounding"] = grounding.evaluate(models["grounding"], GroundingData(
+        d["grounding"], tf, d["root"], tok, max_tokens=10,
+        batch_size=EVAL_BS, train=False))
+    for name in ("imagenet", "probe"):
+        out[name] = imagenet.evaluate(models[name], d["rows"],
+                                      ImagenetEvalTransform(64), d["root"],
+                                      EVAL_BS)
+    tokenize = glue.make_tokenize_fn(tok, 10)
+    for name, task in (("glue", "mrpc"), ("stsb", "stsb")):
+        out[name] = glue.evaluate(models[name], d[name], tokenize, task,
+                                  EVAL_BS)
+    out["classify"] = classify.evaluate(models["classify"], classify.batches(
+        mesh.rank_batches(d["cls_rows"], EVAL_BS), tok, tf, d["root"], 10,
+        EVAL_BS, shuffle=False, drop_last=False))
+    return out
+
+
+MIX = dict(mixup=0.8, cutmix=1.0, mixup_prob=1.0, mixup_switch_prob=0.5,
+           label_smoothing=0.1)
+
+
+def case_mixup(spec) -> dict:
+    """The ImageNet loader (`batches`: the rank's rows of a global batch of
+    4) and `mixed` with the task's generator (`mix_generator`, mixup and
+    cutmix on) → the rank's batch before and after the mix."""
+    from xfm_tpu_torch.core import mesh
+    from xfm_tpu_torch.data.timm_aug import ImagenetEvalTransform
+    from xfm_tpu_torch.tasks import imagenet
+
+    d = spec["data"]
+    plain = next(imagenet.batches(d["rows"], ImagenetEvalTransform(64),
+                                  d["root"], 4 // mesh.world_size(),
+                                  seed=5))
+    mixed = next(imagenet.mixed(iter([plain]), MIX,
+                                imagenet.mix_generator(7), NL))
+    return dict(plain=plain, mixed=mixed)
+
+
+def run_task_cases(spec, out_dir) -> dict:
+    torch.manual_seed(0)
+    out = {name: case_task_step(spec, name) for name in TASKS}
+    out["evals"] = case_task_evals(spec)
+    out["mixup"] = case_mixup(spec)
+    return out
+
+
 def main():
     spec_path, out_dir = sys.argv[1], sys.argv[2]
     torch.set_num_threads(1)
@@ -297,7 +533,8 @@ def main():
     mesh.maybe_init_distributed("cpu")
     assert mesh.world_size() == int(os.environ["WORLD_SIZE"])
     spec = torch.load(spec_path, weights_only=False)
-    out = run_cases(spec, out_dir)
+    run = run_task_cases if spec.get("suite") == "tasks" else run_cases
+    out = run(spec, out_dir)
     torch.save(out, os.path.join(out_dir, f"rank{mesh.rank()}.pt"))
     import torch.distributed as dist
 

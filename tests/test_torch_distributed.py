@@ -223,10 +223,12 @@ def test_mesh_from_config_refuses_other_axes(axis):
 
 def test_single_process_tasks_refuse_and_cards_are_checked(monkeypatch,
                                                             tmp_path):
-    """A task that does not run on more than one process refuses a group
-    of two at the start of its entry point, called through the launcher
-    or directly; under torchrun's variables `--device cuda` without a card
-    raises before any rendezvous."""
+    """The five tasks that refused more than one process (nlvr,
+    refcoco_bbox, imagenet, glue, classify) now start under a group of two,
+    called through the launcher or directly: each writes its config.yaml
+    and stops at the empty YAML's first missing key, not at a refusal;
+    under torchrun's variables `--device cuda` without a card raises
+    before any rendezvous."""
     import importlib
 
     from xfm_tpu_torch import run
@@ -235,15 +237,19 @@ def test_single_process_tasks_refuse_and_cards_are_checked(monkeypatch,
     config.write_text("{}\n")
     monkeypatch.setattr(mesh, "world_size", lambda: 2)
     for task in ("nlvr", "refcoco_bbox", "imagenet", "glue", "classify"):
-        argv = ["--task", task, "--config", str(config), "--output_dir",
-                str(tmp_path), "--device", "cpu"]
-        with pytest.raises(mesh.MultiProcessUnsupported, match=task):
-            run.main(argv)
         module, entry = run.TASKS[task]
         main = getattr(importlib.import_module(
             f"xfm_tpu_torch.tasks.{module}"), entry)
-        with pytest.raises(mesh.MultiProcessUnsupported, match=task):
-            main(run.build_parser().parse_args(argv))
+        for how in ("launcher", "entry"):
+            out = tmp_path / f"{task}_{how}"
+            argv = ["--task", task, "--config", str(config), "--output_dir",
+                    str(out), "--device", "cpu"]
+            with pytest.raises(KeyError):
+                if how == "launcher":
+                    run.main(argv)
+                else:
+                    main(run.build_parser().parse_args(argv))
+            assert (out / "config.yaml").exists(), (task, how)
     monkeypatch.undo()
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "1")

@@ -20,8 +20,14 @@ every gradient and the updated parameters. The pieces of that rule:
   is differentiated;
 - draws over the global batch (the hard negatives) come from a generator
   equal on every rank, draws over a rank's own rows (dropout, drop-path,
-  augmentation, sampling) from one with the rank folded into its seed
-  (`StepGenerators`).
+  augmentation, mixup, sampling) from one with the rank folded into its
+  seed (`StepGenerators`, `rank_seed`);
+- an eval gives rank r the batches r, r + W, … of the one-process eval
+  (`rank_batches`, or the examples r, r + W, … with `rank_strided`), and
+  merges what the ranks computed: counts summed (`sum_over_ranks`),
+  predictions gathered at unequal lengths (`all_gather_ragged`) and put
+  back in the one-process order (`merge_rank_batches`), so that the
+  metric is the one-process metric.
 
 `fsdp`, `tensor` and `pipe` > 1 in a config's `parallel` block raise
 (`mesh_from_config`). `constrain_batch_sharding` and
@@ -37,8 +43,9 @@ import torch
 
 
 class MultiProcessUnsupported(NotImplementedError):
-    """A task or a `parallel` setting that does not run on more than one
-    process in the port yet (ROADMAP.md, Queue 1 item 7)."""
+    """A `parallel` setting that does not run in the port yet (ROADMAP.md,
+    Queue 1: FSDP, tensor and pipeline parallelism), or a function with no
+    entry point that runs on one process only (GradCAM grounding)."""
 
 
 def _dist():
@@ -111,20 +118,13 @@ def mesh_from_config(config: dict) -> int:
         if int(par.get(axis, 1) or 1) > 1:
             raise MultiProcessUnsupported(
                 f"parallel.{axis} = {par[axis]}: the port runs the data axis "
-                f"only; {item} is ROADMAP.md Queue 1 item 7's next part")
+                f"only; {item} is in ROADMAP.md Queue 1 (multi-card past the "
+                f"data axis)")
     w = world_size()
     data = int(par.get("data", -1) or -1)
     if data not in (-1, w):
         raise ValueError(f"parallel.data = {data} but {w} processes run")
     return w
-
-
-def require_single_process(task: str) -> None:
-    """`task` refuses more than one process (ROADMAP.md lists each)."""
-    if is_distributed():
-        raise MultiProcessUnsupported(
-            f"task {task!r} does not run on more than one process in the "
-            "port yet (ROADMAP.md Queue 1 item 7); run it on one")
 
 
 def rank_seed(seed) -> list:
@@ -151,6 +151,38 @@ def rank_rows(order: np.ndarray, batch_size: int) -> np.ndarray:
 def rank_strided(items):
     """Items r, r + W, r + 2W, … of this rank r (its share of an eval)."""
     return items[rank()::world_size()]
+
+
+def rank_batches(items, batch_size: int):
+    """This rank r's share of an eval: `items` cut in order into batches of
+    `batch_size` (the last may be partial), batches r, r + W, r + 2W, …
+    concatenated, so that every batch a rank evaluates is one that a
+    single process forms (`merge_rank_batches` puts their rows back in
+    order). One process: `items` as they are."""
+    w = world_size()
+    if w == 1:
+        return items
+    idx = [i for s in range(rank() * batch_size, len(items), w * batch_size)
+           for i in range(s, min(s + batch_size, len(items)))]
+    if isinstance(items, np.ndarray):
+        return items[idx]
+    return [items[i] for i in idx]
+
+
+def merge_rank_batches(parts, batch_size: int) -> np.ndarray:
+    """The rows of every rank's `rank_batches` (`parts`, one array a rank
+    in rank order) back in the one-process order."""
+    w = len(parts)
+    n = sum(len(p) for p in parts)
+    out, taken = [], [0] * w
+    for g, s in enumerate(range(0, n, batch_size)):
+        r, k = g % w, min(batch_size, n - s)
+        out.append(parts[r][taken[r]:taken[r] + k])
+        taken[r] += k
+    if taken != [len(p) for p in parts]:
+        raise ValueError(f"rows of each rank {[len(p) for p in parts]} are "
+                         f"not the batches of {batch_size} of {n} rows")
+    return np.concatenate(out) if out else np.asarray(parts[0])
 
 
 def rank_slice(batch):
@@ -299,6 +331,30 @@ def all_gather_numpy(a: np.ndarray) -> np.ndarray:
     """The ranks' arrays (equal shapes) stacked → [W, *shape]."""
     t = torch.from_numpy(np.ascontiguousarray(a)).to(collective_device())
     return all_gather(t[None]).cpu().numpy()
+
+
+def all_gather_ragged(a: np.ndarray) -> list:
+    """The ranks' arrays of one dtype and trailing shape but unequal
+    lengths → a list of them in rank order: each padded to the longest,
+    gathered, and cut back to the true length gathered beside it. On one
+    process [a]."""
+    a = np.asarray(a)
+    if not is_distributed():
+        return [a]
+    lengths = all_gather_numpy(np.asarray([len(a)], np.int64))[:, 0]
+    pad = np.zeros((int(lengths.max()) - len(a),) + a.shape[1:], a.dtype)
+    rows = all_gather_numpy(np.concatenate([a, pad]))
+    return [rows[r, :n] for r, n in enumerate(lengths)]
+
+
+def sum_over_ranks(*counts: int) -> tuple:
+    """Integer counts summed over the ranks (one int64 all-reduce); on one
+    process the counts themselves."""
+    if not is_distributed():
+        return tuple(int(c) for c in counts)
+    t = torch.tensor([int(c) for c in counts], dtype=torch.int64,
+                     device=collective_device())
+    return tuple(int(v) for v in all_reduce_sum(t).tolist())
 
 
 def broadcast_object(obj, src: int = 0):

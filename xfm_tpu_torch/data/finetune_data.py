@@ -4,12 +4,14 @@ captioning's and grounding's (`xfm_tpu/data/finetune_data.py`
 `CaptioningData`, `GroundingData`): annotation lists of the reference's
 json format → fixed-shape numpy batches.
 
-Under a process group of W ranks a training epoch of the retrieval, VQA
-and captioning data gives rank r rows [r·b, (r+1)·b) of each global batch
-of W·b rows of one permutation (`core/mesh.rank_rows`), so that the
-union over the ranks is the one-process order, its transform reseeded
-with the rank folded in (`core/mesh.rank_seed`); their test splits give
-rank r the examples r, r + W, … (`core/mesh.rank_strided`)."""
+Under a process group of W ranks a training epoch of every one of them
+gives rank r rows [r·b, (r+1)·b) of each global batch of W·b rows of one
+permutation (`core/mesh.rank_rows`), so that the union over the ranks is
+the one-process order, its transform reseeded with the rank folded in
+(`core/mesh.rank_seed`). The VQA and captioning test splits give rank r
+the examples r, r + W, … (`core/mesh.rank_strided`); the NLVR and
+grounding ones the batches r, r + W, … of the one-process eval
+(`core/mesh.rank_batches`), whose counts the tasks sum."""
 from __future__ import annotations
 
 import json
@@ -18,7 +20,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from ..core.mesh import rank_rows, rank_seed, rank_strided
+from ..core.mesh import rank_batches, rank_rows, rank_seed, rank_strided
 from .tokenization import pre_caption
 from .transforms import decode_image
 
@@ -156,13 +158,18 @@ class NLVRData:
 
     def epoch(self, epoch_seed=0) -> Iterator[dict]:
         """One pass. Train: the order `np.random.default_rng(epoch_seed)`
-        shuffles, the transform reseeded from [epoch_seed, 1] first (the
-        pair's first image transformed before its second); a last partial
-        batch is dropped. Eval: the file's order, the last batch kept."""
+        shuffles, the rank's rows of it (`rank_rows`), the transform
+        reseeded from [epoch_seed, 1] (and the rank) first (the pair's
+        first image transformed before its second); a last partial batch
+        is dropped. Eval: the file's order, the rank's batches of it
+        (`rank_batches`), the last batch kept."""
         order = np.arange(len(self.ann))
         if self.train:
             np.random.default_rng(epoch_seed).shuffle(order)
-            self.transform.reseed([epoch_seed, 1])
+            order = rank_rows(order, self.batch_size)
+            self.transform.reseed(rank_seed([epoch_seed, 1]))
+        else:
+            order = rank_batches(order, self.batch_size)
         buf0, buf1, caps, labels = [], [], [], []
         for i in order:
             a = self.ann[int(i)]
@@ -391,13 +398,17 @@ class GroundingData:
 
     def epoch(self, epoch_seed=0) -> Iterator[dict]:
         """One pass. Train: the order `np.random.default_rng(epoch_seed)`
-        shuffles, the transform reseeded from [epoch_seed, 1] first; a last
-        partial batch is dropped. Eval: the file's order, the last batch
-        kept."""
+        shuffles, the rank's rows of it (`rank_rows`), the transform
+        reseeded from [epoch_seed, 1] (and the rank) first; a last partial
+        batch is dropped. Eval: the file's order, the rank's batches of it
+        (`rank_batches`), the last batch kept."""
         order = np.arange(len(self.ann))
         if self.train:
             np.random.default_rng(epoch_seed).shuffle(order)
-            self.transform.reseed([epoch_seed, 1])
+            order = rank_rows(order, self.batch_size)
+            self.transform.reseed(rank_seed([epoch_seed, 1]))
+        else:
+            order = rank_batches(order, self.batch_size)
         maps_box = getattr(self.transform, "maps_box", False)
         imgs, texts, boxes, ref_ids = [], [], [], []
         for i in order:

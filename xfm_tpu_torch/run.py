@@ -41,11 +41,11 @@ Under `torchrun` the processes form one data-parallel group before the
 task starts (`core/mesh.maybe_init_distributed`): NCCL with process i on
 card `LOCAL_RANK` (`--device cuda` is read as "cuda:LOCAL_RANK"), gloo
 with `--device cpu`; a launch that asks for a card where none is visible
-raises. `pretrain_DIY`, `itr_coco`, `itr_flickr`, `vqa`,
-`coco_captioning` and `infer_caption` run on any number of processes;
-`nlvr`, `refcoco_bbox`, `imagenet`, `glue` and `classify` refuse more
-than one at the start of their entry points
-(`core/mesh.require_single_process`). At the end rank 0 prints the
+raises. Every task runs on any number of processes, a step on W of
+them equal to one process's step on the global batch (ImageNet's mixup
+and cutmix aside, which pair rows within a rank) and an eval equal to
+the one-process eval; `parallel.fsdp`, `tensor` or `pipe` > 1 refuse
+(`core/mesh.mesh_from_config`). At the end rank 0 prints the
 backend, the world size and every rank's kernel launches (`###
 processes ...`).
 """

@@ -66,7 +66,8 @@ from ..models import XFMForCaptioning, config_from_yaml
 from ..models.generation import beam_generate, generate, shift_lm_loss
 from ..train.checkpoint import init_weights
 from ..train.train_state import caption_loss_fn, make_train_step
-from .common import (TaskContext, append_log, build_state, is_main_process,
+from .common import (TaskContext, append_log, build_state,
+                     epoch_opt_steps, is_main_process,
                      make_task_step, maybe_resume_epochs,
                      save_task_checkpoint, step_generator, train_epoch)
 from .retrieval import (_device_of, _maybe_shrink_vocab,
@@ -252,8 +253,8 @@ def main(args, scst: bool = False) -> dict:
             max_tokens=cfg.get("max_tokens", 30),
             batch_size=cfg.get("batch_size_train", 16), train=True,
             prompt=cfg.get("prompt", ""))
-        state, sched = build_state(
-            ctx, model, max(1, len(train_data) // train_data.batch_size))
+        state, sched = build_state(ctx, model, epoch_opt_steps(
+            cfg, len(train_data), train_data.batch_size))
     if args.checkpoint:
         load_ckpt_into(model, args.checkpoint)
     if args.evaluate:

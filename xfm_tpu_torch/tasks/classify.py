@@ -12,6 +12,12 @@ a `--checkpoint` is overlaid by name. Where the `text_encoder`'s
 tokenizer files are missing, the fallback SimpleTokenizer is built over
 the rows' texts (the JAX task builds it over none). `parallel.pipe > 1`
 (the GPipe text tower) is not ported.
+
+Under `torchrun` each of the W processes trains on its rows of every
+global batch (`core/mesh.rank_rows`), its transform reseeded with the
+rank folded in; the loss is a mean over the rank's equal rows, so the
+averaged gradients are the global batch's. The eval gives each rank its
+batches of the val rows (`core/mesh.rank_batches`) and sums the counts.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ from ..models.task_models import TextClassifier
 from ..train.checkpoint import init_weights
 from ..train.metrics import is_main_process
 from ..train.train_state import make_train_step
-from .common import (TaskContext, append_log, build_state,
+from .common import (TaskContext, append_log, build_state, epoch_opt_steps,
                      load_reference_checkpoint, log_eval, step_generator,
                      train_epoch)
 from .retrieval import _maybe_shrink_vocab, build_tokenizer_or_fallback
@@ -61,10 +67,14 @@ def _pack(buf, tokenizer, transform, image_root, max_tokens):
 
 def batches(rows, tokenizer, transform, image_root, max_tokens, batch_size,
             shuffle=True, seed=0, drop_last=True):
-    """`_pack`'s batches over `rows` (shuffled from `seed`)."""
+    """`_pack`'s batches over `rows` (shuffled from `seed`); with
+    `drop_last` under a group of W, the rank's rows of each global batch
+    of W · `batch_size` (`rank_rows`)."""
     idx = np.arange(len(rows))
     if shuffle:
         np.random.default_rng(seed).shuffle(idx)
+    if drop_last:
+        idx = mesh.rank_rows(idx, batch_size)
     for s in range(0, len(idx) - (batch_size - 1 if drop_last else 0),
                    batch_size):
         yield _pack([rows[int(i)] for i in idx[s:s + batch_size]],
@@ -73,7 +83,8 @@ def batches(rows, tokenizer, transform, image_root, max_tokens, batch_size,
 
 @torch.no_grad()
 def evaluate(model, loader) -> dict:
-    """→ {"acc": the share of rows whose argmax logit is the label}."""
+    """→ {"acc": the share of rows whose argmax logit is the label}, the
+    counts summed over the ranks."""
     dev = next(model.parameters()).device
     correct = total = 0
     for b in loader:
@@ -84,6 +95,7 @@ def evaluate(model, loader) -> dict:
         pred = model.loss(train=False, **kw).argmax(-1).cpu().numpy()
         correct += int((pred == b["targets"]).sum())
         total += len(b["targets"])
+    correct, total = mesh.sum_over_ranks(correct, total)
     return {"acc": correct / max(total, 1)}
 
 
@@ -115,13 +127,12 @@ def main(args) -> dict:
     """Random weights from `--seed`, overlaid by `--checkpoint` where
     given. `--evaluate`: the val accuracy alone → {"acc"}. Otherwise the
     fine-tune → {"best_acc"}."""
-    mesh.require_single_process("classify")
     ctx = TaskContext.from_args(args)
     cfg = ctx.config
     if int((cfg.get("parallel", {}) or {}).get("pipe", 1) or 1) > 1:
         raise NotImplementedError(
             "parallel.pipe > 1 (the GPipe-staged text tower) is not ported "
-            "(ROADMAP Queue 1 item 7)")
+            "(ROADMAP.md Queue 1, multi-card past the data axis)")
     image_res = cfg.get("image_res", 224)
     train_rows = load_rows(cfg["train_file"])
     val_rows = load_rows(cfg.get("val_file", cfg["train_file"]))
@@ -135,14 +146,15 @@ def main(args) -> dict:
     test_tf = TestTransform(image_res) if has_img else None
 
     def val_loader():
-        return batches(val_rows, tokenizer, test_tf, cfg.get("image_root"),
-                       T, bsz, shuffle=False, drop_last=False)
+        return batches(mesh.rank_batches(val_rows, bsz), tokenizer, test_tf,
+                       cfg.get("image_root"), T, bsz, shuffle=False,
+                       drop_last=False)
 
     if args.evaluate:
         init_weights(model, ctx.seed)
     else:
-        state, sched = build_state(ctx, model,
-                                   max(1, len(train_rows) // bsz))
+        state, sched = build_state(ctx, model, epoch_opt_steps(
+            cfg, len(train_rows), bsz))
     if args.checkpoint:
         load_reference_checkpoint(model, args.checkpoint)
     if args.evaluate:
@@ -152,7 +164,7 @@ def main(args) -> dict:
     best = 0.0
     for epoch in range(int(cfg.get("schedular", {}).get("epochs", 10))):
         if train_tf is not None:
-            train_tf.reseed(ctx.seed + epoch)
+            train_tf.reseed(mesh.rank_seed([ctx.seed + epoch]))
         loader = batches(train_rows, tokenizer, train_tf,
                          cfg.get("image_root"), T, bsz,
                          seed=ctx.seed + epoch)

@@ -93,19 +93,32 @@ def opt_steps_per_epoch(cfg: dict, micro_steps_per_epoch: int) -> int:
     return max(1, -(-micro_steps_per_epoch // k))
 
 
+def global_batches(n_rows: int, batch_size: int) -> int:
+    """The micro-steps of an epoch over `n_rows` rows at the rank's
+    `batch_size` on the W processes: n_rows // (W · batch_size) global
+    batches, at least 1, as `core/mesh.rank_rows` deals them."""
+    return max(1, n_rows // max(1, mesh.world_size() * batch_size))
+
+
+def epoch_opt_steps(cfg: dict, n_rows: int, batch_size: int) -> int:
+    """The optimizer steps of an epoch: `global_batches`, then
+    `opt_steps_per_epoch`. A schedule's horizon is epochs × this, the same
+    on W processes at `--bs B` as on one."""
+    return opt_steps_per_epoch(cfg, global_batches(n_rows, batch_size))
+
+
 def build_state(ctx: TaskContext, model: torch.nn.Module,
-                steps_per_epoch: int):
+                epoch_steps: int):
     """The model's random weights from `ctx.seed` (rank 0's broadcast to
     the other ranks), HF-AdamW and the schedule from the YAML's
     `optimizer`, `accelerator` and `schedular` blocks → (TrainState,
-    schedule). `steps_per_epoch` is in micro-batches; the schedule's
-    horizon in optimizer steps."""
+    schedule). `epoch_steps` is the optimizer steps of an epoch
+    (`epoch_opt_steps`)."""
     from ..train.checkpoint import init_weights
 
     init_weights(model, ctx.seed)
     mesh.broadcast_parameters(model)
-    sched = schedule_from_config(
-        ctx.config, opt_steps_per_epoch(ctx.config, steps_per_epoch))
+    sched = schedule_from_config(ctx.config, epoch_steps)
     opt = create_optimizer_from_config(model, ctx.config, sched)
     return TrainState.create(model, opt), sched
 

@@ -19,6 +19,15 @@ the train texts, as in the JAX task. `--bs` is the global train batch,
 divided over the processes into `per_device_train_batch_size` (the JAX
 task ignores it). A `--checkpoint` is overlaid by name, its `cls_head`
 included (the JAX task reads it with `head=None`).
+
+Under `torchrun` every process builds the same global batches of
+`per_device_train_batch_size` × W examples and trains on its rows of
+each (`core/mesh.rank_slice`); the loss is a mean over the rank's equal
+rows, so the averaged gradients are the global batch's. The eval gives
+each rank its batches of `per_device_eval_batch_size` examples
+(`core/mesh.rank_batches`) and gathers the predictions back into the
+one-process order before the metrics, which (MCC, F1, Pearson and
+Spearman) are not means over ranks.
 """
 from __future__ import annotations
 
@@ -133,20 +142,28 @@ def batches(examples, tokenize, batch_size: int, regression: bool,
 @torch.no_grad()
 def evaluate(model, examples, tokenize, task: str, batch_size: int) -> dict:
     """The task's metrics (`glue_metrics.compute`) of the model's argmax
-    (STS-B: its score) over every example."""
+    (STS-B: its score) over every example, in batches of `batch_size`;
+    under a group each rank predicts its batches (`rank_batches`) and the
+    predictions are gathered back into the examples' order on every
+    rank."""
     dev = next(model.parameters()).device
     regression = task == "stsb"
-    preds, labels = [], []
-    for b in batches(examples, tokenize, batch_size, regression,
-                     shuffle=False, drop_last=False):
+    preds = []
+    for b in batches(mesh.rank_batches(examples, batch_size), tokenize,
+                     batch_size, regression, shuffle=False,
+                     drop_last=False):
         ids, atts = (torch.from_numpy(np.asarray(b[k])).long().to(dev)
                      for k in ("text_ids", "text_atts"))
         logits = model.loss(text_ids=ids, text_atts=atts,
                             train=False).float().cpu().numpy()
-        preds.extend(logits.reshape(-1).tolist() if regression
-                     else logits.argmax(-1).tolist())
-        labels.extend(np.asarray(b["targets"]).tolist())
-    return glue_metrics.compute(task, preds, labels)
+        preds.append(logits.reshape(-1) if regression
+                     else logits.argmax(-1))
+    mine = (np.concatenate(preds) if preds else
+            np.zeros(0, np.float32 if regression else np.int64))
+    preds = mesh.merge_rank_batches(mesh.all_gather_ragged(mine), batch_size)
+    labels = np.asarray([e[2] for e in examples],
+                        np.float32 if regression else np.int32)
+    return glue_metrics.compute(task, preds.tolist(), labels.tolist())
 
 
 def glue_loss_fn(model, batch, generator=None, deterministic: bool = True):
@@ -162,7 +179,6 @@ def main(args) -> dict:
     """Random weights from `--seed`, overlaid by `--checkpoint` where
     given. `--evaluate`: the validation metrics alone. Otherwise the
     fine-tune → the last epoch's metrics (with MNLI's `mm_*`)."""
-    mesh.require_single_process("glue")
     ctx = TaskContext.from_args(args)
     cfg = ctx.config
     task = cfg["task_name"]
@@ -178,9 +194,10 @@ def main(args) -> dict:
             _maybe_shrink_vocab(config_from_yaml(cfg), tokenizer),
             num_labels=num_labels, task_name="glue").to(ctx.device)
     init_weights(model, ctx.seed)
+    mesh.broadcast_parameters(model)
     if args.checkpoint:
         load_reference_checkpoint(model, args.checkpoint)
-    eval_bs = cfg.get("per_device_eval_batch_size", 8) * mesh.world_size()
+    eval_bs = cfg.get("per_device_eval_batch_size", 8)
     if args.evaluate:
         return log_eval(ctx, evaluate(model, val_ex, tokenize, task,
                                       eval_bs))
@@ -198,8 +215,9 @@ def main(args) -> dict:
     state, start_epoch = maybe_resume_epochs(ctx, state)
     best, metrics = -1e9, {}
     for epoch in range(start_epoch, epochs):
-        loader = batches(train_ex, tokenize, bsz, regression,
-                         seed=ctx.seed + epoch)
+        loader = map(mesh.rank_slice, batches(train_ex, tokenize, bsz,
+                                              regression,
+                                              seed=ctx.seed + epoch))
         state, stats = train_epoch(ctx, state, step_fn, loader,
                                    step_generator(ctx, epoch), epoch, sched,
                                    accum_steps=accum)

@@ -21,9 +21,17 @@
   `--load_ckpt_from` (a checkpoint directory, or a state dict file) skips
   stage 1.
 - `main_weakly_supervised`: GradCAM grounding, a function only (the
-  repository's `run.py` has no task for it): each sample's candidate
-  `boxes` ranked by the ITM score's cam at fusion layer `block_num`, the
-  accuracy of the top box against `gt`.
+  repository's `run.py` has no task for it), on one process: each
+  sample's candidate `boxes` ranked by the ITM score's cam at fusion layer
+  `block_num`, the accuracy of the top box against `gt`.
+
+Under `torchrun` stage 1 runs as the pretrain task does (each rank its
+shards of the region stream); rank 0 writes its checkpoint and every rank
+loads it after the barrier that ends stage 1. Stage 2 trains each rank on
+its rows of every global batch (`GroundingData`): the L1 and GIoU losses
+are means over the rank's equal rows, so their gradients averaged over
+the ranks are the global batch's; the eval gives each rank its batches
+of the split and sums the IoU@0.5 counts.
 
 Where the `text_encoder`'s tokenizer files are missing, the fallback
 SimpleTokenizer is built over the texts of the train and test files, and
@@ -48,8 +56,8 @@ from ..models.losses import box_cxcywh_to_xyxy
 from ..train.checkpoint import init_weights
 from ..train.train_state import grounding_loss_fn
 from .common import (TaskContext, append_log, build_state, device_inputs,
-                     finetune, is_main_process, load_reference_checkpoint,
-                     log_eval)
+                     epoch_opt_steps, finetune, is_main_process,
+                     load_reference_checkpoint, log_eval)
 from .retrieval import (_device_of, _maybe_shrink_vocab,
                         build_tokenizer_or_fallback)
 
@@ -68,7 +76,8 @@ def iou_xyxy(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 @torch.no_grad()
 def evaluate(model, data: GroundingData) -> dict:
     """→ {"iou50_acc": the share of phrases whose predicted box has IoU ≥
-    0.5 with the target, both in normalized coordinates}."""
+    0.5 with the target, both in normalized coordinates}, the counts
+    summed over the ranks."""
     dev = _device_of(model)
     hits = total = 0
     for batch in data.epoch():
@@ -79,6 +88,7 @@ def evaluate(model, data: GroundingData) -> dict:
         iou = iou_xyxy(pred, tgt)
         hits += int((iou >= 0.5).sum())
         total += len(iou)
+    hits, total = mesh.sum_over_ranks(hits, total)
     return {"iou50_acc": hits / max(total, 1)}
 
 
@@ -121,7 +131,6 @@ def main(args, stage1: Optional[str] = None, tokenizer=None) -> dict:
     `stage1` (stage 1's checkpoint) where given. `--evaluate`: the test
     accuracy alone → {"iou50_acc"}. Otherwise the fine-tune →
     {"best_iou50"}. `tokenizer` (the pipeline's) replaces the config's."""
-    mesh.require_single_process("refcoco_bbox")
     ctx = TaskContext.from_args(args)
     cfg = ctx.config
     image_res = cfg.get("image_res", 384)
@@ -145,8 +154,8 @@ def main(args, stage1: Optional[str] = None, tokenizer=None) -> dict:
         init_weights(model, ctx.seed)
     else:
         train_data = data(cfg["train_file"], True)
-        state, sched = build_state(
-            ctx, model, max(1, len(train_data) // train_data.batch_size))
+        state, sched = build_state(ctx, model, epoch_opt_steps(
+            cfg, len(train_data), train_data.batch_size))
     if args.checkpoint:
         load_reference_checkpoint(model, args.checkpoint)
     if stage1:
@@ -177,7 +186,6 @@ def main_bbox_pipeline(args) -> dict:
     """`run.py --task refcoco_bbox`: stage 1 (unless `--evaluate` or
     `--load_ckpt_from`, or no stage-1 YAML resolves), then `main` from its
     checkpoint (or from `--load_ckpt_from`)."""
-    mesh.require_single_process("refcoco_bbox")
     from ..core.config import load_config
 
     dp_cfg = stage1_config(args.config)
@@ -214,7 +222,11 @@ def main_weakly_supervised(args) -> dict:
     `XFMForRetrieval` (random weights from `--seed`, overlaid by
     `--checkpoint`): the share of samples whose best-ranked box is `gt` →
     {"gradcam_acc"}, printed and logged. Samples without boxes are
-    skipped."""
+    skipped. One process only: `MultiProcessUnsupported` under a group of
+    more."""
+    if mesh.is_distributed():
+        raise mesh.MultiProcessUnsupported(
+            "main_weakly_supervised runs on one process")
     ctx = TaskContext.from_args(args)
     cfg = ctx.config
     image_res = cfg.get("image_res", 384)

@@ -18,6 +18,17 @@ the step's generator from (`--seed`, epoch). A `--checkpoint` (a
 reference state dict, or a `state.pt` of this task) is overlaid by name,
 its `cls_head` included (the JAX task reads it with `head=None` and so
 scores a random head).
+
+Under `torchrun` each of the W processes trains on its rows of every
+global batch (`core/mesh.rank_rows`; `--bs` and the YAML's `batch_size`
+are per process after `scale_batch`), with its own transform, dropout
+and mixup generators (the rank folded into their seeds): mixup and cutmix
+pair rows within a rank's batch, each rank drawing its own λ and
+permutation, as timm's `Mixup` does under DDP (the JAX package draws one
+λ over the global batch). The loss is a mean over the rank's equal rows,
+so the averaged gradients (LARS's included) are the global batch's; the
+probe's frozen tower is rank 0's on every rank. The eval gives each rank
+its batches of the val rows and sums the counts.
 """
 from __future__ import annotations
 
@@ -33,13 +44,14 @@ from ..data.prefetch import DeviceBatches
 from ..data.timm_aug import ImagenetEvalTransform, ImagenetTrainTransform
 from ..data.transforms import decode_image
 from ..models import XFMForClassification, config_from_yaml
-from ..train.checkpoint import init_weights, save_checkpoint
+from ..train.checkpoint import init_weights
 from ..train.metrics import is_main_process
 from ..train.optim import LARS, create_optimizer, trained_parameters
 from ..train.schedules import half_cosine
 from ..train.train_state import TrainState, make_train_step
-from .common import (TaskContext, append_log, load_reference_checkpoint,
-                     log_eval, step_generator, train_epoch)
+from .common import (TaskContext, append_log, epoch_opt_steps,
+                     load_reference_checkpoint, log_eval,
+                     save_task_checkpoint, step_generator, train_epoch)
 
 
 def load_manifest(path_or_dir: str):
@@ -107,11 +119,16 @@ def mixup_cutmix(rng: np.random.Generator, images, labels, num_labels,
 def batches(rows, transform, image_root, batch_size, shuffle=True, seed=0,
             drop_last=True) -> Iterator[dict]:
     """Host batches {images [B, H, W, 3] f32, targets [B] int64} over
-    `rows` (shuffled from `seed`); a row whose image cannot be read or
-    transformed is skipped, as in the JAX task."""
+    `rows` (shuffled from `seed`), under a group of W the rank's rows of
+    each global batch of W · `batch_size` (`rank_rows`); a row whose image
+    cannot be read or transformed is skipped, as in the JAX task, on one
+    process (under a group it raises: the ranks would take unequal
+    steps)."""
     idx = np.arange(len(rows))
     if shuffle:
         np.random.default_rng(seed).shuffle(idx)
+    if drop_last:
+        idx = mesh.rank_rows(idx, batch_size)
     buf_i, buf_l = [], []
     for i in idx:
         path, label = rows[int(i)]
@@ -120,6 +137,8 @@ def batches(rows, transform, image_root, batch_size, shuffle=True, seed=0,
         try:
             buf_i.append(transform(decode_image(path)))
         except (OSError, ValueError):
+            if mesh.is_distributed():
+                raise
             continue
         buf_l.append(label)
         if len(buf_i) == batch_size:
@@ -141,10 +160,12 @@ def soft_ce(logits, soft_targets):
 def evaluate(model, rows, transform, image_root, batch_size) -> dict:
     """→ {"acc1": the share of rows whose argmax logit is the label},
     over every row (a last partial batch included), prefetched to the
-    model's device."""
+    model's device; under a group each rank takes its batches of the rows
+    (`rank_batches`) and the counts are summed."""
     dev = next(model.parameters()).device
     correct = total = 0
-    loader = DeviceBatches(batches(rows, transform, image_root, batch_size,
+    loader = DeviceBatches(batches(mesh.rank_batches(rows, batch_size),
+                                   transform, image_root, batch_size,
                                    shuffle=False, drop_last=False), dev)
     try:
         for b in loader:
@@ -153,6 +174,7 @@ def evaluate(model, rows, transform, image_root, batch_size) -> dict:
             total += len(b["targets"])
     finally:
         loader.close()
+    correct, total = mesh.sum_over_ranks(correct, total)
     return {"acc1": correct / max(total, 1)}
 
 
@@ -213,6 +235,13 @@ def make_loss_fn(cfg: dict):
     return loss_fn
 
 
+def mix_generator(seed: int) -> np.random.Generator:
+    """The host generator of `mixup_cutmix`'s draws: from `seed` on one
+    process, from [seed, rank] under a group (`core/mesh.rank_seed`), so
+    that each rank draws its own λ and permutation over its own rows."""
+    return np.random.default_rng(mesh.rank_seed([seed]))
+
+
 def mixed(loader, cfg: dict, rng: np.random.Generator, num_labels: int):
     """`loader`'s batches through `mixup_cutmix` (the YAML's alphas,
     probabilities and `smoothing` / `label_smoothing`) where `use_mix`."""
@@ -238,13 +267,12 @@ def main(args) -> dict:
     """Random weights from `--seed`, overlaid by `--checkpoint` where
     given. `--evaluate`: the top-1 on the val rows → {"acc1"}. Otherwise
     the fine-tune (or the probe) → {"best_acc1"}."""
-    mesh.require_single_process("imagenet")
     ctx = TaskContext.from_args(args)
     cfg = ctx.config
     if int((cfg.get("parallel", {}) or {}).get("pipe", 1) or 1) > 1:
         raise NotImplementedError(
             "parallel.pipe > 1 (the GPipe-staged tower) is not ported "
-            "(ROADMAP Queue 1 item 7)")
+            "(ROADMAP.md Queue 1, multi-card past the data axis)")
     if cfg.get("mixup_mode", "batch") != "batch":
         raise NotImplementedError(
             "mixup_mode 'pair'/'elem' not implemented; the reference config "
@@ -257,6 +285,7 @@ def main(args) -> dict:
             task_name="imagenet",
             is_lp=bool(cfg.get("is_lp", False))).to(ctx.device)
     init_weights(model, ctx.seed)
+    mesh.broadcast_parameters(model)
     if args.checkpoint:
         load_reference_checkpoint(model, args.checkpoint)
     bsz = cfg.get("batch_size", 64)
@@ -269,15 +298,15 @@ def main(args) -> dict:
     opt = cfg.get("optimizer", {}) or {}
     sched = half_cosine(opt.get("lr", 1e-3), opt.get("min_lr", 1e-6),
                         epochs, cfg.get("warmup_epochs", 5),
-                        max(1, len(train_rows) // bsz))
+                        epoch_opt_steps(cfg, len(train_rows), bsz))
     state = TrainState.create(model, build_optimizer(model, cfg, sched))
     step_fn = make_train_step(make_loss_fn(cfg))
-    host_rng = np.random.default_rng(ctx.seed)
+    host_rng = mix_generator(ctx.seed)
     train_tf = ImagenetTrainTransform(
         image_res, aa=cfg.get("aa", "rand-m9-mstd0.5-inc1"),
         color_jitter=cfg.get("color_jitter"),
         reprob=cfg.get("reprob", 0.25), remode=cfg.get("remode", "pixel"),
-        recount=cfg.get("recount", 1), seed=ctx.seed)
+        recount=cfg.get("recount", 1), seed=mesh.rank_seed([ctx.seed]))
     best = 0.0
     for epoch in range(epochs):
         loader = mixed(batches(train_rows, train_tf, cfg.get("image_root"),
@@ -292,7 +321,5 @@ def main(args) -> dict:
             print(f"epoch {epoch}: {metrics}", flush=True)
         if metrics["acc1"] > best:
             best = metrics["acc1"]
-            if is_main_process():
-                save_checkpoint(os.path.join(ctx.out_dir, "ckpt"), state,
-                                step=epoch)
+            save_task_checkpoint(ctx, state, epoch, keep=3)
     return {"best_acc1": best}

@@ -13,6 +13,12 @@ alone. A `--checkpoint` (a reference state dict) is overlaid by name, its
 head="cls_mlp")` reads it. Where the `text_encoder`'s tokenizer files are
 missing, the fallback SimpleTokenizer is built over the sentences of the
 train, val and test files (the JAX package builds it over no text).
+
+Under `torchrun` each of the W processes trains on its rows of every
+global batch (`NLVRData`), the mean cross-entropy over its equal rows
+being its share of the global mean once the gradients are averaged; an
+eval gives each rank its batches of the split and sums the counts, so
+that the accuracy is the one-process accuracy.
 """
 from __future__ import annotations
 
@@ -24,15 +30,17 @@ from ..data.transforms import TestTransform, TrainTransform
 from ..models import XFMForNLVR, config_from_yaml
 from ..train.checkpoint import init_weights
 from ..train.train_state import nlvr_loss_fn
-from .common import (TaskContext, build_state, device_inputs, finetune,
-                     load_reference_checkpoint, log_eval)
+from .common import (TaskContext, build_state, device_inputs,
+                     epoch_opt_steps, finetune, load_reference_checkpoint,
+                     log_eval)
 from .retrieval import (_device_of, _maybe_shrink_vocab,
                         build_tokenizer_or_fallback)
 
 
 @torch.no_grad()
 def evaluate(model, data: NLVRData) -> dict:
-    """→ {"acc": the share of pairs whose argmax logit is the label}."""
+    """→ {"acc": the share of pairs whose argmax logit is the label}, the
+    counts summed over the ranks."""
     dev = _device_of(model)
     correct = total = 0
     for batch in data.epoch():
@@ -40,6 +48,7 @@ def evaluate(model, data: NLVRData) -> dict:
         pred = logits.argmax(-1).cpu().numpy()
         correct += int((pred == batch["targets"]).sum())
         total += len(batch["targets"])
+    correct, total = mesh.sum_over_ranks(correct, total)
     return {"acc": correct / max(total, 1)}
 
 
@@ -57,7 +66,6 @@ def main(args) -> dict:
     """Random weights from `--seed`, overlaid by `--checkpoint` where given.
     `--evaluate`: the test accuracy alone → {"acc"}. Otherwise the
     fine-tune → {"best_val_acc"}."""
-    mesh.require_single_process("nlvr")
     ctx = TaskContext.from_args(args)
     cfg = ctx.config
     image_res = cfg.get("image_res", 384)
@@ -79,8 +87,8 @@ def main(args) -> dict:
         init_weights(model, ctx.seed)
     else:
         train_data = data(cfg["train_file"], True)
-        state, sched = build_state(
-            ctx, model, max(1, len(train_data) // train_data.batch_size))
+        state, sched = build_state(ctx, model, epoch_opt_steps(
+            cfg, len(train_data), train_data.batch_size))
     if args.checkpoint:
         load_reference_checkpoint(model, args.checkpoint)
     if args.evaluate:

@@ -30,10 +30,11 @@ its step (the streams start anew, as in the JAX package).
 Under `torchrun` each of the W processes reads its own part of every
 stream's shards (`ShardedLineReader`'s split by rank; its masking
 generators seeded from seed + rank), so that a step takes W × each
-block's `batch_size` rows (`--bs` is divided over the processes); the
-losses are the global batch's (`core/mesh`) and the gradients are
-averaged once a step. The log and the checkpoints are rank 0's, the
-logged averages summed over the ranks.
+block's `batch_size` rows (`--bs` is divided over the processes); an
+epoch is `train_dataset_size` over that global batch, as the JAX package
+counts it; the losses are the global batch's (`core/mesh`) and the
+gradients are averaged once a step. The log and the checkpoints are
+rank 0's, the logged averages summed over the ranks.
 
 The optional branches: `use_vision_tokenizer` builds the frozen VQ-KD
 tokenizer (`frozen_tokenizer`: `tokenizer_model`, `codebook_size`,
@@ -73,8 +74,8 @@ from ..core import mesh
 from ..train.metrics import MetricLogger, is_main_process
 from ..train.train_state import make_stream_step
 from .common import (TaskContext, append_log, build_state,
-                     maybe_bf16_params, restore_latest, save_task_checkpoint,
-                     step_generator)
+                     global_batches, maybe_bf16_params, opt_steps_per_epoch,
+                     restore_latest, save_task_checkpoint, step_generator)
 from .retrieval import _maybe_shrink_vocab, build_tokenizer_or_fallback
 
 # a fixed id per stream name: the seed of its TrainTransform
@@ -288,9 +289,10 @@ def main(args, tokenizer=None) -> dict:
                if getattr(streams[n], "device_randaug_active", False)]
     weights = {s: cfg.get(f"w{s}", 1.0) for s in streams}
     bs_main = (cfg.get("images") or {}).get("batch_size", 32)
-    steps_per_epoch = max(1, cfg.get("train_dataset_size", 10000)
-                          // max(1, bs_main))
-    state, sched = build_state(ctx, model, steps_per_epoch)
+    steps_per_epoch = global_batches(cfg.get("train_dataset_size", 10000),
+                                     bs_main)
+    state, sched = build_state(ctx, model,
+                               opt_steps_per_epoch(cfg, steps_per_epoch))
     if args.checkpoint:
         from ..train.checkpoint import (load_torch_state_dict,
                                         load_xfm_checkpoint)

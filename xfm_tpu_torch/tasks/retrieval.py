@@ -43,7 +43,8 @@ from ..data.transforms import TestTransform, TrainTransform
 from ..models import XFMForRetrieval, config_from_yaml
 from ..train.checkpoint import init_weights
 from ..train.train_state import retrieval_loss_fn
-from .common import (TaskContext, append_log, build_state, is_main_process,
+from .common import (TaskContext, append_log, build_state,
+                     epoch_opt_steps, is_main_process,
                      make_task_step, maybe_resume_epochs,
                      save_task_checkpoint, step_generator, train_epoch)
 
@@ -281,8 +282,8 @@ def main(args):
         train_data = RetrievalTrainData(
             train_ann, TrainTransform(image_res), cfg["image_root"],
             tokenizer, max_tokens=max_tokens, batch_size=bsz)
-        state, sched = build_state(ctx, model,
-                                   max(1, len(train_data) // bsz))
+        state, sched = build_state(
+            ctx, model, epoch_opt_steps(cfg, len(train_data), bsz))
     if args.checkpoint:
         from ..train.checkpoint import (load_torch_state_dict,
                                         load_xfm_checkpoint)

@@ -42,7 +42,8 @@ from ..eval.vqa_eval import vqa_accuracy
 from ..models import XFMForVQA, config_from_yaml
 from ..train.checkpoint import init_weights
 from ..train.train_state import vqa_loss_fn
-from .common import (TaskContext, append_log, build_state, is_main_process,
+from .common import (TaskContext, append_log, build_state,
+                     epoch_opt_steps, is_main_process,
                      make_task_step, maybe_resume_epochs,
                      save_task_checkpoint, step_generator, train_epoch)
 from .retrieval import (_device_of, _maybe_shrink_vocab,
@@ -191,8 +192,8 @@ def main(args) -> dict:
                              tokenizer,
                              batch_size=cfg.get("batch_size_train", 16),
                              split="train")
-        state, sched = build_state(
-            ctx, model, max(1, len(train_data) // train_data.batch_size))
+        state, sched = build_state(ctx, model, epoch_opt_steps(
+            cfg, len(train_data), train_data.batch_size))
     if args.checkpoint:
         from ..train.checkpoint import (load_torch_state_dict,
                                         load_xfm_checkpoint, vqa_checkpoint)
