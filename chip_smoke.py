@@ -357,6 +357,22 @@ Phases, each of which must pass or the script exits non-zero:
      `--evaluate` of each run's `ckpt/0` under torchrun held to one
      process's at the rank's batch, else a line saying it could not run;
      phases 22's and 23's directories deleted;
+ 29. activation checkpointing (`remat_phase`): K1 at H = 16 (BEiT-2-large)
+     against its plain version at qkv [192, 197, 3072] and [80, 197, 3072]
+     in bf16 and f32, times, bound (`k1_work`), SDPA; K4 (add) at R =
+     37,824, C = 1024 and K5 (tanh-GELU) at M = 37,824, K = 4096, N = 1024
+     in both dtypes, times, bounds; the large pretrain slice (width 1024,
+     16 heads, depth 2, f32, `gradient_checkpointing` on; the image-text
+     and region streams) CPU vs card, K1 4 + 2 a tower pass; checkpointing on against off on the card
+     (`remat_on_off`: bf16, depth 2, dropout live; the plain step's
+     run-to-run gradient gap printed, then under deterministic algorithms
+     the loss and every gradient bit-equal, each policy); `run.main` for
+     `--task pretrain_DIY` on the large YAML (`configs.PRETRAIN_LARGE_KEYS`)
+     over `_pretrain_corpus`, `--bs 24`, 2 steps, K1 144 + 72 a step;
+     `profile_step.profile_pretrain_streams` with the large tower at `--bs
+     24` off and under each policy (busy ms, idle share, peak memory, K1
+     launches 72 + 72 off and under `except_attn`, 144 + 72 under the
+     others) and under `full` at the YAML's 96;
 then a JSON line of the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
@@ -1450,12 +1466,29 @@ def pretrain_slice_parity() -> None:
     image-bearing stream and never for the text stream; K2 and K3 never;
     K4 and K5 only on the fused run."""
     from xfm_tpu_torch import configs
+
+    yaml_cfg = configs.pretrain_yaml()
+    for fused in (False, True):
+        cfg = configs.xfm_base_pretrain_config(
+            layers=2, dtype=torch.float32, fused_ln=fused, fused_mlp=fused)
+        stream_slice_parity(cfg, yaml_cfg, ("region",) if fused else
+                            ("image", "imagenet", "region", "text"), (2, 2),
+                            " fused" if fused else "")
+
+
+def stream_slice_parity(cfg, yaml_cfg, names, k1, tag="") -> None:
+    """The streams `names` of `pretrain_slice_parity` at model config
+    `cfg` (f32), on the CPU and on the card from the same weights: losses
+    within SLICE_LOSS_RTOL, sampled gradients within SLICE_GRAD_RTOL of
+    their max; on the card K1's (forward, backward) launches `k1` for an
+    image-bearing stream and none for the text stream, no K2 or K3, K4 and
+    K5 as `cfg.vision.fused_ln` says."""
+    from xfm_tpu_torch import configs
     from xfm_tpu_torch.models import XFMForPretrain
     from xfm_tpu_torch.models.task_models import LOSS_KEYS
     from xfm_tpu_torch.ops import kernels
     from xfm_tpu_torch.tasks.pretrain import stream_flags
 
-    yaml_cfg = configs.pretrain_yaml()
     sizes = dict(configs.stream_batch_sizes(yaml_cfg), image=4, imagenet=4,
                  regions=4, max_images=6, text=4)
     sample = {
@@ -1472,58 +1505,56 @@ def pretrain_slice_parity() -> None:
         "key.weight": ("image", "region"),
         "itm_head.0.weight": ("image", "region"),
         "bbox_head.3.weight": ("region",), "temp": ("image", "region")}
-    for fused in (False, True):
-        cfg = configs.xfm_base_pretrain_config(
-            layers=2, dtype=torch.float32, fused_ln=fused, fused_mlp=fused)
-        nb = configs.make_stream_batches(sizes, cfg.vision.image_res,
-                                         cfg.text.vocab_size, seed=1)
-        cpu, gpu = twin_models(XFMForPretrain, cfg, seed=3)
-        for name in (("region",) if fused else sorted(nb)):
-            flags = stream_flags(name, 0, yaml_cfg)
-            results = {}
-            for tag, model, dev in (("cpu", cpu, "cpu"),
+    fused = cfg.vision.fused_ln
+    nb = configs.make_stream_batches(sizes, cfg.vision.image_res,
+                                     cfg.text.vocab_size, seed=1)
+    cpu, gpu = twin_models(XFMForPretrain, cfg, seed=3)
+    for name in names:
+        flags = stream_flags(name, 0, yaml_cfg)
+        results = {}
+        for dev_tag, model, dev in (("cpu", cpu, "cpu"),
                                     ("cuda", gpu, "cuda")):
-                model.zero_grad(set_to_none=True)
-                batch = configs.batch_to_torch(nb[name], dev)
-                neg = (torch.tensor([1, 2, 3, 0], device=dev),
-                       torch.tensor([2, 3, 0, 1], device=dev))
-                kernels.reset_launch_counts()
-                out = model.loss(**batch, **flags, hard_negatives=neg)
-                sum(out[k] for k in LOSS_KEYS).backward()
-                results[tag] = ({k: v.item() for k, v in out.items()},
+            model.zero_grad(set_to_none=True)
+            batch = configs.batch_to_torch(nb[name], dev)
+            neg = (torch.tensor([1, 2, 3, 0], device=dev),
+                   torch.tensor([2, 3, 0, 1], device=dev))
+            kernels.reset_launch_counts()
+            out = model.loss(**batch, **flags, hard_negatives=neg)
+            sum(out[k] for k in LOSS_KEYS).backward()
+            results[dev_tag] = ({k: v.item() for k, v in out.items()},
                                 dict(model.named_parameters()),
                                 dict(kernels.LAUNCHES))
-            (lc, pc, _), (lg, pg, launches) = results["cpu"], results["cuda"]
-            tag = f"{name}{' fused' if fused else ''}"
-            k1 = 0 if name == "text" else 2
-            print(f"  pretrain slice {tag} launches {json.dumps(launches)}")
-            if (launches["packed_attention_fwd"], launches[
-                    "packed_attention_bwd"]) != (k1, k1) or any(
-                    launches[k] for k in launches
-                    if k.startswith(("relpos", "flash"))):
-                raise AssertionError(f"pretrain slice {tag}: launches")
-            if fused != bool(launches["fused_ln_fwd"]
-                             and launches["fused_mlp_fwd"]):
-                raise AssertionError(f"pretrain slice {tag}: K4/K5 launches")
-            for k in LOSS_KEYS:
-                ok = math.isclose(lc[k], lg[k], rel_tol=SLICE_LOSS_RTOL,
-                                  abs_tol=1e-7)
-                print(f"  pretrain slice {tag} {k}: cpu={lc[k]:.6f} "
-                      f"cuda={lg[k]:.6f} {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"pretrain slice {tag}: {k}")
-            for n, used_by in sample.items():
-                if name not in used_by:
-                    continue
-                a, b = pc[n].grad.float(), pg[n].grad.float().cpu()
-                err = (a - b).abs().max().item()
-                tol = SLICE_GRAD_RTOL * a.abs().max().item()
-                print(f"  pretrain slice {tag} grad {n}: max_abs_err="
-                      f"{err:.3e} tol={tol:.3e}")
-                if not err <= tol:
-                    raise AssertionError(f"pretrain slice {tag}: grad {n}")
-        del cpu, gpu
-        torch.cuda.empty_cache()
+        (lc, pc, _), (lg, pg, launches) = results["cpu"], results["cuda"]
+        stag = f"{name}{tag}"
+        want = (0, 0) if name == "text" else tuple(k1)
+        print(f"  pretrain slice {stag} launches {json.dumps(launches)}")
+        if (launches["packed_attention_fwd"], launches[
+                "packed_attention_bwd"]) != want or any(
+                launches[k] for k in launches
+                if k.startswith(("relpos", "flash"))):
+            raise AssertionError(f"pretrain slice {stag}: launches")
+        if fused != bool(launches["fused_ln_fwd"]
+                         and launches["fused_mlp_fwd"]):
+            raise AssertionError(f"pretrain slice {stag}: K4/K5 launches")
+        for k in LOSS_KEYS:
+            ok = math.isclose(lc[k], lg[k], rel_tol=SLICE_LOSS_RTOL,
+                              abs_tol=1e-7)
+            print(f"  pretrain slice {stag} {k}: cpu={lc[k]:.6f} "
+                  f"cuda={lg[k]:.6f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"pretrain slice {stag}: {k}")
+        for n, used_by in sample.items():
+            if name not in used_by:
+                continue
+            a, b = pc[n].grad.float(), pg[n].grad.float().cpu()
+            err = (a - b).abs().max().item()
+            tol = SLICE_GRAD_RTOL * a.abs().max().item()
+            print(f"  pretrain slice {stag} grad {n}: max_abs_err="
+                  f"{err:.3e} tol={tol:.3e}")
+            if not err <= tol:
+                raise AssertionError(f"pretrain slice {stag}: grad {n}")
+    del cpu, gpu
+    torch.cuda.empty_cache()
 
 
 def _pretrain_corpus(root, seed=0, n_pairs=48, n_regions=24, n_texts=96):
@@ -1579,13 +1610,13 @@ def _pretrain_corpus(root, seed=0, n_pairs=48, n_regions=24, n_texts=96):
 
 
 def pretrain_task_runs(root, bs=24, steps=3, ckpt_every=2,
-                       device="cuda") -> dict:
+                       device="cuda", keys=None, resume=True) -> dict:
     """`python3 -m xfm_tpu_torch.run --task pretrain_DIY` (`run.main`) on
-    `Pretrain_base_4m.yaml`'s keys over `_pretrain_corpus`, `--bs`, with
-    `max_steps` `steps` and `ckpt_frequent_step` `ckpt_every`, `resume:
-    true`; then the newest checkpoint deleted and the command again. Each
-    step's seconds, launches and losses are recorded, and the restored
-    state against the file it came from."""
+    `Pretrain_base_4m.yaml`'s keys (`keys` on top) over `_pretrain_corpus`,
+    `--bs`, with `max_steps` `steps` and `ckpt_frequent_step` `ckpt_every`,
+    `resume: true`; then, with `resume`, the newest checkpoint deleted and
+    the command again. Each step's seconds, launches and losses are
+    recorded, and the restored state against the file it came from."""
     import yaml
 
     from xfm_tpu_torch import configs, run
@@ -1593,7 +1624,7 @@ def pretrain_task_runs(root, bs=24, steps=3, ckpt_every=2,
     from xfm_tpu_torch.tasks import pretrain
 
     files = _pretrain_corpus(root)
-    cfg = {k: v for k, v in configs.pretrain_yaml().items()
+    cfg = {k: v for k, v in configs.pretrain_yaml(**(keys or {})).items()
            if not k.startswith("_")}
     cfg.update(train_file=[files["pairs"]],
                train_file_regions=[files["regions"]],
@@ -1653,7 +1684,7 @@ def pretrain_task_runs(root, bs=24, steps=3, ckpt_every=2,
     pretrain.make_stream_step = make_stream_step
     pretrain.restore_latest = restore_latest
     try:
-        for name in ("full", "resumed"):
+        for name in ("full", "resumed") if resume else ("full",):
             if name == "resumed":
                 runs["layout"] = sorted(os.listdir(os.path.join(out,
                                                                 "ckpt")))
@@ -1794,11 +1825,12 @@ def text_attention_times(B=256, T=128, H=12, rate=0.1) -> dict:
 
 
 def pretrain_kernel_entries(err192, t192, w192, err80, t80, w80,
-                            launches) -> list:
+                            launches, label="pretrain") -> list:
     """The `kernels` entries of K1 at the pretrain task's caller shapes:
     the image-text and ImageNet pair passes at the YAML's batch (qkv
-    [192, 197, 2304]) and the region stream's 80 images, with their
-    launches a step from `profile_step pretrain_streams`."""
+    [192, 197, 2304]; [192, 197, 3072] with the large tower, `label`
+    "large") and the region stream's 80 images, with their launches a step
+    from `profile_step pretrain_streams` (`pretrain_large_remat`)."""
     out = []
     for tag, err, t, w, streams in (
             ("b192", err192, t192, w192, ("image", "imagenet")),
@@ -1807,7 +1839,7 @@ def pretrain_kernel_entries(err192, t192, w192, err80, t80, w80,
              for k in launches[streams[0]]}
         for d, bwd_keys in (("fwd", ("out",)), ("bwd", ("dqkv", "db"))):
             out.append(dict(
-                name=f"packed_attention_{d}_pretrain_{tag}", route="cuda",
+                name=f"packed_attention_{d}_{label}_{tag}", route="cuda",
                 source="xfm_tpu_torch/csrc/packed_attention.cu",
                 replaces="xfm_tpu/ops/flash_attention.py:"
                          f"{983 if d == 'fwd' else 1007}",
@@ -4608,8 +4640,11 @@ def vqkd_phase():
     k = configs.PRETRAIN_VQKD_KEYS["local_attn_depth"]
     for unit, n in (("pretrain_vqkd", 3 * depth - k),
                     ("pretrain_bf16", 3 * depth)):
+        # only the tokenizer unit's launches by stream are read (its
+        # kernel entries); the bf16 unit skips the streams taken alone
         r = profile_step.profile_pretrain_streams(
-            None, steps=PROFILE_STEPS, **profile_step.STREAM_UNITS[unit])
+            None, steps=PROFILE_STEPS, by_stream=unit == "pretrain_vqkd",
+            **profile_step.STREAM_UNITS[unit])
         top = r.pop("top")
         print(f"  {unit} profile: " + json.dumps(r))
         for name, ms, calls in top[:10]:
@@ -5377,7 +5412,7 @@ def input_phase(pt_throughput: dict, streams_prof: dict) -> dict:
               + json.dumps(pt_throughput))
     t0 = time.perf_counter()
     prof = profile_step.profile_pretrain_streams(
-        None, steps=PROFILE_STEPS,
+        None, steps=PROFILE_STEPS, by_stream=False,
         **profile_step.STREAM_UNITS["pretrain_randaug"])
     prof.pop("top")
     want = {k: 0 for k in prof["launches_per_step"]}
@@ -5667,6 +5702,277 @@ def tower_kernel_entries(k3d_err, k3d_t, k3d_w, launches) -> list:
     for e in out:
         e["name"] += "_deit_b577"
     return out
+
+
+# --- phase 29: activation checkpointing; the BEiT-2-large pretrain task ------
+
+# the --bs at which the plain step and every policy are compared (each
+# stream's batch; the region stream keeps the YAML's 80 images): the plain
+# step fits there beside the checkpointed ones
+REMAT_BS = 24
+REMAT_POLICIES = ("full", "dots", "except_attn", "attn_out")
+# checkpointing on against off on the card (bf16, live dropout and
+# drop-path from one seeded generator) is held bit for bit, loss and every
+# gradient, under `torch.use_deterministic_algorithms`: the recompute is
+# the forward's arithmetic on the forward's values and masks, K1's bf16
+# kernels are deterministic, and the mode swaps PyTorch's atomic
+# accumulations (index_add_, index_put_) for ordered ones. Without it the
+# plain step against itself already differs (its relative l2 gap printed)
+
+
+def large_yaml(depth=None, **keys) -> dict:
+    """`configs.pretrain_large_yaml(**keys)` with every tower cut to
+    `depth` blocks or layers where given."""
+    from xfm_tpu_torch import configs
+
+    if depth:
+        keys = dict(vision_depth=depth, text_num_hidden_layers=depth,
+                    text_fusion_start_at=depth,
+                    fusion_num_hidden_layers=depth, **keys)
+    return configs.pretrain_large_yaml(**keys)
+
+
+def large_model_config(yaml_cfg, dtype=None):
+    """The pretrain task's model config of `yaml_cfg` (every head on)."""
+    from xfm_tpu_torch.models.xfm import config_from_yaml
+
+    return config_from_yaml(yaml_cfg, use_contrastive_loss=True,
+                            use_matching_loss=True, use_mlm_loss=True,
+                            use_bbox_loss=True, dtype=dtype)
+
+
+def k1_launches_per_pass(depth: int, policy) -> tuple:
+    """K1's (forward, backward) launches of one image-bearing stream's
+    tower pass under `policy` (None: checkpointing off): a block
+    checkpoint reruns the block's forward before its backward, so its K1
+    forward twice; `except_attn` checkpoints no block."""
+    again = policy not in (None, "except_attn")
+    return (depth * (2 if again else 1), depth)
+
+
+def remat_on_off(B=8) -> dict:
+    """bf16 at the large tower's width (1024, 16 heads) and the text
+    side's, depth 2, on the card: the image-text stream's loss
+    (`XFMForPretrain.loss` under the YAML's flags, dropout and drop-path
+    live from one seeded generator) and every gradient. The plain step
+    twice in the default mode (→ their relative l2 gradient gap), then,
+    under deterministic algorithms, the plain step and the step under each
+    policy from the same weights → the loss and every gradient bit-equal,
+    the generator's end state equal, K1's launches as
+    `k1_launches_per_pass` says. → {"off_vs_off": that gap, policy: K1's
+    (forward, backward) launches}."""
+    import dataclasses
+
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.models import XFMForPretrain
+    from xfm_tpu_torch.models.task_models import LOSS_KEYS
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks.pretrain import stream_flags
+
+    yaml_cfg = large_yaml(depth=2, gradient_checkpointing=False)
+    cfg = large_model_config(yaml_cfg, torch.bfloat16)
+    sizes = dict(configs.stream_batch_sizes(yaml_cfg), image=B)
+    nb = configs.make_stream_batches(sizes, cfg.vision.image_res,
+                                     cfg.text.vocab_size, seed=4)
+    batch = configs.batch_to_torch(nb["image"], "cuda")
+    flags = stream_flags("image", 0, yaml_cfg)
+    base = build_model(XFMForPretrain, cfg, "cuda", seed=7)
+    weights = base.state_dict()
+
+    def run(model):
+        model.zero_grad(set_to_none=True)
+        kernels.reset_launch_counts()
+        g = torch.Generator(device="cuda").manual_seed(11)
+        out = model.loss(**batch, **flags, generator=g, deterministic=False)
+        loss = sum(out[k] for k in LOSS_KEYS)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.float() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        return (loss.item(), grads, dict(kernels.LAUNCHES),
+                g.get_state().clone())
+
+    a, b = run(base)[1], run(base)[1]
+    noise = math.sqrt(sum(((b[n] - a[n]) ** 2).sum().item() for n in a)
+                      / sum((a[n] ** 2).sum().item() for n in a))
+    print(f"  remat on/off (bf16, depth 2, B={B}): the plain step against "
+          f"itself in the default mode, relative l2 gradient gap "
+          f"{noise:.3e}")
+    res = {"off_vs_off": noise}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = run(base)
+        for policy in REMAT_POLICIES:
+            on = dict(remat=True, remat_policy=policy)
+            pcfg = dataclasses.replace(
+                cfg, vision=dataclasses.replace(cfg.vision, **on),
+                text=dataclasses.replace(cfg.text, **on),
+                fusion=dataclasses.replace(cfg.fusion, **on))
+            with torch.device("cuda"):
+                model = XFMForPretrain(pcfg)
+            model.load_state_dict(weights)
+            loss, grads, launches, state = run(model)
+            same = sum(1 for n in ref[1] if n in grads
+                       and torch.equal(grads[n], ref[1][n]))
+            k1 = (launches["packed_attention_fwd"],
+                  launches["packed_attention_bwd"])
+            want = k1_launches_per_pass(2, policy)
+            print(f"  remat {policy} (deterministic algorithms): loss "
+                  f"{loss!r} (off {ref[0]!r}), gradients bit-equal "
+                  f"{same}/{len(ref[1])}, K1 {k1} (expected {want}), "
+                  f"generator state equal {torch.equal(state, ref[3])}")
+            if (loss != ref[0] or set(grads) != set(ref[1])
+                    or same != len(ref[1]) or k1 != want
+                    or not torch.equal(state, ref[3])):
+                raise AssertionError(f"remat {policy} on the card differs "
+                                     f"from the plain step")
+            res[policy] = k1
+            del model, grads
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del base
+    torch.cuda.empty_cache()
+    return res
+
+
+def remat_task(bs=REMAT_BS, steps=2) -> dict:
+    """`run.main` for `--task pretrain_DIY` with the large YAML
+    (`configs.PRETRAIN_LARGE_KEYS`: BEiT-2-large, `gradient_checkpointing:
+    true`, policy `full`) over `_pretrain_corpus`, `--bs`, `steps` steps:
+    finite losses, non-zero where the streams' flags ask; K1 (2·24) + 24
+    launches a step for each of the three image-bearing streams and no
+    other kernel. The output directory is deleted at the end."""
+    import tempfile
+
+    from xfm_tpu_torch import configs
+
+    root = tempfile.mkdtemp(prefix="xfm_large_")
+    try:
+        runs = pretrain_task_runs(root, bs=bs, steps=steps, ckpt_every=steps,
+                                  keys=configs.PRETRAIN_LARGE_KEYS,
+                                  resume=False)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r = runs["full"]
+    fwd, bwd = k1_launches_per_pass(24, "full")
+    print(f"  large task: {r['s']:.1f} s, peak memory "
+          f"{r['max_memory_allocated']} B, step s "
+          f"{[round(x['s'], 4) for x in r['steps']]}, checkpoint "
+          f"{runs['checkpoint_bytes']} B")
+    for i, st in enumerate(r["steps"]):
+        print(f"    step {i}: {json.dumps(st['launches'])} "
+              f"{json.dumps(st['losses'])}")
+        want = {k: 0 for k in st["launches"]}
+        want.update(packed_attention_fwd=3 * fwd,
+                    packed_attention_bwd=3 * bwd)
+        if st["launches"] != want or len(st["streams"]) != 4:
+            raise AssertionError(f"large task step {i}: launches "
+                                 f"{st['launches']}, expected {want}")
+        if not all(math.isfinite(v) for v in st["losses"].values()) or any(
+                st["losses"][f"{n}_loss_{k}"] == 0.0 for n, k in (
+                    ("image", "itc"), ("image", "mim"), ("region", "bbox"),
+                    ("imagenet", "mim"), ("text", "mlm"))):
+            raise AssertionError(f"large task step {i}: losses")
+    if len(r["steps"]) != steps:
+        raise AssertionError("large task: steps")
+    return dict(step_s=[x["s"] for x in r["steps"]], run_s=r["s"],
+                max_memory_allocated=r["max_memory_allocated"],
+                launches_per_step=r["steps"][0]["launches"])
+
+
+def remat_profiles(bs=REMAT_BS) -> dict:
+    """`profile_step.profile_pretrain_streams` with the large tower at
+    `--bs` `bs`, checkpointing off and under each policy (one model each,
+    one warm-up step, streams not taken alone), then under `full` at the
+    YAML's batches (96 a stream; 2 warm-up steps, each stream alone too)
+    → {"off" | policy | "full_yaml":
+    {busy ms, span ms, idle share, peak bytes, K1 launches a step, MFU
+    over busy}, "full_yaml_by_stream": launches by stream}. Each run's K1
+    launches as `k1_launches_per_pass` says for three streams, peak
+    memory under 80 GB, finite losses."""
+    from xfm_tpu_torch import configs, profile_step
+
+    out = {}
+    runs = [(p, bs) for p in (None,) + REMAT_POLICIES] + [("full", None)]
+    for policy, b in runs:
+        keys = dict(configs.PRETRAIN_LARGE_KEYS,
+                    gradient_checkpointing=policy is not None,
+                    remat_policy=policy or "full")
+        res = profile_step.profile_pretrain_streams(
+            None, steps=PROFILE_STEPS, bs=b, by_stream=b is None,
+            warmup=2 if b is None else 1, **keys)
+        tag = "full_yaml" if b is None else (policy or "off")
+        fwd, bwd = k1_launches_per_pass(24, policy)
+        want = {k: 0 for k in res["launches_per_step"]}
+        want.update(packed_attention_fwd=3 * fwd,
+                    packed_attention_bwd=3 * bwd)
+        row = dict(device_busy_ms=res["device_busy_ms"],
+                   device_span_ms=res["device_span_ms"],
+                   idle_share=res["idle_share"],
+                   max_memory_allocated=res["max_memory_allocated"],
+                   k1_launches=[res["launches_per_step"][
+                       "packed_attention_fwd"], res["launches_per_step"][
+                       "packed_attention_bwd"]],
+                   mfu_busy=res["mfu_busy"])
+        print(f"  pretrain_large {tag} (--bs {b or 'the YAML'}): "
+              + json.dumps(row))
+        if (res["launches_per_step"] != want
+                or res["max_memory_allocated"] >= 80e9
+                or not all(math.isfinite(v)
+                           for v in res["losses"].values())):
+            raise AssertionError(f"pretrain_large {tag}: launches, peak "
+                                 f"memory or losses")
+        out[tag] = row
+        if b is None:
+            out["full_yaml_by_stream"] = res["launches_by_stream"]
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def remat_phase() -> dict:
+    """Phase 29 → (K1's errors, times and bounds at the large tower's two
+    shapes, the profiles)."""
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    k1_large = {}
+    for B in (192, 80):
+        err = k1_parity(B=B, N=197, H=16, dtype=torch.bfloat16, seed=40 + B)
+        k1_parity(B=B, N=197, H=16, dtype=torch.float32, seed=41 + B)
+        t = k1_times(B=B, N=197, H=16, dtype=torch.bfloat16)
+        w = k1_work(B=B, N=197, H=16, D=64, dtype=torch.bfloat16)
+        print(f"  K1 H=16 B={B} times (ms, {smi}): " + json.dumps(t))
+        print(f"  K1 H=16 B={B} bound (k1_work): " + json.dumps(w))
+        k1_large[B] = (err, t, w)
+    R = 192 * 197  # the pair pass's rows at the YAML's 96
+    for dtype in (torch.bfloat16, torch.float32):
+        k4_parity("add", R, 1024, dtype, seed=70)
+        k5_parity("gelu_tanh", R, dtype, K=4096, N=1024, seed=71)
+    k4 = dict(times=k4_times(R, 1024, torch.bfloat16),
+              work=k4_work(R, 1024, torch.bfloat16))
+    k5 = dict(times=k5_times(R, torch.bfloat16, K=4096, N=1024),
+              work=k5_work(R, 4096, 1024, torch.bfloat16))
+    print(f"  K4 add R={R} C=1024 ({smi}): " + json.dumps(k4))
+    print(f"  K5 gelu_tanh M={R} K=4096 N=1024 ({smi}): " + json.dumps(k5))
+    cfg = large_model_config(large_yaml(depth=2), torch.float32)
+    if not (cfg.vision.remat and cfg.text.remat and cfg.fusion.remat):
+        raise AssertionError("the large YAML does not checkpoint")
+    t1 = time.perf_counter()
+    # the image-text stream runs the tower's pair pass and the text and
+    # fusion stacks, the region stream the tower over its images
+    stream_slice_parity(cfg, large_yaml(depth=2), ("image", "region"),
+                        k1_launches_per_pass(2, "full"), " large remat")
+    t2 = time.perf_counter()
+    print("  remat on/off: " + json.dumps(remat_on_off()))
+    t3 = time.perf_counter()
+    task = remat_task()
+    print("  large task: " + json.dumps(task))
+    t4 = time.perf_counter()
+    prof = remat_profiles()
+    print(f"  phase 29 seconds: kernels {t1 - t0:.1f}, slice {t2 - t1:.1f}, "
+          f"on/off {t3 - t2:.1f}, task {t4 - t3:.1f}, profiles "
+          f"{time.perf_counter() - t4:.1f}")
+    return dict(k1=k1_large, prof=prof, task=task)
 
 
 def _dp_env() -> dict:
@@ -6474,6 +6780,10 @@ def main() -> int:
           "refcoco_bbox, imagenet, the probe, glue and classify")
     dpt = dp_tasks_phase(nt, ct)
     print("  data parallel tasks: " + json.dumps(dpt))
+    phase("phase 29: activation checkpointing: K1 at H = 16, K4 and K5 at "
+          "the large widths, the large slice, checkpointing on against off, "
+          "the BEiT-2-large pretrain task and its profiles")
+    rm = remat_phase()
 
     entries = (kernel_entries("packed_attention",
                               "xfm_tpu/ops/flash_attention.py", 983, 1007,
@@ -6510,10 +6820,13 @@ def main() -> int:
                + classify_kernel_entries(k1ft, k1lp, clprof)
                + vqkd_kernel_entries(k1_new[192], k1_new[80],
                                      qprof["pretrain_vqkd"])
-               + tower_kernel_entries(*tw["k3"], tw["deit_launches"]))
+               + tower_kernel_entries(*tw["k3"], tw["deit_launches"])
+               + pretrain_kernel_entries(*rm["k1"][192], *rm["k1"][80],
+                                         rm["prof"]["full_yaml_by_stream"],
+                                         label="large"))
     ends = PHASE_T[1:] + [time.perf_counter()]
     by_phase = [round(b - a, 1) for a, b in zip(PHASE_T, ends)]
-    print(f"chip_smoke: 28 phases in {ends[-1] - t_start:.1f} s; seconds "
+    print(f"chip_smoke: 29 phases in {ends[-1] - t_start:.1f} s; seconds "
           f"by phase {json.dumps(by_phase)}")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -26,7 +26,9 @@ def _inputs(B, N, H, D, seed):
                                    (80, 197, 12),    # the region stream
                                    (64, 197, 12),    # caption pretrain
                                    (128, 197, 12),   # ImageNet fine-tune
-                                   (512, 197, 12)])  # the linear probe
+                                   (512, 197, 12),   # the linear probe
+                                   (192, 197, 16),   # BEiT-2-large's pair
+                                   (80, 197, 16)])   # and region passes
 def test_packed_attention_kernel_matches_plain(dtype, B, N, H):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -1510,3 +1512,74 @@ def test_tower_retrieval_steps_launch_their_kernels_only(unit, k3):
         {k: 0 for k in kernels.LAUNCHES}, flash_attention_fwd=k3,
         flash_attention_bwd=k3)
     assert torch.isfinite(metrics["loss"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["full", "dots", "except_attn",
+                                    "attn_out"])
+def test_checkpointing_on_the_card_matches_off(policy):
+    """BEiT-2-large's width (1024, 16 heads) and the text side's at depth
+    2, bf16, the image-text stream with dropout and drop-path live from one
+    seeded generator, deterministic algorithms (PyTorch's atomic
+    accumulations ordered; K1's bf16 kernels are deterministic): with
+    checkpointing under `policy` the loss and every gradient are
+    bit-equal to the plain step's; K1's forward runs again in each
+    checkpointed block's recompute."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import dataclasses
+
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.models import XFMForPretrain
+    from xfm_tpu_torch.models.task_models import LOSS_KEYS
+    from xfm_tpu_torch.models.xfm import config_from_yaml
+    from xfm_tpu_torch.ops import kernels
+    from xfm_tpu_torch.tasks.pretrain import stream_flags
+
+    yaml_cfg = configs.pretrain_large_yaml(
+        vision_depth=2, text_num_hidden_layers=2, text_fusion_start_at=2,
+        fusion_num_hidden_layers=2, gradient_checkpointing=False)
+    cfg = config_from_yaml(yaml_cfg, use_contrastive_loss=True,
+                           use_matching_loss=True, use_mlm_loss=True,
+                           use_bbox_loss=True, dtype=torch.bfloat16)
+    nb = configs.make_stream_batches(
+        dict(configs.stream_batch_sizes(yaml_cfg), image=8), 224,
+        cfg.text.vocab_size, seed=4)
+    batch = configs.batch_to_torch(nb["image"], "cuda")
+    flags = stream_flags("image", 0, yaml_cfg)
+
+    def run(c, weights=None):
+        with torch.device("cuda"):
+            model = XFMForPretrain(c)
+        if weights is None:
+            from xfm_tpu_torch.train.checkpoint import init_weights
+
+            init_weights(model, 7)
+        else:
+            model.load_state_dict(weights)
+        kernels.reset_launch_counts()
+        g = torch.Generator(device="cuda").manual_seed(11)
+        out = model.loss(**batch, **flags, generator=g, deterministic=False)
+        loss = sum(out[k] for k in LOSS_KEYS)
+        loss.backward()
+        grads = {n: p.grad.float() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        return (model.state_dict(), loss.item(), grads,
+                kernels.LAUNCHES["packed_attention_fwd"], g.get_state())
+
+    on = dict(remat=True, remat_policy=policy)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        weights, loss, grads, k1, state = run(cfg)
+        _, loss2, grads2, k1_2, state2 = run(dataclasses.replace(
+            cfg, vision=dataclasses.replace(cfg.vision, **on),
+            text=dataclasses.replace(cfg.text, **on),
+            fusion=dataclasses.replace(cfg.fusion, **on)), weights)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert loss2 == loss
+    assert torch.equal(state, state2)
+    assert set(grads2) == set(grads)
+    for name, want in grads.items():
+        assert torch.equal(grads2[name], want), name
+    assert k1_2 == (k1 if policy == "except_attn" else 2 * k1)

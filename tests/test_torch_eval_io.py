@@ -272,14 +272,18 @@ def test_data_layer_is_bit_equal_to_jax(tmp_path):
 
 
 # fields the JAX configs have and the port's do not, at the values the
-# port implements (remat_policy means nothing without remat); the
-# tokenizer's and the BEiT tower's optional fields are the port's too
-# since the pretrain task's branches were ported, and compared as fields
+# port implements; the tokenizer's and the BEiT tower's optional fields
+# are the port's too since the pretrain task's branches were ported, and
+# `remat` / `remat_policy` since activation checkpointing was, all
+# compared as fields
 JAX_ONLY = {
     "top": {},
-    "vision": {"remat": False, "remat_policy": None, "seq_shard": False},
-    "text": {"remat": False, "remat_policy": None, "seq_shard": False},
+    "vision": {"seq_shard": False},
+    "text": {"seq_shard": False},
 }
+# the port's fields that the JAX package reads from its environment
+# (XFM_FUSED_LN, XFM_MLP_FUSED, XFM_ATTN_REMAT), false with those unset
+PORT_ENV_FIELDS = ("fused_ln", "fused_mlp", "attn_remat")
 
 
 def _same_fields(port, jax_cfg, part):
@@ -287,7 +291,7 @@ def _same_fields(port, jax_cfg, part):
         got = getattr(port, f.name)
         if dataclasses.is_dataclass(got):
             continue
-        if f.name in ("fused_ln", "fused_mlp"):
+        if f.name in PORT_ENV_FIELDS:
             assert got is False, (part, f.name)
             continue
         want = getattr(jax_cfg, f.name)
@@ -309,8 +313,8 @@ def test_config_from_yaml_matches_jax(path, monkeypatch):
     from xfm_tpu.models import config_from_yaml as jconfig_from_yaml
     from xfm_tpu_torch.core import config as pconfig
 
-    monkeypatch.delenv("XFM_FUSED_LN", raising=False)
-    monkeypatch.delenv("XFM_MLP_FUSED", raising=False)
+    for name in ("XFM_FUSED_LN", "XFM_MLP_FUSED", "XFM_ATTN_REMAT"):
+        monkeypatch.delenv(name, raising=False)
     root = os.path.join(REPO, "configs", "model")
     ycfg = pconfig.resolve_vision_config(pconfig.load_config(path), root)
     assert ycfg == jconfig.resolve_vision_config(jconfig.load_config(path),

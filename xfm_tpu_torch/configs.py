@@ -80,9 +80,11 @@ def xfm_base_pretrain_config(hidden=768, layers=12, heads=12, inter=3072,
     tanh-GELU, bf16 compute, drop-path off; smaller widths for tests.
     `fused_ln` / `fused_mlp` take the residual LayerNorms through K4 and the
     MLPs' second projections through K5; None reads `XFM_FUSED_LN` /
-    `XFM_MLP_FUSED` == "1", as the JAX package does."""
+    `XFM_MLP_FUSED` == "1", as the JAX package does, and `XFM_ATTN_REMAT`
+    == "1" checkpoints the plain attention (`attn_remat`)."""
     fused = dict(fused_ln=_env_flag(fused_ln, "XFM_FUSED_LN"),
-                 fused_mlp=_env_flag(fused_mlp, "XFM_MLP_FUSED"))
+                 fused_mlp=_env_flag(fused_mlp, "XFM_MLP_FUSED"),
+                 attn_remat=_env_flag(None, "XFM_ATTN_REMAT"))
     vis = VisionConfig(image_res=image_res, patch_size=16, embed_dim=hidden,
                        depth=layers, num_heads=heads, drop_path_rate=0.0,
                        hidden_act=act, dtype=dtype, **fused)
@@ -134,7 +136,8 @@ def xfm_clip_retrieval_config(image_res=384, hidden=None, layers=None,
     quick-GELU MLPs stay plain, as in the JAX package."""
     v = CLIP_VIT_B16
     fused = dict(fused_ln=_env_flag(fused_ln, "XFM_FUSED_LN"),
-                 fused_mlp=_env_flag(fused_mlp, "XFM_MLP_FUSED"))
+                 fused_mlp=_env_flag(fused_mlp, "XFM_MLP_FUSED"),
+                 attn_remat=_env_flag(None, "XFM_ATTN_REMAT"))
     hidden = hidden or v["vision_width"]
     layers = layers or v["num_hidden_layers"]
     heads = heads or v["num_attention_heads"]
@@ -544,15 +547,36 @@ PRETRAIN_YAML = os.path.join(os.path.dirname(os.path.dirname(
 
 
 def pretrain_yaml(**keys) -> dict:
-    """`configs/xfm-pt/Pretrain_base_4m.yaml` with its vision JSON read in
-    (PyYAML needed) and `keys` set on top."""
+    """`configs/xfm-pt/Pretrain_base_4m.yaml` with `keys` set on top and
+    its vision JSON read in (PyYAML needed)."""
     from .core.config import load_config, resolve_vision_config
 
     root = os.path.join(os.path.dirname(PRETRAIN_YAML), os.pardir, "model")
-    cfg = resolve_vision_config(load_config(PRETRAIN_YAML),
-                                config_root=os.path.normpath(root))
+    cfg = load_config(PRETRAIN_YAML)
     cfg.update(keys)
-    return cfg
+    return resolve_vision_config(cfg, config_root=os.path.normpath(root))
+
+
+# the pretrain YAML with the BEiT-2-large tower (24 blocks, width 1024, 16
+# heads) and activation checkpointing on: the one shipped vision JSON whose
+# pair pass at the YAML's batch needs the room
+PRETRAIN_LARGE_KEYS = {
+    "vision_config": "configs/model/config_beit2_large.json",
+    "gradient_checkpointing": True}
+
+
+def pretrain_large_yaml(**keys) -> dict:
+    """`pretrain_yaml` with `PRETRAIN_LARGE_KEYS` (and `keys`) on top."""
+    return pretrain_yaml(**{**PRETRAIN_LARGE_KEYS, **keys})
+
+
+def vision_sizes(cfg: dict, hidden: int, inter: int, layers: int) -> tuple:
+    """(width, MLP width, depth) of a pretrain YAML's BEiT-2 tower: the
+    large tower's where `vision_config` names "large" (as
+    `config_from_yaml` reads it), else the given ones."""
+    if "large" in str(cfg.get("vision_config", "base")):
+        return 1024, 4096, 24
+    return hidden, inter, layers
 
 
 def stream_batch_sizes(cfg: dict) -> dict:
@@ -662,7 +686,8 @@ RANDAUG_STREAMS = ("image", "imagenet")
 
 def make_pretrain_streams_run(device="cuda", seed: int = 0,
                               steps_per_epoch: int = 1000,
-                              device_randaug: bool = False, **keys):
+                              device_randaug: bool = False,
+                              bs: Optional[int] = None, **keys):
     """The step of `run.py --task pretrain_DIY` on
     `Pretrain_base_4m.yaml` (`keys` set on top): XFM-base from the YAML
     (BEiT-2 at 224 px, tanh-GELU, drop-path 0.1, text dropout 0.1, bf16
@@ -676,16 +701,20 @@ def make_pretrain_streams_run(device="cuda", seed: int = 0,
     and ImageNet streams' images seeded uint8, as the loader hands them
     over, and each step first runs RandAugment on them on the device
     (`tasks.pretrain.device_randaugment`, their generators under
-    ("randaug", name)). → (state, batches, step, generators) with
+    ("randaug", name)); with `bs` every stream's batch that size, as
+    `--bs` sets it (`tasks/common.scale_batch`). → (state, batches, step,
+    generators) with
     step(state, batches, generators) -> (state, metrics) and
     generators(i) the streams' generators of step i."""
-    from .tasks.common import TaskContext, maybe_bf16_params
+    from .tasks.common import TaskContext, maybe_bf16_params, scale_batch
     from .tasks.pretrain import (RANDAUG_KEY, device_randaugment,
                                  frozen_tokenizer, stream_flags,
                                  stream_loss_fn)
     from .train.train_state import make_stream_step
 
     cfg = pretrain_yaml(**keys)
+    if bs:
+        scale_batch(cfg, bs, 1)
     if device_randaug:
         for block in ("images", "images_imagenet"):
             cfg[block] = dict(cfg[block], device_randaug=True)
@@ -744,31 +773,35 @@ def pretrain_streams_flops(cfg: dict, hidden=768, inter=3072, layers=12,
     fusion pass, the bbox pass and the MLM head; ImageNet's pair pass; the
     text stream's encoder and MLM head; MIM's code head under the
     tokenizer; plus the frozen tokenizer's forward alone (its encoder over
-    the MIM streams' images, the projection and the code distances)."""
+    the MIM streams' images, the projection and the code distances). The
+    BEiT-2 passes take the tower's sizes (`vision_sizes`)."""
     sz = stream_batch_sizes(cfg)
     Nv = (cfg.get("image_res", 224) // cfg.get("patch_size", 16)) ** 2 + 1
     T, M = sz["T"], sz["M"]
     tf = _transformer_flops
     tokenizer = cfg.get("use_vision_tokenizer", False)
     K = cfg.get("codebook_size", 8192)
+    vh, vi, vl = vision_sizes(cfg, hidden, inter, layers)
 
     def image_text(B):
-        return (tf(layers, hidden, inter, Nv, 2 * B)
+        return (tf(vl, vh, vi, Nv, 2 * B)
                 + 2 * tf(layers, hidden, inter, T, B)
-                + tf(layers, hidden, inter, T, 4 * B, cross_kv=Nv)
+                + tf(layers, hidden, inter, T, 4 * B, cross_kv=Nv,
+                     kv_width=vh)
                 + 2 * B * M * hidden * vocab)
 
     def mim_head(B):
-        return 2 * B * (Nv - 1) * hidden * K if tokenizer else 0
+        return 2 * B * (Nv - 1) * vh * K if tokenizer else 0
 
     B, R, I = sz["image"], sz["regions"], sz["max_images"]
     k = max(0, cfg.get("local_attn_depth", -1))
-    region = (tf(layers - k, hidden, inter, Nv, I)
-              + tf(k, hidden, inter, Nv, I + R)
+    region = (tf(vl - k, vh, vi, Nv, I)
+              + tf(k, vh, vi, Nv, I + R)
               + 2 * tf(layers, hidden, inter, T, R)
-              + tf(layers, hidden, inter, T, 5 * R, cross_kv=Nv)
+              + tf(layers, hidden, inter, T, 5 * R, cross_kv=Nv,
+                   kv_width=vh)
               + 2 * R * M * hidden * vocab)
-    imagenet = tf(layers, hidden, inter, Nv, 2 * sz["imagenet"])
+    imagenet = tf(vl, vh, vi, Nv, 2 * sz["imagenet"])
     text = (tf(layers, hidden, inter, sz["text_T"], sz["text"])
             + 2 * sz["text"] * sz["text_M"] * hidden * vocab)
     fwd = (image_text(B) + mim_head(B) + region + imagenet

@@ -17,6 +17,13 @@ N ≥ 512 is K2; everything else (no bias, the region blocks' masked bias
 with a batch axis, live attention dropout) takes `dot_product_attention`,
 which is K3 at N ≥ 512 and the plain attention below, as the JAX package
 routes it.
+
+With `remat` (`gradient_checkpointing`) each block runs through
+`ops/checkpoint.checkpoint_block` under `remat_policy`, in every loop over
+the blocks (`_encode`, which `pair` runs, `intermediate_layers` and both
+loops of `forward_localattn`), as the JAX tower wraps `BeitBlock` in
+`nn.remat`; `attn_remat` (`XFM_ATTN_REMAT=1`) checkpoints the plain
+attention alone.
 """
 from __future__ import annotations
 
@@ -28,6 +35,9 @@ from torch import nn
 
 from ..core.precision import act_dense, add_layer_norm, dense, layer_norm
 from ..ops.attention import dot_product_attention, mask_to_bias
+from ..ops.checkpoint import (attention_remat, checkpoint_block,
+                              name_attn_out, names_attn_out)
+from ..ops.checkpoint import remat_policy as policy_context
 from ..ops.dropout import drop_path, dropout
 from ..ops.flash_attention import (MAX_N, beit_attention_relpos,
                                    flash_attention_packed, relpos_inkernel_ok)
@@ -59,6 +69,12 @@ class VisionConfig:
     dtype: torch.dtype = torch.float32
     fused_ln: bool = False     # norm2 through K4 (XFM_FUSED_LN=1)
     fused_mlp: bool = False    # fc2 through K5 (XFM_MLP_FUSED=1)
+    remat: bool = False        # checkpoint each block
+    remat_policy: str = "full"  # full | dots | except_attn | attn_out
+    attn_remat: bool = False   # the plain attention alone (XFM_ATTN_REMAT)
+
+    def __post_init__(self):
+        policy_context(self.remat_policy)  # raises on an unknown name
 
     @property
     def grid_size(self) -> int:
@@ -130,8 +146,7 @@ class BeitAttention(nn.Module):
             # it to bf16 on its accelerator)
             out = beit_attention_relpos(qkv, self.relative_position_bias_table,
                                         window, D ** -0.5, H, c.dtype)
-            return dropout(dense(out, self.proj, c.dtype), c.drop_rate,
-                           deterministic)
+            return self._proj_out(out, deterministic)
         bias = rel_pos_bias
         if c.use_rel_pos_bias:
             # the materialized bias is f32, as in the JAX package (a bf16
@@ -152,7 +167,16 @@ class BeitAttention(nn.Module):
             q, k, v = (t.reshape(B, N, H, D) for t in qkv.split(C, -1))
             out = dot_product_attention(
                 q, k, v, bias=bias, deterministic=deterministic,
-                dropout_rate=c.attn_drop_rate).reshape(B, N, C)
+                dropout_rate=c.attn_drop_rate,
+                remat=attention_remat(c)).reshape(B, N, C)
+        return self._proj_out(out, deterministic)
+
+    def _proj_out(self, out, deterministic: bool):
+        """The out-projection and its dropout, the attention output tagged
+        for the `attn_out` policy first."""
+        c = self.c
+        if names_attn_out(c):
+            out = name_attn_out(out)
         return dropout(dense(out, self.proj, c.dtype), c.drop_rate,
                        deterministic)
 
@@ -263,10 +287,14 @@ class BeitVisionTransformer(nn.Module):
             x = self._apply_mim_mask(x, mask)
         return self._add_cls(x)
 
+    def _block(self, blk, x, deterministic, shared, bias=None):
+        """One block, checkpointed where the config's `remat` asks."""
+        return checkpoint_block(self.c, blk, x, deterministic, shared, bias)
+
     def _encode(self, x, deterministic: bool = True):
         shared = self._shared_rpb()
         for blk in self.blocks:
-            x = blk(x, deterministic, shared)
+            x = self._block(blk, x, deterministic, shared)
         return self.readout(x)
 
     def readout(self, x):
@@ -287,7 +315,7 @@ class BeitVisionTransformer(nn.Module):
                else list(layer_ids))
         by_block = {}
         for i, blk in enumerate(self.blocks):
-            x = blk(x, deterministic, shared)
+            x = self._block(blk, x, deterministic, shared)
             if i in ids:
                 by_block[i] = x[:, 1:, :]
         return [by_block[i] for i in ids]
@@ -317,13 +345,13 @@ class BeitVisionTransformer(nn.Module):
         shared = self._shared_rpb()
         split = c.depth - c.local_attn_depth
         for blk in self.blocks[:split]:
-            x = blk(x, deterministic, shared)
+            x = self._block(blk, x, deterministic, shared)
         xall = torch.cat([x[idx_to_group_img], x])
         atts = torch.cat([image_atts.float(),
                           torch.ones(x.shape[:2], device=x.device)])
         bias = mask_to_bias(atts)
         for blk in self.blocks[split:]:
-            xall = blk(xall, deterministic, shared, bias)
+            xall = self._block(blk, xall, deterministic, shared, bias)
         out = layer_norm(xall, self._final_norm(), c.dtype)
         R = idx_to_group_img.shape[0]
         return out[:R], out[R:]

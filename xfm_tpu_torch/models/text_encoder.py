@@ -17,6 +17,12 @@ a time through a `DecodeCache` that the caller holds and passes as
 layer's self k/v written into preallocated slots at the cache's index, its
 cross k/v projected at the first step and read back with
 `cross_from_cache`.
+
+With `remat` (`gradient_checkpointing`) each layer runs through
+`ops/checkpoint.checkpoint_block` under `remat_policy` while grad is on
+and no `DecodeCache` is passed (the JAX layer's static `decode` and
+`cross_from_cache`): a recompute never writes a cache slot twice.
+`attn_remat` (`XFM_ATTN_REMAT=1`) checkpoints the plain attention alone.
 """
 from __future__ import annotations
 
@@ -30,6 +36,9 @@ from torch import nn
 from ..core.precision import act_dense, dense, layer_norm, post_layer_norm
 from ..ops.activations import gelu
 from ..ops.attention import NEG_INF, dot_product_attention, mask_to_bias
+from ..ops.checkpoint import (attention_remat, checkpoint_block,
+                              name_attn_out, names_attn_out)
+from ..ops.checkpoint import remat_policy as policy_context
 from ..ops.dropout import dropout
 
 
@@ -56,6 +65,12 @@ class TextConfig:
     dtype: torch.dtype = torch.float32
     fused_ln: bool = False          # the post-LN sites through K4
     fused_mlp: bool = False         # output.dense through K5
+    remat: bool = False             # checkpoint each layer
+    remat_policy: str = "full"      # full | dots | except_attn | attn_out
+    attn_remat: bool = False        # the plain attention alone
+
+    def __post_init__(self):
+        policy_context(self.remat_policy)  # raises on an unknown name
 
     @classmethod
     def roberta_base(cls, **kw):
@@ -243,14 +258,17 @@ class SelfAttention(nn.Module):
             ctx = dot_product_attention(
                 q.view(U, gs * Nq, H, D), k, v, bias=bias,
                 deterministic=deterministic,
-                dropout_rate=c.attention_probs_dropout_prob)
+                dropout_rate=c.attention_probs_dropout_prob,
+                remat=attention_remat(c))
         else:
             ctx = dot_product_attention(
                 q, k, v, bias=attention_bias, deterministic=deterministic,
                 dropout_rate=c.attention_probs_dropout_prob,
-                prob_gate=prob_gate)
-        out = dropout(dense(ctx.reshape(B, Nq, c.hidden_size),
-                            self.output.dense, c.dtype),
+                prob_gate=prob_gate, remat=attention_remat(c))
+        ctx = ctx.reshape(B, Nq, c.hidden_size)
+        if names_attn_out(c):
+            ctx = name_attn_out(ctx)
+        out = dropout(dense(ctx, self.output.dense, c.dtype),
                       c.hidden_dropout_prob, deterministic)
         return post_layer_norm(out, hidden, self.output.LayerNorm, c.dtype,
                                c.fused_ln)
@@ -398,13 +416,19 @@ class TextTransformer(nn.Module):
             lo, hi = 0, c.num_hidden_layers
         index = 0 if decode is None else decode.index
         for i in range(lo, hi):
-            x = self.roberta.encoder.layer[i](
-                x, bias, encoder_hidden_states, ebias, encoder_row_idx,
-                encoder_group_size, deterministic,
-                decode=None if decode is None else decode.layer(i, c),
-                index=index, cross_from_cache=cross_from_cache,
-                cross_prob_gate=cross_gate if i == cross_gate_layer
-                else None)
+            layer = self.roberta.encoder.layer[i]
+            gate = cross_gate if i == cross_gate_layer else None
+            if decode is None:
+                x = checkpoint_block(
+                    c, layer, x, bias, encoder_hidden_states, ebias,
+                    encoder_row_idx, encoder_group_size, deterministic, None,
+                    0, False, gate)
+            else:
+                x = layer(x, bias, encoder_hidden_states, ebias,
+                          encoder_row_idx, encoder_group_size, deterministic,
+                          decode=decode.layer(i, c), index=index,
+                          cross_from_cache=cross_from_cache,
+                          cross_prob_gate=gate)
         if decode is not None:
             decode.index = index + x.shape[1]
         return x

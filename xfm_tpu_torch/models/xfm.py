@@ -96,7 +96,12 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
     the compute dtype of `core.precision.policy_from_config`. The JAX
     package's environment switches `XFM_FUSED_LN` / `XFM_MLP_FUSED` == "1"
     become the configs' `fused_ln` / `fused_mlp` (the CLIP tower takes
-    neither, as there). `use_vision_tokenizer` adds the MIM code head
+    neither, as there). `gradient_checkpointing` and `remat_policy`
+    become `remat` and `remat_policy` of the BEiT-2 tower and the text and
+    fusion encoders (the decoders inherit the text config's), and
+    `XFM_ATTN_REMAT` == "1" their `attn_remat`; the CLIP-ViT, Swin and
+    DeiT towers take none of them, as in the JAX package, which
+    checkpoints none of them. `use_vision_tokenizer` adds the MIM code head
     (`codebook_size` classes); `local_attn_depth` > 0 runs region attention
     in the last blocks of the BEiT-2 or CLIP tower."""
     if dtype is None:
@@ -105,6 +110,9 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
         dtype = policy_from_config(config).compute_dtype
     fused = dict(fused_ln=os.environ.get("XFM_FUSED_LN", "0") == "1",
                  fused_mlp=os.environ.get("XFM_MLP_FUSED", "0") == "1")
+    remat = dict(remat=bool(config.get("gradient_checkpointing", False)),
+                 remat_policy=config.get("remat_policy", "full"),
+                 attn_remat=os.environ.get("XFM_ATTN_REMAT", "0") == "1")
     vision_cfg_json = config.get("_vision", {})
     image_res = config.get("image_res", 224)
     if config.get("use_clip_vit", False):
@@ -153,14 +161,14 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
             init_values=0.1, qkv_bias=True, dtype=dtype,
             hidden_act=config.get("hidden_act", "gelu"),
             local_attn_depth=config.get("local_attn_depth", -1), **fused,
-            **vkw)
+            **remat, **vkw)
         backbone, vwidth = "beit2", vision.embed_dim
 
     mk = (TextConfig.roberta_base
           if "roberta" in str(config.get("text_encoder", "roberta-base"))
           else TextConfig.bert_base)
     n_text = config.get("text_num_hidden_layers", 12)
-    tkw = dict(fused)
+    tkw = dict(fused, **remat)
     if config.get("hidden_act"):
         tkw["hidden_act"] = config["hidden_act"]
     for k in ("hidden_dropout_prob", "attention_probs_dropout_prob"):

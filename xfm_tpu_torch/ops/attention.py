@@ -13,7 +13,11 @@ accumulation. With live dropout the probabilities are masked and divided
 by 1 − rate in f32 before that rounding (`_dropout_attention`), the mask
 from `ops/dropout.py`'s generator. A `prob_gate` (GradCAM's) multiplies
 the f32 probabilities before that rounding and takes this plain route,
-with no dropout, as in the JAX package.
+with no dropout, as in the JAX package. With `remat` (the configs'
+`attn_remat`, `XFM_ATTN_REMAT=1`, or the `except_attn` policy) and no live
+dropout, the plain route is checkpointed alone: its backward recomputes
+the logits and probabilities from q, k, v and the bias
+(`xfm_tpu/ops/attention.py`'s `jax.checkpoint` of `_xla_attention`).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from .checkpoint import run_checkpointed
 from .dropout import dropout
 
 NEG_INF = -1e9
@@ -69,13 +74,15 @@ def flash_ok(q: torch.Tensor, k: torch.Tensor, deterministic: bool = True,
 def dot_product_attention(q, k, v, bias=None, mask=None, scale=None,
                           deterministic: bool = True,
                           dropout_rate: float = 0.0,
-                          prob_gate=None) -> torch.Tensor:
+                          prob_gate=None, remat: bool = False
+                          ) -> torch.Tensor:
     """Scaled dot-product attention over [B, N, H, D] tensors (scale D^-1/2
     by default); `mask` ([B, Nk] or [B, Nq, Nk] of {0, 1}) is folded into
     `bias` as `mask_to_bias` makes it; `dropout_rate` drops probabilities
     unless `deterministic`. `prob_gate` ([B|1, H|1, Nq, Nk], ones in
     GradCAM) multiplies the probabilities, its gradient attn ⊙ ∂out/∂attn;
-    it takes the plain route, without dropout."""
+    it takes the plain route, without dropout. `remat` checkpoints the
+    plain route where no dropout is live."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if mask is not None:
@@ -88,5 +95,8 @@ def dot_product_attention(q, k, v, bias=None, mask=None, scale=None,
         from .flash_attention import flash_attention
 
         return flash_attention(q, k, v, bias, scale)
+    live = not deterministic and dropout_rate > 0.0
+    if remat and not live and torch.is_grad_enabled():
+        return run_checkpointed(attention_reference, q, k, v, bias, scale)
     return attention_reference(q, k, v, bias, scale,
-                               0.0 if deterministic else dropout_rate)
+                               dropout_rate if live else 0.0)

@@ -9,7 +9,10 @@ generator of the innermost `dropout_generator(g)` block, never from the
 global RNG: the step's generator (its rank generator, where it is a
 `core.mesh.StepGenerators`, so that each rank draws its own rows' masks),
 in the forward's order. With `deterministic` or a rate of 0 nothing is
-drawn and the input comes back as it is.
+drawn and the input comes back as it is. A checkpointed block's
+recompute (`ops/checkpoint.py`) draws again from a copy of the generator
+as it stood when the block first ran (`active_generator`), so it gets
+the same masks and the step's generator moves once.
 """
 from __future__ import annotations
 
@@ -34,6 +37,11 @@ def dropout_generator(generator: Optional[torch.Generator]):
         yield
     finally:
         _GENERATOR.reset(token)
+
+
+def active_generator() -> Optional[torch.Generator]:
+    """The generator live dropout draws from here, or None."""
+    return _GENERATOR.get()
 
 
 def keep_mask(shape, keep: float, device) -> torch.Tensor:

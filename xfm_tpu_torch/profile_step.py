@@ -6,8 +6,8 @@ on the card.
          retrieval_eval|pretrain_streams|vqa_train|vqa_rank|caption_train|
          caption_beam|caption_scst|caption_pretrain|nlvr_train|
          grounding_train|gradcam|imagenet_train|imagenet_lp|glue_train|
-         pretrain_vqkd|pretrain_bf16|pretrain_randaug|swin_retrieval_train|
-         deit_retrieval_train]
+         pretrain_vqkd|pretrain_bf16|pretrain_randaug|pretrain_large|
+         pretrain_large_remat|swin_retrieval_train|deit_retrieval_train]
         [--trace PATH]
 
 Runs the full-width step of the chosen path as `chip_smoke.py` does
@@ -98,6 +98,11 @@ what pretrain_streams prints, and the model FLOPs of its step
 its busy time against the card's bf16 peak; pretrain_randaug also the
 busy time of the RandAugment alone (its own window after the step's) and
 its share of the step's.
+pretrain_large and pretrain_large_remat profile pretrain_streams' step
+with the BEiT-2-large tower (`configs.PRETRAIN_LARGE_KEYS`: 24 blocks of
+width 1024, 16 heads) with activation checkpointing off and on
+(`gradient_checkpointing`, policy `full`), at the YAML's batches; each
+prints what pretrain_streams prints, the FLOPs at the large tower's sizes.
 swin_retrieval_train and deit_retrieval_train profile the step of
 retrieval_train with the Swin-B tower (window 12, 145 output rows of width
 1024) and BERT-base text and fusion encoders, and with the DeiT-B/16 tower
@@ -113,6 +118,7 @@ import json
 import os
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -253,27 +259,36 @@ def profile_retrieval_eval(trace: str, reps: int = 2) -> int:
 
 
 def profile_pretrain_streams(trace: str, steps: int = STEPS,
+                             bs: Optional[int] = None,
+                             by_stream: bool = True, warmup: int = 2,
                              **keys) -> dict:
     """The four-stream step of `run.py --task pretrain_DIY` at
     `Pretrain_base_4m.yaml`'s batch sizes (`keys` set on top), on seeded
     device batches (`configs.make_pretrain_streams_run`; no decode): the
-    peak memory of 2 warm-up steps, then one profiled window of `steps`
+    peak memory of `warmup` steps, then one profiled window of `steps`
     steps (its chrome trace written to `trace` unless that is None) →
     {span, busy, idle share, host ms a step, groups, launches a
     step (K1-K5 counters over the window), and of each stream's step
     taken alone after it its launches, span, busy time and groups; peak
     bytes; the streams' losses of the window's last step; under
-    `device_randaug` the RandAugment's busy ms a step and its share}."""
+    `device_randaug` the RandAugment's busy ms a step and its share}.
+    `bs` sets every stream's batch (`--bs`); without `by_stream` the
+    streams are not profiled alone."""
     from . import configs
     from .ops import kernels
+    from .tasks.common import scale_batch
 
-    state, batches, step, gens = configs.make_pretrain_streams_run(**keys)
+    state, batches, step, gens = configs.make_pretrain_streams_run(bs=bs,
+                                                                   **keys)
     keys.pop("device_randaug", None)
-    flops = configs.pretrain_streams_flops(configs.pretrain_yaml(**keys))
+    cfg = configs.pretrain_yaml(**keys)
+    if bs:
+        scale_batch(cfg, bs, 1)
+    flops = configs.pretrain_streams_flops(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     i = 0
-    for i in range(2):
+    for i in range(warmup):
         state, metrics = step(state, batches, gens(i))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
@@ -288,21 +303,22 @@ def profile_pretrain_streams(trace: str, steps: int = STEPS,
     kernels.reset_launch_counts()
     prof, span, busy, host_ms, kern = _window(one_step, steps)
     launches = {k: v // steps for k, v in kernels.LAUNCHES.items()}
-    by_stream, streams = {}, {}
-    for name in sorted(batches):  # one stream's step at a time
+    launches_by_stream, streams = {}, {}
+    for name in sorted(batches) if by_stream else ():  # one at a time
         def stream_step(name=name):
             nonlocal state
             state, _ = step(state, {name: batches[name]}, gens(i + 1))
 
         kernels.reset_launch_counts()
         _, s_span, s_busy, _, s_kern = _window(stream_step, 1)
-        by_stream[name] = dict(kernels.LAUNCHES)
+        launches_by_stream[name] = dict(kernels.LAUNCHES)
         streams[name] = dict(device_span_ms=s_span, device_busy_ms=s_busy,
                              groups_ms=_groups(s_kern))
     res = dict(device_span_ms=span, device_busy_ms=busy,
                idle_share=1 - busy / span, host_ms=host_ms,
                groups_ms_per_step=_groups(kern),
-               launches_per_step=launches, launches_by_stream=by_stream,
+               launches_per_step=launches,
+               launches_by_stream=launches_by_stream,
                streams_alone=streams, max_memory_allocated=peak,
                step_flops=flops,
                mfu_busy=flops / (busy * 1e-3) / BF16_PEAK_FLOPS,
@@ -386,11 +402,14 @@ def profile_vqa(trace: str, units=("vqa_rank", "vqa_train"),
 
 
 def _stream_units() -> dict:
-    from .configs import PRETRAIN_VQKD_KEYS
+    from .configs import PRETRAIN_LARGE_KEYS, PRETRAIN_VQKD_KEYS
 
     return {"pretrain_vqkd": dict(PRETRAIN_VQKD_KEYS),
             "pretrain_bf16": {"bf16_params": True},
-            "pretrain_randaug": {"device_randaug": True}}
+            "pretrain_randaug": {"device_randaug": True},
+            "pretrain_large": dict(PRETRAIN_LARGE_KEYS,
+                                   gradient_checkpointing=False),
+            "pretrain_large_remat": dict(PRETRAIN_LARGE_KEYS)}
 
 
 # the pretrain task's step with its optional branches: unit → YAML keys
