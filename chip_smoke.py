@@ -373,6 +373,24 @@ Phases, each of which must pass or the script exits non-zero:
      24` off and under each policy (busy ms, idle share, peak memory, K1
      launches 72 + 72 off and under `except_attn`, 144 + 72 under the
      others) and under `full` at the YAML's 96;
+ 30. FSDP (`fsdp_phase`): a one-process NCCL group and the pretrain task
+     with its `place_state` made to shard (`core/partitioning.shard_model`
+     on the one-rank mesh: FSDP2 units, DTensor shards, the registered
+     root methods, the reduce-scatter, the optimizer over the shards, the
+     gathered checkpoint; a config cannot ask for `fsdp` > 1 on one
+     process): `run.main` for `--task pretrain_DIY` as phase 27's plain
+     run (its corpus and YAML, `--bs 24`, 2 steps) held to that run by
+     phase 27's gates, K1 72 + 72 over the two steps; the saved state
+     resumed by the task on the unsharded model for a third step; `python
+     -m xfm_tpu_torch.convert_checkpoint to-torch` of the sharded run's
+     checkpoint; with two cards or more `--dp-step` at `parallel: {fsdp:
+     W}` (and `{data: 2, fsdp: 2}` on four) on phase 27's fixed global
+     batch against one process, `pretrain_DIY` and `itr_coco` under
+     torchrun at those layouts (the eval of `itr_coco`'s `ckpt/0` on one
+     process equal to the epoch's), and on four the BEiT-2-large pretrain
+     step under `full` at the YAML's 96 a rank (`--fsdp-peak`): the peak
+     memory of each rank at `fsdp: 4` and at `data: 4`; else a line saying
+     it could not run; phase 27's directory deleted;
 then a JSON line of the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
@@ -6038,26 +6056,34 @@ def _launch_counts(by_rank, want: dict, tag: str) -> None:
                                  f"expected {want}")
 
 
-def dp_step_worker(out_dir: str, B: int = 32) -> int:
-    """`python3 chip_smoke.py --dp-step OUT` under torchrun: the full-width
-    bf16 pretrain step (`configs.make_pretrain_run`, weights from seed 0)
-    on rank r's rows of a fixed global batch of `B` with fixed hard
-    negatives (the next row of the global batch); rank 0 writes the step's
-    reduced losses and gradient norm to OUT/dp_step_<W>.json."""
+def _layout_tag(parallel) -> str:
+    return "_".join(f"{k}{v}" for k, v in sorted((parallel or {}).items()))
+
+
+def dp_step_worker(out_dir: str, parallel=None, B: int = 32) -> int:
+    """`python3 chip_smoke.py --dp-step OUT [PARALLEL]` under torchrun: the
+    full-width bf16 pretrain step (`configs.make_pretrain_run`, weights
+    from seed 0; with PARALLEL, a YAML `parallel` block as JSON, the state
+    placed as a task places it: sharded where `fsdp` > 1) on rank r's rows
+    of a fixed global batch of `B` with fixed hard negatives (the next row
+    of the global batch); rank 0 writes the step's reduced losses and
+    gradient norm to OUT/dp_step_<W>[_<layout>].json."""
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     from xfm_tpu_torch import configs
     from xfm_tpu_torch.core import mesh
 
     dev = mesh.maybe_init_distributed("cuda")
-    state, batch, step = configs.make_pretrain_run(B=B, device=dev)
+    state, batch, step = configs.make_pretrain_run(B=B, device=dev,
+                                                   parallel=parallel)
     roll = torch.roll(torch.arange(B, device=dev), -1)
     batch = mesh.rank_slice(dict(batch, hard_negatives=(roll, roll)))
     state, metrics = step(state, batch, None)
     vals = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
     if mesh.rank() == 0:
-        with open(os.path.join(out_dir, f"dp_step_{mesh.world_size()}.json"),
-                  "w") as f:
+        tag = (f"_{_layout_tag(parallel)}" if parallel else "")
+        with open(os.path.join(out_dir, f"dp_step_{mesh.world_size()}"
+                               f"{tag}.json"), "w") as f:
             json.dump(vals, f)
     import torch.distributed as dist
 
@@ -6087,9 +6113,10 @@ def dp_fixed_batch(root: str) -> dict:
     return got
 
 
-def dp_phase(zero_shot_r_mean: float) -> dict:
+def dp_phase(zero_shot_r_mean: float, keep_root: bool = False) -> dict:
     """Phase 27 (see the module docstring); its directory deleted at the
-    end."""
+    end, or with `keep_root` left for phase 30 (`result["root"]`), which
+    deletes it."""
     import tempfile
 
     import yaml
@@ -6190,45 +6217,9 @@ def dp_phase(zero_shot_r_mean: float) -> dict:
         result = dict(world=world, backend=backend, pretrain_launches=by_rank,
                       pretrain_losses=tr_losses, seconds=t_all)
         if W == 1:
-            def params(run_dir, step):
-                return torch.load(os.path.join(out[run_dir], "ckpt",
-                                               str(step), "state.pt"),
-                                  map_location="cpu", weights_only=True,
-                                  mmap=True)["params"]
-
-            a, b, b1 = (params("pt_tr", 2), params("pt_plain", 2),
-                        params("pt_plain", 1))
-            if set(a) != set(b):
-                raise AssertionError("pretrain_DIY under torchrun saved "
-                                     "other parameters")
-            equal, gap2, step2, worst, worst_name = 0, 0.0, 0.0, 0.0, ""
-            for n in b:
-                x, y, y1 = (t[n].to("cuda", torch.float64)
-                            for t in (a, b, b1))
-                equal += torch.equal(x, y)
-                gap, step = (x - y).norm().item(), (y - y1).norm().item()
-                gap2, step2 = gap2 + gap ** 2, step2 + step ** 2
-                ratio = (gap / step if step else
-                         (0.0 if gap == 0 else math.inf))
-                if ratio >= worst:
-                    worst, worst_name = ratio, n
-            rel = abs(tr_losses[1] - plain_losses[1]) / abs(plain_losses[1])
-            whole = math.sqrt(gap2 / step2)
-            print(f"  W = 1 against the run without torchrun: first loss "
-                  f"bit-equal {tr_losses[0] == plain_losses[0]}, second "
-                  f"relative difference {rel}; saved parameters bit-equal "
-                  f"{equal} of {len(b)}; |a - b| / |second update| over "
-                  f"all {whole}, largest of a tensor {worst} "
-                  f"({worst_name})")
-            if (tr_losses[0] != plain_losses[0] or rel > DP_LOSS_RTOL
-                    or whole > DP_UPDATE_RTOL
-                    or worst > DP_TENSOR_UPDATE_RTOL):
-                raise AssertionError("pretrain_DIY under torchrun differs "
-                                     "from the run without it")
-            result.update(params_bit_equal=f"{equal}/{len(b)}",
-                          update_gap_all=whole, update_gap_worst=worst,
-                          update_gap_worst_name=worst_name,
-                          second_loss_rel=rel)
+            result.update(held_to_plain(out["pt_tr"], out["pt_plain"],
+                                        tr_losses, plain_losses,
+                                        "W = 1 under torchrun"))
 
         world, backend, by_rank = _processes_line(ft_out, "itr_coco")
         ft_log = _last_log(out["ft_tr"])
@@ -6262,9 +6253,56 @@ def dp_phase(zero_shot_r_mean: float) -> dict:
             print("  two processes on a fixed global batch: not run, this "
                   "machine has one card (NCCL puts one rank on a card); "
                   "the CPU tests run two gloo processes")
+        if keep_root:
+            result["root"] = root
         return result
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep_root:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+def _saved_params(run_dir: str, step: int) -> dict:
+    return torch.load(os.path.join(run_dir, "ckpt", str(step), "state.pt"),
+                      map_location="cpu", weights_only=True,
+                      mmap=True)["params"]
+
+
+def held_to_plain(run_dir: str, plain_dir: str, losses: list,
+                  plain_losses: list, tag: str) -> dict:
+    """A 2-step pretrain run (its `ckpt/2`) held to the plain run of the
+    same YAML and seed (its `ckpt/1` and `ckpt/2`): the first loss
+    bit-equal, the second within DP_LOSS_RTOL; the gap between the saved
+    parameters within DP_UPDATE_RTOL of the plain run's second update over
+    all parameters and DP_TENSOR_UPDATE_RTOL in each tensor → the
+    figures."""
+    a, b, b1 = (_saved_params(run_dir, 2), _saved_params(plain_dir, 2),
+                _saved_params(plain_dir, 1))
+    if set(a) != set(b):
+        raise AssertionError(f"{tag}: other parameters saved")
+    equal, gap2, step2, worst, worst_name = 0, 0.0, 0.0, 0.0, ""
+    for n in b:
+        x, y, y1 = (t[n].to("cuda", torch.float64) for t in (a, b, b1))
+        if x.shape != y.shape:
+            raise AssertionError(f"{tag}: {n} saved as {tuple(x.shape)}")
+        equal += torch.equal(x, y)
+        gap, step = (x - y).norm().item(), (y - y1).norm().item()
+        gap2, step2 = gap2 + gap ** 2, step2 + step ** 2
+        ratio = (gap / step if step else (0.0 if gap == 0 else math.inf))
+        if ratio >= worst:
+            worst, worst_name = ratio, n
+    rel = abs(losses[1] - plain_losses[1]) / abs(plain_losses[1])
+    whole = math.sqrt(gap2 / step2)
+    print(f"  {tag} against the plain run: first loss bit-equal "
+          f"{losses[0] == plain_losses[0]}, second relative difference "
+          f"{rel}; saved parameters bit-equal {equal} of {len(b)}; |a - b| "
+          f"/ |second update| over all {whole}, largest of a tensor "
+          f"{worst} ({worst_name})")
+    if (losses[0] != plain_losses[0] or rel > DP_LOSS_RTOL
+            or whole > DP_UPDATE_RTOL or worst > DP_TENSOR_UPDATE_RTOL):
+        raise AssertionError(f"{tag}: differs from the plain run")
+    return dict(params_bit_equal=f"{equal}/{len(b)}", update_gap_all=whole,
+                update_gap_worst=worst, update_gap_worst_name=worst_name,
+                second_loss_rel=rel)
 
 
 def dp_task_worker(out_dir: str, argv: list) -> int:
@@ -6516,6 +6554,247 @@ def _dp_task_evaluates(args, out, launch, W) -> dict:
                                  f"differs from one process's")
         result[task] = a
     return result
+
+
+# --- phase 30: FSDP -------------------------------------------------------
+
+def _one_rank_group() -> None:
+    """A one-process NCCL group (the address given, as nothing on the
+    card's machine names a cluster)."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+
+
+def fsdp_peak_worker(out_dir: str, axis: str) -> int:
+    """`python3 chip_smoke.py --fsdp-peak OUT AXIS` under torchrun: the
+    BEiT-2-large pretrain step (`configs.PRETRAIN_LARGE_KEYS`,
+    `gradient_checkpointing: full`) at the YAML's batches on every rank
+    (96 a stream), `parallel: {AXIS: W}` (`fsdp`: every parameter, its
+    gradient and moments sharded over the W ranks; `data`: replicated),
+    two steps; rank 0 writes each rank's peak allocated bytes and the
+    losses to OUT/fsdp_peak_<AXIS>.json."""
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.core import mesh
+
+    dev = mesh.maybe_init_distributed("cuda")
+    keys = dict(configs.PRETRAIN_LARGE_KEYS, gradient_checkpointing=True,
+                remat_policy="full", parallel={axis: mesh.world_size()})
+    state, batches, step, gens = configs.make_pretrain_streams_run(
+        device=dev, **keys)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(2):
+        state, metrics = step(state, batches, gens(i))
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    peaks = mesh.all_gather_numpy(np.asarray(
+        [torch.cuda.max_memory_allocated()], np.int64))[:, 0].tolist()
+    if mesh.rank() == 0:
+        with open(os.path.join(out_dir, f"fsdp_peak_{axis}.json"), "w") as f:
+            json.dump(dict(axis=axis, world=mesh.world_size(), peaks=peaks,
+                           losses=losses), f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def fsdp_cards(root: str, dp: dict) -> dict:
+    """Phase 30 on two cards or more (W of them): the fixed global batch
+    of phase 27 at `fsdp: W` (and `data: 2, fsdp: 2` on four) against its
+    one-process step; `pretrain_DIY` and `itr_coco` under torchrun at each
+    layout, `itr_coco`'s `ckpt/0` evaluated on one process equal to the
+    epoch's eval; on four the large pretrain step's peak memory a rank at
+    `fsdp: 4` and at `data: 4`."""
+    import yaml
+
+    from xfm_tpu_torch import run
+
+    W = torch.cuda.device_count()
+    layouts = [{"fsdp": W}] + ([{"data": 2, "fsdp": 2}] if W == 4 else [])
+    one = dp["fixed_batch"][1]
+    out = {}
+    for par in layouts:
+        tag = _layout_tag(par)
+        _finish(_torchrun(W, [os.path.join(REPO, "chip_smoke.py"),
+                              "--dp-step", root, json.dumps(par)]),
+                f"dp-step {tag}")
+        with open(os.path.join(root, f"dp_step_{W}_{tag}.json")) as f:
+            got = json.load(f)
+        print(f"  fixed global batch of 32, {tag}: {json.dumps(got)}")
+        for k in ("loss", "loss_itc", "loss_itm", "loss_mlm", "loss_mim",
+                  "grad_norm"):
+            tol = DP_GRAD_NORM_RTOL if k == "grad_norm" else DP_LOSS_RTOL
+            if not abs(got[k] - one[k]) <= tol * abs(one[k]):
+                raise AssertionError(f"fixed global batch {tag}: {k} "
+                                     f"{got[k]}, one process {one[k]}")
+        cfgs = {}
+        for name in ("pt", "ft"):
+            with open(os.path.join(root, f"{name}.yaml")) as f:
+                cfg = dict(yaml.safe_load(f), parallel=par)
+            cfgs[name] = os.path.join(root, f"{name}_{tag}.yaml")
+            with open(cfgs[name], "w") as f:
+                yaml.safe_dump(cfg, f)
+        pt_dir, ft_dir = (os.path.join(root, f"{n}_{tag}")
+                          for n in ("pt", "ft"))
+        pt = _torchrun(W, ["-m", "xfm_tpu_torch.run", "--task",
+                           "pretrain_DIY", "--config", cfgs["pt"],
+                           "--device", "cuda", "--bs", str(24 * W),
+                           "--output_dir", pt_dir])
+        pt_out = _finish(pt, f"pretrain_DIY {tag}")
+        ft_out = _finish(_torchrun(W, [
+            "-m", "xfm_tpu_torch.run", "--task", "itr_coco", "--config",
+            cfgs["ft"], "--device", "cuda", "--seed", "0", "--bs", "24",
+            "--epoch", "1", "--output_dir", ft_dir]), f"itr_coco {tag}")
+        pt_losses = [x for e in _last_log(pt_dir) for x in e["losses"]]
+        ft_log = _last_log(ft_dir)
+        for run_out, what in ((pt_out, "pretrain_DIY"), (ft_out,
+                                                         "itr_coco")):
+            world, backend, by_rank = _processes_line(run_out, what)
+            print(f"  {what} {tag}: world {world}, backend {backend}, "
+                  f"launches by rank {json.dumps(by_rank)}")
+            if world != W or backend != "nccl":
+                raise AssertionError(f"{what} {tag}: world {world}")
+        ev = run.main(["--task", "itr_coco", "--config",
+                       os.path.join(root, "ft.yaml"), "--device", "cuda",
+                       "--seed", "0", "--evaluate", "--checkpoint",
+                       os.path.join(ft_dir, "ckpt", "0", "state.pt"),
+                       "--output_dir", ft_dir + "_ev"])
+        print(f"  {tag}: pretrain_DIY losses {pt_losses}; itr_coco epoch "
+              f"eval {ft_log[1]['r_mean']}, one process's eval of its "
+              f"ckpt/0 {ev['r_mean']}")
+        if (len(pt_losses) != 2 or not all(map(math.isfinite, pt_losses))
+                or ev != {k: ft_log[1][k] for k in ev}):
+            raise AssertionError(f"{tag}: the pretrain losses or the eval "
+                                 f"of ckpt/0")
+        out[tag] = dict(fixed_batch=got, pretrain_losses=pt_losses,
+                        r_mean=ft_log[1]["r_mean"])
+        for d in (pt_dir, ft_dir):
+            shutil.rmtree(d, ignore_errors=True)
+    if W == 4:
+        for axis in ("data", "fsdp"):
+            _finish(_torchrun(4, [os.path.join(REPO, "chip_smoke.py"),
+                                  "--fsdp-peak", root, axis]),
+                    f"fsdp-peak {axis}", timeout=600)
+            with open(os.path.join(root, f"fsdp_peak_{axis}.json")) as f:
+                got = json.load(f)
+            print(f"  BEiT-2-large pretrain, full, 96 a stream and rank, "
+                  f"{axis}: 4: peak bytes by rank {got['peaks']} (max "
+                  f"{max(got['peaks']) / 1e9:.2f} GB), losses "
+                  f"{got['losses']}")
+            if not all(map(math.isfinite, got["losses"])):
+                raise AssertionError(f"fsdp-peak {axis}: losses")
+            out[f"large_peak_{axis}4"] = got
+    else:
+        print(f"  the large step's peak at fsdp: 4 and data: 4: not run, "
+              f"this machine has {W} cards")
+    return out
+
+
+def fsdp_phase(dp: dict) -> dict:
+    """Phase 30 (see the module docstring); phase 27's directory
+    (`dp["root"]`) deleted at the end."""
+    import yaml
+
+    import torch.distributed as dist
+
+    from xfm_tpu_torch import configs, convert_checkpoint, run
+    from xfm_tpu_torch.core import partitioning
+    from xfm_tpu_torch.ops import kernels
+
+    root = dp["root"]
+    W = torch.cuda.device_count()
+    try:
+        pt_cfg = os.path.join(root, "pt.yaml")
+        out = os.path.join(root, "pt_fsdp")
+        depth = configs.xfm_base_pretrain_config().vision.depth
+        _one_rank_group()
+        # the task's place_state takes the sharded route on the one-rank
+        # mesh: no config asks for fsdp > 1 on one process
+        fsdp_size = partitioning.fsdp_size
+        partitioning.fsdp_size = lambda cfg: 2
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            run.main(["--task", "pretrain_DIY", "--config", pt_cfg,
+                      "--device", "cuda", "--bs", "24", "--output_dir",
+                      out])
+            t_run = time.perf_counter() - t0
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            partitioning.fsdp_size = fsdp_size
+            dist.destroy_process_group()
+        k1 = {"packed_attention_fwd": 2 * 3 * depth,
+              "packed_attention_bwd": 2 * 3 * depth}
+        _launch_counts([launches], k1, "pretrain_DIY sharded")
+        losses = [x for e in _last_log(out) for x in e["losses"]]
+        plain = [x for e in _last_log(os.path.join(root, "pt_plain"))
+                 for x in e["losses"]]
+        print(f"  sharded run {t_run:.1f} s, peak {peak / 1e9:.2f} GB; "
+              f"losses {losses}, the plain run's {plain}")
+        result = dict(seconds=t_run, peak_bytes=peak, losses=losses,
+                      launches=launches,
+                      **held_to_plain(out, os.path.join(root, "pt_plain"),
+                                      losses, plain, "sharded, one rank"))
+        # the task resumes the sharded run's checkpoint unsharded
+        with open(pt_cfg) as f:
+            cfg = dict(yaml.safe_load(f), max_steps=3, resume=True)
+        resume_cfg = os.path.join(root, "pt_resume.yaml")
+        with open(resume_cfg, "w") as f:
+            yaml.safe_dump(cfg, f)
+        t0 = time.perf_counter()
+        run.main(["--task", "pretrain_DIY", "--config", resume_cfg,
+                  "--device", "cuda", "--bs", "24", "--output_dir", out])
+        log = _last_log(out)
+        steps = [e["step"] for e in log]
+        print(f"  resumed unsharded at step 2: steps {steps}, step 3's "
+              f"loss {log[-1]['losses']} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if steps != [2, 3] or not all(map(math.isfinite,
+                                          log[-1]["losses"])):
+            raise AssertionError("the unsharded resume of the sharded "
+                                 "checkpoint")
+        t0 = time.perf_counter()
+        th = os.path.join(root, "pt_fsdp.th")
+        sd = convert_checkpoint.to_torch(os.path.join(out, "ckpt", "2"), th,
+                                         pt_cfg)
+        src = _saved_params(out, 2)
+        kernel = sd["vision_encoder.patch_embed.proj.weight"]
+        want = src["vision_encoder.patch_embed.proj.weight"].float()
+        P = 16
+        ok = (len(sd) == len(src) and tuple(kernel.shape) == (768, 3, P, P)
+              and torch.equal(kernel, want.reshape(P, P, 3, 768).permute(
+                  3, 2, 0, 1))
+              and all(bool(torch.isfinite(v).all()) for v in sd.values()))
+        print(f"  to-torch: {len(sd)} tensors, {os.path.getsize(th) / 1e9:.2f}"
+              f" GB, patch kernel {tuple(kernel.shape)} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if not ok:
+            raise AssertionError("to-torch of the sharded checkpoint")
+        result.update(to_torch_tensors=len(sd))
+        if W >= 2:
+            result["cards"] = fsdp_cards(root, dp)
+        else:
+            print("  fsdp: W and data: 2 x fsdp: 2 under torchrun, and the "
+                  "large step's peak at fsdp: 4 against data: 4: not run, "
+                  "this machine has one card; the CPU tests run two gloo "
+                  "processes at fsdp: 2")
+        return result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def phase(header: str) -> None:
@@ -6774,8 +7053,9 @@ def main() -> int:
     tw = tower_phase()
     phase("phase 27: data parallelism under torchrun (NCCL): pretrain_DIY "
           "and itr_coco")
-    dp = dp_phase(ft["r_mean"][0])
-    print("  data parallel: " + json.dumps(dp))
+    dp = dp_phase(ft["r_mean"][0], keep_root=True)
+    print("  data parallel: " + json.dumps(
+        {k: v for k, v in dp.items() if k != "root"}))
     phase("phase 28: data parallelism under torchrun (NCCL): nlvr, "
           "refcoco_bbox, imagenet, the probe, glue and classify")
     dpt = dp_tasks_phase(nt, ct)
@@ -6784,6 +7064,11 @@ def main() -> int:
           "the large widths, the large slice, checkpointing on against off, "
           "the BEiT-2-large pretrain task and its profiles")
     rm = remat_phase()
+    phase("phase 30: FSDP: the sharded pretrain task on a one-rank mesh "
+          "held to the plain run, its checkpoint resumed unsharded and "
+          "exported; with more cards the layouts under torchrun")
+    fs = fsdp_phase(dp)
+    print("  fsdp: " + json.dumps(fs))
 
     entries = (kernel_entries("packed_attention",
                               "xfm_tpu/ops/flash_attention.py", 983, 1007,
@@ -6826,7 +7111,7 @@ def main() -> int:
                                          label="large"))
     ends = PHASE_T[1:] + [time.perf_counter()]
     by_phase = [round(b - a, 1) for a, b in zip(PHASE_T, ends)]
-    print(f"chip_smoke: 29 phases in {ends[-1] - t_start:.1f} s; seconds "
+    print(f"chip_smoke: 30 phases in {ends[-1] - t_start:.1f} s; seconds "
           f"by phase {json.dumps(by_phase)}")
     print(json.dumps({"kernels": entries}))
     print(smi)
@@ -6838,7 +7123,10 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-step"]:
-        sys.exit(dp_step_worker(sys.argv[2]))
+        sys.exit(dp_step_worker(sys.argv[2], json.loads(sys.argv[3])
+                                if len(sys.argv) > 3 else None))
+    if sys.argv[1:2] == ["--fsdp-peak"]:
+        sys.exit(fsdp_peak_worker(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--dp-task"]:
         sys.exit(dp_task_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

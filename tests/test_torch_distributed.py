@@ -211,12 +211,17 @@ def test_rank_rows_partition_the_global_batches(runs):
 
 @pytest.mark.parametrize("axis", ["fsdp", "tensor", "pipe"])
 def test_mesh_from_config_refuses_other_axes(axis):
-    """(j) `fsdp`, `tensor` or `pipe` > 1 raise; `data: -1` takes the
-    world size, another `data` must equal it."""
-    with pytest.raises(mesh.MultiProcessUnsupported, match=axis):
-        mesh.mesh_from_config({"parallel": {"data": -1, axis: 2}})
+    """(j) `tensor` or `pipe` > 1 raise; `fsdp` runs (`core/partitioning`)
+    but must divide the world size; `data: -1` takes the world size over
+    `fsdp`, another `data` must make data × fsdp the world size."""
+    if axis == "fsdp":  # one process cannot hold 2 shards
+        with pytest.raises(ValueError, match=axis):
+            mesh.mesh_from_config({"parallel": {"data": -1, axis: 2}})
+    else:
+        with pytest.raises(mesh.MultiProcessUnsupported, match=axis):
+            mesh.mesh_from_config({"parallel": {"data": -1, axis: 2}})
     assert mesh.mesh_from_config(
-        {"parallel": {"data": -1, "fsdp": 1, "tensor": 1}}) == 1
+        {"parallel": {"data": -1, "fsdp": 1, "tensor": 1}}) == (1, 1)
     with pytest.raises(ValueError):
         mesh.mesh_from_config({"parallel": {"data": 4}})
 

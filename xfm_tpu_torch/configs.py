@@ -306,16 +306,28 @@ def batch_to_torch(batch: Dict[str, np.ndarray],
 def make_pretrain_run(B: int = 48, T: int = 30, M: int = 15,
                       device="cuda", seed: int = 0,
                       fused_ln: Optional[bool] = None,
-                      fused_mlp: Optional[bool] = None):
+                      fused_mlp: Optional[bool] = None,
+                      parallel: Optional[dict] = None):
     """The XFM-base pretrain step as `bench.py` drives it: random weights
     from `seed`, the seeded batch, HF-AdamW on
     linear_warmup_decay(1e-4, 1000, 100); the fused routes as
-    `xfm_base_pretrain_config` takes them. → (state, batch, step) with
-    step(state, batch, generator) -> (state, metrics)."""
+    `xfm_base_pretrain_config` takes them; with `parallel` (a YAML's
+    `parallel` block) the state placed as a task places it
+    (`tasks.common.place_state`: sharded where `fsdp` > 1). → (state,
+    batch, step) with step(state, batch, generator) -> (state,
+    metrics)."""
     cfg = xfm_base_pretrain_config(fused_ln=fused_ln, fused_mlp=fused_mlp)
     model = new_model(lambda: XFMForPretrain(cfg), device, seed)
-    state = TrainState.create(model, create_optimizer(
-        model, linear_warmup_decay(1e-4, 1000, 100)))
+    sched = linear_warmup_decay(1e-4, 1000, 100)
+    if parallel is None:
+        state = TrainState.create(model, create_optimizer(model, sched))
+    else:
+        from .tasks.common import TaskContext, place_state
+
+        state = place_state(
+            TaskContext(config={"parallel": parallel}, out_dir="",
+                        device=device), model, sched,
+            lambda m, named: create_optimizer(m, sched, named_params=named))
     batch = batch_to_torch(make_batch(B, T, M, cfg.vision.image_res,
                                       cfg.vision.num_patches,
                                       cfg.text.vocab_size), device)
@@ -694,11 +706,13 @@ def make_pretrain_streams_run(device="cuda", seed: int = 0,
     compute, the full RoBERTa vocabulary), HF-AdamW with the clip and the
     schedule from its blocks, the four streams' batches at its sizes on
     the device, each stream's loss under its flags at step 0 with dropout
-    live; with `use_vision_tokenizer` the frozen tokenizer's code ids as
-    MIM's targets (`tasks.pretrain.frozen_tokenizer`), with
-    `bf16_params` bf16 parameters and f32 masters
-    (`tasks.common.maybe_bf16_params`); with `device_randaug` the image
-    and ImageNet streams' images seeded uint8, as the loader hands them
+    live; the state placed as the task places it
+    (`tasks.common.place_state`: with `bf16_params` bf16 parameters and
+    f32 masters, with a `parallel` block whose `fsdp` > 1 the model
+    sharded); with `use_vision_tokenizer` the frozen tokenizer's code ids
+    as MIM's targets (`tasks.pretrain.frozen_tokenizer`); with
+    `device_randaug` the image and ImageNet streams' images seeded uint8,
+    as the loader hands them
     over, and each step first runs RandAugment on them on the device
     (`tasks.pretrain.device_randaugment`, their generators under
     ("randaug", name)); with `bs` every stream's batch that size, as
@@ -706,7 +720,7 @@ def make_pretrain_streams_run(device="cuda", seed: int = 0,
     generators) with
     step(state, batches, generators) -> (state, metrics) and
     generators(i) the streams' generators of step i."""
-    from .tasks.common import TaskContext, maybe_bf16_params, scale_batch
+    from .tasks.common import TaskContext, place_state, scale_batch
     from .tasks.pretrain import (RANDAUG_KEY, device_randaugment,
                                  frozen_tokenizer, stream_flags,
                                  stream_loss_fn)
@@ -723,10 +737,8 @@ def make_pretrain_streams_run(device="cuda", seed: int = 0,
                             use_bbox_loss=True)
     model = new_model(lambda: XFMForPretrain(mcfg), device, seed)
     sched = schedule_from_config(cfg, steps_per_epoch)
-    state = TrainState.create(model, create_optimizer_from_config(
-        model, cfg, sched))
-    state = maybe_bf16_params(TaskContext(config=cfg, out_dir="",
-                                          device=device), state, sched)
+    state = place_state(TaskContext(config=cfg, out_dir="", device=device),
+                        model, sched)
     code_ids_fn = None
     if cfg.get("use_vision_tokenizer", False):
         _, code_ids_fn = frozen_tokenizer(cfg, device)

@@ -29,7 +29,10 @@ every gradient and the updated parameters. The pieces of that rule:
   back in the one-process order (`merge_rank_batches`), so that the
   metric is the one-process metric.
 
-`fsdp`, `tensor` and `pipe` > 1 in a config's `parallel` block raise
+`fsdp` > 1 shards the parameters over the ranks of each replica
+(`core/partitioning`, FSDP2): the batch is split over all W ranks as
+above, and FSDP2's reduce-scatter takes the place of `reduce_gradients`.
+`tensor` and `pipe` > 1 in a config's `parallel` block raise
 (`mesh_from_config`). `constrain_batch_sharding` and
 `constrain_seq_sharding` are GSPMD layout hints with no counterpart under
 data parallelism and are not ported."""
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,7 +48,7 @@ import torch
 
 class MultiProcessUnsupported(NotImplementedError):
     """A `parallel` setting that does not run in the port yet (ROADMAP.md,
-    Queue 1: FSDP, tensor and pipeline parallelism), or a function with no
+    Queue 1: tensor and pipeline parallelism), or a function with no
     entry point that runs on one process only (GradCAM grounding)."""
 
 
@@ -105,26 +109,56 @@ def maybe_init_distributed(device: str = "cuda") -> str:
     return device
 
 
-def mesh_from_config(config: dict) -> int:
-    """The config's `parallel` block → the size of the `data` axis, the
-    port's one axis (one process a card): `data: -1` takes the world size,
-    any other `data` must equal it; `fsdp`, `tensor` or `pipe` > 1 raise
-    `MultiProcessUnsupported` (ROADMAP.md Queue 1: FSDP as
-    `core/partitioning`, tensor parallelism, GPipe as `core/pipeline`)."""
+class MeshShape(NamedTuple):
+    """The sizes of the port's two axes, `data` (replicas) and `fsdp`
+    (parameter shards, `core/partitioning`), whose product is the world
+    size. Rank r sits at (r // fsdp, r % fsdp), the `data` axis outer, as
+    the JAX package lays its devices out."""
+    data: int
+    fsdp: int
+
+
+def mesh_from_config(config: dict) -> MeshShape:
+    """The config's `parallel` block → the `MeshShape` of the processes
+    (one a card), as `xfm_tpu/core/mesh.py` `mesh_from_config`: `fsdp`
+    must divide the world size, `data: -1` takes the rest of it, any other
+    `data` must make data × fsdp the world size (else ValueError);
+    `tensor` or `pipe` > 1 raise `MultiProcessUnsupported` (ROADMAP.md
+    Queue 1, item 4: tensor parallelism next, then GPipe as
+    `core/pipeline`)."""
     par = config.get("parallel") or {}
-    for axis, item in (("fsdp", "core/partitioning as FSDP"),
-                       ("tensor", "tensor parallelism"),
-                       ("pipe", "core/pipeline (GPipe)")):
+    for axis, item in (("tensor", "tensor parallelism, the next part of "
+                        "item 4"),
+                       ("pipe", "core/pipeline (GPipe), after tensor "
+                        "parallelism in item 4")):
         if int(par.get(axis, 1) or 1) > 1:
             raise MultiProcessUnsupported(
-                f"parallel.{axis} = {par[axis]}: the port runs the data axis "
-                f"only; {item} is in ROADMAP.md Queue 1 (multi-card past the "
-                f"data axis)")
+                f"parallel.{axis} = {par[axis]}: the port runs the data and "
+                f"fsdp axes only; {item} is in ROADMAP.md Queue 1 "
+                f"(multi-card past the data axis)")
     w = world_size()
+    fsdp = int(par.get("fsdp", 1) or 1)
+    if fsdp < 1 or w % fsdp:
+        raise ValueError(f"parallel.fsdp = {fsdp} does not divide the {w} "
+                         f"processes")
     data = int(par.get("data", -1) or -1)
-    if data not in (-1, w):
-        raise ValueError(f"parallel.data = {data} but {w} processes run")
-    return w
+    if data == -1:
+        data = w // fsdp
+    if data * fsdp != w:
+        raise ValueError(f"parallel.data = {data} × fsdp = {fsdp} but {w} "
+                         f"processes run")
+    return MeshShape(data, fsdp)
+
+
+def device_mesh(shape: MeshShape, device):
+    """The `torch.distributed` DeviceMesh of `shape` with the dims
+    ("data", "fsdp") over the initialized group, on the CPU (gloo) or the
+    card (NCCL) of `device`."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    kind = "cpu" if str(device).startswith("cpu") else "cuda"
+    return init_device_mesh(kind, (shape.data, shape.fsdp),
+                            mesh_dim_names=("data", "fsdp"))
 
 
 def rank_seed(seed) -> list:
@@ -390,7 +424,8 @@ def reduce_gradients(params) -> None:
     parameter no rank's loss reached (an unused tower) gets a zero
     gradient, which the port's optimizers step as they step a missing one.
     Call it once an optimizer step, before the clip; a no-op on one
-    process."""
+    process. Never on a model that `core/partitioning.shard_model` sharded:
+    FSDP2 has reduce-scattered its gradients in the backward already."""
     dist = _dist()
     if dist is None or dist.get_world_size() == 1:
         return

@@ -44,7 +44,10 @@ with `--device cpu`; a launch that asks for a card where none is visible
 raises. Every task runs on any number of processes, a step on W of
 them equal to one process's step on the global batch (ImageNet's mixup
 and cutmix aside, which pair rows within a rank) and an eval equal to
-the one-process eval; `parallel.fsdp`, `tensor` or `pipe` > 1 refuse
+the one-process eval. `parallel: {data: D, fsdp: F}` with D·F processes
+shards every parameter, its gradient and its optimizer state over the F
+ranks of each replica (`core/partitioning`, FSDP2; `data: -1` takes the
+rest of the world size); `tensor` or `pipe` > 1 refuse
 (`core/mesh.mesh_from_config`). At the end rank 0 prints the
 backend, the world size and every rank's kernel launches (`###
 processes ...`).

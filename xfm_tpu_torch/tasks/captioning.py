@@ -57,18 +57,17 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..core import mesh
+from ..core import mesh, partitioning
 from ..data.finetune_data import CaptioningData, _load_ann, caption_image_id
 from ..data.transforms import TestTransform, TrainTransform, decode_image
 from ..eval.caption_metrics import coco_caption_eval
 from ..eval.cider import CiderD
 from ..models import XFMForCaptioning, config_from_yaml
 from ..models.generation import beam_generate, generate, shift_lm_loss
-from ..train.checkpoint import init_weights
 from ..train.train_state import caption_loss_fn, make_train_step
 from .common import (TaskContext, append_log, build_state,
                      epoch_opt_steps, is_main_process,
-                     make_task_step, maybe_resume_epochs,
+                     make_task_step, maybe_resume_epochs, eval_model,
                      save_task_checkpoint, step_generator, train_epoch)
 from .retrieval import (_device_of, _maybe_shrink_vocab,
                         build_tokenizer_or_fallback)
@@ -176,6 +175,7 @@ def _captions(model, images: np.ndarray, cfg: dict, ids) -> np.ndarray:
     return seqs.cpu().numpy()
 
 
+@partitioning.unsharded_eval
 def generate_captions(model, data: CaptioningData, tokenizer, cfg: dict,
                       prompt_ids: Sequence[int] = ()) -> list:
     """[{image_id, caption}] of every image of `data`, the forced prompt
@@ -244,8 +244,10 @@ def main(args, scst: bool = False) -> dict:
                               batch_size=cfg.get("batch_size_test", 16),
                               train=False)
     pids = prompt_token_ids(tokenizer, cfg.get("prompt", ""))
+    load = ((lambda m: load_ckpt_into(m, args.checkpoint))
+            if args.checkpoint else None)
     if args.evaluate:
-        init_weights(model, ctx.seed)
+        eval_model(ctx, model, load)
     else:
         train_data = CaptioningData(
             cfg["train_file"], TrainTransform(image_res, hflip=False),
@@ -254,9 +256,7 @@ def main(args, scst: bool = False) -> dict:
             batch_size=cfg.get("batch_size_train", 16), train=True,
             prompt=cfg.get("prompt", ""))
         state, sched = build_state(ctx, model, epoch_opt_steps(
-            cfg, len(train_data), train_data.batch_size))
-    if args.checkpoint:
-        load_ckpt_into(model, args.checkpoint)
+            cfg, len(train_data), train_data.batch_size), load=load)
     if args.evaluate:
         metrics = _evaluate(ctx, model, val_data, tokenizer, pids)
         append_log(ctx.out_dir, {"final": metrics})
@@ -346,15 +346,18 @@ def make_scst_step(cfg: dict, cider: CiderD, tokenizer, ids):
     def step(state, images, iids, generator):
         model = state.model
         greedy_rew = None
-        if baseline == "greedy":
-            greedy, _ = generate(model, images, greedy=True, **kw)
-            greedy_rew = _reward(cider, tokenizer, greedy[:, P:], iids, eos,
-                                 pad, 1)
-        samples, _ = generate(model, images, greedy=False,
-                              generator=mesh.rank_generator(generator),
-                              top_k=int(cfg.get("sample_top_k", 0)),
-                              top_p=float(cfg.get("sample_top_p", 1.0)),
-                              num_return_sequences=n, **kw)
+        # the decodes stop when their rows are done: the whole model on
+        # every rank for them (`core/partitioning.unsharded`)
+        with partitioning.unsharded(model):
+            if baseline == "greedy":
+                greedy, _ = generate(model, images, greedy=True, **kw)
+                greedy_rew = _reward(cider, tokenizer, greedy[:, P:], iids,
+                                     eos, pad, 1)
+            samples, _ = generate(model, images, greedy=False,
+                                  generator=mesh.rank_generator(generator),
+                                  top_k=int(cfg.get("sample_top_k", 0)),
+                                  top_p=float(cfg.get("sample_top_p", 1.0)),
+                                  num_return_sequences=n, **kw)
         rew = _reward(cider, tokenizer, samples[:, P:], iids, eos, pad, n)
         adv = torch.from_numpy(scst_advantages(rew, n, greedy_rew)).to(
             images.device)
@@ -444,9 +447,9 @@ def main_domain_pretrain(args) -> dict:
                                                                  1])),
                              rank=rank, world_size=world,
                              with_image_mask=False)
-    state, sched = build_state(ctx, model, 1)
-    if args.checkpoint:
-        load_ckpt_into(model, args.checkpoint, decoder_from="text")
+    state, sched = build_state(ctx, model, 1, load=(
+        (lambda m: load_ckpt_into(m, args.checkpoint, decoder_from="text"))
+        if args.checkpoint else None))
     step_fn = make_train_step(functools.partial(caption_loss_fn,
                                                 deterministic=False))
     max_steps = int(cfg.get("max_steps", 1000))
@@ -499,9 +502,8 @@ def main_infer(args) -> list:
     tokenizer = build_tokenizer_or_fallback(cfg,
                                             lambda: caption_texts(cfg))
     model = build_model(cfg, tokenizer, ctx.device)
-    init_weights(model, ctx.seed)
-    if args.checkpoint:
-        load_ckpt_into(model, args.checkpoint)
+    eval_model(ctx, model, (lambda m: load_ckpt_into(m, args.checkpoint))
+               if args.checkpoint else None)
     tt = TestTransform(cfg.get("image_res", 384))
     img_dir = cfg.get("image_dir") or cfg["img_rdir"]
     files = sorted(os.listdir(img_dir))
@@ -509,13 +511,14 @@ def main_infer(args) -> list:
     ids = special_ids(tokenizer) + (pids,)
     bs = cfg.get("batch_size_test", 16)
     results = []
-    for s in range(0, len(files), bs):
-        chunk = files[s:s + bs]
-        imgs = np.stack([tt(decode_image(os.path.join(img_dir, f)))
-                         for f in chunk])
-        for f, seq in zip(chunk, _captions(model, imgs, cfg, ids)):
-            results.append({"image": f, "caption": decode_ids(
-                tokenizer, seq[len(pids):], ids[1], ids[2])})
+    with partitioning.unsharded(model):
+        for s in range(0, len(files), bs):
+            chunk = files[s:s + bs]
+            imgs = np.stack([tt(decode_image(os.path.join(img_dir, f)))
+                             for f in chunk])
+            for f, seq in zip(chunk, _captions(model, imgs, cfg, ids)):
+                results.append({"image": f, "caption": decode_ids(
+                    tokenizer, seq[len(pids):], ids[1], ids[2])})
     out = os.path.join(ctx.out_dir, "captions.json")
     if is_main_process():
         with open(out, "w") as f:

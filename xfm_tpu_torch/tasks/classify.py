@@ -28,17 +28,16 @@ import os
 import numpy as np
 import torch
 
-from ..core import mesh
+from ..core import mesh, partitioning
 from ..data.finetune_data import _encode_texts
 from ..data.transforms import TestTransform, TrainTransform, decode_image
 from ..models import XFMForClassification, config_from_yaml
 from ..models.task_models import TextClassifier
-from ..train.checkpoint import init_weights
 from ..train.metrics import is_main_process
 from ..train.train_state import make_train_step
 from .common import (TaskContext, append_log, build_state, epoch_opt_steps,
-                     load_reference_checkpoint, log_eval, step_generator,
-                     train_epoch)
+                     eval_model, reference_loader, log_eval,
+                     step_generator, train_epoch)
 from .retrieval import _maybe_shrink_vocab, build_tokenizer_or_fallback
 
 _INPUTS = ("images", "text_ids", "text_atts")
@@ -81,7 +80,7 @@ def batches(rows, tokenizer, transform, image_root, max_tokens, batch_size,
                     tokenizer, transform, image_root, max_tokens)
 
 
-@torch.no_grad()
+@partitioning.unsharded_eval
 def evaluate(model, loader) -> dict:
     """→ {"acc": the share of rows whose argmax logit is the label}, the
     counts summed over the ranks."""
@@ -150,13 +149,12 @@ def main(args) -> dict:
                        cfg.get("image_root"), T, bsz, shuffle=False,
                        drop_last=False)
 
+    load = reference_loader(args.checkpoint)
     if args.evaluate:
-        init_weights(model, ctx.seed)
+        eval_model(ctx, model, load)
     else:
         state, sched = build_state(ctx, model, epoch_opt_steps(
-            cfg, len(train_rows), bsz))
-    if args.checkpoint:
-        load_reference_checkpoint(model, args.checkpoint)
+            cfg, len(train_rows), bsz), load=load)
     if args.evaluate:
         return log_eval(ctx, evaluate(model, val_loader()))
     step_fn = make_train_step(functools.partial(classify_loss_fn,

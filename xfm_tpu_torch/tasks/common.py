@@ -1,7 +1,8 @@
 """What a task's main() shares (`xfm_tpu/tasks/common.py`): the config
 (`--bs` as the global batch, the `parallel` block checked against the
 process group), the output directory, the seed and the device; the train
-state built from the YAML (the same on every rank), the step (with
+state built from the YAML (the same on every rank; sharded over `fsdp`
+where the `parallel` block asks, `place_state`), the step (with
 gradient accumulation), one epoch of it over prefetched device batches,
 the checkpoints (by epoch or by step, written by rank 0) and their
 resume, the step generators, the epoch loop of a fine-tune with its
@@ -17,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from ..core import mesh
+from ..core import mesh, partitioning
 from ..core.config import dump_config, load_config, resolve_vision_config
 from ..train.metrics import MetricLogger, is_main_process
 from ..train.optim import create_optimizer_from_config
@@ -108,19 +109,78 @@ def epoch_opt_steps(cfg: dict, n_rows: int, batch_size: int) -> int:
 
 
 def build_state(ctx: TaskContext, model: torch.nn.Module,
-                epoch_steps: int):
+                epoch_steps: int, load=None, make_optimizer=None):
     """The model's random weights from `ctx.seed` (rank 0's broadcast to
-    the other ranks), HF-AdamW and the schedule from the YAML's
-    `optimizer`, `accelerator` and `schedular` blocks → (TrainState,
-    schedule). `epoch_steps` is the optimizer steps of an epoch
-    (`epoch_opt_steps`)."""
+    the other ranks), `load(model)` where given (a reference import), the
+    schedule from the YAML's `schedular` block, then `place_state` →
+    (TrainState, schedule). `epoch_steps` is the optimizer steps of an
+    epoch (`epoch_opt_steps`)."""
     from ..train.checkpoint import init_weights
 
     init_weights(model, ctx.seed)
     mesh.broadcast_parameters(model)
     sched = schedule_from_config(ctx.config, epoch_steps)
-    opt = create_optimizer_from_config(model, ctx.config, sched)
-    return TrainState.create(model, opt), sched
+    if load is not None:
+        load(model)
+    return place_state(ctx, model, sched, make_optimizer), sched
+
+
+def place_state(ctx: TaskContext, model: torch.nn.Module, sched,
+                make_optimizer=None) -> TrainState:
+    """The train state of `model`, whose weights are final on every rank:
+    under `parallel.fsdp` > 1 the model sharded first (`shard_model`, with
+    the bf16 policy under `bf16_params`); then the optimizer over its
+    parameters (the shards), and under `bf16_params` over their f32
+    masters (`optim.with_master_weights`: a shard is its own master) with
+    every parameter left whole made bf16. `make_optimizer(model,
+    named_params)` builds the optimizer (HF-AdamW from the YAML's
+    `optimizer` and `accelerator` blocks by default). Call it after any
+    reference import and before the resume, whose state has the form it
+    gives, as the JAX package orders it."""
+    from ..train.optim import trained_parameters
+
+    cfg = ctx.config
+    if make_optimizer is None:
+        def make_optimizer(m, named):
+            return create_optimizer_from_config(m, cfg, sched,
+                                                named_params=named)
+    bf16 = bool(cfg.get("bf16_params", False))
+    if partitioning.fsdp_size(cfg) > 1:
+        partitioning.shard_model(model, mesh.device_mesh(
+            mesh.mesh_from_config(cfg), ctx.device), bf16_params=bf16)
+    if bf16:
+        return _bf16_state(model, make_optimizer)
+    return TrainState.create(model, make_optimizer(
+        model, trained_parameters(model)))
+
+
+def eval_model(ctx: TaskContext, model: torch.nn.Module, load=None
+               ) -> torch.nn.Module:
+    """An `--evaluate` run's model: the random weights from `ctx.seed`,
+    `load(model)` where given, then sharded under `parallel.fsdp` > 1 as
+    `place_state` shards it (in the dtype a one-process eval computes in)
+    → `model`."""
+    from ..train.checkpoint import init_weights
+
+    init_weights(model, ctx.seed)
+    if load is not None:
+        load(model)
+    if partitioning.fsdp_size(ctx.config) > 1:
+        partitioning.shard_model(model, mesh.device_mesh(
+            mesh.mesh_from_config(ctx.config), ctx.device))
+    return model
+
+
+def _bf16_state(model, make_optimizer, step: int = 0) -> TrainState:
+    from ..train.optim import trained_parameters, with_master_weights
+
+    opt = with_master_weights(trained_parameters(model),
+                              lambda masters: make_optimizer(model, masters))
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dtype == torch.float32 and not partitioning.is_dtensor(p):
+                p.data = p.data.to(torch.bfloat16)
+    return TrainState(model=model, optimizer=opt, step=step)
 
 
 def maybe_bf16_params(ctx: TaskContext, state: TrainState, sched
@@ -130,33 +190,25 @@ def maybe_bf16_params(ctx: TaskContext, state: TrainState, sched
     (`optim.with_master_weights`), then every f32 parameter of the model
     made bf16 in place. Call it after any checkpoint import (the f32
     originals seed the masters) and before the resume (whose state has
-    this form), as the JAX package orders it."""
+    this form), as the JAX package orders it. On one process; a task
+    reaches it through `place_state`."""
     if not ctx.config.get("bf16_params", False):
         return state
-    from ..train.optim import trained_parameters, with_master_weights
-
-    model = state.model
-    opt = with_master_weights(
-        trained_parameters(model),
-        lambda masters: create_optimizer_from_config(
-            model, ctx.config, sched, named_params=masters))
-    with torch.no_grad():
-        for p in model.parameters():
-            if p.dtype == torch.float32:
-                p.data = p.data.to(torch.bfloat16)
-    return TrainState(model=model, optimizer=opt, step=state.step)
+    return _bf16_state(state.model, lambda m, named: (
+        create_optimizer_from_config(m, ctx.config, sched,
+                                     named_params=named)), state.step)
 
 
 def save_task_checkpoint(ctx: TaskContext, state: TrainState, index: int,
                          name: str = "ckpt", keep: int = 2) -> None:
     """The state under <out>/<name>/<index> (an epoch of the fine-tune, a
-    step of the pretrain task), the newest `keep` kept: written by rank 0
-    alone, the other ranks waiting for it at a barrier."""
+    step of the pretrain task), the newest `keep` kept: every rank takes
+    part (the gather of a sharded state), rank 0 writes, and the ranks
+    meet at a barrier after it."""
     from ..train.checkpoint import save_checkpoint
 
-    if is_main_process():
-        save_checkpoint(os.path.join(ctx.out_dir, name), state, step=index,
-                        keep=keep)
+    save_checkpoint(os.path.join(ctx.out_dir, name), state, step=index,
+                    keep=keep)
     mesh.barrier()
 
 
@@ -267,6 +319,14 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
     missing, _ = load_xfm_checkpoint(model, load_torch_state_dict(path))
     if is_main_process():
         print(f"### loaded {path}: {len(missing)} missing", flush=True)
+
+
+def reference_loader(path: Optional[str]):
+    """`load_reference_checkpoint` of `path` as the `load` of `build_state`
+    or `eval_model`; None without a path."""
+    if not path:
+        return None
+    return lambda model: load_reference_checkpoint(model, path)
 
 
 def log_eval(ctx: TaskContext, metrics: dict) -> dict:

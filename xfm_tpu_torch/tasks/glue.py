@@ -39,16 +39,16 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from ..core import mesh
+from ..core import mesh, partitioning
 from ..eval import glue_metrics
 from ..models import XFMForClassification, config_from_yaml
 from ..train.checkpoint import init_weights, link_checkpoint
 from ..train.metrics import is_main_process
 from ..train.optim import create_optimizer
 from ..train.schedules import linear_warmup_decay
-from ..train.train_state import TrainState
-from .common import (TaskContext, append_log, load_reference_checkpoint,
-                     log_eval, make_task_step, maybe_resume_epochs,
+from .common import (TaskContext, append_log, eval_model,
+                     reference_loader, log_eval, make_task_step,
+                     maybe_resume_epochs, place_state,
                      opt_steps_per_epoch, save_task_checkpoint,
                      step_generator, train_epoch)
 from .retrieval import _maybe_shrink_vocab, build_tokenizer_or_fallback
@@ -139,7 +139,7 @@ def batches(examples, tokenize, batch_size: int, regression: bool,
         yield dict(text_ids=ids, text_atts=atts, targets=labels)
 
 
-@torch.no_grad()
+@partitioning.unsharded_eval
 def evaluate(model, examples, tokenize, task: str, batch_size: int) -> dict:
     """The task's metrics (`glue_metrics.compute`) of the model's argmax
     (STS-B: its score) over every example, in batches of `batch_size`;
@@ -193,23 +193,25 @@ def main(args) -> dict:
         model = XFMForClassification(
             _maybe_shrink_vocab(config_from_yaml(cfg), tokenizer),
             num_labels=num_labels, task_name="glue").to(ctx.device)
-    init_weights(model, ctx.seed)
-    mesh.broadcast_parameters(model)
-    if args.checkpoint:
-        load_reference_checkpoint(model, args.checkpoint)
+    load = reference_loader(args.checkpoint)
     eval_bs = cfg.get("per_device_eval_batch_size", 8)
     if args.evaluate:
+        eval_model(ctx, model, load)
         return log_eval(ctx, evaluate(model, val_ex, tokenize, task,
                                       eval_bs))
+    init_weights(model, ctx.seed)
+    mesh.broadcast_parameters(model)
+    if load is not None:
+        load(model)
     bsz = cfg.get("per_device_train_batch_size", 32) * mesh.world_size()
     epochs = int(cfg.get("num_train_epochs", 3))
     total = cfg.get("max_train_steps") or epochs * opt_steps_per_epoch(
         cfg, max(1, len(train_ex) // bsz))
     sched = linear_warmup_decay(float(cfg.get("learning_rate", 5e-5)), total,
                                 cfg.get("num_warmup_steps", 0))
-    state = TrainState.create(model, create_optimizer(
-        model, sched, weight_decay=float(cfg.get("weight_decay", 0.0)),
-        clip_grad_norm=1.0))
+    state = place_state(ctx, model, sched, lambda m, named: create_optimizer(
+        m, sched, weight_decay=float(cfg.get("weight_decay", 0.0)),
+        clip_grad_norm=1.0, named_params=named))
     step_fn, accum = make_task_step(ctx, functools.partial(
         glue_loss_fn, deterministic=False))
     state, start_epoch = maybe_resume_epochs(ctx, state)

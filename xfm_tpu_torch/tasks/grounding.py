@@ -47,7 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core import mesh
+from ..core import mesh, partitioning
 from ..data.finetune_data import GroundingData, _load_ann
 from ..data.transforms import BoxTrainTransform, TestTransform
 from ..models import (XFMForGrounding, XFMForRetrieval, config_from_yaml,
@@ -56,8 +56,8 @@ from ..models.losses import box_cxcywh_to_xyxy
 from ..train.checkpoint import init_weights
 from ..train.train_state import grounding_loss_fn
 from .common import (TaskContext, append_log, build_state, device_inputs,
-                     epoch_opt_steps, finetune, is_main_process,
-                     load_reference_checkpoint, log_eval)
+                     epoch_opt_steps, eval_model, finetune,
+                     is_main_process, load_reference_checkpoint, log_eval)
 from .retrieval import (_device_of, _maybe_shrink_vocab,
                         build_tokenizer_or_fallback)
 
@@ -73,7 +73,7 @@ def iou_xyxy(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return inter / np.maximum(ua, 1e-6)
 
 
-@torch.no_grad()
+@partitioning.unsharded_eval
 def evaluate(model, data: GroundingData) -> dict:
     """→ {"iou50_acc": the share of phrases whose predicted box has IoU ≥
     0.5 with the target, both in normalized coordinates}, the counts
@@ -150,16 +150,19 @@ def main(args, stage1: Optional[str] = None, tokenizer=None) -> dict:
                              train=train)
 
     test_data = data(cfg["test_file"], False)
+
+    def load(m):
+        if args.checkpoint:
+            load_reference_checkpoint(m, args.checkpoint)
+        if stage1:
+            _load_stage1(m, stage1)
+
     if args.evaluate:
-        init_weights(model, ctx.seed)
+        eval_model(ctx, model, load)
     else:
         train_data = data(cfg["train_file"], True)
         state, sched = build_state(ctx, model, epoch_opt_steps(
-            cfg, len(train_data), train_data.batch_size))
-    if args.checkpoint:
-        load_reference_checkpoint(model, args.checkpoint)
-    if stage1:
-        _load_stage1(model, stage1)
+            cfg, len(train_data), train_data.batch_size), load=load)
     if args.evaluate:
         return log_eval(ctx, evaluate(model, test_data))
     best = finetune(ctx, state, sched, train_data, grounding_loss_fn,
@@ -205,7 +208,11 @@ def main_bbox_pipeline(args) -> dict:
             if is_main_process():
                 print(f"### refcoco_bbox stage 1: domain pretrain "
                       f"({dp_cfg})", flush=True)
-            pretrain.main(a1, tokenizer=tokenizer)
+            # stage 1 takes the fine-tune's `parallel` block where its own
+            # YAML has none: the same processes, sharded the same way
+            pretrain.main(a1, tokenizer=tokenizer, overrides=(
+                None if "parallel" in stage1_yaml
+                else {"parallel": cfg.get("parallel")}))
             stage1 = os.path.join(a1.output_dir, "ckpt")
             args = copy.copy(args)
             args.checkpoint = None  # stage 2 starts from stage 1's weights

@@ -39,7 +39,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from ..core import mesh
+from ..core import mesh, partitioning
 from ..data.prefetch import DeviceBatches
 from ..data.timm_aug import ImagenetEvalTransform, ImagenetTrainTransform
 from ..data.transforms import decode_image
@@ -48,9 +48,9 @@ from ..train.checkpoint import init_weights
 from ..train.metrics import is_main_process
 from ..train.optim import LARS, create_optimizer, trained_parameters
 from ..train.schedules import half_cosine
-from ..train.train_state import TrainState, make_train_step
-from .common import (TaskContext, append_log, epoch_opt_steps,
-                     load_reference_checkpoint, log_eval,
+from ..train.train_state import make_train_step
+from .common import (TaskContext, append_log, epoch_opt_steps, eval_model,
+                     reference_loader, log_eval, place_state,
                      save_task_checkpoint, step_generator, train_epoch)
 
 
@@ -156,7 +156,7 @@ def soft_ce(logits, soft_targets):
     return -torch.mean(torch.sum(soft_targets * logp, dim=-1))
 
 
-@torch.no_grad()
+@partitioning.unsharded_eval
 def evaluate(model, rows, transform, image_root, batch_size) -> dict:
     """→ {"acc1": the share of rows whose argmax logit is the label},
     over every row (a last partial batch included), prefetched to the
@@ -206,17 +206,19 @@ def use_mix(cfg: dict) -> bool:
         or cfg.get("cutmix_minmax") is not None)
 
 
-def build_optimizer(model, cfg: dict, sched):
-    """LARS over the trained parameters where `is_lp` and
-    `optimizer.opt: lars`, else HF-AdamW (decay `optimizer.weight_decay`,
-    0.05 by default, `lr_mult`, clip to norm 1)."""
+def build_optimizer(model, cfg: dict, sched, named_params=None):
+    """LARS over the trained parameters (`named_params` where given) where
+    `is_lp` and `optimizer.opt: lars`, else HF-AdamW (decay
+    `optimizer.weight_decay`, 0.05 by default, `lr_mult`, clip to norm
+    1)."""
     opt = cfg.get("optimizer", {}) or {}
     if cfg.get("is_lp", False) and str(opt.get("opt", "")).lower() == "lars":
-        return LARS(trained_parameters(model), sched,
+        return LARS(named_params or trained_parameters(model), sched,
                     weight_decay=opt.get("weight_decay", 0.0))
     return create_optimizer(model, sched,
                             weight_decay=opt.get("weight_decay", 0.05),
-                            lr_mult=opt.get("lr_mult", 1.0))
+                            lr_mult=opt.get("lr_mult", 1.0),
+                            named_params=named_params)
 
 
 def make_loss_fn(cfg: dict):
@@ -284,22 +286,25 @@ def main(args) -> dict:
             config_from_yaml(cfg), num_labels=num_labels,
             task_name="imagenet",
             is_lp=bool(cfg.get("is_lp", False))).to(ctx.device)
-    init_weights(model, ctx.seed)
-    mesh.broadcast_parameters(model)
-    if args.checkpoint:
-        load_reference_checkpoint(model, args.checkpoint)
+    load = reference_loader(args.checkpoint)
     bsz = cfg.get("batch_size", 64)
     eval_tf = ImagenetEvalTransform(image_res)
     if args.evaluate:
+        eval_model(ctx, model, load)
         return log_eval(ctx, evaluate(model, val_rows, eval_tf,
                                       cfg.get("image_root"), bsz))
+    init_weights(model, ctx.seed)
+    mesh.broadcast_parameters(model)
+    if load is not None:
+        load(model)
     epochs = int(cfg.get("schedular", {}).get("epochs",
                                               cfg.get("epochs", 30)))
     opt = cfg.get("optimizer", {}) or {}
     sched = half_cosine(opt.get("lr", 1e-3), opt.get("min_lr", 1e-6),
                         epochs, cfg.get("warmup_epochs", 5),
                         epoch_opt_steps(cfg, len(train_rows), bsz))
-    state = TrainState.create(model, build_optimizer(model, cfg, sched))
+    state = place_state(ctx, model, sched, lambda m, named: build_optimizer(
+        m, cfg, sched, named))
     step_fn = make_train_step(make_loss_fn(cfg))
     host_rng = mix_generator(ctx.seed)
     train_tf = ImagenetTrainTransform(

@@ -24,20 +24,19 @@ from __future__ import annotations
 
 import torch
 
-from ..core import mesh
+from ..core import mesh, partitioning
 from ..data.finetune_data import NLVRData, _load_ann
 from ..data.transforms import TestTransform, TrainTransform
 from ..models import XFMForNLVR, config_from_yaml
-from ..train.checkpoint import init_weights
 from ..train.train_state import nlvr_loss_fn
 from .common import (TaskContext, build_state, device_inputs,
-                     epoch_opt_steps, finetune, load_reference_checkpoint,
-                     log_eval)
+                     epoch_opt_steps, eval_model, finetune,
+                     reference_loader, log_eval)
 from .retrieval import (_device_of, _maybe_shrink_vocab,
                         build_tokenizer_or_fallback)
 
 
-@torch.no_grad()
+@partitioning.unsharded_eval
 def evaluate(model, data: NLVRData) -> dict:
     """→ {"acc": the share of pairs whose argmax logit is the label}, the
     counts summed over the ranks."""
@@ -83,14 +82,13 @@ def main(args) -> dict:
     test_data = data(cfg["test_file"], False)
     val_data = (data(cfg["val_file"], False) if cfg.get("val_file")
                 else test_data)
+    load = reference_loader(args.checkpoint)
     if args.evaluate:
-        init_weights(model, ctx.seed)
+        eval_model(ctx, model, load)
     else:
         train_data = data(cfg["train_file"], True)
         state, sched = build_state(ctx, model, epoch_opt_steps(
-            cfg, len(train_data), train_data.batch_size))
-    if args.checkpoint:
-        load_reference_checkpoint(model, args.checkpoint)
+            cfg, len(train_data), train_data.batch_size), load=load)
     if args.evaluate:
         return log_eval(ctx, evaluate(model, test_data))
     best = finetune(ctx, state, sched, train_data, nlvr_loss_fn, lambda: {

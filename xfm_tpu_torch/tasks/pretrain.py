@@ -43,7 +43,9 @@ fixed-seed initialization) whose code ids of the unmasked images are MIM's
 cross-entropy targets in every stream with MIM on; `local_attn_depth` > 0
 runs the region stream's last blocks as region attention; `bf16_params`
 keeps the parameters bf16 with f32 masters in the optimizer
-(`common.maybe_bf16_params`, after `--checkpoint` and before the resume);
+(`common.place_state`, after `--checkpoint` and before the resume);
+`parallel: {fsdp: F}` shards the model over F ranks of each replica
+(`core/partitioning`);
 `bench_redispatch: N` steps N more times on the last batches after the run
 and reports their rate (`redispatch_samples_per_sec`, a `### redispatch`
 line).
@@ -74,7 +76,8 @@ from ..core import mesh
 from ..train.metrics import MetricLogger, is_main_process
 from ..train.train_state import make_stream_step
 from .common import (TaskContext, append_log, build_state,
-                     global_batches, maybe_bf16_params, opt_steps_per_epoch,
+                     global_batches, reference_loader,
+                     opt_steps_per_epoch,
                      restore_latest, save_task_checkpoint, step_generator)
 from .retrieval import _maybe_shrink_vocab, build_tokenizer_or_fallback
 
@@ -255,8 +258,8 @@ def corpus_texts(cfg: dict, max_lines: int = 20000) -> list:
     return texts
 
 
-def main(args, tokenizer=None) -> dict:
-    """Random weights from `--seed` (overlaid by `--checkpoint`, a
+def main(args, tokenizer=None, overrides=None) -> dict:
+    """The YAML with `overrides` set on top. Random weights from `--seed` (overlaid by `--checkpoint`, a
     reference state dict, where given), `resume`, then steps up to
     `max_steps` (default `epochs` × `train_dataset_size` / the image
     batch). Prints every `print_freq` steps, appends the running averages
@@ -267,7 +270,7 @@ def main(args, tokenizer=None) -> dict:
     `device_samples_per_sec` (the same with the wait for input taken
     out) and, under `bench_redispatch`, `redispatch_samples_per_sec`.
     `tokenizer` (a pipeline's) replaces the config's."""
-    ctx = TaskContext.from_args(args)
+    ctx = TaskContext.from_args(args, overrides)
     cfg = ctx.config
     if tokenizer is None:
         tokenizer = build_tokenizer_or_fallback(cfg,
@@ -291,17 +294,9 @@ def main(args, tokenizer=None) -> dict:
     bs_main = (cfg.get("images") or {}).get("batch_size", 32)
     steps_per_epoch = global_batches(cfg.get("train_dataset_size", 10000),
                                      bs_main)
-    state, sched = build_state(ctx, model,
-                               opt_steps_per_epoch(cfg, steps_per_epoch))
-    if args.checkpoint:
-        from ..train.checkpoint import (load_torch_state_dict,
-                                        load_xfm_checkpoint)
-
-        missing, _ = load_xfm_checkpoint(
-            model, load_torch_state_dict(args.checkpoint))
-        print(f"### loaded {args.checkpoint}: {len(missing)} missing",
-              flush=True)
-    state = maybe_bf16_params(ctx, state, sched)
+    state, sched = build_state(
+        ctx, model, opt_steps_per_epoch(cfg, steps_per_epoch),
+        load=reference_loader(args.checkpoint))
     state, step = restore_latest(ctx, state)
     if step is None:
         step = state.step

@@ -37,14 +37,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core import mesh
+from ..core import mesh, partitioning
 from ..data.finetune_data import RetrievalEvalData, RetrievalTrainData
 from ..data.transforms import TestTransform, TrainTransform
 from ..models import XFMForRetrieval, config_from_yaml
-from ..train.checkpoint import init_weights
 from ..train.train_state import retrieval_loss_fn
 from .common import (TaskContext, append_log, build_state,
                      epoch_opt_steps, is_main_process,
+                     eval_model, reference_loader,
                      make_task_step, maybe_resume_epochs,
                      save_task_checkpoint, step_generator, train_epoch)
 
@@ -53,7 +53,7 @@ def _device_of(model) -> torch.device:
     return next(model.parameters()).device
 
 
-@torch.no_grad()
+@partitioning.unsharded_eval
 def encode_corpus(model, eval_data, batch_size: int,
                   text_batch_size: int = 0, timings: Optional[dict] = None):
     """Stage 1 → (image embeds, image feats, text embeds, text feats, text
@@ -86,7 +86,7 @@ def encode_corpus(model, eval_data, batch_size: int,
             torch.cat(txt_atts))
 
 
-@torch.no_grad()
+@partitioning.unsharded_eval
 def rerank_scores(model, img_embeds, txt_embeds, txt_atts, sims,
                   k_test: int, chunk: int = 8,
                   process_index: Optional[int] = None,
@@ -275,23 +275,17 @@ def main(args):
     test_data = RetrievalEvalData(eval_ann, TestTransform(image_res),
                                   cfg["image_root"], tokenizer,
                                   max_tokens=max_tokens)
+    load = reference_loader(args.checkpoint)
     if args.evaluate:
-        init_weights(model, ctx.seed)
+        eval_model(ctx, model, load)
     else:
         bsz = cfg.get("batch_size_train", 32)
         train_data = RetrievalTrainData(
             train_ann, TrainTransform(image_res), cfg["image_root"],
             tokenizer, max_tokens=max_tokens, batch_size=bsz)
         state, sched = build_state(
-            ctx, model, epoch_opt_steps(cfg, len(train_data), bsz))
-    if args.checkpoint:
-        from ..train.checkpoint import (load_torch_state_dict,
-                                        load_xfm_checkpoint)
-
-        missing, _ = load_xfm_checkpoint(
-            model, load_torch_state_dict(args.checkpoint))
-        print(f"### loaded {args.checkpoint}: {len(missing)} missing",
-              flush=True)
+            ctx, model, epoch_opt_steps(cfg, len(train_data), bsz),
+            load=load)
     if args.evaluate:
         metrics = evaluation(model, test_data, cfg)
         if is_main_process():

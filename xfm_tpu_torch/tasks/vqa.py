@@ -35,16 +35,15 @@ import os
 import numpy as np
 import torch
 
-from ..core import mesh
+from ..core import mesh, partitioning
 from ..data.finetune_data import VQAData, _load_ann
 from ..data.transforms import TestTransform, TrainTransform
 from ..eval.vqa_eval import vqa_accuracy
 from ..models import XFMForVQA, config_from_yaml
-from ..train.checkpoint import init_weights
 from ..train.train_state import vqa_loss_fn
 from .common import (TaskContext, append_log, build_state,
                      epoch_opt_steps, is_main_process,
-                     make_task_step, maybe_resume_epochs,
+                     make_task_step, maybe_resume_epochs, eval_model,
                      save_task_checkpoint, step_generator, train_epoch)
 from .retrieval import (_device_of, _maybe_shrink_vocab,
                         build_tokenizer_or_fallback)
@@ -76,7 +75,7 @@ def collect_results(result: list, out_dir: str, filename: str) -> str:
     return final
 
 
-@torch.no_grad()
+@partitioning.unsharded_eval
 def evaluate(model, data: VQAData, k: int, out_dir: str,
              tag: str = "") -> str:
     """Each test question's top-ranked answer of the answer list →
@@ -184,8 +183,20 @@ def main(args) -> dict:
                         tokenizer, batch_size=cfg.get("batch_size_test", 16),
                         split="test", answer_list=cfg.get("answer_list"))
     k = cfg.get("k_test", 128)
+    load = None
+    if args.checkpoint:
+        def load(m):
+            from ..train.checkpoint import (load_torch_state_dict,
+                                            load_xfm_checkpoint,
+                                            vqa_checkpoint)
+
+            own = args.evaluate or cfg.get("load_vqa_pretrain", False)
+            missing, _ = load_xfm_checkpoint(m, vqa_checkpoint(
+                load_torch_state_dict(args.checkpoint), m, own))
+            print(f"### loaded {args.checkpoint}: {len(missing)} missing",
+                  flush=True)
     if args.evaluate:
-        init_weights(model, ctx.seed)
+        eval_model(ctx, model, load)
     else:
         train_data = VQAData(cfg["train_file"],
                              TrainTransform(image_res, hflip=False), roots,
@@ -193,16 +204,7 @@ def main(args) -> dict:
                              batch_size=cfg.get("batch_size_train", 16),
                              split="train")
         state, sched = build_state(ctx, model, epoch_opt_steps(
-            cfg, len(train_data), train_data.batch_size))
-    if args.checkpoint:
-        from ..train.checkpoint import (load_torch_state_dict,
-                                        load_xfm_checkpoint, vqa_checkpoint)
-
-        own = args.evaluate or cfg.get("load_vqa_pretrain", False)
-        missing, _ = load_xfm_checkpoint(model, vqa_checkpoint(
-            load_torch_state_dict(args.checkpoint), model, own))
-        print(f"### loaded {args.checkpoint}: {len(missing)} missing",
-              flush=True)
+            cfg, len(train_data), train_data.batch_size), load=load)
     if args.evaluate:
         path = evaluate(model, test_data, k, ctx.out_dir)
         print("wrote", path, flush=True)

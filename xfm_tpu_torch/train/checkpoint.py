@@ -37,7 +37,9 @@
   the optimizer's state (HF-AdamW's moments `mu` and `nu` by name and its
   `count`; LARS's `mu` and `count`), and the state's `step`. The JAX
   package writes Orbax directories instead; the two formats do not read
-  each other.
+  each other. The file holds whole tensors whatever the layout: a model
+  sharded over `fsdp` (`core/partitioning`) writes what one process
+  writes and restores from it, and the reverse.
 """
 from __future__ import annotations
 
@@ -406,8 +408,13 @@ def load_reference_state_dict(model: torch.nn.Module, sd, strict=True):
 def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
     """A torch checkpoint file → {name: float32 numpy array}, unwrapped from
     a `model` and then a `module` entry where it has them, or from the
-    `params` of a train state that `save_checkpoint` wrote."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    `params` of a train state that `save_checkpoint` wrote. A zip-format
+    file is mapped, not read through, so a train state's optimizer moments
+    are never read."""
+    import zipfile
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=False,
+                      mmap=zipfile.is_zipfile(path))
     for key in ("model", "module", "params"):
         if isinstance(ckpt, dict) and isinstance(ckpt.get(key), dict):
             ckpt = ckpt[key]
@@ -877,15 +884,25 @@ def caption_checkpoint(sd: Dict[str, Any], decoder_from: str = "fusion"
 
 
 def reference_state_dict(model) -> Dict[str, torch.Tensor]:
-    """The model's weights under the reference's names and layouts, on the
-    CPU: the patch kernels back in Conv2d layout [C, 3, P, P], a BERT text
-    or fusion encoder under `bert.*` / `cls.predictions.*`."""
-    c = getattr(model, "config", None)
+    """The model's weights under the reference's names and layouts
+    (`reference_names` of its state dict)."""
+    return reference_names(model.state_dict(),
+                           getattr(model, "config", None))
+
+
+def reference_names(state: Dict[str, torch.Tensor], config
+                    ) -> Dict[str, torch.Tensor]:
+    """A port state dict (a model's, or the parameters of a saved train
+    state) under the reference's names and layouts, f32 on the CPU: the
+    patch kernels back in Conv2d layout [C, 3, P, P], a BERT text or
+    fusion encoder of `config` (an `XFMConfig`) under `bert.*` /
+    `cls.predictions.*`; a `DeepMLPHead` stays `cls_head.{0…12}`, the
+    indices `load_xfm_checkpoint` reads."""
     bert = {f"{name}_encoder" for name in ("text", "fusion")
-            if getattr(getattr(c, name, None), "position_style",
+            if getattr(getattr(config, name, None), "position_style",
                        None) == "bert"}
     out = {}
-    for k, v in model.state_dict().items():
+    for k, v in state.items():
         v = v.detach().float().cpu().clone()
         if k.endswith(("patch_embed.proj.weight", "patch_embed.weight")):
             ppc, C = v.shape
@@ -1009,16 +1026,24 @@ def _place(ckpt_dir: str, step: int, keep: int, write) -> str:
 
 
 def save_checkpoint(ckpt_dir: str, state, step: Optional[int] = None,
-                    keep: int = 3) -> str:
+                    keep: int = 3) -> Optional[str]:
     """`state` (a `train_state.TrainState`) → `<ckpt_dir>/<step>/state.pt`
     (step: the state's own by default), written beside and renamed into
     place; then only the newest `keep` steps stay. → the step's
-    directory."""
+    directory. Under a process group every rank calls it and rank 0 alone
+    writes (the others get None): on a sharded model
+    (`core/partitioning`) every rank takes part in gathering the whole
+    parameters and optimizer state, so that the file is the one a single
+    process writes, whatever the layout."""
+    from ..core import mesh, partitioning
+
     step = int(state.step if step is None else step)
-    payload = {"params": dict(state.model.named_parameters()),
-               "optimizer": state.optimizer.state_dict(),
-               "step": int(state.step)}
     with torch.no_grad():
+        payload = {"params": partitioning.full_parameters(state.model),
+                   "optimizer": state.optimizer.state_dict(),
+                   "step": int(state.step)}
+        if mesh.rank() != 0:
+            return None
         return _place(ckpt_dir, step, keep,
                       lambda path: torch.save(payload, path))
 
@@ -1064,10 +1089,15 @@ def load_params_from_checkpoint(ckpt_dir: str, step: Optional[int] = None,
 def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None):
     """The saved step (the newest by default) copied into `state` in place,
     bit for bit: the model's parameters, the optimizer's state (moments
-    and count), and the state's step. With nothing saved `state` is
-    returned as it is."""
+    and count), and the state's step. On a sharded model each rank copies
+    its shards of the whole tensors, so a file written under any layout
+    restores under any other. With nothing saved `state` is returned as it
+    is."""
+    from ..core import partitioning
+
     named = dict(state.model.named_parameters())
-    payload = _load(ckpt_dir, step, next(iter(named.values())).device)
+    payload = _load(ckpt_dir, step, partitioning.local(
+        next(iter(named.values()))).device)
     if payload is None:
         return state
     params = payload["params"]
@@ -1075,7 +1105,7 @@ def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None):
         raise KeyError(f"checkpoint parameters differ from the model's: "
                        f"{sorted(set(params) ^ set(named))[:5]}")
     for name, p in named.items():
-        p.copy_(params[name])
+        partitioning.local(p).copy_(partitioning.shard_of(params[name], p))
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return state

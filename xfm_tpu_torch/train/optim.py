@@ -21,6 +21,15 @@ optimizer steps f32 master copies from their gradients, and each live
 parameter is then set to its rounded master. The JAX package adds the bf16
 difference (rounded master − live) to the live parameter instead, which
 lands within 1 bf16 ulp of the rounded master.
+
+On a model that `core/partitioning.shard_model` sharded, the parameters
+are DTensors and each rank steps its local shards: the moments are shards
+too, the global norm of the clip is the norm of the whole gradient (each
+rank's sum of squares summed over the `fsdp` group, equal on every rank),
+LARS's trust ratio takes the norms of whole parameters the same way, and
+`state_dict` / `load_state_dict` carry whole tensors, as one process holds
+them. Under `bf16_params` there FSDP2's f32 shards are `MasterWeights`'
+masters.
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ import re
 from typing import Callable, Sequence
 
 import torch
+
+from ..core import partitioning
 
 # fresh heads boosted by lr_mult, on torch parameter names
 DEFAULT_BOOST_PATTERNS = (
@@ -71,18 +82,20 @@ class HFAdamW:
         self.decay_idx = [i for i, n in enumerate(self.names) if decays(n)]
         self.boost_idx = [i for i, n in enumerate(self.names)
                           if boosted(n, boost_patterns)]
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.group = partitioning.shard_group(self.params)
+        self.sharded = _sharded_mask(self.params)
+        self.mu = [torch.zeros_like(partitioning.local(p))
+                   for p in self.params]
+        self.nu = [torch.zeros_like(partitioning.local(p))
+                   for p in self.params]
         self.count = 0
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         """One update from the parameters' `.grad`; returns the global norm
         of the gradients before clipping (a device tensor)."""
-        grads = [p.grad.float() if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
-        g_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        params, grads = _locals(self.params)
+        g_norm = _global_norm(grads, self.group, self.sharded)
         if self.clip_grad_norm:
             m = self.clip_grad_norm
             scale = torch.where(g_norm < m, torch.ones_like(g_norm),
@@ -103,31 +116,29 @@ class HFAdamW:
         torch._foreach_mul_(upd, step_size)
         if self.weight_decay and self.decay_idx:
             torch._foreach_add_([upd[i] for i in self.decay_idx],
-                                [self.params[i] for i in self.decay_idx],
+                                [params[i] for i in self.decay_idx],
                                 alpha=self.weight_decay)
         if self.lr_mult != 1.0 and self.boost_idx:
             torch._foreach_mul_([upd[i] for i in self.boost_idx],
                                 self.lr_mult)
-        torch._foreach_add_(list(self.params), upd, alpha=-lr)
+        torch._foreach_add_(params, upd, alpha=-lr)
         return g_norm
 
     def state_dict(self) -> dict:
         """The moments by parameter name and the count (the tensors are the
-        live ones, not copies)."""
-        return {"mu": dict(zip(self.names, self.mu)),
-                "nu": dict(zip(self.names, self.nu)), "count": self.count}
+        live ones, not copies; whole tensors gathered from the shards on a
+        sharded model, where every rank must call it)."""
+        return {"mu": _whole(self.names, self.mu, self.params),
+                "nu": _whole(self.names, self.nu, self.params),
+                "count": self.count}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        """Copy `state_dict()`'s moments in place, bit for bit, and its
-        count."""
+        """Copy `state_dict()`'s moments in place, bit for bit (each rank
+        its shard of them on a sharded model), and its count."""
         for key in ("mu", "nu"):
-            saved = state[key]
-            if set(saved) != set(self.names):
-                raise KeyError(f"optimizer {key}: names differ from the "
-                               "model's")
-            for name, t in zip(self.names, getattr(self, key)):
-                t.copy_(saved[name])
+            _load_whole(state[key], self.names, getattr(self, key),
+                        self.params, f"optimizer {key}")
         self.count = int(state["count"])
 
 
@@ -148,48 +159,108 @@ class LARS:
         self.weight_decay = weight_decay
         self.momentum = momentum
         self.trust_coefficient = trust_coefficient
-        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.group = partitioning.shard_group(self.params)
+        self.sharded = _sharded_mask(self.params)
+        self.mu = [torch.zeros_like(partitioning.local(p))
+                   for p in self.params]
         self.count = 0
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         """One update from the parameters' `.grad`; returns the global norm
         of the gradients (a device tensor)."""
-        grads = [p.grad.float() if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
-        g_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
-        for i, (p, g) in enumerate(zip(self.params, grads)):
-            if p.dim() > 1:
-                if self.weight_decay:
-                    g = g + self.weight_decay * p
-                pn = torch.linalg.vector_norm(p)
-                gn = torch.linalg.vector_norm(g)
-                one = torch.ones_like(pn)
-                q = torch.where(pn > 0, torch.where(
-                    gn > 0, self.trust_coefficient * pn / gn, one), one)
-                grads[i] = g * q
+        params, grads = _locals(self.params)
+        g_norm = _global_norm(grads, self.group, self.sharded)
+        big = [i for i, p in enumerate(self.params) if p.dim() > 1]
+        if self.weight_decay:
+            for i in big:
+                grads[i] = grads[i] + self.weight_decay * params[i]
+        norms = []
+        if self.group is None:
+            norms = [(torch.linalg.vector_norm(params[i]),
+                      torch.linalg.vector_norm(grads[i])) for i in big]
+        elif big:
+            # the norms of whole parameters: squares summed over the shards
+            sq = torch.stack([torch.stack([params[i].float().square().sum(),
+                                           grads[i].square().sum()])
+                              for i in big])
+            norms = _over_shards(sq, self.sharded[big][:, None],
+                                 self.group).sqrt()
+        for i, (pn, gn) in zip(big, norms):
+            one = torch.ones_like(pn)
+            q = torch.where(pn > 0, torch.where(
+                gn > 0, self.trust_coefficient * pn / gn, one), one)
+            grads[i] = grads[i] * q
         torch._foreach_mul_(self.mu, self.momentum)
         torch._foreach_add_(self.mu, grads)
         self.count += 1
-        torch._foreach_add_(list(self.params), self.mu,
-                            alpha=-self.lr(self.count))
+        torch._foreach_add_(params, self.mu, alpha=-self.lr(self.count))
         return g_norm
 
     def state_dict(self) -> dict:
         """The momenta by parameter name and the count (the tensors are the
-        live ones, not copies)."""
-        return {"mu": dict(zip(self.names, self.mu)), "count": self.count}
+        live ones, not copies; whole tensors on a sharded model)."""
+        return {"mu": _whole(self.names, self.mu, self.params),
+                "count": self.count}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         """Copy `state_dict()`'s momenta in place, bit for bit, and its
         count."""
-        if set(state["mu"]) != set(self.names):
-            raise KeyError("optimizer mu: names differ from the model's")
-        for name, t in zip(self.names, self.mu):
-            t.copy_(state["mu"][name])
+        _load_whole(state["mu"], self.names, self.mu, self.params,
+                    "optimizer mu")
         self.count = int(state["count"])
+
+
+def _locals(params) -> tuple:
+    """(each parameter's local tensor, its gradient's in f32: zeros where
+    it has none)."""
+    local = [partitioning.local(p) for p in params]
+    grads = [partitioning.local(p.grad).float() if p.grad is not None
+             else torch.zeros_like(lp) for p, lp in zip(params, local)]
+    return local, grads
+
+
+def _sharded_mask(params):
+    """Which of `params` are shards (a bool tensor on their device), or
+    None where none is."""
+    if partitioning.shard_group(params) is None:
+        return None
+    return torch.tensor([partitioning.is_dtensor(p) for p in params],
+                        device=partitioning.local(params[0]).device)
+
+
+def _over_shards(sq: torch.Tensor, sharded, group) -> torch.Tensor:
+    """Sums of squares over a rank's shards → over the whole tensors: the
+    sharded entries summed over `group`, the replicated ones as they
+    are."""
+    zero = torch.zeros_like(sq)
+    return (partitioning.sum_over_shards(torch.where(sharded, sq, zero),
+                                         group)
+            + torch.where(sharded, zero, sq))
+
+
+def _global_norm(grads, group, sharded) -> torch.Tensor:
+    """The norm of the whole gradient: over the shards of `group` where the
+    parameters are sharded, so that every rank clips by the same norm."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if group is None:
+        return torch.linalg.vector_norm(norms)
+    return _over_shards(norms.square(), sharded, group).sum().sqrt()
+
+
+def _whole(names, tensors, params) -> dict:
+    """name → the whole tensor of each of `tensors` (shards laid out as
+    the parameter of the same place where it is sharded)."""
+    return {n: partitioning.full_tensor(t, like=p)
+            for n, t, p in zip(names, tensors, params)}
+
+
+def _load_whole(saved: dict, names, tensors, params, what: str) -> None:
+    if set(saved) != set(names):
+        raise KeyError(f"{what}: names differ from the model's")
+    for name, t, p in zip(names, tensors, params):
+        t.copy_(partitioning.shard_of(saved[name], p))
 
 
 def trained_parameters(model: torch.nn.Module) -> list:
@@ -200,9 +271,10 @@ def trained_parameters(model: torch.nn.Module) -> list:
 
 def create_optimizer(model: torch.nn.Module, learning_rate,
                      weight_decay: float = 0.01, lr_mult: float = 1.0,
-                     **kw) -> HFAdamW:
-    """HF-AdamW over the model's `trained_parameters`."""
-    return HFAdamW(trained_parameters(model), learning_rate,
+                     named_params=None, **kw) -> HFAdamW:
+    """HF-AdamW over `named_params` where given (master copies), else over
+    the model's `trained_parameters`."""
+    return HFAdamW(named_params or trained_parameters(model), learning_rate,
                    weight_decay=weight_decay, lr_mult=lr_mult, **kw)
 
 
@@ -228,11 +300,17 @@ class MasterWeights:
     live parameter to its master rounded to the live dtype. `state_dict`
     holds the masters beside the inner optimizer's state, so a restore is
     bit-equal. `names`, `params` (the live ones), `count` and `lr` are the
-    inner optimizer's view."""
+    inner optimizer's view. On a model sharded under FSDP2's bf16 policy
+    (`core/partitioning.shard_model`) an f32 shard is its own master,
+    which the next gather rounds to the bf16 weight the model computes
+    with; only a parameter left whole there (`temp`) is copied."""
 
     def __init__(self, named_params, make_inner: Callable):
         self.names, self.params = zip(*named_params)
-        self.masters = [p.detach().float().clone() for p in self.params]
+        self.masters = [p if partitioning.is_dtensor(p)
+                        else p.detach().float().clone() for p in self.params]
+        self.copied = [i for i, p in enumerate(self.params)
+                       if not partitioning.is_dtensor(p)]
         self.inner = make_inner(list(zip(self.names, self.masters)))
         self.lr = self.inner.lr
 
@@ -242,27 +320,28 @@ class MasterWeights:
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
-        for p, m in zip(self.params, self.masters):
+        params = [self.params[i] for i in self.copied]
+        masters = [self.masters[i] for i in self.copied]
+        for p, m in zip(params, masters):
             # widened here, where the inner step would widen it anyway
             m.grad = None if p.grad is None else p.grad.float()
         try:
             g_norm = self.inner.step()
         finally:
-            for m in self.masters:
+            for m in masters:
                 m.grad = None
-        torch._foreach_copy_(list(self.params), self.masters)
+        torch._foreach_copy_(params, masters)
         return g_norm
 
     def state_dict(self) -> dict:
-        return {"master": dict(zip(self.names, self.masters)),
+        return {"master": _whole(self.names, self.masters, self.params),
                 "inner": self.inner.state_dict()}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        if set(state["master"]) != set(self.names):
-            raise KeyError("optimizer master: names differ from the model's")
-        for name, m in zip(self.names, self.masters):
-            m.copy_(state["master"][name])
+        _load_whole(state["master"], self.names,
+                    [partitioning.local(m) for m in self.masters],
+                    self.params, "optimizer master")
         self.inner.load_state_dict(state["inner"])
 
 

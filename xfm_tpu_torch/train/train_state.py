@@ -4,7 +4,11 @@ Under a process group the gradients are averaged over the ranks once an
 optimizer step, in `TrainState.apply_gradients` before the optimizer's
 clip (`core/mesh.reduce_gradients`, in f32 whatever the gradients' dtype,
 bf16 under `bf16_params` included), and the steps' scalar metrics are the
-global ones (`core/mesh.reduce_metrics`)."""
+global ones (`core/mesh.reduce_metrics`). A model sharded by
+`core/partitioning.shard_model` (FSDP2) has had its gradients
+reduce-scattered in the backward, so `apply_gradients` reduces only the
+parameters it left whole there (`temp`); the optimizer's norm is the
+whole gradient's on every rank."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +17,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..core.mesh import reduce_gradients, reduce_metrics
+from ..core.partitioning import is_sharded, local, replicated_parameters
 from .optim import HFAdamW
 
 
@@ -23,7 +28,9 @@ class TrainState:
     step: int = 0
 
     def apply_gradients(self) -> torch.Tensor:
-        reduce_gradients(self.model.parameters())
+        reduce_gradients(replicated_parameters(self.model)
+                         if is_sharded(self.model)
+                         else self.model.parameters())
         g_norm = self.optimizer.step()
         self.step += 1
         return g_norm
@@ -77,7 +84,7 @@ def make_accum_train_step(loss_fn: Callable, accumulate_steps: int):
             for name, v in dict(loss=loss, **aux).items():
                 v = v.detach()
                 sums[name] = v if name not in sums else sums[name] + v
-        grads = [p.grad for p in state.model.parameters()
+        grads = [local(p.grad) for p in state.model.parameters()
                  if p.grad is not None]
         torch._foreach_div_(grads, k)
         g_norm = state.apply_gradients()
