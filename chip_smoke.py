@@ -334,14 +334,17 @@ Phases, each of which must pass or the script exits non-zero:
      parameters, and within DP_TENSOR_UPDATE_RTOL in each tensor, that
      update read from the plain run's save at step 1); the
      fine-tune's zero-shot R_mean equals phase 18's, then `--evaluate
-     --checkpoint` its `ckpt/0` under `torchrun` equals the epoch's eval;
+     --checkpoint` its `ckpt/0` (under `torchrun` with two cards or more,
+     in this process with one) equals the epoch's eval;
      with two cards or more also the bf16 pretrain step on a fixed global
      batch of 32 on two processes against one (`python3 chip_smoke.py
      --dp-step`), else a line saying it could not run;
  28. data parallelism for the other fine-tunes, the same way: `python3
      chip_smoke.py --dp-task` (`run.main` with each train step's reduced
      loss recorded) under `torchrun --standalone --nproc_per_node=<the
-     card count>`, four launches at a time, over phases 22's and 23's
+     card count>`, four launches at a time (with one card only
+     `DP_TASKS_ONE_CARD`: the others ran without torchrun in phases 22
+     and 23), over phases 22's and 23's
      corpora and YAMLs at full width and depth: `--task nlvr` (one epoch
      of 2 steps at `--bs 24`, on phase 22's schedule of 4 steps),
      `refcoco_bbox` (stage 1 one step, stage 2 one epoch at `--bs 24`;
@@ -369,10 +372,10 @@ Phases, each of which must pass or the script exits non-zero:
      the loss and every gradient bit-equal, each policy); `run.main` for
      `--task pretrain_DIY` on the large YAML (`configs.PRETRAIN_LARGE_KEYS`)
      over `_pretrain_corpus`, `--bs 24`, 2 steps, K1 144 + 72 a step;
-     `profile_step.profile_pretrain_streams` with the large tower at `--bs
-     24` off and under each policy (busy ms, idle share, peak memory, K1
-     launches 72 + 72 off and under `except_attn`, 144 + 72 under the
-     others) and under `full` at the YAML's 96;
+     `profile_step.profile_pretrain_streams` with the large tower under
+     `full` at the YAML's 96 (busy ms, idle share, peak memory, K1
+     launches 144 + 72; at `--bs 24` off and under each policy of
+     `REMAT_PROFILED`, none by default);
  30. FSDP (`fsdp_phase`): a one-process NCCL group and the pretrain task
      with its `place_state` made to shard (`core/partitioning.shard_model`
      on the one-rank mesh: FSDP2 units, DTensor shards, the registered
@@ -390,7 +393,37 @@ Phases, each of which must pass or the script exits non-zero:
      process equal to the epoch's), and on four the BEiT-2-large pretrain
      step under `full` at the YAML's 96 a rank (`--fsdp-peak`): the peak
      memory of each rank at `fsdp: 4` and at `data: 4`; else a line saying
-     it could not run; phase 27's directory deleted;
+     it could not run;
+ 31. tensor parallelism (`tensor_phase`): full-width BEiT-2-base blocks
+     (C 768, H 12) cut at T = 2 and 4 (`core/partitioning.
+     tensor_shards`), each shard's forward and backward on the card and
+     the row partials summed by hand (`shard_beit_block` and its kin),
+     against the
+     whole block in its output and every gradient (f32 within phase 3's
+     gates; bf16 against the block run in f32, at most twice the whole
+     bf16 block's error or within phase 2's): at N = 197, B = 96 (K1 at qkv
+     [96, 197, 3·H/T·64]), with both fused routes (K4 and K5 at K =
+     3072/T), and at N = 577, B = 32 (K2 with the table's H/T columns);
+     a fusion layer (self- and cross-attention, the MLP) the same way;
+     the grouped rerank's cross-attention (K3 at H/T heads, U = 8, gs =
+     256); then K1, K2, K5 and K3's grouped forward against their plain
+     versions at those shapes in bf16 and f32, times beside the
+     unsharded shapes', bounds (K5 as the row layer runs it: no bias, its
+     partial written in f32); before them (started with phase 30 on one
+     card), on any card count, `--dp-step ... one-card` in bf16 on phase
+     27's fixed global batch at `{tensor: 2}` (the models' own forward and the
+     tensor group's all-reduces) and at `{data: 2}` (the control of that
+     harness), each two processes on card 0 over gloo, against the
+     one-process step in bf16 and f32 (`TP_ONE_CARD`: the control within
+     phase 27's gates of the bf16 step, the cut within TP_BUDGET times
+     the bf16 step's own distance from the f32 step); with two cards or
+     more `--dp-step` at
+     `{tensor: 2}` (and `{data: 2, tensor: 2}`, `{fsdp: 2, tensor: 2}`
+     on four) on phase 27's fixed global batch, `pretrain_DIY` and
+     `itr_coco` under torchrun at those layouts, and `--tp-decode` (VQA's
+     `rank` and the beam decode at full width) at `{tensor: 2}` against
+     one process; else a line saying they could not run; phase 27's
+     directory deleted;
 then a JSON line of the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
@@ -401,6 +434,7 @@ from __future__ import annotations
 
 import atexit
 import base64
+import dataclasses
 import json
 import math
 import os
@@ -970,10 +1004,11 @@ def k3_grouped_inputs(U, gs, dtype, bias_kind, seed, T=40, H=12, Nk=577):
     return q, k, v, mask_to_bias(torch.from_numpy(atts)).cuda()
 
 
-def k3_grouped_parity(U, gs, dtype, bias_kind="ones", seed=0) -> dict:
+def k3_grouped_parity(U, gs, dtype, bias_kind="ones", seed=0, H=12
+                      ) -> dict:
     from xfm_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, bias = k3_grouped_inputs(U, gs, dtype, bias_kind, seed)
+    q, k, v, bias = k3_grouped_inputs(U, gs, dtype, bias_kind, seed, H=H)
     out, _ = fa.flash_attention_fwd(q, k, v, bias, 64 ** -0.5)
     ref = fa.flash_attention_reference(q, k, v, bias, 64 ** -0.5)
     torch.cuda.synchronize()
@@ -982,14 +1017,14 @@ def k3_grouped_parity(U, gs, dtype, bias_kind="ones", seed=0) -> dict:
                     dtype)
 
 
-def k3_grouped_times(U, gs, dtype) -> dict:
+def k3_grouped_times(U, gs, dtype, H=12) -> dict:
     """Forward times (ms) at the grouped shape with its all-ones mask bias:
     kernel, plain, and SDPA with no mask; and the kernel with no bias."""
     import torch.nn.functional as F
 
     from xfm_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, bias = k3_grouped_inputs(U, gs, dtype, "ones", 1)
+    q, k, v, bias = k3_grouped_inputs(U, gs, dtype, "ones", 1, H=H)
     scale = 64 ** -0.5
     t = {"fwd_ms": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, bias,
                                                           scale)),
@@ -4807,12 +4842,15 @@ def k4_times(R: int, C: int, dtype, variant: str = "add") -> dict:
     return t
 
 
-def k5_work(M: int, K: int, N: int, dtype: torch.dtype) -> dict:
+def k5_work(M: int, K: int, N: int, dtype: torch.dtype,
+            bias: bool = True) -> dict:
     """As `k1_work`, for K5: h, W, b in, y out; backward h, W, g in, dh,
-    dW, db out; 2·M·K·N operations a product, one forward, two backward."""
+    dW, db out; 2·M·K·N operations a product, one forward, two backward.
+    Without `bias` (a row layer's partial): no b, y in f32, no db."""
     isz = torch.tensor([], dtype=dtype).element_size()
-    fwd_bytes = (M * K + N * K + N + M * N) * isz
-    bwd_bytes = (M * K + N * K + M * N + M * K + N * K + N) * isz
+    b = N if bias else 0
+    fwd_bytes = (M * K + N * K + b) * isz + M * N * (isz if bias else 4)
+    bwd_bytes = (M * K + N * K + M * N + M * K + N * K + b) * isz
     return _bounds({"fwd": (fwd_bytes, 2 * M * K * N),
                     "bwd": (bwd_bytes, 4 * M * K * N)}, PEAK_FLOPS[dtype])
 
@@ -4828,19 +4866,25 @@ def make_k5_inputs(M, K, N, dtype, seed):
     return tuple(v.to(dtype) for v in (h, w, b, g))
 
 
-def k5_parity(act: str, M: int, dtype, K=3072, N=768, seed=0) -> dict:
-    """Kernel vs plain version on the same inputs → max abs errors."""
+def k5_parity(act: str, M: int, dtype, K=3072, N=768, seed=0,
+              bias: bool = True) -> dict:
+    """Kernel vs plain version on the same inputs → max abs errors.
+    Without `bias`: the row layer's partial (no b, y in f32, no db)."""
     from xfm_tpu_torch.ops import fused_mlp as fm
 
     h, w, b, g = make_k5_inputs(M, K, N, dtype, seed)
+    b = b if bias else None
     y = fm.act_matmul_fwd(h, w, b, act)
-    dh, dw, db = fm.act_matmul_bwd(h, w, g, act)
+    dh, dw, db = fm.act_matmul_bwd(h, w, g, act, bias)
     ry = fm.act_matmul_reference(h, w, b, act)
-    rdh, rdw, rdb = fm.act_matmul_bwd_reference(h, w, g, act)
+    rdh, rdw, rdb = fm.act_matmul_bwd_reference(h, w, g, act, bias)
     torch.cuda.synchronize()
-    return _compare(f"K5 {act} M={M} K={K} N={N} {str(dtype)[6:]}",
-                    [("out", y, ry), ("dh", dh, rdh), ("dW", dw, rdw),
-                     ("db", db, rdb)], dtype)
+    if y.dtype != (dtype if bias else torch.float32):
+        raise AssertionError(f"K5 forward returned {y.dtype}")
+    pairs = [("out", y, ry), ("dh", dh, rdh), ("dW", dw, rdw)]
+    return _compare(f"K5 {act} M={M} K={K} N={N} {str(dtype)[6:]}"
+                    f"{'' if bias else ' no bias, f32 out'}",
+                    pairs + ([("db", db, rdb)] if bias else []), dtype)
 
 
 def k5_deterministic(M: int, dtype, act="gelu_tanh", K=3072, N=768,
@@ -4859,25 +4903,30 @@ def k5_deterministic(M: int, dtype, act="gelu_tanh", K=3072, N=768,
         raise AssertionError("K5's backward is not deterministic")
 
 
-def k5_times(M: int, dtype, act="gelu_tanh", K=3072, N=768) -> dict:
+def k5_times(M: int, dtype, act="gelu_tanh", K=3072, N=768,
+             bias: bool = True) -> dict:
     """Kernel, plain and library times (ms) at one shape. The library
-    yardstick is the default route's two calls, F.linear(act(h), W, b)."""
+    yardstick is the default route's two calls, F.linear(act(h), W, b)
+    (without `bias`, the row layer's partial: F.linear(act(h), W), its
+    output in h's dtype)."""
     import torch.nn.functional as F
 
     from xfm_tpu_torch.ops import fused_mlp as fm
     from xfm_tpu_torch.ops.activations import ACT
 
     h, w, b, g = make_k5_inputs(M, K, N, dtype, 1)
+    b = b if bias else None
     t = {}
     t["fwd_ms"] = cuda_ms(lambda: fm.act_matmul_fwd(h, w, b, act))
-    t["bwd_ms"] = cuda_ms(lambda: fm.act_matmul_bwd(h, w, g, act))
+    t["bwd_ms"] = cuda_ms(lambda: fm.act_matmul_bwd(h, w, g, act, bias))
     t["plain_fwd_ms"] = cuda_ms(lambda: fm.act_matmul_reference(
         h, w, b, act), 5)
     t["plain_bwd_ms"] = cuda_ms(lambda: fm.act_matmul_bwd_reference(
-        h, w, g, act), 5)
+        h, w, g, act, bias), 5)
     with torch.no_grad():
         t["library_fwd_ms"] = cuda_ms(lambda: F.linear(ACT[act](h), w, b))
-    hl, wl, bl = (v.clone().requires_grad_(True) for v in (h, w, b))
+    hl, wl = (v.clone().requires_grad_(True) for v in (h, w))
+    bl = None if b is None else b.clone().requires_grad_(True)
 
     def lib_fwd_bwd():
         F.linear(ACT[act](hl), wl, bl).backward(g)
@@ -5728,6 +5777,11 @@ def tower_kernel_entries(k3d_err, k3d_t, k3d_w, launches) -> list:
 # stream's batch; the region stream keeps the YAML's 80 images): the plain
 # step fits there beside the checkpointed ones
 REMAT_BS = 24
+# the large step profiled at `--bs REMAT_BS` (None: checkpointing off),
+# beside `full` at the YAML's batches: none, for the script's clock (every
+# policy is held bit-equal to the plain step by `remat_on_off`, and
+# `profile_step pretrain_large_remat` profiles each at 24)
+REMAT_PROFILED = ()
 REMAT_POLICIES = ("full", "dots", "except_attn", "attn_out")
 # checkpointing on against off on the card (bf16, live dropout and
 # drop-path from one seeded generator) is held bit for bit, loss and every
@@ -5900,9 +5954,10 @@ def remat_task(bs=REMAT_BS, steps=2) -> dict:
 
 def remat_profiles(bs=REMAT_BS) -> dict:
     """`profile_step.profile_pretrain_streams` with the large tower at
-    `--bs` `bs`, checkpointing off and under each policy (one model each,
-    one warm-up step, streams not taken alone), then under `full` at the
-    YAML's batches (96 a stream; 2 warm-up steps, each stream alone too)
+    `--bs` `bs` for each entry of `REMAT_PROFILED` (None: checkpointing
+    off; one model each, one warm-up step, streams not taken alone), then
+    under `full` at the YAML's batches (96 a stream; 2 warm-up steps,
+    each stream alone too)
     → {"off" | policy | "full_yaml":
     {busy ms, span ms, idle share, peak bytes, K1 launches a step, MFU
     over busy}, "full_yaml_by_stream": launches by stream}. Each run's K1
@@ -5911,7 +5966,7 @@ def remat_profiles(bs=REMAT_BS) -> dict:
     from xfm_tpu_torch import configs, profile_step
 
     out = {}
-    runs = [(p, bs) for p in (None,) + REMAT_POLICIES] + [("full", None)]
+    runs = [(p, bs) for p in REMAT_PROFILED] + [("full", None)]
     for policy, b in runs:
         keys = dict(configs.PRETRAIN_LARGE_KEYS,
                     gradient_checkpointing=policy is not None,
@@ -6060,22 +6115,36 @@ def _layout_tag(parallel) -> str:
     return "_".join(f"{k}{v}" for k, v in sorted((parallel or {}).items()))
 
 
-def dp_step_worker(out_dir: str, parallel=None, B: int = 32) -> int:
-    """`python3 chip_smoke.py --dp-step OUT [PARALLEL]` under torchrun: the
-    full-width bf16 pretrain step (`configs.make_pretrain_run`, weights
-    from seed 0; with PARALLEL, a YAML `parallel` block as JSON, the state
-    placed as a task places it: sharded where `fsdp` > 1) on rank r's rows
-    of a fixed global batch of `B` with fixed hard negatives (the next row
-    of the global batch); rank 0 writes the step's reduced losses and
-    gradient norm to OUT/dp_step_<W>[_<layout>].json."""
+def dp_step_worker(out_dir: str, parallel=None, B: int = 32,
+                   f32: bool = False, one_card: bool = False) -> int:
+    """`python3 chip_smoke.py --dp-step OUT [PARALLEL [f32] [one-card]]`
+    under torchrun (or called in this process: one process): the
+    full-width bf16 (with `f32`, f32) pretrain step
+    (`configs.make_pretrain_run`, weights from seed 0; with PARALLEL, a
+    YAML `parallel` block as JSON ("{}" for none), the state placed as a
+    task places it: cut where `tensor` > 1, sharded where `fsdp` > 1) on
+    rank r's rows of a fixed global batch of `B` with fixed hard negatives
+    (the next row of the global batch); rank 0 writes the step's reduced
+    losses and gradient norm to
+    OUT/dp_step_<W>[_<layout>][_f32][_one_card].json. With `one_card`
+    every rank computes on card 0 and the group runs on gloo, whose
+    collectives take CUDA tensors (NCCL puts one rank on a card)."""
+    import torch.distributed as dist
+
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     from xfm_tpu_torch import configs
     from xfm_tpu_torch.core import mesh
 
+    if one_card:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method="env://",
+                                world_size=int(os.environ["WORLD_SIZE"]),
+                                rank=int(os.environ["RANK"]))
     dev = mesh.maybe_init_distributed("cuda")
-    state, batch, step = configs.make_pretrain_run(B=B, device=dev,
-                                                   parallel=parallel)
+    state, batch, step = configs.make_pretrain_run(
+        B=B, device=dev, parallel=parallel or None,
+        dtype=torch.float32 if f32 else torch.bfloat16)
     roll = torch.roll(torch.arange(B, device=dev), -1)
     batch = mesh.rank_slice(dict(batch, hard_negatives=(roll, roll)))
     state, metrics = step(state, batch, None)
@@ -6083,11 +6152,12 @@ def dp_step_worker(out_dir: str, parallel=None, B: int = 32) -> int:
     if mesh.rank() == 0:
         tag = (f"_{_layout_tag(parallel)}" if parallel else "")
         with open(os.path.join(out_dir, f"dp_step_{mesh.world_size()}"
-                               f"{tag}.json"), "w") as f:
+                               f"{tag}{'_f32' if f32 else ''}"
+                               f"{'_one_card' if one_card else ''}.json"),
+                  "w") as f:
             json.dump(vals, f)
-    import torch.distributed as dist
-
-    dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 
@@ -6188,14 +6258,23 @@ def dp_phase(zero_shot_r_mean: float, keep_root: bool = False) -> dict:
         ft_out = _finish(ft_tr, "itr_coco under torchrun")
         t_both = time.perf_counter() - t0
         torch.cuda.empty_cache()
-        ev = _finish(_torchrun(W, [
-            *ft_args, "--evaluate", "--checkpoint",
-            os.path.join(out["ft_tr"], "ckpt", "0", "state.pt"),
-            "--output_dir", out["ft_ev"]]), "itr_coco --evaluate")
+        ev_args = [*ft_args, "--evaluate", "--checkpoint",
+                   os.path.join(out["ft_tr"], "ckpt", "0", "state.pt"),
+                   "--output_dir", out["ft_ev"]]
+        if W > 1:
+            ev_launches = _processes_line(_finish(
+                _torchrun(W, ev_args), "itr_coco --evaluate"),
+                "itr_coco --evaluate")[2]
+        else:  # one rank: in this process (the epoch's launch went through
+            # torchrun), which saves the launch's start-up
+            kernels.reset_launch_counts()
+            run.main(ev_args[2:])  # past "-m xfm_tpu_torch.run"
+            ev_launches = [{k: v for k, v in kernels.LAUNCHES.items() if v}]
         t_all = time.perf_counter() - t0
         print(f"  seconds: the plain pretrain run {t_plain:.1f} (the two "
               f"torchrun runs beside it, all done at {t_both:.1f}), the "
-              f"eval's launch {t_all - t_both:.1f}")
+              f"eval {t_all - t_both:.1f}"
+              + (" (in this process: one card)" if W == 1 else ""))
 
         world, backend, by_rank = _processes_line(pt_out, "pretrain_DIY")
         print(f"  pretrain_DIY under torchrun: world {world}, backend "
@@ -6238,21 +6317,22 @@ def dp_phase(zero_shot_r_mean: float, keep_root: bool = False) -> dict:
                 or (W == 1 and ft_log[0]["r_mean"] != zero_shot_r_mean)):
             raise AssertionError("itr_coco under torchrun: its log, backend "
                                  "or zero-shot R_mean")
-        world, backend, by_rank = _processes_line(ev, "itr_coco --evaluate")
         metrics = _last_log(out["ft_ev"])[-1]["eval"]
-        print(f"  itr_coco --evaluate under torchrun: {json.dumps(metrics)}"
-              f"; launches by rank {json.dumps(by_rank)}")
+        how = "under torchrun" if W > 1 else "in this process"
+        print(f"  itr_coco --evaluate {how}: {json.dumps(metrics)}; "
+              f"launches by rank {json.dumps(ev_launches)}")
         if metrics != {k: ft_log[1][k] for k in metrics}:
             raise AssertionError("the eval of ckpt/0 differs from the "
                                  "epoch's eval")
         result.update(ft_r_mean=[e["r_mean"] for e in ft_log],
-                      eval_launches=by_rank)
+                      eval_launches=ev_launches)
         if W >= 2:
             result["fixed_batch"] = dp_fixed_batch(root)
         else:
-            print("  two processes on a fixed global batch: not run, this "
-                  "machine has one card (NCCL puts one rank on a card); "
-                  "the CPU tests run two gloo processes")
+            print("  two processes on a fixed global batch over NCCL: not "
+                  "run, this machine has one card (NCCL puts one rank on a "
+                  "card); phase 31 runs two on one card over gloo, and the "
+                  "CPU tests two gloo processes")
         if keep_root:
             result["root"] = root
         return result
@@ -6346,6 +6426,12 @@ def dp_task_worker(out_dir: str, argv: list) -> int:
 
 # phase 28's launches on the card at once (device memory, host cores)
 DP_TASK_CONCURRENCY = 4
+# phase 28's launches on one card: imagenet (a step's K1 12 + 12, the
+# eval's K1); nlvr, refcoco_bbox, the probe, glue and classify ran without
+# torchrun in phases 22 and 23, and all six run under torchrun on two
+# cards or more and on two gloo processes in the CPU tests (a launch on
+# one card is host-bound: ~22 s of it before the task starts)
+DP_TASKS_ONE_CARD = ("imagenet",)
 
 
 def _rank_eval_batches(n_rows: int, batch: int, rank: int,
@@ -6444,6 +6530,13 @@ def dp_tasks_phase(nt: dict, ct: dict) -> dict:
             "classify": ["--task", "classify", "--config",
                          os.path.join(c_root, "cls.yaml"), "--bs", "16"],
         }
+        if W == 1:
+            print(f"  on one card only {', '.join(DP_TASKS_ONE_CARD)} under "
+                  f"torchrun; {', '.join(t for t in args if t not in
+                                         DP_TASKS_ONE_CARD)} ran without "
+                  f"it in phases 22 and 23 (all six under torchrun with "
+                  f"two cards or more, and in the CPU tests)")
+            args = {t: args[t] for t in DP_TASKS_ONE_CARD}
         out = {t: os.path.join(root, t) for t in args}
         seconds = {}
 
@@ -6701,9 +6794,10 @@ def fsdp_cards(root: str, dp: dict) -> dict:
     return out
 
 
-def fsdp_phase(dp: dict) -> dict:
+def fsdp_phase(dp: dict, keep_root: bool = False) -> dict:
     """Phase 30 (see the module docstring); phase 27's directory
-    (`dp["root"]`) deleted at the end."""
+    (`dp["root"]`) deleted at the end, or with `keep_root` left for phase
+    31, which deletes it."""
     import yaml
 
     import torch.distributed as dist
@@ -6794,7 +6888,603 @@ def fsdp_phase(dp: dict) -> dict:
                   "processes at fsdp: 2")
         return result
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep_root:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+# --- phase 31: tensor parallelism -------------------------------------------
+
+TP_SIZES = (2, 4)
+# f32: phase 3's gates (outputs within SLICE_LOSS_RTOL, gradients within
+# SLICE_GRAD_RTOL of their tensor's largest element). bf16: the shards'
+# error against the module run in f32 (the same weights and inputs) at
+# most twice the whole bf16 module's, or within phase 2's TOL: the cut
+# may round differently, not worse
+TP_BUDGET = 2.0
+
+
+def shard_beit_block(shards, x: torch.Tensor) -> torch.Tensor:
+    """`BeitBlock.forward(x)` (per-block tables, no dropout) from its T
+    tensor shards held in one process (`core/partitioning.tensor_shards`):
+    each shard's attention and MLP partials (`attend` / `proj_partial`,
+    `_Mlp.partial`, K1 or K2 at H/T heads, K5 at K = 4C/T), summed by hand
+    (`ops/tensor_parallel.row_sum`) where a tensor group's all-reduce sums
+    them. The replicated parameters (LayerNorms, row biases, the layer
+    scales) are the first shard's."""
+    from xfm_tpu_torch.core.precision import add_layer_norm, layer_norm
+    from xfm_tpu_torch.ops.tensor_parallel import row_sum
+
+    b = shards[0]
+    c = b.c
+    h = layer_norm(x, b.norm1, c.dtype)
+    a = row_sum([s.attn.proj_partial(s.attn.attend(h, True, None))
+                 for s in shards], b.attn.proj.bias, c.dtype)
+    if b.use_ls:
+        a = b.gamma_1.to(a.dtype) * a
+    x, h = add_layer_norm(a, x, b.norm2, c.dtype, c.fused_ln)
+    m = row_sum([s.mlp.partial(h) for s in shards], b.mlp.fc2.bias, c.dtype)
+    if b.use_ls:
+        m = b.gamma_2.to(m.dtype) * m
+    return x + m
+
+
+def shard_attention(atts, x, kv, bias, group_size=None):
+    """A text layer's self- or cross-attention sublayer (its post-LN
+    included) from its shards, as `shard_beit_block` (`group_size`: the
+    grouped rerank's `kv_group_size`, K3 at H/T heads)."""
+    from xfm_tpu_torch.core.precision import post_layer_norm
+    from xfm_tpu_torch.ops.tensor_parallel import row_sum
+
+    a0 = atts[0]
+    c = a0.c
+    out = row_sum([a.out_partial(a.context(x, kv, bias,
+                                           kv_group_size=group_size))
+                   for a in atts], a0.output.dense.bias, c.dtype)
+    return post_layer_norm(out, x, a0.output.LayerNorm, c.dtype, c.fused_ln)
+
+
+def shard_text_layer(shards, hidden, attention_bias=None,
+                     encoder_hidden_states=None, encoder_attention_bias=None,
+                     encoder_group_size=None) -> torch.Tensor:
+    """`TransformerLayer.forward` (self-attention, the cross-attention
+    where the layer has one and `encoder_hidden_states` are given, the MLP;
+    no dropout) from its shards, as `shard_beit_block`."""
+    from xfm_tpu_torch.core.precision import post_layer_norm
+    from xfm_tpu_torch.ops.tensor_parallel import row_sum
+
+    layer = shards[0]
+    c = layer.c
+    x = shard_attention([s.attention for s in shards], hidden, hidden,
+                        attention_bias)
+    if layer.has_cross_attention and encoder_hidden_states is not None:
+        x = shard_attention([s.crossattention for s in shards], x,
+                            encoder_hidden_states, encoder_attention_bias,
+                            encoder_group_size)
+    m = row_sum([s.mlp_partial(x) for s in shards], layer.output.dense.bias,
+                c.dtype)
+    return post_layer_norm(m, x, layer.output.LayerNorm, c.dtype,
+                           c.fused_ln)
+
+
+def shard_whole_grads(shards) -> dict:
+    """name → the whole module's gradient from its shards': a cut
+    parameter's joined (`ops/tensor_parallel.join`), a replicated one's
+    summed over the shards that have one (a rel-pos table's columns, each
+    shard's own)."""
+    from xfm_tpu_torch.ops.tensor_parallel import join
+
+    plan = shards[0]._xfm_tensor_plan
+    named = [dict(s.named_parameters()) for s in shards]
+    out = {}
+    for name in named[0]:
+        grads = [n[name].grad for n in named]
+        if name in plan:
+            out[name] = join(grads, plan[name])
+        else:
+            have = [g for g in grads if g is not None]
+            out[name] = sum(have) if have else None
+    return out
+
+
+def _tp_check(tag, full, shards, run_full, run_shards, twin=None, seed=0,
+              grad=True) -> dict:
+    """`run_shards(shards)` (the shards' partials summed by hand) against
+    `run_full(full)`: the output and, with `grad`, every gradient (the
+    shards' joined by `shard_whole_grads`) for one output gradient;
+    a key bias's gradient (zero but for rounding: softmax is shift-
+    invariant over the keys) on its key weight's scale. `twin`: the module
+    in f32, for the bf16 gate → the launches of the shards' run."""
+    from xfm_tpu_torch.ops import kernels
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = run_full(full)
+    dy = _device_randn(g, *y.shape).to(y.dtype)
+    if grad:
+        y.backward(dy)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    ys = run_shards(shards)
+    if grad:
+        ys.backward(dy)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    named = dict(full.named_parameters())
+    pairs = [("out", ys, y)]
+    if grad:
+        joined = shard_whole_grads(shards)
+        pairs += [(n, joined[n], p.grad) for n, p in named.items()
+                  if p.grad is not None]
+    ref = {}
+    if twin is not None:
+        y32 = run_full(twin)
+        if grad:
+            y32.backward(dy.float())
+        ref = dict(out=y32, **{n: p.grad for n, p in
+                               twin.named_parameters()})
+    worst = 0.0
+    for name, got, want in pairs:
+        scale_of = (named[name[:-len("bias")] + "weight"].grad
+                    if name.endswith("key.bias") else want)
+        scale = scale_of.float().abs().max().item()
+        got, want = got.float(), want.float()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{tag}: {name} wrong shape or not finite")
+        if twin is None:
+            err = (got - want).abs().max().item()
+            tol = (SLICE_LOSS_RTOL if name == "out"
+                   else SLICE_GRAD_RTOL) * scale
+        else:
+            r = ref[name].float()
+            err = (got - r).abs().max().item()
+            tol = max(TP_BUDGET * (want - r).abs().max().item(),
+                      TOL[torch.bfloat16] * scale)
+        if not err <= tol:
+            raise AssertionError(f"{tag}: {name} {err:.3e} against "
+                                 f"{tol:.3e}")
+        worst = max(worst, err / max(tol, 1e-30))
+    print(f"  {tag}: {len(pairs)} tensors, the worst at {worst:.3f} of "
+          f"its gate; launches {json.dumps(launches)}")
+    return launches
+
+
+def _tp_module(make, c, seed):
+    """`make(c)` on the card with seeded weights (`init_weights`) moved
+    off their zero and one inits, so that every gradient is exercised;
+    with a bf16 `c` also its f32 twin (the same weights) → (module,
+    twin or None)."""
+    from xfm_tpu_torch.train.checkpoint import init_weights
+
+    module = make(c).cuda()
+    init_weights(module, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(_device_randn(g, *p.shape, scale=0.02))
+    twin = None
+    if c.dtype != torch.float32:
+        twin = make(dataclasses.replace(c, dtype=torch.float32)).cuda()
+        twin.load_state_dict(module.state_dict())
+    return module, twin
+
+
+def tp_block_check(T, dtype, res, B, fused, seed) -> dict:
+    """A full-width BEiT-2-base block (C 768, H 12, tanh-GELU; N = 197 at
+    224 px through K1, N = 577 at 384 px through K2) cut into T shards
+    (`core/partitioning.tensor_shards`), each shard's forward and backward
+    on the card with the row partials summed by hand
+    (`shard_beit_block`), against the whole block on the same
+    input and output gradient (`_tp_check`) → the launches of the shards'
+    run."""
+    from xfm_tpu_torch.core import partitioning
+    from xfm_tpu_torch.models.beit2 import BeitBlock, VisionConfig
+
+    c = VisionConfig(image_res=res, embed_dim=768, depth=1, num_heads=12,
+                     drop_path_rate=0.0, hidden_act="gelu_tanh", dtype=dtype,
+                     fused_ln=fused, fused_mlp=fused)
+    full, twin = _tp_module(BeitBlock, c, seed)
+    shards = partitioning.tensor_shards(full, T)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = _device_randn(g, B, c.num_patches + 1, 768).to(dtype)
+    tag = (f"BEiT block T={T} N={c.num_patches + 1} B={B} "
+           f"{str(dtype)[6:]}{' fused' if fused else ''}")
+    return _tp_check(tag, full, shards, lambda m: m(x),
+                     lambda s: shard_beit_block(s, x), twin, seed)
+
+
+def tp_fusion_check(T, dtype, fused, seed, B=32, Nq=40, Nk=577) -> dict:
+    """A full-width fusion layer (self-attention over B x Nq text rows
+    with padded tails, cross-attention to B x Nk image rows, the MLP) cut
+    into T shards, the shards' sums against the whole layer
+    (`_tp_check`) → the launches of the shards' run."""
+    from xfm_tpu_torch.core import partitioning
+    from xfm_tpu_torch.models.text_encoder import (TextConfig,
+                                                   TransformerLayer)
+    from xfm_tpu_torch.ops.attention import mask_to_bias
+
+    c = TextConfig.roberta_base(
+        fusion_layer=0, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, hidden_act="gelu_tanh",
+        dtype=dtype, fused_ln=fused, fused_mlp=fused)
+    full, twin = _tp_module(
+        lambda cfg: TransformerLayer(cfg, has_cross_attention=True), c, seed)
+    shards = partitioning.tensor_shards(full, T)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = _device_randn(g, B, Nq, 768).to(dtype)
+    enc = _device_randn(g, B, Nk, 768).to(dtype)
+    m = torch.ones(B, Nq, device="cuda")
+    m[:, Nq - 7:] = 0
+    bias = mask_to_bias(m)
+    tag = (f"fusion layer T={T} [{B}, {Nq}] x [{B}, {Nk}] {str(dtype)[6:]}"
+           f"{' fused' if fused else ''}")
+    return _tp_check(tag, full, shards, lambda m: m(h, bias, enc, None),
+                     lambda s: shard_text_layer(s, h, bias, enc, None),
+                     twin, seed)
+
+
+def tp_grouped_check(T, dtype, seed, U=8, gs=256, Nq=40, Nk=577) -> dict:
+    """The grouped rerank's cross-attention (`kv_group_size` gs: q a view
+    [U, gs·Nq, H/T, 64] of each shard's projection, K3 at H/T heads)
+    from the T shards of a full-width fusion layer, the output
+    projections' partials summed by hand, against the whole layer's
+    sublayer (`_tp_check`, no grad: an eval) → the launches of the
+    shards' run."""
+    from xfm_tpu_torch.core import partitioning
+    from xfm_tpu_torch.models.text_encoder import (TextConfig,
+                                                   TransformerLayer)
+    from xfm_tpu_torch.ops.attention import mask_to_bias
+
+    c = TextConfig.roberta_base(fusion_layer=0, hidden_act="gelu_tanh",
+                                dtype=dtype)
+    full, twin = _tp_module(
+        lambda cfg: TransformerLayer(cfg, has_cross_attention=True), c, seed)
+    shards = partitioning.tensor_shards(full, T)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = _device_randn(g, U * gs, Nq, 768).to(dtype)
+    enc = _device_randn(g, U, Nk, 768).to(dtype)
+    # the rerank's image-mask bias, one row a text row (all ones)
+    bias = mask_to_bias(torch.ones(U * gs, Nk, device="cuda"))
+    tag = (f"grouped rerank T={T} U={U} gs={gs} q [{U}, {gs * Nq}, "
+           f"{12 // T}, 64] {str(dtype)[6:]}")
+    with torch.no_grad():
+        return _tp_check(
+            tag, full, shards,
+            lambda m: m.crossattention(x, enc, bias, kv_group_size=gs),
+            lambda s: shard_attention([m.crossattention for m in s],
+                                           x, enc, bias, gs),
+            twin, seed, grad=False)
+
+
+def tensor_phase(unsharded: dict) -> dict:
+    """Phase 31 on one card (the module docstring); `unsharded` holds the
+    earlier phases' times at the unsharded shapes ("k1", "k2", "k3g",
+    "k5"), printed beside the shards' → the new shapes' errors, times,
+    bounds and launches."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    t0 = time.perf_counter()
+    launches = {}
+    for T in TP_SIZES:
+        for dtype in (bf16, f32):
+            for fused in (False, True):
+                got = tp_block_check(T, dtype, 224, 96, fused, 70 + T)
+                if dtype == bf16:
+                    launches[("k1", T) if not fused else ("k5", T)] = got
+            got = tp_block_check(T, dtype, 384, 32, False, 80 + T)
+            if dtype == bf16:
+                launches[("k2", T)] = got
+        tp_fusion_check(T, bf16, False, 90 + T)
+        tp_fusion_check(T, f32, True, 95 + T)
+        launches[("k3g", T)] = tp_grouped_check(T, bf16, 100 + T)
+    t_blocks = time.perf_counter() - t0
+    H, D = 12, 64
+    out = {}
+    for T in TP_SIZES:
+        h, K = H // T, 3072 // T
+        e1 = k1_parity(96, 197, h, bf16, seed=110 + T)
+        k1_parity(96, 197, h, f32, seed=111 + T)
+        e2 = k2_parity(32, (24, 24), h, bf16, seed=112 + T)
+        k2_parity(32, (24, 24), h, f32, seed=113 + T)
+        e5 = k5_parity("gelu_tanh", 18912, bf16, K=K, seed=114 + T,
+                       bias=False)
+        k5_parity("gelu_tanh", 18912, f32, K=K, seed=115 + T, bias=False)
+        e3 = k3_grouped_parity(8, 256, bf16, "tails", seed=116 + T, H=h)
+        k3_grouped_parity(8, 256, f32, "tails", seed=117 + T, H=h)
+        q, _, _, bias = k3_grouped_inputs(8, 256, bf16, "ones", 0, H=h)
+        w3 = k3_work(8, q.shape[1], 577, h, D, bf16, bias)
+        del q, bias
+        out[T] = dict(
+            k1=(e1, k1_times(96, 197, h, bf16),
+                k1_work(96, 197, h, D, bf16), launches[("k1", T)]),
+            k2=(e2, k2_times(32, (24, 24), h, bf16),
+                k2_work(32, 577, h, D, (24, 24), bf16),
+                launches[("k2", T)]),
+            k5=(e5, k5_times(18912, bf16, K=K, bias=False),
+                k5_work(18912, K, 768, bf16, bias=False),
+                launches[("k5", T)]),
+            k3g=(e3, k3_grouped_times(8, 256, bf16, H=h), w3,
+                 launches[("k3g", T)]))
+        for key, label in (("k1", "K1 [96, 197, 3·H/T·64]"),
+                           ("k2", "K2 [32, 577, 3·H/T·64]"),
+                           ("k5", "K5 M 18912 K 4C/T, no bias, f32 out"),
+                           ("k3g", "K3 grouped fwd U 8 gs 256")):
+            t = out[T][key][1]
+            base = unsharded[key]
+            print(f"  {label} T={T}: fwd {t['fwd_ms']:.4f} ms"
+                  + (f", bwd {t['bwd_ms']:.4f} ms" if "bwd_ms" in t else "")
+                  + f"; unsharded fwd {base['fwd_ms']:.4f} ms"
+                  + (f", bwd {base['bwd_ms']:.4f} ms" if "bwd_ms" in base
+                     else "")
+                  + f"; bound {json.dumps(out[T][key][2])}; launches in "
+                  f"the shards' run {json.dumps(out[T][key][3])}")
+    print(f"  phase 31 seconds: blocks {t_blocks:.1f}, kernels "
+          f"{time.perf_counter() - t0 - t_blocks:.1f}")
+    return out
+
+
+# phase 31's fixed batch on one card: two processes on card 0 over gloo at
+# each layout. `data: 2` is the control of that harness: its per-row math
+# is the one process's, so it is held to the one-process bf16 step at
+# phase 27's gates (DP_LOSS_RTOL, DP_GRAD_NORM_RTOL), which the data axis
+# meets on separate cards over NCCL. `tensor: 2` in f32 meets those gates
+# too (the cut's math is exact), but in bf16 it rounds at other places
+# (the column layers' products at 3C/T or 4C/T outputs, the attention at
+# H/T heads), ~1e-4 off the one-process bf16 step, as far as that step
+# lies from its f32 twin: it is held to that twin, each value within
+# TP_BUDGET times the one-process bf16 step's own distance from it (or
+# phase 27's gate where that distance is smaller): the cut may round
+# differently, not worse, as phase 31's blocks are held
+TP_ONE_CARD = (({"tensor": 2}, "cut"), ({"data": 2}, "control"))
+TP_STEP_VALUES = ("loss", "loss_itc", "loss_itm", "loss_mlm", "loss_mim",
+                  "grad_norm")
+
+
+def tensor_one_card_start(root: str) -> dict:
+    """Phase 31's fixed batch on one card, started: `dp_step_worker` in
+    bf16 at each layout of TP_ONE_CARD on two processes on card 0 (gloo)
+    → {layout tag: the launch}, while this process goes on."""
+    return {_layout_tag(par): _torchrun(2, [
+        os.path.join(REPO, "chip_smoke.py"), "--dp-step", root,
+        json.dumps(par), "one-card"]) for par, _ in TP_ONE_CARD}
+
+
+def tensor_one_card_finish(root: str, procs: dict) -> dict:
+    """The one-process step on phase 27's fixed global batch in bf16 and
+    in f32, in this process, then the launches of `tensor_one_card_start`
+    waited for and held as TP_ONE_CARD says → {"one", "one_f32": their
+    values, tag: {"values", "rel": each value's relative distance from
+    the one-process bf16 step, and for the cut "share": its distance from
+    the f32 step over its gate}}."""
+    def tol(k):
+        return DP_GRAD_NORM_RTOL if k == "grad_norm" else DP_LOSS_RTOL
+
+    dp_step_worker(root)
+    dp_step_worker(root, f32=True)
+    torch.cuda.empty_cache()
+    with open(os.path.join(root, "dp_step_1.json")) as f:
+        one = json.load(f)
+    with open(os.path.join(root, "dp_step_1_f32.json")) as f:
+        f32 = json.load(f)
+    print(f"  fixed global batch of 32, one process: bf16 {json.dumps(one)}"
+          f"; f32 {json.dumps(f32)}")
+    out = {"one": one, "one_f32": f32}
+    for par, role in TP_ONE_CARD:
+        tag = _layout_tag(par)
+        _finish(procs[tag], f"dp-step {tag} on one card")
+        with open(os.path.join(root, f"dp_step_2_{tag}_one_card.json")) as f:
+            got = json.load(f)
+        rel = {k: abs(got[k] - one[k]) / abs(one[k]) for k in TP_STEP_VALUES}
+        res = dict(values=got, rel=rel)
+        if role == "control":
+            bad = [k for k in TP_STEP_VALUES if not rel[k] <= tol(k)]
+        else:
+            res["share"] = {k: abs(got[k] - f32[k]) / (TP_BUDGET * max(
+                abs(one[k] - f32[k]), tol(k) * abs(f32[k])))
+                for k in TP_STEP_VALUES}
+            bad = [k for k in TP_STEP_VALUES if not res["share"][k] <= 1.0]
+        print(f"  fixed global batch of 32, bf16, {tag} on two processes on "
+              f"one card (gloo, the {role}): {json.dumps(got)}; relative to "
+              f"one process {json.dumps(rel)}"
+              + (f"; distance from the f32 step over its gate "
+                 f"{json.dumps(res['share'])}" if role == "cut" else ""))
+        if bad:
+            raise AssertionError(f"fixed global batch {tag} on one card: "
+                                 f"{bad} beyond the gate")
+        out[tag] = res
+    return out
+
+
+def tensor_kernel_entries(tp: dict) -> list:
+    """The `kernels` entries of phase 31: K1, K2, K5 (forward and
+    backward) and K3's grouped forward at each T's shard shapes, their
+    launches from the shards' runs."""
+    out = []
+    specs = (("k1", "packed_attention", 983, 1007, "packed_attention.cu",
+              ("dqkv", "db"), "h{h}"),
+             ("k2", "relpos_attention", 689, 717, "relpos_attention.cu",
+              ("dqkv", "dcr", "dcls"), "h{h}"),
+             ("k5", "fused_mlp", 75, 84, "fused_mlp.cu", ("dh", "dW"),
+              "k{k}_partial"),
+             ("k3g", "flash_attention", 71, None, "flash_attention.cu", (),
+              "grouped_rerank_h{h}"))
+    for T, rows in tp.items():
+        for key, prefix, lf, lb, src, bwd_errs, label in specs:
+            err, t, w, launches = rows[key]
+            tag = label.format(h=12 // T, k=3072 // T)
+            dirs = [("fwd", lf)] + ([("bwd", lb)] if lb else [])
+            tpu = ("xfm_tpu/ops/fused_mlp.py" if key == "k5"
+                   else "xfm_tpu/ops/flash_attention.py")
+            for d, line in dirs:
+                e = (max(err[k][0] for k in bwd_errs) if d == "bwd" else
+                     max(v[0] for k, v in err.items() if k not in bwd_errs))
+                entry = dict(
+                    name=f"{prefix}_{d}_tensor{T}_{tag}", route="cuda",
+                    source=f"xfm_tpu_torch/csrc/{src}",
+                    replaces=f"{tpu}:{line}",
+                    launches=launches.get(f"{prefix}_{d}", 0),
+                    max_abs_err=e, ms=t[f"{d}_ms"],
+                    plain_ms=t[f"plain_{d}_ms"],
+                    bound_ms=w[d]["bound_ms"], bound_by=w[d]["bound_by"],
+                    library_ms=t[f"library_{d}_ms"])
+                if key == "k5" and d == "bwd":
+                    entry["also_replaces"] = f"{tpu}:99"
+                out.append(entry)
+    return out
+
+
+def tp_decode_worker(out_dir: str, parallel=None) -> int:
+    """`python3 chip_smoke.py --tp-decode OUT [PARALLEL]` under torchrun:
+    the full-width VQA model's `rank` (k 8 of 64 answers) and the caption
+    model's beam-3 decode (f32, 384 px, weights from seed 0, cut as an
+    `--evaluate` run cuts them under PARALLEL) on 4 fixed images; rank 0
+    writes the top-k ids and probabilities and the sequences to
+    OUT/tp_decode_<W>[_<layout>].json."""
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.core import mesh
+    from xfm_tpu_torch.models import XFMForCaptioning, XFMForVQA
+    from xfm_tpu_torch.models.generation import beam_generate
+    from xfm_tpu_torch.tasks.common import TaskContext, eval_model
+
+    dev = mesh.maybe_init_distributed("cuda")
+    ctx = TaskContext(config={"parallel": parallel or {}}, out_dir=out_dir,
+                      seed=0, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    images = torch.randn(4, 384, 384, 3, generator=g).to(dev)
+    q = torch.randint(5, 1000, (4, 12), generator=g).to(dev)
+    ans = torch.randint(5, 1000, (64, 6), generator=g).to(dev)
+    ans[:, 0], ans[:, -1] = 0, 2
+    res = {}
+    with torch.device(dev):
+        vqa = XFMForVQA.from_yaml(configs.vqa_yaml(
+            image_res=384, compute_dtype="float32"))
+    vqa = eval_model(ctx, vqa).eval()
+    with torch.no_grad():
+        ids, probs = vqa.rank(images, q, torch.ones_like(q), ans,
+                              torch.ones_like(ans), 8)
+    res["rank_ids"], res["rank_probs"] = ids.tolist(), probs.float().tolist()
+    del vqa
+    with torch.device(dev):
+        cap = XFMForCaptioning.from_yaml(configs.caption_yaml(
+            image_res=384, compute_dtype="float32"))
+    cap = eval_model(ctx, cap).eval()
+    with torch.no_grad():
+        seqs = beam_generate(cap, images, bos_id=0, eos_id=2, pad_id=1,
+                             max_len=12, num_beams=3)
+    res["beam"] = seqs.tolist()
+    if mesh.rank() == 0:
+        tag = f"_{_layout_tag(parallel)}" if parallel else ""
+        with open(os.path.join(out_dir, f"tp_decode_{mesh.world_size()}"
+                               f"{tag}.json"), "w") as f:
+            json.dump(res, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def tensor_cards(root: str, dp: dict) -> dict:
+    """Phase 31 on two cards or more (W of them): at `tensor: 2` (two
+    processes) and on four at `data: 2, tensor: 2` and `fsdp: 2, tensor:
+    2`, phase 27's fixed global batch in f32 against its one-process f32
+    step (in bf16 `tensor_one_card_finish` holds `tensor: 2` on any card
+    count), `pretrain_DIY`
+    (bf16) and `itr_coco` (f32) under torchrun (`itr_coco`'s `ckpt/0`
+    evaluated on one process equal to the epoch's eval); at `tensor: 2`
+    VQA's `rank` and the caption beam decode against one process's."""
+    import yaml
+
+    from xfm_tpu_torch import run
+
+    W = torch.cuda.device_count()
+    layouts = [({"tensor": 2}, 2)] + ([({"data": 2, "tensor": 2}, 4),
+                                       ({"fsdp": 2, "tensor": 2}, 4)]
+                                      if W >= 4 else [])
+    steps = {}
+    for par, n in [({}, 1)] + layouts:
+        tag = _layout_tag(par)
+        _finish(_torchrun(n, [os.path.join(REPO, "chip_smoke.py"),
+                              "--dp-step", root, json.dumps(par), "f32"]),
+                f"dp-step {tag or 'one'} f32")
+        name = f"dp_step_{n}{'_' + tag if tag else ''}_f32.json"
+        with open(os.path.join(root, name)) as f:
+            steps[tag] = json.load(f)
+        print(f"  fixed global batch of 32, f32, {tag or 'one process'}: "
+              f"{json.dumps(steps[tag])}")
+    one = steps[""]
+    with open(os.path.join(root, "ft.yaml")) as f:
+        ft32 = dict(yaml.safe_load(f), compute_dtype="float32")
+    ft32_path = os.path.join(root, "ft_f32.yaml")
+    with open(ft32_path, "w") as f:
+        yaml.safe_dump(ft32, f)
+    out = {}
+    for par, n in layouts:
+        tag = _layout_tag(par)
+        got = steps[tag]
+        for k in ("loss", "loss_itc", "loss_itm", "loss_mlm", "loss_mim",
+                  "grad_norm"):
+            tol = DP_GRAD_NORM_RTOL if k == "grad_norm" else DP_LOSS_RTOL
+            if not abs(got[k] - one[k]) <= tol * abs(one[k]):
+                raise AssertionError(f"fixed global batch {tag}: {k} "
+                                     f"{got[k]}, one process {one[k]}")
+        cfgs = {}
+        for name, path in (("pt", os.path.join(root, "pt.yaml")),
+                           ("ft", ft32_path)):
+            with open(path) as f:
+                cfg = dict(yaml.safe_load(f), parallel=par)
+            cfgs[name] = os.path.join(root, f"{name}_{tag}.yaml")
+            with open(cfgs[name], "w") as f:
+                yaml.safe_dump(cfg, f)
+        pt_dir, ft_dir = (os.path.join(root, f"{x}_{tag}")
+                          for x in ("pt", "ft"))
+        bs = str(24 * (n // 2))  # 24 rows a data × fsdp rank
+        _finish(_torchrun(n, ["-m", "xfm_tpu_torch.run", "--task",
+                              "pretrain_DIY", "--config", cfgs["pt"],
+                              "--device", "cuda", "--bs", bs,
+                              "--output_dir", pt_dir]),
+                f"pretrain_DIY {tag}")
+        _finish(_torchrun(n, [
+            "-m", "xfm_tpu_torch.run", "--task", "itr_coco", "--config",
+            cfgs["ft"], "--device", "cuda", "--seed", "0", "--bs", bs,
+            "--epoch", "1", "--output_dir", ft_dir]), f"itr_coco {tag}")
+        pt_losses = [x for e in _last_log(pt_dir) for x in e["losses"]]
+        ft_log = _last_log(ft_dir)
+        ev = run.main(["--task", "itr_coco", "--config", ft32_path,
+                       "--device", "cuda", "--seed", "0", "--evaluate",
+                       "--checkpoint",
+                       os.path.join(ft_dir, "ckpt", "0", "state.pt"),
+                       "--output_dir", ft_dir + "_ev"])
+        print(f"  {tag}: pretrain_DIY losses {pt_losses}; itr_coco (f32) "
+              f"epoch eval {ft_log[1]['r_mean']}, one process's eval of "
+              f"its ckpt/0 {ev['r_mean']}")
+        if (len(pt_losses) != 2 or not all(map(math.isfinite, pt_losses))
+                or ev != {k: ft_log[1][k] for k in ev}):
+            raise AssertionError(f"{tag}: the pretrain losses or the eval "
+                                 f"of ckpt/0")
+        out[tag] = dict(fixed_batch_f32=got, pretrain_losses=pt_losses,
+                        r_mean=ft_log[1]["r_mean"])
+        for d in (pt_dir, ft_dir, ft_dir + "_ev"):
+            shutil.rmtree(d, ignore_errors=True)
+    out["fixed_batch_f32_one"] = one
+    dec = {}
+    for par, n in ((None, 1), ({"tensor": 2}, 2)):
+        _finish(_torchrun(n, [os.path.join(REPO, "chip_smoke.py"),
+                              "--tp-decode", root]
+                          + ([json.dumps(par)] if par else [])),
+                f"tp-decode {_layout_tag(par) or 'one'}")
+        tag = f"_{_layout_tag(par)}" if par else ""
+        with open(os.path.join(root, f"tp_decode_{n}{tag}.json")) as f:
+            dec[n] = json.load(f)
+    probs = np.abs(np.asarray(dec[1]["rank_probs"])
+                   - np.asarray(dec[2]["rank_probs"])).max()
+    same_ids = dec[1]["rank_ids"] == dec[2]["rank_ids"]
+    print(f"  tensor2: rank ids equal {same_ids}, probabilities within "
+          f"{probs:.2e}; beam sequences equal "
+          f"{dec[1]['beam'] == dec[2]['beam']}")
+    if (dec[1]["rank_ids"] != dec[2]["rank_ids"] or probs > RANK_PROB_ATOL
+            or dec[1]["beam"] != dec[2]["beam"]):
+        raise AssertionError("tensor2: rank_answer or the beam decode")
+    out["decode"] = dict(rank_prob_err=float(probs))
+    return out
 
 
 def phase(header: str) -> None:
@@ -7064,11 +7754,48 @@ def main() -> int:
           "the large widths, the large slice, checkpointing on against off, "
           "the BEiT-2-large pretrain task and its profiles")
     rm = remat_phase()
-    phase("phase 30: FSDP: the sharded pretrain task on a one-rank mesh "
-          "held to the plain run, its checkpoint resumed unsharded and "
-          "exported; with more cards the layouts under torchrun")
-    fs = fsdp_phase(dp)
-    print("  fsdp: " + json.dumps(fs))
+    import tempfile
+
+    tp_root = tempfile.mkdtemp(prefix="xfm_tp_")
+    launched = {}
+    try:
+        phase("phase 30: FSDP: the sharded pretrain task on a one-rank mesh "
+              "held to the plain run, its checkpoint resumed unsharded and "
+              "exported; with more cards the layouts under torchrun")
+        one_card = torch.cuda.device_count() == 1
+        if one_card:  # phase 31's two-process runs on this card start
+            # here: their start-up overlaps phase 30, which times no kernel
+            # (with more cards phase 30 fills card 0 itself)
+            launched = tensor_one_card_start(tp_root)
+        fs = fsdp_phase(dp, keep_root=True)
+        print("  fsdp: " + json.dumps(fs))
+        phase("phase 31: tensor parallelism: full-width BEiT-2 blocks and "
+              "fusion layers cut into T = 2 and 4 shards, summed by hand on "
+              "the card against the whole module; K1, K2, K3 and K5 at the "
+              "shards' shapes; the fixed batch at tensor: 2 on two processes "
+              "on this card; with more cards the layouts under torchrun")
+        if not one_card:
+            launched = tensor_one_card_start(tp_root)
+        # the launches end before the kernels are timed
+        print("  tensor one card: " + json.dumps(
+            tensor_one_card_finish(tp_root, launched)))
+        tp = tensor_phase(dict(k1=k1_t, k2=k2_t, k3g=k3g_t, k5=k5_t))
+        if torch.cuda.device_count() >= 2:
+            print("  tensor cards: " + json.dumps(
+                tensor_cards(dp["root"], dp)))
+        else:
+            print("  tensor: 2 (and data: 2 x tensor: 2, fsdp: 2 x tensor: 2 "
+                  "on four) under torchrun over NCCL, pretrain_DIY, "
+                  "itr_coco, rank_answer and the beam decode: not run, this "
+                  "machine has one card; the CPU tests run two and four "
+                  "gloo processes at those layouts")
+    finally:
+        for proc in launched.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+        shutil.rmtree(dp["root"], ignore_errors=True)
+        shutil.rmtree(tp_root, ignore_errors=True)
 
     entries = (kernel_entries("packed_attention",
                               "xfm_tpu/ops/flash_attention.py", 983, 1007,
@@ -7108,10 +7835,11 @@ def main() -> int:
                + tower_kernel_entries(*tw["k3"], tw["deit_launches"])
                + pretrain_kernel_entries(*rm["k1"][192], *rm["k1"][80],
                                          rm["prof"]["full_yaml_by_stream"],
-                                         label="large"))
+                                         label="large")
+               + tensor_kernel_entries(tp))
     ends = PHASE_T[1:] + [time.perf_counter()]
     by_phase = [round(b - a, 1) for a, b in zip(PHASE_T, ends)]
-    print(f"chip_smoke: 30 phases in {ends[-1] - t_start:.1f} s; seconds "
+    print(f"chip_smoke: 31 phases in {ends[-1] - t_start:.1f} s; seconds "
           f"by phase {json.dumps(by_phase)}")
     print(json.dumps({"kernels": entries}))
     print(smi)
@@ -7124,9 +7852,14 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-step"]:
         sys.exit(dp_step_worker(sys.argv[2], json.loads(sys.argv[3])
-                                if len(sys.argv) > 3 else None))
+                                if len(sys.argv) > 3 else None,
+                                f32="f32" in sys.argv[4:],
+                                one_card="one-card" in sys.argv[4:]))
     if sys.argv[1:2] == ["--fsdp-peak"]:
         sys.exit(fsdp_peak_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--tp-decode"]:
+        sys.exit(tp_decode_worker(sys.argv[2], json.loads(sys.argv[3])
+                                  if len(sys.argv) > 3 else None))
     if sys.argv[1:2] == ["--dp-task"]:
         sys.exit(dp_task_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -211,17 +211,18 @@ def test_rank_rows_partition_the_global_batches(runs):
 
 @pytest.mark.parametrize("axis", ["fsdp", "tensor", "pipe"])
 def test_mesh_from_config_refuses_other_axes(axis):
-    """(j) `tensor` or `pipe` > 1 raise; `fsdp` runs (`core/partitioning`)
-    but must divide the world size; `data: -1` takes the world size over
-    `fsdp`, another `data` must make data × fsdp the world size."""
-    if axis == "fsdp":  # one process cannot hold 2 shards
-        with pytest.raises(ValueError, match=axis):
-            mesh.mesh_from_config({"parallel": {"data": -1, axis: 2}})
-    else:
+    """(j) `pipe` > 1 raises; `fsdp` and `tensor` run
+    (`core/partitioning`) but must divide the world size; `data: -1` takes
+    the world size over fsdp × tensor, another `data` must make data ×
+    fsdp × tensor the world size."""
+    if axis == "pipe":
         with pytest.raises(mesh.MultiProcessUnsupported, match=axis):
             mesh.mesh_from_config({"parallel": {"data": -1, axis: 2}})
+    else:  # one process cannot hold 2 shards or 2 cuts
+        with pytest.raises(ValueError, match=axis):
+            mesh.mesh_from_config({"parallel": {"data": -1, axis: 2}})
     assert mesh.mesh_from_config(
-        {"parallel": {"data": -1, "fsdp": 1, "tensor": 1}}) == (1, 1)
+        {"parallel": {"data": -1, "fsdp": 1, "tensor": 1}}) == (1, 1, 1)
     with pytest.raises(ValueError):
         mesh.mesh_from_config({"parallel": {"data": 4}})
 

@@ -407,27 +407,37 @@ def test_task_runs_under_fsdp(runs, tmp_path):
 
 
 def test_mesh_axes():
-    """`data` × `fsdp` must be the world size: `data: -1` takes the rest,
-    an `fsdp` that does not divide it or a `data` that does not make it
-    up raises; `tensor` and `pipe` > 1 raise `MultiProcessUnsupported`
-    naming the ROADMAP's next items."""
+    """`data` × `fsdp` × `tensor` must be the world size: `data: -1` takes
+    the rest, an `fsdp` × `tensor` that does not divide it or a `data`
+    that does not make it up raises; `tensor` is the innermost axis (a
+    tensor group is T consecutive ranks, the batch split over W / T);
+    `pipe` > 1 raises `MultiProcessUnsupported` naming the ROADMAP's next
+    item."""
     with pytest.MonkeyPatch.context() as m:
         m.setattr(mesh, "world_size", lambda: 4)
-        assert mesh.mesh_from_config({"parallel": {"fsdp": 2}}) == (2, 2)
+        assert mesh.mesh_from_config({"parallel": {"fsdp": 2}}) == (2, 2, 1)
         assert mesh.mesh_from_config(
-            {"parallel": {"data": -1, "fsdp": 4}}) == (1, 4)
+            {"parallel": {"data": -1, "fsdp": 4}}) == (1, 4, 1)
         assert mesh.mesh_from_config({"parallel": {"data": 2,
-                                                   "fsdp": 2}}) == (2, 2)
-        assert mesh.mesh_from_config({}) == (4, 1)
+                                                   "fsdp": 2}}) == (2, 2, 1)
+        assert mesh.mesh_from_config({}) == (4, 1, 1)
+        assert mesh.mesh_from_config({"parallel": {"tensor": 2}}) == (2, 1,
+                                                                      2)
+        assert mesh.mesh_from_config(
+            {"parallel": {"fsdp": 2, "tensor": 2}}) == (1, 2, 2)
         with pytest.raises(ValueError, match="fsdp"):
             mesh.mesh_from_config({"parallel": {"fsdp": 3}})
+        with pytest.raises(ValueError, match="tensor"):
+            mesh.mesh_from_config({"parallel": {"fsdp": 2, "tensor": 4}})
         with pytest.raises(ValueError, match="data"):
             mesh.mesh_from_config({"parallel": {"data": 4, "fsdp": 2}})
-        for axis, item in (("tensor", "tensor parallelism"),
-                           ("pipe", "core/pipeline")):
-            with pytest.raises(mesh.MultiProcessUnsupported,
-                               match=item):
-                mesh.mesh_from_config({"parallel": {axis: 2}})
+        with pytest.raises(mesh.MultiProcessUnsupported,
+                           match="core/pipeline"):
+            mesh.mesh_from_config({"parallel": {"pipe": 2}})
+        m.setattr(mesh, "rank", lambda: 3)
+        m.setattr(mesh, "tensor_size", lambda: 2)
+        assert (mesh.dp_size(), mesh.dp_rank(), mesh.tensor_rank()) == (
+            2, 1, 1)
 
 
 def test_to_torch_matches_jax_export(slice_setup, tmp_path):  # noqa: F811

@@ -307,16 +307,18 @@ def make_pretrain_run(B: int = 48, T: int = 30, M: int = 15,
                       device="cuda", seed: int = 0,
                       fused_ln: Optional[bool] = None,
                       fused_mlp: Optional[bool] = None,
-                      parallel: Optional[dict] = None):
+                      parallel: Optional[dict] = None,
+                      dtype: torch.dtype = torch.bfloat16):
     """The XFM-base pretrain step as `bench.py` drives it: random weights
     from `seed`, the seeded batch, HF-AdamW on
     linear_warmup_decay(1e-4, 1000, 100); the fused routes as
-    `xfm_base_pretrain_config` takes them; with `parallel` (a YAML's
-    `parallel` block) the state placed as a task places it
-    (`tasks.common.place_state`: sharded where `fsdp` > 1). → (state,
-    batch, step) with step(state, batch, generator) -> (state,
-    metrics)."""
-    cfg = xfm_base_pretrain_config(fused_ln=fused_ln, fused_mlp=fused_mlp)
+    `xfm_base_pretrain_config` takes them, computing in `dtype`; with
+    `parallel` (a YAML's `parallel` block) the state placed as a task
+    places it (`tasks.common.place_state`: cut where `tensor` > 1, sharded
+    where `fsdp` > 1). → (state, batch, step) with step(state, batch,
+    generator) -> (state, metrics)."""
+    cfg = xfm_base_pretrain_config(fused_ln=fused_ln, fused_mlp=fused_mlp,
+                                   dtype=dtype)
     model = new_model(lambda: XFMForPretrain(cfg), device, seed)
     sched = linear_warmup_decay(1e-4, 1000, 100)
     if parallel is None:

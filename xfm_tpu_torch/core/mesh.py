@@ -30,12 +30,18 @@ every gradient and the updated parameters. The pieces of that rule:
   metric is the one-process metric.
 
 `fsdp` > 1 shards the parameters over the ranks of each replica
-(`core/partitioning`, FSDP2): the batch is split over all W ranks as
-above, and FSDP2's reduce-scatter takes the place of `reduce_gradients`.
-`tensor` and `pipe` > 1 in a config's `parallel` block raise
-(`mesh_from_config`). `constrain_batch_sharding` and
-`constrain_seq_sharding` are GSPMD layout hints with no counterpart under
-data parallelism and are not ported."""
+(`core/partitioning`, FSDP2), and FSDP2's reduce-scatter takes the place
+of `reduce_gradients`. `tensor` T > 1 cuts the attention and MLP weights
+of every block over the T ranks of a tensor group (`core/partitioning`,
+`ops/tensor_parallel`): the T ranks of a group take the same rows, so the
+batch is split over the data × fsdp ranks only (`dp_size`, `dp_rank`),
+and every batch split, generator and merge above runs over those ranks
+(`use_mesh` makes their groups): on W = D·F·T processes a step equals one
+process's step on the global batch as before, and an eval counts each row
+once. The tensor axis is innermost (consecutive ranks share a group).
+`pipe` > 1 in a config's `parallel` block raises (`mesh_from_config`).
+`constrain_batch_sharding` and `constrain_seq_sharding` are GSPMD layout
+hints with no counterpart here and are not ported."""
 from __future__ import annotations
 
 import dataclasses
@@ -48,8 +54,9 @@ import torch
 
 class MultiProcessUnsupported(NotImplementedError):
     """A `parallel` setting that does not run in the port yet (ROADMAP.md,
-    Queue 1: tensor and pipeline parallelism), or a function with no
-    entry point that runs on one process only (GradCAM grounding)."""
+    Queue 1: pipeline parallelism, sequence sharding and the tensor cut of
+    the CLIP, Swin and DeiT towers), or a function with no entry point
+    that runs on one process only (GradCAM grounding)."""
 
 
 def _dist():
@@ -71,9 +78,56 @@ def rank() -> int:
     return dist.get_rank() if dist is not None else 0
 
 
+@dataclasses.dataclass
+class _Layout:
+    """This process's place on the mesh: the tensor size and the two
+    groups of `use_mesh` (None while T = 1: the default group is both)."""
+    tensor: int = 1
+    tensor_group: object = None
+    dp_group: object = None
+
+
+_LAYOUT = _Layout()
+
+
+def tensor_size() -> int:
+    """T: the ranks of a tensor group, which hold the cuts of one weight
+    and take the same rows (1 unless `use_mesh` set more)."""
+    return _LAYOUT.tensor
+
+
+def tensor_rank() -> int:
+    """This process's place in its tensor group."""
+    return rank() % tensor_size()
+
+
+def tensor_group():
+    """The process group of this rank's tensor group (ranks T·d … T·d +
+    T − 1), or None where T = 1."""
+    return _LAYOUT.tensor_group
+
+
+def dp_size() -> int:
+    """The ranks the batch is split over: data × fsdp = W / T."""
+    return world_size() // tensor_size()
+
+
+def dp_rank() -> int:
+    """This rank's place among the `dp_size` ranks that split the batch
+    (the rank of its tensor group)."""
+    return rank() // tensor_size()
+
+
+def dp_group():
+    """The process group of the data × fsdp ranks at this rank's tensor
+    index (ranks t, t + T, …): the collectives over the batch; None (the
+    default group) where T = 1."""
+    return _LAYOUT.dp_group
+
+
 def is_distributed() -> bool:
-    """More than one process in an initialized group."""
-    return world_size() > 1
+    """The batch is split over more than one rank (`dp_size` > 1)."""
+    return dp_size() > 1
 
 
 def maybe_init_distributed(device: str = "cuda") -> str:
@@ -110,55 +164,87 @@ def maybe_init_distributed(device: str = "cuda") -> str:
 
 
 class MeshShape(NamedTuple):
-    """The sizes of the port's two axes, `data` (replicas) and `fsdp`
-    (parameter shards, `core/partitioning`), whose product is the world
-    size. Rank r sits at (r // fsdp, r % fsdp), the `data` axis outer, as
-    the JAX package lays its devices out."""
+    """The sizes of the port's three axes, `data` (replicas), `fsdp`
+    (parameter shards, `core/partitioning`) and `tensor` (the Megatron
+    cut, `ops/tensor_parallel`), whose product is the world size. Rank r
+    sits at (r // (fsdp·tensor), r // tensor % fsdp, r % tensor), the
+    `data` axis outer and `tensor` inner, as the JAX package lays its
+    devices out."""
     data: int
     fsdp: int
+    tensor: int = 1
 
 
 def mesh_from_config(config: dict) -> MeshShape:
     """The config's `parallel` block → the `MeshShape` of the processes
-    (one a card), as `xfm_tpu/core/mesh.py` `mesh_from_config`: `fsdp`
-    must divide the world size, `data: -1` takes the rest of it, any other
-    `data` must make data × fsdp the world size (else ValueError);
-    `tensor` or `pipe` > 1 raise `MultiProcessUnsupported` (ROADMAP.md
-    Queue 1, item 4: tensor parallelism next, then GPipe as
-    `core/pipeline`)."""
+    (one a card), as `xfm_tpu/core/mesh.py` `mesh_from_config`: `fsdp` ×
+    `tensor` must divide the world size, `data: -1` takes the rest of it,
+    any other `data` must make data × fsdp × tensor the world size (else
+    ValueError); `pipe` > 1 raises `MultiProcessUnsupported` (ROADMAP.md
+    Queue 1, item 4: `core/pipeline` (GPipe)). Whether T divides the
+    heads and the MLP width is checked where the model is cut
+    (`core/partitioning.cut_model`)."""
     par = config.get("parallel") or {}
-    for axis, item in (("tensor", "tensor parallelism, the next part of "
-                        "item 4"),
-                       ("pipe", "core/pipeline (GPipe), after tensor "
-                        "parallelism in item 4")):
-        if int(par.get(axis, 1) or 1) > 1:
-            raise MultiProcessUnsupported(
-                f"parallel.{axis} = {par[axis]}: the port runs the data and "
-                f"fsdp axes only; {item} is in ROADMAP.md Queue 1 "
-                f"(multi-card past the data axis)")
+    if int(par.get("pipe", 1) or 1) > 1:
+        raise MultiProcessUnsupported(
+            f"parallel.pipe = {par['pipe']}: the port runs the data, fsdp "
+            f"and tensor axes; core/pipeline (GPipe) is in ROADMAP.md "
+            f"Queue 1, item 4 (multi-card past the data axis)")
     w = world_size()
     fsdp = int(par.get("fsdp", 1) or 1)
-    if fsdp < 1 or w % fsdp:
-        raise ValueError(f"parallel.fsdp = {fsdp} does not divide the {w} "
-                         f"processes")
+    tensor = int(par.get("tensor", 1) or 1)
+    if fsdp < 1 or tensor < 1 or w % (fsdp * tensor):
+        raise ValueError(f"parallel.fsdp = {fsdp} × tensor = {tensor} does "
+                         f"not divide the {w} processes")
     data = int(par.get("data", -1) or -1)
     if data == -1:
-        data = w // fsdp
-    if data * fsdp != w:
-        raise ValueError(f"parallel.data = {data} × fsdp = {fsdp} but {w} "
-                         f"processes run")
-    return MeshShape(data, fsdp)
+        data = w // (fsdp * tensor)
+    if data * fsdp * tensor != w:
+        raise ValueError(f"parallel.data = {data} × fsdp = {fsdp} × tensor "
+                         f"= {tensor} but {w} processes run")
+    return MeshShape(data, fsdp, tensor)
+
+
+def use_mesh(shape: MeshShape) -> MeshShape:
+    """Place this process on `shape`: with T = `shape.tensor` > 1 the
+    tensor groups (T consecutive ranks) and the data × fsdp groups (the
+    ranks of one tensor index) made, which every rank must do together;
+    T = 1 leaves the default group for both. The same T again keeps the
+    groups made. → `shape`."""
+    t = int(shape.tensor)
+    if t == _LAYOUT.tensor and (t == 1 or _LAYOUT.tensor_group is not None):
+        return shape
+    dist = _dist()
+    w = world_size()
+    if t == 1:
+        _LAYOUT.__init__()
+        return shape
+    if dist is None or w % t:
+        raise ValueError(f"parallel.tensor = {t} needs a process group of a "
+                         f"multiple of {t} processes, not {w}")
+    me = rank()
+    tgroup = dgroup = None
+    for d in range(w // t):  # every rank makes every group, in one order
+        g = dist.new_group(list(range(d * t, (d + 1) * t)))
+        if me // t == d:
+            tgroup = g
+    for i in range(t):
+        g = dist.new_group(list(range(i, w, t)))
+        if me % t == i:
+            dgroup = g
+    _LAYOUT.tensor, _LAYOUT.tensor_group, _LAYOUT.dp_group = t, tgroup, dgroup
+    return shape
 
 
 def device_mesh(shape: MeshShape, device):
     """The `torch.distributed` DeviceMesh of `shape` with the dims
-    ("data", "fsdp") over the initialized group, on the CPU (gloo) or the
-    card (NCCL) of `device`."""
+    ("data", "fsdp", "tensor") over the initialized group, on the CPU
+    (gloo) or the card (NCCL) of `device`."""
     from torch.distributed.device_mesh import init_device_mesh
 
     kind = "cpu" if str(device).startswith("cpu") else "cuda"
-    return init_device_mesh(kind, (shape.data, shape.fsdp),
-                            mesh_dim_names=("data", "fsdp"))
+    return init_device_mesh(kind, (shape.data, shape.fsdp, shape.tensor),
+                            mesh_dim_names=("data", "fsdp", "tensor"))
 
 
 def rank_seed(seed) -> list:
@@ -166,25 +252,26 @@ def rank_seed(seed) -> list:
     runs (a rank's own augmentation): on one process the list as it is, so
     that a single-process run draws what it drew before."""
     seed = list(seed) if isinstance(seed, (list, tuple)) else [seed]
-    return seed + [rank()] if is_distributed() else seed
+    return seed + [dp_rank()] if is_distributed() else seed
 
 
 def rank_rows(order: np.ndarray, batch_size: int) -> np.ndarray:
     """This rank's rows of each global batch of W · `batch_size` rows of
     `order`: rows [r·b, (r+1)·b) of each, so that the union over the ranks
     is the one-process order, batch by batch; a last partial global batch
-    is dropped. One process: `order` as it is."""
-    w = world_size()
+    is dropped. One process: `order` as it is. W and r here and below are
+    `dp_size` and `dp_rank`: the ranks of a tensor group share rows."""
+    w = dp_size()
     if w == 1:
         return order
     n = len(order) // (w * batch_size)
     return np.asarray(order)[: n * w * batch_size].reshape(
-        n, w, batch_size)[:, rank()].reshape(-1)
+        n, w, batch_size)[:, dp_rank()].reshape(-1)
 
 
 def rank_strided(items):
     """Items r, r + W, r + 2W, … of this rank r (its share of an eval)."""
-    return items[rank()::world_size()]
+    return items[dp_rank()::dp_size()]
 
 
 def rank_batches(items, batch_size: int):
@@ -193,10 +280,11 @@ def rank_batches(items, batch_size: int):
     concatenated, so that every batch a rank evaluates is one that a
     single process forms (`merge_rank_batches` puts their rows back in
     order). One process: `items` as they are."""
-    w = world_size()
+    w = dp_size()
     if w == 1:
         return items
-    idx = [i for s in range(rank() * batch_size, len(items), w * batch_size)
+    idx = [i for s in range(dp_rank() * batch_size, len(items),
+                            w * batch_size)
            for i in range(s, min(s + batch_size, len(items)))]
     if isinstance(items, np.ndarray):
         return items[idx]
@@ -224,7 +312,7 @@ def rank_slice(batch):
     batch (a dict, tuple or list of arrays or tensors), as `shard_batch`
     places them; an array whose leading size does not divide by W stays
     whole, as the JAX package replicates it."""
-    r, w = rank(), world_size()
+    r, w = dp_rank(), dp_size()
 
     def take(x):
         if isinstance(x, dict):
@@ -271,7 +359,7 @@ def step_generators(seed: int, key, device) -> StepGenerators:
     entropy = [int(seed), *map(int, key)]
     shared = int(np.random.SeedSequence(entropy).generate_state(
         1, np.uint64)[0])
-    own = int(np.random.SeedSequence(entropy, spawn_key=(rank(),))
+    own = int(np.random.SeedSequence(entropy, spawn_key=(dp_rank(),))
               .generate_state(1, np.uint64)[0])
     return StepGenerators(
         shared=torch.Generator(device=device).manual_seed(shared),
@@ -279,24 +367,25 @@ def step_generators(seed: int, key, device) -> StepGenerators:
 
 
 # --- collectives ------------------------------------------------------------
+# Each runs over the data × fsdp ranks of this rank's tensor index
+# (`dp_group`; the whole group where T = 1), so that the T ranks of a
+# tensor group, which hold the same rows, are counted once.
 
 def all_gather(x: torch.Tensor) -> torch.Tensor:
     """The ranks' `x` (equal shapes) concatenated along dim 0 in rank
     order, without gradient; `x` itself on one process."""
     dist = _dist()
-    if dist is None or dist.get_world_size() == 1:
+    if dist is None or dp_size() == 1:
         return x
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, x.contiguous())
+    parts = [torch.empty_like(x) for _ in range(dp_size())]
+    dist.all_gather(parts, x.contiguous(), group=dp_group())
     return torch.cat(parts)
 
 
 class _AllGatherWithGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        import torch.distributed as dist
-
-        ctx.rank, ctx.n = dist.get_rank(), x.shape[0]
+        ctx.rank, ctx.n = dp_rank(), x.shape[0]
         return all_gather(x)
 
     @staticmethod
@@ -306,7 +395,7 @@ class _AllGatherWithGrad(torch.autograd.Function):
         # each rank's gradient of the gathered rows, summed over the ranks
         # (gloo has no reduce-scatter), then the owner's own rows
         grad = grad.contiguous()
-        dist.all_reduce(grad)
+        dist.all_reduce(grad, group=dp_group())
         return grad[ctx.rank * ctx.n:(ctx.rank + 1) * ctx.n]
 
 
@@ -321,16 +410,16 @@ def all_gather_with_grad(x: torch.Tensor) -> torch.Tensor:
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     """The sum over the ranks (a new tensor, no gradient)."""
     dist = _dist()
-    if dist is None or dist.get_world_size() == 1:
+    if dist is None or dp_size() == 1:
         return x
     x = x.detach().clone()
-    dist.all_reduce(x)
+    dist.all_reduce(x, group=dp_group())
     return x
 
 
 def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean over the ranks (a new tensor, no gradient)."""
-    w = world_size()
+    w = dp_size()
     return x if w == 1 else all_reduce_sum(x) / w
 
 
@@ -342,11 +431,12 @@ def mean_divisor(count: torch.Tensor, floor: float = 1.0) -> torch.Tensor:
     if not is_distributed():
         return torch.clamp(count, min=floor)
     total = all_reduce_sum(count.detach().to(torch.float64))
-    return (torch.clamp(total, min=floor) / world_size()).to(
+    return (torch.clamp(total, min=floor) / dp_size()).to(
         torch.float32 if not count.is_floating_point() else count.dtype)
 
 
 def barrier() -> None:
+    """Every rank of the group meets here."""
     dist = _dist()
     if dist is not None and dist.get_world_size() > 1:
         dist.barrier()
@@ -425,11 +515,13 @@ def reduce_gradients(params) -> None:
     gradient, which the port's optimizers step as they step a missing one.
     Call it once an optimizer step, before the clip; a no-op on one
     process. Never on a model that `core/partitioning.shard_model` sharded:
-    FSDP2 has reduce-scattered its gradients in the backward already."""
+    FSDP2 has reduce-scattered its gradients in the backward already. A
+    weight cut over the tensor group is averaged with the same cut of the
+    other replicas."""
     dist = _dist()
-    if dist is None or dist.get_world_size() == 1:
+    if dist is None or dp_size() == 1:
         return
-    w = dist.get_world_size()
+    w = dp_size()
     params = [p for p in params if p.requires_grad]
     with torch.no_grad():
         start = 0
@@ -445,7 +537,7 @@ def reduce_gradients(params) -> None:
                 (p.grad if p.grad is not None else torch.zeros_like(p))
                 .reshape(-1).to(device=dev, dtype=torch.float32)
                 for p in group])
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=dp_group())
             flat /= w
             off = 0
             for p in group:

@@ -1,7 +1,9 @@
-"""Parameter sharding over the `fsdp` axis (`xfm_tpu/core/partitioning.py`)
-as FSDP2: `torch.distributed.fsdp.fully_shard` on a DeviceMesh of dims
-("data", "fsdp") (`core/mesh.device_mesh`), which is HSDP where data > 1
-and plain FSDP where data = 1. NCCL on the card, gloo on the CPU.
+"""Parameter sharding over the `tensor` and `fsdp` axes
+(`xfm_tpu/core/partitioning.py`): the Megatron tensor cut
+(`ops/tensor_parallel`, below), then FSDP2:
+`torch.distributed.fsdp.fully_shard` on the ("data", "fsdp") dims of a
+DeviceMesh (`core/mesh.device_mesh`), which is HSDP where data > 1 and
+plain FSDP where data = 1. NCCL on the card, gloo on the CPU.
 
 The JAX package gives each parameter a PartitionSpec by path rules
 (`DEFAULT_RULES`) and lets GSPMD gather it where it is used. FSDP2 shards
@@ -52,6 +54,28 @@ The kernels K1-K5 launch through their `autograd.Function`s on the gathered
 A checkpoint holds the full tensors whatever the layout (`full_tensor`,
 `full_parameters`; every rank takes part in the gather, rank 0 writes) and
 is cut back into the shards on restore (`shard_of`).
+
+`parallel.tensor` T > 1 first cuts the model over the T ranks of each
+tensor group (`cut_model`), as Megatron pairs: column (by output
+features) `qkv` (the q, k and v rows of the rank's heads), `q_bias`,
+`v_bias`, `fc1`, `query`/`key`/`value` of every self- and
+cross-attention and `intermediate.dense`; row (by input features)
+`proj`, `fc2`, `attention.output.dense` (and the cross-attention's) and
+`output.dense`, whose biases stay whole. Everything else stays whole on
+every rank: the embeddings (with the tied MLM decoder), the patch
+kernels, the rel-pos tables (a rank reads its heads' columns),
+`vision_proj`/`text_proj`, `temp` and the heads. FSDP2 then shards what
+the cut left over the ("data", "fsdp") ranks of each tensor index. This
+differs from `DEFAULT_RULES` in layout only: the JAX rules cut `proj`,
+`vision_proj`, `text_proj` and the word embeddings over `tensor` and
+miss the text MLP's `intermediate_dense`/`output_dense` (their regexes
+name `intermediate/dense` and `ffn_output/dense`), which GSPMD then
+gathers; the port cuts all four pairs of every block, so that no layer
+waits on an all-gather, and GSPMD keeps the math the same either way.
+A cut parameter carries its kind (`tensor_cut_of`), by which the
+checkpoint gathers it whole and cuts it back, and the optimizer's norms
+sum it over the tensor group. The CLIP-ViT, Swin and DeiT towers are not
+cut (`models/xfm.config_from_yaml` refuses them at T > 1).
 """
 from __future__ import annotations
 
@@ -59,6 +83,8 @@ import contextlib
 import functools
 
 import torch
+
+from ..ops import tensor_parallel as tp
 
 # the methods that the tasks and the evals call on a task model
 ROOT_METHODS = ("loss", "encode_images", "encode_texts",
@@ -77,6 +103,122 @@ def unit_types() -> tuple:
 
     return (BeitBlock, ClipEncoderLayer, DeitBlock, SwinBlock,
             TransformerLayer)
+
+
+def model_cut():
+    """This process's `TensorCut` (`core/mesh`'s tensor group), or None
+    where T = 1."""
+    from . import mesh
+
+    if mesh.tensor_size() == 1:
+        return None
+    return tp.TensorCut(mesh.tensor_size(), mesh.tensor_rank(),
+                        mesh.tensor_group())
+
+
+def tensor_cut_of(t) -> "str | None":
+    """The kind of tensor cut of a parameter (or of the master or moment
+    laid out as it): "column", "row", "qkv", or None for a whole one."""
+    return getattr(t, "_xfm_tensor_cut", None)
+
+
+def cut_plan(model) -> tuple:
+    """(name → cut kind of each parameter `cut_model` cuts, the modules
+    that read their cut: the attentions, MLPs and layers of the BEiT-2
+    towers and text stacks, and the BEiT-2 towers for their shared
+    table)."""
+    from ..models.beit2 import BeitAttention, BeitVisionTransformer, _Mlp
+    from ..models.text_encoder import SelfAttention, TransformerLayer
+
+    col, row, qkv = tp.COLUMN, tp.ROW, tp.QKV
+    local = {
+        BeitAttention: {"qkv.weight": qkv, "q_bias": col, "v_bias": col,
+                        "proj.weight": row},
+        _Mlp: {"fc1.weight": col, "fc1.bias": col, "fc2.weight": row},
+        SelfAttention: {f"self.{n}.{w}": col for n in ("query", "key",
+                                                        "value")
+                        for w in ("weight", "bias")}
+        | {"output.dense.weight": row},
+        TransformerLayer: {"intermediate.dense.weight": col,
+                           "intermediate.dense.bias": col,
+                           "output.dense.weight": row},
+        BeitVisionTransformer: {},
+    }
+    plan, mods = {}, []
+    for name, m in model.named_modules():
+        kinds = local.get(type(m))
+        if kinds is None:
+            continue
+        mods.append(m)
+        for leaf, kind in kinds.items():
+            if _get(m, leaf) is not None:
+                plan[f"{name}.{leaf}" if name else leaf] = kind
+    return plan, mods
+
+
+def _get(module, dotted: str):
+    for part in dotted.split("."):
+        module = getattr(module, part, None)
+        if module is None:
+            return None
+    return module
+
+
+@torch.no_grad()
+def cut_model(model: torch.nn.Module, cut) -> torch.nn.Module:
+    """`model` cut in place for rank `cut.rank` of a tensor group of
+    `cut.size` (a `TensorCut`): each parameter of `cut_plan` replaced by
+    its cut (a new parameter, so call it before the optimizer is built
+    over `model.parameters()`), marked with its kind, and `tp` set on
+    every module that reads the cut. Call it after the weights are final
+    on every rank (init, broadcast, reference import); ValueError where
+    T does not divide the heads or an MLP width. → `model`."""
+    plan, mods = cut_plan(model)
+    for m in mods:  # every check before anything is cut
+        heads = getattr(m.c, "num_heads", None) or m.c.num_attention_heads
+        tp.local_size(heads, cut.size, "heads")
+    for name, kind in plan.items():  # the MLP widths
+        if kind == tp.COLUMN and name.endswith("weight"):
+            tp.local_size(_get(model, name).shape[0], cut.size,
+                          f"output features of {name}")
+    for name, kind in plan.items():
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        old = getattr(mod, leaf)
+        new = torch.nn.Parameter(tp.cut_tensor(old.data, kind, cut.size,
+                                               cut.rank),
+                                 requires_grad=old.requires_grad)
+        setattr(mod, leaf, new)
+    for m in mods:
+        m.tp = cut
+    model._xfm_tensor_plan = plan
+    _mark_cut(model)
+    return model
+
+
+def _mark_cut(model) -> None:
+    """Each cut parameter marked with its kind (again after FSDP2 has
+    replaced the parameters by its own)."""
+    plan = getattr(model, "_xfm_tensor_plan", {})
+    for name, p in model.named_parameters():
+        if name in plan:
+            p._xfm_tensor_cut = plan[name]
+
+
+def is_cut(model) -> bool:
+    """Whether `cut_model` has cut `model`."""
+    return bool(getattr(model, "_xfm_tensor_plan", None))
+
+
+def tensor_shards(module: torch.nn.Module, size: int) -> list:
+    """The `size` cuts of a whole module (a block, a layer or a tower),
+    each a copy cut for one rank with no group (`TensorCut` without
+    communication): a check runs each and sums their partial outputs
+    itself."""
+    import copy
+
+    return [cut_model(copy.deepcopy(module), tp.TensorCut(size, r))
+            for r in range(size)]
 
 
 def fsdp_size(config: dict) -> int:
@@ -133,19 +275,30 @@ def sum_over_shards(x: torch.Tensor, group) -> torch.Tensor:
 def full_tensor(t: torch.Tensor, like=None) -> torch.Tensor:
     """The whole tensor of a sharded one, gathered from every rank (each
     rank must call it): `t` a DTensor, or a local shard of the layout of
-    the DTensor `like`; any other tensor itself."""
+    the DTensor `like`, gathered over FSDP2's ranks; then, where `like`
+    (or `t`) is tensor-cut, over the tensor group; any other tensor
+    itself."""
+    kind = tensor_cut_of(like if like is not None else t)
     if like is not None and is_dtensor(like) and not is_dtensor(t):
         from torch.distributed.tensor import DTensor
 
         t = DTensor.from_local(t, like.device_mesh, like.placements,
                                shape=like.shape, stride=like.stride())
-    return t.full_tensor() if is_dtensor(t) else t
+    t = t.full_tensor() if is_dtensor(t) else t
+    if kind is not None:
+        t = tp.gather_tensor(t, kind, model_cut())
+    return t
 
 
 def shard_of(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """This rank's shard of the whole tensor `full` in the layout of the
-    DTensor `like` (cut locally, no communication); `full` itself where
-    `like` is no DTensor."""
+    """This rank's shard of the whole tensor `full` in the layout of
+    `like` (cut locally, no communication): its tensor cut where `like`
+    is tensor-cut, then its FSDP2 shard where `like` is a DTensor; `full`
+    itself where `like` is neither."""
+    kind = tensor_cut_of(like)
+    if kind is not None:
+        cut = model_cut()
+        full = tp.cut_tensor(full, kind, cut.size, cut.rank)
     if not is_dtensor(like):
         return full
     from torch.distributed.tensor import distribute_tensor
@@ -156,13 +309,13 @@ def shard_of(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def full_parameters(model) -> dict:
-    """name → the whole parameter: on a sharded model gathered on every
-    rank, copied to the host and cast to the dtype in which it computes
-    (bf16 under `bf16_params`), as a one-process model holds it; else the
-    live parameters themselves."""
-    if not is_sharded(model):
+    """name → the whole parameter: on a sharded or cut model gathered on
+    every rank, copied to the host and cast to the dtype in which it
+    computes (bf16 under `bf16_params`), as a one-process model holds it;
+    else the live parameters themselves."""
+    if not is_sharded(model) and not is_cut(model):
         return dict(model.named_parameters())
-    dtype = model._xfm_param_dtype
+    dtype = getattr(model, "_xfm_param_dtype", None)
     out = {}
     for name, p in model.named_parameters():
         full = full_tensor(p)
@@ -217,7 +370,9 @@ def _guard_methods(model, names) -> None:
 def shard_model(model: torch.nn.Module, mesh,
                 bf16_params: bool = False) -> torch.nn.Module:
     """`model` sharded in place over the `fsdp` dim of `mesh` (a
-    DeviceMesh of dims ("data", "fsdp"); replicated over "data"): each
+    DeviceMesh of dims ("data", "fsdp") or ("data", "fsdp", "tensor"),
+    whose ("data", "fsdp") ranks of each tensor index shard what
+    `cut_model` left; replicated over "data"): each
     module of `unit_types()` a unit, the model the
     root, every method of `ROOT_METHODS` it has registered; with
     `bf16_params` under the bf16 mixed-precision policy. Call it after the
@@ -226,8 +381,11 @@ def shard_model(model: torch.nn.Module, mesh,
     are then the shards. → `model`."""
     from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
 
-    kw = dict(mesh=mesh if mesh.ndim == 1 or mesh.size(0) > 1
-              else mesh["fsdp"], reshard_after_forward=True)
+    if mesh.ndim == 3:
+        sub = mesh["data", "fsdp"] if mesh.size(0) > 1 else mesh["fsdp"]
+    else:
+        sub = mesh if mesh.ndim == 1 or mesh.size(0) > 1 else mesh["fsdp"]
+    kw = dict(mesh=sub, reshard_after_forward=True)
     if bf16_params:
         kw["mp_policy"] = MixedPrecisionPolicy(
             param_dtype=torch.bfloat16, reduce_dtype=torch.float32,
@@ -243,6 +401,7 @@ def shard_model(model: torch.nn.Module, mesh,
     model._get_fsdp_state()._lazy_init()
     # the dtype the gathered weights compute in, as a checkpoint holds them
     model._xfm_param_dtype = torch.bfloat16 if bf16_params else None
+    _mark_cut(model)
     _guard_methods(model, [n for n in ROOT_METHODS if hasattr(model, n)])
     return model
 

@@ -92,12 +92,52 @@ def post_layer_norm(x: torch.Tensor, residual: torch.Tensor,
     return add_layer_norm(x, residual, layer, dtype)[1]
 
 
+class _PartialLinear(torch.autograd.Function):
+    """x·Wᵀ of x and W in one dtype, summed in f32 and returned in f32; the
+    gradients as `F.linear`'s, from the output's gradient in that dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.dtype == torch.float32:
+            y = x2 @ w.t()
+        elif x.is_cuda:  # cuBLAS keeps its f32 sums
+            y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        else:
+            y = x2.float() @ w.float().t()
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = g @ w if ctx.needs_input_grad[0] else None
+        dw = (g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw
+
+
+def dense_partial(x: torch.Tensor, layer: torch.nn.Linear,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """`dense` without its bias, input and kernel in `dtype`, the product
+    in f32, unrounded: a tensor-parallel row layer's partial sum
+    (`ops/tensor_parallel.row_output` rounds it once, after the group's
+    all-reduce and the bias, as `dense` rounds the whole layer's)."""
+    return _PartialLinear.apply(x.to(dtype), layer.weight.to(dtype))
+
+
 def act_dense(x: torch.Tensor, layer: torch.nn.Linear, act: str,
-              dtype: torch.dtype, fused: bool = False) -> torch.Tensor:
+              dtype: torch.dtype, fused: bool = False,
+              bias: bool = True) -> torch.Tensor:
     """The JAX `ActDense`: `dense(ACT[act](x))`, or with `fused` (the
     config's `fused_mlp`) and an activation K5 computes, K5 on x, the
-    kernel and the bias in `dtype`."""
+    kernel and the bias in `dtype`. Without `bias` the product alone, in
+    f32 (a row-parallel partial sum, as `dense_partial`; K5 without a
+    bias writes it so)."""
     if fused and fused_mlp_ok(act):
-        return fused_act_dense(x.to(dtype), layer.weight.to(dtype),
-                               layer.bias.to(dtype), act)
+        b = layer.bias.to(dtype) if bias else None
+        return fused_act_dense(x.to(dtype), layer.weight.to(dtype), b, act)
+    if not bias:
+        return dense_partial(ACT[act](x), layer, dtype)
     return dense(ACT[act](x), layer, dtype)

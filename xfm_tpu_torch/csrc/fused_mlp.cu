@@ -9,6 +9,10 @@
 //
 //   forward  y  = act(h)·Wᵀ + b   act in f32, rounded to h's dtype before
 //                                  the product; f32 sums; b added in f32
+//                                  (b may be null: no bias; in bf16 y may
+//                                  be f32, unrounded: a tensor-parallel
+//                                  row layer's partial sum, rounded once
+//                                  after the group's all-reduce)
 //   dW       dW = gᵀ·act(h)        summed over all M in f32, in W's dtype
 //   dh       dh = (g·W)·act'(h)    in f32, rounded to h's dtype
 //
@@ -32,6 +36,7 @@
 //
 //   product  output      A (rows x reduction)          B (reduction x cols)
 //   forward  y  [M, N]   h, K-major                    W [N, K], K-major
+//            (FWD32: the same, y in f32)
 //   dh       dh [M, K]   g, K-major                    W [N, K], MN-major
 //   dW       dWᵀ [K, N]  act(h)ᵀ from h, MN-major      g [M, N], MN-major
 //
@@ -76,7 +81,7 @@
 namespace {
 
 constexpr int BM = 128, BN = 128, BK = 32;  // f32: output tile, reduction step
-enum Mode { FWD = 0, DH = 1, DW = 2 };
+enum Mode { FWD = 0, DH = 1, DW = 2, FWD32 = 3 };  // FWD32: bf16 in, f32 y
 enum Act { GELU_TANH = 0, GELU = 1, RELU = 2 };  // ops/activations FUSED_ACT_ID
 
 constexpr float SQRT_2_OVER_PI = 0.7978845608028654f;
@@ -293,7 +298,8 @@ __global__ void __launch_bounds__(THREADS) xfm_act_matmul(const Args p) {
     uint4 o;
     T* e = reinterpret_cast<T*>(&o);
     if constexpr (MODE == FWD) {
-      const uint4 bv = *reinterpret_cast<const uint4*>(static_cast<const T*>(p.b) + gc);
+      uint4 bv = make_uint4(0, 0, 0, 0);  // no bias: + 0
+      if (p.b) bv = *reinterpret_cast<const uint4*>(static_cast<const T*>(p.b) + gc);
       const T* be = reinterpret_cast<const T*>(&bv);
 #pragma unroll
       for (int j = 0; j < VEC; ++j) e[j] = from_f<T>(src[j] + to_f(be[j]));
@@ -461,7 +467,7 @@ __device__ __forceinline__ void act_stage(unsigned char* A, int act) {
 }
 
 struct WArgs {
-  const bf16* b;  // [N] (forward)
+  const bf16* b;  // [N] (forward; null: no bias)
   int M, K, N, act;
   int chunk;      // dW: rows of M a split sums (a multiple of WBK)
 };
@@ -478,7 +484,8 @@ xfm_act_matmul_wgmma(const __grid_constant__ CUtensorMap ta,
                      const __grid_constant__ CUtensorMap tb,
                      const __grid_constant__ CUtensorMap th,
                      const __grid_constant__ CUtensorMap to, const WArgs p) {
-  constexpr int TA = MODE == DW, TB = MODE != FWD, RING = ring_stages(MODE);
+  constexpr bool FW = MODE == FWD || MODE == FWD32;
+  constexpr int TA = MODE == DW, TB = !FW, RING = ring_stages(MODE);
   __shared__ __align__(8) uint64_t full[STAGES + 1];  // the ring's; dh: h's last
   extern __shared__ __align__(1024) unsigned char dyn_smem[];
   const unsigned raw = smem_u32(dyn_smem);
@@ -488,7 +495,7 @@ xfm_act_matmul_wgmma(const __grid_constant__ CUtensorMap ta,
   const int tid = threadIdx.x, wg = tid / 128;
   const int c0 = blockIdx.x * WBN, r0 = blockIdx.y * WBM;
   const int M = p.M, K = p.K, N = p.N;
-  int l_begin = 0, l_end = MODE == FWD ? K : N;  // the reduction's range
+  int l_begin = 0, l_end = FW ? K : N;  // the reduction's range
   if constexpr (MODE == DW) {
     l_begin = blockIdx.z * p.chunk;
     l_end = min(l_begin + p.chunk, M);
@@ -517,7 +524,7 @@ xfm_act_matmul_wgmma(const __grid_constant__ CUtensorMap ta,
     const int s = kt % RING, l0 = l_begin + kt * WBK;
     const unsigned A = sbase + s * STAGE_BYTES, B = A + A_STAGE, bar = smem_u32(&full[s]);
     mbar_expect_tx(bar, STAGE_BYTES);
-    if constexpr (MODE == FWD) {  // h rows r0.., W rows c0.., reduction cols l0..
+    if constexpr (FW) {  // h rows r0.., W rows c0.., reduction cols l0..
       tma_load(A, pa, bar, l0, r0);
       tma_load(B, pb, bar, l0, c0);
     } else if constexpr (MODE == DH) {  // g rows r0.. cols l0..; W rows l0.. cols c0..
@@ -572,12 +579,14 @@ xfm_act_matmul_wgmma(const __grid_constant__ CUtensorMap ta,
   // epilogue, out of the free ring (or, for dh, the h tile) by TMA stores,
   // which skip what lies past the output; the boxes are TMA's
   // 128-byte-swizzled ones of 128 rows (64 bf16 or 32 f32 columns a box).
-  // Forward: + b, rounded; dW: the f32 partial. dh: the f32 sums parked in
+  // Forward: + b, rounded (FWD32: + b, in f32); dW: the f32 partial. dh:
+  // the f32 sums parked in
   // the ring, then act'(h) applied by a loop that is not unrolled (64
   // inlined copies of act' overflow the instruction cache), in place in
   // the h tile.
   __syncthreads();  // both warpgroups' products are done: the ring is free
-  constexpr int EB = MODE == DW ? 4 : 2, BOXC = 128 / EB, OBOX = WBM * 128;
+  constexpr bool F32_OUT = MODE == DW || MODE == FWD32;
+  constexpr int EB = F32_OUT ? 4 : 2, BOXC = 128 / EB, OBOX = WBM * 128;
   const int lane = tid % 32, lrow0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
   // (lr, lc) in its box: 16-byte chunks swizzled by the row's low 3 bits
   auto boxed = [](unsigned char* base, int lr, int lc) {
@@ -591,14 +600,17 @@ xfm_act_matmul_wgmma(const __grid_constant__ CUtensorMap ta,
     for (int half = 0; half < 2; ++half) {
       const int lr = lrow0 + 8 * half;
       float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
-      if constexpr (MODE == FWD) {
-        if (c0 + lc < N) {
+      if constexpr (FW) {
+        if (p.b && c0 + lc < N) {
           const float2 bb =
               __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.b + c0 + lc));
           v0 += bb.x;
           v1 += bb.y;
         }
-        *reinterpret_cast<__nv_bfloat162*>(boxed(smem, lr, lc)) = __floats2bfloat162_rn(v0, v1);
+        if constexpr (MODE == FWD)
+          *reinterpret_cast<__nv_bfloat162*>(boxed(smem, lr, lc)) = __floats2bfloat162_rn(v0, v1);
+        else
+          *reinterpret_cast<float2*>(boxed(smem, lr, lc)) = make_float2(v0, v1);
       } else if constexpr (MODE == DW) {
         *reinterpret_cast<float2*>(boxed(smem, lr, lc)) = make_float2(v0, v1);
       } else {
@@ -626,7 +638,7 @@ xfm_act_matmul_wgmma(const __grid_constant__ CUtensorMap ta,
 #pragma unroll
     for (int j = 0; j < WBN / BOXC; ++j) {
       const unsigned src = smem_u32(out) + j * OBOX;
-      if constexpr (MODE == DW)
+      if constexpr (F32_OUT)  // FWD32: one split, z = 0
         tma_store_3d(po, src, c0 + j * BOXC, r0, blockIdx.z);
       else
         tma_store_2d(po, src, c0 + j * BOXC, r0);
@@ -709,13 +721,15 @@ cudaError_t launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tb, const CUt
   return cudaGetLastError();
 }
 
-int fwd_bf16(const bf16* h, const bf16* w, const bf16* b, bf16* y, int M, int K, int N, int act,
-             cudaStream_t st) {
+// y bf16, or with out_f32 f32 (a 3-D map of one split)
+int fwd_bf16(const bf16* h, const bf16* w, const bf16* b, void* y, int M, int K, int N, int act,
+             bool out_f32, cudaStream_t st) {
   CUtensorMap ta, tb, to;
   if (!make_map(&ta, h, M, K, WBM) || !make_map(&tb, w, N, K, WBN) ||
-      !make_map(&to, y, M, N, WBM))
+      !make_map(&to, y, M, N, WBM, out_f32 ? 1 : 0))
     return (int)cudaErrorNotSupported;
   const WArgs p{b, M, K, N, act, 0};
+  if (out_f32) return (int)launch_wgmma<FWD32>(ta, tb, ta, to, p, M, N, 1, st);
   return (int)launch_wgmma<FWD>(ta, tb, ta, to, p, M, N, 1, st);
 }
 
@@ -757,16 +771,17 @@ bool dims_ok(int M, int K, int N, int act) {
 
 }  // namespace
 
-// h [M, K], w [N, K], b [N], y [M, N], one dtype; 16-byte aligned,
-// contiguous; K, N multiples of 8.
+// h [M, K], w [N, K], b [N] or null (no bias), y [M, N], one dtype (with
+// out_f32, y f32 whatever h's); 16-byte aligned, contiguous; K, N
+// multiples of 8.
 extern "C" int xfm_act_matmul_fwd(const void* h, const void* w, const void* b,
                                   void* y, int M, int K, int N, int act,
-                                  int is_bf16, void* stream) {
+                                  int is_bf16, int out_f32, void* stream) {
   if (!dims_ok(M, K, N, act)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return fwd_bf16(static_cast<const bf16*>(h), static_cast<const bf16*>(w),
-                    static_cast<const bf16*>(b), static_cast<bf16*>(y), M, K, N, act, st);
+                    static_cast<const bf16*>(b), y, M, K, N, act, out_f32 != 0, st);
   const Args p{h, w, b, nullptr, y, M, K, N, act};
   return (int)launch_f32<FWD>(p, st);
 }

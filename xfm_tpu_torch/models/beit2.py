@@ -24,6 +24,14 @@ the blocks (`_encode`, which `pair` runs, `intermediate_layers` and both
 loops of `forward_localattn`), as the JAX tower wraps `BeitBlock` in
 `nn.remat`; `attn_remat` (`XFM_ATTN_REMAT=1`) checkpoints the plain
 attention alone.
+
+Under a tensor cut (`core/partitioning.cut_model`: `tp` on the attention,
+the MLP and the tower) a rank holds the q, k and v rows of its H/T heads
+(`qkv`, `q_bias`, `v_bias`), `fc1`'s rows and the matching columns of
+`proj` and `fc2`: K1, K2 and the plain attention run at H/T heads, K5 at
+K = 4C/T, and each pair's output is summed over the group before its bias
+(`ops/tensor_parallel.row_output`). The rel-pos tables stay whole; a rank
+reads its heads' columns (`head_columns`).
 """
 from __future__ import annotations
 
@@ -33,7 +41,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.precision import act_dense, add_layer_norm, dense, layer_norm
+from ..core.precision import (act_dense, add_layer_norm, dense, dense_partial,
+                              layer_norm)
 from ..ops.attention import dot_product_attention, mask_to_bias
 from ..ops.checkpoint import (attention_remat, checkpoint_block,
                               name_attn_out, names_attn_out)
@@ -44,6 +53,7 @@ from ..ops.flash_attention import (MAX_N, beit_attention_relpos,
 from ..ops.patch_embed import extract_patches
 from ..ops.relpos import (beit_rel_pos_bias, num_relative_distance,
                           relative_position_index)
+from ..ops.tensor_parallel import copy_to_tensor, head_columns, row_output
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,12 +108,14 @@ class _RelPosTable(nn.Module):
             torch.from_numpy(relative_position_index(window)),
             persistent=False)
 
-    def forward(self) -> torch.Tensor:
+    def forward(self, tp=None) -> torch.Tensor:
         """→ the bias [1, H, N, N] in f32 (a bf16 table is widened before
         the gather, so its gradient sums in f32, as the JAX package builds
-        the bias in f32 from any table)."""
-        return beit_rel_pos_bias(self.relative_position_bias_table.float(),
-                                 self.relative_position_index)
+        the bias in f32 from any table); under the tensor cut `tp` the
+        rank's H/T heads."""
+        return beit_rel_pos_bias(
+            head_columns(self.relative_position_bias_table, tp).float(),
+            self.relative_position_index)
 
 
 class BeitAttention(nn.Module):
@@ -124,16 +136,25 @@ class BeitAttention(nn.Module):
                 torch.from_numpy(relative_position_index(window)),
                 persistent=False)
         self.proj = nn.Linear(C, C)
+        self.tp = None  # the tensor cut (`core/partitioning.cut_model`)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 rel_pos_bias=None, attn_bias=None):
         """x [B, N, C] → [B, N, C]; `rel_pos_bias` the shared table's bias
-        [1, H, N, N] f32, `attn_bias` the region blocks' [B, 1, 1, N]."""
-        c = self.c
+        [1, H, N, N] f32 (H/T heads under a tensor cut), `attn_bias` the
+        region blocks' [B, 1, 1, N]."""
+        return self._proj_out(self.attend(x, deterministic, rel_pos_bias,
+                                          attn_bias), deterministic)
+
+    def attend(self, x: torch.Tensor, deterministic: bool = True,
+               rel_pos_bias=None, attn_bias=None):
+        """The attention of this rank's heads before the out-projection,
+        [B, N, (H/T)·D] (all heads where the attention is not cut)."""
+        c, tp = self.c, self.tp
         B, N, C = x.shape
-        H = c.num_heads
-        D = C // H
-        qkv = dense(x, self.qkv, c.dtype)
+        D = C // c.num_heads
+        H = c.num_heads if tp is None else tp.heads(c.num_heads)
+        qkv = dense(copy_to_tensor(x, tp), self.qkv, c.dtype)
         if c.qkv_bias:
             qkv = qkv + torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                                    self.v_bias]).to(qkv.dtype)
@@ -144,48 +165,74 @@ class BeitAttention(nn.Module):
             # N >= 512: K2 expands the compact table in the kernel; the
             # table is rounded to the compute dtype (the JAX package rounds
             # it to bf16 on its accelerator)
-            out = beit_attention_relpos(qkv, self.relative_position_bias_table,
-                                        window, D ** -0.5, H, c.dtype)
-            return self._proj_out(out, deterministic)
+            return beit_attention_relpos(
+                qkv, head_columns(self.relative_position_bias_table, tp),
+                window, D ** -0.5, H, c.dtype)
         bias = rel_pos_bias
         if c.use_rel_pos_bias:
             # the materialized bias is f32, as in the JAX package (a bf16
             # table is widened first)
             rpb = beit_rel_pos_bias(
-                self.relative_position_bias_table.float(),
+                head_columns(self.relative_position_bias_table, tp).float(),
                 self.relative_position_index)
             bias = rpb if bias is None else bias + rpb
         if attn_bias is not None:
             bias = attn_bias if bias is None else bias + attn_bias
         if (bias is not None and bias.shape[0] == 1 and not attn_drop
                 and N < MAX_N):
-            out = flash_attention_packed(qkv, bias, D ** -0.5, H)
-        else:
-            # no bias, a bias with a batch axis (the region blocks) or live
-            # attention dropout: the plain attention (K3 from N = 512) over
-            # views of the packed projection
-            q, k, v = (t.reshape(B, N, H, D) for t in qkv.split(C, -1))
-            out = dot_product_attention(
-                q, k, v, bias=bias, deterministic=deterministic,
-                dropout_rate=c.attn_drop_rate,
-                remat=attention_remat(c)).reshape(B, N, C)
-        return self._proj_out(out, deterministic)
+            return flash_attention_packed(qkv, bias, D ** -0.5, H)
+        # no bias, a bias with a batch axis (the region blocks) or live
+        # attention dropout: the plain attention (K3 from N = 512) over
+        # views of the packed projection
+        q, k, v = (t.reshape(B, N, H, D) for t in qkv.split(H * D, -1))
+        return dot_product_attention(
+            q, k, v, bias=bias, deterministic=deterministic,
+            dropout_rate=c.attn_drop_rate, remat=attention_remat(c),
+            heads=None if tp is None else tp.head_range(c.num_heads)
+        ).reshape(B, N, H * D)
+
+    def proj_partial(self, out):
+        """This rank's partial sum of the out-projection of `attend`'s
+        output, without the bias: the compute dtype's product in f32."""
+        return dense_partial(out, self.proj, self.c.dtype)
 
     def _proj_out(self, out, deterministic: bool):
         """The out-projection and its dropout, the attention output tagged
-        for the `attn_out` policy first."""
+        for the `attn_out` policy first; under a tensor cut the partial
+        sums reduced over the group, then the bias."""
         c = self.c
         if names_attn_out(c):
             out = name_attn_out(out)
-        return dropout(dense(out, self.proj, c.dtype), c.drop_rate,
-                       deterministic)
+        if self.tp is None:
+            y = dense(out, self.proj, c.dtype)
+        else:
+            y = row_output(self.proj_partial(out), self.proj.bias, self.tp,
+                           c.dtype)
+        return dropout(y, c.drop_rate, deterministic)
 
 
 class _Mlp(nn.Module):
     def __init__(self, c: VisionConfig):
         super().__init__()
+        self.c = c
         self.fc1 = nn.Linear(c.embed_dim, int(c.embed_dim * c.mlp_ratio))
         self.fc2 = nn.Linear(int(c.embed_dim * c.mlp_ratio), c.embed_dim)
+        self.tp = None  # the tensor cut (`core/partitioning.cut_model`)
+
+    def partial(self, h):
+        """fc1, the activation and fc2 without its bias: under a tensor
+        cut this rank's partial sum (K5 at K = 4C/T on the fused route)."""
+        c = self.c
+        h = dense(copy_to_tensor(h, self.tp), self.fc1, c.dtype)
+        return act_dense(h, self.fc2, c.hidden_act, c.dtype, c.fused_mlp,
+                         bias=False)
+
+    def forward(self, h):
+        c = self.c
+        if self.tp is None:
+            h = dense(h, self.fc1, c.dtype)
+            return act_dense(h, self.fc2, c.hidden_act, c.dtype, c.fused_mlp)
+        return row_output(self.partial(h), self.fc2.bias, self.tp, c.dtype)
 
 
 class BeitBlock(nn.Module):
@@ -214,9 +261,7 @@ class BeitBlock(nn.Module):
         # fused route)
         x, h = add_layer_norm(drop_path(h, self.drop_path, deterministic), x,
                               self.norm2, c.dtype, c.fused_ln)
-        h = dense(h, self.mlp.fc1, c.dtype)
-        h = act_dense(h, self.mlp.fc2, c.hidden_act, c.dtype, c.fused_mlp)
-        h = dropout(h, c.drop_rate, deterministic)
+        h = dropout(self.mlp(h), c.drop_rate, deterministic)
         if self.use_ls:
             h = self.gamma_2.to(h.dtype) * h
         return x + drop_path(h, self.drop_path, deterministic)
@@ -250,6 +295,7 @@ class BeitVisionTransformer(nn.Module):
         dpr = np.linspace(0, c.drop_path_rate, c.depth)
         self.blocks = nn.ModuleList(BeitBlock(c, float(dpr[i]))
                                     for i in range(c.depth))
+        self.tp = None  # the tensor cut of the shared table's heads
         if c.use_mean_pooling:
             self.fc_norm = nn.LayerNorm(C, eps=c.layer_norm_eps)
         else:
@@ -276,7 +322,8 @@ class BeitVisionTransformer(nn.Module):
 
     def _shared_rpb(self):
         """The shared table's bias [1, H, N, N] f32, or None."""
-        return self.rel_pos_bias() if self.c.use_shared_rel_pos_bias else None
+        return (self.rel_pos_bias(self.tp)
+                if self.c.use_shared_rel_pos_bias else None)
 
     def _final_norm(self) -> nn.LayerNorm:
         return self.fc_norm if self.c.use_mean_pooling else self.norm

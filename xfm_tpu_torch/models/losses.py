@@ -1,12 +1,14 @@
 """Pretraining and fine-tune losses (`xfm_tpu/models/losses.py`).
 
-Under a process group of W ranks each loss is W × this rank's share of the
-global-batch loss that the JAX package computes (`core/mesh`): ITC takes
-the other ranks' features from `all_gather_with_grad` and averages over
-its own rows and columns, the hard negatives are drawn over the gathered
-similarity matrix from the generator equal on every rank, and a mean over
-a count divides by the global count (`mesh.mean_divisor`). On one
-process each is the loss over its batch."""
+Under a process group whose batch is split over W ranks (data × fsdp: the
+ranks of a tensor group share rows and compute the same loss) each loss
+is W × this rank's share of the global-batch loss that the JAX package
+computes (`core/mesh`): ITC takes the other ranks' features from
+`all_gather_with_grad` and averages over its own rows and columns, the
+hard negatives are drawn over the gathered similarity matrix from the
+generator equal on every rank, and a mean over a count divides by the
+global count (`mesh.mean_divisor`). On one process each is the loss over
+its batch."""
 from __future__ import annotations
 
 from typing import Optional
@@ -34,7 +36,7 @@ def contrastive_loss(image_feat: torch.Tensor, text_feat: torch.Tensor,
     texts = mesh.all_gather_with_grad(text_feat)
     logits = (images @ texts.T).float() / temp
     n = image_feat.shape[0]
-    own = slice(mesh.rank() * n, (mesh.rank() + 1) * n)
+    own = slice(mesh.dp_rank() * n, (mesh.dp_rank() + 1) * n)
     i2t, t2i = logits[own], logits.T[own]
     if idx is None:
         labels = torch.arange(own.start, own.stop, device=logits.device)
@@ -75,7 +77,7 @@ def hard_negative_indices(generator: torch.Generator,
         wt2i = torch.where(mask, zero, torch.softmax(sim_t2i, -1) + 1e-5)
         text_neg = torch.multinomial(wi2t, 1, generator=generator)[:, 0]
         image_neg = torch.multinomial(wt2i, 1, generator=generator)[:, 0]
-    own = slice(mesh.rank() * n, (mesh.rank() + 1) * n)
+    own = slice(mesh.dp_rank() * n, (mesh.dp_rank() + 1) * n)
     return image_neg[own], text_neg[own]
 
 

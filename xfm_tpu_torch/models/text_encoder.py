@@ -23,6 +23,13 @@ With `remat` (`gradient_checkpointing`) each layer runs through
 and no `DecodeCache` is passed (the JAX layer's static `decode` and
 `cross_from_cache`): a recompute never writes a cache slot twice.
 `attn_remat` (`XFM_ATTN_REMAT=1`) checkpoints the plain attention alone.
+
+Under a tensor cut (`core/partitioning.cut_model`: `tp` on each attention
+and layer) a rank holds the rows of `query`, `key` and `value` (self and
+cross) and of `intermediate.dense` of its H/T heads and inner width, and
+the matching columns of `attention.output.dense` and `output.dense`; each
+pair's output is summed over the group before its bias and the post-LN
+(`ops/tensor_parallel.row_output`). A `DecodeCache` holds the rank's heads.
 """
 from __future__ import annotations
 
@@ -33,13 +40,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.precision import act_dense, dense, layer_norm, post_layer_norm
+from ..core.precision import (act_dense, dense, dense_partial, layer_norm,
+                              post_layer_norm)
 from ..ops.activations import gelu
 from ..ops.attention import NEG_INF, dot_product_attention, mask_to_bias
 from ..ops.checkpoint import (attention_remat, checkpoint_block,
                               name_attn_out, names_attn_out)
 from ..ops.checkpoint import remat_policy as policy_context
 from ..ops.dropout import dropout
+from ..ops.tensor_parallel import copy_to_tensor, row_output
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,6 +225,7 @@ class SelfAttention(nn.Module):
         self.self = _SelfProj(c, c.encoder_width if is_cross
                               else c.hidden_size)
         self.output = _SelfOutput(c)
+        self.tp = None  # the tensor cut (`core/partitioning.cut_model`)
 
     def forward(self, hidden, kv_source, attention_bias,
                 kv_row_idx: Optional[torch.Tensor] = None,
@@ -224,21 +234,55 @@ class SelfAttention(nn.Module):
                 decode: Optional[LayerCache] = None, index: int = 0,
                 cross_from_cache: bool = False):
         c = self.c
+        ctx = self.context(hidden, kv_source, attention_bias, kv_row_idx,
+                           kv_group_size, prob_gate, deterministic, decode,
+                           index, cross_from_cache)
+        if names_attn_out(c):
+            ctx = name_attn_out(ctx)
+        if self.tp is None:
+            out = dense(ctx, self.output.dense, c.dtype)
+        else:
+            out = row_output(self.out_partial(ctx), self.output.dense.bias,
+                             self.tp, c.dtype)
+        out = dropout(out, c.hidden_dropout_prob, deterministic)
+        return post_layer_norm(out, hidden, self.output.LayerNorm, c.dtype,
+                               c.fused_ln)
+
+    def out_partial(self, ctx):
+        """This rank's partial sum of the output projection of `context`'s
+        output, without the bias: the compute dtype's product in f32."""
+        return dense_partial(ctx, self.output.dense, self.c.dtype)
+
+    def context(self, hidden, kv_source, attention_bias,
+                kv_row_idx: Optional[torch.Tensor] = None,
+                kv_group_size: Optional[int] = None, prob_gate=None,
+                deterministic: bool = True,
+                decode: Optional[LayerCache] = None, index: int = 0,
+                cross_from_cache: bool = False):
+        """The attention of this rank's heads before the output projection
+        → [B, Nq, (H/T)·D] (all heads where the attention is not cut)."""
+        c, tp = self.c, self.tp
         if prob_gate is not None and kv_group_size and self.is_cross:
             raise NotImplementedError(
                 "kv_group_size with prob_gate (GradCAM) unsupported")
-        H = c.num_attention_heads
-        D = c.hidden_size // H
+        D = c.hidden_size // c.num_attention_heads
+        H = (c.num_attention_heads if tp is None
+             else tp.heads(c.num_attention_heads))
+        heads = None if tp is None else tp.head_range(c.num_attention_heads)
+        if heads is not None and prob_gate is not None \
+                and prob_gate.shape[1] > 1:
+            prob_gate = prob_gate[:, heads[0]:heads[0] + H]
         B, Nq = hidden.shape[:2]
-        q = dense(hidden, self.self.query, c.dtype).reshape(B, Nq, H, D)
+        x = copy_to_tensor(hidden, tp)
+        q = dense(x, self.self.query, c.dtype).reshape(B, Nq, H, D)
         if decode is not None and self.is_cross and cross_from_cache:
             k, v = decode.cross_k, decode.cross_v
             U = k.shape[0]
         else:
             U, Nk = kv_source.shape[:2]
-            k = dense(kv_source, self.self.key, c.dtype).reshape(U, Nk, H, D)
-            v = dense(kv_source, self.self.value, c.dtype).reshape(U, Nk, H,
-                                                                   D)
+            kv = x if kv_source is hidden else copy_to_tensor(kv_source, tp)
+            k = dense(kv, self.self.key, c.dtype).reshape(U, Nk, H, D)
+            v = dense(kv, self.self.value, c.dtype).reshape(U, Nk, H, D)
             if kv_row_idx is not None:
                 k = k.index_select(0, kv_row_idx)
                 v = v.index_select(0, kv_row_idx)
@@ -259,19 +303,13 @@ class SelfAttention(nn.Module):
                 q.view(U, gs * Nq, H, D), k, v, bias=bias,
                 deterministic=deterministic,
                 dropout_rate=c.attention_probs_dropout_prob,
-                remat=attention_remat(c))
+                remat=attention_remat(c), heads=heads)
         else:
             ctx = dot_product_attention(
                 q, k, v, bias=attention_bias, deterministic=deterministic,
                 dropout_rate=c.attention_probs_dropout_prob,
-                prob_gate=prob_gate, remat=attention_remat(c))
-        ctx = ctx.reshape(B, Nq, c.hidden_size)
-        if names_attn_out(c):
-            ctx = name_attn_out(ctx)
-        out = dropout(dense(ctx, self.output.dense, c.dtype),
-                      c.hidden_dropout_prob, deterministic)
-        return post_layer_norm(out, hidden, self.output.LayerNorm, c.dtype,
-                               c.fused_ln)
+                prob_gate=prob_gate, remat=attention_remat(c), heads=heads)
+        return ctx.reshape(B, Nq, H * D)
 
 
 class _Intermediate(nn.Module):
@@ -297,6 +335,17 @@ class TransformerLayer(nn.Module):
         self.has_cross_attention = has_cross_attention
         self.intermediate = _Intermediate(c)
         self.output = _Output(c)
+        self.tp = None  # the MLP's tensor cut (`core/partitioning.cut_model`)
+
+    def mlp_partial(self, x):
+        """`intermediate.dense`, the activation and `output.dense` without
+        its bias: under a tensor cut this rank's partial sum (K5 at K =
+        4C/T on the fused route)."""
+        c = self.c
+        h = dense(copy_to_tensor(x, self.tp), self.intermediate.dense,
+                  c.dtype)
+        return act_dense(h, self.output.dense, c.hidden_act, c.dtype,
+                         c.fused_mlp, bias=False)
 
     def forward(self, hidden, attention_bias=None, encoder_hidden_states=None,
                 encoder_attention_bias=None, encoder_row_idx=None,
@@ -315,9 +364,13 @@ class TransformerLayer(nn.Module):
                                     deterministic=deterministic,
                                     decode=decode,
                                     cross_from_cache=cross_from_cache)
-        h = dense(x, self.intermediate.dense, c.dtype)
-        h = act_dense(h, self.output.dense, c.hidden_act, c.dtype,
-                      c.fused_mlp)
+        if self.tp is None:
+            h = dense(x, self.intermediate.dense, c.dtype)
+            h = act_dense(h, self.output.dense, c.hidden_act, c.dtype,
+                          c.fused_mlp)
+        else:
+            h = row_output(self.mlp_partial(x), self.output.dense.bias,
+                           self.tp, c.dtype)
         h = dropout(h, c.hidden_dropout_prob, deterministic)
         return post_layer_norm(h, x, self.output.LayerNorm, c.dtype,
                                c.fused_ln)

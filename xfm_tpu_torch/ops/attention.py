@@ -44,17 +44,19 @@ def mask_to_bias(mask: torch.Tensor,
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: Optional[torch.Tensor], scale: float,
                         dropout_rate: float = 0.0,
-                        prob_gate: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        prob_gate: Optional[torch.Tensor] = None,
+                        heads=None) -> torch.Tensor:
     """q [B, Nq, H, D], k/v [B, Nk, H, D], bias broadcastable to
     [B, H, Nq, Nk] → [B, Nq, H, D] in q's dtype; `dropout_rate` > 0 drops
-    probabilities; `prob_gate` ([B|1, H|1, Nq, Nk]) multiplies them."""
+    probabilities (`heads`: `ops/dropout.dropout`'s, a rank's heads under
+    a tensor cut); `prob_gate` ([B|1, H|1, Nq, Nk]) multiplies them."""
     dt = q.dtype
     qs = (q.float() * scale).to(dt)
     logits = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
     if bias is not None:
         logits = logits + bias.float()
-    probs = dropout(torch.softmax(logits, dim=-1), dropout_rate, False)
+    probs = dropout(torch.softmax(logits, dim=-1), dropout_rate, False,
+                    heads)
     if prob_gate is not None:
         probs = probs * prob_gate
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(dt).float(), v.float())
@@ -74,15 +76,17 @@ def flash_ok(q: torch.Tensor, k: torch.Tensor, deterministic: bool = True,
 def dot_product_attention(q, k, v, bias=None, mask=None, scale=None,
                           deterministic: bool = True,
                           dropout_rate: float = 0.0,
-                          prob_gate=None, remat: bool = False
-                          ) -> torch.Tensor:
+                          prob_gate=None, remat: bool = False,
+                          heads=None) -> torch.Tensor:
     """Scaled dot-product attention over [B, N, H, D] tensors (scale D^-1/2
     by default); `mask` ([B, Nk] or [B, Nq, Nk] of {0, 1}) is folded into
     `bias` as `mask_to_bias` makes it; `dropout_rate` drops probabilities
     unless `deterministic`. `prob_gate` ([B|1, H|1, Nq, Nk], ones in
     GradCAM) multiplies the probabilities, its gradient attn ⊙ ∂out/∂attn;
     it takes the plain route, without dropout. `remat` checkpoints the
-    plain route where no dropout is live."""
+    plain route where no dropout is live. `heads` (first, all): q holds
+    heads first … of all under a tensor cut, whose dropout mask is drawn
+    over all of them."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if mask is not None:
@@ -99,4 +103,4 @@ def dot_product_attention(q, k, v, bias=None, mask=None, scale=None,
     if remat and not live and torch.is_grad_enabled():
         return run_checkpointed(attention_reference, q, k, v, bias, scale)
     return attention_reference(q, k, v, bias, scale,
-                               dropout_rate if live else 0.0)
+                               dropout_rate if live else 0.0, heads=heads)

@@ -55,12 +55,21 @@ def keep_mask(shape, keep: float, device) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float,
-            deterministic: bool = True) -> torch.Tensor:
-    """Element-wise dropout: x / (1 − rate) where kept, else 0."""
+            deterministic: bool = True, heads=None) -> torch.Tensor:
+    """Element-wise dropout: x / (1 − rate) where kept, else 0. `heads`
+    (first, all) for attention probabilities [B, h, Nq, Nk] of a rank's h
+    heads under a tensor cut: the mask is drawn over all heads, as one
+    process draws it, and the rank's heads taken."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    return torch.where(keep_mask(x.shape, keep, x.device), x / keep, 0.0)
+    if heads is None:
+        mask = keep_mask(x.shape, keep, x.device)
+    else:
+        first, total = heads
+        mask = keep_mask((x.shape[0], total) + tuple(x.shape[2:]), keep,
+                         x.device)[:, first:first + x.shape[1]]
+    return torch.where(mask, x / keep, 0.0)
 
 
 def drop_path(x: torch.Tensor, rate: float,

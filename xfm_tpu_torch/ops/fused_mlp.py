@@ -2,14 +2,20 @@
 matmuls (`xfm_tpu/ops/fused_mlp.py`).
 
     act_matmul(h, W, b, act) = act(h)·Wᵀ + b,  h [M, K], W [N, K], b [N]
+    act_matmul(h, W, None, act) = act(h)·Wᵀ in f32, unrounded
 
 W is the `nn.Linear` weight [N, K] (the JAX package's kernel is its
 transpose, [K, N]); the kernels read it in place. act(h) is computed in f32
 and rounded to h's dtype before the product; the product sums in f32 and b
-is added in f32, the result in h's dtype. The backward: dW = gᵀ·act(h)
-summed over all M in f32, in W's dtype; dh = (g·W)·act'(h) in f32, in h's
-dtype; db = Σ g in f32, in h's dtype (a torch reduction, as the JAX package
-leaves it to XLA). act(h) is never written to memory.
+is added in f32, the result in h's dtype. With no b the product is
+returned in f32 as it was summed: a tensor-parallel row layer's partial sum
+(`ops/tensor_parallel.row_output`), which is rounded once, after the
+group's all-reduce and the bias, as the whole layer rounds. The backward:
+dW = gᵀ·act(h) summed over all M in f32, in W's dtype; dh = (g·W)·act'(h)
+in f32, in h's dtype; db = Σ g in f32, in h's dtype (a torch reduction, as
+the JAX package leaves it to XLA), none without b. The gradient of the f32 partial is that
+of a rounded output, whose values bf16 holds exactly: it enters the
+kernels in h's dtype. act(h) is never written to memory.
 
 On a CUDA tensor `act_matmul` runs the hand-written kernels
 (`csrc/fused_mlp.cu`: the forward, dh and dW, whose note says what bounds
@@ -64,23 +70,28 @@ def _act_pair(act: str):
 
 def act_matmul_reference(h, weight, bias, act: str):
     """Plain forward, the kernel's rounding points: act in f32 rounded to
-    h's dtype, the product and the bias in f32, the result in h's dtype."""
+    h's dtype, the product and the bias in f32, the result in h's dtype
+    (no bias: the product in f32)."""
     f = _act_pair(act)[0]
     a = f(h.float()).to(h.dtype)
-    return (a.float() @ weight.float().t() + bias.float()).to(h.dtype)
+    y = a.float() @ weight.float().t()
+    return y if bias is None else (y + bias.float()).to(h.dtype)
 
 
-def act_matmul_bwd_reference(h, weight, g, act: str):
-    """Plain backward → (dh like h, dW like weight, db in h's dtype)."""
+def act_matmul_bwd_reference(h, weight, g, act: str, bias: bool = True):
+    """Plain backward → (dh like h, dW like weight, db in h's dtype, or
+    None without `bias`)."""
     f, df = _act_pair(act)
     hf, gf = h.float(), g.float()
     a = f(hf).to(h.dtype).float()
     dw = (gf.t() @ a).to(weight.dtype)
     dh = ((gf @ weight.float()) * df(hf)).to(h.dtype)
-    return dh, dw, gf.sum(0).to(h.dtype)
+    return dh, dw, gf.sum(0).to(h.dtype) if bias else None
 
 
 def _check_mm(h, weight, other, other_shape, what):
+    """(M, K, N) of h [M, K] and W [N, K] with `other` (b, g, or None: no
+    bias) of `other_shape`, all on one card in one dtype; else raises."""
     if h.dim() != 2 or weight.dim() != 2 or h.shape[1] != weight.shape[1]:
         raise ValueError(f"fused MLP takes h [M, K] and W [N, K], got "
                          f"{tuple(h.shape)} and {tuple(weight.shape)}")
@@ -92,10 +103,10 @@ def _check_mm(h, weight, other, other_shape, what):
     if K % 8 or N % 8:
         raise NotImplementedError(f"fused MLP kernel takes K and N that are "
                                   f"multiples of 8, got K={K} N={N}")
-    if tuple(other.shape) != other_shape:
+    if other is not None and tuple(other.shape) != other_shape:
         raise ValueError(f"fused MLP takes {what} {other_shape}, got "
                          f"{tuple(other.shape)}")
-    tensors = (h, weight, other)
+    tensors = (h, weight) if other is None else (h, weight, other)
     if h.device.type != "cuda" or {t.device for t in tensors} != {h.device} \
             or {t.dtype for t in tensors} != {h.dtype}:
         raise ValueError(f"fused MLP kernel takes h, W and {what} in one "
@@ -106,23 +117,28 @@ def _check_mm(h, weight, other, other_shape, what):
 
 def act_matmul_fwd(h, weight, bias, act: str):
     """Kernel forward: h [M, K], W [N, K], b [N] (cuda, one dtype) →
-    act(h)·Wᵀ + b [M, N] in h's dtype."""
+    act(h)·Wᵀ + b [M, N] in h's dtype; b None → act(h)·Wᵀ in f32."""
     M, K, N = _check_mm(h, weight, bias, (weight.shape[0],), "b")
     _act_pair(act)  # raises for an activation the kernel does not compute
     lib = build_library("fused_mlp")
-    h, weight, bias = aligned(h, weight, bias)
-    y = torch.empty(M, N, device=h.device, dtype=h.dtype)
+    h, weight = aligned(h, weight)
+    if bias is not None:
+        (bias,) = aligned(bias)
+    y = torch.empty(M, N, device=h.device,
+                    dtype=torch.float32 if bias is None else h.dtype)
     rc = lib.xfm_act_matmul_fwd(
-        h.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), M, K,
-        N, FUSED_ACT_ID[act], int(h.dtype == torch.bfloat16), stream_of(h))
+        h.data_ptr(), weight.data_ptr(),
+        None if bias is None else bias.data_ptr(), y.data_ptr(), M, K, N,
+        FUSED_ACT_ID[act], int(h.dtype == torch.bfloat16), int(bias is None),
+        stream_of(h))
     check(rc, "fused MLP forward launch")
     LAUNCHES["fused_mlp_fwd"] += 1
     return y
 
 
-def act_matmul_bwd(h, weight, g, act: str):
+def act_matmul_bwd(h, weight, g, act: str, bias: bool = True):
     """Kernel backward (the dW kernels, then dh) → (dh like h, dW like W,
-    db = Σ g in f32, in h's dtype)."""
+    db = Σ g in f32, in h's dtype, or None without `bias`)."""
     M, K, N = _check_mm(h, weight, g, (h.shape[0], weight.shape[0]), "g")
     _act_pair(act)  # raises for an activation the kernel does not compute
     lib = build_library("fused_mlp")
@@ -139,7 +155,8 @@ def act_matmul_bwd(h, weight, g, act: str):
         stream_of(h))
     check(rc, "fused MLP backward launch")
     LAUNCHES["fused_mlp_bwd"] += 1
-    return dh, dw, g.sum(0, dtype=torch.float32).to(h.dtype)
+    return dh, dw, (g.sum(0, dtype=torch.float32).to(h.dtype) if bias
+                    else None)
 
 
 class _ActMatmul(torch.autograd.Function):
@@ -148,7 +165,7 @@ class _ActMatmul(torch.autograd.Function):
         fwd = (act_matmul_fwd if on_card(h, "fused MLP")
                else act_matmul_reference)
         ctx.save_for_backward(h, weight)
-        ctx.act = act
+        ctx.act, ctx.bias = act, bias is not None
         return fwd(h, weight, bias, act)
 
     @staticmethod
@@ -156,13 +173,14 @@ class _ActMatmul(torch.autograd.Function):
         h, weight = ctx.saved_tensors
         bwd = (act_matmul_bwd if on_card(h, "fused MLP")
                else act_matmul_bwd_reference)
-        dh, dw, db = bwd(h, weight, g.to(h.dtype), ctx.act)
+        dh, dw, db = bwd(h, weight, g.to(h.dtype), ctx.act, ctx.bias)
         return dh, dw, db, None
 
 
 def act_matmul(h, weight, bias, act: str = "gelu_tanh"):
     """act(h)·Wᵀ + b for h [M, K], the Linear weight W [N, K] and b [N], all
-    in one dtype; differentiable in h, W and b."""
+    in one dtype; differentiable in h, W and b. b None: act(h)·Wᵀ in f32
+    (a row layer's partial sum)."""
     return _ActMatmul.apply(h, weight, bias, act)
 
 

@@ -51,7 +51,7 @@ _LIBRARIES = {
         "xfm_fused_ln_bwd": [_VP] * 9 + [_CI] * 7 + [_CF, _CI, _VP],
     },
     "fused_mlp": {
-        "xfm_act_matmul_fwd": [_VP] * 4 + [_CI] * 5 + [_VP],
+        "xfm_act_matmul_fwd": [_VP] * 4 + [_CI] * 6 + [_VP],
         "xfm_act_matmul_bwd": [_VP] * 6 + [_CI] * 6 + [_VP],
     },
 }

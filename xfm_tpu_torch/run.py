@@ -44,11 +44,16 @@ with `--device cpu`; a launch that asks for a card where none is visible
 raises. Every task runs on any number of processes, a step on W of
 them equal to one process's step on the global batch (ImageNet's mixup
 and cutmix aside, which pair rows within a rank) and an eval equal to
-the one-process eval. `parallel: {data: D, fsdp: F}` with D·F processes
-shards every parameter, its gradient and its optimizer state over the F
-ranks of each replica (`core/partitioning`, FSDP2; `data: -1` takes the
-rest of the world size); `tensor` or `pipe` > 1 refuse
-(`core/mesh.mesh_from_config`). At the end rank 0 prints the
+the one-process eval. `parallel: {data: D, fsdp: F, tensor: T}` with
+D·F·T processes cuts every attention and MLP weight of the BEiT-2 tower
+and the text stacks over the T consecutive ranks of each tensor group
+(Megatron pairs, `ops/tensor_parallel`; the T ranks take the same rows,
+so `--bs` is divided over D·F), then shards every parameter, its
+gradient and its optimizer state over the F ranks of each replica
+(`core/partitioning`, FSDP2; `data: -1` takes the rest of the world
+size); `pipe` > 1, and `tensor` > 1 with the CLIP, Swin or DeiT tower or
+`seq_shard`, refuse (`core/mesh.mesh_from_config`,
+`models/xfm.config_from_yaml`). At the end rank 0 prints the
 backend, the world size and every rank's kernel launches (`###
 processes ...`).
 """
@@ -127,7 +132,8 @@ def build_parser():
                    help="run the eval only (no fine-tune)")
     p.add_argument("--bs", type=int, default=None,
                    help="global train batch size, divided over the "
-                        "processes")
+                        "data x fsdp processes (the ranks of a "
+                        "parallel.tensor group share rows)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--epoch", type=int, default=None)
     p.add_argument("--device", default="cuda")

@@ -440,7 +440,7 @@ def main_domain_pretrain(args) -> dict:
     image_res = cfg.get("image_res", 224)
     tokenizer = build_tokenizer_or_fallback(cfg, lambda: corpus_texts(cfg))
     model = build_model(cfg, tokenizer, ctx.device)
-    rank, world = mesh.rank(), mesh.world_size()
+    rank, world = mesh.dp_rank(), mesh.dp_size()
     stream = ImageTextStream(cfg["train_file"], cfg, tokenizer,
                              TrainTransform(image_res, hflip=False,
                                             seed=mesh.rank_seed([ctx.seed,

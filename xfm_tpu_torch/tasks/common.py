@@ -1,13 +1,12 @@
 """What a task's main() shares (`xfm_tpu/tasks/common.py`): the config
 (`--bs` as the global batch, the `parallel` block checked against the
 process group), the output directory, the seed and the device; the train
-state built from the YAML (the same on every rank; sharded over `fsdp`
-where the `parallel` block asks, `place_state`), the step (with
-gradient accumulation), one epoch of it over prefetched device batches,
-the checkpoints (by epoch or by step, written by rank 0) and their
-resume, the step generators, the epoch loop of a fine-tune with its
-evals and checkpoints, the load of a reference checkpoint, and the
-log."""
+state built from the YAML (the same on every rank; cut over `tensor` and
+sharded over `fsdp` where the `parallel` block asks, `place_state`), the
+step (with gradient accumulation), one epoch of it over prefetched device
+batches, the checkpoints (by epoch or by step, written by rank 0) and
+their resume, the step generators, the epoch loop of a fine-tune with its
+evals and checkpoints, the load of a reference checkpoint, and the log."""
 from __future__ import annotations
 
 import dataclasses
@@ -44,10 +43,12 @@ class TaskContext:
         missing relative path looked up under the repository's
         configs/model), its `parallel` block checked against the process
         group (`mesh_from_config`), `--bs` (`scale_batch`) and `--epoch`
-        applied, and the result dumped to <output_dir>/config.yaml."""
+        applied, and the result dumped to <output_dir>/config.yaml. The
+        process is placed on the mesh (`mesh.use_mesh`: the tensor and
+        data × fsdp groups where `tensor` > 1)."""
         cfg = load_config(args.config, overrides)
         cfg = resolve_vision_config(cfg, config_root=_CONFIG_ROOT)
-        mesh.mesh_from_config(cfg)
+        mesh.use_mesh(mesh.mesh_from_config(cfg))
         if getattr(args, "bs", None):
             scale_batch(cfg, args.bs)
         if getattr(args, "epoch", None):
@@ -63,14 +64,15 @@ class TaskContext:
 def scale_batch(cfg: dict, global_bs: int,
                 n_processes: Optional[int] = None) -> None:
     """`--bs` as the global batch (`xfm_tpu/tasks/common.py` `_scale_batch`):
-    divided over the processes (one card each; the world size by default)
+    divided over the processes that split the batch (one card each;
+    `mesh.dp_size`, data × fsdp, by default: a tensor group shares rows)
     into `batch_size_train` and the `batch_size` of the stream blocks
     `images`, `texts`, `regions` and `images_imagenet`, where the YAML has
     them; and where it has no `batch_size_train`, into a top-level
     `batch_size` (NLVR.yaml's, Grounding_bbox.yaml's, imagenet1k.yaml's)
     or GLUE's `per_device_train_batch_size`, which the JAX package leaves
     as they are, so that `--bs` changes nothing there."""
-    n = n_processes or mesh.world_size()
+    n = n_processes or mesh.dp_size()
     for key in ("images", "texts", "regions", "images_imagenet"):
         if isinstance(cfg.get(key), dict) and "batch_size" in cfg[key]:
             cfg[key]["batch_size"] = max(1, global_bs // n)
@@ -96,9 +98,10 @@ def opt_steps_per_epoch(cfg: dict, micro_steps_per_epoch: int) -> int:
 
 def global_batches(n_rows: int, batch_size: int) -> int:
     """The micro-steps of an epoch over `n_rows` rows at the rank's
-    `batch_size` on the W processes: n_rows // (W · batch_size) global
-    batches, at least 1, as `core/mesh.rank_rows` deals them."""
-    return max(1, n_rows // max(1, mesh.world_size() * batch_size))
+    `batch_size` on the W = data × fsdp ranks that split the batch: n_rows
+    // (W · batch_size) global batches, at least 1, as
+    `core/mesh.rank_rows` deals them."""
+    return max(1, n_rows // max(1, mesh.dp_size() * batch_size))
 
 
 def epoch_opt_steps(cfg: dict, n_rows: int, batch_size: int) -> int:
@@ -128,7 +131,8 @@ def build_state(ctx: TaskContext, model: torch.nn.Module,
 def place_state(ctx: TaskContext, model: torch.nn.Module, sched,
                 make_optimizer=None) -> TrainState:
     """The train state of `model`, whose weights are final on every rank:
-    under `parallel.fsdp` > 1 the model sharded first (`shard_model`, with
+    under `parallel.tensor` > 1 the model cut first (`cut_model`), under
+    `parallel.fsdp` > 1 then sharded (`shard_model`, with
     the bf16 policy under `bf16_params`); then the optimizer over its
     parameters (the shards), and under `bf16_params` over their f32
     masters (`optim.with_master_weights`: a shard is its own master) with
@@ -145,9 +149,7 @@ def place_state(ctx: TaskContext, model: torch.nn.Module, sched,
             return create_optimizer_from_config(m, cfg, sched,
                                                 named_params=named)
     bf16 = bool(cfg.get("bf16_params", False))
-    if partitioning.fsdp_size(cfg) > 1:
-        partitioning.shard_model(model, mesh.device_mesh(
-            mesh.mesh_from_config(cfg), ctx.device), bf16_params=bf16)
+    _partition(ctx, model, bf16)
     if bf16:
         return _bf16_state(model, make_optimizer)
     return TrainState.create(model, make_optimizer(
@@ -157,18 +159,29 @@ def place_state(ctx: TaskContext, model: torch.nn.Module, sched,
 def eval_model(ctx: TaskContext, model: torch.nn.Module, load=None
                ) -> torch.nn.Module:
     """An `--evaluate` run's model: the random weights from `ctx.seed`,
-    `load(model)` where given, then sharded under `parallel.fsdp` > 1 as
-    `place_state` shards it (in the dtype a one-process eval computes in)
-    → `model`."""
+    `load(model)` where given, then cut and sharded as `place_state` cuts
+    and shards it (in the dtype a one-process eval computes in) →
+    `model`."""
     from ..train.checkpoint import init_weights
 
     init_weights(model, ctx.seed)
     if load is not None:
         load(model)
-    if partitioning.fsdp_size(ctx.config) > 1:
-        partitioning.shard_model(model, mesh.device_mesh(
-            mesh.mesh_from_config(ctx.config), ctx.device))
+    _partition(ctx, model)
     return model
+
+
+def _partition(ctx: TaskContext, model: torch.nn.Module,
+               bf16: bool = False) -> None:
+    """The model cut over the tensor group where `parallel.tensor` > 1
+    (`cut_model`), then sharded over `fsdp` where `parallel.fsdp` > 1
+    (`shard_model`, under the bf16 policy with `bf16`)."""
+    shape = mesh.use_mesh(mesh.mesh_from_config(ctx.config))
+    if shape.tensor > 1:
+        partitioning.cut_model(model, partitioning.model_cut())
+    if partitioning.fsdp_size(ctx.config) > 1:
+        partitioning.shard_model(model, mesh.device_mesh(shape, ctx.device),
+                                 bf16_params=bf16)
 
 
 def _bf16_state(model, make_optimizer, step: int = 0) -> TrainState:

@@ -203,7 +203,7 @@ def main(args) -> dict:
     mesh.broadcast_parameters(model)
     if load is not None:
         load(model)
-    bsz = cfg.get("per_device_train_batch_size", 32) * mesh.world_size()
+    bsz = cfg.get("per_device_train_batch_size", 32) * mesh.dp_size()
     epochs = int(cfg.get("num_train_epochs", 3))
     total = cfg.get("max_train_steps") or epochs * opt_steps_per_epoch(
         cfg, max(1, len(train_ex) // bsz))

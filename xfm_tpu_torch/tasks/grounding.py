@@ -231,7 +231,7 @@ def main_weakly_supervised(args) -> dict:
     {"gradcam_acc"}, printed and logged. Samples without boxes are
     skipped. One process only: `MultiProcessUnsupported` under a group of
     more."""
-    if mesh.is_distributed():
+    if mesh.world_size() > 1:
         raise mesh.MultiProcessUnsupported(
             "main_weakly_supervised runs on one process")
     ctx = TaskContext.from_args(args)

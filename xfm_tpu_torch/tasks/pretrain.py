@@ -283,8 +283,8 @@ def main(args, tokenizer=None, overrides=None) -> dict:
     code_ids_fn = None
     if cfg.get("use_vision_tokenizer", False):
         _, code_ids_fn = frozen_tokenizer(cfg, ctx.device)
-    streams = build_streams(cfg, tokenizer, ctx.seed, mesh.rank(),
-                            mesh.world_size())
+    streams = build_streams(cfg, tokenizer, ctx.seed, mesh.dp_rank(),
+                            mesh.dp_size())
     if not streams:
         raise ValueError("no pretraining streams configured")
     order = sorted(streams)

@@ -101,8 +101,8 @@ def rerank_scores(model, img_embeds, txt_embeds, txt_atts, sims,
     = "0" scores image → text in the repeat form too. `timings` gets the
     host seconds of each direction (`i2t_s`, `t2i_s`; every chunk ends on
     reading its scores back)."""
-    pid = mesh.rank() if process_index is None else process_index
-    pcount = mesh.world_size() if process_count is None else process_count
+    pid = mesh.dp_rank() if process_index is None else process_index
+    pcount = mesh.dp_size() if process_count is None else process_count
     t0 = time.perf_counter()
     dev = img_embeds.device
 
@@ -154,7 +154,7 @@ def merge_rerank_scores(score_i2t, score_t2i, chunk: int = 1024):
     would round through them; an elementwise max would clamp a logit below
     -100). Gathered in row chunks of `chunk`, so that the host holds
     P × chunk rows at a time. A no-op on one process."""
-    pcount = mesh.world_size()
+    pcount = mesh.dp_size()
     if pcount == 1:
         return score_i2t, score_t2i
     shift = 100.0 * (pcount - 1)

@@ -55,11 +55,15 @@ def collect_results(result: list, out_dir: str, filename: str) -> str:
     shards into <out_dir>/<filename>.json → the merged file's path, which
     every rank may read once this returns. Rank r holds the examples r,
     r + W, … of the split (`data/finetune_data`), so the merge interleaves
-    the shards back into the split's order."""
-    r, pcount = mesh.rank(), mesh.world_size()
+    the shards back into the split's order. r and W count the ranks that
+    split the batch (`mesh.dp_rank`, `dp_size`); the first rank of each
+    tensor group writes its group's shard."""
+    r, pcount = mesh.dp_rank(), mesh.dp_size()
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"{filename}_rank{r}.json"), "w") as f:
-        json.dump(result, f)
+    if mesh.tensor_rank() == 0:
+        with open(os.path.join(out_dir, f"{filename}_rank{r}.json"),
+                  "w") as f:
+            json.dump(result, f)
     mesh.barrier()
     final = os.path.join(out_dir, f"{filename}.json")
     if is_main_process():

@@ -29,7 +29,10 @@ rank's sum of squares summed over the `fsdp` group, equal on every rank),
 LARS's trust ratio takes the norms of whole parameters the same way, and
 `state_dict` / `load_state_dict` carry whole tensors, as one process holds
 them. Under `bf16_params` there FSDP2's f32 shards are `MasterWeights`'
-masters.
+masters. A weight that `core/partitioning.cut_model` cut over the tensor
+group is one rank's cut too (its moments with it): its sum of squares is
+summed over the tensor group as well, and a whole one counts once
+(`_Cuts`).
 """
 from __future__ import annotations
 
@@ -82,8 +85,7 @@ class HFAdamW:
         self.decay_idx = [i for i, n in enumerate(self.names) if decays(n)]
         self.boost_idx = [i for i, n in enumerate(self.names)
                           if boosted(n, boost_patterns)]
-        self.group = partitioning.shard_group(self.params)
-        self.sharded = _sharded_mask(self.params)
+        self.cuts = _Cuts(self.params)
         self.mu = [torch.zeros_like(partitioning.local(p))
                    for p in self.params]
         self.nu = [torch.zeros_like(partitioning.local(p))
@@ -95,7 +97,7 @@ class HFAdamW:
         """One update from the parameters' `.grad`; returns the global norm
         of the gradients before clipping (a device tensor)."""
         params, grads = _locals(self.params)
-        g_norm = _global_norm(grads, self.group, self.sharded)
+        g_norm = _global_norm(grads, self.cuts)
         if self.clip_grad_norm:
             m = self.clip_grad_norm
             scale = torch.where(g_norm < m, torch.ones_like(g_norm),
@@ -159,8 +161,7 @@ class LARS:
         self.weight_decay = weight_decay
         self.momentum = momentum
         self.trust_coefficient = trust_coefficient
-        self.group = partitioning.shard_group(self.params)
-        self.sharded = _sharded_mask(self.params)
+        self.cuts = _Cuts(self.params)
         self.mu = [torch.zeros_like(partitioning.local(p))
                    for p in self.params]
         self.count = 0
@@ -170,22 +171,22 @@ class LARS:
         """One update from the parameters' `.grad`; returns the global norm
         of the gradients (a device tensor)."""
         params, grads = _locals(self.params)
-        g_norm = _global_norm(grads, self.group, self.sharded)
+        g_norm = _global_norm(grads, self.cuts)
         big = [i for i, p in enumerate(self.params) if p.dim() > 1]
         if self.weight_decay:
             for i in big:
                 grads[i] = grads[i] + self.weight_decay * params[i]
         norms = []
-        if self.group is None:
+        if self.cuts.whole_here:
             norms = [(torch.linalg.vector_norm(params[i]),
                       torch.linalg.vector_norm(grads[i])) for i in big]
         elif big:
             # the norms of whole parameters: squares summed over the shards
+            # and the tensor cuts
             sq = torch.stack([torch.stack([params[i].float().square().sum(),
                                            grads[i].square().sum()])
                               for i in big])
-            norms = _over_shards(sq, self.sharded[big][:, None],
-                                 self.group).sqrt()
+            norms = self.cuts.whole(sq, big).sqrt()
         for i, (pn, gn) in zip(big, norms):
             one = torch.ones_like(pn)
             q = torch.where(pn > 0, torch.where(
@@ -221,13 +222,38 @@ def _locals(params) -> tuple:
     return local, grads
 
 
-def _sharded_mask(params):
-    """Which of `params` are shards (a bool tensor on their device), or
-    None where none is."""
-    if partitioning.shard_group(params) is None:
-        return None
-    return torch.tensor([partitioning.is_dtensor(p) for p in params],
-                        device=partitioning.local(params[0]).device)
+class _Cuts:
+    """How the parameters are laid out over the ranks: FSDP2 shards over
+    `group` (`sharded` marks them) and tensor cuts over `tgroup` (`cut`
+    marks them), each a bool tensor on the parameters' device, or None
+    where no parameter is so."""
+
+    def __init__(self, params):
+        dev = partitioning.local(params[0]).device
+        self.group = partitioning.shard_group(params)
+        self.sharded = (None if self.group is None else torch.tensor(
+            [partitioning.is_dtensor(p) for p in params], device=dev))
+        cut = [partitioning.tensor_cut_of(p) is not None for p in params]
+        tcut = partitioning.model_cut() if any(cut) else None
+        self.tgroup = None if tcut is None else tcut.group
+        self.cut = (None if self.tgroup is None
+                    else torch.tensor(cut, device=dev))
+
+    @property
+    def whole_here(self) -> bool:
+        """Every parameter whole on this rank."""
+        return self.group is None and self.tgroup is None
+
+    def whole(self, sq: torch.Tensor, idx=None) -> torch.Tensor:
+        """Sums of squares over a rank's tensors ([n] or [n, k], rows the
+        parameters `idx`, all by default) → over the whole tensors."""
+        for group, mask in ((self.group, self.sharded),
+                            (self.tgroup, self.cut)):
+            if group is not None:
+                m = mask if idx is None else mask[idx]
+                sq = _over_shards(sq, m.reshape(m.shape + (1,) * (
+                    sq.dim() - 1)), group)
+        return sq
 
 
 def _over_shards(sq: torch.Tensor, sharded, group) -> torch.Tensor:
@@ -240,13 +266,14 @@ def _over_shards(sq: torch.Tensor, sharded, group) -> torch.Tensor:
             + torch.where(sharded, zero, sq))
 
 
-def _global_norm(grads, group, sharded) -> torch.Tensor:
-    """The norm of the whole gradient: over the shards of `group` where the
-    parameters are sharded, so that every rank clips by the same norm."""
+def _global_norm(grads, cuts: _Cuts) -> torch.Tensor:
+    """The norm of the whole gradient: summed over the shards and the
+    tensor cuts where the parameters are so, so that every rank clips by
+    the same norm."""
     norms = torch.stack(torch._foreach_norm(grads))
-    if group is None:
+    if cuts.whole_here:
         return torch.linalg.vector_norm(norms)
-    return _over_shards(norms.square(), sharded, group).sum().sqrt()
+    return cuts.whole(norms.square()).sum().sqrt()
 
 
 def _whole(names, tensors, params) -> dict:
@@ -309,6 +336,9 @@ class MasterWeights:
         self.names, self.params = zip(*named_params)
         self.masters = [p if partitioning.is_dtensor(p)
                         else p.detach().float().clone() for p in self.params]
+        for m, p in zip(self.masters, self.params):
+            if partitioning.tensor_cut_of(p) is not None:
+                m._xfm_tensor_cut = partitioning.tensor_cut_of(p)
         self.copied = [i for i, p in enumerate(self.params)
                        if not partitioning.is_dtensor(p)]
         self.inner = make_inner(list(zip(self.names, self.masters)))
