@@ -325,17 +325,18 @@ Phases, each of which must pass or the script exits non-zero:
      keys over phase 19's corpora, full width and depth, 2 steps at
      `--bs` 24 a card (its rank 0 printing the backend, the world size and
      every rank's launches: K1 72 + 72 and nothing else; each step's
-     reduced loss from its log), at the same time as `--task itr_coco`
-     (phase 18's corpus and keys, one epoch at `--bs 24`) and, in
+     reduced loss from its log), at the same time as (with two cards or
+     more) `--task itr_coco` (phase 18's corpus and keys, one epoch at
+     `--bs 24`) and, in
      this process, the pretrain run without `torchrun`; with one card the
      torchrun run is held to it (the first loss bit-equal, the second
      within DP_LOSS_RTOL; the gap between the two runs' saved parameters
      within DP_UPDATE_RTOL of the plain run's second update over all
      parameters, and within DP_TENSOR_UPDATE_RTOL in each tensor, that
-     update read from the plain run's save at step 1); the
-     fine-tune's zero-shot R_mean equals phase 18's, then `--evaluate
-     --checkpoint` its `ckpt/0` (under `torchrun` with two cards or more,
-     in this process with one) equals the epoch's eval;
+     update read from the plain run's save at step 1); with two cards or
+     more the fine-tune's zero-shot R_mean equals phase 18's, then
+     `--evaluate --checkpoint` its `ckpt/0` under `torchrun` equals the
+     epoch's eval (with one card phase 18 ran that epoch in this process);
      with two cards or more also the bf16 pretrain step on a fixed global
      batch of 32 on two processes against one (`python3 chip_smoke.py
      --dp-step`), else a line saying it could not run;
@@ -423,8 +424,29 @@ Phases, each of which must pass or the script exits non-zero:
      `itr_coco` under torchrun at those layouts, and `--tp-decode` (VQA's
      `rank` and the beam decode at full width) at `{tensor: 2}` against
      one process; else a line saying they could not run; phase 27's
-     directory deleted;
-then a JSON line of the kernels, the device line and the result line.
+     directory deleted; the `{tensor: 2}` processes on one card then take
+     the same batch at `{tensor: 2, seq_shard: true}` as it is (held as
+     the cut; each process's peak memory printed at both layouts) and on
+     both fused routes (held as the cut to the fused one-process step),
+     then the CLIP-ViT-B/16 and DeiT-B/16 retrieval steps at 384 px, B =
+     32, at `{tensor: 2}` (`tower_step`, held as the cut to the one-process
+     steps in bf16 and f32), and phase 32's blocks; each step's kernel
+     launches counted;
+ 32. sequence parallelism and the tower cuts (`seq_tower_phase`): in
+     phase 31's two processes on the card, each block cut for its rank
+     and run under the group (`seq_tower_group_checks`,
+     `cut_block_run`): the full-width BEiT-2-base block under `seq_shard`
+     (N = 197, B = 96 with both fused routes, K4 at 96·⌈197/2⌉ rows;
+     N = 577, B = 32 with K2), a text layer and a fusion layer the same
+     way, CLIP-ViT-B/16 and DeiT-B/16 blocks at 384 px, B = 32 (K3
+     forward and backward at [32, 577, 6, 64]) and a Swin-B block of each
+     stage, each held to the whole module as phase 31 holds its blocks;
+     then K3 at [32, 577, 6 | 3, 64] (no bias) and K4 (add) at the
+     seq-shard rows of T = 2 and 4 against their plain versions in bf16
+     and f32, times, bounds, library times; the launches at T = 2 from
+     phase 31's DeiT step (K3) and fused `seq_shard` step (K4);
+then the sum of phases 1-26's seconds (the host's speed), a JSON line of
+the kernels, the device line and the result line.
 Phases 4, 7 and 10 also check that no kernel but their own (K4 and K5
 included) is launched there. All five libraries build together in
 phase 1.
@@ -6116,25 +6138,33 @@ def _layout_tag(parallel) -> str:
 
 
 def dp_step_worker(out_dir: str, parallel=None, B: int = 32,
-                   f32: bool = False, one_card: bool = False) -> int:
-    """`python3 chip_smoke.py --dp-step OUT [PARALLEL [f32] [one-card]]`
-    under torchrun (or called in this process: one process): the
+                   f32: bool = False, one_card: bool = False,
+                   fused: bool = False) -> int:
+    """`python3 chip_smoke.py --dp-step OUT [PARALLEL [f32] [one-card]
+    [fused]]` under torchrun (or called in this process: one process): the
     full-width bf16 (with `f32`, f32) pretrain step
-    (`configs.make_pretrain_run`, weights from seed 0; with PARALLEL, a
-    YAML `parallel` block as JSON ("{}" for none), the state placed as a
-    task places it: cut where `tensor` > 1, sharded where `fsdp` > 1) on
-    rank r's rows of a fixed global batch of `B` with fixed hard negatives
-    (the next row of the global batch); rank 0 writes the step's reduced
-    losses and gradient norm to
-    OUT/dp_step_<W>[_<layout>][_f32][_one_card].json. With `one_card`
-    every rank computes on card 0 and the group runs on gloo, whose
-    collectives take CUDA tensors (NCCL puts one rank on a card)."""
+    (`configs.make_pretrain_run`, weights from seed 0, with `fused` on
+    both fused routes; with PARALLEL, a YAML `parallel` block as JSON
+    ("{}" for none), the state placed as a task places it: cut where
+    `tensor` > 1, sharded where `fsdp` > 1) on rank r's rows of a fixed
+    global batch of `B` with fixed hard negatives (the next row of the
+    global batch); rank 0 writes the step's reduced losses and gradient
+    norm, the kernels it launched and every rank's peak memory to
+    OUT/dp_step_<W>[_<layout>][_fused][_f32][_one_card].json. With
+    `one_card` every rank computes on card 0 and the group runs on gloo,
+    whose collectives take CUDA tensors (NCCL puts one rank on a card);
+    there, in the same processes, a layout with `tensor` > 1 is run again
+    with `seq_shard` (as it is, and fused), then the CLIP-ViT and DeiT
+    retrieval steps under it in bf16 and f32 (`tower_step`; rank 0 writes
+    OUT/dp_tower_<W>_<kind>[_f32]_one_card.json), then phase 32's blocks
+    (`seq_tower_group_checks`, printed by rank 0)."""
     import torch.distributed as dist
 
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     from xfm_tpu_torch import configs
-    from xfm_tpu_torch.core import mesh
+    from xfm_tpu_torch.core import mesh, partitioning
+    from xfm_tpu_torch.ops import kernels
 
     if one_card:
         torch.cuda.set_device(0)
@@ -6142,20 +6172,55 @@ def dp_step_worker(out_dir: str, parallel=None, B: int = 32,
                                 world_size=int(os.environ["WORLD_SIZE"]),
                                 rank=int(os.environ["RANK"]))
     dev = mesh.maybe_init_distributed("cuda")
-    state, batch, step = configs.make_pretrain_run(
-        B=B, device=dev, parallel=parallel or None,
-        dtype=torch.float32 if f32 else torch.bfloat16)
-    roll = torch.roll(torch.arange(B, device=dev), -1)
-    batch = mesh.rank_slice(dict(batch, hard_negatives=(roll, roll)))
-    state, metrics = step(state, batch, None)
-    vals = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
-    if mesh.rank() == 0:
-        tag = (f"_{_layout_tag(parallel)}" if parallel else "")
-        with open(os.path.join(out_dir, f"dp_step_{mesh.world_size()}"
-                               f"{tag}{'_f32' if f32 else ''}"
-                               f"{'_one_card' if one_card else ''}.json"),
-                  "w") as f:
-            json.dump(vals, f)
+    cut_layout = one_card and int((parallel or {}).get("tensor", 1)) > 1
+    layouts = [(parallel, fused)]
+    if cut_layout:
+        seq = dict(parallel, seq_shard=True)
+        layouts += [(seq, False), (seq, True)]
+
+    def peaks() -> list:
+        peak = torch.cuda.max_memory_allocated()
+        if not dist.is_initialized():
+            return [peak]
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, peak)
+        return out
+
+    def write(name: str, vals: dict) -> None:
+        if mesh.rank() == 0:
+            with open(os.path.join(out_dir, name), "w") as f:
+                json.dump(vals, f)
+
+    for par, fz in layouts:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, batch, step = configs.make_pretrain_run(
+            B=B, device=dev, parallel=par or None,
+            fused_ln=fz or None, fused_mlp=fz or None,
+            dtype=torch.float32 if f32 else torch.bfloat16)
+        roll = torch.roll(torch.arange(B, device=dev), -1)
+        batch = mesh.rank_slice(dict(batch, hard_negatives=(roll, roll)))
+        kernels.reset_launch_counts()
+        state, metrics = step(state, batch, None)
+        vals = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
+        vals["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        vals["peak_bytes_by_rank"] = peaks()
+        del state, batch, step, metrics
+        write(f"dp_step_{mesh.world_size()}"
+              f"{f'_{_layout_tag(par)}' if par else ''}"
+              f"{'_fused' if fz else ''}{'_f32' if f32 else ''}"
+              f"{'_one_card' if one_card else ''}.json", vals)
+    if cut_layout:
+        for kind in TOWER_KINDS:
+            for t32 in (False, True):
+                vals = tower_step(kind, parallel, f32=t32)
+                vals.pop("peak_bytes")
+                vals["peak_bytes_by_rank"] = peaks()
+                write(f"dp_tower_{mesh.world_size()}_{kind}"
+                      f"{'_f32' if t32 else ''}_one_card.json", vals)
+        torch.cuda.empty_cache()
+        mesh.use_mesh(mesh.mesh_from_config({"parallel": parallel}))
+        seq_tower_group_checks(partitioning.model_cut())
     if dist.is_initialized():
         dist.destroy_process_group()
     return 0
@@ -6226,15 +6291,16 @@ def dp_phase(zero_shot_r_mean: float, keep_root: bool = False) -> dict:
         plain_cfg = os.path.join(root, "pt_plain.yaml")
         with open(plain_cfg, "w") as f:
             yaml.safe_dump(dict(cfg, ckpt_frequent_step=1), f)
-        ft_root = os.path.join(root, "ft")
-        os.makedirs(ft_root)
-        train, test = _finetune_corpus(ft_root, 36, 16, 0)
-        ft = {k: v for k, v in configs.RETRIEVAL_COCO.items()
-              if k != "val_file"}
-        ft.update(train_file=[train], test_file=test, image_root=ft_root)
         ft_cfg = os.path.join(root, "ft.yaml")
-        with open(ft_cfg, "w") as f:
-            yaml.safe_dump(ft, f)
+        if W > 1:
+            ft_root = os.path.join(root, "ft")
+            os.makedirs(ft_root)
+            train, test = _finetune_corpus(ft_root, 36, 16, 0)
+            ft = {k: v for k, v in configs.RETRIEVAL_COCO.items()
+                  if k != "val_file"}
+            ft.update(train_file=[train], test_file=test, image_root=ft_root)
+            with open(ft_cfg, "w") as f:
+                yaml.safe_dump(ft, f)
         out = {k: os.path.join(root, k) for k in ("pt_tr", "pt_plain",
                                                   "ft_tr", "ft_ev")}
         pt_args = ["--task", "pretrain_DIY", "--config", pt_cfg,
@@ -6246,8 +6312,12 @@ def dp_phase(zero_shot_r_mean: float, keep_root: bool = False) -> dict:
         pt_tr = _torchrun(W, ["-m", "xfm_tpu_torch.run", *pt_args,
                               "--bs", str(24 * W), "--output_dir",
                               out["pt_tr"]])
-        ft_tr = _torchrun(W, [*ft_args, "--bs", "24", "--epoch", "1",
-                              "--output_dir", out["ft_tr"]])
+        # itr_coco under torchrun with two cards or more; with one, phase
+        # 18 ran its epoch, eval and checkpoint in this process, and the
+        # pretrain launch shows the torchrun path
+        ft_tr = (_torchrun(W, [*ft_args, "--bs", "24", "--epoch", "1",
+                               "--output_dir", out["ft_tr"]])
+                 if W > 1 else None)
         kernels.reset_launch_counts()
         run.main(["--task", "pretrain_DIY", "--config", plain_cfg,
                   "--device", "cuda", "--bs", "24", "--output_dir",
@@ -6255,26 +6325,22 @@ def dp_phase(zero_shot_r_mean: float, keep_root: bool = False) -> dict:
         plain_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
         t_plain = time.perf_counter() - t0
         pt_out = _finish(pt_tr, "pretrain_DIY under torchrun")
-        ft_out = _finish(ft_tr, "itr_coco under torchrun")
+        ft_out = (_finish(ft_tr, "itr_coco under torchrun") if ft_tr
+                  else None)
         t_both = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        ev_args = [*ft_args, "--evaluate", "--checkpoint",
-                   os.path.join(out["ft_tr"], "ckpt", "0", "state.pt"),
-                   "--output_dir", out["ft_ev"]]
-        if W > 1:
+        ev_launches = None
+        if ft_tr is not None:
+            torch.cuda.empty_cache()
+            ev_args = [*ft_args, "--evaluate", "--checkpoint",
+                       os.path.join(out["ft_tr"], "ckpt", "0", "state.pt"),
+                       "--output_dir", out["ft_ev"]]
             ev_launches = _processes_line(_finish(
                 _torchrun(W, ev_args), "itr_coco --evaluate"),
                 "itr_coco --evaluate")[2]
-        else:  # one rank: in this process (the epoch's launch went through
-            # torchrun), which saves the launch's start-up
-            kernels.reset_launch_counts()
-            run.main(ev_args[2:])  # past "-m xfm_tpu_torch.run"
-            ev_launches = [{k: v for k, v in kernels.LAUNCHES.items() if v}]
         t_all = time.perf_counter() - t0
-        print(f"  seconds: the plain pretrain run {t_plain:.1f} (the two "
+        print(f"  seconds: the plain pretrain run {t_plain:.1f} (the "
               f"torchrun runs beside it, all done at {t_both:.1f}), the "
-              f"eval {t_all - t_both:.1f}"
-              + (" (in this process: one card)" if W == 1 else ""))
+              f"eval {t_all - t_both:.1f}")
 
         world, backend, by_rank = _processes_line(pt_out, "pretrain_DIY")
         print(f"  pretrain_DIY under torchrun: world {world}, backend "
@@ -6300,6 +6366,12 @@ def dp_phase(zero_shot_r_mean: float, keep_root: bool = False) -> dict:
                                         tr_losses, plain_losses,
                                         "W = 1 under torchrun"))
 
+        if ft_out is None:
+            print("  itr_coco under torchrun: not run, this machine has one "
+                  "card (phase 18 ran its epoch, eval and resume in this "
+                  "process; the pretrain launch above takes the torchrun "
+                  "path)")
+            return _dp_end(result, W, root, keep_root)
         world, backend, by_rank = _processes_line(ft_out, "itr_coco")
         ft_log = _last_log(out["ft_tr"])
         print(f"  itr_coco under torchrun: world {world}, backend "
@@ -6326,19 +6398,24 @@ def dp_phase(zero_shot_r_mean: float, keep_root: bool = False) -> dict:
                                  "epoch's eval")
         result.update(ft_r_mean=[e["r_mean"] for e in ft_log],
                       eval_launches=ev_launches)
-        if W >= 2:
-            result["fixed_batch"] = dp_fixed_batch(root)
-        else:
-            print("  two processes on a fixed global batch over NCCL: not "
-                  "run, this machine has one card (NCCL puts one rank on a "
-                  "card); phase 31 runs two on one card over gloo, and the "
-                  "CPU tests two gloo processes")
-        if keep_root:
-            result["root"] = root
-        return result
+        return _dp_end(result, W, root, keep_root)
     finally:
         if not keep_root:
             shutil.rmtree(root, ignore_errors=True)
+
+
+def _dp_end(result: dict, W: int, root: str, keep_root: bool) -> dict:
+    """Phase 27's fixed global batch (two cards or more) and its result."""
+    if W >= 2:
+        result["fixed_batch"] = dp_fixed_batch(root)
+    else:
+        print("  two processes on a fixed global batch over NCCL: not "
+              "run, this machine has one card (NCCL puts one rank on a "
+              "card); phase 31 runs two on one card over gloo, and the "
+              "CPU tests two gloo processes")
+    if keep_root:
+        result["root"] = root
+    return result
 
 
 def _saved_params(run_dir: str, step: int) -> dict:
@@ -6966,6 +7043,48 @@ def shard_text_layer(shards, hidden, attention_bias=None,
                            c.fused_ln)
 
 
+def cut_block_run(full, cut, run, x):
+    """`run(block, x)` (x the block's input [B, N, C]) for this rank of the
+    tensor group of `cut` (a `TensorCut` with its group), the block the
+    whole module `full` (the same on every rank) cut for the rank
+    (`core/partitioning.cut_model`, on a copy); under its config's
+    `seq_shard` on the rank's rows, x scattered before and the rows
+    gathered after, as a stack runs its loop over blocks
+    (`BeitVisionTransformer._sequence_loop`, `TextTransformer.forward`)
+    → (the cut block, its output [B, N, C], whole on every rank)."""
+    import copy
+
+    from xfm_tpu_torch.core import partitioning
+    from xfm_tpu_torch.ops import tensor_parallel as tp
+
+    block = partitioning.cut_model(copy.deepcopy(full), cut)
+    for p in block.parameters():
+        p.grad = None
+    if not getattr(full.c, "seq_shard", False):
+        return block, run(block, x)
+    n = x.shape[1]
+    with tp.sequence(n):
+        rows = run(block, tp.scatter_to_sequence(x, cut))
+    return block, tp.gather_from_sequence(rows, cut, n, to_column=False)
+
+
+def cut_whole_grads(block, cut) -> dict:
+    """name → the whole gradient, on every rank, of a block cut and run by
+    `cut_block_run` after its backward (each rank of the group calls it):
+    the `seq_shard` partials summed over the group as a step sums them
+    (`core/partitioning.sum_sequence_gradients`), a cut parameter's
+    gathered and joined (`ops/tensor_parallel.gather_tensor`), a whole
+    one's as the collectives' backward left it."""
+    from xfm_tpu_torch.core import partitioning
+    from xfm_tpu_torch.ops import tensor_parallel as tp
+
+    partitioning.sum_sequence_gradients(block)
+    plan = block._xfm_tensor_plan
+    return {n: tp.gather_tensor(p.grad, plan[n], cut) if n in plan
+            else p.grad for n, p in block.named_parameters()
+            if p.grad is not None}
+
+
 def shard_whole_grads(shards) -> dict:
     """name → the whole module's gradient from its shards': a cut
     parameter's joined (`ops/tensor_parallel.join`), a replicated one's
@@ -6986,14 +7105,16 @@ def shard_whole_grads(shards) -> dict:
     return out
 
 
-def _tp_check(tag, full, shards, run_full, run_shards, twin=None, seed=0,
-              grad=True) -> dict:
-    """`run_shards(shards)` (the shards' partials summed by hand) against
+def _tp_check(tag, full, run_full, run_cut, whole_grads, twin=None, seed=0,
+              grad=True, show=True) -> dict:
+    """`run_cut()` (the module's cut run: its T shards' partials summed by
+    hand in one process, or this rank's cut under a tensor group) against
     `run_full(full)`: the output and, with `grad`, every gradient (the
-    shards' joined by `shard_whole_grads`) for one output gradient;
-    a key bias's gradient (zero but for rounding: softmax is shift-
-    invariant over the keys) on its key weight's scale. `twin`: the module
-    in f32, for the bf16 gate → the launches of the shards' run."""
+    cut's whole gradients, `whole_grads()`) for one output gradient;
+    a key bias's gradient (RoBERTa's `key`, CLIP's `k_proj`: zero but for
+    rounding, softmax is shift-invariant over the keys) on its key
+    weight's scale. `twin`: the module in f32, for the bf16 gate; `show`:
+    print the result → the launches of the cut run."""
     from xfm_tpu_torch.ops import kernels
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -7003,7 +7124,7 @@ def _tp_check(tag, full, shards, run_full, run_shards, twin=None, seed=0,
         y.backward(dy)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    ys = run_shards(shards)
+    ys = run_cut()
     if grad:
         ys.backward(dy)
     torch.cuda.synchronize()
@@ -7011,7 +7132,7 @@ def _tp_check(tag, full, shards, run_full, run_shards, twin=None, seed=0,
     named = dict(full.named_parameters())
     pairs = [("out", ys, y)]
     if grad:
-        joined = shard_whole_grads(shards)
+        joined = whole_grads()
         pairs += [(n, joined[n], p.grad) for n, p in named.items()
                   if p.grad is not None]
     ref = {}
@@ -7024,7 +7145,7 @@ def _tp_check(tag, full, shards, run_full, run_shards, twin=None, seed=0,
     worst = 0.0
     for name, got, want in pairs:
         scale_of = (named[name[:-len("bias")] + "weight"].grad
-                    if name.endswith("key.bias") else want)
+                    if name.endswith(("key.bias", "k_proj.bias")) else want)
         scale = scale_of.float().abs().max().item()
         got, want = got.float(), want.float()
         if got.shape != want.shape or not torch.isfinite(got).all():
@@ -7042,8 +7163,9 @@ def _tp_check(tag, full, shards, run_full, run_shards, twin=None, seed=0,
             raise AssertionError(f"{tag}: {name} {err:.3e} against "
                                  f"{tol:.3e}")
         worst = max(worst, err / max(tol, 1e-30))
-    print(f"  {tag}: {len(pairs)} tensors, the worst at {worst:.3f} of "
-          f"its gate; launches {json.dumps(launches)}")
+    if show:
+        print(f"  {tag}: {len(pairs)} tensors, the worst at {worst:.3f} of "
+              f"its gate; launches {json.dumps(launches)}")
     return launches
 
 
@@ -7087,8 +7209,9 @@ def tp_block_check(T, dtype, res, B, fused, seed) -> dict:
     x = _device_randn(g, B, c.num_patches + 1, 768).to(dtype)
     tag = (f"BEiT block T={T} N={c.num_patches + 1} B={B} "
            f"{str(dtype)[6:]}{' fused' if fused else ''}")
-    return _tp_check(tag, full, shards, lambda m: m(x),
-                     lambda s: shard_beit_block(s, x), twin, seed)
+    return _tp_check(tag, full, lambda m: m(x),
+                     lambda: shard_beit_block(shards, x),
+                     lambda: shard_whole_grads(shards), twin, seed)
 
 
 def tp_fusion_check(T, dtype, fused, seed, B=32, Nq=40, Nk=577) -> dict:
@@ -7116,9 +7239,9 @@ def tp_fusion_check(T, dtype, fused, seed, B=32, Nq=40, Nk=577) -> dict:
     bias = mask_to_bias(m)
     tag = (f"fusion layer T={T} [{B}, {Nq}] x [{B}, {Nk}] {str(dtype)[6:]}"
            f"{' fused' if fused else ''}")
-    return _tp_check(tag, full, shards, lambda m: m(h, bias, enc, None),
-                     lambda s: shard_text_layer(s, h, bias, enc, None),
-                     twin, seed)
+    return _tp_check(tag, full, lambda m: m(h, bias, enc, None),
+                     lambda: shard_text_layer(shards, h, bias, enc, None),
+                     lambda: shard_whole_grads(shards), twin, seed)
 
 
 def tp_grouped_check(T, dtype, seed, U=8, gs=256, Nq=40, Nk=577) -> dict:
@@ -7147,11 +7270,11 @@ def tp_grouped_check(T, dtype, seed, U=8, gs=256, Nq=40, Nk=577) -> dict:
            f"{12 // T}, 64] {str(dtype)[6:]}")
     with torch.no_grad():
         return _tp_check(
-            tag, full, shards,
+            tag, full,
             lambda m: m.crossattention(x, enc, bias, kv_group_size=gs),
-            lambda s: shard_attention([m.crossattention for m in s],
-                                           x, enc, bias, gs),
-            twin, seed, grad=False)
+            lambda: shard_attention([m.crossattention for m in shards],
+                                    x, enc, bias, gs),
+            None, twin, seed, grad=False)
 
 
 def tensor_phase(unsharded: dict) -> dict:
@@ -7220,6 +7343,221 @@ def tensor_phase(unsharded: dict) -> dict:
     return out
 
 
+# --- phase 32: sequence parallelism and the tower cuts -----------------------
+
+def tp_group_check(tag, make, c, run, x, cut, seed) -> dict:
+    """The whole full-width module `make(c)` (`_tp_module`'s seeded
+    weights, the same on every rank) against its cut for this rank run
+    under the tensor group of `cut` (`cut_block_run`, `cut_whole_grads`):
+    `_tp_check`'s gates, printed by rank 0 → the launches of the cut
+    run."""
+    full, twin = _tp_module(make, c, seed)
+    held = {}
+
+    def run_cut():
+        held["block"], y = cut_block_run(full, cut, run, x)
+        return y
+
+    return _tp_check(tag, full, lambda m: run(m, x), run_cut,
+                     lambda: cut_whole_grads(held["block"], cut), twin, seed,
+                     show=cut.rank == 0)
+
+
+def seq_tower_group_checks(cut) -> None:
+    """Phase 32's blocks at full width on this rank of a tensor group (the
+    one-card processes of phase 31), each against the whole module, in
+    bf16 (held to its f32 twin) and f32 unless said: BEiT-2-base blocks
+    under `seq_shard` at N = 197 (B = 96, the fused route: K1, K4 at
+    B·⌈N/T⌉ rows, K5) and at N = 577 (B = 32, K2); a text layer (bf16)
+    over B × 40 rows with padded tails and a fusion layer (f32) with its
+    cross-attention to B × 577 image rows, under `seq_shard`, fused;
+    CLIP-ViT-B/16 and DeiT-B/16 blocks at 384 px (B = 32: K3 forward and
+    backward at [32, 577, 12/T, 64]); a Swin-B block of each stage (f32,
+    and stage 0 in bf16; window 12, nH/T heads). A check that fails
+    raises."""
+    from xfm_tpu_torch.models.beit2 import BeitBlock, VisionConfig
+    from xfm_tpu_torch.models.clip_vit import (ClipEncoderLayer,
+                                               ClipVisionConfig)
+    from xfm_tpu_torch.models.deit import DeitBlock, DeitConfig
+    from xfm_tpu_torch.models.swin import SwinBlock, SwinConfig
+    from xfm_tpu_torch.models.text_encoder import (TextConfig,
+                                                   TransformerLayer)
+    from xfm_tpu_torch.ops.attention import mask_to_bias
+
+    bf16, f32, T = torch.bfloat16, torch.float32, cut.size
+    g = torch.Generator(device="cuda").manual_seed(120)
+
+    def whole(m, x):
+        return m(x)
+
+    def name(dtype):
+        return str(dtype)[6:]
+
+    for res, B, fused in ((224, 96, True), (384, 32, False)):
+        for dtype in (bf16, f32):
+            c = VisionConfig(image_res=res, embed_dim=768, depth=1,
+                             num_heads=12, drop_path_rate=0.0,
+                             hidden_act="gelu_tanh", dtype=dtype,
+                             fused_ln=fused, fused_mlp=fused, seq_shard=True)
+            N = c.num_patches + 1
+            tp_group_check(f"BEiT block seq_shard T={T} N={N} B={B} "
+                           f"{name(dtype)}{' fused' if fused else ''}",
+                           BeitBlock, c, whole,
+                           _device_randn(g, B, N, 768).to(dtype), cut, 121)
+    B, Nq, Nk = 32, 40, 577
+    m = torch.ones(B, Nq, device="cuda")
+    m[:, Nq - 7:] = 0
+    bias = mask_to_bias(m)
+    for cross, dtype in ((False, bf16), (True, f32)):
+        c = TextConfig.roberta_base(
+            fusion_layer=0, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0, hidden_act="gelu_tanh",
+            dtype=dtype, fused_ln=True, fused_mlp=True, seq_shard=True)
+        enc = _device_randn(g, B, Nk, 768).to(dtype) if cross else None
+        tp_group_check(
+            f"{'fusion' if cross else 'text'} layer seq_shard T={T} "
+            f"[{B}, {Nq}]{f' x [{B}, {Nk}]' if cross else ''} "
+            f"{name(dtype)} fused",
+            lambda cfg, cross=cross: TransformerLayer(
+                cfg, has_cross_attention=cross), c,
+            lambda mm, x, enc=enc: mm(x, bias, enc, None),
+            _device_randn(g, B, Nq, 768).to(dtype), cut, 124)
+    for kind, make, conf in (("clip", ClipEncoderLayer, ClipVisionConfig),
+                             ("deit", DeitBlock, DeitConfig)):
+        for dtype in (bf16, f32):
+            c = conf(image_res=384, dtype=dtype)
+            N = c.num_patches + 1
+            tp_group_check(f"{kind} block T={T} N={N} B=32 {name(dtype)}",
+                           make, c, whole,
+                           _device_randn(g, 32, N, 768).to(dtype), cut, 128)
+    for stage, dtype in ((0, f32), (1, f32), (2, f32), (3, f32), (0, bf16)):
+        c = SwinConfig(image_res=384, embed_dim=128, depths=(2, 2, 18, 2),
+                       num_heads=(4, 8, 16, 32), window_size=12, dtype=dtype)
+        side = 384 // c.patch_size // 2 ** stage
+        dim, heads = c.embed_dim * 2 ** stage, c.num_heads[stage]
+        tp_group_check(
+            f"Swin-B stage {stage} block T={T} [8, {side * side}, {dim}] "
+            f"{heads // T} heads {name(dtype)}",
+            lambda cfg, dim=dim, heads=heads, side=side: SwinBlock(
+                cfg, dim, heads, (side, side), shift=6), c, whole,
+            _device_randn(g, 8, side * side, dim).to(dtype), cut,
+            130 + stage)
+
+
+# the BEiT add site's rows under seq_shard at T: the pretrain pair pass's
+# 96 images x ceil(197 / T) rows
+SEQ_K4_ROWS = {T: 96 * -(-197 // T) for T in TP_SIZES}
+
+
+def seq_tower_phase(one_card: dict) -> dict:
+    """Phase 32 on one card (the module docstring): the block checks of
+    phase 31's one-card processes printed (`seq_tower_group_checks`), then
+    K3 at [32, 577, 12/T, 64] and K4 at each T's seq-shard rows against
+    their plain versions, timed, with their bounds; their launches at
+    T = 2 from those processes' steps (`one_card`, from
+    `tensor_one_card_finish`): K3's from the DeiT-B/16 retrieval step at
+    `tensor: 2`, K4's from the fused pretrain step at `tensor: 2,
+    seq_shard` (one card holds no T = 4 group: None) → T → {"k3", "k4":
+    (errors, times, bounds, launches)}."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for line in one_card["blocks"]:
+        print(line)
+    t0 = time.perf_counter()
+    fused_seq = one_card[_layout_tag(TP_ONE_CARD_SEQ) + "_fused"]
+    launches = {("k3", 2): one_card["tower_deit"]["values"]["launches"],
+                ("k4", 2): fused_seq["values"]["launches"]}
+    out = {}
+    for T in TP_SIZES:
+        h, R = 12 // T, SEQ_K4_ROWS[T]
+        e3 = k3_parity(32, 577, 577, h, bf16, seed=140 + T)
+        k3_parity(32, 577, 577, h, f32, seed=141 + T)
+        e4 = k4_parity("add", R, 768, bf16, seed=142 + T)
+        k4_parity("add", R, 768, f32, seed=143 + T)
+        out[T] = dict(
+            k3=(e3, k3_times(32, 577, h, bf16), k3_work(32, 577, 577, h, 64,
+                                                       bf16),
+                launches.get(("k3", T))),
+            k4=(e4, k4_times(R, 768, bf16), k4_work(R, 768, bf16),
+                launches.get(("k4", T))))
+        for key, label, step in (
+                ("k3", f"K3 [32, 577, {h}, 64] no bias", "the DeiT-B/16 "
+                 "retrieval step at tensor: 2"),
+                ("k4", f"K4 add R {R} C 768", "the fused pretrain step at "
+                 "tensor: 2, seq_shard")):
+            err, t, w, n = out[T][key]
+            print(f"  {label} T={T}: fwd {t['fwd_ms']:.4f} ms, bwd "
+                  f"{t['bwd_ms']:.4f} ms; plain {t['plain_fwd_ms']:.4f} / "
+                  f"{t['plain_bwd_ms']:.4f}; library "
+                  f"{t['library_fwd_ms']:.4f} / {t['library_bwd_ms']:.4f}; "
+                  f"bound {json.dumps(w)}; "
+                  + (f"launches a rank in {step} {json.dumps(n)}"
+                     if n is not None else "launches: no T = 4 group on "
+                     "one card"))
+    print(f"  phase 32 seconds: kernels {time.perf_counter() - t0:.1f}")
+    return out
+
+
+def seq_tower_kernel_entries(st: dict) -> list:
+    """The `kernels` entries of phase 32: K3 forward and backward at the
+    towers' shards (q/k/v [32, 577, 12/T, 64], no bias) and K4 (add) at
+    the seq-shard rows, at each T whose launches a main-path run counted
+    (T = 2, `seq_tower_phase`)."""
+    out = []
+    for T, rows in st.items():
+        err, t, w, n = rows["k3"]
+        if n is None:
+            continue
+        for e in kernel_entries(
+                "flash_attention", "xfm_tpu/ops/flash_attention.py", 71, 334,
+                "xfm_tpu_torch/csrc/flash_attention.cu", err,
+                ("dq", "dk", "dv"), t, w,
+                {k: n.get(k, 0) for k in ("flash_attention_fwd",
+                                          "flash_attention_bwd")},
+                also_bwd=227):
+            e["name"] += f"_tensor{T}_h{12 // T}_b577"
+            out.append(e)
+        err, t, w, n = rows["k4"]
+        for e in kernel_entries(
+                "fused_ln", "xfm_tpu/ops/fused_ln.py", 91, 108,
+                "xfm_tpu_torch/csrc/fused_ln.cu", err,
+                ("dx", "dgamma", "dbeta"), t, w,
+                {k: n.get(k, 0) for k in ("fused_ln_fwd", "fused_ln_bwd")}):
+            e["name"] += f"_seq{T}_r{SEQ_K4_ROWS[T]}"
+            out.append(e)
+    return out
+
+
+def tower_step(kind: str, parallel=None, f32: bool = False,
+               B: int = 32) -> dict:
+    """One deterministic full-width retrieval step at 384 px with the
+    CLIP-ViT-B/16 (`kind` "clip") or DeiT-B/16 ("deit") tower
+    (`configs.make_clip_retrieval_run` / `make_deit_retrieval_run`,
+    weights from seed 0, bf16 or with `f32` f32) on a fixed batch of `B`
+    with fixed hard negatives (the next row), the state placed under the
+    YAML `parallel` block → its scalar metrics, "launches" (the kernels
+    launched in the step) and "peak_bytes"."""
+    from xfm_tpu_torch import configs
+    from xfm_tpu_torch.core import mesh
+    from xfm_tpu_torch.ops import kernels
+
+    make = (configs.make_clip_retrieval_run if kind == "clip"
+            else configs.make_deit_retrieval_run)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, batch, step = make(
+        B=B, device="cuda", parallel=parallel,
+        dtype=torch.float32 if f32 else torch.bfloat16)
+    roll = torch.roll(torch.arange(B, device="cuda"), -1)
+    batch = mesh.rank_slice(dict(batch, hard_negatives=(roll, roll)))
+    kernels.reset_launch_counts()
+    state, metrics = step(state, batch, None)
+    vals = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
+    vals["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    vals["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del state, batch, step, metrics
+    return vals
+
+
 # phase 31's fixed batch on one card: two processes on card 0 over gloo at
 # each layout. `data: 2` is the control of that harness: its per-row math
 # is the one process's, so it is held to the one-process bf16 step at
@@ -7233,8 +7571,16 @@ def tensor_phase(unsharded: dict) -> dict:
 # phase 27's gate where that distance is smaller): the cut may round
 # differently, not worse, as phase 31's blocks are held
 TP_ONE_CARD = (({"tensor": 2}, "cut"), ({"data": 2}, "control"))
+# run by the `tensor: 2` processes after that layout, held as the cut: as
+# it is, and on both fused routes (held to the fused one-process step)
+TP_ONE_CARD_SEQ = {"tensor": 2, "seq_shard": True}
 TP_STEP_VALUES = ("loss", "loss_itc", "loss_itm", "loss_mlm", "loss_mim",
                   "grad_norm")
+# the towers whose retrieval steps the `tensor: 2` processes run last: in
+# f32 held to the one-process f32 step at phase 27's gates (the cut's math
+# is exact), in bf16 (the launches) shown against the one-process steps
+TOWER_KINDS = ("clip", "deit")
+TOWER_STEP_VALUES = ("loss", "loss_itc", "loss_itm", "grad_norm")
 
 
 def tensor_one_card_start(root: str) -> dict:
@@ -7246,49 +7592,117 @@ def tensor_one_card_start(root: str) -> dict:
         json.dumps(par), "one-card"]) for par, _ in TP_ONE_CARD}
 
 
-def tensor_one_card_finish(root: str, procs: dict) -> dict:
-    """The one-process step on phase 27's fixed global batch in bf16 and
-    in f32, in this process, then the launches of `tensor_one_card_start`
-    waited for and held as TP_ONE_CARD says → {"one", "one_f32": their
-    values, tag: {"values", "rel": each value's relative distance from
-    the one-process bf16 step, and for the cut "share": its distance from
-    the f32 step over its gate}}."""
+def _cut_share(got: dict, one: dict, f32: dict, keys) -> dict:
+    """Each value's distance from the f32 step over its gate: TP_BUDGET
+    times the one-process bf16 step's own distance from it, or phase 27's
+    gate where that is smaller (the cut may round differently, not
+    worse)."""
     def tol(k):
         return DP_GRAD_NORM_RTOL if k == "grad_norm" else DP_LOSS_RTOL
 
+    return {k: abs(got[k] - f32[k]) / (TP_BUDGET * max(
+        abs(one[k] - f32[k]), tol(k) * abs(f32[k]))) for k in keys}
+
+
+def tensor_one_card_finish(root: str, procs: dict) -> dict:
+    """The one-process steps on phase 27's fixed global batch (bf16, f32,
+    and bf16 on the fused routes) and the towers' in this process, while
+    the cut's processes run, then the launches of
+    `tensor_one_card_start` waited for and held as TP_ONE_CARD says (the
+    `tensor: 2` processes' steps at TP_ONE_CARD_SEQ, as it is and fused,
+    as the cut; each process's peak memory printed, with no gate), and
+    the processes' tower steps held to the towers' one-process steps
+    (`tower_step`, bf16 and f32) as TOWER_KINDS says → {"one", "one_f32",
+    "one_fused": their values, tag: {"values", "rel": each value's
+    relative distance from the one-process bf16 step, and for the cut
+    "share": `_cut_share`}, "tower_<kind>": {"values", "f32_rel",
+    "share"}, "blocks": the lines of `seq_tower_group_checks`}."""
+    def tol(k):
+        return DP_GRAD_NORM_RTOL if k == "grad_norm" else DP_LOSS_RTOL
+
+    # the control's one step ends first; this process's steps then run
+    # beside the cut's processes (the card holds both: at most ~28 GB
+    # here, ~33 GB there)
+    control = _layout_tag(TP_ONE_CARD[1][0])
+    stdout = _finish(procs.pop(control), f"dp-step {control} on one card")
     dp_step_worker(root)
     dp_step_worker(root, f32=True)
+    dp_step_worker(root, fused=True)
+    ones = {kind: (tower_step(kind), tower_step(kind, f32=True))
+            for kind in TOWER_KINDS}
     torch.cuda.empty_cache()
-    with open(os.path.join(root, "dp_step_1.json")) as f:
-        one = json.load(f)
-    with open(os.path.join(root, "dp_step_1_f32.json")) as f:
-        f32 = json.load(f)
+    refs = {}
+    for name in ("", "_f32", "_fused"):
+        with open(os.path.join(root, f"dp_step_1{name}.json")) as f:
+            refs[name] = json.load(f)
+        refs[name].pop("launches")
+    one, f32 = refs[""], refs["_f32"]
     print(f"  fixed global batch of 32, one process: bf16 {json.dumps(one)}"
-          f"; f32 {json.dumps(f32)}")
-    out = {"one": one, "one_f32": f32}
-    for par, role in TP_ONE_CARD:
-        tag = _layout_tag(par)
-        _finish(procs[tag], f"dp-step {tag} on one card")
-        with open(os.path.join(root, f"dp_step_2_{tag}_one_card.json")) as f:
+          f"; f32 {json.dumps(f32)}; bf16 fused "
+          f"{json.dumps(refs['_fused'])}")
+    out = {"one": one, "one_f32": f32, "one_fused": refs["_fused"]}
+    seq = _layout_tag(TP_ONE_CARD_SEQ)
+    for tag, role, fz in ([(_layout_tag(p), r, "") for p, r in TP_ONE_CARD]
+                          + [(seq, "cut", ""), (seq, "cut", "_fused")]):
+        if tag in procs:
+            stdout += _finish(procs.pop(tag), f"dp-step {tag} on one card")
+        with open(os.path.join(root, f"dp_step_2_{tag}{fz}_one_card.json")
+                  ) as f:
             got = json.load(f)
-        rel = {k: abs(got[k] - one[k]) / abs(one[k]) for k in TP_STEP_VALUES}
+        peak = got.pop("peak_bytes_by_rank")
+        print(f"  {tag}{fz} on one card: peak memory by process {peak} B; "
+              f"launches a process {json.dumps(got['launches'])}")
+        ref = refs[fz]
+        rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in TP_STEP_VALUES}
         res = dict(values=got, rel=rel)
         if role == "control":
             bad = [k for k in TP_STEP_VALUES if not rel[k] <= tol(k)]
         else:
-            res["share"] = {k: abs(got[k] - f32[k]) / (TP_BUDGET * max(
-                abs(one[k] - f32[k]), tol(k) * abs(f32[k])))
-                for k in TP_STEP_VALUES}
+            res["share"] = _cut_share(got, ref, f32, TP_STEP_VALUES)
             bad = [k for k in TP_STEP_VALUES if not res["share"][k] <= 1.0]
-        print(f"  fixed global batch of 32, bf16, {tag} on two processes on "
-              f"one card (gloo, the {role}): {json.dumps(got)}; relative to "
-              f"one process {json.dumps(rel)}"
+        print(f"  fixed global batch of 32, bf16{fz.replace('_', ' ')}, "
+              f"{tag} on two processes on one card (gloo, the {role}): "
+              f"{json.dumps({k: got[k] for k in TP_STEP_VALUES})}; "
+              f"relative to one process {json.dumps(rel)}"
               + (f"; distance from the f32 step over its gate "
                  f"{json.dumps(res['share'])}" if role == "cut" else ""))
         if bad:
-            raise AssertionError(f"fixed global batch {tag} on one card: "
-                                 f"{bad} beyond the gate")
-        out[tag] = res
+            raise AssertionError(f"fixed global batch {tag}{fz} on one "
+                                 f"card: {bad} beyond the gate")
+        out[tag + fz] = res
+    for kind in TOWER_KINDS:
+        one_k, f32_k = ones[kind]
+        got = {}
+        for t32 in ("", "_f32"):
+            with open(os.path.join(root, f"dp_tower_2_{kind}{t32}"
+                                   "_one_card.json")) as f:
+                got[t32] = json.load(f)
+        rel = {k: abs(got["_f32"][k] - f32_k[k]) / abs(f32_k[k])
+               for k in TOWER_STEP_VALUES}
+        share = _cut_share(got[""], one_k, f32_k, TOWER_STEP_VALUES)
+        vals = {t: {k: got[t][k] for k in TOWER_STEP_VALUES} for t in got}
+        print(f"  {kind} retrieval step, 384 px, B = 32, tensor2 on two "
+              f"processes on one card (gloo, the cut): f32 "
+              f"{json.dumps(vals['_f32'])}, relative to one process "
+              f"{json.dumps(rel)}; bf16 {json.dumps(vals[''])}; one "
+              f"process bf16 "
+              f"{json.dumps({k: one_k[k] for k in TOWER_STEP_VALUES})}, f32 "
+              f"{json.dumps({k: f32_k[k] for k in TOWER_STEP_VALUES})}; the "
+              f"bf16 cut's distance from the f32 step over TP_BUDGET times "
+              f"the one-process bf16 step's (no gate) {json.dumps(share)}; "
+              f"peak memory by process bf16 "
+              f"{got['']['peak_bytes_by_rank']} B, f32 "
+              f"{got['_f32']['peak_bytes_by_rank']} B (one process "
+              f"{one_k['peak_bytes']} B, {f32_k['peak_bytes']} B); launches "
+              f"a process bf16 {json.dumps(got['']['launches'])}")
+        bad = [k for k in TOWER_STEP_VALUES if not rel[k] <= tol(k)]
+        bad += [k for k in TOWER_STEP_VALUES if not math.isfinite(got[""][k])]
+        if bad:
+            raise AssertionError(f"{kind} retrieval step at tensor: 2 on one "
+                                 f"card: {bad} beyond the gate")
+        out[f"tower_{kind}"] = dict(values=got[""], f32_rel=rel, share=share)
+    out["blocks"] = [line for line in stdout.splitlines()
+                     if " of its gate; " in line]
     return out
 
 
@@ -7777,9 +8191,17 @@ def main() -> int:
         if not one_card:
             launched = tensor_one_card_start(tp_root)
         # the launches end before the kernels are timed
+        tp_one = tensor_one_card_finish(tp_root, launched)
         print("  tensor one card: " + json.dumps(
-            tensor_one_card_finish(tp_root, launched)))
+            {k: v for k, v in tp_one.items() if k != "blocks"}))
         tp = tensor_phase(dict(k1=k1_t, k2=k2_t, k3g=k3g_t, k5=k5_t))
+        phase("phase 32: sequence parallelism and the tower cuts: "
+              "full-width BEiT-2 blocks, text and fusion layers under "
+              "seq_shard, CLIP-ViT and DeiT blocks at 384 px and Swin-B "
+              "blocks, each cut and run under phase 31's two-process group "
+              "on this card against the whole module; K3 and K4 at the new "
+              "shapes")
+        st = seq_tower_phase(tp_one)
         if torch.cuda.device_count() >= 2:
             print("  tensor cards: " + json.dumps(
                 tensor_cards(dp["root"], dp)))
@@ -7836,11 +8258,15 @@ def main() -> int:
                + pretrain_kernel_entries(*rm["k1"][192], *rm["k1"][80],
                                          rm["prof"]["full_yaml_by_stream"],
                                          label="large")
-               + tensor_kernel_entries(tp))
+               + tensor_kernel_entries(tp)
+               + seq_tower_kernel_entries(st))
     ends = PHASE_T[1:] + [time.perf_counter()]
     by_phase = [round(b - a, 1) for a, b in zip(PHASE_T, ends)]
-    print(f"chip_smoke: 31 phases in {ends[-1] - t_start:.1f} s; seconds "
-          f"by phase {json.dumps(by_phase)}")
+    print(f"chip_smoke: phases 1-26 in {ends[25] - PHASE_T[0]:.1f} s (the "
+          f"host's speed: phases 27-{len(PHASE_T)} add the multi-process "
+          f"work)")
+    print(f"chip_smoke: {len(PHASE_T)} phases in {ends[-1] - t_start:.1f} "
+          f"s; seconds by phase {json.dumps(by_phase)}")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -7854,7 +8280,8 @@ if __name__ == "__main__":
         sys.exit(dp_step_worker(sys.argv[2], json.loads(sys.argv[3])
                                 if len(sys.argv) > 3 else None,
                                 f32="f32" in sys.argv[4:],
-                                one_card="one-card" in sys.argv[4:]))
+                                one_card="one-card" in sys.argv[4:],
+                                fused="fused" in sys.argv[4:]))
     if sys.argv[1:2] == ["--fsdp-peak"]:
         sys.exit(fsdp_peak_worker(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--tp-decode"]:

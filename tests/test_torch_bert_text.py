@@ -19,6 +19,7 @@ from xfm_tpu_torch.train.checkpoint import (load_xfm_checkpoint,
                                             reference_state_dict,
                                             state_dict_from_jax,
                                             text_encoder_from_jax, to_torch)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 KW = dict(vocab_size=99, hidden_size=64, num_hidden_layers=2,
           num_attention_heads=2, intermediate_size=128, fusion_layer=2,

@@ -32,6 +32,7 @@ from xfm_tpu_torch.models import (DecodeCache, TextConfig, TextTransformer,
                                   top_k_top_p_filtering)
 from xfm_tpu_torch.train.checkpoint import (state_dict_from_jax,
                                             text_encoder_from_jax, to_torch)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 C, V = 32, 100

@@ -26,6 +26,7 @@ import yaml
 
 from test_torch_caption_task import write_caption_corpus
 from xfm_tpu_torch.configs import caption_yaml
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 C, V = 32, 100
 

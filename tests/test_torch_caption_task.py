@@ -39,6 +39,7 @@ from xfm_tpu_torch.models import XFMForCaptioning, config_from_yaml
 from xfm_tpu_torch.train.checkpoint import (init_weights,
                                             reference_state_dict,
                                             state_dict_from_jax)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 C, V = 32, 100
 WORDS = ["a", "man", "dog", "cat", "on", "the", "red", "street", "table",

@@ -25,6 +25,7 @@ from xfm_tpu_torch.configs import glue_yaml, imagenet_yaml
 from xfm_tpu_torch.models import (TextClassifier, XFMForClassification,
                                   config_from_yaml)
 from xfm_tpu_torch.train.checkpoint import state_dict_from_jax
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 C, V, RES, NL = 64, 60, 32, 5
 SMALL = dict(image_res=RES, vision_embed_dim=2 * C, vision_num_heads=2,

@@ -18,6 +18,7 @@ import xfm_tpu.tasks.classify as jcls
 from test_torch_classification import SMALL
 from xfm_tpu_torch import configs
 from xfm_tpu_torch.tasks import classify
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 WORDS = "a red car a blue dog runs on the grass near two birds".split()
 

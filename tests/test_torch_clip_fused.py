@@ -32,6 +32,7 @@ from xfm_tpu_torch.ops import fused_ln as fl
 from xfm_tpu_torch.ops import fused_mlp as fm
 from xfm_tpu_torch.train.checkpoint import state_dict_from_jax
 from xfm_tpu_torch.train.train_state import retrieval_loss_fn
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 KW = dict(hidden=128, layers=2, heads=2, inter=256, vocab=99)
 B, T, RES = 4, 8, 384

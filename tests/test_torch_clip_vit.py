@@ -27,6 +27,7 @@ from xfm_tpu_torch.models.clip_vit import (ClipVisionConfig,
 from xfm_tpu_torch.train.checkpoint import (clip_vit_from_jax,
                                             load_reference_state_dict,
                                             to_torch)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 KW = dict(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,

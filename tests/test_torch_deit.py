@@ -19,6 +19,7 @@ from xfm_tpu_torch.train.checkpoint import (deit_from_jax,
                                             interpolate_abs_pos_embed,
                                             load_xfm_checkpoint,
                                             reference_state_dict, to_torch)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 KW = dict(patch_size=16, embed_dim=128, depth=2, num_heads=2)
 

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 from xfm_tpu.data import device_aug as jda
 from xfm_tpu_torch.data import device_aug as da
 from xfm_tpu_torch.data.randaugment import RandomAugment
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 OPS = ("AutoContrast", "Equalize", "Brightness", "Sharpness", "ShearX",
        "ShearY", "TranslateX", "TranslateY", "Rotate")

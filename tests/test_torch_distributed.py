@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import _torch_mp_worker as worker
 from test_torch_pretrain import slice_setup  # noqa: F401  (a fixture)
 from xfm_tpu_torch.core import mesh
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "_torch_mp_worker.py")

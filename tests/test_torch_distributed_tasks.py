@@ -38,6 +38,7 @@ import _torch_mp_worker as worker
 from test_torch_distributed import WORKER, _env, _free_port, _torchrun2
 from test_torch_grounding import _png
 from xfm_tpu_torch.core import mesh
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 WORDS = ["the", "left", "image", "shows", "two", "dogs", "right", "one",
          "has", "more", "birds", "than", "a", "red", "car", "in"]

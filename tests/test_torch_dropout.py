@@ -30,6 +30,7 @@ from xfm_tpu_torch.ops import attention, dropout as drop
 from xfm_tpu_torch.train.checkpoint import (beit2_from_jax,
                                             clip_vit_from_jax,
                                             text_encoder_from_jax, to_torch)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 LIVE = 0.1
 

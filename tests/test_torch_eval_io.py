@@ -27,6 +27,7 @@ import jax
 from xfm_tpu_torch import configs
 from xfm_tpu_torch.models import XFMForRetrieval, config_from_yaml
 from xfm_tpu_torch.train import checkpoint as ck
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIX = os.path.join(REPO, "tests", "fixtures", "golden_interpolation.npz")
@@ -274,12 +275,12 @@ def test_data_layer_is_bit_equal_to_jax(tmp_path):
 # fields the JAX configs have and the port's do not, at the values the
 # port implements; the tokenizer's and the BEiT tower's optional fields
 # are the port's too since the pretrain task's branches were ported, and
-# `remat` / `remat_policy` since activation checkpointing was, all
-# compared as fields
+# `remat` / `remat_policy` since activation checkpointing was, and
+# `seq_shard` since sequence parallelism was, all compared as fields
 JAX_ONLY = {
     "top": {},
-    "vision": {"seq_shard": False},
-    "text": {"seq_shard": False},
+    "vision": {},
+    "text": {},
 }
 # the port's fields that the JAX package reads from its environment
 # (XFM_FUSED_LN, XFM_MLP_FUSED, XFM_ATTN_REMAT), false with those unset

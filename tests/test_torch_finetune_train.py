@@ -37,6 +37,7 @@ from xfm_tpu_torch.train.train_state import (TrainState,
                                              make_accum_train_step,
                                              make_train_step)
 from xfm_tpu_torch.train.checkpoint import state_dict_from_jax
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 SCHEDULES = [
     dict(sched="linear", lr=3e-5, epochs=10, num_warmup_steps=0.1),

@@ -35,6 +35,7 @@ import _torch_fsdp_worker as fw
 import _torch_mp_worker as mp
 from test_torch_pretrain import slice_setup  # noqa: F401  (a fixture)
 from xfm_tpu_torch.core import mesh
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "_torch_fsdp_worker.py")

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from xfm_tpu.ops import fused_ln as jfl
 
 from xfm_tpu_torch.ops import fused_ln as fl
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 C = 256
 EPS = 1e-6

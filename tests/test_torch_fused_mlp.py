@@ -24,6 +24,7 @@ from xfm_tpu.ops import fused_mlp as jmlp
 
 from xfm_tpu_torch.ops import fused_mlp as fm
 from xfm_tpu_torch.ops.activations import FUSED_ACT
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 K, N = 128, 64
 DTYPES = {"f32": (torch.float32, jnp.float32),

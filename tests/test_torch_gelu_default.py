@@ -28,6 +28,7 @@ import jax.numpy as jnp
 from xfm_tpu_torch.models.text_encoder import TextConfig, TextTransformer
 from xfm_tpu_torch.ops.activations import ACT
 from xfm_tpu_torch.train.checkpoint import text_encoder_from_jax, to_torch
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 OVERFLOW = 2.0 ** 127  # from here torch's bf16 erf-GELU is +inf
 

@@ -28,6 +28,7 @@ from xfm_tpu_torch import configs
 from xfm_tpu_torch.data.tokenization import SimpleTokenizer
 from xfm_tpu_torch.eval import glue_metrics as gm
 from xfm_tpu_torch.tasks import glue
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORDS = ("the a cat dog sat on mat runs fast slow big small red blue "

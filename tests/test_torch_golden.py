@@ -13,6 +13,7 @@ from xfm_tpu_torch.models.beit2 import BeitVisionTransformer, VisionConfig
 from xfm_tpu_torch.models.text_encoder import TextConfig, TextTransformer
 from xfm_tpu_torch.models.xfm import XFMBase, XFMConfig
 from xfm_tpu_torch.train.checkpoint import load_reference_state_dict
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 

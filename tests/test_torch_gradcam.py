@@ -28,6 +28,7 @@ from xfm_tpu_torch.models import (XFMForRetrieval, config_from_yaml,
                                   itm_gradcam, rank_boxes_by_cam)
 from xfm_tpu_torch.ops.attention import dot_product_attention
 from xfm_tpu_torch.train.checkpoint import state_dict_from_jax
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 C, V = 32, 60
 

@@ -34,6 +34,7 @@ from test_torch_pretrain_data import write_corpus
 from xfm_tpu_torch.configs import grounding_yaml
 from xfm_tpu_torch.models import XFMForGrounding, config_from_yaml
 from xfm_tpu_torch.train.checkpoint import state_dict_from_jax
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 C, V = 32, 60
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -27,6 +27,7 @@ from test_torch_classification import (SMALL, jax_k1_interpret,  # noqa: F401
                                        small_yaml)
 from xfm_tpu_torch import configs
 from xfm_tpu_torch.tasks import imagenet as im
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

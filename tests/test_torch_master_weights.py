@@ -31,6 +31,7 @@ from xfm_tpu_torch.train.optim import (LARS, HFAdamW, MasterWeights,
                                        create_optimizer_from_config,
                                        trained_parameters,
                                        with_master_weights)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 
 class _SGD:

@@ -15,6 +15,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

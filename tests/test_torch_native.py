@@ -16,6 +16,7 @@ import pytest
 
 from xfm_tpu_torch import native
 from xfm_tpu_torch.data.randaugment import RandomAugment
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

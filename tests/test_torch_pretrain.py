@@ -22,6 +22,7 @@ from xfm_tpu_torch.train.optim import boosted, create_optimizer, decays
 from xfm_tpu_torch.train.schedules import linear_warmup_decay
 from xfm_tpu_torch.train.train_state import (TrainState, make_train_step,
                                              pretrain_loss_fn)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 KW = dict(hidden=64, layers=2, heads=2, inter=128, image_res=64, vocab=99)
 B, T, M = 4, 8, 3

@@ -22,6 +22,7 @@ from xfm_tpu_torch.data.pretrain_data import (ImageStream, ImageTextStream,
 from xfm_tpu_torch.data.text_masking import TextMaskingGenerator
 from xfm_tpu_torch.data.tokenization import SimpleTokenizer
 from xfm_tpu_torch.data.transforms import TrainTransform
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 WORDS = ("a red dog on the left of a blue car near the green tree to the "
          "right with small and big boats").split()

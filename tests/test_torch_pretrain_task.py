@@ -41,6 +41,7 @@ from xfm_tpu_torch.models import losses as tlosses
 from xfm_tpu_torch.models.task_models import LOSS_KEYS
 from xfm_tpu_torch.tasks import pretrain
 from xfm_tpu_torch.train.checkpoint import state_dict_from_jax
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 KW = dict(hidden=64, layers=2, heads=2, inter=128, image_res=32, vocab=40)
 NEG = (np.array([1, 2, 3, 0]), np.array([2, 3, 0, 1]))

@@ -20,6 +20,7 @@ from test_torch_pretrain_task import TINY_TOKENIZER, _run, _task_config
 from xfm_tpu_torch.models.task_models import LOSS_KEYS
 from xfm_tpu_torch.tasks import pretrain
 from xfm_tpu_torch.train.checkpoint import _load
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -28,6 +28,7 @@ from xfm_tpu_torch.models.clip_vit import (ClipVisionConfig,
                                            ClipVisionTransformer)
 from xfm_tpu_torch.train.checkpoint import (beit2_from_jax,
                                             clip_vit_from_jax, to_torch)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 IDX = np.array([0, 0, 1, 2, 1])
 N = 17  # 64 px / 16, plus cls

@@ -51,6 +51,7 @@ from xfm_tpu_torch.ops.dropout import (active_generator, dropout,
                                        dropout_generator)
 from xfm_tpu_torch.train.checkpoint import (beit2_from_jax, init_weights,
                                             state_dict_from_jax, to_torch)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 POLICIES = ("full", "dots", "except_attn", "attn_out")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -37,6 +37,7 @@ from xfm_tpu_torch.train.optim import create_optimizer
 from xfm_tpu_torch.train.schedules import linear_warmup_decay
 from xfm_tpu_torch.train.train_state import (TrainState, make_train_step,
                                              retrieval_loss_fn)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 KW = dict(hidden=64, layers=2, heads=2, inter=128, vocab=99)
 B, T, RES = 4, 8, 384

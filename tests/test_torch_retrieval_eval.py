@@ -26,6 +26,7 @@ from xfm_tpu_torch.configs import retrieval_eval_yaml
 from xfm_tpu_torch.models import XFMForRetrieval, config_from_yaml
 from xfm_tpu_torch.tasks import retrieval
 from xfm_tpu_torch.train.checkpoint import state_dict_from_jax
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 RES, NK, C = 384, 577, 64
 YCFG = retrieval_eval_yaml(

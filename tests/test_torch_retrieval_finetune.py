@@ -36,6 +36,7 @@ import jax
 import jax.numpy as jnp
 
 from test_torch_retrieval_eval import YCFG, _jax_params
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 RES, BS, EPOCHS = 384, 8, 2
 

@@ -25,6 +25,7 @@ from xfm_tpu_torch.models import XFMForRetrieval
 from xfm_tpu_torch.models.xfm import shared_cross_kv
 from xfm_tpu_torch.train.checkpoint import state_dict_from_jax
 from xfm_tpu_torch.train.train_state import retrieval_loss_fn
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 KW = dict(hidden=64, layers=1, heads=1, inter=128, vocab=99)
 B, T = 4, 8

@@ -27,6 +27,7 @@ from xfm_tpu_torch.models.swin import (SwinConfig, SwinTransformer,
 from xfm_tpu_torch.train.checkpoint import (_interp_swin_table,
                                             load_reference_state_dict,
                                             swin_from_jax, to_torch)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 TINY = dict(image_res=32, patch_size=4, embed_dim=16, depths=(2, 2),

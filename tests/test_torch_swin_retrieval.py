@@ -33,6 +33,7 @@ from xfm_tpu_torch.train.checkpoint import (load_torch_state_dict,
                                             load_xfm_checkpoint,
                                             state_dict_from_jax)
 from xfm_tpu_torch.train.train_state import retrieval_loss_fn
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 B, T, RES, VOCAB = 4, 8, 32, 99
 NEG = (np.array([1, 2, 3, 0]), np.array([2, 3, 0, 1]))

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from xfm_tpu_torch.models.text_encoder import TextConfig, TextTransformer
 from xfm_tpu_torch.train.checkpoint import text_encoder_from_jax, to_torch
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 KW = dict(vocab_size=99, hidden_size=64, num_hidden_layers=4,
           num_attention_heads=2, intermediate_size=128,

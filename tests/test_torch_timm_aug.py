@@ -10,6 +10,7 @@ from PIL import Image
 
 import xfm_tpu.data.timm_aug as jta
 import xfm_tpu_torch.data.timm_aug as ta
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _img(seed=0, w=53, h=41):

@@ -18,6 +18,7 @@ from xfm_tpu_torch.data import prefetch
 from xfm_tpu_torch.data.finetune_data import RetrievalTrainData
 from xfm_tpu_torch.data.randaugment import RandomAugment
 from xfm_tpu_torch.data.transforms import TrainTransform, crop_box
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _images(n, seed=0):

@@ -33,6 +33,7 @@ from xfm_tpu_torch.models.text_encoder import (TextConfig, TextTransformer,
                                                per_sample_lm_loss)
 from xfm_tpu_torch.train.checkpoint import (state_dict_from_jax,
                                             text_encoder_from_jax, to_torch)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 C, V = 32, 100

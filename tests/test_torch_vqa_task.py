@@ -40,6 +40,7 @@ from xfm_tpu_torch.train.checkpoint import (init_weights,
                                             reference_state_dict,
                                             state_dict_from_jax,
                                             vqa_checkpoint)
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 C, V = 32, 100
 WORDS = ["what", "is", "on", "the", "of", "man", "dog", "color", "how",

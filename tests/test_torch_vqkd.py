@@ -23,6 +23,7 @@ from xfm_tpu_torch.models import teachers as tt
 from xfm_tpu_torch.models.beit2 import VisionConfig
 from xfm_tpu_torch.models.clip_vit import ClipVisionConfig
 from xfm_tpu_torch.train import checkpoint as tck
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 ENC = dict(image_res=32, patch_size=16, embed_dim=32, depth=1, num_heads=2,
            init_values=0.0, use_rel_pos_bias=False,

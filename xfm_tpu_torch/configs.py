@@ -30,6 +30,7 @@ train steps and their FLOP counts (Swin's windows and patch merging counted
 on their own, `swin_flops`)."""
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, Optional
 
@@ -315,10 +316,15 @@ def make_pretrain_run(B: int = 48, T: int = 30, M: int = 15,
     `xfm_base_pretrain_config` takes them, computing in `dtype`; with
     `parallel` (a YAML's `parallel` block) the state placed as a task
     places it (`tasks.common.place_state`: cut where `tensor` > 1, sharded
-    where `fsdp` > 1). → (state, batch, step) with step(state, batch,
-    generator) -> (state, metrics)."""
+    where `fsdp` > 1; with its `seq_shard`, the BEiT-2 tower and the text
+    and fusion stacks sharded over the sequence). → (state, batch, step)
+    with step(state, batch, generator) -> (state, metrics)."""
     cfg = xfm_base_pretrain_config(fused_ln=fused_ln, fused_mlp=fused_mlp,
                                    dtype=dtype)
+    if (parallel or {}).get("seq_shard"):
+        cfg = dataclasses.replace(cfg, **{
+            k: dataclasses.replace(getattr(cfg, k), seq_shard=True)
+            for k in ("vision", "text", "fusion")})
     model = new_model(lambda: XFMForPretrain(cfg), device, seed)
     sched = linear_warmup_decay(1e-4, 1000, 100)
     if parallel is None:
@@ -347,14 +353,16 @@ def make_retrieval_run(B: int = 32, T: int = 40, device="cuda",
 
 
 def make_clip_retrieval_run(B: int = 32, T: int = 40, device="cuda",
-                            seed: int = 0, **config_kw):
+                            seed: int = 0, parallel: Optional[dict] = None,
+                            **config_kw):
     """The retrieval fine-tune step of `make_retrieval_run` with the
     CLIP-ViT-B/16 vision tower at 384 px (`xfm_clip_retrieval_config`, whose
     arguments `config_kw` passes on, `fused_ln` and `fused_mlp` among
-    them): its 12 vision self-attentions go through K3. → (state, batch,
+    them): its 12 vision self-attentions go through K3. With `parallel`
+    the state placed as `make_pretrain_run` places it. → (state, batch,
     step)."""
     return _retrieval_run(xfm_clip_retrieval_config(**config_kw), B, T,
-                          device, seed)
+                          device, seed, parallel)
 
 
 def make_retrieval_train_run(B: int = 32, T: int = 40, device="cuda",
@@ -381,10 +389,21 @@ def make_retrieval_train_run(B: int = 32, T: int = 40, device="cuda",
         retrieval_loss_fn, deterministic=False))
 
 
-def _retrieval_run(cfg: XFMConfig, B: int, T: int, device, seed: int):
+def _retrieval_run(cfg: XFMConfig, B: int, T: int, device, seed: int,
+                   parallel: Optional[dict] = None):
     model = new_model(lambda: XFMForRetrieval(cfg), device, seed)
-    state = TrainState.create(model, create_optimizer(
-        model, linear_warmup_decay(1e-4, 1000, 100), clip_grad_norm=None))
+    sched = linear_warmup_decay(1e-4, 1000, 100)
+    if parallel is None:
+        state = TrainState.create(model, create_optimizer(
+            model, sched, clip_grad_norm=None))
+    else:
+        from .tasks.common import TaskContext, place_state
+
+        state = place_state(
+            TaskContext(config={"parallel": parallel}, out_dir="",
+                        device=device), model, sched,
+            lambda m, named: create_optimizer(m, sched, clip_grad_norm=None,
+                                              named_params=named))
     batch = batch_to_torch(make_retrieval_batch(
         B, T, cfg.vision.image_res, cfg.text.vocab_size), device)
     return state, batch, make_train_step(retrieval_loss_fn)
@@ -495,6 +514,17 @@ def xfm_deit_retrieval_config(dtype=None, **kw) -> XFMConfig:
     heads): its 12 blocks at 384 px go to K3 with no bias."""
     return config_from_yaml(deit_retrieval_yaml(**kw), dtype=dtype,
                             use_contrastive_loss=True, use_matching_loss=True)
+
+
+def make_deit_retrieval_run(B: int = 32, T: int = 40, device="cuda",
+                            seed: int = 0, parallel: Optional[dict] = None,
+                            **kw):
+    """The retrieval fine-tune step of `make_clip_retrieval_run` with
+    `xfm_deit_retrieval_config(**kw)`: DeiT-B/16 + RoBERTa-base at 384 px,
+    K3 forward and backward with no bias in each of the tower's blocks.
+    → (state, batch, step)."""
+    return _retrieval_run(xfm_deit_retrieval_config(**kw), B, T, device,
+                          seed, parallel)
 
 
 def make_swin_retrieval_train_run(B: int = 32, T: int = 40, device="cuda",

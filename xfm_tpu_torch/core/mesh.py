@@ -33,15 +33,19 @@ every gradient and the updated parameters. The pieces of that rule:
 (`core/partitioning`, FSDP2), and FSDP2's reduce-scatter takes the place
 of `reduce_gradients`. `tensor` T > 1 cuts the attention and MLP weights
 of every block over the T ranks of a tensor group (`core/partitioning`,
-`ops/tensor_parallel`): the T ranks of a group take the same rows, so the
+`ops/tensor_parallel`; with `seq_shard` the blocks' hidden states are
+sharded over the sequence between the pairs): the T ranks of a group take
+the same rows, so the
 batch is split over the data × fsdp ranks only (`dp_size`, `dp_rank`),
 and every batch split, generator and merge above runs over those ranks
 (`use_mesh` makes their groups): on W = D·F·T processes a step equals one
 process's step on the global batch as before, and an eval counts each row
 once. The tensor axis is innermost (consecutive ranks share a group).
 `pipe` > 1 in a config's `parallel` block raises (`mesh_from_config`).
-`constrain_batch_sharding` and `constrain_seq_sharding` are GSPMD layout
-hints with no counterpart here and are not ported."""
+`constrain_batch_sharding` is a GSPMD layout hint that the batch split
+above replaces; `constrain_seq_sharding`'s layout is
+`ops/tensor_parallel`'s sequence functions, which the BEiT-2 tower and
+the text stacks call under `seq_shard`."""
 from __future__ import annotations
 
 import dataclasses
@@ -54,8 +58,7 @@ import torch
 
 class MultiProcessUnsupported(NotImplementedError):
     """A `parallel` setting that does not run in the port yet (ROADMAP.md,
-    Queue 1: pipeline parallelism, sequence sharding and the tensor cut of
-    the CLIP, Swin and DeiT towers), or a function with no entry point
+    Queue 1: pipeline parallelism), or a function with no entry point
     that runs on one process only (GradCAM grounding)."""
 
 

@@ -72,10 +72,19 @@ miss the text MLP's `intermediate_dense`/`output_dense` (their regexes
 name `intermediate/dense` and `ffn_output/dense`), which GSPMD then
 gathers; the port cuts all four pairs of every block, so that no layer
 waits on an all-gather, and GSPMD keeps the math the same either way.
+The CLIP-ViT, DeiT and Swin blocks are cut as whole pairs too: CLIP's
+`q_proj`, `k_proj`, `v_proj` (with their biases) and `fc1` by columns,
+`out_proj` and `fc2` by rows; DeiT's and Swin's packed `qkv` (weight and
+bias) by the q, k and v rows of the rank's heads, `proj` and `fc2` by
+rows; a Swin block's table whole, its heads' columns read. T must divide
+the heads of every Swin stage. `DEFAULT_RULES` cut the towers' `qkv`,
+`fc1`, `fc2` and leave `q_proj`, `k_proj`, `v_proj`, `out_proj` and
+`proj` whole (GSPMD gathers them): again a difference of layout.
 A cut parameter carries its kind (`tensor_cut_of`), by which the
 checkpoint gathers it whole and cuts it back, and the optimizer's norms
-sum it over the tensor group. The CLIP-ViT, Swin and DeiT towers are not
-cut (`models/xfm.config_from_yaml` refuses them at T > 1).
+sum it over the tensor group. Under `seq_shard` the parameters that act
+on a rank's rows carry `_xfm_sequence_partial` (`sequence_partial`);
+`sum_sequence_gradients` completes their gradients.
 """
 from __future__ import annotations
 
@@ -125,12 +134,21 @@ def tensor_cut_of(t) -> "str | None":
 def cut_plan(model) -> tuple:
     """(name → cut kind of each parameter `cut_model` cuts, the modules
     that read their cut: the attentions, MLPs and layers of the BEiT-2
-    towers and text stacks, and the BEiT-2 towers for their shared
-    table)."""
+    towers and text stacks, the blocks of the CLIP-ViT, DeiT and Swin
+    towers, and the BEiT-2 towers and text stacks for their shared table
+    and `seq_shard`)."""
     from ..models.beit2 import BeitAttention, BeitVisionTransformer, _Mlp
-    from ..models.text_encoder import SelfAttention, TransformerLayer
+    from ..models.clip_vit import ClipEncoderLayer
+    from ..models.deit import DeitBlock
+    from ..models.swin import SwinBlock
+    from ..models.text_encoder import (SelfAttention, TextTransformer,
+                                       TransformerLayer)
 
     col, row, qkv = tp.COLUMN, tp.ROW, tp.QKV
+    mlp = {"mlp.fc1.weight": col, "mlp.fc1.bias": col,
+           "mlp.fc2.weight": row}
+    packed = {"attn.qkv.weight": qkv, "attn.qkv.bias": qkv,
+              "attn.proj.weight": row}
     local = {
         BeitAttention: {"qkv.weight": qkv, "q_bias": col, "v_bias": col,
                         "proj.weight": row},
@@ -142,7 +160,13 @@ def cut_plan(model) -> tuple:
         TransformerLayer: {"intermediate.dense.weight": col,
                            "intermediate.dense.bias": col,
                            "output.dense.weight": row},
+        ClipEncoderLayer: {f"self_attn.{n}_proj.{w}": col
+                           for n in "qkv" for w in ("weight", "bias")}
+        | {"self_attn.out_proj.weight": row} | mlp,
+        DeitBlock: packed | mlp,
+        SwinBlock: packed | mlp,
         BeitVisionTransformer: {},
+        TextTransformer: {},
     }
     plan, mods = {}, []
     for name, m in model.named_modules():
@@ -175,7 +199,10 @@ def cut_model(model: torch.nn.Module, cut) -> torch.nn.Module:
     T does not divide the heads or an MLP width. → `model`."""
     plan, mods = cut_plan(model)
     for m in mods:  # every check before anything is cut
-        heads = getattr(m.c, "num_heads", None) or m.c.num_attention_heads
+        # a Swin block's own stage heads, else its config's
+        heads = (getattr(m, "num_heads", None)
+                 or getattr(m.c, "num_heads", None)
+                 or m.c.num_attention_heads)
         tp.local_size(heads, cut.size, "heads")
     for name, kind in plan.items():  # the MLP widths
         if kind == tp.COLUMN and name.endswith("weight"):
@@ -192,17 +219,66 @@ def cut_model(model: torch.nn.Module, cut) -> torch.nn.Module:
     for m in mods:
         m.tp = cut
     model._xfm_tensor_plan = plan
+    model._xfm_sequence_partial = sequence_partial(model, plan)
     _mark_cut(model)
     return model
 
 
+def sequence_partial(model, plan) -> set:
+    """The names of the whole parameters that act on a rank's rows of the
+    sequence under `seq_shard` (each BEiT-2 block's and text, fusion or
+    decoder layer's LayerNorms, layer scales and row biases: everything of
+    the block that `plan` leaves whole but the rel-pos tables, whose
+    columns `head_columns` reads with its gradient summed)."""
+    from ..models.beit2 import BeitBlock
+    from ..models.text_encoder import TransformerLayer
+
+    out = set()
+    for name, m in model.named_modules():
+        if isinstance(m, (BeitBlock, TransformerLayer)) and m.c.seq_shard:
+            for leaf, _ in m.named_parameters():
+                full = f"{name}.{leaf}" if name else leaf
+                if (full not in plan and not
+                        leaf.endswith("relative_position_bias_table")):
+                    out.add(full)
+    return out
+
+
 def _mark_cut(model) -> None:
-    """Each cut parameter marked with its kind (again after FSDP2 has
-    replaced the parameters by its own)."""
+    """Each cut parameter marked with its kind, each of
+    `sequence_partial` as such (again after FSDP2 has replaced the
+    parameters by its own)."""
     plan = getattr(model, "_xfm_tensor_plan", {})
+    seq = getattr(model, "_xfm_sequence_partial", set())
     for name, p in model.named_parameters():
         if name in plan:
             p._xfm_tensor_cut = plan[name]
+        if name in seq:
+            p._xfm_sequence_partial = True
+
+
+def sum_sequence_gradients(model) -> None:
+    """The gradients of `sequence_partial`'s parameters, each rank's sum
+    over its rows of the sequence, summed over the tensor group (in f32,
+    written back in the gradient's dtype; on a sharded model the local
+    shards, which line up across the group): the whole gradient on every
+    rank. Once an optimizer step, before the clip; a no-op where the
+    model runs no `seq_shard` under a tensor group."""
+    cut = model_cut()
+    if cut is None:
+        return
+    grads = [local(p.grad) for p in model.parameters()
+             if getattr(p, "_xfm_sequence_partial", False)
+             and p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    torch.distributed.all_reduce(flat, group=cut.group)
+    off = 0
+    with torch.no_grad():
+        for g in grads:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
 
 
 def is_cut(model) -> bool:

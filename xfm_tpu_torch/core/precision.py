@@ -127,6 +127,31 @@ def dense_partial(x: torch.Tensor, layer: torch.nn.Linear,
     return _PartialLinear.apply(x.to(dtype), layer.weight.to(dtype))
 
 
+def row_dense(x: torch.Tensor, layer: torch.nn.Linear, dtype: torch.dtype,
+              cut=None) -> torch.Tensor:
+    """`dense`, or under a tensor cut (`cut`, an `ops/tensor_parallel.
+    TensorCut`) a row layer: the rank's partial sum (`dense_partial`)
+    summed over the group, then the bias and one rounding
+    (`row_output`)."""
+    if cut is None:
+        return dense(x, layer, dtype)
+    from ..ops.tensor_parallel import row_output
+
+    return row_output(dense_partial(x, layer, dtype), layer.bias, cut, dtype)
+
+
+def act_row_dense(x: torch.Tensor, layer: torch.nn.Linear, act: str,
+                  dtype: torch.dtype, fused: bool = False,
+                  cut=None) -> torch.Tensor:
+    """`act_dense`, or under a tensor cut its row form, as `row_dense`."""
+    if cut is None:
+        return act_dense(x, layer, act, dtype, fused)
+    from ..ops.tensor_parallel import row_output
+
+    return row_output(act_dense(x, layer, act, dtype, fused, bias=False),
+                      layer.bias, cut, dtype)
+
+
 def act_dense(x: torch.Tensor, layer: torch.nn.Linear, act: str,
               dtype: torch.dtype, fused: bool = False,
               bias: bool = True) -> torch.Tensor:

@@ -32,6 +32,15 @@ the MLP and the tower) a rank holds the q, k and v rows of its H/T heads
 K = 4C/T, and each pair's output is summed over the group before its bias
 (`ops/tensor_parallel.row_output`). The rel-pos tables stay whole; a rank
 reads its heads' columns (`head_columns`).
+
+With `seq_shard` under a tensor group (Megatron-SP, the JAX tower's
+`constrain_seq_sharding` around each block of `_encode`) every loop over
+the blocks runs on the rank's rows of the sequence, [B, ⌈N/T⌉, C]: the
+tokens are scattered after the embedding and gathered before the readout
+(`_sequence_loop`); inside a block the LayerNorms (K4 on the fused route,
+at B·⌈N/T⌉ rows), the layer scales, drop-path, dropout and the residual
+adds take those rows, the attention and the MLP gather them
+(`column_input`) and reduce-scatter their row partials (`row_output`).
 """
 from __future__ import annotations
 
@@ -41,8 +50,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.precision import (act_dense, add_layer_norm, dense, dense_partial,
-                              layer_norm)
+from ..core.precision import (act_dense, act_row_dense, add_layer_norm,
+                              dense, dense_partial, layer_norm, row_dense)
 from ..ops.attention import dot_product_attention, mask_to_bias
 from ..ops.checkpoint import (attention_remat, checkpoint_block,
                               name_attn_out, names_attn_out)
@@ -53,7 +62,10 @@ from ..ops.flash_attention import (MAX_N, beit_attention_relpos,
 from ..ops.patch_embed import extract_patches
 from ..ops.relpos import (beit_rel_pos_bias, num_relative_distance,
                           relative_position_index)
-from ..ops.tensor_parallel import copy_to_tensor, head_columns, row_output
+from ..ops.tensor_parallel import (column_input, gather_from_sequence,
+                                   head_columns, row_range,
+                                   scatter_to_sequence, sequence,
+                                   sequence_cut)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +91,7 @@ class VisionConfig:
     dtype: torch.dtype = torch.float32
     fused_ln: bool = False     # norm2 through K4 (XFM_FUSED_LN=1)
     fused_mlp: bool = False    # fc2 through K5 (XFM_MLP_FUSED=1)
+    seq_shard: bool = False    # Megatron-SP under a tensor group
     remat: bool = False        # checkpoint each block
     remat_policy: str = "full"  # full | dots | except_attn | attn_out
     attn_remat: bool = False   # the plain attention alone (XFM_ATTN_REMAT)
@@ -149,12 +162,14 @@ class BeitAttention(nn.Module):
     def attend(self, x: torch.Tensor, deterministic: bool = True,
                rel_pos_bias=None, attn_bias=None):
         """The attention of this rank's heads before the out-projection,
-        [B, N, (H/T)·D] (all heads where the attention is not cut)."""
+        [B, N, (H/T)·D] (all heads where the attention is not cut; x a
+        rank's rows of the sequence under `seq_shard`, gathered first)."""
         c, tp = self.c, self.tp
+        x = column_input(x, tp)
         B, N, C = x.shape
         D = C // c.num_heads
         H = c.num_heads if tp is None else tp.heads(c.num_heads)
-        qkv = dense(copy_to_tensor(x, tp), self.qkv, c.dtype)
+        qkv = dense(x, self.qkv, c.dtype)
         if c.qkv_bias:
             qkv = qkv + torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                                    self.v_bias]).to(qkv.dtype)
@@ -203,12 +218,9 @@ class BeitAttention(nn.Module):
         c = self.c
         if names_attn_out(c):
             out = name_attn_out(out)
-        if self.tp is None:
-            y = dense(out, self.proj, c.dtype)
-        else:
-            y = row_output(self.proj_partial(out), self.proj.bias, self.tp,
-                           c.dtype)
-        return dropout(y, c.drop_rate, deterministic)
+        y = row_dense(out, self.proj, c.dtype, self.tp)
+        return dropout(y, c.drop_rate, deterministic,
+                       rows=row_range(self.tp))
 
 
 class _Mlp(nn.Module):
@@ -223,16 +235,15 @@ class _Mlp(nn.Module):
         """fc1, the activation and fc2 without its bias: under a tensor
         cut this rank's partial sum (K5 at K = 4C/T on the fused route)."""
         c = self.c
-        h = dense(copy_to_tensor(h, self.tp), self.fc1, c.dtype)
+        h = dense(column_input(h, self.tp), self.fc1, c.dtype)
         return act_dense(h, self.fc2, c.hidden_act, c.dtype, c.fused_mlp,
                          bias=False)
 
     def forward(self, h):
         c = self.c
-        if self.tp is None:
-            h = dense(h, self.fc1, c.dtype)
-            return act_dense(h, self.fc2, c.hidden_act, c.dtype, c.fused_mlp)
-        return row_output(self.partial(h), self.fc2.bias, self.tp, c.dtype)
+        h = dense(column_input(h, self.tp), self.fc1, c.dtype)
+        return act_row_dense(h, self.fc2, c.hidden_act, c.dtype, c.fused_mlp,
+                             self.tp)
 
 
 class BeitBlock(nn.Module):
@@ -261,7 +272,8 @@ class BeitBlock(nn.Module):
         # fused route)
         x, h = add_layer_norm(drop_path(h, self.drop_path, deterministic), x,
                               self.norm2, c.dtype, c.fused_ln)
-        h = dropout(self.mlp(h), c.drop_rate, deterministic)
+        h = dropout(self.mlp(h), c.drop_rate, deterministic,
+                    rows=row_range(self.mlp.tp))
         if self.use_ls:
             h = self.gamma_2.to(h.dtype) * h
         return x + drop_path(h, self.drop_path, deterministic)
@@ -295,7 +307,7 @@ class BeitVisionTransformer(nn.Module):
         dpr = np.linspace(0, c.drop_path_rate, c.depth)
         self.blocks = nn.ModuleList(BeitBlock(c, float(dpr[i]))
                                     for i in range(c.depth))
-        self.tp = None  # the tensor cut of the shared table's heads
+        self.tp = None  # the tensor cut (the shared table's heads, seq_shard)
         if c.use_mean_pooling:
             self.fc_norm = nn.LayerNorm(C, eps=c.layer_norm_eps)
         else:
@@ -338,11 +350,28 @@ class BeitVisionTransformer(nn.Module):
         """One block, checkpointed where the config's `remat` asks."""
         return checkpoint_block(self.c, blk, x, deterministic, shared, bias)
 
+    def _sequence_loop(self, x, body):
+        """`body(x)` (a loop over blocks) → its output; under `seq_shard`
+        and a tensor group on the rank's rows of x, scattered before and
+        gathered after (its gradient the rank's rows: every rank runs
+        what reads it alike)."""
+        tp = sequence_cut(self.tp, self.c.seq_shard)
+        if tp is None:
+            return body(x)
+        n = x.shape[1]
+        with sequence(n):
+            x = body(scatter_to_sequence(x, tp))
+        return gather_from_sequence(x, tp, n, to_column=False)
+
     def _encode(self, x, deterministic: bool = True):
         shared = self._shared_rpb()
-        for blk in self.blocks:
-            x = self._block(blk, x, deterministic, shared)
-        return self.readout(x)
+
+        def body(x):
+            for blk in self.blocks:
+                x = self._block(blk, x, deterministic, shared)
+            return x
+
+        return self.readout(self._sequence_loop(x, body))
 
     def readout(self, x):
         """Drop cls, normalize the patches (`fc_norm` or `norm`), prepend
@@ -360,11 +389,18 @@ class BeitVisionTransformer(nn.Module):
         shared = self._shared_rpb()
         ids = (list(range(len(self.blocks))) if layer_ids is None
                else list(layer_ids))
+        tp = sequence_cut(self.tp, self.c.seq_shard)
         by_block = {}
-        for i, blk in enumerate(self.blocks):
-            x = self._block(blk, x, deterministic, shared)
-            if i in ids:
-                by_block[i] = x[:, 1:, :]
+
+        def body(x):
+            for i, blk in enumerate(self.blocks):
+                x = self._block(blk, x, deterministic, shared)
+                if i in ids:
+                    by_block[i] = (x if tp is None else gather_from_sequence(
+                        x, tp, to_column=False))[:, 1:, :]
+            return x
+
+        self._sequence_loop(x, body)
         return [by_block[i] for i in ids]
 
     def pair(self, images, mask, deterministic: bool = True):
@@ -391,14 +427,20 @@ class BeitVisionTransformer(nn.Module):
         x = self._add_cls(self._patch_tokens(images))
         shared = self._shared_rpb()
         split = c.depth - c.local_attn_depth
-        for blk in self.blocks[:split]:
-            x = self._block(blk, x, deterministic, shared)
-        xall = torch.cat([x[idx_to_group_img], x])
         atts = torch.cat([image_atts.float(),
                           torch.ones(x.shape[:2], device=x.device)])
         bias = mask_to_bias(atts)
-        for blk in self.blocks[split:]:
-            xall = self._block(blk, xall, deterministic, shared, bias)
+
+        def body(x):
+            for blk in self.blocks[:split]:
+                x = self._block(blk, x, deterministic, shared)
+            # the regions' copies, rows of the batch: a rank's own rows
+            xall = torch.cat([x[idx_to_group_img], x])
+            for blk in self.blocks[split:]:
+                xall = self._block(blk, xall, deterministic, shared, bias)
+            return xall
+
+        xall = self._sequence_loop(x, body)
         out = layer_norm(xall, self._final_norm(), c.dtype)
         R = idx_to_group_img.shape[0]
         return out[:R], out[R:]

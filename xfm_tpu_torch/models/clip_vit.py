@@ -14,6 +14,14 @@ so at N ≥ 512 (384 px: N = 577) it is the long-sequence kernel K3. Region
 mode (the pretrain region stream) takes both JAX forms: the last
 `local_attn_depth` layers over each region's masked copy, or (at 0) a
 masked average-pool readout.
+
+Under a tensor cut (`core/partitioning.cut_model`: `tp` on each layer) a
+rank holds the rows of `q_proj`, `k_proj`, `v_proj` (with their biases)
+and `fc1` of its H/T heads and inner width, and the matching columns of
+`out_proj` and `fc2`: K3 runs at H/T heads, forward and backward, and each
+pair's partial sums are summed over the group before the bias
+(`ops/tensor_parallel.row_output`). Attention dropout draws its mask over
+every head and takes the rank's.
 """
 from __future__ import annotations
 
@@ -22,10 +30,11 @@ import dataclasses
 import torch
 from torch import nn
 
-from ..core.precision import dense, layer_norm
+from ..core.precision import dense, layer_norm, row_dense
 from ..ops.activations import ACT
 from ..ops.attention import dot_product_attention, mask_to_bias
 from ..ops.patch_embed import extract_patches
+from ..ops.tensor_parallel import copy_to_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,25 +81,36 @@ class ClipEncoderLayer(nn.Module):
         self.self_attn = _SelfAttn(c)
         self.layer_norm2 = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
         self.mlp = _Mlp(c)
+        self.tp = None  # the tensor cut (`core/partitioning.cut_model`)
 
     def forward(self, x: torch.Tensor, attn_bias=None,
                 deterministic: bool = True) -> torch.Tensor:
         c = self.c
-        H = c.num_attention_heads
-        B, N, C = x.shape
-        a = self.self_attn
         h = layer_norm(x, self.layer_norm1, c.dtype)
-        # [B, N, H, D] views of the projections: K3 reads them in place
-        q, k, v = (dense(h, p, c.dtype).reshape(B, N, H, C // H)
-                   for p in (a.q_proj, a.k_proj, a.v_proj))
-        ctx = dot_product_attention(q, k, v, bias=attn_bias,
-                                    deterministic=deterministic,
-                                    dropout_rate=c.attention_dropout)
-        x = x + dense(ctx.reshape(B, N, C), a.out_proj, c.dtype)
+        x = x + row_dense(self.attend(h, attn_bias, deterministic),
+                          self.self_attn.out_proj, c.dtype, self.tp)
         h = layer_norm(x, self.layer_norm2, c.dtype)
-        h = dense(ACT[c.hidden_act](dense(h, self.mlp.fc1, c.dtype)),
-                  self.mlp.fc2, c.dtype)
-        return x + h
+        h = ACT[c.hidden_act](dense(copy_to_tensor(h, self.tp),
+                                    self.mlp.fc1, c.dtype))
+        return x + row_dense(h, self.mlp.fc2, c.dtype, self.tp)
+
+    def attend(self, h, attn_bias=None, deterministic: bool = True):
+        """The attention of this rank's heads over the normalized rows h
+        before `out_proj`: [B, N, (H/T)·D] (all heads where not cut)."""
+        c, tp = self.c, self.tp
+        H = c.num_attention_heads
+        B, N, C = h.shape
+        hl, D = (H if tp is None else tp.heads(H)), C // H
+        h = copy_to_tensor(h, tp)
+        a = self.self_attn
+        # [B, N, H, D] views of the projections: K3 reads them in place
+        q, k, v = (dense(h, p, c.dtype).reshape(B, N, hl, D)
+                   for p in (a.q_proj, a.k_proj, a.v_proj))
+        return dot_product_attention(
+            q, k, v, bias=attn_bias, deterministic=deterministic,
+            dropout_rate=c.attention_dropout,
+            heads=None if tp is None else tp.head_range(H)
+        ).reshape(B, N, hl * D)
 
 
 class _Weight(nn.Module):

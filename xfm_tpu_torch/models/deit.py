@@ -14,6 +14,12 @@ reference's Conv2d weight). Each self-attention takes
 backward. `register_blk` / `prob_gate` multiply one block's attention
 probabilities (the GradCAM hook of reference models/vit.py), on the plain
 route.
+
+Under a tensor cut (`core/partitioning.cut_model`: `tp` on each block) a
+rank holds the q, k and v rows of its H/T heads of `qkv` (weight and
+bias) and `fc1`'s rows, and the matching columns of `proj` and `fc2`: K3
+runs at H/T heads, forward and backward, and each pair's partial sums are
+summed over the group before the bias (`ops/tensor_parallel.row_output`).
 """
 from __future__ import annotations
 
@@ -23,10 +29,11 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..core.precision import act_dense, dense, layer_norm
+from ..core.precision import act_row_dense, dense, layer_norm, row_dense
 from ..ops.attention import dot_product_attention
 from ..ops.dropout import dropout
 from ..ops.patch_embed import extract_patches
+from ..ops.tensor_parallel import copy_to_tensor
 from .beit2 import _Mlp, _PatchEmbed
 
 
@@ -67,24 +74,38 @@ class DeitBlock(nn.Module):
         self.attn = _Attention(C)
         self.norm2 = nn.LayerNorm(C, eps=c.layer_norm_eps)
         self.mlp = _Mlp(c)
+        self.tp = None  # the tensor cut (`core/partitioning.cut_model`)
 
     def forward(self, x: torch.Tensor, prob_gate=None,
                 deterministic: bool = True) -> torch.Tensor:
         c = self.c
-        B, N, C = x.shape
-        H = c.num_heads
         h = layer_norm(x, self.norm1, c.dtype)
-        # [B, N, H, D] views of the projection: K3 reads them in place
-        q, k, v = (t.reshape(B, N, H, C // H) for t in
-                   dense(h, self.attn.qkv, c.dtype).split(C, -1))
-        out = dot_product_attention(q, k, v, prob_gate=prob_gate,
-                                    deterministic=deterministic)
-        out = dense(out.reshape(B, N, C), self.attn.proj, c.dtype)
+        out = row_dense(self.attend(h, prob_gate, deterministic),
+                        self.attn.proj, c.dtype, self.tp)
         x = x + dropout(out, c.drop_rate, deterministic)
         h = layer_norm(x, self.norm2, c.dtype)
-        h = act_dense(dense(h, self.mlp.fc1, c.dtype), self.mlp.fc2, "gelu",
-                      c.dtype)
+        h = dense(copy_to_tensor(h, self.tp), self.mlp.fc1, c.dtype)
+        h = act_row_dense(h, self.mlp.fc2, "gelu", c.dtype, cut=self.tp)
         return x + dropout(h, c.drop_rate, deterministic)
+
+    def attend(self, h, prob_gate=None, deterministic: bool = True):
+        """The attention of this rank's heads over the normalized rows h
+        before `proj`: [B, N, (H/T)·D] (all heads where not cut)."""
+        c, tp = self.c, self.tp
+        B, N, C = h.shape
+        H = c.num_heads
+        hl, D = (H if tp is None else tp.heads(H)), C // H
+        if tp is not None and prob_gate is not None \
+                and prob_gate.shape[1] > 1:
+            first = tp.head_range(H)[0]
+            prob_gate = prob_gate[:, first:first + hl]
+        h = copy_to_tensor(h, tp)
+        # [B, N, H, D] views of the projection: K3 reads them in place
+        q, k, v = (t.reshape(B, N, hl, D) for t in
+                   dense(h, self.attn.qkv, c.dtype).split(hl * D, -1))
+        return dot_product_attention(q, k, v, prob_gate=prob_gate,
+                                     deterministic=deterministic
+                                     ).reshape(B, N, hl * D)
 
 
 class DeitVisionTransformer(nn.Module):

@@ -31,6 +31,13 @@ rows that cross-attend to the image's once-projected k/v
 Random draws come from a `torch.Generator` (the Gumbel-max form of
 `jax.random.categorical`), so a sampled sequence repeats for one seed but
 does not follow JAX's random stream.
+
+The decoders take the text config (`make_decoder_config`), its
+`seq_shard` included: under a tensor group the teacher-forced pass (the
+VQA and caption losses, SCST's) runs on the rank's rows of the sequence;
+the steps over a `DecodeCache` (`generate`, `beam_generate`,
+`rank_answer`'s) run unsplit at the tensor cut alone, a step of one token
+having no rows to split.
 """
 from __future__ import annotations
 

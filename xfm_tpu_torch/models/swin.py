@@ -19,6 +19,14 @@ A shifted block adds its shift mask to the rel-pos bias as one
 [B, nw, H, ws², ws²]: the JAX package broadcasts the bias to B·nw rows
 first, which at 384 px, B = 32 is 680 MB a shifted stage-0 block; the
 values are the same.
+
+Under a tensor cut (`core/partitioning.cut_model`: `tp` on each block) a
+rank holds the q, k and v rows of its nH/T heads of `qkv` (weight and
+bias) and `fc1`'s rows, and the matching columns of `proj` and `fc2`;
+the window attention runs at nH/T heads with the table's columns of those
+heads (`head_columns`), and each pair's partial sums are summed over the
+group before the bias (`ops/tensor_parallel.row_output`). T must divide
+the heads of every stage.
 """
 from __future__ import annotations
 
@@ -29,11 +37,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.precision import act_dense, dense, layer_norm
+from ..core.precision import act_row_dense, dense, layer_norm, row_dense
 from ..ops.attention import NEG_INF
 from ..ops.dropout import drop_path
 from ..ops.patch_embed import extract_patches
 from ..ops.relpos import beit_rel_pos_bias
+from ..ops.tensor_parallel import copy_to_tensor, head_columns
 from .beit2 import _PatchProj
 
 
@@ -164,35 +173,47 @@ class SwinBlock(nn.Module):
             self.register_buffer("attn_mask", torch.from_numpy(
                 shift_attn_mask(H, W, self.ws, self.shift)),
                 persistent=False)
+        self.tp = None  # the tensor cut (`core/partitioning.cut_model`)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True):
-        c, ws, shift = self.c, self.ws, self.shift
+        c, tp, shift = self.c, self.tp, self.shift
         H, W = self.resolution
-        B, L, C = x.shape
-        nH = self.num_heads
+        h = layer_norm(x, self.norm1, c.dtype)
+        out = row_dense(self.attend(h), self.attn.proj, c.dtype, tp)
+        h = window_reverse(out, self.ws, H, W)
+        if shift > 0:
+            h = torch.roll(h, (shift, shift), dims=(1, 2))
+        x = x + drop_path(h.reshape(x.shape), self.drop_path, deterministic)
+        h = layer_norm(x, self.norm2, c.dtype)
+        h = dense(copy_to_tensor(h, tp), self.mlp.fc1, c.dtype)
+        h = act_row_dense(h, self.mlp.fc2, "gelu", c.dtype, cut=tp)
+        return x + drop_path(h, self.drop_path, deterministic)
+
+    def attend(self, h):
+        """The window attention of this rank's nH/T heads over the
+        normalized rows h [B, L, C], before `proj`: [B·nw, ws², (nH/T)·D]
+        (the shifted windows where the block shifts)."""
+        c, ws, shift, tp = self.c, self.ws, self.shift, self.tp
+        H, W = self.resolution
+        B, L, C = h.shape
+        D = C // self.num_heads
+        nH = self.num_heads if tp is None else tp.heads(self.num_heads)
         a = self.attn
-        h = layer_norm(x, self.norm1, c.dtype).reshape(B, H, W, C)
+        h = copy_to_tensor(h, tp).reshape(B, H, W, C)
         if shift > 0:
             h = torch.roll(h, (-shift, -shift), dims=(1, 2))
         qkv = dense(window_partition(h, ws), a.qkv, c.dtype)
-        q, k, v = (t.reshape(-1, ws * ws, nH, C // nH)
-                   for t in qkv.split(C, -1))
+        q, k, v = (t.reshape(-1, ws * ws, nH, D)
+                   for t in qkv.split(nH * D, -1))
         # [1, H, ws², ws²] f32 from the table widened to f32, as the JAX
         # package builds it; the shift mask added once per window
-        bias = beit_rel_pos_bias(a.relative_position_bias_table.float(),
-                                 a.relative_position_index)
+        bias = beit_rel_pos_bias(
+            head_columns(a.relative_position_bias_table, tp).float(),
+            a.relative_position_index)
         if shift > 0:
             bias = bias + self.attn_mask[:, None]
-        out = window_attention(q, k, v, bias, (C // nH) ** -0.5)
-        out = dense(out.reshape(-1, ws * ws, C), a.proj, c.dtype)
-        h = window_reverse(out, ws, H, W)
-        if shift > 0:
-            h = torch.roll(h, (shift, shift), dims=(1, 2))
-        x = x + drop_path(h.reshape(B, L, C), self.drop_path, deterministic)
-        h = layer_norm(x, self.norm2, c.dtype)
-        h = act_dense(dense(h, self.mlp.fc1, c.dtype), self.mlp.fc2, "gelu",
-                      c.dtype)
-        return x + drop_path(h, self.drop_path, deterministic)
+        return window_attention(q, k, v, bias, D ** -0.5).reshape(
+            -1, ws * ws, nH * D)
 
 
 class PatchMerging(nn.Module):

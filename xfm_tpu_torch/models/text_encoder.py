@@ -30,6 +30,17 @@ cross) and of `intermediate.dense` of its H/T heads and inner width, and
 the matching columns of `attention.output.dense` and `output.dense`; each
 pair's output is summed over the group before its bias and the post-LN
 (`ops/tensor_parallel.row_output`). A `DecodeCache` holds the rank's heads.
+
+With `seq_shard` under a tensor group (Megatron-SP, the JAX stack's
+`constrain_seq_sharding` around each layer) the layers of a pass run on the
+rank's rows of the sequence, [B, ⌈N/T⌉, C]: scattered after the
+embeddings, gathered at the stack's end. The post-LN residuals, their
+dropout and LayerNorms (K4 on the fused route) take those rows; each
+attention gathers its queries and self k/v (`column_input`), a
+cross-attention reads the whole encoder states as k/v, and the output
+projections reduce-scatter (`row_output`). A pass with a `DecodeCache` (a
+decode step of one or a few tokens) runs unsplit, at the tensor cut alone:
+the layout changes nothing of the math.
 """
 from __future__ import annotations
 
@@ -40,15 +51,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.precision import (act_dense, dense, dense_partial, layer_norm,
-                              post_layer_norm)
+from ..core.precision import (act_dense, act_row_dense, dense, dense_partial,
+                              layer_norm, post_layer_norm, row_dense)
 from ..ops.activations import gelu
 from ..ops.attention import NEG_INF, dot_product_attention, mask_to_bias
 from ..ops.checkpoint import (attention_remat, checkpoint_block,
                               name_attn_out, names_attn_out)
 from ..ops.checkpoint import remat_policy as policy_context
 from ..ops.dropout import dropout
-from ..ops.tensor_parallel import copy_to_tensor, row_output
+from ..ops.tensor_parallel import (column_input, copy_to_tensor,
+                                   gather_from_sequence, row_range,
+                                   scatter_to_sequence, sequence,
+                                   sequence_cut)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +88,7 @@ class TextConfig:
     dtype: torch.dtype = torch.float32
     fused_ln: bool = False          # the post-LN sites through K4
     fused_mlp: bool = False         # output.dense through K5
+    seq_shard: bool = False         # Megatron-SP under a tensor group
     remat: bool = False             # checkpoint each layer
     remat_policy: str = "full"      # full | dots | except_attn | attn_out
     attn_remat: bool = False        # the plain attention alone
@@ -239,12 +254,9 @@ class SelfAttention(nn.Module):
                            index, cross_from_cache)
         if names_attn_out(c):
             ctx = name_attn_out(ctx)
-        if self.tp is None:
-            out = dense(ctx, self.output.dense, c.dtype)
-        else:
-            out = row_output(self.out_partial(ctx), self.output.dense.bias,
-                             self.tp, c.dtype)
-        out = dropout(out, c.hidden_dropout_prob, deterministic)
+        out = row_dense(ctx, self.output.dense, c.dtype, self.tp)
+        out = dropout(out, c.hidden_dropout_prob, deterministic,
+                      rows=row_range(self.tp))
         return post_layer_norm(out, hidden, self.output.LayerNorm, c.dtype,
                                c.fused_ln)
 
@@ -260,7 +272,8 @@ class SelfAttention(nn.Module):
                 decode: Optional[LayerCache] = None, index: int = 0,
                 cross_from_cache: bool = False):
         """The attention of this rank's heads before the output projection
-        → [B, Nq, (H/T)·D] (all heads where the attention is not cut)."""
+        → [B, Nq, (H/T)·D] (all heads where the attention is not cut;
+        under `seq_shard` `hidden` a rank's rows, gathered first)."""
         c, tp = self.c, self.tp
         if prob_gate is not None and kv_group_size and self.is_cross:
             raise NotImplementedError(
@@ -272,15 +285,15 @@ class SelfAttention(nn.Module):
         if heads is not None and prob_gate is not None \
                 and prob_gate.shape[1] > 1:
             prob_gate = prob_gate[:, heads[0]:heads[0] + H]
-        B, Nq = hidden.shape[:2]
-        x = copy_to_tensor(hidden, tp)
+        x = column_input(hidden, tp)
+        B, Nq = x.shape[:2]
         q = dense(x, self.self.query, c.dtype).reshape(B, Nq, H, D)
         if decode is not None and self.is_cross and cross_from_cache:
             k, v = decode.cross_k, decode.cross_v
             U = k.shape[0]
         else:
-            U, Nk = kv_source.shape[:2]
             kv = x if kv_source is hidden else copy_to_tensor(kv_source, tp)
+            U, Nk = kv.shape[:2]
             k = dense(kv, self.self.key, c.dtype).reshape(U, Nk, H, D)
             v = dense(kv, self.self.value, c.dtype).reshape(U, Nk, H, D)
             if kv_row_idx is not None:
@@ -342,7 +355,7 @@ class TransformerLayer(nn.Module):
         its bias: under a tensor cut this rank's partial sum (K5 at K =
         4C/T on the fused route)."""
         c = self.c
-        h = dense(copy_to_tensor(x, self.tp), self.intermediate.dense,
+        h = dense(column_input(x, self.tp), self.intermediate.dense,
                   c.dtype)
         return act_dense(h, self.output.dense, c.hidden_act, c.dtype,
                          c.fused_mlp, bias=False)
@@ -364,14 +377,11 @@ class TransformerLayer(nn.Module):
                                     deterministic=deterministic,
                                     decode=decode,
                                     cross_from_cache=cross_from_cache)
-        if self.tp is None:
-            h = dense(x, self.intermediate.dense, c.dtype)
-            h = act_dense(h, self.output.dense, c.hidden_act, c.dtype,
-                          c.fused_mlp)
-        else:
-            h = row_output(self.mlp_partial(x), self.output.dense.bias,
-                           self.tp, c.dtype)
-        h = dropout(h, c.hidden_dropout_prob, deterministic)
+        h = dense(column_input(x, self.tp), self.intermediate.dense, c.dtype)
+        h = act_row_dense(h, self.output.dense, c.hidden_act, c.dtype,
+                          c.fused_mlp, self.tp)
+        h = dropout(h, c.hidden_dropout_prob, deterministic,
+                    rows=row_range(self.tp))
         return post_layer_norm(h, x, self.output.LayerNorm, c.dtype,
                                c.fused_ln)
 
@@ -430,6 +440,7 @@ class TextTransformer(nn.Module):
         self.with_mlm = with_mlm
         if with_mlm:
             self.lm_head = MLMHead(c, self.roberta.embeddings.word_embeddings)
+        self.tp = None  # the tensor cut, for `seq_shard`
 
     def mlm_logits(self, hidden, masked_pos=None):
         if masked_pos is not None:
@@ -468,22 +479,29 @@ class TextTransformer(nn.Module):
         else:
             lo, hi = 0, c.num_hidden_layers
         index = 0 if decode is None else decode.index
-        for i in range(lo, hi):
-            layer = self.roberta.encoder.layer[i]
-            gate = cross_gate if i == cross_gate_layer else None
-            if decode is None:
-                x = checkpoint_block(
-                    c, layer, x, bias, encoder_hidden_states, ebias,
-                    encoder_row_idx, encoder_group_size, deterministic, None,
-                    0, False, gate)
-            else:
-                x = layer(x, bias, encoder_hidden_states, ebias,
-                          encoder_row_idx, encoder_group_size, deterministic,
-                          decode=decode.layer(i, c), index=index,
-                          cross_from_cache=cross_from_cache,
-                          cross_prob_gate=gate)
         if decode is not None:
+            for i in range(lo, hi):
+                gate = cross_gate if i == cross_gate_layer else None
+                x = self.roberta.encoder.layer[i](
+                    x, bias, encoder_hidden_states, ebias, encoder_row_idx,
+                    encoder_group_size, deterministic,
+                    decode=decode.layer(i, c), index=index,
+                    cross_from_cache=cross_from_cache, cross_prob_gate=gate)
             decode.index = index + x.shape[1]
+            return x
+        tp = sequence_cut(self.tp, c.seq_shard)
+        n = x.shape[1]
+        if tp is not None:
+            x = scatter_to_sequence(x, tp)
+        with sequence(None if tp is None else n):
+            for i in range(lo, hi):
+                gate = cross_gate if i == cross_gate_layer else None
+                x = checkpoint_block(
+                    c, self.roberta.encoder.layer[i], x, bias,
+                    encoder_hidden_states, ebias, encoder_row_idx,
+                    encoder_group_size, deterministic, None, 0, False, gate)
+        if tp is not None:
+            x = gather_from_sequence(x, tp, n, to_column=False)
         return x
 
 

@@ -103,11 +103,12 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
     DeiT towers take none of them, as in the JAX package, which
     checkpoints none of them. `use_vision_tokenizer` adds the MIM code head
     (`codebook_size` classes); `local_attn_depth` > 0 runs region attention
-    in the last blocks of the BEiT-2 or CLIP tower. Under `parallel.tensor`
-    > 1 the CLIP-ViT, Swin and DeiT towers and `seq_shard` (Megatron-SP)
-    raise `MultiProcessUnsupported`: the port cuts the BEiT-2 tower and
-    the text stacks only (ROADMAP.md Queue 1)."""
-    _refuse_under_tensor(config)
+    in the last blocks of the BEiT-2 or CLIP tower. `seq_shard` (in
+    `parallel` or at the top level: Megatron-SP) is set, as in the JAX
+    package, on the BEiT-2 tower alone of the vision towers and on the
+    text and fusion configs (the decoders inherit the text config's); it
+    acts under a tensor group (`parallel.tensor` > 1) and is a no-op at
+    T = 1."""
     if dtype is None:
         from ..core.precision import policy_from_config
 
@@ -184,6 +185,11 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
                      ("text_vocab_size", "vocab_size")):
         if config.get(src) is not None:
             tkw[dst] = config[src]
+    par = config.get("parallel") or {}
+    if par.get("seq_shard", config.get("seq_shard", False)):
+        tkw["seq_shard"] = True
+        if backbone == "beit2":
+            vision = dataclasses.replace(vision, seq_shard=True)
     text = mk(
         num_hidden_layers=n_text,
         fusion_layer=config.get("text_fusion_start_at", n_text),
@@ -206,27 +212,6 @@ def config_from_yaml(config: dict, *, use_contrastive_loss=False,
         use_bbox_loss=use_bbox_loss,
         use_vision_tokenizer=config.get("use_vision_tokenizer", False),
         codebook_size=config.get("codebook_size", 8192), dtype=dtype)
-
-
-def _refuse_under_tensor(config: dict) -> None:
-    """`MultiProcessUnsupported` for what the tensor cut does not reach
-    yet, where the YAML's `parallel.tensor` > 1."""
-    par = config.get("parallel") or {}
-    t = int(par.get("tensor", 1) or 1)
-    if t <= 1:
-        return
-    for key in ("use_clip_vit", "use_swin", "use_deit"):
-        if config.get(key, False):
-            raise mesh.MultiProcessUnsupported(
-                f"{key} with parallel.tensor = {t}: the port cuts the BEiT-2 "
-                f"tower and the text stacks only; the tensor cut of the "
-                f"CLIP-ViT, Swin and DeiT towers (with K3's backward at "
-                f"H/T heads) is in ROADMAP.md Queue 1, item 4")
-    if par.get("seq_shard", config.get("seq_shard", False)):
-        raise mesh.MultiProcessUnsupported(
-            f"seq_shard with parallel.tensor = {t}: Megatron-SP sequence "
-            f"sharding is in ROADMAP.md Queue 1, item 4, next after the "
-            f"tensor cut")
 
 
 def vision_tower(c: XFMConfig) -> nn.Module:

@@ -36,7 +36,9 @@ Live dropout in a checkpointed block draws from the active generator
 (`ops/dropout.py`); the recompute draws from a copy restored to that
 generator's state when the block first ran, so its masks are the
 forward's and the step's generator ends where it would without
-checkpointing. Unlike the JAX package, which reads an unknown policy name
+checkpointing. Under `seq_shard` the recompute runs inside the
+`ops/tensor_parallel.sequence` the block first ran in, so it replays the
+block's gathers and reduce-scatters on the same rows. Unlike the JAX package, which reads an unknown policy name
 as `full`, `remat_policy` raises on one.
 """
 from __future__ import annotations
@@ -50,6 +52,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from .dropout import active_generator, dropout_generator
+from .tensor_parallel import sequence, sequence_length
 
 POLICIES = ("full", "dots", "except_attn", "attn_out")
 
@@ -106,6 +109,7 @@ def run_checkpointed(fn, *args, policy: str = "full"):
         raise ValueError(f"remat_policy {policy!r} checkpoints no block")
     g = active_generator()
     state = None if g is None else g.get_state()
+    n = sequence_length()
     first = [True]
 
     def body(*a):
@@ -116,7 +120,7 @@ def run_checkpointed(fn, *args, policy: str = "full"):
         if state is not None:
             replay = torch.Generator(device=g.device)
             replay.set_state(state)
-        with dropout_generator(replay):
+        with dropout_generator(replay), sequence(n):
             return fn(*a)
 
     return checkpoint(body, *args, use_reentrant=False,

@@ -55,20 +55,29 @@ def keep_mask(shape, keep: float, device) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float,
-            deterministic: bool = True, heads=None) -> torch.Tensor:
+            deterministic: bool = True, heads=None,
+            rows=None) -> torch.Tensor:
     """Element-wise dropout: x / (1 − rate) where kept, else 0. `heads`
     (first, all) for attention probabilities [B, h, Nq, Nk] of a rank's h
-    heads under a tensor cut: the mask is drawn over all heads, as one
-    process draws it, and the rank's heads taken."""
+    heads under a tensor cut, `rows` (first, all) for a rank's rows
+    [B, m, C] of a sequence under `seq_shard`
+    (`ops/tensor_parallel.row_range`): the mask is drawn over all heads
+    or rows, as one process draws it, and the rank's taken (a padding row
+    past the sequence kept)."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    if heads is None:
+    part = heads or rows
+    if part is None:
         mask = keep_mask(x.shape, keep, x.device)
     else:
-        first, total = heads
+        first, total = part
         mask = keep_mask((x.shape[0], total) + tuple(x.shape[2:]), keep,
                          x.device)[:, first:first + x.shape[1]]
+        if mask.shape[1] < x.shape[1]:
+            mask = torch.cat([mask, mask.new_ones(
+                (x.shape[0], x.shape[1] - mask.shape[1]) + mask.shape[2:])],
+                1)
     return torch.where(mask, x / keep, 0.0)
 
 

@@ -26,9 +26,28 @@ that every rank holds the whole table's gradient.
 A `TensorCut` with no group is one shard held alone (a check that runs the
 T shards in one process and sums their partials itself): its collectives
 are the identity.
+
+Sequence parallelism (Megatron-SP, the JAX package's `seq_shard`:
+`xfm_tpu/core/mesh.py` `constrain_seq_sharding`, which GSPMD lowers to the
+same collectives). Between the pairs a rank holds its rows of the
+sequence, [B, ⌈N/T⌉, C], the sequence padded with zero rows to T·⌈N/T⌉;
+the LayerNorms, layer scales, drop-path, dropout and residual adds run on
+those rows alone. A stack enters the mode with `sequence(N)` after
+`scatter_to_sequence` and leaves it with `gather_from_sequence`; inside,
+a column layer's input is gathered (`column_input`: an all-gather, whose
+backward is a reduce-scatter), and a row layer's partial sums are
+reduce-scattered (`row_output`: summed in f32, the rank's rows taken, the
+bias added, one rounding; backward an all-gather). The padding is dropped
+at every gather, so a padded row reaches no attention, readout, loss or
+gradient of a parameter. A parameter that acts on a rank's rows (a
+LayerNorm's γ and β, a layer scale, a row layer's bias) gets a partial
+gradient there; `core/partitioning.sum_sequence_gradients` sums it over
+the group once an optimizer step.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Optional
 
@@ -125,8 +144,21 @@ def row_sum(partials, bias: Optional[torch.Tensor],
 def row_output(partial: torch.Tensor, bias: Optional[torch.Tensor],
                cut: Optional[TensorCut], dtype: torch.dtype) -> torch.Tensor:
     """A row layer's output: the rank's partial product summed over the
-    group in f32, then `row_sum`'s bias and rounding."""
+    group in f32, then `row_sum`'s bias and rounding. Inside `sequence`
+    the sum is reduce-scattered: this rank's rows [B, ⌈N/T⌉, C]."""
+    if in_sequence(cut):
+        return row_sum([_ReduceScatterRows.apply(partial.float(), cut)],
+                       bias, dtype)
     return row_sum([reduce_from_tensor(partial.float(), cut)], bias, dtype)
+
+
+def column_input(x: torch.Tensor, cut: Optional[TensorCut]) -> torch.Tensor:
+    """`x` as a column layer reads it: whole on every rank
+    (`copy_to_tensor`), or inside `sequence` this rank's rows gathered
+    into the whole sequence (its gradient reduce-scattered)."""
+    if in_sequence(cut):
+        return gather_from_sequence(x, cut)
+    return copy_to_tensor(x, cut)
 
 
 def head_columns(table: torch.Tensor, cut: Optional[TensorCut]
@@ -139,6 +171,148 @@ def head_columns(table: torch.Tensor, cut: Optional[TensorCut]
     h = local_size(table.shape[-1], cut.size, "heads")
     cols = copy_to_tensor(table, cut)[..., cut.rank * h:(cut.rank + 1) * h]
     return cols.contiguous()
+
+
+# --- sequence parallelism ---------------------------------------------------
+
+_SEQUENCE: contextvars.ContextVar[Optional[int]] = contextvars.ContextVar(
+    "sequence_length", default=None)
+
+
+@contextlib.contextmanager
+def sequence(n: Optional[int]):
+    """The blocks inside hold a rank's rows of a sequence of `n` (None:
+    the whole sequence, as outside)."""
+    token = _SEQUENCE.set(n)
+    try:
+        yield
+    finally:
+        _SEQUENCE.reset(token)
+
+
+def sequence_length() -> Optional[int]:
+    """The length of the sequence whose rows the blocks hold, or None."""
+    return _SEQUENCE.get()
+
+
+def in_sequence(cut: Optional[TensorCut]) -> bool:
+    """Whether a module cut by `cut` runs on a rank's rows here."""
+    return cut is not None and cut.group is not None \
+        and _SEQUENCE.get() is not None
+
+
+def sequence_cut(cut: Optional[TensorCut], seq_shard: bool
+                 ) -> Optional[TensorCut]:
+    """`cut` where a stack whose config has `seq_shard` runs sharded over
+    the sequence (a tensor group of more than one rank), else None."""
+    if not seq_shard or cut is None or cut.group is None or cut.size == 1:
+        return None
+    return cut
+
+
+def rows_per_rank(n: int, size: int) -> int:
+    """⌈n / size⌉: a rank's rows of a sequence of n padded to size·that."""
+    return -(-n // size)
+
+
+def row_range(cut: Optional[TensorCut]):
+    """(the first of this rank's rows, the sequence's length) inside
+    `sequence` (the rows of a mask drawn over the whole sequence:
+    `ops/dropout.dropout`'s `rows`), else None."""
+    if not in_sequence(cut):
+        return None
+    n = _SEQUENCE.get()
+    return cut.rank * rows_per_rank(n, cut.size), n
+
+
+def own_rows(x: torch.Tensor, cut: TensorCut) -> torch.Tensor:
+    """Rank `cut.rank`'s rows [B, ⌈N/T⌉, ...] of x [B, N, ...] (a copy;
+    zero rows past N): what `scatter_to_sequence` gives it, with no
+    communication."""
+    m = rows_per_rank(x.shape[1], cut.size)
+    pad = cut.size * m - x.shape[1]
+    if pad:
+        x = torch.cat([x, x.new_zeros((x.shape[0], pad) + x.shape[2:])], 1)
+    return x[:, cut.rank * m:(cut.rank + 1) * m].contiguous()
+
+
+def _gather_rows(x: torch.Tensor, cut: TensorCut, n: int) -> torch.Tensor:
+    """Every rank's rows x [B, ⌈n/T⌉, ...] all-gathered over the group
+    into the sequence [B, n, ...], the padding dropped."""
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(cut.size)]
+    dist.all_gather(parts, x, group=cut.group)
+    return torch.cat(parts, dim=1)[:, :n]
+
+
+def _reduce_scatter_rows(x: torch.Tensor, cut: TensorCut) -> torch.Tensor:
+    """x [B, N, ...] summed over the group, this rank's rows taken
+    ([B, ⌈N/T⌉, ...], zero rows past N summed as zeros)."""
+    import torch.distributed as dist
+
+    m = rows_per_rank(x.shape[1], cut.size)
+    pad = cut.size * m - x.shape[1]
+    if pad:
+        x = torch.cat([x, x.new_zeros((x.shape[0], pad) + x.shape[2:])], 1)
+    rows = x.transpose(0, 1).contiguous()  # the rows leading, rank by rank
+    out = rows.new_empty((m,) + rows.shape[1:])
+    dist.reduce_scatter_tensor(out, rows, group=cut.group)
+    return out.transpose(0, 1).contiguous()
+
+
+class _ScatterToSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cut):
+        ctx.cut, ctx.n = cut, x.shape[1]
+        return own_rows(x, cut)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_rows(g, ctx.cut, ctx.n), None
+
+
+class _GatherFromSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cut, n, to_column):
+        ctx.cut, ctx.to_column = cut, to_column
+        return _gather_rows(x, cut, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.to_column:
+            return _reduce_scatter_rows(g, ctx.cut), None, None, None
+        return own_rows(g, ctx.cut), None, None, None
+
+
+class _ReduceScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cut):
+        ctx.cut, ctx.n = cut, x.shape[1]
+        return _reduce_scatter_rows(x, cut)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_rows(g, ctx.cut, ctx.n), None
+
+
+def scatter_to_sequence(x: torch.Tensor, cut: TensorCut) -> torch.Tensor:
+    """This rank's rows [B, ⌈N/T⌉, C] of x [B, N, C] (whole and equal on
+    every rank), zero rows past N; the gradient all-gathered."""
+    return _ScatterToSequence.apply(x, cut)
+
+
+def gather_from_sequence(x: torch.Tensor, cut: TensorCut,
+                         n: Optional[int] = None, to_column: bool = True
+                         ) -> torch.Tensor:
+    """The sequence [B, n, C] (n: `sequence_length()` by default) from
+    every rank's rows x, the padding dropped. Its gradient: where it feeds
+    a column layer (`to_column`), each rank's partial gradient of the
+    whole sequence, so reduce-scattered; where a whole consumer that every
+    rank runs alike reads it (a readout, a head), this rank's rows of it."""
+    n = _SEQUENCE.get() if n is None else n
+    return _GatherFromSequence.apply(x, cut, n, to_column)
 
 
 # --- the cuts and their inverses --------------------------------------------

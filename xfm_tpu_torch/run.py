@@ -45,15 +45,16 @@ raises. Every task runs on any number of processes, a step on W of
 them equal to one process's step on the global batch (ImageNet's mixup
 and cutmix aside, which pair rows within a rank) and an eval equal to
 the one-process eval. `parallel: {data: D, fsdp: F, tensor: T}` with
-D·F·T processes cuts every attention and MLP weight of the BEiT-2 tower
-and the text stacks over the T consecutive ranks of each tensor group
-(Megatron pairs, `ops/tensor_parallel`; the T ranks take the same rows,
-so `--bs` is divided over D·F), then shards every parameter, its
-gradient and its optimizer state over the F ranks of each replica
-(`core/partitioning`, FSDP2; `data: -1` takes the rest of the world
-size); `pipe` > 1, and `tensor` > 1 with the CLIP, Swin or DeiT tower or
-`seq_shard`, refuse (`core/mesh.mesh_from_config`,
-`models/xfm.config_from_yaml`). At the end rank 0 prints the
+D·F·T processes cuts every attention and MLP weight of the vision tower
+(BEiT-2, CLIP-ViT, Swin or DeiT) and the text stacks over the T
+consecutive ranks of each tensor group (Megatron pairs,
+`ops/tensor_parallel`; the T ranks take the same rows, so `--bs` is
+divided over D·F; `seq_shard: true` also shards the BEiT-2 tower's and
+the text stacks' hidden states over the sequence between the pairs),
+then shards every parameter, its gradient and its optimizer state over
+the F ranks of each replica (`core/partitioning`, FSDP2; `data: -1`
+takes the rest of the world size); `pipe` > 1 refuses
+(`core/mesh.mesh_from_config`). At the end rank 0 prints the
 backend, the world size and every rank's kernel launches (`###
 processes ...`).
 """

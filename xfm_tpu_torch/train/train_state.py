@@ -8,7 +8,10 @@ global ones (`core/mesh.reduce_metrics`). A model sharded by
 `core/partitioning.shard_model` (FSDP2) has had its gradients
 reduce-scattered in the backward, so `apply_gradients` reduces only the
 parameters it left whole there (`temp`); the optimizer's norm is the
-whole gradient's on every rank."""
+whole gradient's on every rank. Under `seq_shard` the gradients of the
+parameters that act on a rank's rows of the sequence are summed over the
+tensor group first (`core/partitioning.sum_sequence_gradients`), on
+either route."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +20,8 @@ from typing import Callable, Sequence
 import torch
 
 from ..core.mesh import reduce_gradients, reduce_metrics
-from ..core.partitioning import is_sharded, local, replicated_parameters
+from ..core.partitioning import (is_sharded, local, replicated_parameters,
+                                 sum_sequence_gradients)
 from .optim import HFAdamW
 
 
@@ -28,6 +32,7 @@ class TrainState:
     step: int = 0
 
     def apply_gradients(self) -> torch.Tensor:
+        sum_sequence_gradients(self.model)
         reduce_gradients(replicated_parameters(self.model)
                          if is_sharded(self.model)
                          else self.model.parameters())
